@@ -1,0 +1,68 @@
+"""The port stands alone: no module of igaming_platform_tpu_torch, and not
+chip_smoke.py, imports jax, flax, grpc, protobuf or the JAX package.
+
+Checked twice: an AST walk over every import statement (including imports
+inside functions), and a fresh interpreter that imports every module of the
+port and then inspects ``sys.modules``. ``igaming_platform_tpu_torch`` is
+the port itself and is not a match for ``igaming_platform_tpu``.
+"""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "igaming_platform_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "grpc", "google.protobuf", "igaming_platform_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+              and node.func.attr == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_matcher():
+    assert _forbidden("jax.numpy") and _forbidden("igaming_platform_tpu.serve")
+    assert _forbidden("google.protobuf.message") and _forbidden("grpc")
+    assert not _forbidden("igaming_platform_tpu_torch.serve") and not _forbidden("jaxtyping_x")
+
+
+def test_no_forbidden_import_statement():
+    sources = _sources()
+    assert len(sources) >= 20 and (REPO / "chip_smoke.py").exists()
+    bad = [(str(p.relative_to(REPO)), m) for p in sources for m in _imports(p) if _forbidden(m)]
+    assert not bad, bad
+
+
+def test_importing_every_module_loads_none_of_them():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120, check=True)
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "igaming_platform_tpu_torch.serve.scorer" in loaded
+    assert not [m for m in loaded if _forbidden(m)]
