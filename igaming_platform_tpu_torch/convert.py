@@ -10,6 +10,9 @@ for that backend, on the CPU:
 - ``multitask``: ``{"trunk": {"layers"}, "fraud_head", "ltv_head",
   "churn_head"}`` -> ``models.multitask.MultiTask``
 
+``sequence_from_tree(tree, cfg)`` does the same for the abuse detector's
+sequence model (``init_sequence_model``'s tree) -> ``models.sequence.SequenceModel``.
+
 ``params_to(params, device)`` copies them to a device. Neither needs JAX:
 the tree is plain numpy.
 """
@@ -26,6 +29,13 @@ from torch import nn
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES
 from igaming_platform_tpu_torch.models.mlp import MLP, Dense
 from igaming_platform_tpu_torch.models.multitask import MultiTask
+from igaming_platform_tpu_torch.models.sequence import (
+    Affine,
+    Block,
+    LayerNorm,
+    SeqConfig,
+    SequenceModel,
+)
 
 # Which params each backend reads.
 BACKEND_KEYS = {
@@ -66,6 +76,26 @@ def gbdt_from_tree(tree: dict, n_features: int = NUM_FEATURES) -> dict[str, torc
         "leaves": _f32(tree["leaves"]),
         "bias": _f32(tree["bias"]).reshape(()),
     }
+
+
+def sequence_from_tree(tree: dict, cfg: SeqConfig) -> SequenceModel:
+    """The abuse detector's sequence model from the JAX params of
+    ``init_sequence_model``: {"embed", "layers": [{"ln1", "wqkv", "wo",
+    "ln2", "w1", "w2"}, ...], "ln_f", "head"}."""
+    def affine(p):
+        return Affine(_f32(p["w"]), _f32(p["b"]))
+
+    def norm(p):
+        return LayerNorm(_f32(p["scale"]), _f32(p["bias"]))
+
+    if len(tree["layers"]) != cfg.n_layers or np.shape(tree["embed"]["w"]) != (
+            cfg.in_dim, cfg.d_model):
+        raise ValueError(f"sequence params do not match {cfg}")
+    layers = [Block(cfg.n_heads, norm(p["ln1"]), affine(p["wqkv"]), affine(p["wo"]),
+                    norm(p["ln2"]), affine(p["w1"]), affine(p["w2"]))
+              for p in tree["layers"]]
+    return SequenceModel(cfg, affine(tree["embed"]), layers, norm(tree["ln_f"]),
+                         affine(tree["head"]))
 
 
 _CONVERTERS = {"mlp": mlp_from_tree, "gbdt": gbdt_from_tree, "multitask": multitask_from_tree}

@@ -27,7 +27,10 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
+
+from igaming_platform_tpu_torch.core.device import constant
 
 MAX_DEPTH = 8
 ROWS_PER_BLOCK = 32  # csrc/gbdt_forest.cu kRowsPerBlock
@@ -61,7 +64,10 @@ def forest_leaf_index(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor) ->
     n_trees, depth = feat.shape
     gathered = x[:, feat.reshape(-1).long()].reshape(b, n_trees, depth)
     bits = (gathered > thr[None]).to(torch.int32)
-    pows = torch.tensor([1 << d for d in range(depth)], dtype=torch.int32, device=x.device)
+    # Cached on the device: a fresh torch.tensor here would be a blocking
+    # host-to-device copy on every call.
+    pows = constant(f"gbdt_pows_{depth}", np.left_shift(1, np.arange(depth, dtype=np.int32)),
+                    x.device)
     return torch.sum(bits * pows, dim=-1, dtype=torch.int32)
 
 

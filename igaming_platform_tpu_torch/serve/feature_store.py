@@ -13,7 +13,8 @@ redis_store.go:244-293):
 ``gather_batch`` resolves N requests into one [N, 30] float32 matrix and a
 [N] bool blacklist vector. ``fill_row`` writes with Python (float64)
 arithmetic into the float32 row, as the JAX package's does, so both stores
-gather the same bits. Both take ``now`` so that a caller can pin the clock.
+gather the same bits. Both take ``now`` so that a caller can pin the clock;
+the port's store also takes a ``clock`` for the calls that pass none.
 The JAX store's fault-injection seam is not part of the port.
 """
 
@@ -23,6 +24,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 
@@ -76,7 +78,10 @@ class _AccountState:
 class InMemoryFeatureStore:
     """Thread-safe per-account feature state with Redis-equivalent semantics."""
 
-    def __init__(self, hll_precision: int = 12):
+    def __init__(self, hll_precision: int = 12, clock: Callable[[], float] = time.time):
+        # ``clock`` stands in for the wall clock wherever no timestamp or
+        # ``now`` is given, so that a caller can pin it for a whole stream.
+        self._clock = clock
         self._accounts: dict[str, _AccountState] = {}
         self._lock = threading.RLock()
         self._hll_precision = hll_precision
@@ -98,7 +103,7 @@ class InMemoryFeatureStore:
     def update(self, event: TransactionEvent) -> None:
         """Post-transaction feature write-back (UpdateRealTimeFeatures,
         redis_store.go:119-168, + incremental batch aggregates)."""
-        now = event.timestamp or time.time()
+        now = event.timestamp or self._clock()
         with self._lock:
             st = self._state(event.account_id, now)
 
@@ -159,7 +164,7 @@ class InMemoryFeatureStore:
         the reference declares but leaves commented out). Realtime windows
         (velocity, HLLs, sessions) are NOT touched — they remain stream-fed."""
         with self._lock:
-            st = self._state(account_id, time.time())
+            st = self._state(account_id, self._clock())
             st.total_deposits = total_deposits
             st.total_withdrawals = total_withdrawals
             st.deposit_count = deposit_count
@@ -175,7 +180,7 @@ class InMemoryFeatureStore:
 
     def record_bonus_claim(self, account_id: str, wager_complete_rate: float | None = None) -> None:
         with self._lock:
-            st = self._state(account_id, time.time())
+            st = self._state(account_id, self._clock())
             st.bonus_claim_count += 1
             if wager_complete_rate is not None:
                 st.bonus_wager_complete = wager_complete_rate
@@ -184,7 +189,7 @@ class InMemoryFeatureStore:
 
     def velocity(self, account_id: str, now: float | None = None) -> tuple[int, int, int]:
         """(count_1m, count_5m, count_1h) — GetVelocity (redis_store.go:171-193)."""
-        now = now or time.time()
+        now = now or self._clock()
         with self._lock:
             st = self._accounts.get(account_id)
             if st is None:
@@ -232,7 +237,7 @@ class InMemoryFeatureStore:
         """Fill one row of a [*, 30] batch in the schema order, merging
         realtime + batch features exactly like extractFeatures
         (engine.go:326-417)."""
-        now = now or time.time()
+        now = now or self._clock()
         with self._lock:
             st = self._accounts.get(account_id)
             if st is not None:
@@ -283,7 +288,7 @@ class InMemoryFeatureStore:
         ``requests`` yields objects with account_id, amount, tx_type,
         device_id, fingerprint, ip attributes.
         """
-        now = now or time.time()
+        now = now or self._clock()
         reqs = list(requests)
         x = np.zeros((len(reqs), NUM_FEATURES), dtype=np.float32)
         bl = np.zeros((len(reqs),), dtype=bool)
