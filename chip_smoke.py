@@ -13,7 +13,9 @@ serving width: 64 trees of depth 4 and an MLP of 128x128) through
 ``score()`` and ``score_batch``, and the bonus-abuse path (wallet event
 stream -> ``ScoringBridge`` -> histories -> the sequence detector at its
 serving width, d_model 64, 2 heads of 32, 2 layers) through ``drain``,
-``check_batch`` and ``check``. Phases:
+``check_batch`` and ``check``, and the detector's trainer
+(``train_abuse_detector`` at its full width, 200 Adam steps of 64
+sequences of 64 events). Phases:
 
 1. environment: a card must be present; prints its name and power limit
    (``nvidia-smi``) and turns TF32 off for matmuls and convolutions;
@@ -21,8 +23,9 @@ serving width, d_model 64, 2 heads of 32, 2 layers) through ``drain``,
    time;
 3. kernels: each kernel against its plain version at the shapes its paths
    give it, with CUDA-event timings (median of 50 launches) and, for the
-   attention kernel, ``scaled_dot_product_attention`` on the same inputs
-   as a yardstick;
+   attention kernels, ``scaled_dot_product_attention`` (its forward, and
+   its backward through ``torch.autograd.grad``) on the same inputs as a
+   yardstick;
 4. engine: a feature store of 10,000 accounts, 20 single requests and one
    batch of 4096, the launch counts of that run, and the CPU comparison;
    then the device time of one step, where a batch's host time goes, and
@@ -33,7 +36,16 @@ serving width, d_model 64, 2 heads of 32, 2 layers) through ``drain``,
    run, and the same stream through a CPU bridge and detector; then
    ``check()`` latency, ``check_batch(256)`` throughput and the device time
    of one forward at BASELINE config 3's width (d_model 128, 2 heads of 64)
-   at S = 256, 2048 and 8192.
+   at S = 256, 2048 and 8192;
+6. training: one seeded model trained 5 steps on the card and on the CPU
+   from the same batches (per-step losses and every step-1 gradient
+   compared, every gradient on the card nonzero); then the full 200-step
+   ``train_abuse_detector`` on the card, the launch counts of that run
+   (dQ and dK/dV kernels = layers x steps, forward kernel = layers x
+   (steps + 1 eval forward)), its held-out accuracy, the trained model
+   served by a card ``SequenceAbuseDetector``, where a step's time goes
+   (host batch synthesis, device step, kernels by name), and one training
+   step at config-3 width at S=2048.
 
 Any failure exits non-zero. The second-to-last lines are the ``kernels``
 JSON object and the card's name and power limit; the last line is the
@@ -44,6 +56,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -76,6 +89,13 @@ FLASH_SHAPES = ((2, 64, 32), (512, 64, 32), (128, 256, 64), (16, 2048, 64),
                 (4, 8192, 64), (4, 300, 32))
 FLASH_MAIN_SHAPE = (512, 64, 32)  # check_batch of 256 accounts
 FLASH_TOL = 2e-5  # rtol and atol of O and LSE: the JAX tests' bar, float32 sums reordered
+# Backward shapes (B*H, S, Dh): a training step (batch 64 x 2 heads), one
+# check's width, config-3 width at S=2048 and at 8192 (past the TPU kernels'
+# range), a ragged S, and the session head's Dh 8.
+FLASH_BWD_SHAPES = ((128, 64, 32), (2, 64, 32), (16, 2048, 64), (4, 8192, 64),
+                    (4, 300, 32), (8, 16, 8))
+FLASH_BWD_MAIN_SHAPE = (128, 64, 32)
+GRAD_TOL = 2e-4  # rtol and atol of gradients: the JAX tests' bar, float32 sums reordered
 # The abuse path: the detector's serving width and BASELINE config 3's.
 ABUSE_CFG = dict(d_model=64, n_heads=2, n_layers=2, d_ff=128)
 CONFIG3_CFG = dict(d_model=128, n_heads=2, n_layers=2, d_ff=256)
@@ -84,6 +104,11 @@ ABUSE_ACCOUNTS, ABUSE_MAX_EVENTS = 2_000, 64
 ABUSE_BATCH, ABUSE_CHECKS, ABUSE_LATENCY = 256, 200, 1000
 ABUSE_ATOL = 1e-4  # card against CPU detector: float32 through two layers, sums reordered
 STREAM_T0 = 1_700_000_000.0
+# Training: steps compared between the card and the CPU, their loss bar
+# (float32 through two layers and Adam, sums reordered), the least held-out
+# accuracy of the full run, and config-3 width's training point.
+PARITY_STEPS, LOSS_RTOL, MIN_ACCURACY = 5, 1e-4, 0.95
+CONFIG3_TRAIN_POINT = (8, 2048)  # (batch, S)
 # Spin cycles queued before each timed call, so the card is still busy
 # while the host enqueues the call: the events then bracket device work only.
 SLEEP_CYCLES = 4_000_000
@@ -100,14 +125,14 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(torch, fn, reps: int = REPS, warmup: int = 5) -> float:
+def device_ms(torch, fn, reps: int = REPS, warmup: int = 5, sleep: int = SLEEP_CYCLES) -> float:
     """Median device time of one call of ``fn``, from CUDA events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -245,6 +270,89 @@ def phase_flash(torch, fa) -> list[dict]:
         log(f"phase 3: {name}: max_abs_err O={err_o:.3g} LSE={err_lse:.3g} kernel_ms={row['kernel_ms']:.6f} "
             f"plain_ms={row['plain_ms']:.6f} sdpa_ms={row['library_ms']:.6f} "
             f"bound_ms={bound:.6f} ({bound_by})")
+    return rows
+
+
+def flash_bwd_bounds(bh: int, s: int, dh: int) -> dict:
+    """Least time for each backward kernel on this card: 6 (dQ) and 8 (dK/dV)
+    x BH*S^2*Dh float32 flops on the CUDA cores, or each input read and each
+    output written once (q, k, v, dO, LSE and D in; dQ, or dK and dV, out)."""
+    row, vec = bh * s * dh * 4, bh * s * 4
+    out = {}
+    for part, flops, n_out in (("dq", 6, 1), ("dkv", 8, 2)):
+        ops_ms = flops * bh * s * s * dh / FP32_OPS_PER_S * 1e3
+        bytes_ms = ((4 + n_out) * row + 2 * vec) / HBM_BYTES_PER_S * 1e3
+        out[part] = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return out
+
+
+def phase_flash_bwd(torch, fa) -> list[dict]:
+    """Both backward kernels against the plain backward, each timed alone
+    through its C entry point on the wrapper's inputs; the pair through
+    ``flash_attention_bwd`` (D included); the plain backward; and the
+    backward of ``scaled_dot_product_attention`` (``torch.autograd.grad``
+    with dO) as the library's yardstick for the pair."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = fa._lib("flash_attention_bwd")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for bh, s, dh in FLASH_BWD_SHAPES:
+        q, k, v, do = (torch.randn((bh, s, dh), generator=gen, device="cuda") for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        name = f"flash_attention_bwd BH={bh} S={s} Dh={dh}"
+        errs = {}
+        for what, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.shape != (bh, s, dh) or not torch.isfinite(g).all():
+                raise AssertionError(f"{name}: {what} has shape {tuple(g.shape)} or non-finite values")
+            if not torch.allclose(g, w, rtol=GRAD_TOL, atol=GRAD_TOL):
+                raise AssertionError(f"{name}: {what} max error "
+                                     f"{float((g - w).abs().max())} beyond {GRAD_TOL}")
+            errs[what] = float((g - w).abs().max())
+        del got, want
+
+        dmat = (do * o).sum(dim=-1)
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        stream = torch.cuda.current_stream().cuda_stream
+        scale = 1.0 / math.sqrt(dh)
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+               dmat.data_ptr())
+
+        def dq_only():
+            if lib.flash_attention_bwd_dq_launch(*ins, dq.data_ptr(), bh, s, dh, scale, stream):
+                raise RuntimeError(f"{name}: dQ launch failed")
+
+        def dkv_only():
+            if lib.flash_attention_bwd_dkv_launch(*ins, dk.data_ptr(), dv.data_ptr(), bh, s, dh,
+                                                  scale, stream):
+                raise RuntimeError(f"{name}: dK/dV launch failed")
+
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = sdpa(*leaves)
+        reps = REPS if s <= 2048 else 10
+        bounds = flash_bwd_bounds(bh, s, dh)
+        row = {"BH": bh, "S": s, "Dh": dh,
+               "max_abs_err_dq": errs["dq"], "max_abs_err_dk": errs["dk"],
+               "max_abs_err_dv": errs["dv"], "max_abs_err_dkv": max(errs["dk"], errs["dv"]),
+               "dq_ms": device_ms(torch, dq_only, reps),
+               "dkv_ms": device_ms(torch, dkv_only, reps),
+               "pair_ms": device_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                                    reps),
+               "plain_ms": device_ms(
+                   torch, lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do), reps),
+               "library_ms": device_ms(
+                   torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), reps),
+               "dq_bound_ms": bounds["dq"][0], "dq_bound_by": bounds["dq"][1],
+               "dkv_bound_ms": bounds["dkv"][0], "dkv_bound_by": bounds["dkv"][1]}
+        del out, leaves
+        rows.append(row)
+        log(f"phase 3: {name}: max_abs_err dQ={errs['dq']:.3g} dK={errs['dk']:.3g} "
+            f"dV={errs['dv']:.3g} dq_ms={row['dq_ms']:.6f} (bound {bounds['dq'][0]:.6f}, "
+            f"{bounds['dq'][1]}) dkv_ms={row['dkv_ms']:.6f} (bound {bounds['dkv'][0]:.6f}, "
+            f"{bounds['dkv'][1]}) pair_ms={row['pair_ms']:.6f} plain_ms={row['plain_ms']:.6f} "
+            f"sdpa_bwd_ms={row['library_ms']:.6f}")
     return rows
 
 
@@ -654,6 +762,174 @@ def phase_abuse(torch, card: str, fa) -> dict:
     return result
 
 
+def record_two_accounts(det) -> None:
+    """An abusive account (bonus -> grind -> withdraw cycles) and a normal
+    one (deposits and varied bets at human cadence), as the JAX package's
+    test of a trained detector records them."""
+    for cycle in range(4):
+        t = 1000.0 + cycle * 100
+        det.record_event("abuser", 2000, "bonus_grant", timestamp=t)
+        for i in range(6):
+            det.record_event("abuser", 100, "bonus_wager", game_weight=0.1, timestamp=t + 1 + i)
+        det.record_event("abuser", 2000, "withdraw", balance_ratio=0.95, timestamp=t + 10)
+    rng = np.random.default_rng(3)
+    t = 1000.0
+    for i in range(30):
+        t += float(rng.gamma(2, 600))
+        if i % 10 == 0:
+            det.record_event("player", 5000, "deposit", timestamp=t)
+        else:
+            det.record_event("player", float(rng.gamma(2, 800)), "bet",
+                             game_weight=float(rng.choice([1.0, 0.5])), timestamp=t)
+
+
+def kernel_split(prof: dict) -> dict | None:
+    """Device ms of the three attention kernels and of everything else in a
+    profiler window; None when the profiler recorded no device time."""
+    if prof["device_ms"] is None:
+        return None
+    split = {part: sum(k["device_ms"] for k in prof["top"] if f"flash_attention_{part}_kernel"
+                       in k["kernel"])
+             for part in ("fwd", "bwd_dq", "bwd_dkv")}
+    split["rest"] = prof["device_ms"] - sum(split.values())
+    return split
+
+
+def phase_train(torch, card: str, fa) -> dict:
+    from igaming_platform_tpu_torch.convert import sequence_from_tree
+    from igaming_platform_tpu_torch.models.sequence import SeqConfig
+    from igaming_platform_tpu_torch.serve.abuse import SequenceAbuseDetector
+    from igaming_platform_tpu_torch.train import abuse_train as at
+
+    tcfg = at.AbuseTrainConfig()
+    cfg = SeqConfig(**ABUSE_CFG)
+    if tcfg.model != cfg:
+        raise AssertionError(f"train: the trainer's width {tcfg.model} is not the detector's")
+    batch, seq_len = tcfg.batch_size, tcfg.seq_len
+
+    # The card against the CPU: one seeded tree, the same batches.
+    tree = seq_tree(np.random.default_rng(8), ABUSE_CFG)
+    models = {dev: sequence_from_tree(tree, cfg).to(dev) for dev in ("cuda", "cpu")}
+    opts = {dev: at.make_optimizer(m, tcfg.learning_rate) for dev, m in models.items()}
+    rng = np.random.default_rng(9)
+    losses = {dev: [] for dev in models}
+    for step in range(PARITY_STEPS):
+        x, y = at.make_abuse_batch(rng, batch, seq_len)
+        for dev, model in models.items():
+            losses[dev].append(float(at.train_step(model, opts[dev], x, y)))
+        if step == 0:
+            grads = {dev: {n: p.grad.detach().cpu().clone() for n, p in m.named_parameters()}
+                     for dev, m in models.items()}
+    zero = [n for n, g in grads["cuda"].items() if not g.abs().max() > 0]
+    if zero:
+        raise AssertionError(f"train: no gradient on the card for {zero}")
+    grad_err = 0.0
+    for n, g in grads["cuda"].items():
+        if not torch.allclose(g, grads["cpu"][n], rtol=GRAD_TOL, atol=GRAD_TOL):
+            raise AssertionError(f"train: step-1 gradient of {n} differs from the CPU's by "
+                                 f"{float((g - grads['cpu'][n]).abs().max())}")
+        grad_err = max(grad_err, float((g - grads["cpu"][n]).abs().max()))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    if not np.isfinite(losses["cuda"]).all() or loss_rel > LOSS_RTOL:
+        raise AssertionError(f"train: card losses {losses['cuda']} against the CPU's "
+                             f"{losses['cpu']}")
+    log(f"phase 6: {PARITY_STEPS} steps on the card and the CPU: losses agree to {loss_rel:.3g} "
+        f"(relative), {len(grads['cuda'])} step-1 gradients all nonzero on the card and "
+        f"within {grad_err:.3g} of the CPU's")
+    del models, opts
+
+    # The path's run: counts set to 0 just before, read just after.
+    torch.cuda.synchronize()
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches_dq = fa.flash_attention_bwd.launches_dkv = 0
+    t = time.perf_counter()
+    model, metrics = at.train_abuse_detector(tcfg, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    launches = {"fwd": fa.flash_attention_fwd.launches, "dq": fa.flash_attention_bwd.launches_dq,
+                "dkv": fa.flash_attention_bwd.launches_dkv}
+    per_step = cfg.n_layers * tcfg.steps
+    if (launches["dq"], launches["dkv"], launches["fwd"]) != (
+            per_step, per_step, per_step + cfg.n_layers):
+        raise AssertionError(f"train: {tcfg.steps} steps of {cfg.n_layers} layers and one eval "
+                             f"forward but kernel launches {launches}")
+    if len(metrics["losses"]) != tcfg.steps or not np.isfinite(metrics["losses"]).all():
+        raise AssertionError("train: bad losses")
+    if metrics["eval_accuracy"] < MIN_ACCURACY:
+        raise AssertionError(f"train: eval accuracy {metrics['eval_accuracy']} < {MIN_ACCURACY}")
+
+    # The trained model serves on the card.
+    det = SequenceAbuseDetector(device="cuda")
+    det.swap_params(model)
+    if any(p.requires_grad or p.grad is not None for p in det.params.parameters()):
+        raise AssertionError("train: the detector's copy holds autograd state")
+    record_two_accounts(det)
+    abuser, player = det.check("abuser")[0], det.check("player")[0]
+    if not abuser > player:
+        raise AssertionError(f"train: abuser scored {abuser}, normal player {player}")
+    log(f"phase 6: [{card}] train_abuse_detector, {tcfg.steps} steps of {batch} x {seq_len} "
+        f"in {train_s:.2f} s: final loss {metrics['final_loss']:.4g}, eval accuracy "
+        f"{metrics['eval_accuracy']}; launches fwd {launches['fwd']}, dQ {launches['dq']}, "
+        f"dK/dV {launches['dkv']}; served: abuser {abuser:.4f} > player {player:.4f}")
+
+    # Where a step's time goes: host batch synthesis, the step itself from
+    # numpy batches to the end of its work (host wall), the device step
+    # (CUDA events, batch already on the card), and kernels over five steps.
+    rng = np.random.default_rng(10)
+    t = time.perf_counter()
+    batches = [at.make_abuse_batch(rng, batch, seq_len) for _ in range(20)]
+    synth_ms = (time.perf_counter() - t) * 1e3 / len(batches)
+    opt = at.make_optimizer(model, tcfg.learning_rate)
+    at.train_step(model, opt, *batches[0])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for b in batches:
+        at.train_step(model, opt, *b)
+    torch.cuda.synchronize()
+    step_wall_ms = (time.perf_counter() - t) * 1e3 / len(batches)
+    xd, yd = (torch.from_numpy(a).cuda() for a in batches[0])
+    step_ms = device_ms(torch, lambda: at.train_step(model, opt, xd, yd), reps=20,
+                        sleep=4 * SLEEP_CYCLES)
+    loop = profile_window(torch, lambda: [at.train_step(model, opt, *b) for b in batches[:5]],
+                          top=100)
+
+    # One training step at BASELINE config 3's width.
+    cfg3 = SeqConfig(**CONFIG3_CFG)
+    model3 = sequence_from_tree(seq_tree(np.random.default_rng(11), CONFIG3_CFG), cfg3).to("cuda")
+    opt3 = at.make_optimizer(model3, tcfg.learning_rate)
+    b3, s3 = CONFIG3_TRAIN_POINT
+    rng3 = np.random.default_rng(12)
+    x3 = torch.from_numpy(rng3.normal(size=(b3, s3, 12)).astype(np.float32)).cuda()
+    y3 = torch.from_numpy((rng3.random(b3) < 0.5).astype(np.float32)).cuda()
+    if not math.isfinite(float(at.train_step(model3, opt3, x3, y3))):
+        raise AssertionError(f"train: config-3 step at S={s3} gave a non-finite loss")
+    step3_ms = device_ms(torch, lambda: at.train_step(model3, opt3, x3, y3), reps=10, warmup=2)
+    prof3 = profile_window(torch, lambda: at.train_step(model3, opt3, x3, y3), top=100)
+
+    result = {
+        "launches_fwd": launches["fwd"], "launches_dq": launches["dq"],
+        "launches_dkv": launches["dkv"], "steps": tcfg.steps,
+        "final_loss": metrics["final_loss"], "eval_accuracy": metrics["eval_accuracy"],
+        "losses_every_20": metrics["losses"][::20],
+        "parity_losses": losses, "parity_loss_max_rel": loss_rel,
+        "parity_grad_max_abs_err": grad_err,
+        "served_scores": {"abuser": abuser, "player": player},
+        "train_s": train_s, "wall_ms_per_step": train_s * 1e3 / tcfg.steps,
+        "batch_synthesis_host_ms": synth_ms, "step_wall_ms": step_wall_ms,
+        "step_device_ms": step_ms,
+        "loop_5_steps": {**loop, "top": loop["top"][:8], "split": kernel_split(loop)},
+        "config3_step": {"batch": b3, "S": s3, "device_ms": step3_ms,
+                         "wall_ms": prof3["wall_ms"], "kernel_ms": prof3["device_ms"],
+                         "split": kernel_split(prof3), "top": prof3["top"][:8]},
+    }
+    log(f"phase 6: per step: {result['wall_ms_per_step']:.3f} ms of wall in the 200-step run, "
+        f"{synth_ms:.3f} ms of host batch synthesis, {step_wall_ms:.3f} ms of wall for the step "
+        f"itself, {step_ms:.6f} ms device step (events); "
+        f"config-3 step at B={b3} S={s3}: {step3_ms:.6f} ms, split {result['config3_step']['split']}")
+    log("phase 6: " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -672,7 +948,7 @@ def main() -> int:
 
     # Phase 2: build every kernel, one nvcc each, started together.
     t0 = time.perf_counter()
-    report = _build.build(["gbdt_forest", "flash_attention_fwd"])
+    report = _build.build(["gbdt_forest", "flash_attention_fwd", "flash_attention_bwd"])
     log(f"phase 2: built in {time.perf_counter() - t0:.1f} s")
     for name, r in report.items():
         for line in r["log"].splitlines():
@@ -682,13 +958,17 @@ def main() -> int:
     # Phase 3: each kernel against its plain version.
     rows = phase_kernels(torch, gbdt_kernel)
     flash_rows = phase_flash(torch, fa)
+    bwd_rows = phase_flash_bwd(torch, fa)
 
     # Phase 4: the scoring engine's path; phase 5: the bonus-abuse path.
     engine = phase_engine(torch, card, gbdt_kernel)
     abuse_run = phase_abuse(torch, card, fa)
+    # Phase 6: the abuse detector's training path.
+    train_run = phase_train(torch, card, fa)
 
     main_row = next(r for r in rows if (r["T"], r["D"], r["B"]) == (64, 4, BATCH_SIZE))
     flash_main = next(r for r in flash_rows if (r["BH"], r["S"], r["Dh"]) == FLASH_MAIN_SHAPE)
+    bwd_main = next(r for r in bwd_rows if (r["BH"], r["S"], r["Dh"]) == FLASH_BWD_MAIN_SHAPE)
     kernels = {"kernels": [{
         "name": "gbdt_forest", "route": "cuda",
         "source": "igaming_platform_tpu_torch/csrc/gbdt_forest.cu",
@@ -710,7 +990,18 @@ def main() -> int:
         "bound_ms": flash_main["bound_ms"], "bound_by": flash_main["bound_by"],
         "library_ms": flash_main["library_ms"],
         "shapes": flash_rows,
-    }]}
+    }, *({
+        "name": f"flash_attention_bwd_{part}", "route": "cuda",
+        "source": "igaming_platform_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": f"igaming_platform_tpu/ops/pallas/flash_attention.py:{line}",
+        "launches": train_run[f"launches_{part}"],
+        "max_abs_err": max(r[f"max_abs_err_{part}"] for r in bwd_rows),
+        "ms": bwd_main[f"{part}_ms"], "plain_ms": bwd_main["plain_ms"],
+        "bound_ms": bwd_main[f"{part}_bound_ms"], "bound_by": bwd_main[f"{part}_bound_by"],
+        "library_ms": bwd_main["library_ms"],
+        "plain_and_library_compute": "dQ, dK and dV together",
+        "shapes": bwd_rows,
+    } for part, line in (("dq", 251), ("dkv", 261)))]}
     log(json.dumps(kernels))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,7 +11,9 @@ for that backend, on the CPU:
   "churn_head"}`` -> ``models.multitask.MultiTask``
 
 ``sequence_from_tree(tree, cfg)`` does the same for the abuse detector's
-sequence model (``init_sequence_model``'s tree) -> ``models.sequence.SequenceModel``.
+sequence model (``init_sequence_model``'s tree) -> ``models.sequence.SequenceModel``,
+and ``sequence_to_tree(model)`` is its inverse: a trained model's params as
+the JAX package's tree of numpy arrays.
 
 ``params_to(params, device)`` copies them to a device. Neither needs JAX:
 the tree is plain numpy.
@@ -96,6 +98,28 @@ def sequence_from_tree(tree: dict, cfg: SeqConfig) -> SequenceModel:
               for p in tree["layers"]]
     return SequenceModel(cfg, affine(tree["embed"]), layers, norm(tree["ln_f"]),
                          affine(tree["head"]))
+
+
+def sequence_to_tree(model: SequenceModel) -> dict:
+    """The JAX params tree of numpy arrays for ``model``: the inverse of
+    ``sequence_from_tree``."""
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy().copy()
+
+    def affine(m: Affine) -> dict:
+        return {"w": arr(m.w), "b": arr(m.b)}
+
+    def norm(m: LayerNorm) -> dict:
+        return {"scale": arr(m.scale), "bias": arr(m.bias)}
+
+    return {
+        "embed": affine(model.embed),
+        "layers": [{"ln1": norm(b.ln1), "wqkv": affine(b.wqkv), "wo": affine(b.wo),
+                    "ln2": norm(b.ln2), "w1": affine(b.w1), "w2": affine(b.w2)}
+                   for b in model.layers],
+        "ln_f": norm(model.ln_f),
+        "head": affine(model.head),
+    }
 
 
 _CONVERTERS = {"mlp": mlp_from_tree, "gbdt": gbdt_from_tree, "multitask": multitask_from_tree}

@@ -4,10 +4,12 @@ Counterpart of ``igaming_platform_tpu/models/sequence.py``: a transformer
 over a player's [S, EVENT_DIM] event history that returns an abuse score.
 Event encoding, config, positions and signals are copies; the model is an
 ``nn.Module`` with the JAX params' layout (``convert.sequence_from_tree``
-carries a JAX tree across). Its attention core is
-``ops/flash_attention.py``: the Hopper kernel for CUDA tensors, the plain
-dense version for CPU tensors, as the JAX model takes the Pallas kernel on
-a TPU and the einsum elsewhere.
+carries a JAX tree across, ``convert.sequence_to_tree`` back); its weights
+are trainable ``nn.Parameter``s (``train/abuse_train.py``). Its attention
+core is ``ops/flash_attention.py``'s ``autograd.Function``: the Hopper
+kernels, forward and backward, for CUDA tensors, the plain dense versions
+for CPU tensors, as the JAX model takes the Pallas kernels on a TPU and the
+einsum elsewhere.
 
 Numerics follow the JAX code: float32 matmuls (no bf16, no TF32), the
 population variance in layer norm, ``jax.nn.gelu``'s default tanh
@@ -87,8 +89,8 @@ class Affine(nn.Module):
         super().__init__()
         if w.dim() != 2 or b.shape != (w.shape[1],):
             raise ValueError(f"dense layer shapes w={tuple(w.shape)} b={tuple(b.shape)}")
-        self.register_buffer("w", w.to(torch.float32).contiguous())
-        self.register_buffer("b", b.to(torch.float32).contiguous())
+        self.w = nn.Parameter(w.to(torch.float32).contiguous())
+        self.b = nn.Parameter(b.to(torch.float32).contiguous())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x, self.w) + self.b
@@ -99,8 +101,8 @@ class LayerNorm(nn.Module):
 
     def __init__(self, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5):
         super().__init__()
-        self.register_buffer("scale", scale.to(torch.float32).contiguous())
-        self.register_buffer("bias", bias.to(torch.float32).contiguous())
+        self.scale = nn.Parameter(scale.to(torch.float32).contiguous())
+        self.bias = nn.Parameter(bias.to(torch.float32).contiguous())
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

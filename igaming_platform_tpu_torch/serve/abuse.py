@@ -88,7 +88,13 @@ class SequenceAbuseDetector:
     def _install(self, model: SequenceModel) -> SequenceModel:
         if model.cfg != self.cfg:
             raise ValueError(f"params are for {model.cfg}, the detector serves {self.cfg}")
-        return copy.deepcopy(model).to(self.device).eval()
+        # A model fresh from training brings trainable params and maybe their
+        # gradients: the serving copy holds neither.
+        served = copy.deepcopy(model).to(self.device).eval()
+        for p in served.parameters():
+            p.grad = None
+            p.requires_grad_(False)
+        return served
 
     # -- ingestion -----------------------------------------------------------
 

@@ -74,8 +74,11 @@ def test_default_init_has_the_jax_layout():
     again = tseq.init_sequence_model(cfg, seed=0)
     assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
                                                  again.state_dict().values()))
+    # Every weight trains: 30 parameters at two layers, no buffers.
+    assert len(list(model.parameters())) == 30 and not list(model.buffers())
+    assert all(p.requires_grad for p in model.parameters())
     # He-normal embed: the spread of the JAX init, not its numbers.
-    w = model.embed.w.numpy()
+    w = model.embed.w.detach().numpy()
     assert abs(w.std() - np.asarray(tree["embed"]["w"]).std()) < 0.1
     with pytest.raises(ValueError, match="sequence params do not match"):
         sequence_from_tree(tree, tseq.SeqConfig(d_model=64, n_heads=2, n_layers=1, d_ff=128))
