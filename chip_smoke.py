@@ -25,7 +25,9 @@ sequences of 64 events). Phases:
    give it, with CUDA-event timings (median of 50 launches) and, for the
    attention kernels, ``scaled_dot_product_attention`` (its forward, and
    its backward through ``torch.autograd.grad``) on the same inputs as a
-   yardstick;
+   yardstick; two launches of each backward kernel must be bit-identical,
+   and the backward is also checked at the head sizes and block widths the
+   timed shapes do not reach;
 4. engine: a feature store of 10,000 accounts, 20 single requests and one
    batch of 4096, the launch counts of that run, and the CPU comparison;
    then the device time of one step, where a batch's host time goes, and
@@ -68,6 +70,11 @@ import numpy as np
 # rate outside the tensor cores. Used for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# Float32-accurate attention arithmetic on the tensor cores: the bf16 dense
+# rate (989 TFLOP/s) over three, since split bf16 takes three bf16 products
+# (hi.hi + hi.lo + lo.hi) per float32 product. The bound of every attention
+# kernel, whichever implementation runs.
+ATTN_OPS_PER_S = 989e12 / 3
 
 KERNEL_SHAPES_B = (1, 255, 256, 2048, 4096)
 KERNEL_FORESTS = ((64, 4), (16, 3))
@@ -95,6 +102,10 @@ FLASH_TOL = 2e-5  # rtol and atol of O and LSE: the JAX tests' bar, float32 sums
 FLASH_BWD_SHAPES = ((128, 64, 32), (2, 64, 32), (16, 2048, 64), (4, 8192, 64),
                     (4, 300, 32), (8, 16, 8))
 FLASH_BWD_MAIN_SHAPE = (128, 64, 32)
+# Checked, not timed: the head sizes and block widths (64-row blocks, or
+# 16-row blocks when 64-row ones leave SMs idle) the shapes above miss.
+FLASH_BWD_CHECK_SHAPES = ((33, 257, 16), (70, 130, 8), (3, 200, 128), (40, 300, 128),
+                          (160, 100, 32), (3, 100, 64))
 GRAD_TOL = 2e-4  # rtol and atol of gradients: the JAX tests' bar, float32 sums reordered
 # The abuse path: the detector's serving width and BASELINE config 3's.
 ABUSE_CFG = dict(d_model=64, n_heads=2, n_layers=2, d_ff=128)
@@ -229,9 +240,9 @@ def phase_kernels(torch, gbdt_kernel) -> list[dict]:
 
 
 def flash_bound(bh: int, s: int, dh: int) -> tuple[float, str]:
-    """Least time for one forward on this card: 4*BH*S^2*Dh float32 flops on
-    the CUDA cores, or q, k, v read and o, lse written once."""
-    ops_ms = 4.0 * bh * s * s * dh / FP32_OPS_PER_S * 1e3
+    """Least time for one forward on this card: 4*BH*S^2*Dh float32-accurate
+    flops at ``ATTN_OPS_PER_S``, or q, k, v read and o, lse written once."""
+    ops_ms = 4.0 * bh * s * s * dh / ATTN_OPS_PER_S * 1e3
     bytes_ms = (4 * bh * s * dh * 4 + bh * s * 4) / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -274,60 +285,82 @@ def phase_flash(torch, fa) -> list[dict]:
 
 
 def flash_bwd_bounds(bh: int, s: int, dh: int) -> dict:
-    """Least time for each backward kernel on this card: 6 (dQ) and 8 (dK/dV)
-    x BH*S^2*Dh float32 flops on the CUDA cores, or each input read and each
-    output written once (q, k, v, dO, LSE and D in; dQ, or dK and dV, out)."""
+    """Least time on this card, at ``ATTN_OPS_PER_S`` or the bytes each input
+    read and each output written once, for each backward kernel: 6 (dQ) and 8
+    (dK/dV) x BH*S^2*Dh flops, each with its recompute (q, k, v, dO, LSE and D
+    in; dQ, or dK and dV, out); and for the pair (``flash_attention_bwd``):
+    10 x BH*S^2*Dh, the five products the gradient needs (q, k, v, O, dO and
+    LSE in; dQ, dK, dV out)."""
     row, vec = bh * s * dh * 4, bh * s * 4
     out = {}
-    for part, flops, n_out in (("dq", 6, 1), ("dkv", 8, 2)):
-        ops_ms = flops * bh * s * s * dh / FP32_OPS_PER_S * 1e3
-        bytes_ms = ((4 + n_out) * row + 2 * vec) / HBM_BYTES_PER_S * 1e3
+    for part, flops, n_bytes in (("dq", 6, 5 * row + 2 * vec), ("dkv", 8, 6 * row + 2 * vec),
+                                 ("pair", 10, 8 * row + vec)):
+        ops_ms = flops * bh * s * s * dh / ATTN_OPS_PER_S * 1e3
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         out[part] = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
     return out
 
 
+def check_flash_bwd(torch, fa, bh: int, s: int, dh: int, gen) -> tuple:
+    """The wrapper's dQ, dK and dV against the plain backward at rtol/atol
+    GRAD_TOL on seeded inputs; returns the inputs and the max errors."""
+    q, k, v, do = (torch.randn((bh, s, dh), generator=gen, device="cuda") for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    name = f"flash_attention_bwd BH={bh} S={s} Dh={dh}"
+    errs = {}
+    for what, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != (bh, s, dh) or not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: {what} has shape {tuple(g.shape)} or non-finite values")
+        if not torch.allclose(g, w, rtol=GRAD_TOL, atol=GRAD_TOL):
+            raise AssertionError(f"{name}: {what} max error "
+                                 f"{float((g - w).abs().max())} beyond {GRAD_TOL}")
+        errs[what] = float((g - w).abs().max())
+    return (q, k, v, o, lse, do), errs
+
+
 def phase_flash_bwd(torch, fa) -> list[dict]:
     """Both backward kernels against the plain backward, each timed alone
-    through its C entry point on the wrapper's inputs; the pair through
-    ``flash_attention_bwd`` (D included); the plain backward; and the
+    through its C entry point on the wrapper's inputs, and launched twice
+    more there, into fresh outputs, which must be bit-identical; the pair
+    through ``flash_attention_bwd`` (D included); the plain backward; and the
     backward of ``scaled_dot_product_attention`` (``torch.autograd.grad``
-    with dO) as the library's yardstick for the pair."""
+    with dO) as the library's yardstick for the pair. Then the check-only
+    shapes."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = fa._lib("flash_attention_bwd")
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for bh, s, dh in FLASH_BWD_SHAPES:
-        q, k, v, do = (torch.randn((bh, s, dh), generator=gen, device="cuda") for _ in range(4))
-        o, lse = fa.flash_attention_fwd(q, k, v)
-        got = fa.flash_attention_bwd(q, k, v, o, lse, do)
-        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-        torch.cuda.synchronize()
+        (q, k, v, o, lse, do), errs = check_flash_bwd(torch, fa, bh, s, dh, gen)
         name = f"flash_attention_bwd BH={bh} S={s} Dh={dh}"
-        errs = {}
-        for what, g, w in zip(("dq", "dk", "dv"), got, want):
-            if g.shape != (bh, s, dh) or not torch.isfinite(g).all():
-                raise AssertionError(f"{name}: {what} has shape {tuple(g.shape)} or non-finite values")
-            if not torch.allclose(g, w, rtol=GRAD_TOL, atol=GRAD_TOL):
-                raise AssertionError(f"{name}: {what} max error "
-                                     f"{float((g - w).abs().max())} beyond {GRAD_TOL}")
-            errs[what] = float((g - w).abs().max())
-        del got, want
-
         dmat = (do * o).sum(dim=-1)
-        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
         stream = torch.cuda.current_stream().cuda_stream
         scale = 1.0 / math.sqrt(dh)
         ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                dmat.data_ptr())
 
-        def dq_only():
+        def dq_only(dq):
             if lib.flash_attention_bwd_dq_launch(*ins, dq.data_ptr(), bh, s, dh, scale, stream):
                 raise RuntimeError(f"{name}: dQ launch failed")
 
-        def dkv_only():
+        def dkv_only(dk, dv):
             if lib.flash_attention_bwd_dkv_launch(*ins, dk.data_ptr(), dv.data_ptr(), bh, s, dh,
                                                   scale, stream):
                 raise RuntimeError(f"{name}: dK/dV launch failed")
+
+        runs = [[torch.empty_like(q) for _ in range(3)] for _ in range(2)]
+        for dq, dk, dv in runs:
+            dq_only(dq)
+            dkv_only(dk, dv)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("dQ", "dK", "dV"), *runs):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: two launches gave different {what}")
+        dq, dk, dv = runs[0]
+        del runs[1]
 
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         out = sdpa(*leaves)
@@ -336,8 +369,9 @@ def phase_flash_bwd(torch, fa) -> list[dict]:
         row = {"BH": bh, "S": s, "Dh": dh,
                "max_abs_err_dq": errs["dq"], "max_abs_err_dk": errs["dk"],
                "max_abs_err_dv": errs["dv"], "max_abs_err_dkv": max(errs["dk"], errs["dv"]),
-               "dq_ms": device_ms(torch, dq_only, reps),
-               "dkv_ms": device_ms(torch, dkv_only, reps),
+               "repeatable": True,
+               "dq_ms": device_ms(torch, lambda: dq_only(dq), reps),
+               "dkv_ms": device_ms(torch, lambda: dkv_only(dk, dv), reps),
                "pair_ms": device_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
                                     reps),
                "plain_ms": device_ms(
@@ -345,14 +379,21 @@ def phase_flash_bwd(torch, fa) -> list[dict]:
                "library_ms": device_ms(
                    torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), reps),
                "dq_bound_ms": bounds["dq"][0], "dq_bound_by": bounds["dq"][1],
-               "dkv_bound_ms": bounds["dkv"][0], "dkv_bound_by": bounds["dkv"][1]}
+               "dkv_bound_ms": bounds["dkv"][0], "dkv_bound_by": bounds["dkv"][1],
+               "pair_bound_ms": bounds["pair"][0], "pair_bound_by": bounds["pair"][1]}
+        row["pair_over_sdpa"] = row["pair_ms"] / row["library_ms"]
         del out, leaves
         rows.append(row)
         log(f"phase 3: {name}: max_abs_err dQ={errs['dq']:.3g} dK={errs['dk']:.3g} "
-            f"dV={errs['dv']:.3g} dq_ms={row['dq_ms']:.6f} (bound {bounds['dq'][0]:.6f}, "
-            f"{bounds['dq'][1]}) dkv_ms={row['dkv_ms']:.6f} (bound {bounds['dkv'][0]:.6f}, "
-            f"{bounds['dkv'][1]}) pair_ms={row['pair_ms']:.6f} plain_ms={row['plain_ms']:.6f} "
-            f"sdpa_bwd_ms={row['library_ms']:.6f}")
+            f"dV={errs['dv']:.3g}, two launches bit-identical; dq_ms={row['dq_ms']:.6f} "
+            f"(bound {bounds['dq'][0]:.6f}, {bounds['dq'][1]}) dkv_ms={row['dkv_ms']:.6f} "
+            f"(bound {bounds['dkv'][0]:.6f}, {bounds['dkv'][1]}) pair_ms={row['pair_ms']:.6f} "
+            f"(bound {bounds['pair'][0]:.6f}, {bounds['pair'][1]}) plain_ms={row['plain_ms']:.6f} "
+            f"sdpa_bwd_ms={row['library_ms']:.6f} pair/sdpa={row['pair_over_sdpa']:.3f}")
+    for bh, s, dh in FLASH_BWD_CHECK_SHAPES:
+        _, errs = check_flash_bwd(torch, fa, bh, s, dh, gen)
+        log(f"phase 3: flash_attention_bwd BH={bh} S={s} Dh={dh} (check only): max_abs_err "
+            f"dQ={errs['dq']:.3g} dK={errs['dk']:.3g} dV={errs['dv']:.3g}")
     return rows
 
 

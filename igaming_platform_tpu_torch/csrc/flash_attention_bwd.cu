@@ -1,284 +1,636 @@
-// Flash-attention backward for Hopper (sm_90a), float32 on the CUDA cores.
+// Flash-attention backward for Hopper (sm_90a): split-bf16 products on the
+// tensor cores (mma.sync), float32 everywhere else.
 //
 // Replaces the two backward TPU kernels of
 // igaming_platform_tpu/ops/pallas/flash_attention.py, both launched by _run_bwd:
-// _kernel_bwd_dq (the pallas_call at :251) and _kernel_bwd_dkv (:261). With the
-// forward's row logsumexp L saved, the softmax probabilities are recomputed
-// exactly, P = exp(S - L) with S = (q . k) * scale, and per (b*h):
+// _kernel_bwd_dq (:190, the pallas_call at :251) and _kernel_bwd_dkv (:213,
+// the pallas_call at :261). With the forward's row logsumexp L saved, the
+// softmax probabilities are recomputed exactly, P = exp(S - L) with
+// S = (q . k) * scale, and per (b*h):
 //     D  = rowsum(dO * O)             (computed by the caller, as the JAX
 //                                      package computes it in XLA)
 //     dS = P * (dO . V^T - D) * scale
 //     dQ = dS K                        (flash_attention_bwd_dq_kernel)
 //     dV = P^T dO,  dK = dS^T Q        (flash_attention_bwd_dkv_kernel)
-// all in float32 with expf (no fast-math intrinsics, no TF32): the bar is the
-// JAX tests' rtol/atol 2e-4 for gradients.
 //
-// Each output row has one owner, as in the TPU design: a dQ row belongs to the
-// block that owns its query row and loops over every key; a dK/dV row to the
-// block that owns its key row and loops over every query. No atomics, so the
-// results repeat bit for bit from run to run.
+// Arithmetic. The bar is the JAX tests' rtol/atol 2e-4 for gradients, which
+// one-term TF32 or bf16 misses. Every float32 operand x is split into
+// hi = bf16_rn(x) and lo = bf16_rn(x - hi), and every product a.b is taken as
+// lo_a.hi_b + hi_a.lo_b + hi_a.hi_b (small terms first) by
+// mma.sync.m16n8k16.bf16 with a float32 accumulator: the dropped lo.lo term is
+// 2^-16 of the product. exp, the splits and dS = P * (dP - D) * scale stay in
+// float32 on the CUDA cores (expf, no fast-math intrinsics, no TF32).
 //
-// The TPU kernels held the loop's far side resident in VMEM and so stopped at
-// S = 2048; longer S took an XLA recompute. Here a block stages 32-row tiles
-// of the far side in shared memory and loops over them, so its memory does not
-// grow with S and one kernel of each kind covers every S. Keys past S count as
-// P = 0, query rows past S as P = 0 in the dK/dV loop, and rows past S are
-// neither read (their LSE would be garbage) nor written, so S need not be a
-// multiple of any block.
+// Tiles. A warp owns 16 rows of its own side (one m16 tile: query rows in dQ,
+// key rows in dK/dV), held in registers as split A fragments for the whole
+// kernel, with its float32 accumulators. The far side (K and V in dQ; Q, dO,
+// L and D in dK/dV) streams through shared memory in tiles of 64 rows (32 at
+// Dh 128): 16-byte cp.async copies into a two-stage float32 ring, so the next
+// tile is in flight while the block works on this one; then one pass per tile
+// splits it into hi/lo bf16 planes (not once per warp per use), whose rows are
+// padded by 8 elements so that every ldmatrix phase hits 8 distinct 16-byte
+// bank groups. Per 16-row chunk of a far tile, each warp computes
+//   dQ:    S = Q K^T, dP = dO V^T  (B fragments by ldmatrix from K and V rows)
+//          dQ += dS K              (B by ldmatrix.trans from the same planes)
+//   dK/dV: S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q
+// The float32 accumulator of a score product over two adjacent n8 tiles is
+// element for element the A fragment of the next k16 product, so P and dS go
+// from one product to the next in registers, split, with no shuffle and no
+// trip through shared memory (the FlashAttention-2 layout). The dK/dV kernel
+// computes the transposed tile directly, so P^T and dS^T come out in A layout;
+// L and D are indexed by column there and staged with the query tile.
 //
-// What bounds them: operations. dQ does three products (Q K^T, dO V^T, dS K),
-// 6*BH*S^2*Dh floating-point operations; dK/dV four (K Q^T, V dO^T, P^T dO,
-// dS^T Q), 8*BH*S^2*Dh. Against 67 TFLOP/s float32 that is 0.385 ms and
-// 0.513 ms at BH=16, S=2048, Dh=64, while the bytes they move (q, k, v, dO and
-// the outputs, five or six [BH, S, Dh] arrays, 42-50 MB) take 13-15 us at
-// 3.35 TB/s. At the abuse trainer's S=64 both bounds are about 1.5 us, below
-// the launch latency.
+// Rows per block. A block is 4 warps and owns 64 rows, unless BH * ceil(S / 64)
+// blocks would leave SMs idle: then it owns 16 rows, its 4 warps take every
+// fourth 16-row chunk of each far tile, and their partial sums are added in
+// warp order at the end. A training step at S = 64 gets 512 blocks instead of
+// 128, and (4, 300, 32) 76 instead of 20; a lone warp on an SM would leave
+// three of its four tensor-core partitions idle.
 //
-// Layout, as in flash_attention_fwd.cu: a block of 128 threads takes one
-// (b*h) and kRows rows of its own side. Each row belongs to kTpr adjacent
-// threads (1 for Dh <= 32, Dh/32 above), and each of those holds Dh/kTpr
-// elements of every per-row vector in registers, as float4s interleaved over
-// the row's threads so that their shared-memory reads fall in different
-// banks. A row's dot products are summed over its threads with warp shuffles.
+// One owner per output row, as in the TPU design: the dQ kernel recomputes S,
+// P and dP for its query rows and the dK/dV kernel again for its key rows, so
+// the pair does 14 * BH*S^2*Dh floating-point operations where the gradient
+// needs 10 (five products). The recompute buys no atomics and a fixed loop
+// order: two launches on the same inputs give bit-identical outputs. Keys past
+// S count as P = 0 in dQ, query columns past S as zero P^T columns in dK/dV
+// (their L and D are zero-filled, never garbage), and rows past S are neither
+// read nor written, so S need not be a multiple of any tile. Dh 8 pads the
+// Dh reduction of the score products to k16 with zeros in registers.
 //
-// A simple kernel that is right: no tensor cores (their TF32 would not meet
-// the bar), no TMA or double-buffered staging. Making it fast is later work.
+// What bounds them: operations, at 989/3 TFLOP/s of float32-accurate work
+// (three bf16 products per float32 product). dQ does 6 and dK/dV 8 x
+// BH*S^2*Dh; at BH=16, S=2048, Dh=64 that is 0.078 and 0.104 ms, while the
+// bytes they move (q, k, v, dO and the outputs, 42-50 MB) take 13-15 us at
+// 3.35 TB/s. At the abuse trainer's S = 64 both bounds are far below the
+// launch latency. wgmma and TMA are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 32;  // rows of the far side staged per loop step
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;  // 4 warps a block
 
 template <int Dh>
-struct Layout {
-  static constexpr int kTpr = Dh > 32 ? Dh / 32 : 1;  // threads per owned row
-  static constexpr int kVec = Dh / 4;                 // float4s per row
-  static constexpr int kVpt = kVec / kTpr;            // float4s each thread holds
-  static constexpr int kRows = kThreads / kTpr;       // owned rows per block
-  static_assert(Dh % 4 == 0 && kVec % kTpr == 0 && 32 % kTpr == 0, "bad head size");
+struct Geo {
+  static constexpr int kTile = Dh > 64 ? 32 : 64;  // far-side rows per staged tile
+  static constexpr int kDp = Dh < 16 ? 16 : Dh;    // Dh padded to the score products' k16
+  static constexpr int kLd = kDp + 8;              // bf16 row stride of a plane
+  static constexpr int kKs = kDp / 16;             // k16 steps of a score product
+  static constexpr int kNd = Dh / 8;               // n8 tiles of an output row
+  static constexpr int kVec = Dh / 4;              // float4s per row
+  static constexpr int kStage = kTile * Dh;        // floats of one staged array
+  static constexpr int kPlane = kTile * kLd;       // bf16s of one plane
+  static_assert(Dh % 8 == 0 && (kNd == 1 || kNd % 2 == 0), "bad head size");
 };
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// Shared memory of a block: the float32 ring [2 stages][2 arrays][kStage],
+// four bf16 planes (hi, lo of array 0; hi, lo of array 1), and in dK/dV the
+// L and D ring [2][2][kTile] and the current tile's L and D [2][kTile].
+template <int Dh, bool kVecs>
+constexpr int smem_bytes() {
+  using G = Geo<Dh>;
+  return 2 * 2 * G::kStage * 4 + 4 * G::kPlane * 2 + (kVecs ? 6 * G::kTile * 4 : 0);
 }
 
-__device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
-  y.x = fmaf(a, x.x, y.x);
-  y.y = fmaf(a, x.y, y.y);
-  y.z = fmaf(a, x.z, y.z);
-  y.w = fmaf(a, x.w, y.w);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Sum of a row's partial dot product over its kTpr adjacent threads.
-template <int kTpr>
-__device__ __forceinline__ float row_sum(float d) {
+// 16 (or 4) bytes from global to shared, asynchronously; zeros when !valid.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most one committed group of this thread is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// c += a . b on the tensor cores: a 16x16 bf16 (row), b 16x8 bf16 (col).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in split bf16, the small terms first.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                     uint32_t bl0, uint32_t bl1) {
+  mma(c, al, bh0, bh1);
+  mma(c, ah, bl0, bl1);
+  mma(c, ah, bh0, bh1);
+}
+
+// (x, y) -> packed bf16 pairs hi = rn(x, y), lo = rn((x, y) - hi); x in the
+// low half, as a fragment register holds its lower column.
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The split A fragment of rows [r0, r0 + 16) and columns [16 ks, 16 ks + 16)
+// of a [S, Dh] float32 array: zero past S and past Dh.
+template <int Dh>
+__device__ __forceinline__ void load_a(const float* x, int r0, int S, int ks, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int off = 1; off < kTpr; off <<= 1) {
-    d += __shfl_xor_sync(0xffffffffu, d, off);
-  }
-  return d;
-}
-
-// Stages rows [r0, r0 + kTile) of two [S, Dh] arrays of one head into shared
-// memory, zero past S. The tile is one contiguous run of kTile * Dh floats.
-template <int Dh>
-__device__ __forceinline__ void stage(const float4* a, const float4* b, float4* as, float4* bs,
-                                      int r0, int n_valid) {
-  using L = Layout<Dh>;
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const float4* at = a + static_cast<size_t>(r0) * L::kVec;
-  const float4* bt = b + static_cast<size_t>(r0) * L::kVec;
-  for (int i = threadIdx.x; i < kTile * L::kVec; i += kThreads) {
-    const bool ok = i / L::kVec < n_valid;
-    as[i] = ok ? at[i] : zero;
-    bs[i] = ok ? bt[i] : zero;
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + g + 8 * (i & 1);
+    const int col = 16 * ks + 2 * t + 8 * (i >> 1);
+    float2 v = make_float2(0.0f, 0.0f);
+    if (row < S && col < Dh) {
+      v = *reinterpret_cast<const float2*>(x + static_cast<size_t>(row) * Dh + col);
+    }
+    split2(v.x, v.y, hi[i], lo[i]);
   }
 }
 
-// dQ: a block owns kRows query rows of one (b*h) and loops over key tiles.
+// Starts the copies of rows [r0, r0 + kTile) of two [S, Dh] arrays of one head
+// into one stage of the ring (and, with vecs, of two [S] vectors), zero past S.
 template <int Dh>
+__device__ __forceinline__ void stage_tile(float* dst, const float* a, const float* b,
+                                           float* vdst, const float* va, const float* vb,
+                                           int r0, int S) {
+  using G = Geo<Dh>;
+  const uint32_t base = smem_addr(dst);
+  for (int i = threadIdx.x; i < G::kTile * G::kVec; i += kThreads) {
+    const bool ok = r0 + i / G::kVec < S;
+    const size_t off = ok ? static_cast<size_t>(r0) * Dh + 4 * static_cast<size_t>(i) : 0;
+    cp_async16(base + 16 * i, a + off, ok);
+    cp_async16(base + 4 * (G::kStage + 4 * i), b + off, ok);
+  }
+  if (vdst != nullptr) {
+    const uint32_t vbase = smem_addr(vdst);
+    for (int i = threadIdx.x; i < G::kTile; i += kThreads) {
+      const bool ok = r0 + i < S;
+      const int off = ok ? r0 + i : 0;
+      cp_async4(vbase + 4 * i, va + off, ok);
+      cp_async4(vbase + 4 * (G::kTile + i), vb + off, ok);
+    }
+  }
+}
+
+// Splits one landed stage into the four hi/lo planes (and copies its vectors
+// out of the ring, which the next copy overwrites while this tile is in use).
+template <int Dh>
+__device__ __forceinline__ void split_tile(const float* src, bf16* planes, const float* vsrc,
+                                           float* vdst) {
+  using G = Geo<Dh>;
+  for (int i = threadIdx.x; i < 2 * G::kTile * G::kVec; i += kThreads) {
+    const int arr = i / (G::kTile * G::kVec);
+    const int e = i - arr * G::kTile * G::kVec;
+    const int row = e / G::kVec, col = 4 * (e - row * G::kVec);
+    const float4 x = reinterpret_cast<const float4*>(src)[i];
+    uint2 hi, lo;
+    split2(x.x, x.y, hi.x, lo.x);
+    split2(x.z, x.w, hi.y, lo.y);
+    bf16* p = planes + 2 * arr * G::kPlane + row * G::kLd + col;
+    *reinterpret_cast<uint2*>(p) = hi;
+    *reinterpret_cast<uint2*>(p + G::kPlane) = lo;
+  }
+  if (vsrc != nullptr) {
+    for (int i = threadIdx.x; i < 2 * G::kTile; i += kThreads) {
+      vdst[i] = vsrc[i];
+    }
+  }
+}
+
+// s[nt] = A . X^T over the far rows [c0 + 8 nt, c0 + 8 nt + 8) of a plane pair
+// (X row-major [rows][Dh]): the warp's 16 own rows against 16 far rows, the
+// reduction over Dh. B fragments come by ldmatrix, matrices (rows, cols):
+// (c0, k0), (c0, k0 + 8), (c0 + 8, k0), (c0 + 8, k0 + 8).
+template <int Dh>
+__device__ __forceinline__ void score16(float (&s)[2][4], const uint32_t (&ah)[Geo<Dh>::kKs][4],
+                                        const uint32_t (&al)[Geo<Dh>::kKs][4], const bf16* hi,
+                                        const bf16* lo, int c0) {
+  using G = Geo<Dh>;
+  const int lane = threadIdx.x & 31;
+  const int m = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[nt][i] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int ks = 0; ks < G::kKs; ++ks) {
+    const int off = (c0 + r + 8 * (m >> 1)) * G::kLd + 16 * ks + 8 * (m & 1);
+    uint32_t bh[4], bl[4];
+    ldsm_x4(bh, smem_addr(hi + off));
+    ldsm_x4(bl, smem_addr(lo + off));
+    if (Dh < 16) {  // columns 8..15 are padding: zero in registers
+      bh[1] = bh[3] = bl[1] = bl[3] = 0u;
+    }
+    mma3(s[0], ah[ks], al[ks], bh[0], bh[1], bl[0], bl[1]);
+    mma3(s[1], ah[ks], al[ks], bh[2], bh[3], bl[2], bl[3]);
+  }
+}
+
+// acc[nd] += A . X over the far rows [c0, c0 + 16) of a plane pair: A is the
+// warp's 16 x 16 split fragment (P, dS or their transposes), X row-major
+// [rows][Dh], read transposed by ldmatrix.trans, matrices (rows, cols):
+// (c0, n0), (c0 + 8, n0), (c0, n0 + 8), (c0 + 8, n0 + 8).
+template <int Dh>
+__device__ __forceinline__ void accum16(float (&acc)[Geo<Dh>::kNd][4], const uint32_t (&ah)[4],
+                                        const uint32_t (&al)[4], const bf16* hi, const bf16* lo,
+                                        int c0) {
+  using G = Geo<Dh>;
+  const int lane = threadIdx.x & 31;
+  if (G::kNd == 1) {
+    const int off = (c0 + (lane & 15)) * G::kLd;
+    uint32_t bh[2], bl[2];
+    ldsm_x2_t(bh, smem_addr(hi + off));
+    ldsm_x2_t(bl, smem_addr(lo + off));
+    mma3(acc[0], ah, al, bh[0], bh[1], bl[0], bl[1]);
+  } else {
+    const int m = lane >> 3, r = lane & 7;
+#pragma unroll
+    for (int np = 0; np < G::kNd / 2; ++np) {
+      const int off = (c0 + r + 8 * (m & 1)) * G::kLd + 16 * np + 8 * (m >> 1);
+      uint32_t bh[4], bl[4];
+      ldsm_x4_t(bh, smem_addr(hi + off));
+      ldsm_x4_t(bl, smem_addr(lo + off));
+      mma3(acc[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+      mma3(acc[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+}
+
+// A block is 4 warps. With kSplit = 1 each warp owns its own 16 rows and
+// takes every chunk of a far tile; with kSplit = 4 the four warps share 16
+// rows and take every fourth chunk, and their partial sums are added in warp
+// order at the end (park, then gather), so the result still repeats bit for
+// bit. `red` is shared memory the block no longer needs.
+template <int kN>
+__device__ __forceinline__ void park(const float (&acc)[kN][4], float* red, int sp) {
+  const int lane = threadIdx.x & 31;
+  if (sp > 0) {
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        red[((sp - 1) * kN * 4 + 4 * n + i) * 32 + lane] = acc[n][i];
+      }
+    }
+  }
+}
+
+template <int kN, int kSplit>
+__device__ __forceinline__ void gather(float (&acc)[kN][4], const float* red) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int sp = 1; sp < kSplit; ++sp) {
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[n][i] += red[((sp - 1) * kN * 4 + 4 * n + i) * 32 + lane];
+      }
+    }
+  }
+}
+
+// dQ: a block owns 64 / kSplit query rows of one (b*h) and loops over key tiles.
+template <int Dh, int kSplit>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ dmat,
                               float* __restrict__ dq, int S, float scale) {
-  using L = Layout<Dh>;
-  __shared__ float4 ks[kTile * L::kVec];
-  __shared__ float4 vs[kTile * L::kVec];
+  using G = Geo<Dh>;
+  static_assert(kSplit == 1 || kSplit == 4, "4 warps: 4 row groups or 1");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  bf16* planes = reinterpret_cast<bf16*>(smem + 2 * 2 * G::kStage * 4);  // K hi, lo, V hi, lo
 
-  const int bh = blockIdx.x;
-  const int sub = threadIdx.x % L::kTpr;
-  const int row = blockIdx.y * L::kRows + threadIdx.x / L::kTpr;
-  const bool live = row < S;
-  const size_t head = static_cast<size_t>(bh) * S * L::kVec;  // in float4s
-  const size_t own = head + static_cast<size_t>(row) * L::kVec + sub;
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int sp = warp / (4 / kSplit);  // which chunks of a far tile this warp takes
+  const int r0 = (blockIdx.y * (4 / kSplit) + warp % (4 / kSplit)) * 16;
+  const size_t head = static_cast<size_t>(blockIdx.x) * S;
+  const float* kh = k + head * Dh;
+  const float* vh = v + head * Dh;
+  const int n_tiles = (S + G::kTile - 1) / G::kTile;
+  stage_tile<Dh>(ring, kh, vh, nullptr, nullptr, nullptr, 0, S);
+  cp_async_commit();
 
-  float4 qr[L::kVpt], dor[L::kVpt], acc[L::kVpt];
+  uint32_t qh[G::kKs][4], ql[G::kKs][4], oh[G::kKs][4], ol[G::kKs][4];
 #pragma unroll
-  for (int i = 0; i < L::kVpt; ++i) {
-    qr[i] = live ? reinterpret_cast<const float4*>(q)[own + L::kTpr * i] : zero;
-    dor[i] = live ? reinterpret_cast<const float4*>(dout)[own + L::kTpr * i] : zero;
-    acc[i] = zero;
+  for (int ks = 0; ks < G::kKs; ++ks) {
+    load_a<Dh>(q + head * Dh, r0, S, ks, qh[ks], ql[ks]);
+    load_a<Dh>(dout + head * Dh, r0, S, ks, oh[ks], ol[ks]);
   }
-  const float row_lse = live ? lse[static_cast<size_t>(bh) * S + row] : 0.0f;
-  const float row_d = live ? dmat[static_cast<size_t>(bh) * S + row] : 0.0f;
-
-  const float4* k4 = reinterpret_cast<const float4*>(k) + head;
-  const float4* v4 = reinterpret_cast<const float4*>(v) + head;
-  for (int k0 = 0; k0 < S; k0 += kTile) {
-    const int n_valid = min(kTile, S - k0);
-    stage<Dh>(k4, v4, ks, vs, k0, n_valid);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      float4 kj[L::kVpt];
-      float s = 0.0f;
-      float dp = 0.0f;
+  float row_lse[2], row_d[2];
 #pragma unroll
-      for (int i = 0; i < L::kVpt; ++i) {
-        kj[i] = ks[j * L::kVec + sub + L::kTpr * i];
-        s = dot4(qr[i], kj[i], s);
-        dp = dot4(dor[i], vs[j * L::kVec + sub + L::kTpr * i], dp);
-      }
-      s = row_sum<L::kTpr>(s);
-      dp = row_sum<L::kTpr>(dp);
-      const float p = j < n_valid ? expf(s * scale - row_lse) : 0.0f;
-      const float ds = p * (dp - row_d) * scale;
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    row_lse[h] = row < S ? lse[head + row] : 0.0f;
+    row_d[h] = row < S ? dmat[head + row] : 0.0f;
+  }
+  float acc[G::kNd][4];
 #pragma unroll
-      for (int i = 0; i < L::kVpt; ++i) {
-        axpy4(ds, kj[i], acc[i]);
-      }
+  for (int nd = 0; nd < G::kNd; ++nd) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[nd][i] = 0.0f;
     }
-    __syncthreads();
   }
 
-  if (live) {
+#pragma unroll 1
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      stage_tile<Dh>(ring + ((j + 1) & 1) * 2 * G::kStage, kh, vh, nullptr, nullptr,
+                               nullptr, (j + 1) * G::kTile, S);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();  // tile j has landed for every thread; tile j - 1's planes are free
+    const int t0 = j * G::kTile;
+    split_tile<Dh>(ring + (j & 1) * 2 * G::kStage, planes, nullptr, nullptr);
+    __syncthreads();
+#pragma unroll 1
+    for (int c0 = 16 * sp; c0 < G::kTile && t0 + c0 < S; c0 += 16 * kSplit) {
+      float s[2][4], dp[2][4];
+      score16<Dh>(s, qh, ql, planes, planes + G::kPlane, c0);
+      score16<Dh>(dp, oh, ol, planes + 2 * G::kPlane, planes + 3 * G::kPlane, c0);
+      uint32_t dsh[4], dsl[4];
 #pragma unroll
-    for (int i = 0; i < L::kVpt; ++i) {
-      reinterpret_cast<float4*>(dq)[own + L::kTpr * i] = acc[i];
+      for (int nt = 0; nt < 2; ++nt) {
+        const int key = t0 + c0 + 8 * nt + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float p0 = key < S ? expf(s[nt][2 * h] * scale - row_lse[h]) : 0.0f;
+          const float p1 = key + 1 < S ? expf(s[nt][2 * h + 1] * scale - row_lse[h]) : 0.0f;
+          split2(p0 * (dp[nt][2 * h] - row_d[h]) * scale,
+                 p1 * (dp[nt][2 * h + 1] - row_d[h]) * scale, dsh[2 * nt + h], dsl[2 * nt + h]);
+        }
+      }
+      accum16<Dh>(acc, dsh, dsl, planes, planes + G::kPlane, c0);
+    }
+  }
+
+  if (kSplit > 1) {
+    float* red = ring;
+    __syncthreads();  // every warp is done with the ring and the planes
+    park(acc, red, sp);
+    __syncthreads();
+    if (sp > 0) {
+      return;
+    }
+    gather<G::kNd, kSplit>(acc, red);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row < S) {
+      float* out = dq + (head + row) * Dh + 2 * t;
+#pragma unroll
+      for (int nd = 0; nd < G::kNd; ++nd) {
+        *reinterpret_cast<float2*>(out + 8 * nd) = make_float2(acc[nd][2 * h], acc[nd][2 * h + 1]);
+      }
     }
   }
 }
 
-// dK and dV: a block owns kRows key rows of one (b*h) and loops over query
-// tiles (q, dO, LSE and D).
-template <int Dh>
+// dK and dV: a block owns 64 / kSplit key rows of one (b*h) and loops over
+// query tiles (q, dO, L and D).
+template <int Dh, int kSplit>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                const float* __restrict__ v, const float* __restrict__ dout,
                                const float* __restrict__ lse, const float* __restrict__ dmat,
                                float* __restrict__ dk, float* __restrict__ dv, int S,
                                float scale) {
-  using L = Layout<Dh>;
-  __shared__ float4 qs[kTile * L::kVec];
-  __shared__ float4 dos[kTile * L::kVec];
-  __shared__ float lse_tile[kTile];
-  __shared__ float d_tile[kTile];
+  using G = Geo<Dh>;
+  static_assert(kSplit == 1 || kSplit == 4, "4 warps: 4 row groups or 1");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  bf16* planes = reinterpret_cast<bf16*>(smem + 2 * 2 * G::kStage * 4);  // Q hi, lo, dO hi, lo
+  float* vring = reinterpret_cast<float*>(smem + 2 * 2 * G::kStage * 4 + 4 * G::kPlane * 2);
+  float* vtile = vring + 2 * 2 * G::kTile;  // L then D of the current query tile
 
-  const int bh = blockIdx.x;
-  const int sub = threadIdx.x % L::kTpr;
-  const int row = blockIdx.y * L::kRows + threadIdx.x / L::kTpr;
-  const bool live = row < S;
-  const size_t head = static_cast<size_t>(bh) * S * L::kVec;  // in float4s
-  const size_t own = head + static_cast<size_t>(row) * L::kVec + sub;
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int sp = warp / (4 / kSplit);  // which chunks of a far tile this warp takes
+  const int r0 = (blockIdx.y * (4 / kSplit) + warp % (4 / kSplit)) * 16;
+  const size_t head = static_cast<size_t>(blockIdx.x) * S;
+  const float* qh = q + head * Dh;
+  const float* doh = dout + head * Dh;
+  const int n_tiles = (S + G::kTile - 1) / G::kTile;
+  stage_tile<Dh>(ring, qh, doh, vring, lse + head, dmat + head, 0, S);
+  cp_async_commit();
 
-  float4 kr[L::kVpt], vr[L::kVpt], dka[L::kVpt], dva[L::kVpt];
+  uint32_t kh[G::kKs][4], kl[G::kKs][4], vh[G::kKs][4], vl[G::kKs][4];
 #pragma unroll
-  for (int i = 0; i < L::kVpt; ++i) {
-    kr[i] = live ? reinterpret_cast<const float4*>(k)[own + L::kTpr * i] : zero;
-    vr[i] = live ? reinterpret_cast<const float4*>(v)[own + L::kTpr * i] : zero;
-    dka[i] = zero;
-    dva[i] = zero;
+  for (int ks = 0; ks < G::kKs; ++ks) {
+    load_a<Dh>(k + head * Dh, r0, S, ks, kh[ks], kl[ks]);
+    load_a<Dh>(v + head * Dh, r0, S, ks, vh[ks], vl[ks]);
+  }
+  float dka[G::kNd][4], dva[G::kNd][4];
+#pragma unroll
+  for (int nd = 0; nd < G::kNd; ++nd) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dka[nd][i] = 0.0f;
+      dva[nd][i] = 0.0f;
+    }
   }
 
-  const float4* q4 = reinterpret_cast<const float4*>(q) + head;
-  const float4* do4 = reinterpret_cast<const float4*>(dout) + head;
-  const float* lse_h = lse + static_cast<size_t>(bh) * S;
-  const float* d_h = dmat + static_cast<size_t>(bh) * S;
-  for (int q0 = 0; q0 < S; q0 += kTile) {
-    const int n_valid = min(kTile, S - q0);
-    stage<Dh>(q4, do4, qs, dos, q0, n_valid);
-    if (threadIdx.x < kTile) {
-      const bool ok = threadIdx.x < n_valid;
-      lse_tile[threadIdx.x] = ok ? lse_h[q0 + threadIdx.x] : 0.0f;
-      d_tile[threadIdx.x] = ok ? d_h[q0 + threadIdx.x] : 0.0f;
+#pragma unroll 1
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      const int nxt = (j + 1) & 1;
+      stage_tile<Dh>(ring + nxt * 2 * G::kStage, qh, doh, vring + nxt * 2 * G::kTile,
+                               lse + head, dmat + head, (j + 1) * G::kTile, S);
     }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();  // tile j has landed for every thread; tile j - 1's planes are free
+    const int t0 = j * G::kTile;
+    split_tile<Dh>(ring + (j & 1) * 2 * G::kStage, planes,
+                             vring + (j & 1) * 2 * G::kTile, vtile);
     __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      float4 qj[L::kVpt], doj[L::kVpt];
-      float s = 0.0f;
-      float dp = 0.0f;
+#pragma unroll 1
+    for (int c0 = 16 * sp; c0 < G::kTile && t0 + c0 < S; c0 += 16 * kSplit) {
+      float s[2][4], dp[2][4];
+      score16<Dh>(s, kh, kl, planes, planes + G::kPlane, c0);
+      score16<Dh>(dp, vh, vl, planes + 2 * G::kPlane, planes + 3 * G::kPlane, c0);
+      uint32_t ph[4], pl[4], dsh[4], dsl[4];
 #pragma unroll
-      for (int i = 0; i < L::kVpt; ++i) {
-        qj[i] = qs[j * L::kVec + sub + L::kTpr * i];
-        doj[i] = dos[j * L::kVec + sub + L::kTpr * i];
-        s = dot4(kr[i], qj[i], s);
-        dp = dot4(vr[i], doj[i], dp);
-      }
-      s = row_sum<L::kTpr>(s);
-      dp = row_sum<L::kTpr>(dp);
-      const float p = j < n_valid ? expf(s * scale - lse_tile[j]) : 0.0f;
-      const float ds = p * (dp - d_tile[j]) * scale;
+      for (int nt = 0; nt < 2; ++nt) {
+        const int col = c0 + 8 * nt + 2 * t;  // query column within the tile
+        const bool ok0 = t0 + col < S, ok1 = t0 + col + 1 < S;
+        const float l0 = vtile[col], l1 = vtile[col + 1];
+        const float d0 = vtile[G::kTile + col], d1 = vtile[G::kTile + col + 1];
 #pragma unroll
-      for (int i = 0; i < L::kVpt; ++i) {
-        axpy4(p, doj[i], dva[i]);
-        axpy4(ds, qj[i], dka[i]);
+        for (int h = 0; h < 2; ++h) {
+          const float p0 = ok0 ? expf(s[nt][2 * h] * scale - l0) : 0.0f;
+          const float p1 = ok1 ? expf(s[nt][2 * h + 1] * scale - l1) : 0.0f;
+          split2(p0, p1, ph[2 * nt + h], pl[2 * nt + h]);
+          split2(p0 * (dp[nt][2 * h] - d0) * scale, p1 * (dp[nt][2 * h + 1] - d1) * scale,
+                 dsh[2 * nt + h], dsl[2 * nt + h]);
+        }
       }
+      accum16<Dh>(dva, ph, pl, planes + 2 * G::kPlane, planes + 3 * G::kPlane, c0);
+      accum16<Dh>(dka, dsh, dsl, planes, planes + G::kPlane, c0);
     }
-    __syncthreads();
   }
 
-  if (live) {
+  if (kSplit > 1) {
+    float* red = ring;
+    __syncthreads();  // every warp is done with the ring and the planes
+    park(dka, red, sp);
+    park(dva, red + (kSplit - 1) * G::kNd * 4 * 32, sp);
+    __syncthreads();
+    if (sp > 0) {
+      return;
+    }
+    gather<G::kNd, kSplit>(dka, red);
+    gather<G::kNd, kSplit>(dva, red + (kSplit - 1) * G::kNd * 4 * 32);
+  }
 #pragma unroll
-    for (int i = 0; i < L::kVpt; ++i) {
-      reinterpret_cast<float4*>(dk)[own + L::kTpr * i] = dka[i];
-      reinterpret_cast<float4*>(dv)[own + L::kTpr * i] = dva[i];
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row < S) {
+      const size_t off = (head + row) * Dh + 2 * t;
+#pragma unroll
+      for (int nd = 0; nd < G::kNd; ++nd) {
+        *reinterpret_cast<float2*>(dk + off + 8 * nd) =
+            make_float2(dka[nd][2 * h], dka[nd][2 * h + 1]);
+        *reinterpret_cast<float2*>(dv + off + 8 * nd) =
+            make_float2(dva[nd][2 * h], dva[nd][2 * h + 1]);
+      }
     }
   }
 }
 
-template <int Dh>
-dim3 grid_for(int BH, int S) {
-  return dim3(BH, (S + Layout<Dh>::kRows - 1) / Layout<Dh>::kRows);
+// 64 rows a block, or 16 when 64-row blocks would leave SMs idle.
+bool narrow_blocks(int BH, int S) {
+  static const int n_sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      n = 132;
+    }
+    return n;
+  }();
+  return static_cast<long long>(BH) * ((S + 63) / 64) < n_sms;
 }
 
-template <int Dh>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* dmat, void* dq, int BH, int S, float scale, cudaStream_t stream) {
-  const dim3 grid = grid_for<Dh>(BH, S);
+// Sets the kernel's dynamic shared memory once, then launches it over
+// (BH, row blocks).
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int bytes, int BH, int S, int rows, cudaStream_t stream,
+           Args... args) {
+  const dim3 grid(BH, (S + rows - 1) / rows);
   if (grid.y > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  flash_attention_bwd_dq_kernel<Dh><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dmat), static_cast<float*>(dq), S, scale);
+  kernel<<<grid, kThreads, bytes, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int Dh>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* dmat, void* dk, void* dv, int BH, int S, float scale,
-               cudaStream_t stream) {
-  const dim3 grid = grid_for<Dh>(BH, S);
-  if (grid.y > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
+template <int Dh, int kSplit>
+int launch_dq(const float* q, const float* k, const float* v, const float* dout,
+              const float* lse, const float* dmat, float* dq, int BH, int S, float scale,
+              cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<Dh, false>();
+  static_assert((kSplit - 1) * Geo<Dh>::kNd * 4 * 32 <= 2 * 2 * Geo<Dh>::kStage, "red");
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_bwd_dq_kernel<Dh, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (attr != cudaSuccess) {
+    return static_cast<int>(attr);
   }
-  flash_attention_bwd_dkv_kernel<Dh><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dmat), static_cast<float*>(dk), static_cast<float*>(dv), S,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch(flash_attention_bwd_dq_kernel<Dh, kSplit>, bytes, BH, S, 64 / kSplit, stream, q,
+                k, v, dout, lse, dmat, dq, S, scale);
+}
+
+template <int Dh, int kSplit>
+int launch_dkv(const float* q, const float* k, const float* v, const float* dout,
+               const float* lse, const float* dmat, float* dk, float* dv, int BH, int S,
+               float scale, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<Dh, true>();
+  static_assert(2 * (kSplit - 1) * Geo<Dh>::kNd * 4 * 32 <= 2 * 2 * Geo<Dh>::kStage, "red");
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_bwd_dkv_kernel<Dh, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (attr != cudaSuccess) {
+    return static_cast<int>(attr);
+  }
+  return launch(flash_attention_bwd_dkv_kernel<Dh, kSplit>, bytes, BH, S, 64 / kSplit, stream, q,
+                k, v, dout, lse, dmat, dk, dv, S, scale);
+}
+
+template <int Dh>
+int dq_for(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* dmat, void* dq, int BH, int S, float scale, cudaStream_t st) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  if (narrow_blocks(BH, S)) {
+    return launch_dq<Dh, 4>(f(q), f(k), f(v), f(dout), f(lse), f(dmat), static_cast<float*>(dq),
+                            BH, S, scale, st);
+  }
+  return launch_dq<Dh, 1>(f(q), f(k), f(v), f(dout), f(lse), f(dmat), static_cast<float*>(dq),
+                          BH, S, scale, st);
+}
+
+template <int Dh>
+int dkv_for(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+            const void* dmat, void* dk, void* dv, int BH, int S, float scale, cudaStream_t st) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  if (narrow_blocks(BH, S)) {
+    return launch_dkv<Dh, 4>(f(q), f(k), f(v), f(dout), f(lse), f(dmat),
+                             static_cast<float*>(dk), static_cast<float*>(dv), BH, S, scale, st);
+  }
+  return launch_dkv<Dh, 1>(f(q), f(k), f(v), f(dout), f(lse), f(dmat), static_cast<float*>(dk),
+                           static_cast<float*>(dv), BH, S, scale, st);
 }
 
 }  // namespace
@@ -297,11 +649,11 @@ extern "C" int flash_attention_bwd_dq_launch(const void* q, const void* k, const
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
-    case 8: return launch_dq<8>(q, k, v, dout, lse, dmat, dq, BH, S, scale, st);
-    case 16: return launch_dq<16>(q, k, v, dout, lse, dmat, dq, BH, S, scale, st);
-    case 32: return launch_dq<32>(q, k, v, dout, lse, dmat, dq, BH, S, scale, st);
-    case 64: return launch_dq<64>(q, k, v, dout, lse, dmat, dq, BH, S, scale, st);
-    case 128: return launch_dq<128>(q, k, v, dout, lse, dmat, dq, BH, S, scale, st);
+    case 8: return dq_for<8>(q, k, v, dout, lse, dmat, dq, BH, S, scale, st);
+    case 16: return dq_for<16>(q, k, v, dout, lse, dmat, dq, BH, S, scale, st);
+    case 32: return dq_for<32>(q, k, v, dout, lse, dmat, dq, BH, S, scale, st);
+    case 64: return dq_for<64>(q, k, v, dout, lse, dmat, dq, BH, S, scale, st);
+    case 128: return dq_for<128>(q, k, v, dout, lse, dmat, dq, BH, S, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -315,11 +667,11 @@ extern "C" int flash_attention_bwd_dkv_launch(const void* q, const void* k, cons
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
-    case 8: return launch_dkv<8>(q, k, v, dout, lse, dmat, dk, dv, BH, S, scale, st);
-    case 16: return launch_dkv<16>(q, k, v, dout, lse, dmat, dk, dv, BH, S, scale, st);
-    case 32: return launch_dkv<32>(q, k, v, dout, lse, dmat, dk, dv, BH, S, scale, st);
-    case 64: return launch_dkv<64>(q, k, v, dout, lse, dmat, dk, dv, BH, S, scale, st);
-    case 128: return launch_dkv<128>(q, k, v, dout, lse, dmat, dk, dv, BH, S, scale, st);
+    case 8: return dkv_for<8>(q, k, v, dout, lse, dmat, dk, dv, BH, S, scale, st);
+    case 16: return dkv_for<16>(q, k, v, dout, lse, dmat, dk, dv, BH, S, scale, st);
+    case 32: return dkv_for<32>(q, k, v, dout, lse, dmat, dk, dv, BH, S, scale, st);
+    case 64: return dkv_for<64>(q, k, v, dout, lse, dmat, dk, dv, BH, S, scale, st);
+    case 128: return dkv_for<128>(q, k, v, dout, lse, dmat, dk, dv, BH, S, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

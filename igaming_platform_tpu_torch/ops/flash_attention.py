@@ -17,11 +17,15 @@ package's XLA recompute for S > 2048 (``_xla_bwd``) has no counterpart here
 but the plain version.
 
 All three are CUDA C++ for ``sm_90a``, built by ``ops/_build.py`` at first
-use and called through ctypes. What bounds them on an H100: operations,
-4, 6 and 8 * BH*S^2*Dh float32 flops on the CUDA cores (no TF32: the bars are
-rtol/atol 2e-5 for the forward, 2e-4 for gradients). At the abuse
-detector's shape (BH = 2 per account, S=64, Dh=32) the launch latency
-dominates. See the sources' headers for the design.
+use and called through ctypes. The forward runs float32 flops on the CUDA
+cores; the backward pair takes its products on the tensor cores in split
+bf16 (three bf16 products per float32 product, float32 accumulation), which
+keeps the gradients' bar where one-term TF32 or bf16 would not. The bars are
+rtol/atol 2e-5 for the forward, 2e-4 for gradients. What bounds them on an
+H100: operations, 4, 6 and 8 * BH*S^2*Dh float32-accurate flops, at 989/3
+TFLOP/s (the bf16 tensor-core rate over three). At the abuse detector's shape
+(BH = 2 per account, S=64, Dh=32) the launch latency dominates. See the
+sources' headers for the design.
 
 - ``flash_attention_fwd(q, k, v) -> (o, lse)`` on [BH, S, Dh] float32, lse
   [BH, S, 1], as ``_run_resident``/``_run_tiled`` return them;
@@ -62,6 +66,10 @@ _ENTRY_POINTS = {
                             "flash_attention_bwd_dkv_launch": 8},
 }
 _NAMES = ("q", "k", "v", "o", "do")
+# Up to this many rows, D = rowsum(dO * O) is one batched product, one launch
+# where a multiply and a sum take two; on an H100 the multiply and sum are
+# faster above 4096 rows.
+_D_BMM_ROWS = 4096
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -164,7 +172,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
-    dmat = (do * o).sum(dim=-1)  # [BH, S]
+    if bh * s <= _D_BMM_ROWS:
+        dmat = torch.bmm(do.view(-1, 1, dh), o.view(-1, dh, 1)).view(bh, s)
+    else:
+        dmat = (do * o).sum(dim=-1)  # [BH, S]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = 1.0 / math.sqrt(dh)
     lib = _lib("flash_attention_bwd")

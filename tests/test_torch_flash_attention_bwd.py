@@ -8,7 +8,9 @@ and ``_xla_bwd`` at a ragged S. ``torch.autograd.grad`` through the port's
 ``flash_attention`` (its ``custom_vjp``, interpret mode). Tolerance rtol/atol
 2e-4, the JAX tests' bar for gradients: float32 sums in another order. The
 CUDA kernels themselves are held to the plain version on the card by
-chip_smoke.py.
+chip_smoke.py; a numpy emulation of their arithmetic (split bf16: three bf16
+products per float32 product) pins here that it keeps that bar where one-term
+rounding does not.
 """
 
 import math
@@ -30,6 +32,7 @@ from igaming_platform_tpu_torch.ops.flash_attention import (
 )
 
 TOL = dict(rtol=2e-4, atol=2e-4)
+GRAD_BAR = 2e-4
 
 
 def _arrays(seed, n, *shape):
@@ -91,3 +94,67 @@ def test_bwd_argument_check():
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention_bwd(meta, meta, meta, meta, meta[..., :1], meta)
     assert FlashAttention.apply(ok, ok, ok).shape == ok.shape
+
+
+def _round_bits(x, keep_mask, half):
+    """float32 rounded to fewer mantissa bits: add ``half`` of the dropped
+    unit to the bit pattern (plus its round-to-even carry, if given) and cut."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + half(u)) & keep_mask).astype(np.uint32).view(np.float32)
+
+
+def _bf16(x):
+    """Round to nearest even bf16, as cvt.rn.bf16 does."""
+    return _round_bits(x, 0xFFFF0000, lambda u: 0x7FFF + ((u >> 16) & 1))
+
+
+def _tf32(x):
+    """Round to nearest TF32, ties away from zero, as cvt.rna.tf32 does."""
+    return _round_bits(x, 0xFFFFE000, lambda u: 0x1000)
+
+
+def _split_mm(a, b):
+    """a @ b as the tensor cores take it in split bf16: hi = bf16(x),
+    lo = bf16(x - hi), hi.hi + hi.lo + lo.hi, summed in float64."""
+    ah, bh = _bf16(a), _bf16(b)
+    al, bl = _bf16(a - ah), _bf16(b - bh)
+    ah, al, bh, bl = (x.astype(np.float64) for x in (ah, al, bh, bl))
+    return (ah @ bh + ah @ bl + al @ bh).astype(np.float32)
+
+
+def _tf32_mm(a, b):
+    return (_tf32(a).astype(np.float64) @ _tf32(b).astype(np.float64)).astype(np.float32)
+
+
+def _emulated_bwd(mm, q, k, v, do, lse, dmat, scale):
+    """The backward kernels' arithmetic with products by ``mm``; P, dS and
+    the exponentials in float32, as on the CUDA cores."""
+    p = np.exp(mm(q, k.T) * np.float32(scale) - lse)
+    ds = p * (mm(do, v.T) - dmat) * np.float32(scale)
+    return mm(ds, k), mm(ds.T, q), mm(p.T, do)
+
+
+@pytest.mark.parametrize("s,dh", [(64, 32), (300, 32), (2048, 64)])
+def test_split_bf16_keeps_gradient_bar(s, dh):
+    """At the path's (S, Dh), BH 1, split bf16 keeps dQ, dK and dV within a
+    tenth of the 2e-4 bar against a float64 backward; one-term TF32 misses it
+    at S = 300."""
+    q, k, v, do = _arrays(s * dh, 4, s, dh)
+    scale = 1.0 / math.sqrt(dh)
+    q64, k64, v64, do64 = (a.astype(np.float64) for a in (q, k, v, do))
+    sc = q64 @ k64.T * scale
+    lse = sc.max(axis=1, keepdims=True)
+    lse += np.log(np.exp(sc - lse).sum(axis=1, keepdims=True))
+    p = np.exp(sc - lse)
+    dmat = (do64 * (p @ v64)).sum(axis=1, keepdims=True)
+    ds = p * (do64 @ v64.T - dmat) * scale
+    want = (ds @ k64, ds.T @ q64, p.T @ do64)
+    ins = (q, k, v, do, lse.astype(np.float32), dmat.astype(np.float32), scale)
+
+    def share_of_bar(got):
+        return max(float(np.max(np.abs(g - w) / (GRAD_BAR + GRAD_BAR * np.abs(w))))
+                   for g, w in zip(got, want))
+
+    assert share_of_bar(_emulated_bwd(_split_mm, *ins)) <= 0.1
+    if (s, dh) == (300, 32):
+        assert share_of_bar(_emulated_bwd(_tf32_mm, *ins)) > 1.0
