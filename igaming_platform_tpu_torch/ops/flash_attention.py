@@ -66,10 +66,6 @@ _ENTRY_POINTS = {
                             "flash_attention_bwd_dkv_launch": 8},
 }
 _NAMES = ("q", "k", "v", "o", "do")
-# Up to this many rows, D = rowsum(dO * O) is one batched product, one launch
-# where a multiply and a sum take two; on an H100 the multiply and sum are
-# faster above 4096 rows.
-_D_BMM_ROWS = 4096
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -172,10 +168,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
-    if bh * s <= _D_BMM_ROWS:
-        dmat = torch.bmm(do.view(-1, 1, dh), o.view(-1, dh, 1)).view(bh, s)
-    else:
-        dmat = (do * o).sum(dim=-1)  # [BH, S]
+    dmat = (do * o).sum(dim=-1)  # [BH, S]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = 1.0 / math.sqrt(dh)
     lib = _lib("flash_attention_bwd")
