@@ -25,9 +25,11 @@ sequences of 64 events). Phases:
    give it, with CUDA-event timings (median of 50 launches) and, for the
    attention kernels, ``scaled_dot_product_attention`` (its forward, and
    its backward through ``torch.autograd.grad``) on the same inputs as a
-   yardstick; two launches of each backward kernel must be bit-identical,
-   and the backward is also checked at the head sizes and block widths the
-   timed shapes do not reach;
+   yardstick; two launches of each attention kernel must be bit-identical;
+   the forward is also held on amplitude-3 inputs to the plain version in
+   float64; both are checked at the head sizes, block widths and edges the
+   timed shapes do not reach; and the card's ``mma.sync`` rate, the
+   attention kernels' practical ceiling;
 4. engine: a feature store of 10,000 accounts, 20 single requests and one
    batch of 4096, the launch counts of that run, and the CPU comparison;
    then the device time of one step, where a batch's host time goes, and
@@ -96,6 +98,17 @@ FLASH_SHAPES = ((2, 64, 32), (512, 64, 32), (128, 256, 64), (16, 2048, 64),
                 (4, 8192, 64), (4, 300, 32))
 FLASH_MAIN_SHAPE = (512, 64, 32)  # check_batch of 256 accounts
 FLASH_TOL = 2e-5  # rtol and atol of O and LSE: the JAX tests' bar, float32 sums reordered
+# Checked, not timed: the head sizes, block widths (64-row blocks, or 16-row
+# blocks when 64-row ones leave SMs idle) and edges the timed shapes miss:
+# S = 1, and (8, 16, 8), whose 16-row blocks have warps that see no key.
+FLASH_CHECK_SHAPES = ((8, 16, 8), (1, 200, 8), (70, 130, 8), (5, 1, 16), (2, 150, 16),
+                      (33, 257, 16), (3, 1, 32), (160, 100, 32), (3, 100, 64), (200, 1, 64),
+                      (3, 200, 128), (40, 300, 128))
+# Inputs of amplitude 3 (randn x 3) at these shapes: split bf16 would pass
+# unit-amplitude inputs and miss the bar here. At this amplitude the float32
+# plain version is itself about a bar from float64 (float32 sums of products
+# of magnitude 80), so the kernel is held to the plain version in float64.
+FLASH_AMP, FLASH_AMP_SHAPES = 3.0, ((4, 300, 32), (16, 2048, 64))
 # Backward shapes (B*H, S, Dh): a training step (batch 64 x 2 heads), one
 # check's width, config-3 width at S=2048 and at 8192 (past the TPU kernels'
 # range), a ragged S, and the session head's Dh 8.
@@ -120,6 +133,8 @@ STREAM_T0 = 1_700_000_000.0
 # accuracy of the full run, and config-3 width's training point.
 PARITY_STEPS, LOSS_RTOL, MIN_ACCURACY = 5, 1e-4, 0.95
 CONFIG3_TRAIN_POINT = (8, 2048)  # (batch, S)
+# The mma.sync rate: iterations of 8 chains a warp, 8 warps an SM.
+MMA_ITERS = 2048
 # Spin cycles queued before each timed call, so the card is still busy
 # while the host enqueues the call: the events then bracket device work only.
 SLEEP_CYCLES = 4_000_000
@@ -239,6 +254,33 @@ def phase_kernels(torch, gbdt_kernel) -> list[dict]:
     return rows
 
 
+def phase_mma_rate(torch) -> dict:
+    """The card's ``mma.sync`` rate in TFLOP/s (``csrc/mma_rate.cu``): 8 warps
+    an SM, as the attention kernels run, each with 8 independent chains of
+    TF32 m16n8k8 (the forward's product) or bf16 m16n8k16 (the backward's)."""
+    import ctypes
+
+    from igaming_platform_tpu_torch.ops import _build
+
+    fn = _build.load("mma_rate").mma_rate_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    blocks = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(blocks * 128, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {}
+    for name, tf32, flop in (("tf32_m16n8k8", 1, 2048), ("bf16_m16n8k16", 0, 4096)):
+        def run():
+            if fn(tf32, blocks, MMA_ITERS, out.data_ptr(), stream):
+                raise RuntimeError("mma_rate: kernel launch failed")
+
+        ms = device_ms(torch, run, reps=10)
+        rates[name] = blocks * 4 * MMA_ITERS * 8 * flop / ms / 1e9
+    log(f"phase 3: mma.sync rate, 8 warps an SM: TF32 m16n8k8 {rates['tf32_m16n8k8']:.1f} "
+        f"TFLOP/s, bf16 m16n8k16 {rates['bf16_m16n8k16']:.1f} TFLOP/s")
+    return rates
+
+
 def flash_bound(bh: int, s: int, dh: int) -> tuple[float, str]:
     """Least time for one forward on this card: 4*BH*S^2*Dh float32-accurate
     flops at ``ATTN_OPS_PER_S``, or q, k, v read and o, lse written once."""
@@ -247,40 +289,95 @@ def flash_bound(bh: int, s: int, dh: int) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def share_of_bar(got, want) -> float:
+    """The largest |got - want| / (atol + rtol |want|) at FLASH_TOL, in float64."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (FLASH_TOL + FLASH_TOL * want.abs())).max())
+
+
+def check_flash(torch, fa, q, k, v, want, name: str) -> dict:
+    """The wrapper's O and LSE against ``want`` at rtol/atol FLASH_TOL, and a
+    second launch, which must give the same bits; returns the max errors and
+    the share of the bar they use."""
+    bh, s, dh = q.shape
+    (o, lse), (o2, lse2) = (fa.flash_attention_fwd(q, k, v) for _ in range(2))
+    torch.cuda.synchronize()
+    if o.shape != (bh, s, dh) or lse.shape != (bh, s, 1):
+        raise AssertionError(f"{name}: shapes {tuple(o.shape)}, {tuple(lse.shape)}")
+    if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    for what, got, w in (("O", o, want[0]), ("LSE", lse, want[1])):
+        if not torch.allclose(got.double(), w.double(), rtol=FLASH_TOL, atol=FLASH_TOL):
+            raise AssertionError(f"{name}: {what} max error "
+                                 f"{float((got.double() - w.double()).abs().max())} beyond "
+                                 f"{FLASH_TOL}")
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"{name}: two launches gave different bits")
+    return {"max_abs_err_o": float((o.double() - want[0].double()).abs().max()),
+            "max_abs_err_lse": float((lse.double() - want[1].double()).abs().max()),
+            "share_of_bar": max(share_of_bar(o, want[0]), share_of_bar(lse, want[1])),
+            "out": (o, lse)}
+
+
 def phase_flash(torch, fa) -> list[dict]:
+    """The forward against the plain version at every timed shape (two
+    launches bit-identical), timed beside the plain version and
+    ``scaled_dot_product_attention``; then amplitude-3 inputs against the
+    plain version in float64, and the check-only shapes."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for bh, s, dh in FLASH_SHAPES:
         q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda") for _ in range(3))
-        o, lse = fa.flash_attention_fwd(q, k, v)
-        want_o, want_lse = fa.flash_attention_plain(q, k, v)
-        torch.cuda.synchronize()
         name = f"flash_attention_fwd BH={bh} S={s} Dh={dh}"
-        if o.shape != (bh, s, dh) or lse.shape != (bh, s, 1):
-            raise AssertionError(f"{name}: shapes {tuple(o.shape)}, {tuple(lse.shape)}")
-        if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
-            raise AssertionError(f"{name}: non-finite output")
-        for what, got, want in (("O", o, want_o), ("LSE", lse, want_lse)):
-            if not torch.allclose(got, want, rtol=FLASH_TOL, atol=FLASH_TOL):
-                raise AssertionError(f"{name}: {what} max error "
-                                     f"{float((got - want).abs().max())} beyond {FLASH_TOL}")
-        err_o = float((o - want_o).abs().max())
-        err_lse = float((lse - want_lse).abs().max())
-        err = max(err_o, err_lse)
-        del want_o, want_lse
+        got = check_flash(torch, fa, q, k, v, fa.flash_attention_plain(q, k, v), name)
+        del got["out"]
         bound, bound_by = flash_bound(bh, s, dh)
         reps = REPS if s <= 2048 else 10
-        row = {"BH": bh, "S": s, "Dh": dh, "max_abs_err": err,
-               "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
+        row = {"BH": bh, "S": s, "Dh": dh,
+               "max_abs_err": max(got["max_abs_err_o"], got["max_abs_err_lse"]), **got,
+               "repeatable": True,
                "kernel_ms": device_ms(torch, lambda: fa.flash_attention_fwd(q, k, v), reps),
                "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(q, k, v), reps),
                "library_ms": device_ms(torch, lambda: sdpa(q, k, v), reps),
                "bound_ms": bound, "bound_by": bound_by}
+        row["bound_share"] = bound / row["kernel_ms"]
+        row["over_sdpa"] = row["kernel_ms"] / row["library_ms"]
         rows.append(row)
-        log(f"phase 3: {name}: max_abs_err O={err_o:.3g} LSE={err_lse:.3g} kernel_ms={row['kernel_ms']:.6f} "
+        log(f"phase 3: {name}: max_abs_err O={row['max_abs_err_o']:.3g} "
+            f"LSE={row['max_abs_err_lse']:.3g} ({got['share_of_bar']:.3f} of the bar), two "
+            f"launches bit-identical; kernel_ms={row['kernel_ms']:.6f} "
             f"plain_ms={row['plain_ms']:.6f} sdpa_ms={row['library_ms']:.6f} "
-            f"bound_ms={bound:.6f} ({bound_by})")
+            f"(kernel/sdpa {row['over_sdpa']:.3f}) bound_ms={bound:.6f} ({bound_by}, "
+            f"{100 * row['bound_share']:.1f}% of it)")
+    for bh, s, dh in FLASH_AMP_SHAPES:
+        q, k, v = (FLASH_AMP * torch.randn((bh, s, dh), generator=gen, device="cuda")
+                   for _ in range(3))
+        name = f"flash_attention_fwd BH={bh} S={s} Dh={dh} amplitude {FLASH_AMP:g}"
+        want = fa.flash_attention_plain(q.double(), k.double(), v.double())
+        got = check_flash(torch, fa, q, k, v, want, name)
+        plain = fa.flash_attention_plain(q, k, v)
+        amp = {"share_of_bar_vs_f64": got["share_of_bar"],
+               "max_abs_err_o_vs_f64": got["max_abs_err_o"],
+               "max_abs_err_lse_vs_f64": got["max_abs_err_lse"],
+               "plain_f32_share_of_bar_vs_f64": max(share_of_bar(p, w)
+                                                    for p, w in zip(plain, want)),
+               "share_of_bar_vs_plain_f32": max(share_of_bar(g, p)
+                                                for g, p in zip(got["out"], plain))}
+        next(r for r in rows if (r["BH"], r["S"], r["Dh"]) == (bh, s, dh))["amplitude_3"] = amp
+        del want, plain, got
+        log(f"phase 3: {name}: against the plain version in float64 {amp['share_of_bar_vs_f64']:.3f} "
+            f"of the bar (max_abs_err O={amp['max_abs_err_o_vs_f64']:.3g} "
+            f"LSE={amp['max_abs_err_lse_vs_f64']:.3g}), two launches bit-identical; the float32 "
+            f"plain version is {amp['plain_f32_share_of_bar_vs_f64']:.3f} of the bar from float64 "
+            f"and the kernel {amp['share_of_bar_vs_plain_f32']:.3f} of it from the float32 plain")
+    for bh, s, dh in FLASH_CHECK_SHAPES:
+        q, k, v = (torch.randn((bh, s, dh), generator=gen, device="cuda") for _ in range(3))
+        name = f"flash_attention_fwd BH={bh} S={s} Dh={dh}"
+        got = check_flash(torch, fa, q, k, v, fa.flash_attention_plain(q, k, v), name)
+        log(f"phase 3: {name} (check only): max_abs_err O={got['max_abs_err_o']:.3g} "
+            f"LSE={got['max_abs_err_lse']:.3g} ({got['share_of_bar']:.3f} of the bar), two "
+            f"launches bit-identical")
     return rows
 
 
@@ -989,7 +1086,8 @@ def main() -> int:
 
     # Phase 2: build every kernel, one nvcc each, started together.
     t0 = time.perf_counter()
-    report = _build.build(["gbdt_forest", "flash_attention_fwd", "flash_attention_bwd"])
+    report = _build.build(["gbdt_forest", "flash_attention_fwd", "flash_attention_bwd",
+                           "mma_rate"])
     log(f"phase 2: built in {time.perf_counter() - t0:.1f} s")
     for name, r in report.items():
         for line in r["log"].splitlines():
@@ -998,6 +1096,7 @@ def main() -> int:
 
     # Phase 3: each kernel against its plain version.
     rows = phase_kernels(torch, gbdt_kernel)
+    mma_rates = phase_mma_rate(torch)
     flash_rows = phase_flash(torch, fa)
     bwd_rows = phase_flash_bwd(torch, fa)
 
@@ -1030,6 +1129,7 @@ def main() -> int:
         "ms": flash_main["kernel_ms"], "plain_ms": flash_main["plain_ms"],
         "bound_ms": flash_main["bound_ms"], "bound_by": flash_main["bound_by"],
         "library_ms": flash_main["library_ms"],
+        "mma_sync_tflops": mma_rates,
         "shapes": flash_rows,
     }, *({
         "name": f"flash_attention_bwd_{part}", "route": "cuda",

@@ -69,11 +69,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_attention_common.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 128;  // 4 warps a block
 
 template <int Dh>
 struct Geo {
@@ -97,30 +97,11 @@ constexpr int smem_bytes() {
   return 2 * 2 * G::kStage * 4 + 4 * G::kPlane * 2 + (kVecs ? 6 * G::kTile * 4 : 0);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes from global to shared, asynchronously; zeros when !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
+// 4 bytes from global to shared, asynchronously; zeros when !valid.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 4 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most one committed group of this thread is still in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -549,32 +530,6 @@ flash_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restr
       }
     }
   }
-}
-
-// 64 rows a block, or 16 when 64-row blocks would leave SMs idle.
-bool narrow_blocks(int BH, int S) {
-  static const int n_sms = [] {
-    int dev = 0, n = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-      n = 132;
-    }
-    return n;
-  }();
-  return static_cast<long long>(BH) * ((S + 63) / 64) < n_sms;
-}
-
-// Sets the kernel's dynamic shared memory once, then launches it over
-// (BH, row blocks).
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int bytes, int BH, int S, int rows, cudaStream_t stream,
-           Args... args) {
-  const dim3 grid(BH, (S + rows - 1) / rows);
-  if (grid.y > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  kernel<<<grid, kThreads, bytes, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int Dh, int kSplit>

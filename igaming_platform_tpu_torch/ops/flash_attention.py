@@ -17,15 +17,18 @@ package's XLA recompute for S > 2048 (``_xla_bwd``) has no counterpart here
 but the plain version.
 
 All three are CUDA C++ for ``sm_90a``, built by ``ops/_build.py`` at first
-use and called through ctypes. The forward runs float32 flops on the CUDA
-cores; the backward pair takes its products on the tensor cores in split
-bf16 (three bf16 products per float32 product, float32 accumulation), which
-keeps the gradients' bar where one-term TF32 or bf16 would not. The bars are
-rtol/atol 2e-5 for the forward, 2e-4 for gradients. What bounds them on an
-H100: operations, 4, 6 and 8 * BH*S^2*Dh float32-accurate flops, at 989/3
-TFLOP/s (the bf16 tensor-core rate over three). At the abuse detector's shape
-(BH = 2 per account, S=64, Dh=32) the launch latency dominates. See the
-sources' headers for the design.
+use and called through ctypes, and all take their products on the tensor
+cores with ``mma.sync`` and float32 accumulators. The forward splits each
+float32 operand into two TF32 terms (3xTF32: three TF32 products per float32
+product) and keeps each score as a hi + lo pair, which holds its rtol/atol
+2e-5 bar where split bf16 would miss it once activations pass unit
+amplitude. The backward pair splits into two bf16 terms (split bf16), which
+keeps the gradients' 2e-4 bar where one-term TF32 or bf16 would not. What
+bounds them on an H100: operations, 4, 6 and 8 * BH*S^2*Dh float32-accurate
+flops, counted at 989/3 TFLOP/s (the bf16 tensor-core rate over three); the
+forward's 3xTF32 runs at the TF32 rate over three, half of that. At the abuse
+detector's shape (BH = 2 per account, S=64, Dh=32) the launch latency
+dominates. See the sources' headers for the design.
 
 - ``flash_attention_fwd(q, k, v) -> (o, lse)`` on [BH, S, Dh] float32, lse
   [BH, S, 1], as ``_run_resident``/``_run_tiled`` return them;

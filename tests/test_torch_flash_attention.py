@@ -6,13 +6,18 @@ kernels in interpret mode, as tests/test_flash_attention.py runs them:
 ``models/sequence.py::_dense_attention`` covers an S that no block divides.
 O and LSE agree to rtol/atol 2e-5, the JAX tests' bar: both are float32 with
 the sums taken in another order. The CUDA kernel itself is held to the plain
-version on the card by chip_smoke.py.
+version on the card by chip_smoke.py; a numpy emulation of its arithmetic
+(3xTF32 products, the key order of its P.V fragments) pins here that it keeps
+that bar where split bf16 does not.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_flash_attention_bwd import _bf16, _split_mm, _tf32
 
 from igaming_platform_tpu.models.sequence import _dense_attention
 from igaming_platform_tpu.ops.pallas.flash_attention import _run_resident, _run_tiled
@@ -81,3 +86,122 @@ def test_kernel_argument_check():
     meta = torch.zeros(2, 64, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention_fwd(meta, meta, meta)
+
+
+BAR = 2e-5
+
+
+def _pv_key_order():
+    """The key order in which the kernel's P.V takes each 8-key chunk, from
+    the m16n8k8 fragment layouts: accumulator register i of lane (g, t) holds
+    row g + 8 (i // 2), key 2t + i % 2; A register r holds row g + 8 (r % 2),
+    k = t + 4 (r // 2) and is filled from accumulator register (0, 2, 1, 3)[r];
+    V's B register r holds k = t + 4 r and is loaded from key 2t + r."""
+    a_order, b_order = [None] * 8, [None] * 8
+    for t in range(4):
+        for r, i in enumerate((0, 2, 1, 3)):
+            assert r % 2 == i // 2  # the same row
+            a_order[t + 4 * (r // 2)] = 2 * t + i % 2
+        for r in range(2):
+            b_order[t + 4 * r] = 2 * t + r
+    assert a_order == b_order and sorted(a_order) == list(range(8))
+    return np.array(a_order)
+
+
+def _tf32_pair(x):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _mma(c, a, b):
+    """One mma.sync: c + a @ b, the k8 sum exact, rounded to float32 once."""
+    return (np.asarray(c, np.float64) + a.astype(np.float64) @ b.astype(np.float64)).astype(
+        np.float32)
+
+
+def _fma32(a, b, c):
+    """a * b + c rounded to float32 once."""
+    return (a.astype(np.float64) * np.asarray(b, np.float64) + c.astype(np.float64)).astype(
+        np.float32)
+
+
+def _emulated_fwd_3xtf32(q, k, v):
+    """The forward kernel's arithmetic on one head, 64-row blocks: per key
+    tile, the small terms chained into lo; big.big chained over two k8 steps
+    from zero, then added into hi in float32 with its rounding error kept
+    (Fast2Sum) and joined to lo; exp(fma(lo, scale, fma(hi, scale, -m))); the
+    tile's P.V from zero in the kernel's key order, joined by one fma."""
+    s, dh = q.shape
+    tile = 64 if dh <= 32 else 32
+    scale = np.float32(1.0 / math.sqrt(dh))
+    qb, qs = _tf32_pair(q)
+    m = np.full((s, 1), -np.inf, np.float32)
+    l = np.zeros((s, 1), np.float32)
+    acc = np.zeros((s, dh), np.float32)
+    order = _pv_key_order()
+    for t0 in range(0, s, tile):
+        n = min(tile, s - t0)
+        kt, vt = (np.pad(a[t0:t0 + n], ((0, -n % 8), (0, 0))) for a in (k, v))
+        (kb, ks), (vb, vs) = _tf32_pair(kt.T), _tf32_pair(vt)
+        hi = np.zeros((s, kt.shape[0]), np.float32)
+        lo, err, big = hi, hi, hi
+        for c in range(0, dh, 8):
+            d = slice(c, c + 8)
+            lo = _mma(_mma(lo, qs[:, d], kb[d]), qb[:, d], ks[d])
+            big = _mma(big, qb[:, d], kb[d])
+            if c % 16 == 8 or c == dh - 8:
+                err = err + (big - ((hi + big) - hi))
+                hi, big = hi + big, 0.0 * big
+        lo = lo + err
+        m_new = np.maximum(m, (hi[:, :n] * scale).max(axis=1, keepdims=True))
+        corr = np.exp(m - m_new)
+        p = np.exp(_fma32(lo, scale, _fma32(hi, scale, -m_new)))
+        p[:, n:] = 0.0
+        l = l * corr + p.sum(axis=1, keepdims=True, dtype=np.float32)
+        pb, ps = _tf32_pair(p)
+        ta = np.zeros_like(acc)
+        for c in range(0, kt.shape[0], 8):
+            key = c + order
+            ta = _mma(ta, ps[:, key], vb[key])
+            ta = _mma(ta, pb[:, key], vs[key])
+            ta = _mma(ta, pb[:, key], vb[key])
+        acc = _fma32(acc, corr, ta)
+        m = m_new
+    return acc / l, m + np.log(l)
+
+
+def _dense_fwd(mm, q, k, v):
+    """Dense attention with products by ``mm``, softmax in float32."""
+    sc = mm(q, k.T) * np.float32(1.0 / math.sqrt(q.shape[1]))
+    mx = sc.max(axis=1, keepdims=True)
+    e = np.exp(sc - mx)
+    l = e.sum(axis=1, keepdims=True, dtype=np.float32)
+    return mm(e / l, v), mx + np.log(l)
+
+
+@pytest.mark.parametrize("amp", [1, 3])
+@pytest.mark.parametrize("s,dh", [(64, 32), (300, 32), (2048, 64)])
+def test_3xtf32_keeps_forward_bar(s, dh, amp):
+    """At the path's (S, Dh), one head of q, k, v at amplitude 1 and 3,
+    against a float64 forward: the forward kernel's emulated 3xTF32 keeps O
+    and LSE within half of the 2e-5 bar wherever the float32 dense forward
+    itself stays within the bar, and within the bar where it does not
+    (amplitude 3 at S = 2048: float32 sums of 64 products of magnitude 80
+    lie 1.45 bars off); split bf16 (the backward's scheme, even with exact
+    sums) misses the bar at amplitude 3."""
+    q, k, v = (a * np.float32(amp) for a in _qkv(s * dh + amp, s, dh))
+    q64, k64, v64 = (a.astype(np.float64) for a in (q, k, v))
+    sc = q64 @ k64.T / math.sqrt(dh)
+    mx = sc.max(axis=1, keepdims=True)
+    e = np.exp(sc - mx)
+    want = (e @ v64 / e.sum(axis=1, keepdims=True),
+            mx + np.log(e.sum(axis=1, keepdims=True)))
+
+    def share_of_bar(got):
+        return max(float(np.max(np.abs(g - w) / (BAR + BAR * np.abs(w))))
+                   for g, w in zip(got, want))
+
+    limit = 0.5 if share_of_bar(_dense_fwd(np.matmul, q, k, v)) <= 1.0 else 1.0
+    assert share_of_bar(_emulated_fwd_3xtf32(q, k, v)) <= limit
+    if amp == 3:
+        assert share_of_bar(_dense_fwd(_split_mm, q, k, v)) > 1.0
