@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_flash_attention_bwd import _bf16, _split_mm, _tf32
+from test_torch_flash_attention_bwd import _split_mm, _tf32
 
 from igaming_platform_tpu.models.sequence import _dense_attention
 from igaming_platform_tpu.ops.pallas.flash_attention import _run_resident, _run_tiled
