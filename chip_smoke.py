@@ -98,12 +98,14 @@ FLASH_SHAPES = ((2, 64, 32), (512, 64, 32), (128, 256, 64), (16, 2048, 64),
                 (4, 8192, 64), (4, 300, 32))
 FLASH_MAIN_SHAPE = (512, 64, 32)  # check_batch of 256 accounts
 FLASH_TOL = 2e-5  # rtol and atol of O and LSE: the JAX tests' bar, float32 sums reordered
-# Checked, not timed: the head sizes, block widths (64-row blocks, or 16-row
-# blocks when 64-row ones leave SMs idle) and edges the timed shapes miss:
-# S = 1, and (8, 16, 8), whose 16-row blocks have warps that see no key.
-FLASH_CHECK_SHAPES = ((8, 16, 8), (1, 200, 8), (70, 130, 8), (5, 1, 16), (2, 150, 16),
-                      (33, 257, 16), (3, 1, 32), (160, 100, 32), (3, 100, 64), (200, 1, 64),
-                      (3, 200, 128), (40, 300, 128))
+# Checked, not timed: the head sizes, block widths (128-row blocks at long S,
+# 64-row blocks, or 16-row blocks when 64-row ones leave SMs idle) and edges
+# the timed shapes miss: S = 1, S past a 128-key tile's end, and (8, 16, 8),
+# whose 16-row blocks have warps that see no key.
+FLASH_CHECK_SHAPES = ((8, 16, 8), (1, 200, 8), (70, 130, 8), (140, 256, 8), (5, 1, 16),
+                      (2, 150, 16), (33, 257, 16), (70, 257, 16), (3, 1, 32), (160, 100, 32),
+                      (60, 300, 32), (3, 100, 64), (200, 1, 64), (50, 1000, 64), (3, 200, 128),
+                      (40, 300, 128))
 # Inputs of amplitude 3 (randn x 3) at these shapes: split bf16 would pass
 # unit-amplitude inputs and miss the bar here. At this amplitude the float32
 # plain version is itself about a bar from float64 (float32 sums of products
@@ -366,9 +368,10 @@ def phase_flash(torch, fa) -> list[dict]:
                                                 for g, p in zip(got["out"], plain))}
         next(r for r in rows if (r["BH"], r["S"], r["Dh"]) == (bh, s, dh))["amplitude_3"] = amp
         del want, plain, got
-        log(f"phase 3: {name}: against the plain version in float64 {amp['share_of_bar_vs_f64']:.3f} "
-            f"of the bar (max_abs_err O={amp['max_abs_err_o_vs_f64']:.3g} "
-            f"LSE={amp['max_abs_err_lse_vs_f64']:.3g}), two launches bit-identical; the float32 "
+        log(f"phase 3: {name}: against the plain version in float64 "
+            f"{amp['share_of_bar_vs_f64']:.3f} of the bar (max_abs_err "
+            f"O={amp['max_abs_err_o_vs_f64']:.3g} LSE={amp['max_abs_err_lse_vs_f64']:.3g}), two "
+            f"launches bit-identical; the float32 "
             f"plain version is {amp['plain_f32_share_of_bar_vs_f64']:.3f} of the bar from float64 "
             f"and the kernel {amp['share_of_bar_vs_plain_f32']:.3f} of it from the float32 plain")
     for bh, s, dh in FLASH_CHECK_SHAPES:

@@ -75,6 +75,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
+constexpr int kThreads = 128;  // 4 warps a block
+
 template <int Dh>
 struct Geo {
   static constexpr int kTile = Dh > 64 ? 32 : 64;  // far-side rows per staged tile
@@ -530,6 +532,19 @@ flash_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restr
       }
     }
   }
+}
+
+// Sets the kernel's dynamic shared memory once, then launches it over
+// (BH, row blocks).
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int bytes, int BH, int S, int rows, cudaStream_t stream,
+           Args... args) {
+  const dim3 grid(BH, (S + rows - 1) / rows);
+  if (grid.y > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<grid, kThreads, bytes, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int Dh, int kSplit>

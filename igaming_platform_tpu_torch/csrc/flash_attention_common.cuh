@@ -1,6 +1,5 @@
-// Pieces both flash-attention sources share: the cp.async primitives, the
-// choice between 64-row and 16-row blocks, and the launch over (b*h, row
-// blocks). Included by flash_attention_fwd.cu and
+// Pieces both flash-attention sources share: the cp.async primitives and the
+// choice of narrow (16-row) blocks. Included by flash_attention_fwd.cu and
 // flash_attention_bwd.cu; ops/_build.py hashes it with each of them.
 
 #pragma once
@@ -9,8 +8,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 128;  // 4 warps a block
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -48,18 +45,6 @@ bool narrow_blocks(int BH, int S) {
     return n;
   }();
   return static_cast<long long>(BH) * ((S + 63) / 64) < n_sms;
-}
-
-// Launches `kernel` over (BH, row blocks of `rows`) with `bytes` of dynamic
-// shared memory; returns cudaGetLastError().
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int bytes, int BH, int S, int rows, cudaStream_t stream, Args... args) {
-  const dim3 grid(BH, (S + rows - 1) / rows);
-  if (grid.y > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  kernel<<<grid, kThreads, bytes, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -29,39 +29,45 @@
 // chain on the tensor cores into `lo`. The big.big products chain over two k8
 // steps from zero, then join `hi` on the CUDA cores with their rounding error
 // kept apart (Fast2Sum) and added to `lo` at the end; a chain over all of Dh
-// with no compensation missed the bar from float64 on the card at amplitude 3. The
-// exponent is fma(lo, scale, fma(hi, scale, -m)), so the score is never
-// rounded to float32 at its full magnitude. Each pass's P.V starts from zero
+// with no compensation missed the bar from float64 on the card at amplitude
+// 3. The exponent is fma(lo, scale, fma(hi, scale, -m)), so the score is
+// never rounded to float32 at its full magnitude. Each pass's P.V starts from zero
 // as well and joins the running sum in one fma with the rescale. exp and log
 // are expf and logf.
 //
 // Tiles. A warp owns 16 query rows (one m16 tile). For Dh <= 64 it holds their
 // split A fragments in registers for the whole kernel; at Dh 128 that would be
 // 128 registers beside a 64-register accumulator, so the block's Q sits split
-// in shared memory instead. K and V stream in tiles of 64 keys (32 at Dh 128)
-// through 16-byte cp.async copies. Each thread splits the very float4s it
-// copied, so its own cp.async wait is all the split needs, then copies the
-// next tile into the slots it freed; that tile lands while the block works on
-// this one. The planes hold each B fragment's four values side by side,
-// (b0 big, b1 big, b0 small, b1 small), so one 16-byte load feeds the three
-// products with no register moves: K by key row, dims (t, t + 4) of each k8
-// step together; V by key pair (2u, 2u + 1), each dim's two keys together.
-// Their row strides (2 Dh + 16 and 4 Dh + 8 floats; 2 Dh at Dh 8) keep every
-// quarter-warp of those loads on distinct banks. The score accumulator holds
-// keys (2t, 2t+1) of row g where the m16n8k8 A fragment of P.V wants
-// k = (t, t+4): the kernel reads column 2t as k = t and 2t+1 as k = t+4, and
-// takes V's B fragment from keys 2t and 2t+1 to match, so P goes from one
-// product to the next in registers, with no shuffle. A row's max and sum are
-// taken across its quad (__shfl_xor 1, 2), and masked keys enter exp as -inf,
-// so the softmax has no branches.
+// in shared memory instead. K and V stream in tiles of 64 keys (128 in
+// 128-row blocks, 32 at Dh 128) through 16-byte cp.async copies. Each thread
+// splits the very float4s it copied, so its own cp.async wait is all the
+// split needs, then copies the next tile into the slots it freed; that tile
+// lands while the block works on this one. The planes hold each B fragment's
+// four values side by side, (b0 big, b1 big, b0 small, b1 small), so one
+// 16-byte load feeds the three products with no register moves: K by key
+// row, dims (t, t + 4) of each k8 step together; V by key pair (2u, 2u + 1),
+// each dim's two keys together. Their row strides (2 Dh + 16 and 4 Dh + 8
+// floats; 2 Dh at Dh 8) keep every quarter-warp of those loads on distinct
+// banks. The score accumulator holds keys (2t, 2t+1) of row g where the
+// m16n8k8 A fragment of P.V wants k = (t, t+4): the kernel reads column 2t as
+// k = t and 2t+1 as k = t+4, and takes V's B fragment from keys 2t and 2t+1
+// to match, so P goes from one product to the next in registers, with no
+// shuffle. A row's max and sum are taken across its quad (__shfl_xor 1, 2),
+// and masked keys enter exp as -inf, so the softmax has no branches.
 //
-// Rows per block. A block is 4 warps and owns 64 rows, unless BH * ceil(S/64)
-// blocks would leave SMs idle: then it owns 16 rows and each of its 4 warps
-// takes a quarter of every key tile with its own (m, l, acc); the four are
-// merged in warp order at the end, so relaunches repeat bit for bit. A warp
-// that saw no key (S = 16 against 64-key tiles) has m = -inf and l = 0, and
-// adds exactly 0. (4, 300, 32) gets 76 blocks instead of 12, one check()
-// (2, 64, 32) 8 instead of 2.
+// Rows per block. Every block splits each staged tile once for all its warps,
+// and at 64 rows a block that split and its two barriers were the largest
+// cost a timing diagnostic found, so long sequences (Dh <= 64, S >= 256,
+// BH * ceil(S/128) blocks filling the SMs) take 128-row blocks of 8 warps
+// with 128-key tiles: a split serves twice the rows and a barrier twice the
+// keys; at 255 registers a thread that is still 8 warps an SM. Otherwise a
+// block is 4 warps and owns 64 rows, unless BH * ceil(S/64) blocks would
+// leave SMs idle: then it owns 16 rows and each of its 4 warps takes a
+// quarter of every key tile with its own (m, l, acc); the four are merged in
+// warp order at the end, so relaunches repeat bit for bit. A warp that saw no key (S = 16
+// against 64-key tiles) has m = -inf and l = 0, and adds exactly 0.
+// (4, 300, 32) gets 76 blocks instead of 12, one check() (2, 64, 32) 8
+// instead of 2.
 //
 // What bounds it: operations, 4 * BH*S^2*Dh (QK^T and PV) against 16 * BH*S*Dh
 // bytes of q, k, v and o. chip_smoke.py takes them at 989/3 TFLOP/s (the bf16
@@ -77,10 +83,13 @@
 
 namespace {
 
-// kSplit 1: 64-row blocks; kSplit 4: 16-row blocks whose warps split each tile.
-template <int Dh, int kSplit>
+// A block of kWarps warps owns 16 * kWarps / kSplit rows: kSplit 1, each
+// warp its own 16 rows (4 or 8 warps); kSplit 4, 4 warps sharing 16 rows and
+// splitting each tile.
+template <int Dh, int kSplit, int kWarps>
 struct Geo {
-  static constexpr int kTile = Dh > 64 ? 32 : 64;  // keys per staged tile
+  static constexpr int kBlock = 32 * kWarps;  // threads of a block
+  static constexpr int kTile = Dh > 64 ? 32 : (kWarps == 8 ? 128 : 64);  // keys per staged tile
   static constexpr int kSub = Dh > 32 ? 32 : 64;   // keys a warp takes in one pass (registers)
   static constexpr int kKs = Dh / 8;               // k8 steps of a score; n8 tiles of O
   static constexpr int kVec = Dh / 4;              // float4s per row
@@ -92,7 +101,7 @@ struct Geo {
   static constexpr bool kQShared = Dh > 64;        // Q's fragments from shared memory
   // Shared memory, in floats: the staged tile [K, V][kStage], its planes, and
   // at Dh 128 the plane of the block's Q rows.
-  static constexpr int kSmem = 2 * kStage + kPlanes + (kQShared ? 64 / kSplit * kLdK : 0);
+  static constexpr int kSmem = 2 * kStage + kPlanes + (kQShared ? 16 * kWarps / kSplit * kLdK : 0);
   static_assert(Dh % 8 == 0, "bad head size");
 };
 
@@ -137,9 +146,9 @@ __device__ __forceinline__ void store_k8(float* row, int c, float4 x0, float4 x1
 
 // Thread unit i of a tile: K row i / (kVec / 2), dims [8c, 8c + 8); V rows
 // 2u and 2u + 1, u = i / kVec, dims [4e, 4e + 4).
-template <int Dh, int kSplit>
+template <int Dh, int kSplit, int kWarps>
 struct Unit {
-  using G = Geo<Dh, kSplit>;
+  using G = Geo<Dh, kSplit, kWarps>;
   int kr, c, u, e;
   __device__ __forceinline__ explicit Unit(int i)
       : kr(i / (G::kVec / 2)), c(i - kr * (G::kVec / 2)), u(i / G::kVec), e(i - u * G::kVec) {}
@@ -147,13 +156,13 @@ struct Unit {
 
 // Starts this thread's copies of keys [r0, r0 + kTile) of K and V into the
 // staged tile (row-major [kTile][Dh] each), zero past S.
-template <int Dh, int kSplit>
+template <int Dh, int kSplit, int kWarps>
 __device__ __forceinline__ void stage_tile(float* dst, const float* kh, const float* vh, int r0,
                                            int S) {
-  using G = Geo<Dh, kSplit>;
+  using G = Geo<Dh, kSplit, kWarps>;
   const uint32_t base = smem_addr(dst);
-  for (int i = threadIdx.x; i < G::kUnits; i += kThreads) {
-    const Unit<Dh, kSplit> n(i);
+  for (int i = threadIdx.x; i < G::kUnits; i += G::kBlock) {
+    const Unit<Dh, kSplit, kWarps> n(i);
     const bool ok = r0 + n.kr < S;
     const float* src = kh + (ok ? static_cast<size_t>(r0 + n.kr) * Dh + 8 * n.c : 0);
     const int off = n.kr * Dh + 8 * n.c;
@@ -171,13 +180,13 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* kh, const fl
 
 // Splits the float4s of the landed tile that this thread copied itself into
 // the K plane at kp and the V plane after it.
-template <int Dh, int kSplit>
+template <int Dh, int kSplit, int kWarps>
 __device__ __forceinline__ void split_own(const float* src, float* kp) {
-  using G = Geo<Dh, kSplit>;
+  using G = Geo<Dh, kSplit, kWarps>;
   float* vp = kp + G::kTile * G::kLdK;
   const float4* s4 = reinterpret_cast<const float4*>(src);
-  for (int i = threadIdx.x; i < G::kUnits; i += kThreads) {
-    const Unit<Dh, kSplit> n(i);
+  for (int i = threadIdx.x; i < G::kUnits; i += G::kBlock) {
+    const Unit<Dh, kSplit, kWarps> n(i);
     const int k4 = (n.kr * Dh + 8 * n.c) / 4;
     store_k8(kp + n.kr * G::kLdK, n.c, s4[k4], s4[k4 + 1]);
     const float4 a = s4[(G::kStage + 2 * n.u * Dh) / 4 + n.e];
@@ -191,14 +200,14 @@ __device__ __forceinline__ void split_own(const float* src, float* kp) {
 }
 
 // A block owns 64 / kSplit query rows of one (b*h) and loops over key tiles.
-template <int Dh, int kSplit>
-__global__ void __launch_bounds__(kThreads)
+template <int Dh, int kSplit, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps)
 flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            float* __restrict__ lse, int S, float scale) {
-  using G = Geo<Dh, kSplit>;
-  static_assert(kSplit == 1 || kSplit == 4, "4 warps: 4 row groups or 1");
-  constexpr int kRows = 64 / kSplit;         // query rows of a block
+  using G = Geo<Dh, kSplit, kWarps>;
+  static_assert((kSplit == 4 && kWarps == 4) || kSplit == 1, "4 warps split keys, or none");
+  constexpr int kRows = 16 * kWarps / kSplit;  // query rows of a block
   constexpr int kChunk = G::kTile / kSplit;  // keys of each tile a warp takes
   constexpr int kPass = kChunk < G::kSub ? kChunk : G::kSub;  // ... in one pass
   constexpr int kNt = kPass / 8;             // n8 score tiles of a pass
@@ -217,7 +226,7 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
   const float* kh = k + head * Dh;
   const float* vh = v + head * Dh;
   const int n_tiles = (S + G::kTile - 1) / G::kTile;
-  stage_tile<Dh, kSplit>(ring, kh, vh, 0, S);
+  stage_tile<Dh, kSplit, kWarps>(ring, kh, vh, 0, S);
   cp_async_commit();
 
   // Q split once, zero past S: A fragments [k8 step][big, small] in registers,
@@ -225,7 +234,7 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
   uint32_t qf[G::kQShared ? 1 : G::kKs][2][4];
   if constexpr (G::kQShared) {
     const int b0 = blockIdx.y * kRows;
-    for (int i = threadIdx.x; i < kRows * G::kKs; i += kThreads) {
+    for (int i = threadIdx.x; i < kRows * G::kKs; i += G::kBlock) {
       const int row = i / G::kKs, c = i - row * G::kKs;
       float4 x0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), x1 = x0;
       if (b0 + row < S) {
@@ -265,9 +274,9 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
     // with tile j + 1, which lands while the block works on tile j.
     cp_async_wait_all();
     __syncthreads();
-    split_own<Dh, kSplit>(ring, planes);
+    split_own<Dh, kSplit, kWarps>(ring, planes);
     if (j + 1 < n_tiles) {
-      stage_tile<Dh, kSplit>(ring, kh, vh, (j + 1) * G::kTile, S);
+      stage_tile<Dh, kSplit, kWarps>(ring, kh, vh, (j + 1) * G::kTile, S);
       cp_async_commit();
     }
     __syncthreads();
@@ -471,29 +480,41 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
-template <int Dh, int kSplit>
+template <int Dh, int kSplit, int kWarps>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
                float scale, cudaStream_t stream) {
-  constexpr int bytes = Geo<Dh, kSplit>::kSmem * 4;
+  using G = Geo<Dh, kSplit, kWarps>;
+  constexpr int bytes = G::kSmem * 4;
   static const cudaError_t attr =
-      cudaFuncSetAttribute(flash_attention_fwd_kernel<Dh, kSplit>,
+      cudaFuncSetAttribute(flash_attention_fwd_kernel<Dh, kSplit, kWarps>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) {
     return static_cast<int>(attr);
   }
-  return launch(flash_attention_fwd_kernel<Dh, kSplit>, bytes, BH, S, 64 / kSplit, stream,
-                static_cast<const float*>(q), static_cast<const float*>(k),
-                static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
-                S, scale);
+  constexpr int rows = 16 * kWarps / kSplit;
+  const dim3 grid(BH, (S + rows - 1) / rows);
+  if (grid.y > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  flash_attention_fwd_kernel<Dh, kSplit, kWarps><<<grid, G::kBlock, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), S, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int Dh>
 int fwd_for(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
             float scale, cudaStream_t st) {
   if (narrow_blocks(BH, S)) {
-    return launch_fwd<Dh, 4>(q, k, v, o, lse, BH, S, scale, st);
+    return launch_fwd<Dh, 4, 4>(q, k, v, o, lse, BH, S, scale, st);
   }
-  return launch_fwd<Dh, 1>(q, k, v, o, lse, BH, S, scale, st);
+  if constexpr (Dh <= 64) {
+    // BH * ceil(S / 128) = BH * ceil(ceil(S / 2) / 64) blocks fill the SMs.
+    if (S >= 256 && !narrow_blocks(BH, (S + 1) / 2)) {
+      return launch_fwd<Dh, 1, 8>(q, k, v, o, lse, BH, S, scale, st);
+    }
+  }
+  return launch_fwd<Dh, 1, 4>(q, k, v, o, lse, BH, S, scale, st);
 }
 
 }  // namespace
