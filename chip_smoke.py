@@ -21,8 +21,12 @@ sequences of 64 events). Phases:
    (``nvidia-smi``) and turns TF32 off for matmuls and convolutions;
 2. build: compiles every kernel with ``nvcc``, all at once, and reports the
    time;
-3. kernels: each kernel against its plain version at the shapes its paths
-   give it, with CUDA-event timings (median of 50 launches) and, for the
+3. kernels: an empty kernel's time, the floor of any launch; each kernel
+   against its plain version at the shapes its paths give it, with CUDA-event
+   timings (median of 50 launches) and, for the forest, also back to back
+   (50 launches between one event pair) and by ``torch.profiler``; the
+   forest at the serving sizes and at production sizes (up to 1,000 trees,
+   depth 10), two launches bit-identical; and, for the
    attention kernels, ``scaled_dot_product_attention`` (its forward, and
    its backward through ``torch.autograd.grad``) on the same inputs as a
    yardstick; two launches of each attention kernel must be bit-identical;
@@ -32,8 +36,10 @@ sequences of 64 events). Phases:
    attention kernels' practical ceiling;
 4. engine: a feature store of 10,000 accounts, 20 single requests and one
    batch of 4096, the launch counts of that run, and the CPU comparison;
-   then the device time of one step, where a batch's host time goes, and
-   the latency of 1000 sequential ``score()`` calls;
+   then the device time of one step and its kernels by name, where a
+   batch's host time goes, and the latency of 1000 sequential ``score()``
+   calls; then a ``gbdt`` engine with a forest of 1,000 trees of depth 6
+   through the same singles and batch, against the CPU engine;
 5. abuse: a seeded wallet event stream of 2,000 accounts drained through
    the bridge into the card's detector, ``check_batch`` over every account
    and ``check`` on a sample, the attention kernel's launch count of that
@@ -80,8 +86,24 @@ ATTN_OPS_PER_S = 989e12 / 3
 
 KERNEL_SHAPES_B = (1, 255, 256, 2048, 4096)
 KERNEL_FORESTS = ((64, 4), (16, 3))
+# Forests of production size (fraud models hold hundreds to a thousand trees;
+# CatBoost's default is 1,000 of depth 6) and a deep one, whose leaves the
+# kernel reads in place: timed at a latency tier and at a full batch, and held
+# to the plain sum in float64 (the float32 JAX sum lies 2.2e-06 from it at
+# (1000, 6)).
+LARGE_FORESTS, LARGE_SHAPES_B, LARGE_ATOL = ((600, 4), (1000, 6), (256, 10)), (256, 4096), 1e-5
+# Checked against the float64 plain sum, not timed, (T, D, B, F): depth 1,
+# the deepest leaves kept in shared memory and the shallowest read in place,
+# deep trees, odd and tiny feature counts, a ragged B over many chunks.
+FOREST_CHECK_SHAPES = ((5, 1, 3, 30), (33, 8, 100, 30), (7, 9, 70, 30), (40, 12, 129, 30),
+                       (3, 16, 33, 30), (2, 20, 5, 30), (301, 5, 4097, 31), (64, 3, 40, 1),
+                       (2000, 2, 1000, 30))
+# Forests whose kernel time torch.profiler also reads, at these B.
+PROFILE_B = (256, 4096)
 N_FEATURES = 30
 SERVE_TREES, SERVE_DEPTH, SERVE_HIDDEN = 64, 4, (128, 128)
+# Phase 4's second engine: the gbdt backend with a production-sized forest.
+LARGE_ENGINE_FOREST = (1000, 6)
 BATCH_SIZE, LATENCY_TIERS = 4096, (256, 2048)
 N_ACCOUNTS, EVENTS_PER_ACCOUNT = 10_000, 20
 N_SINGLE = 20
@@ -140,6 +162,9 @@ MMA_ITERS = 2048
 # Spin cycles queued before each timed call, so the card is still busy
 # while the host enqueues the call: the events then bracket device work only.
 SLEEP_CYCLES = 4_000_000
+# The same, before a run of REPS back-to-back calls: long enough for the host
+# to enqueue all of them (checked on every run).
+B2B_SLEEP_CYCLES = 40_000_000
 
 
 def log(msg: str) -> None:
@@ -170,6 +195,44 @@ def device_ms(torch, fn, reps: int = REPS, warmup: int = 5, sleep: int = SLEEP_C
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def device_ms_b2b(torch, fn, n: int = REPS, reps: int = 5, warmup: int = 5) -> float:
+    """Device time of one call of ``fn``, as the median over ``reps`` of
+    ``n`` back-to-back calls between one pair of CUDA events, over ``n``.
+    A spin queued first keeps the card busy while the host enqueues the
+    calls; the run fails if the host took longer than the spin, since the
+    card would then have waited on it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spin.record()
+        torch.cuda._sleep(B2B_SLEEP_CYCLES)
+        start.record()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms >= spin.elapsed_time(start):
+            raise AssertionError(f"back-to-back timing: the host took {host_ms:.3f} ms to "
+                                 f"enqueue, longer than the {spin.elapsed_time(start):.3f} ms spin")
+        out.append(start.elapsed_time(end) / n)
+    return statistics.median(out)
+
+
+def profiled_kernel_ms(torch, fn, name: str, n: int = 20) -> float | None:
+    """Mean device duration of the kernels whose name holds ``name`` over
+    ``n`` calls of ``fn``, from ``torch.profiler``; None if it saw none."""
+    prof = profile_window(torch, lambda: [fn() for _ in range(n)], top=50)
+    hits = [k for k in prof["top"] if name in k["kernel"]]
+    if not hits:
+        return None
+    return sum(k["device_ms"] for k in hits) / sum(k["count"] for k in hits)
+
+
 def profile_window(torch, fn, top: int = 6) -> dict:
     """Device time by kernel over one run of ``fn`` (``torch.profiler``,
     CUDA activity), against the run's host wall time: the card's busy
@@ -193,10 +256,10 @@ def profile_window(torch, fn, top: int = 6) -> dict:
             "top": [{"kernel": k[:80], "device_ms": ms, "count": n} for k, ms, n in kernels[:top]]}
 
 
-def forest_tree(rng, n_trees: int, depth: int) -> dict:
+def forest_tree(rng, n_trees: int, depth: int, n_features: int = N_FEATURES) -> dict:
     """A random oblivious forest in the JAX package's params layout."""
     return {
-        "feat": rng.integers(0, N_FEATURES, (n_trees, depth)).astype(np.int32),
+        "feat": rng.integers(0, n_features, (n_trees, depth)).astype(np.int32),
         "thr": rng.random((n_trees, depth)).astype(np.float32),
         "leaves": (rng.normal(size=(n_trees, 2**depth)) * 0.1).astype(np.float32),
         "bias": np.float32(rng.normal() * 0.1),
@@ -220,40 +283,149 @@ def forest_bound(b: int, n_trees: int, depth: int) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def phase_kernels(torch, gbdt_kernel) -> list[dict]:
+def forest_case(torch, rng, n_trees: int, depth: int, b: int, n_features: int = N_FEATURES):
+    """A seeded forest on the card and [B, F] features on it, one in three
+    rows with a feature equal to a split threshold (a tie must go left)."""
     from igaming_platform_tpu_torch.convert import gbdt_from_tree
 
+    tree = forest_tree(rng, n_trees, depth, n_features)
+    f = {k: v.cuda() for k, v in gbdt_from_tree(tree, n_features).items()}
+    x_np = rng.random((b, n_features)).astype(np.float32)
+    rows = np.arange(0, b, 3)
+    k = rng.integers(0, n_trees * depth, rows.size)
+    x_np[rows, tree["feat"].reshape(-1)[k]] = tree["thr"].reshape(-1)[k]
+    return (torch.from_numpy(x_np).cuda(), f["feat"], f["thr"], f["leaves"], f["bias"])
+
+
+def check_forest(torch, gbdt_kernel, args, atol: float, name: str) -> float:
+    """The kernel against the plain version, in float32 at ``atol`` when
+    ``atol`` is KERNEL_ATOL, else in float64; a second launch must give the
+    same bits. Returns the max error."""
+    got, again = (gbdt_kernel.gbdt_forest(*args) for _ in range(2))
+    if atol == KERNEL_ATOL:
+        want = gbdt_kernel.gbdt_forest_plain(*args)
+    else:
+        x, feat, thr, leaves, bias = args
+        want = gbdt_kernel.gbdt_forest_plain(x.double(), feat, thr.double(), leaves.double(),
+                                             bias.double())
+    torch.cuda.synchronize()
+    if got.shape != (args[0].shape[0],) or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: bad output")
+    err = float((got.double() - want.double()).abs().max())
+    if err > atol:
+        raise AssertionError(f"{name}: max error {err} > {atol}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches gave different bits")
+    return err
+
+
+def phase_kernels(torch, gbdt_kernel, forests=KERNEL_FORESTS, large=LARGE_FORESTS,
+                  checks=FOREST_CHECK_SHAPES) -> list[dict]:
+    """The forest kernel against its plain version: ``forests`` at every
+    KERNEL_SHAPES_B against the float32 plain version, ``large`` at
+    LARGE_SHAPES_B and ``checks`` against it in float64; two launches
+    bit-identical everywhere. Each timed shape by one event pair a call
+    (``device_ms``), back to back, and at PROFILE_B by ``torch.profiler``."""
     rng = np.random.default_rng(0)
+    cases = [(t, d, b, KERNEL_ATOL) for t, d in forests for b in KERNEL_SHAPES_B]
+    cases += [(t, d, b, LARGE_ATOL) for t, d in large for b in LARGE_SHAPES_B]
     rows = []
-    for n_trees, depth in KERNEL_FORESTS:
-        tree = forest_tree(rng, n_trees, depth)
-        f = {k: v.cuda() for k, v in gbdt_from_tree(tree).items()}
-        for b in KERNEL_SHAPES_B:
-            x_np = rng.random((b, N_FEATURES)).astype(np.float32)
-            # Ties: a feature equal to its split threshold must go left.
-            k = rng.integers(0, n_trees * depth, b)
-            x_np[np.arange(b), tree["feat"].reshape(-1)[k]] = tree["thr"].reshape(-1)[k]
-            x = torch.from_numpy(x_np).cuda()
-            args = (x, f["feat"], f["thr"], f["leaves"], f["bias"])
-            got = gbdt_kernel.gbdt_forest(*args)
-            want = gbdt_kernel.gbdt_forest_plain(*args)
-            torch.cuda.synchronize()
-            if got.shape != (b,) or not torch.isfinite(got).all():
-                raise AssertionError(f"gbdt_forest T={n_trees} D={depth} B={b}: bad output")
-            err = float((got - want).abs().max())
-            if err > KERNEL_ATOL:
-                raise AssertionError(
-                    f"gbdt_forest T={n_trees} D={depth} B={b}: max error {err} > {KERNEL_ATOL}")
-            bound, bound_by = forest_bound(b, n_trees, depth)
-            row = {"T": n_trees, "D": depth, "B": b, "max_abs_err": err,
-                   "kernel_ms": device_ms(torch, lambda: gbdt_kernel.gbdt_forest(*args)),
-                   "plain_ms": device_ms(torch, lambda: gbdt_kernel.gbdt_forest_plain(*args)),
-                   "bound_ms": bound, "bound_by": bound_by}
-            rows.append(row)
-            log(f"phase 3: gbdt_forest T={n_trees} D={depth} B={b}: max_abs_err={err:.3g} "
-                f"kernel_ms={row['kernel_ms']:.6f} plain_ms={row['plain_ms']:.6f} "
-                f"bound_ms={bound:.6f} ({bound_by})")
+    for n_trees, depth, b, atol in cases:
+        args = forest_case(torch, rng, n_trees, depth, b)
+        name = f"gbdt_forest T={n_trees} D={depth} B={b}"
+        err = check_forest(torch, gbdt_kernel, args, atol, name)
+        bound, bound_by = forest_bound(b, n_trees, depth)
+        row = {"T": n_trees, "D": depth, "B": b, "max_abs_err": err,
+               "against": "float32 plain" if atol == KERNEL_ATOL else "float64 plain",
+               "repeatable": True,
+               "kernel_ms": device_ms(torch, lambda: gbdt_kernel.gbdt_forest(*args)),
+               "kernel_b2b_ms": device_ms_b2b(torch, lambda: gbdt_kernel.gbdt_forest(*args)),
+               "kernel_profiler_ms": (profiled_kernel_ms(
+                   torch, lambda: gbdt_kernel.gbdt_forest(*args), "gbdt_forest_kernel")
+                   if b in PROFILE_B else None),
+               "plain_ms": device_ms(torch, lambda: gbdt_kernel.gbdt_forest_plain(*args)),
+               "bound_ms": bound, "bound_by": bound_by}
+        row["bound_share"] = bound / row["kernel_b2b_ms"]
+        rows.append(row)
+        prof = row["kernel_profiler_ms"]
+        log(f"phase 3: {name}: max_abs_err={err:.3g} against the {row['against']}, two "
+            f"launches bit-identical; kernel_ms={row['kernel_ms']:.6f} "
+            f"back_to_back_ms={row['kernel_b2b_ms']:.6f} profiler_ms="
+            f"{'not measured' if prof is None else f'{prof:.6f}'} "
+            f"plain_ms={row['plain_ms']:.6f} bound_ms={bound:.6f} ({bound_by}, "
+            f"{100 * row['bound_share']:.1f}% of it back to back)")
+    for n_trees, depth, b, n_features in checks:
+        args = forest_case(torch, rng, n_trees, depth, b, n_features)
+        name = f"gbdt_forest T={n_trees} D={depth} B={b} F={n_features}"
+        err = check_forest(torch, gbdt_kernel, args, LARGE_ATOL, name)
+        log(f"phase 3: {name} (check only): max_abs_err={err:.3g} against the float64 plain "
+            f"version, two launches bit-identical")
     return rows
+
+
+def forest_plan_sweep(torch, gbdt_kernel, shapes=((64, 4, 256), (64, 4, 4096), (600, 4, 4096),
+                                                  (1000, 6, 256), (1000, 6, 4096),
+                                                  (256, 10, 4096)),
+                      rows=(32, 64), groups=(2, 4, 8, 16, 32)) -> list[dict]:
+    """Back-to-back time of the forest kernel under launch plans other than
+    ``launch_plan``'s, through its C entry point, each held to the plain
+    version in float64: for tuning the plan, not part of ``main``."""
+    rng = np.random.default_rng(3)
+    lib = gbdt_kernel._lib()
+    out = []
+    for n_trees, depth, b in shapes:
+        args = forest_case(torch, rng, n_trees, depth, b)
+        x, feat, thr, leaves, bias = args
+        want = gbdt_kernel.gbdt_forest_plain(x.double(), feat, thr.double(), leaves.double(),
+                                             bias.double())
+        chunk = gbdt_kernel.launch_plan(b, N_FEATURES, n_trees, depth).chunk
+        y = torch.empty(b, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        for r in rows:
+            for g in groups:
+                if r * g > gbdt_kernel.MAX_THREADS:
+                    continue
+
+                def run():
+                    if lib.gbdt_forest_launch(x.data_ptr(), feat.data_ptr(), thr.data_ptr(),
+                                              leaves.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                                              b, N_FEATURES, n_trees, depth, r, g, chunk, stream):
+                        raise RuntimeError("gbdt_forest: launch refused")
+
+                run()
+                torch.cuda.synchronize()
+                err = float((y.double() - want).abs().max())
+                if err > LARGE_ATOL:
+                    raise AssertionError(f"plan sweep T={n_trees} D={depth} B={b} rows={r} "
+                                         f"groups={g}: max error {err}")
+                row = {"T": n_trees, "D": depth, "B": b, "rows": r, "groups": g, "chunk": chunk,
+                       "b2b_ms": device_ms_b2b(torch, run)}
+                out.append(row)
+                log(f"plan sweep: {json.dumps(row)}")
+    return out
+
+
+def phase_launch_floor(torch) -> dict:
+    """The time of an empty kernel (``csrc/mma_rate.cu`` ``empty_launch``)
+    through the same ctypes path as the forest's: the floor of any launch,
+    by one event pair a launch and back to back."""
+    import ctypes
+
+    from igaming_platform_tpu_torch.ops import _build
+
+    fn = _build.load("mma_rate").empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        if fn(stream):
+            raise RuntimeError("empty_launch: kernel launch failed")
+
+    floor = {"per_pair_ms": device_ms(torch, run), "back_to_back_ms": device_ms_b2b(torch, run)}
+    log(f"phase 3: empty kernel (the launch floor): per_pair_ms={floor['per_pair_ms']:.6f} "
+        f"back_to_back_ms={floor['back_to_back_ms']:.6f}")
+    return floor
 
 
 def phase_mma_rate(torch) -> dict:
@@ -618,6 +790,8 @@ def phase_engine(torch, card: str, gbdt_kernel) -> dict:
                 gpu._score_fn(gpu.get_params(), x_step, bl_step, gpu._thresholds)
 
         step_ms = device_ms(torch, step, reps=20)
+        # The step's kernels by name, from the profiler: what its device time is.
+        step_profile = profile_window(torch, step, top=50)
 
         for _ in range(4):
             t = time.perf_counter()
@@ -641,6 +815,7 @@ def phase_engine(torch, card: str, gbdt_kernel) -> dict:
     finally:
         for eng in engines:
             eng.close()
+    large = large_forest_engine(torch, gbdt_kernel, rng, store, bcfg, singles, batch)
     result = {
         "launches": launches, "device_steps": steps, "floor_boundary_rows": boundary,
         "batch_rows_per_s": [BATCH_SIZE / s for s in batch_s],
@@ -650,6 +825,8 @@ def phase_engine(torch, card: str, gbdt_kernel) -> dict:
         "step_4096_device_ms": step_ms,
         "batch_4096_host_ms": {"gather": t_gather * 1e3, "step_and_copies": t_step * 1e3,
                                "responses": t_rows * 1e3},
+        "step_4096_kernels": step_profile,
+        "gbdt_engine_1000x6": large,
     }
     log(f"phase 4: [{card}] score_batch({BATCH_SIZE}) x5: median "
         f"{statistics.median(result['batch_rows_per_s']):.0f} rows/s; "
@@ -658,8 +835,60 @@ def phase_engine(torch, card: str, gbdt_kernel) -> dict:
         f"{step_ms:.6f} ms")
     log(f"phase 4: {steps} device steps, {launches} forest kernel launches; agrees with the "
         f"CPU engine ({boundary} floor-boundary rows not compared)")
+    if step_profile["device_ms"] is not None:
+        log(f"phase 4: one {BATCH_SIZE}-row step's kernels (torch.profiler): "
+            f"{step_profile['device_ms']:.6f} ms of device time in "
+            f"{step_profile['wall_ms']:.3f} ms of wall; by name: "
+            + "; ".join(f"{k['kernel']} {k['device_ms']:.6f} ms x{k['count']}"
+                        for k in step_profile["top"]))
+    log(f"phase 4: gbdt engine with a {LARGE_ENGINE_FOREST[0]} x {LARGE_ENGINE_FOREST[1]} forest: "
+        f"{large['device_steps']} device steps, {large['launches']} forest kernel launches; "
+        f"agrees with the CPU engine ({large['floor_boundary_rows']} floor-boundary rows not "
+        f"compared); device time of one {BATCH_SIZE}-row step {large['step_4096_device_ms']:.6f} ms")
     log("phase 4: " + json.dumps(result))
     return result
+
+
+def large_forest_engine(torch, gbdt_kernel, rng, store, bcfg, singles, batch) -> dict:
+    """A ``gbdt`` engine on the card with a production-sized forest
+    (LARGE_ENGINE_FOREST): the singles and the batch, its forest launches
+    equal to its device steps, its answers against the CPU engine's."""
+    from igaming_platform_tpu_torch.convert import from_jax_params
+    from igaming_platform_tpu_torch.serve import scorer
+
+    tree = {"gbdt": forest_tree(rng, *LARGE_ENGINE_FOREST)}
+    engines = []
+    try:
+        for device in ("cuda", "cpu"):
+            engines.append(scorer.TorchScoringEngine(
+                ml_backend="gbdt", device=device, params=from_jax_params("gbdt", tree),
+                batcher_config=bcfg, feature_store=store, warmup=device == "cuda"))
+        gpu, cpu = engines
+        torch.cuda.synchronize()
+        # This path's run: counts set to 0 just before, read just after.
+        gbdt_kernel.gbdt_forest.launches = 0
+        steps0 = gpu.device_steps
+        single_out = [gpu.score(req) for req in singles]
+        batch_out = gpu.score_batch(batch)
+        launches = gbdt_kernel.gbdt_forest.launches
+        steps = gpu.device_steps - steps0
+        if launches == 0 or launches != steps:
+            raise AssertionError(f"gbdt engine {LARGE_ENGINE_FOREST}: {steps} device steps but "
+                                 f"{launches} forest kernel launches")
+        boundary = (compare_with_cpu(single_out, singles, store, cpu)
+                    + compare_with_cpu(batch_out, batch, store, cpu))
+        x_step, bl_step = (torch.from_numpy(a).cuda() for a in store.gather_batch(batch))
+
+        def step():
+            with torch.inference_mode():
+                gpu._score_fn(gpu.get_params(), x_step, bl_step, gpu._thresholds)
+
+        step_ms = device_ms(torch, step, reps=20)
+    finally:
+        for eng in engines:
+            eng.close()
+    return {"forest": list(LARGE_ENGINE_FOREST), "launches": launches, "device_steps": steps,
+            "floor_boundary_rows": boundary, "step_4096_device_ms": step_ms}
 
 
 def seq_tree(rng, cfg: dict) -> dict:
@@ -1098,6 +1327,7 @@ def main() -> int:
                 log(f"phase 2: {name}: {line.strip()}")
 
     # Phase 3: each kernel against its plain version.
+    floor = phase_launch_floor(torch)
     rows = phase_kernels(torch, gbdt_kernel)
     mma_rates = phase_mma_rate(torch)
     flash_rows = phase_flash(torch, fa)
@@ -1121,6 +1351,8 @@ def main() -> int:
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "back_to_back_ms": main_row["kernel_b2b_ms"], "launch_floor_ms": floor,
+        "launches_gbdt_engine_1000x6": engine["gbdt_engine_1000x6"]["launches"],
         "shapes": rows,
     }, {
         "name": "flash_attention_fwd", "route": "cuda",

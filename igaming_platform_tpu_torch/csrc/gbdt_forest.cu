@@ -1,106 +1,273 @@
-// Fused oblivious-forest inference for Hopper (sm_90a).
+// Fused oblivious-forest inference for Hopper (sm_90a), for a forest of any
+// size.
 //
 // Replaces the TPU kernel igaming_platform_tpu/ops/pallas/gbdt_kernel.py::_kernel
 // (launched by _run, wrapped by gbdt_raw_pallas). Same function: for each row b,
 //     leaf[b, t] = sum_d (x[b, feat[t, d]] > thr[t, d]) << d
 //     out[b]     = sum_t leaves[t, leaf[b, t]] + bias
-// i.e. raw margins, exactly what models/gbdt.py::gbdt_raw computes.
+// i.e. raw margins, exactly what models/gbdt.py::gbdt_raw computes, for any
+// number of trees T and any depth 1 <= D <= 30 (at 31 the JAX function's
+// int32 leaf index 1 << d overflows).
 //
-// The TPU kernel gathers the split features with a one-hot [F, T*D] matrix
-// product, because a cross-lane gather serialises on the TPU's vector unit
-// while its matrix unit sits idle. Here that product would be pure waste, and
-// in TF32 it would round the gathered value and flip splits near a threshold.
-// This kernel reads x[b, feat[t, d]] directly from shared memory, so every
-// compare sees the exact float32 feature, with the same `>` as gbdt.py.
+// The TPU kernel keeps the whole forest in VMEM and gathers the split
+// features with a one-hot [F, T*D] matrix product, because a cross-lane
+// gather serialises on the TPU's vector unit. Here that product would be
+// waste, and in TF32 it would flip splits near a threshold: this kernel
+// reads x[b, feat[t, d]] from shared memory, so every compare sees the exact
+// float32 feature, with the same `>` as gbdt.py (a tie and a NaN go left).
 //
-// What bounds it: bytes. Per call it must read B*F*4 bytes of features and the
-// forest (T*D*8 + T*2^D*4 + 4 bytes, about 6 KB at T=64, D=4) and write B*4
-// bytes. At B=4096, F=30 that is about 0.51 MB, about 0.15 us at 3.35 TB/s;
-// the arithmetic (B*T*D compares) is smaller still. So one launch costs its
-// launch latency, a few microseconds, far above the bound. The design keeps
-// it to ONE launch that allocates nothing and does not synchronise: the whole
-// forest and the rows' feature slab are staged in shared memory once per
-// block, and nothing goes back to device memory but the [B] margins.
+// What bounds it: at a serving forest (T=64, D=4) bytes, B*F*4 of features
+// and a 6 KB forest, about 0.15 us at B=4096, far under a launch; at
+// production forests (T=1000, D=6) the B*T*D compares. Design:
 //
-// Layout: a block of 256 threads (8 warps) takes 32 rows. It stages feat, thr
-// and leaves, and its [rows, F] slab of x with coalesced loads. Each warp then
-// takes one row at a time; lane l sums the trees l, l+32, ... in float32, and a
-// butterfly of warp shuffles adds the 32 partial sums. The last block masks the
-// ragged edge itself, so any B >= 1 works.
+// - A lane is a row. A block takes `rows` rows (a multiple of 32, so a warp
+//   holds 32 rows) and `groups` warp-groups of them; group g walks the trees
+//   g, g + groups, ... of each chunk. All lanes of a warp read the same split
+//   (feat, thr) at once, a broadcast, and the features of 32 rows from a slab
+//   whose row stride is odd, so no two lanes hit one bank.
+// - The forest streams through shared memory in chunks of `chunk` trees, a
+//   ring of two stages filled by 16-byte cp.async copies, the next chunk in
+//   flight while the current one is evaluated. Shared memory bounds the chunk,
+//   not the forest. Up to depth 8 a chunk's leaves come with it; deeper, a
+//   tree's leaves (4 KB and up) are read in place through the read-only path.
+// - The block's features come with coalesced 16-byte loads into the slab.
+// - Each thread sums its trees in tree order; the groups' partial sums are
+//   added in group order. So two launches give the same bits.
 //
-// Limits, checked by the launcher and by the Python wrapper: 1 <= D <= 8, and
-// the forest plus one block's slab of rows fit in 48 KB of shared memory.
+// The launch plan (rows, groups, chunk) comes from the caller,
+// ops/gbdt_kernel.py::launch_plan, and is checked here.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = 32;
-constexpr int kMaxDepth = 8;
-constexpr size_t kMaxSharedBytes = 48 * 1024;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxDepth = 30;
+constexpr int kMaxSharedLeafDepth = 8;   // deeper trees read their leaves in place
+constexpr int kMaxSharedBytes = 232448;  // 227 KB, what one block may take on Hopper
+constexpr int kChunkMultiple = 4;        // keeps each chunk's sources 16-byte aligned
 
-size_t shared_bytes(int F, int T, int D) {
-  return static_cast<size_t>(T) * D * (sizeof(int) + sizeof(float)) +
-         static_cast<size_t>(T) * (1u << D) * sizeof(float) +
-         static_cast<size_t>(kRowsPerBlock) * F * sizeof(float);
+__host__ __device__ inline int align16(int bytes) { return (bytes + 15) & ~15; }
+
+// Odd, so 32 consecutive rows read one feature from 32 different banks.
+__host__ __device__ inline int slab_stride(int F) { return F | 1; }
+
+// Bytes of one stage: feat and thr of `chunk` trees, and their leaves when
+// they live in shared memory.
+__host__ __device__ inline int stage_bytes(int chunk, int D) {
+  const int split = align16(chunk * D * 4);
+  return 2 * split + (D <= kMaxSharedLeafDepth ? align16(chunk * (4 << D)) : 0);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The block's dynamic shared memory: the feature slab, the groups' partial
+// sums and the stages. In 64 bits: the launcher checks it before anything
+// is sized in int.
+long long shared_bytes(int F, int D, int rows, int groups, int chunk, int stages) {
+  const long long split = (static_cast<long long>(chunk) * D * 4 + 15) & ~15LL;
+  const long long leaves =
+      D <= kMaxSharedLeafDepth ? ((static_cast<long long>(chunk) << (D + 2)) + 15) & ~15LL : 0;
+  const long long slab = (static_cast<long long>(rows) * slab_stride(F) * 4 + 15) & ~15LL;
+  return slab + align16(rows * groups * 4) + stages * (2 * split + leaves);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// n words from global to shared, asynchronously, shared among the block's
+// threads: 16 bytes a copy when both ends are 16-byte aligned.
+__device__ __forceinline__ void copy_async(void* dst, const void* src, int n) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const char* s = static_cast<const char*>(src);
+  const uint32_t d = smem_addr(dst);
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | d) & 15) == 0) {
+    const int n16 = n >> 2;
+    for (int i = tid; i < n16; i += nt) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + 16 * i),
+                   "l"(s + 16 * i)
+                   : "memory");
+    }
+    done = n16 << 2;
+  }
+  for (int i = done + tid; i < n; i += nt) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d + 4 * i), "l"(s + 4 * i)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The D words of one tree's splits from shared memory: one broadcast load
+// of 16 or 8 bytes where the depth allows, else D loads.
+template <int kD>
+__device__ __forceinline__ void load_splits(const int* p, int (&v)[kD]) {
+  if constexpr (kD % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kD / 4; ++i) {
+      const int4 q = reinterpret_cast<const int4*>(p)[i];
+      v[4 * i] = q.x, v[4 * i + 1] = q.y, v[4 * i + 2] = q.z, v[4 * i + 3] = q.w;
+    }
+  } else if constexpr (kD % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) {
+      const int2 q = reinterpret_cast<const int2*>(p)[i];
+      v[2 * i] = q.x, v[2 * i + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kD; ++i) v[i] = p[i];
+  }
+}
+
+// kD in 1..8: the depth is known at compile time and a chunk's leaves come
+// into shared memory with it. kD == 0: the depth D is read at run time and
+// the leaves are read in place.
+template <int kD>
+__global__ void __launch_bounds__(kMaxThreads)
 gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
                    const float* __restrict__ thr, const float* __restrict__ leaves,
                    const float* __restrict__ bias, float* __restrict__ out, int B, int F,
-                   int T, int D) {
+                   int T, int D_rt, int rows, int groups, int chunk) {
+  constexpr bool kSharedLeaves = kD > 0;
+  const int D = kD > 0 ? kD : D_rt;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int td = T * D;
-  const int n_leaves = 1 << D;
-  int* s_feat = reinterpret_cast<int*>(smem);
-  float* s_thr = reinterpret_cast<float*>(s_feat + td);
-  float* s_leaves = s_thr + td;
-  float* s_x = s_leaves + T * n_leaves;
+  const int xs = slab_stride(F);
+  float* s_x = reinterpret_cast<float*>(smem);
+  float* s_part = reinterpret_cast<float*>(smem + align16(rows * xs * 4));
+  unsigned char* s_stage = smem + align16(rows * xs * 4) + align16(rows * groups * 4);
+  const int split_bytes = align16(chunk * D * 4);
+  const int stage = stage_bytes(chunk, D);
 
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  const int rows = min(kRowsPerBlock, B - row0);
+  const int tid = threadIdx.x;
+  const int r = tid % rows;   // this thread's row in the block
+  const int g = tid / rows;   // its group: warp-uniform, since rows % 32 == 0
+  const int row0 = blockIdx.x * rows;
+  const int n_rows = min(rows, B - row0);
+  const int n_chunks = (T + chunk - 1) / chunk;
 
-  for (int i = threadIdx.x; i < td; i += blockDim.x) {
-    // Clamped so that a bad feature id can never read outside its row; the
-    // Python side rejects such a forest before it reaches the card.
-    s_feat[i] = min(max(feat[i], 0), F - 1);
-    s_thr[i] = thr[i];
-  }
-  for (int i = threadIdx.x; i < T * n_leaves; i += blockDim.x) {
-    s_leaves[i] = leaves[i];
-  }
-  // The block's rows are one contiguous run of rows*F floats.
-  const float* xb = x + static_cast<size_t>(row0) * F;
-  for (int i = threadIdx.x; i < rows * F; i += blockDim.x) {
-    s_x[i] = xb[i];
-  }
-  __syncthreads();
+  auto fill = [&](int c) {
+    const int t0 = c * chunk;
+    const int n = min(chunk, T - t0);
+    unsigned char* st = s_stage + (c & 1) * stage;
+    copy_async(st, feat + static_cast<size_t>(t0) * D, n * D);
+    copy_async(st + split_bytes, thr + static_cast<size_t>(t0) * D, n * D);
+    if (kSharedLeaves) {
+      copy_async(st + 2 * split_bytes, leaves + (static_cast<size_t>(t0) << D), n << D);
+    }
+    cp_async_commit();
+  };
+  fill(0);
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  const float b0 = *bias;
-  for (int r = warp; r < rows; r += n_warps) {
-    const float* xr = s_x + r * F;
-    float acc = 0.0f;
-    for (int t = lane; t < T; t += 32) {
-      const int* ft = s_feat + t * D;
-      const float* tt = s_thr + t * D;
-      int leaf = 0;
-      for (int d = 0; d < D; ++d) {
-        leaf |= static_cast<int>(xr[ft[d]] > tt[d]) << d;
+  // The block's rows are one contiguous run of n_rows * F floats; word w
+  // lands at row w / F, column w % F of the slab.
+  {
+    const float* xb = x + static_cast<size_t>(row0) * F;
+    const int n = n_rows * F;
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(xb) & 15) == 0) {
+      const int n16 = n >> 2;
+      for (int i = tid; i < n16; i += blockDim.x) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(xb) + i);
+        const float vs[4] = {v.x, v.y, v.z, v.w};
+        int row = (4 * i) / F, col = 4 * i - row * F;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          s_x[row * xs + col] = vs[k];
+          if (++col == F) col = 0, ++row;
+        }
       }
-      acc += s_leaves[t * n_leaves + leaf];
+      done = n16 << 2;
     }
-    for (int offset = 16; offset > 0; offset >>= 1) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, offset);
-    }
-    if (lane == 0) {
-      out[row0 + r] = acc + b0;
+    for (int w = done + tid; w < n; w += blockDim.x) {
+      const int row = w / F;
+      s_x[row * xs + (w - row * F)] = __ldg(xb + w);
     }
   }
+
+  const float* xr = s_x + r * xs;
+  float acc = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) {
+      fill(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int t0 = c * chunk;
+    const int n = min(chunk, T - t0);
+    const unsigned char* st = s_stage + (c & 1) * stage;
+    const int* s_feat = reinterpret_cast<const int*>(st);
+    const float* s_thr = reinterpret_cast<const float*>(st + split_bytes);
+    if constexpr (kSharedLeaves) {
+      const float* s_leaves = reinterpret_cast<const float*>(st + 2 * split_bytes);
+#pragma unroll 2
+      for (int j = g; j < n; j += groups) {
+        int f[kD], tb[kD];
+        load_splits<kD>(s_feat + j * kD, f);
+        load_splits<kD>(reinterpret_cast<const int*>(s_thr) + j * kD, tb);
+        int leaf = 0;
+#pragma unroll
+        for (int d = 0; d < kD; ++d) {
+          // Clamped so that a bad feature id can never read outside its
+          // row; the Python side rejects such a forest before it gets here.
+          const int fd = min(max(f[d], 0), F - 1);
+          leaf |= static_cast<int>(xr[fd] > __int_as_float(tb[d])) << d;
+        }
+        acc += s_leaves[(j << kD) + leaf];
+      }
+    } else {
+      const float* g_leaves = leaves + (static_cast<size_t>(t0) << D);
+      for (int j = g; j < n; j += groups) {
+        const int* fj = s_feat + j * D;
+        const float* tj = s_thr + j * D;
+        int leaf = 0;
+        for (int d = 0; d < D; ++d) {
+          const int fd = min(max(fj[d], 0), F - 1);
+          leaf |= static_cast<int>(xr[fd] > tj[d]) << d;
+        }
+        acc += __ldg(g_leaves + (static_cast<size_t>(j) << D) + leaf);
+      }
+    }
+    __syncthreads();  // the stage is refilled two chunks on
+  }
+
+  s_part[g * rows + r] = acc;
+  __syncthreads();
+  if (g == 0 && r < n_rows) {
+    float sum = s_part[r];
+#pragma unroll 8
+    for (int k = 1; k < groups; ++k) sum += s_part[k * rows + r];
+    out[row0 + r] = sum + *bias;
+  }
+}
+
+template <int kD>
+int launch(const void* x, const void* feat, const void* thr, const void* leaves,
+           const void* bias, void* out, int B, int F, int T, int D, int rows, int groups,
+           int chunk, int smem, cudaStream_t stream) {
+  // Once per depth variant: allow dynamic shared memory above 48 KB.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gbdt_forest_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
+  if (attr != cudaSuccess) {
+    return static_cast<int>(attr);
+  }
+  const int grid = (B + rows - 1) / rows;
+  gbdt_forest_kernel<kD><<<grid, rows * groups, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const int*>(feat),
+      static_cast<const float*>(thr), static_cast<const float*>(leaves),
+      static_cast<const float*>(bias), static_cast<float*>(out), B, F, T, D, rows, groups,
+      chunk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -108,21 +275,34 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
 // Launches the kernel on `stream` and returns cudaGetLastError(): 0 when the
 // launch was accepted. All pointers are device pointers: x [B, F] float32,
 // feat [T, D] int32, thr [T, D] float32, leaves [T, 2^D] float32, bias [1]
-// float32, out [B] float32, all contiguous. Allocates nothing, does not sync.
+// float32, out [B] float32, all contiguous. The plan: `rows` rows a block (a
+// multiple of 32), `groups` warp-groups a block (rows * groups <= 1024
+// threads), `chunk` trees a stage (T, or a multiple of 4 below T: a ring of
+// two stages then). Allocates nothing, does not sync.
 extern "C" int gbdt_forest_launch(const void* x, const void* feat, const void* thr,
                                   const void* leaves, const void* bias, void* out, int B,
-                                  int F, int T, int D, void* stream) {
-  if (B <= 0 || F <= 0 || T <= 0 || D < 1 || D > kMaxDepth) {
+                                  int F, int T, int D, int rows, int groups, int chunk,
+                                  void* stream) {
+  if (B <= 0 || F <= 0 || T <= 0 || D < 1 || D > kMaxDepth || rows <= 0 || rows % 32 != 0 ||
+      groups <= 0 || rows * groups > kMaxThreads || chunk <= 0 ||
+      (chunk < T && chunk % kChunkMultiple != 0) || chunk > T) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = shared_bytes(F, T, D);
+  const long long smem = shared_bytes(F, D, rows, groups, chunk, chunk < T ? 2 : 1);
   if (smem > kMaxSharedBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int grid = (B + kRowsPerBlock - 1) / kRowsPerBlock;
-  gbdt_forest_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(feat),
-      static_cast<const float*>(thr), static_cast<const float*>(leaves),
-      static_cast<const float*>(bias), static_cast<float*>(out), B, F, T, D);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+#define GBDT_CASE(d) \
+  case d:            \
+    return launch<d>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups, chunk, \
+                     static_cast<int>(smem), st);
+    GBDT_CASE(1) GBDT_CASE(2) GBDT_CASE(3) GBDT_CASE(4)
+    GBDT_CASE(5) GBDT_CASE(6) GBDT_CASE(7) GBDT_CASE(8)
+#undef GBDT_CASE
+    default:
+      return launch<0>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups, chunk,
+                       static_cast<int>(smem), st);
+  }
 }

@@ -4,6 +4,9 @@
 // chip_smoke.py times it beside the attention kernels (TF32 m16n8k8 is the
 // forward's product, bf16 m16n8k16 the backward's); not on any serving or
 // training path.
+//
+// Also an empty kernel: its time, through the same ctypes path as the forest
+// kernel, is the floor under any launch's time on the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,6 +46,8 @@ __global__ void __launch_bounds__(128) mma_rate_kernel(float* out, int iters) {
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;  // keeps the chains alive
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // Launches `blocks` blocks of 128 threads, each warp doing iters * 8 mma.sync
@@ -55,5 +60,12 @@ extern "C" int mma_rate_launch(int tf32, int blocks, int iters, void* out, void*
   } else {
     mma_rate_kernel<false><<<blocks, 128, 0, st>>>(static_cast<float*>(out), iters);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one block of 32 threads that does nothing. Returns
+// cudaGetLastError().
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,19 +3,21 @@
 Replaces the TPU kernel ``igaming_platform_tpu/ops/pallas/gbdt_kernel.py::_kernel``
 (launched by ``_run``, wrapped by ``gbdt_raw_pallas``). The function is the
 one the JAX ensemble serves, ``models/gbdt.py::gbdt_raw``: [B, F] features
--> [B] raw margins ``sum_t leaves[t, leaf(b, t)] + bias``. The sigmoid and
-the ensemble mean stay in torch, as they sit outside the kernel in JAX.
+-> [B] raw margins ``sum_t leaves[t, leaf(b, t)] + bias``, for any forest
+the JAX function takes (any T, depth 1..30). The sigmoid and the ensemble
+mean stay in torch, as they sit outside the kernel in JAX.
 
 The kernel is ``csrc/gbdt_forest.cu``, CUDA C++ for ``sm_90a``, built by
 ``ops/_build.py`` at first use and called through ctypes. It gathers
 ``x[b, feat[t, d]]`` directly instead of the TPU's one-hot selector
-product, so every split compares the exact float32 feature.
+product, so every split compares the exact float32 feature. A lane is a
+row; the forest streams through shared memory in chunks of trees, so its
+size is not bounded by shared memory (see the source's header).
+``launch_plan`` picks rows and warp-groups a block and trees a chunk.
 
-What bounds it on an H100: bytes, B*30*4 read plus B*4 written plus the
-~6 KB forest. At B=4096 that is about 0.51 MB, about 0.15 us at 3.35 TB/s,
-so the launch latency dominates. The design answers with one launch per
-call that allocates nothing and never synchronises, with the forest staged
-once per block in shared memory (see the source's header).
+What bounds it on an H100: at the serving forest (T=64, D=4) bytes, about
+0.15 us at B=4096, under the launch itself; at production forests (T=1000,
+D=6) the B*T*D compares. One launch per call, no allocation, no sync.
 
 ``gbdt_forest`` takes the plain PyTorch version for CPU tensors only; for
 CUDA tensors it launches the kernel or raises. ``gbdt_forest.launches``
@@ -25,16 +27,27 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from igaming_platform_tpu_torch.core.device import constant
 
-MAX_DEPTH = 8
-ROWS_PER_BLOCK = 32  # csrc/gbdt_forest.cu kRowsPerBlock
-MAX_SHARED_BYTES = 48 * 1024  # csrc/gbdt_forest.cu kMaxSharedBytes
+# Mirrors of csrc/gbdt_forest.cu's constants.
+MAX_THREADS = 1024  # kMaxThreads
+MAX_DEPTH = 30  # kMaxDepth: at 31 the JAX function's int32 1 << d overflows
+MAX_SHARED_LEAF_DEPTH = 8  # kMaxSharedLeafDepth
+MAX_SHARED_BYTES = 232448  # kMaxSharedBytes, 227 KB
+CHUNK_MULTIPLE = 4  # kChunkMultiple
+# The plan's choices: rows a block, trees a warp-group walks at least, and
+# the bytes of one stage of the ring (two stages stay under 100 KB, so two
+# blocks fit an SM).
+ROWS = 32
+TREES_PER_GROUP = 8
+STAGE_BYTES = 48 * 1024
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -48,14 +61,44 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("gbdt_forest")
     fn = lib.gbdt_forest_launch
     if fn.argtypes is None:
-        fn.argtypes = [_VOIDP] * 6 + [_INT] * 4 + [_VOIDP]
+        fn.argtypes = [_VOIDP] * 6 + [_INT] * 7 + [_VOIDP]
         fn.restype = _INT
     return lib
 
 
-def shared_bytes(n_features: int, n_trees: int, depth: int) -> int:
-    """Shared memory one block of the kernel uses."""
-    return n_trees * depth * 8 + n_trees * (1 << depth) * 4 + ROWS_PER_BLOCK * n_features * 4
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def stage_bytes(chunk: int, depth: int) -> int:
+    """One stage of the ring: feat and thr of ``chunk`` trees, and their
+    leaves up to depth MAX_SHARED_LEAF_DEPTH (deeper ones are read in place)."""
+    leaves = _align16(chunk * (4 << depth)) if depth <= MAX_SHARED_LEAF_DEPTH else 0
+    return 2 * _align16(chunk * depth * 4) + leaves
+
+
+class LaunchPlan(NamedTuple):
+    rows: int  # rows a block, one a lane
+    groups: int  # warp-groups a block, each walking every groups-th tree
+    chunk: int  # trees a stage
+    stages: int  # 1 when one chunk holds the forest, else a ring of 2
+    grid: int  # blocks
+    shared_bytes: int  # dynamic shared memory a block
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(b: int, n_features: int, n_trees: int, depth: int) -> LaunchPlan:
+    """The kernel's launch for a [b, n_features] batch and a [T, D] forest:
+    32 rows a block, a warp-group for every TREES_PER_GROUP trees up to
+    MAX_THREADS threads, and as many trees a chunk as STAGE_BYTES holds."""
+    groups = max(1, min(MAX_THREADS // ROWS, n_trees // TREES_PER_GROUP))
+    per_tree = 8 * depth + (4 << depth if depth <= MAX_SHARED_LEAF_DEPTH else 0)
+    fit = max(CHUNK_MULTIPLE, (STAGE_BYTES - 48) // per_tree // CHUNK_MULTIPLE * CHUNK_MULTIPLE)
+    chunk = n_trees if n_trees <= fit else fit
+    stages = 1 if chunk == n_trees else 2
+    shared = (_align16(ROWS * (n_features | 1) * 4) + _align16(ROWS * groups * 4)
+              + stages * stage_bytes(chunk, depth))
+    return LaunchPlan(ROWS, groups, chunk, stages, -(-b // ROWS), shared)
 
 
 def forest_leaf_index(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
@@ -100,10 +143,6 @@ def _check(x, feat, thr, leaves, bias) -> None:
         raise ValueError(
             f"gbdt_forest: feat {tuple(feat.shape)} thr {tuple(thr.shape)} "
             f"leaves {tuple(leaves.shape)} bias {tuple(bias.shape)} disagree")
-    smem = shared_bytes(x.shape[1], n_trees, depth)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"gbdt_forest: forest needs {smem} B of shared memory, "
-                         f"the kernel takes {MAX_SHARED_BYTES}")
 
 
 def gbdt_forest(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
@@ -119,10 +158,12 @@ def gbdt_forest(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
     out = torch.empty((b,), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
+    plan = launch_plan(b, n_features, n_trees, depth)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib().gbdt_forest_launch(
         x.data_ptr(), feat.data_ptr(), thr.data_ptr(), leaves.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, n_features, n_trees, depth, stream)
+        out.data_ptr(), b, n_features, n_trees, depth, plan.rows, plan.groups, plan.chunk,
+        stream)
     if rc != 0:
         raise RuntimeError(f"gbdt_forest: kernel launch failed with CUDA error {rc}")
     with _count_lock:
