@@ -363,13 +363,15 @@ def phase_kernels(torch, gbdt_kernel, forests=KERNEL_FORESTS, large=LARGE_FOREST
     return rows
 
 
-def forest_plan_sweep(torch, gbdt_kernel, shapes=((64, 4, 256), (64, 4, 4096), (600, 4, 4096),
-                                                  (1000, 6, 256), (1000, 6, 4096),
+def forest_plan_sweep(torch, gbdt_kernel, shapes=((64, 4, 256), (64, 4, 4096), (600, 4, 256),
+                                                  (600, 4, 4096), (1000, 6, 256),
+                                                  (1000, 6, 4096), (256, 10, 256),
                                                   (256, 10, 4096)),
-                      rows=(32, 64), groups=(2, 4, 8, 16, 32)) -> list[dict]:
+                      groups=(4, 8, 16, 32), clusters=(1, 2, 4, 8)) -> list[dict]:
     """Back-to-back time of the forest kernel under launch plans other than
-    ``launch_plan``'s, through its C entry point, each held to the plain
-    version in float64: for tuning the plan, not part of ``main``."""
+    ``launch_plan``'s (``plan_for`` with 32 rows a block), through its C
+    entry point, each held to the plain version in float64: for tuning the
+    plan, not part of ``main``."""
     rng = np.random.default_rng(3)
     lib = gbdt_kernel._lib()
     out = []
@@ -378,27 +380,27 @@ def forest_plan_sweep(torch, gbdt_kernel, shapes=((64, 4, 256), (64, 4, 4096), (
         x, feat, thr, leaves, bias = args
         want = gbdt_kernel.gbdt_forest_plain(x.double(), feat, thr.double(), leaves.double(),
                                              bias.double())
-        chunk = gbdt_kernel.launch_plan(b, N_FEATURES, n_trees, depth).chunk
         y = torch.empty(b, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
-        for r in rows:
+        for cl in clusters:
             for g in groups:
-                if r * g > gbdt_kernel.MAX_THREADS:
-                    continue
+                plan = gbdt_kernel.plan_for(b, N_FEATURES, n_trees, depth, 32, g, cl)
 
                 def run():
                     if lib.gbdt_forest_launch(x.data_ptr(), feat.data_ptr(), thr.data_ptr(),
                                               leaves.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                                              b, N_FEATURES, n_trees, depth, r, g, chunk, stream):
-                        raise RuntimeError("gbdt_forest: launch refused")
+                                              b, N_FEATURES, n_trees, depth, plan.rows,
+                                              plan.groups, plan.chunk, plan.cluster, plan.span,
+                                              stream):
+                        raise RuntimeError(f"gbdt_forest: launch refused: {plan}")
 
                 run()
                 torch.cuda.synchronize()
                 err = float((y.double() - want).abs().max())
                 if err > LARGE_ATOL:
-                    raise AssertionError(f"plan sweep T={n_trees} D={depth} B={b} rows={r} "
-                                         f"groups={g}: max error {err}")
-                row = {"T": n_trees, "D": depth, "B": b, "rows": r, "groups": g, "chunk": chunk,
+                    raise AssertionError(f"plan sweep T={n_trees} D={depth} B={b} {plan}: "
+                                         f"max error {err}")
+                row = {"T": n_trees, "D": depth, "B": b, **plan._asdict(),
                        "b2b_ms": device_ms_b2b(torch, run)}
                 out.append(row)
                 log(f"plan sweep: {json.dumps(row)}")
@@ -789,7 +791,9 @@ def phase_engine(torch, card: str, gbdt_kernel) -> dict:
             with torch.inference_mode():
                 gpu._score_fn(gpu.get_params(), x_step, bl_step, gpu._thresholds)
 
-        step_ms = device_ms(torch, step, reps=20)
+        # A long spin: an eager step's enqueue outlasts the default one on a
+        # slow host, and the events would then count host time.
+        step_ms = device_ms(torch, step, reps=20, sleep=B2B_SLEEP_CYCLES)
         # The step's kernels by name, from the profiler: what its device time is.
         step_profile = profile_window(torch, step, top=50)
 
@@ -883,7 +887,7 @@ def large_forest_engine(torch, gbdt_kernel, rng, store, bcfg, singles, batch) ->
             with torch.inference_mode():
                 gpu._score_fn(gpu.get_params(), x_step, bl_step, gpu._thresholds)
 
-        step_ms = device_ms(torch, step, reps=20)
+        step_ms = device_ms(torch, step, reps=20, sleep=B2B_SLEEP_CYCLES)
     finally:
         for eng in engines:
             eng.close()

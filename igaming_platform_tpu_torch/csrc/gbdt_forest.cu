@@ -31,14 +31,23 @@
 //   not the forest. Up to depth 8 a chunk's leaves come with it; deeper, a
 //   tree's leaves (4 KB and up) are read in place through the read-only path.
 // - The block's features come with coalesced 16-byte loads into the slab.
-// - Each thread sums its trees in tree order; the groups' partial sums are
-//   added in group order. So two launches give the same bits.
+// - A batch of few rows leaves most SMs idle, and one block walks every tree
+//   of its rows. So up to 8 blocks of a thread-block cluster share one set of
+//   rows, each a slice of `span` trees, and the first adds the others' sums
+//   from their shared memory (distributed shared memory) after a cluster
+//   barrier.
+// - Each thread sums its trees in tree order, the groups' partial sums are
+//   added in group order and the cluster's in rank order. So two launches
+//   give the same bits.
 //
-// The launch plan (rows, groups, chunk) comes from the caller,
-// ops/gbdt_kernel.py::launch_plan, and is checked here.
+// The launch plan (rows, groups, chunk, cluster, span) comes from the
+// caller, ops/gbdt_kernel.py::launch_plan, and is checked here.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -47,6 +56,7 @@ constexpr int kMaxDepth = 30;
 constexpr int kMaxSharedLeafDepth = 8;   // deeper trees read their leaves in place
 constexpr int kMaxSharedBytes = 232448;  // 227 KB, what one block may take on Hopper
 constexpr int kChunkMultiple = 4;        // keeps each chunk's sources 16-byte aligned
+constexpr int kMaxCluster = 8;           // the portable cluster size
 
 __host__ __device__ inline int align16(int bytes) { return (bytes + 15) & ~15; }
 
@@ -136,7 +146,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
                    const float* __restrict__ thr, const float* __restrict__ leaves,
                    const float* __restrict__ bias, float* __restrict__ out, int B, int F,
-                   int T, int D_rt, int rows, int groups, int chunk) {
+                   int T, int D_rt, int rows, int groups, int chunk, int cluster, int span) {
   constexpr bool kSharedLeaves = kD > 0;
   const int D = kD > 0 ? kD : D_rt;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -150,13 +160,18 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
   const int tid = threadIdx.x;
   const int r = tid % rows;   // this thread's row in the block
   const int g = tid / rows;   // its group: warp-uniform, since rows % 32 == 0
-  const int row0 = blockIdx.x * rows;
+  // A cluster's blocks are consecutive in x: they share rows, each takes a
+  // slice of the trees.
+  const int rank = blockIdx.x % cluster;
+  const int row0 = blockIdx.x / cluster * rows;
   const int n_rows = min(rows, B - row0);
-  const int n_chunks = (T + chunk - 1) / chunk;
+  const int t_begin = min(T, rank * span);
+  const int t_end = min(T, t_begin + span);
+  const int n_chunks = (t_end - t_begin + chunk - 1) / chunk;
 
   auto fill = [&](int c) {
-    const int t0 = c * chunk;
-    const int n = min(chunk, T - t0);
+    const int t0 = t_begin + c * chunk;
+    const int n = min(chunk, t_end - t0);
     unsigned char* st = s_stage + (c & 1) * stage;
     copy_async(st, feat + static_cast<size_t>(t0) * D, n * D);
     copy_async(st + split_bytes, thr + static_cast<size_t>(t0) * D, n * D);
@@ -165,7 +180,7 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
     }
     cp_async_commit();
   };
-  fill(0);
+  if (n_chunks > 0) fill(0);
 
   // The block's rows are one contiguous run of n_rows * F floats; word w
   // lands at row w / F, column w % F of the slab.
@@ -203,8 +218,8 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int t0 = c * chunk;
-    const int n = min(chunk, T - t0);
+    const int t0 = t_begin + c * chunk;
+    const int n = min(chunk, t_end - t0);
     const unsigned char* st = s_stage + (c & 1) * stage;
     const int* s_feat = reinterpret_cast<const int*>(st);
     const float* s_thr = reinterpret_cast<const float*>(st + split_bytes);
@@ -220,7 +235,7 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
         for (int d = 0; d < kD; ++d) {
           // Clamped so that a bad feature id can never read outside its
           // row; the Python side rejects such a forest before it gets here.
-          const int fd = min(max(f[d], 0), F - 1);
+          const int fd = min(static_cast<unsigned>(f[d]), static_cast<unsigned>(F - 1));
           leaf |= static_cast<int>(xr[fd] > __int_as_float(tb[d])) << d;
         }
         acc += s_leaves[(j << kD) + leaf];
@@ -232,42 +247,65 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
         const float* tj = s_thr + j * D;
         int leaf = 0;
         for (int d = 0; d < D; ++d) {
-          const int fd = min(max(fj[d], 0), F - 1);
+          const int fd = min(static_cast<unsigned>(fj[d]), static_cast<unsigned>(F - 1));
           leaf |= static_cast<int>(xr[fd] > tj[d]) << d;
         }
         acc += __ldg(g_leaves + (static_cast<size_t>(j) << D) + leaf);
       }
     }
-    __syncthreads();  // the stage is refilled two chunks on
+    if (c + 2 < n_chunks) __syncthreads();  // this stage is refilled next
   }
 
   s_part[g * rows + r] = acc;
   __syncthreads();
-  if (g == 0 && r < n_rows) {
+  if (g == 0) {
     float sum = s_part[r];
 #pragma unroll 8
     for (int k = 1; k < groups; ++k) sum += s_part[k * rows + r];
+    s_part[r] = sum;  // the block's sum over its trees
+  }
+  if (cluster == 1) {
+    if (g == 0 && r < n_rows) out[row0 + r] = s_part[r] + *bias;
+    return;
+  }
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();  // every block's sums are in its shared memory
+  if (rank == 0 && g == 0 && r < n_rows) {
+    float sum = s_part[r];
+    for (int k = 1; k < cluster; ++k) sum += cl.map_shared_rank(s_part, k)[r];
     out[row0 + r] = sum + *bias;
   }
+  cl.sync();  // no block leaves while its sums are read
 }
 
 template <int kD>
 int launch(const void* x, const void* feat, const void* thr, const void* leaves,
            const void* bias, void* out, int B, int F, int T, int D, int rows, int groups,
-           int chunk, int smem, cudaStream_t stream) {
+           int chunk, int cluster, int span, int smem, cudaStream_t stream) {
   // Once per depth variant: allow dynamic shared memory above 48 KB.
   static const cudaError_t attr = cudaFuncSetAttribute(
       gbdt_forest_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
   if (attr != cudaSuccess) {
     return static_cast<int>(attr);
   }
-  const int grid = (B + rows - 1) / rows;
-  gbdt_forest_kernel<kD><<<grid, rows * groups, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const int*>(feat),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((B + rows - 1) / rows * cluster);
+  cfg.blockDim = dim3(rows * groups);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute dims[1];
+  dims[0].id = cudaLaunchAttributeClusterDimension;
+  dims[0].val.clusterDim.x = cluster;
+  dims[0].val.clusterDim.y = 1;
+  dims[0].val.clusterDim.z = 1;
+  cfg.attrs = dims;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &cfg, gbdt_forest_kernel<kD>, static_cast<const float*>(x), static_cast<const int*>(feat),
       static_cast<const float*>(thr), static_cast<const float*>(leaves),
-      static_cast<const float*>(bias), static_cast<float*>(out), B, F, T, D, rows, groups,
-      chunk);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(bias), static_cast<float*>(out), B, F, T, D, rows, groups, chunk,
+      cluster, span);
+  return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
 }
 
 }  // namespace
@@ -277,18 +315,23 @@ int launch(const void* x, const void* feat, const void* thr, const void* leaves,
 // feat [T, D] int32, thr [T, D] float32, leaves [T, 2^D] float32, bias [1]
 // float32, out [B] float32, all contiguous. The plan: `rows` rows a block (a
 // multiple of 32), `groups` warp-groups a block (rows * groups <= 1024
-// threads), `chunk` trees a stage (T, or a multiple of 4 below T: a ring of
-// two stages then). Allocates nothing, does not sync.
+// threads), `cluster` blocks (1 to 8) sharing each set of rows, each taking
+// `span` trees (T when cluster is 1, else a multiple of 4 with
+// cluster * span >= T), `chunk` trees a stage (span, or a multiple of 4
+// below it: a ring of two stages then). Allocates nothing, does not sync.
 extern "C" int gbdt_forest_launch(const void* x, const void* feat, const void* thr,
                                   const void* leaves, const void* bias, void* out, int B,
                                   int F, int T, int D, int rows, int groups, int chunk,
-                                  void* stream) {
+                                  int cluster, int span, void* stream) {
   if (B <= 0 || F <= 0 || T <= 0 || D < 1 || D > kMaxDepth || rows <= 0 || rows % 32 != 0 ||
-      groups <= 0 || rows * groups > kMaxThreads || chunk <= 0 ||
-      (chunk < T && chunk % kChunkMultiple != 0) || chunk > T) {
+      groups <= 0 || rows * groups > kMaxThreads || cluster < 1 || cluster > kMaxCluster ||
+      (cluster == 1 ? span != T
+                    : span % kChunkMultiple != 0 || static_cast<long long>(span) * cluster < T) ||
+      chunk <= 0 || chunk > span || (chunk < span && chunk % kChunkMultiple != 0) ||
+      (B + rows - 1) / rows > (1 << 30) / cluster) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem = shared_bytes(F, D, rows, groups, chunk, chunk < T ? 2 : 1);
+  const long long smem = shared_bytes(F, D, rows, groups, chunk, chunk < span ? 2 : 1);
   if (smem > kMaxSharedBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -297,12 +340,12 @@ extern "C" int gbdt_forest_launch(const void* x, const void* feat, const void* t
 #define GBDT_CASE(d) \
   case d:            \
     return launch<d>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups, chunk, \
-                     static_cast<int>(smem), st);
+                     cluster, span, static_cast<int>(smem), st);
     GBDT_CASE(1) GBDT_CASE(2) GBDT_CASE(3) GBDT_CASE(4)
     GBDT_CASE(5) GBDT_CASE(6) GBDT_CASE(7) GBDT_CASE(8)
 #undef GBDT_CASE
     default:
       return launch<0>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups, chunk,
-                       static_cast<int>(smem), st);
+                       cluster, span, static_cast<int>(smem), st);
   }
 }

@@ -42,11 +42,13 @@ MAX_DEPTH = 30  # kMaxDepth: at 31 the JAX function's int32 1 << d overflows
 MAX_SHARED_LEAF_DEPTH = 8  # kMaxSharedLeafDepth
 MAX_SHARED_BYTES = 232448  # kMaxSharedBytes, 227 KB
 CHUNK_MULTIPLE = 4  # kChunkMultiple
-# The plan's choices: rows a block, trees a warp-group walks at least, and
-# the bytes of one stage of the ring (two stages stay under 100 KB, so two
-# blocks fit an SM).
+MAX_CLUSTER = 8  # kMaxCluster
+# The plan's choices: rows a block, trees a warp-group walks at least, trees
+# a block of a cluster takes at least, and the bytes of one stage of the
+# ring (two stages stay under 100 KB, so two blocks fit an SM).
 ROWS = 32
 TREES_PER_GROUP = 8
+TREES_PER_BLOCK = 64
 STAGE_BYTES = 48 * 1024
 
 _VOIDP = ctypes.c_void_p
@@ -61,7 +63,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("gbdt_forest")
     fn = lib.gbdt_forest_launch
     if fn.argtypes is None:
-        fn.argtypes = [_VOIDP] * 6 + [_INT] * 7 + [_VOIDP]
+        fn.argtypes = [_VOIDP] * 6 + [_INT] * 9 + [_VOIDP]
         fn.restype = _INT
     return lib
 
@@ -80,25 +82,54 @@ def stage_bytes(chunk: int, depth: int) -> int:
 class LaunchPlan(NamedTuple):
     rows: int  # rows a block, one a lane
     groups: int  # warp-groups a block, each walking every groups-th tree
+    cluster: int  # blocks of a cluster sharing the same rows
+    span: int  # trees each block of a cluster takes
     chunk: int  # trees a stage
-    stages: int  # 1 when one chunk holds the forest, else a ring of 2
+    stages: int  # 1 when one chunk holds a block's trees, else a ring of 2
     grid: int  # blocks
     shared_bytes: int  # dynamic shared memory a block
 
 
 @functools.lru_cache(maxsize=256)
-def launch_plan(b: int, n_features: int, n_trees: int, depth: int) -> LaunchPlan:
-    """The kernel's launch for a [b, n_features] batch and a [T, D] forest:
-    32 rows a block, a warp-group for every TREES_PER_GROUP trees up to
-    MAX_THREADS threads, and as many trees a chunk as STAGE_BYTES holds."""
-    groups = max(1, min(MAX_THREADS // ROWS, n_trees // TREES_PER_GROUP))
+def launch_plan(b: int, n_features: int, n_trees: int, depth: int, n_sms: int) -> LaunchPlan:
+    """The kernel's launch for a [b, n_features] batch and a [T, D] forest on
+    a card of ``n_sms`` SMs: 32 rows a block; while the row blocks leave SMs
+    idle, clusters of up to 8 blocks that split the trees, each keeping at
+    least TREES_PER_BLOCK; a warp-group for every TREES_PER_GROUP trees of a
+    block, up to MAX_THREADS threads; as many trees a chunk as STAGE_BYTES holds."""
+    row_blocks = -(-b // ROWS)
+    cluster = 1
+    while (cluster < MAX_CLUSTER and row_blocks * cluster * 2 <= n_sms
+           and n_trees >= cluster * 2 * TREES_PER_BLOCK):
+        cluster *= 2
+    groups = max(1, min(MAX_THREADS // ROWS, _span(n_trees, cluster) // TREES_PER_GROUP))
+    return plan_for(b, n_features, n_trees, depth, ROWS, groups, cluster)
+
+
+def _span(n_trees: int, cluster: int) -> int:
+    """Trees each block of a cluster takes: all, or a multiple of 4."""
+    if cluster == 1:
+        return n_trees
+    return -(-n_trees // (cluster * CHUNK_MULTIPLE)) * CHUNK_MULTIPLE
+
+
+def plan_for(b: int, n_features: int, n_trees: int, depth: int, rows: int, groups: int,
+             cluster: int) -> LaunchPlan:
+    """The rest of a plan given its rows, groups and cluster: the span, as
+    many trees a chunk as STAGE_BYTES holds, the stages, grid and bytes."""
+    span = _span(n_trees, cluster)
     per_tree = 8 * depth + (4 << depth if depth <= MAX_SHARED_LEAF_DEPTH else 0)
     fit = max(CHUNK_MULTIPLE, (STAGE_BYTES - 48) // per_tree // CHUNK_MULTIPLE * CHUNK_MULTIPLE)
-    chunk = n_trees if n_trees <= fit else fit
-    stages = 1 if chunk == n_trees else 2
-    shared = (_align16(ROWS * (n_features | 1) * 4) + _align16(ROWS * groups * 4)
+    chunk = min(span, fit)
+    stages = 1 if chunk == span else 2
+    shared = (_align16(rows * (n_features | 1) * 4) + _align16(rows * groups * 4)
               + stages * stage_bytes(chunk, depth))
-    return LaunchPlan(ROWS, groups, chunk, stages, -(-b // ROWS), shared)
+    return LaunchPlan(rows, groups, cluster, span, chunk, stages, -(-b // rows) * cluster, shared)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def forest_leaf_index(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
@@ -158,12 +189,12 @@ def gbdt_forest(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
     out = torch.empty((b,), dtype=torch.float32, device=x.device)
     if b == 0:
         return out
-    plan = launch_plan(b, n_features, n_trees, depth)
+    plan = launch_plan(b, n_features, n_trees, depth, _sm_count(x.device.index))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib().gbdt_forest_launch(
         x.data_ptr(), feat.data_ptr(), thr.data_ptr(), leaves.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b, n_features, n_trees, depth, plan.rows, plan.groups, plan.chunk,
-        stream)
+        plan.cluster, plan.span, stream)
     if rc != 0:
         raise RuntimeError(f"gbdt_forest: kernel launch failed with CUDA error {rc}")
     with _count_lock:
