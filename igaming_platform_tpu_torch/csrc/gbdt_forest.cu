@@ -208,7 +208,7 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
     }
   }
 
-  const float* xr = s_x + r * xs;
+  const unsigned char* xr = reinterpret_cast<const unsigned char*>(s_x + r * xs);
   float acc = 0.0f;
   for (int c = 0; c < n_chunks; ++c) {
     if (c + 1 < n_chunks) {
@@ -220,8 +220,16 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
     __syncthreads();
     const int t0 = t_begin + c * chunk;
     const int n = min(chunk, t_end - t0);
-    const unsigned char* st = s_stage + (c & 1) * stage;
-    const int* s_feat = reinterpret_cast<const int*>(st);
+    unsigned char* st = s_stage + (c & 1) * stage;
+    // Once a chunk, each feature id becomes the byte offset of its feature in
+    // a slab row, clamped so that a bad id can never read outside the row
+    // (the Python side rejects such a forest before it gets here). A split
+    // then costs one add for its address.
+    int* s_feat = reinterpret_cast<int*>(st);
+    for (int i = tid; i < n * D; i += blockDim.x) {
+      s_feat[i] = min(static_cast<unsigned>(s_feat[i]), static_cast<unsigned>(F - 1)) * 4;
+    }
+    __syncthreads();
     const float* s_thr = reinterpret_cast<const float*>(st + split_bytes);
     if constexpr (kSharedLeaves) {
       const float* s_leaves = reinterpret_cast<const float*>(st + 2 * split_bytes);
@@ -233,10 +241,8 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
         int leaf = 0;
 #pragma unroll
         for (int d = 0; d < kD; ++d) {
-          // Clamped so that a bad feature id can never read outside its
-          // row; the Python side rejects such a forest before it gets here.
-          const int fd = min(static_cast<unsigned>(f[d]), static_cast<unsigned>(F - 1));
-          leaf |= static_cast<int>(xr[fd] > __int_as_float(tb[d])) << d;
+          const float v = *reinterpret_cast<const float*>(xr + f[d]);
+          leaf |= static_cast<int>(v > __int_as_float(tb[d])) << d;
         }
         acc += s_leaves[(j << kD) + leaf];
       }
@@ -247,8 +253,7 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
         const float* tj = s_thr + j * D;
         int leaf = 0;
         for (int d = 0; d < D; ++d) {
-          const int fd = min(static_cast<unsigned>(fj[d]), static_cast<unsigned>(F - 1));
-          leaf |= static_cast<int>(xr[fd] > tj[d]) << d;
+          leaf |= static_cast<int>(*reinterpret_cast<const float*>(xr + fj[d]) > tj[d]) << d;
         }
         acc += __ldg(g_leaves + (static_cast<size_t>(j) << D) + leaf);
       }

@@ -43,12 +43,15 @@ MAX_SHARED_LEAF_DEPTH = 8  # kMaxSharedLeafDepth
 MAX_SHARED_BYTES = 232448  # kMaxSharedBytes, 227 KB
 CHUNK_MULTIPLE = 4  # kChunkMultiple
 MAX_CLUSTER = 8  # kMaxCluster
-# The plan's choices: rows a block, trees a warp-group walks at least, trees
-# a block of a cluster takes at least, and the bytes of one stage of the
-# ring (two stages stay under 100 KB, so two blocks fit an SM).
+# The plan's choices, from a sweep on an H100 (chip_smoke.forest_plan_sweep):
+# rows a block; splits (trees x depth) a warp-group walks, and at most 16
+# groups while the leaves sit in shared memory; splits a block of a cluster
+# takes at least; and the bytes of one stage of the ring (two stages stay
+# under 100 KB, so two blocks fit an SM).
 ROWS = 32
-TREES_PER_GROUP = 8
-TREES_PER_BLOCK = 64
+SPLITS_PER_GROUP = 32
+MAX_GROUPS_SHARED_LEAVES = 16
+SPLITS_PER_BLOCK = 256
 STAGE_BYTES = 48 * 1024
 
 _VOIDP = ctypes.c_void_p
@@ -95,14 +98,15 @@ def launch_plan(b: int, n_features: int, n_trees: int, depth: int, n_sms: int) -
     """The kernel's launch for a [b, n_features] batch and a [T, D] forest on
     a card of ``n_sms`` SMs: 32 rows a block; while the row blocks leave SMs
     idle, clusters of up to 8 blocks that split the trees, each keeping at
-    least TREES_PER_BLOCK; a warp-group for every TREES_PER_GROUP trees of a
-    block, up to MAX_THREADS threads; as many trees a chunk as STAGE_BYTES holds."""
+    least SPLITS_PER_BLOCK splits; a warp-group for every SPLITS_PER_GROUP
+    splits of a block; as many trees a chunk as STAGE_BYTES holds."""
     row_blocks = -(-b // ROWS)
     cluster = 1
     while (cluster < MAX_CLUSTER and row_blocks * cluster * 2 <= n_sms
-           and n_trees >= cluster * 2 * TREES_PER_BLOCK):
+           and n_trees * depth >= cluster * 2 * SPLITS_PER_BLOCK):
         cluster *= 2
-    groups = max(1, min(MAX_THREADS // ROWS, _span(n_trees, cluster) // TREES_PER_GROUP))
+    most = MAX_GROUPS_SHARED_LEAVES if depth <= MAX_SHARED_LEAF_DEPTH else MAX_THREADS // ROWS
+    groups = max(1, min(most, -(-_span(n_trees, cluster) * depth // SPLITS_PER_GROUP)))
     return plan_for(b, n_features, n_trees, depth, ROWS, groups, cluster)
 
 
