@@ -65,6 +65,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import statistics
@@ -367,11 +368,12 @@ def forest_plan_sweep(torch, gbdt_kernel, shapes=((64, 4, 256), (64, 4, 4096), (
                                                   (600, 4, 4096), (1000, 6, 256),
                                                   (1000, 6, 4096), (256, 10, 256),
                                                   (256, 10, 4096)),
-                      groups=(4, 8, 16, 32), clusters=(1, 2, 4, 8)) -> list[dict]:
+                      rows=(32, 64), groups=(4, 8, 16, 32),
+                      clusters=(1, 2, 4, 8)) -> list[dict]:
     """Back-to-back time of the forest kernel under launch plans other than
-    ``launch_plan``'s (``plan_for`` with 32 rows a block), through its C
-    entry point, each held to the plain version in float64: for tuning the
-    plan, not part of ``main``."""
+    ``launch_plan``'s (``plan_for``), through its C entry point, each held
+    to the plain version in float64: for tuning the plan, not part of
+    ``main``."""
     rng = np.random.default_rng(3)
     lib = gbdt_kernel._lib()
     out = []
@@ -382,28 +384,28 @@ def forest_plan_sweep(torch, gbdt_kernel, shapes=((64, 4, 256), (64, 4, 4096), (
                                              bias.double())
         y = torch.empty(b, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
-        for cl in clusters:
-            for g in groups:
-                plan = gbdt_kernel.plan_for(b, N_FEATURES, n_trees, depth, 32, g, cl)
+        for r, cl, g in itertools.product(rows, clusters, groups):
+            plan = gbdt_kernel.plan_for(b, N_FEATURES, n_trees, depth, r, g, cl)
+            if plan.shared_bytes > gbdt_kernel.MAX_SHARED_BYTES:
+                continue
 
-                def run():
-                    if lib.gbdt_forest_launch(x.data_ptr(), feat.data_ptr(), thr.data_ptr(),
-                                              leaves.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                                              b, N_FEATURES, n_trees, depth, plan.rows,
-                                              plan.groups, plan.chunk, plan.cluster, plan.span,
-                                              stream):
-                        raise RuntimeError(f"gbdt_forest: launch refused: {plan}")
+            def run():
+                if lib.gbdt_forest_launch(x.data_ptr(), feat.data_ptr(), thr.data_ptr(),
+                                          leaves.data_ptr(), bias.data_ptr(), y.data_ptr(), b,
+                                          N_FEATURES, n_trees, depth, plan.rows, plan.groups,
+                                          plan.chunk, plan.cluster, plan.span, stream):
+                    raise RuntimeError(f"gbdt_forest: launch refused: {plan}")
 
-                run()
-                torch.cuda.synchronize()
-                err = float((y.double() - want).abs().max())
-                if err > LARGE_ATOL:
-                    raise AssertionError(f"plan sweep T={n_trees} D={depth} B={b} {plan}: "
-                                         f"max error {err}")
-                row = {"T": n_trees, "D": depth, "B": b, **plan._asdict(),
-                       "b2b_ms": device_ms_b2b(torch, run)}
-                out.append(row)
-                log(f"plan sweep: {json.dumps(row)}")
+            run()
+            torch.cuda.synchronize()
+            err = float((y.double() - want).abs().max())
+            if err > LARGE_ATOL:
+                raise AssertionError(f"plan sweep T={n_trees} D={depth} B={b} {plan}: "
+                                     f"max error {err}")
+            row = {"T": n_trees, "D": depth, "B": b, **plan._asdict(),
+                   "b2b_ms": device_ms_b2b(torch, run)}
+            out.append(row)
+            log(f"plan sweep: {json.dumps(row)}")
     return out
 
 

@@ -20,11 +20,13 @@
 // and a 6 KB forest, about 0.15 us at B=4096, far under a launch; at
 // production forests (T=1000, D=6) the B*T*D compares. Design:
 //
-// - A lane is a row. A block takes `rows` rows (a multiple of 32, so a warp
-//   holds 32 rows) and `groups` warp-groups of them; group g walks the trees
-//   g, g + groups, ... of each chunk. All lanes of a warp read the same split
-//   (feat, thr) at once, a broadcast, and the features of 32 rows from a slab
-//   whose row stride is odd, so no two lanes hit one bank.
+// - A lane is a row, or two. A block takes `rows` rows (32, or 64 at large
+//   batches, where each lane takes rows l and l + 32) and `groups` warps;
+//   warp g walks the trees g, g + groups, ... of each chunk for all of the
+//   block's rows. All lanes of a warp read the same split (feat, thr) at
+//   once, a broadcast, and the features of 32 rows from a slab whose row
+//   stride is odd, so no two lanes hit one bank. Two rows a lane halve the
+//   forest bytes a batch reads from L2, and the loads of each split.
 // - The forest streams through shared memory in chunks of `chunk` trees, a
 //   ring of two stages filled by 16-byte cp.async copies, the next chunk in
 //   flight while the current one is evaluated. Shared memory bounds the chunk,
@@ -140,8 +142,8 @@ __device__ __forceinline__ void load_splits(const int* p, int (&v)[kD]) {
 
 // kD in 1..8: the depth is known at compile time and a chunk's leaves come
 // into shared memory with it. kD == 0: the depth D is read at run time and
-// the leaves are read in place.
-template <int kD>
+// the leaves are read in place. kRows: rows a lane (rows == 32 * kRows).
+template <int kD, int kRows>
 __global__ void __launch_bounds__(kMaxThreads)
 gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
                    const float* __restrict__ thr, const float* __restrict__ leaves,
@@ -158,8 +160,8 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
   const int stage = stage_bytes(chunk, D);
 
   const int tid = threadIdx.x;
-  const int r = tid % rows;   // this thread's row in the block
-  const int g = tid / rows;   // its group: warp-uniform, since rows % 32 == 0
+  const int r = tid % 32;  // this thread's first row in the block
+  const int g = tid / 32;  // its warp, which walks every groups-th tree
   // A cluster's blocks are consecutive in x: they share rows, each takes a
   // slice of the trees.
   const int rank = blockIdx.x % cluster;
@@ -208,8 +210,13 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
     }
   }
 
-  const unsigned char* xr = reinterpret_cast<const unsigned char*>(s_x + r * xs);
-  float acc = 0.0f;
+  const unsigned char* xr[kRows];
+  float acc[kRows];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    xr[k] = reinterpret_cast<const unsigned char*>(s_x + (r + 32 * k) * xs);
+    acc[k] = 0.0f;
+  }
   for (int c = 0; c < n_chunks; ++c) {
     if (c + 1 < n_chunks) {
       fill(c + 1);
@@ -238,64 +245,79 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
         int f[kD], tb[kD];
         load_splits<kD>(s_feat + j * kD, f);
         load_splits<kD>(reinterpret_cast<const int*>(s_thr) + j * kD, tb);
-        int leaf = 0;
+        int leaf[kRows] = {};
 #pragma unroll
         for (int d = 0; d < kD; ++d) {
-          const float v = *reinterpret_cast<const float*>(xr + f[d]);
-          leaf |= static_cast<int>(v > __int_as_float(tb[d])) << d;
+#pragma unroll
+          for (int k = 0; k < kRows; ++k) {
+            const float v = *reinterpret_cast<const float*>(xr[k] + f[d]);
+            leaf[k] |= static_cast<int>(v > __int_as_float(tb[d])) << d;
+          }
         }
-        acc += s_leaves[(j << kD) + leaf];
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) acc[k] += s_leaves[(j << kD) + leaf[k]];
       }
     } else {
       const float* g_leaves = leaves + (static_cast<size_t>(t0) << D);
       for (int j = g; j < n; j += groups) {
         const int* fj = s_feat + j * D;
         const float* tj = s_thr + j * D;
-        int leaf = 0;
+        int leaf[kRows] = {};
         for (int d = 0; d < D; ++d) {
-          leaf |= static_cast<int>(*reinterpret_cast<const float*>(xr + fj[d]) > tj[d]) << d;
+#pragma unroll
+          for (int k = 0; k < kRows; ++k) {
+            leaf[k] |= static_cast<int>(*reinterpret_cast<const float*>(xr[k] + fj[d]) > tj[d])
+                       << d;
+          }
         }
-        acc += __ldg(g_leaves + (static_cast<size_t>(j) << D) + leaf);
+        const float* lj = g_leaves + (static_cast<size_t>(j) << D);
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) acc[k] += __ldg(lj + leaf[k]);
       }
     }
     if (c + 2 < n_chunks) __syncthreads();  // this stage is refilled next
   }
 
-  s_part[g * rows + r] = acc;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) s_part[g * rows + r + 32 * k] = acc[k];
   __syncthreads();
-  if (g == 0) {
-    float sum = s_part[r];
+  // Thread i adds up row i's partial sums (the warps' in order), in place.
+  for (int row = tid; row < rows; row += blockDim.x) {
+    float sum = s_part[row];
 #pragma unroll 8
-    for (int k = 1; k < groups; ++k) sum += s_part[k * rows + r];
-    s_part[r] = sum;  // the block's sum over its trees
+    for (int k = 1; k < groups; ++k) sum += s_part[k * rows + row];
+    s_part[row] = sum;  // the block's sum over its trees
   }
   if (cluster == 1) {
-    if (g == 0 && r < n_rows) out[row0 + r] = s_part[r] + *bias;
+    for (int row = tid; row < n_rows; row += blockDim.x) out[row0 + row] = s_part[row] + *bias;
     return;
   }
   cg::cluster_group cl = cg::this_cluster();
   cl.sync();  // every block's sums are in its shared memory
-  if (rank == 0 && g == 0 && r < n_rows) {
-    float sum = s_part[r];
-    for (int k = 1; k < cluster; ++k) sum += cl.map_shared_rank(s_part, k)[r];
-    out[row0 + r] = sum + *bias;
+  if (rank == 0) {
+    for (int row = tid; row < n_rows; row += blockDim.x) {
+      float sum = s_part[row];
+      for (int k = 1; k < cluster; ++k) sum += cl.map_shared_rank(s_part, k)[row];
+      out[row0 + row] = sum + *bias;
+    }
   }
   cl.sync();  // no block leaves while its sums are read
 }
 
-template <int kD>
+template <int kD, int kRows>
 int launch(const void* x, const void* feat, const void* thr, const void* leaves,
            const void* bias, void* out, int B, int F, int T, int D, int rows, int groups,
            int chunk, int cluster, int span, int smem, cudaStream_t stream) {
   // Once per depth variant: allow dynamic shared memory above 48 KB.
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      gbdt_forest_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(gbdt_forest_kernel<kD, kRows>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
   if (attr != cudaSuccess) {
     return static_cast<int>(attr);
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((B + rows - 1) / rows * cluster);
-  cfg.blockDim = dim3(rows * groups);
+  cfg.blockDim = dim3(32 * groups);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute dims[1];
@@ -306,8 +328,9 @@ int launch(const void* x, const void* feat, const void* thr, const void* leaves,
   cfg.attrs = dims;
   cfg.numAttrs = cluster > 1 ? 1 : 0;
   const cudaError_t rc = cudaLaunchKernelEx(
-      &cfg, gbdt_forest_kernel<kD>, static_cast<const float*>(x), static_cast<const int*>(feat),
-      static_cast<const float*>(thr), static_cast<const float*>(leaves),
+      &cfg, gbdt_forest_kernel<kD, kRows>, static_cast<const float*>(x),
+      static_cast<const int*>(feat), static_cast<const float*>(thr),
+      static_cast<const float*>(leaves),
       static_cast<const float*>(bias), static_cast<float*>(out), B, F, T, D, rows, groups, chunk,
       cluster, span);
   return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
@@ -318,9 +341,9 @@ int launch(const void* x, const void* feat, const void* thr, const void* leaves,
 // Launches the kernel on `stream` and returns cudaGetLastError(): 0 when the
 // launch was accepted. All pointers are device pointers: x [B, F] float32,
 // feat [T, D] int32, thr [T, D] float32, leaves [T, 2^D] float32, bias [1]
-// float32, out [B] float32, all contiguous. The plan: `rows` rows a block (a
-// multiple of 32), `groups` warp-groups a block (rows * groups <= 1024
-// threads), `cluster` blocks (1 to 8) sharing each set of rows, each taking
+// float32, out [B] float32, all contiguous. The plan: `rows` rows a block
+// (32, or 64 for two rows a lane), `groups` warps a block (at most 32),
+// `cluster` blocks (1, 2, 4 or 8) sharing each set of rows, each taking
 // `span` trees (T when cluster is 1, else a multiple of 4 with
 // cluster * span >= T), `chunk` trees a stage (span, or a multiple of 4
 // below it: a ring of two stages then). Allocates nothing, does not sync.
@@ -328,8 +351,9 @@ extern "C" int gbdt_forest_launch(const void* x, const void* feat, const void* t
                                   const void* leaves, const void* bias, void* out, int B,
                                   int F, int T, int D, int rows, int groups, int chunk,
                                   int cluster, int span, void* stream) {
-  if (B <= 0 || F <= 0 || T <= 0 || D < 1 || D > kMaxDepth || rows <= 0 || rows % 32 != 0 ||
-      groups <= 0 || rows * groups > kMaxThreads || cluster < 1 || cluster > kMaxCluster ||
+  if (B <= 0 || F <= 0 || T <= 0 || D < 1 || D > kMaxDepth || (rows != 32 && rows != 64) ||
+      groups <= 0 || 32 * groups > kMaxThreads || cluster < 1 || cluster > kMaxCluster ||
+      (cluster & (cluster - 1)) != 0 ||
       (cluster == 1 ? span != T
                     : span % kChunkMultiple != 0 || static_cast<long long>(span) * cluster < T) ||
       chunk <= 0 || chunk > span || (chunk < span && chunk % kChunkMultiple != 0) ||
@@ -341,16 +365,20 @@ extern "C" int gbdt_forest_launch(const void* x, const void* feat, const void* t
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-#define GBDT_CASE(d) \
-  case d:            \
-    return launch<d>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups, chunk, \
-                     cluster, span, static_cast<int>(smem), st);
-    GBDT_CASE(1) GBDT_CASE(2) GBDT_CASE(3) GBDT_CASE(4)
-    GBDT_CASE(5) GBDT_CASE(6) GBDT_CASE(7) GBDT_CASE(8)
+  switch (D * 2 + (rows == 64)) {
+#define GBDT_CASE(d, k)                                                                      \
+  case d * 2 + (k - 1):                                                                      \
+    return launch<d, k>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups, chunk, \
+                        cluster, span, static_cast<int>(smem), st);
+#define GBDT_DEPTH(d) GBDT_CASE(d, 1) GBDT_CASE(d, 2)
+    GBDT_DEPTH(1) GBDT_DEPTH(2) GBDT_DEPTH(3) GBDT_DEPTH(4)
+    GBDT_DEPTH(5) GBDT_DEPTH(6) GBDT_DEPTH(7) GBDT_DEPTH(8)
+#undef GBDT_DEPTH
 #undef GBDT_CASE
     default:
-      return launch<0>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups, chunk,
-                       cluster, span, static_cast<int>(smem), st);
+      return rows == 64 ? launch<0, 2>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups,
+                                       chunk, cluster, span, static_cast<int>(smem), st)
+                        : launch<0, 1>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups,
+                                       chunk, cluster, span, static_cast<int>(smem), st);
   }
 }

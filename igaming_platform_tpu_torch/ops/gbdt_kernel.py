@@ -44,11 +44,12 @@ MAX_SHARED_BYTES = 232448  # kMaxSharedBytes, 227 KB
 CHUNK_MULTIPLE = 4  # kChunkMultiple
 MAX_CLUSTER = 8  # kMaxCluster
 # The plan's choices, from a sweep on an H100 (chip_smoke.forest_plan_sweep):
-# rows a block; splits (trees x depth) a warp-group walks, and at most 16
-# groups while the leaves sit in shared memory; splits a block of a cluster
-# takes at least; and the bytes of one stage of the ring (two stages stay
-# under 100 KB, so two blocks fit an SM).
-ROWS = 32
+# rows a lane (one, or two at a batch whose 32-row blocks fill the card);
+# splits (trees x depth) a warp walks, and at most 16 warps while the leaves
+# sit in shared memory; splits a block of a cluster takes at least; and the
+# bytes of one stage of the ring (two stages stay under 100 KB, so two
+# blocks fit an SM).
+LANES = 32
 SPLITS_PER_GROUP = 32
 MAX_GROUPS_SHARED_LEAVES = 16
 SPLITS_PER_BLOCK = 256
@@ -83,8 +84,8 @@ def stage_bytes(chunk: int, depth: int) -> int:
 
 
 class LaunchPlan(NamedTuple):
-    rows: int  # rows a block, one a lane
-    groups: int  # warp-groups a block, each walking every groups-th tree
+    rows: int  # rows a block: 32, one a lane, or 64, two a lane
+    groups: int  # warps a block, each walking every groups-th tree
     cluster: int  # blocks of a cluster sharing the same rows
     span: int  # trees each block of a cluster takes
     chunk: int  # trees a stage
@@ -96,18 +97,24 @@ class LaunchPlan(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def launch_plan(b: int, n_features: int, n_trees: int, depth: int, n_sms: int) -> LaunchPlan:
     """The kernel's launch for a [b, n_features] batch and a [T, D] forest on
-    a card of ``n_sms`` SMs: 32 rows a block; while the row blocks leave SMs
-    idle, clusters of up to 8 blocks that split the trees, each keeping at
-    least SPLITS_PER_BLOCK splits; a warp-group for every SPLITS_PER_GROUP
-    splits of a block; as many trees a chunk as STAGE_BYTES holds."""
-    row_blocks = -(-b // ROWS)
+    a card of ``n_sms`` SMs: 32 rows a block, or 64 (two a lane) when 32-row
+    blocks would fill the card and the forest can be split in two; while the
+    row blocks leave SMs idle, clusters of up to 8 blocks that split the
+    trees, each keeping at least SPLITS_PER_BLOCK splits; a warp for every
+    SPLITS_PER_GROUP splits of a block; as many trees a chunk as STAGE_BYTES
+    holds."""
+    splits = n_trees * depth
+    rows = LANES
+    if -(-b // LANES) * 2 > n_sms and splits >= 2 * SPLITS_PER_BLOCK:
+        rows = 2 * LANES
+    row_blocks = -(-b // rows)
     cluster = 1
     while (cluster < MAX_CLUSTER and row_blocks * cluster * 2 <= n_sms
-           and n_trees * depth >= cluster * 2 * SPLITS_PER_BLOCK):
+           and splits >= cluster * 2 * SPLITS_PER_BLOCK):
         cluster *= 2
-    most = MAX_GROUPS_SHARED_LEAVES if depth <= MAX_SHARED_LEAF_DEPTH else MAX_THREADS // ROWS
+    most = MAX_GROUPS_SHARED_LEAVES if depth <= MAX_SHARED_LEAF_DEPTH else MAX_THREADS // LANES
     groups = max(1, min(most, -(-_span(n_trees, cluster) * depth // SPLITS_PER_GROUP)))
-    return plan_for(b, n_features, n_trees, depth, ROWS, groups, cluster)
+    return plan_for(b, n_features, n_trees, depth, rows, groups, cluster)
 
 
 def _span(n_trees: int, cluster: int) -> int:

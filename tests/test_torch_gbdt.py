@@ -7,9 +7,15 @@ port on the CPU, where ``gbdt_forest`` takes its plain gather form.
 
 Tolerances: leaf indices are exact, since each split is one float32 ``>``
 on the same feature value. Margins agree to atol 1e-6: each sums 64 leaves
-of scale 0.1, and the two packages add them in different orders. The CUDA
-kernel itself is held to its plain version on the card by chip_smoke.py.
+of scale 0.1, and the two packages add them in different orders. Forests of
+hundreds of trees agree to atol 1e-5, the bar chip_smoke.py holds the kernel
+to against the sum in float64: at 1,000 trees of depth 6 both float32 sums
+lie within 2.6e-6 of it (4096 rows). The CUDA kernel itself is held to its
+plain version on the card by chip_smoke.py; its launch plan is checked here.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -78,12 +84,14 @@ def test_plain_matches_pallas_interpret(b):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("n_trees,depth", [(16, 3), (5, 8), (64, 1)])
-def test_plain_other_shapes(n_trees, depth):
+@pytest.mark.parametrize("n_trees,depth,atol", [(16, 3, 1e-6), (5, 8, 1e-6), (64, 1, 1e-6),
+                                                 (600, 4, 1e-5), (1000, 6, 1e-5),
+                                                 (64, 12, 1e-6)])
+def test_plain_other_shapes(n_trees, depth, atol):
     tree = _forest(4, n_trees, depth)
     x = _features(5, 33, tree)
     got = gbdt_raw(gbdt_from_tree(tree), torch.from_numpy(x))
-    np.testing.assert_allclose(got.numpy(), np.asarray(jgbdt_raw(tree, x)), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jgbdt_raw(tree, x)), rtol=0, atol=atol)
 
 
 def test_gbdt_predict_and_from_jax_params():
@@ -109,7 +117,9 @@ def test_bad_feature_ids_rejected():
 
 
 def test_kernel_contract_checks():
-    """What the CUDA launcher refuses, the wrapper refuses first."""
+    """What the CUDA launcher refuses, the wrapper refuses first: dtype,
+    device, shape, contiguity, and depth past 30. Any forest the JAX
+    function scores passes, wide or deep."""
     p = gbdt_from_tree(_forest(10))
     x = torch.zeros((8, N_FEATURES))
     args = [x, p["feat"], p["thr"], p["leaves"], p["bias"]]
@@ -123,9 +133,57 @@ def test_kernel_contract_checks():
     for i, value, exc in bad:
         with pytest.raises(exc):
             gbdt_kernel._check(*[value if j == i else a for j, a in enumerate(args)])
-    deep = gbdt_from_tree(_forest(11, n_trees=2, depth=9))
+    for n_trees, depth in [(600, 4), (2, 9), (2, 10), (2, 11), (2, 12)]:
+        ok = gbdt_from_tree(_forest(11, n_trees=n_trees, depth=depth))
+        gbdt_kernel._check(x, ok["feat"], ok["thr"], ok["leaves"], ok["bias"])
+    # Depth 31: the JAX function's int32 leaf index 1 << d overflows. On the
+    # meta device, which holds shapes only: a [1, 2^31] leaf table takes 8 GB.
+    meta = [torch.empty(shape, dtype=dtype, device="meta") for shape, dtype in (
+        ((8, N_FEATURES), torch.float32), ((1, 31), torch.int32), ((1, 31), torch.float32),
+        ((1, 1 << 31), torch.float32), ((), torch.float32))]
     with pytest.raises(ValueError, match="depth"):
-        gbdt_kernel._check(x, deep["feat"], deep["thr"], deep["leaves"], deep["bias"])
-    wide = gbdt_from_tree(_forest(12, n_trees=600, depth=4))
-    with pytest.raises(ValueError, match="shared memory"):
-        gbdt_kernel._check(x, wide["feat"], wide["thr"], wide["leaves"], wide["bias"])
+        gbdt_kernel._check(*meta)
+
+
+def _cu_constants():
+    src = (Path(gbdt_kernel.__file__).parents[1] / "csrc" / "gbdt_forest.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+@pytest.mark.parametrize("b,n_features,n_trees,depth", [
+    (1, 30, 64, 4), (255, 30, 64, 4), (4096, 30, 64, 4), (4096, 30, 16, 3),
+    (256, 30, 600, 4), (4096, 30, 1000, 6), (2048, 30, 1000, 6), (256, 30, 256, 10),
+    (4097, 31, 301, 5), (40, 1, 64, 3), (33, 30, 3, 16), (1, 30, 100_000, 8),
+    (7, 30, 5, 30)])
+def test_launch_plan_invariants(b, n_features, n_trees, depth):
+    """The plan the wrapper hands the launcher keeps the launcher's rules
+    (csrc/gbdt_forest.cu's constants): shared memory within 227 KB, whole
+    warps of rows, at most 1024 threads and 8 blocks a cluster, rows
+    covering B, and every tree walked by exactly one group of one block."""
+    k = _cu_constants()
+    assert (k["kMaxThreads"], k["kMaxDepth"], k["kMaxSharedLeafDepth"], k["kMaxSharedBytes"],
+            k["kChunkMultiple"], k["kMaxCluster"]) == (
+        gbdt_kernel.MAX_THREADS, gbdt_kernel.MAX_DEPTH, gbdt_kernel.MAX_SHARED_LEAF_DEPTH,
+        gbdt_kernel.MAX_SHARED_BYTES, gbdt_kernel.CHUNK_MULTIPLE, gbdt_kernel.MAX_CLUSTER)
+    plan = gbdt_kernel.launch_plan(b, n_features, n_trees, depth, 132)
+    assert plan.shared_bytes <= k["kMaxSharedBytes"]
+    assert plan.rows in (32, 64) and 32 * plan.groups <= k["kMaxThreads"]
+    assert plan.cluster in (1, 2, 4, 8) and plan.grid % plan.cluster == 0
+    row_blocks = plan.grid // plan.cluster
+    assert row_blocks * plan.rows >= b > (row_blocks - 1) * plan.rows
+    if plan.cluster == 1:
+        assert plan.span == n_trees
+    else:
+        assert plan.span % k["kChunkMultiple"] == 0 and plan.span * plan.cluster >= n_trees
+    assert 0 < plan.chunk <= plan.span
+    assert plan.chunk == plan.span or plan.chunk % k["kChunkMultiple"] == 0
+    assert plan.stages == (1 if plan.chunk == plan.span else 2)
+    walked = np.zeros(n_trees, dtype=np.int64)
+    for rank in range(plan.cluster):  # as the kernel walks: rank, chunk, group
+        t_begin = min(n_trees, rank * plan.span)
+        t_end = min(n_trees, t_begin + plan.span)
+        for t0 in range(t_begin, t_end, plan.chunk):
+            n = min(plan.chunk, t_end - t0)
+            for g in range(plan.groups):
+                walked[t0 + np.arange(g, n, plan.groups)] += 1
+    assert (walked == 1).all()
