@@ -298,17 +298,16 @@ def forest_case(torch, rng, n_trees: int, depth: int, b: int, n_features: int = 
     return (torch.from_numpy(x_np).cuda(), f["feat"], f["thr"], f["leaves"], f["bias"])
 
 
-def check_forest(torch, gbdt_kernel, args, atol: float, name: str) -> float:
-    """The kernel against the plain version, in float32 at ``atol`` when
-    ``atol`` is KERNEL_ATOL, else in float64; a second launch must give the
-    same bits. Returns the max error."""
+def check_forest(torch, gbdt_kernel, args, f64: bool, name: str) -> float:
+    """The kernel against the plain version: in float32 at KERNEL_ATOL, or
+    (``f64``) in float64 at LARGE_ATOL; a second launch must give the same
+    bits. Returns the max error."""
     got, again = (gbdt_kernel.gbdt_forest(*args) for _ in range(2))
-    if atol == KERNEL_ATOL:
-        want = gbdt_kernel.gbdt_forest_plain(*args)
-    else:
-        x, feat, thr, leaves, bias = args
-        want = gbdt_kernel.gbdt_forest_plain(x.double(), feat, thr.double(), leaves.double(),
-                                             bias.double())
+    x, feat, thr, leaves, bias = args
+    if f64:
+        x, thr, leaves, bias = x.double(), thr.double(), leaves.double(), bias.double()
+    want = gbdt_kernel.gbdt_forest_plain(x, feat, thr, leaves, bias)
+    atol = LARGE_ATOL if f64 else KERNEL_ATOL
     torch.cuda.synchronize()
     if got.shape != (args[0].shape[0],) or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: bad output")
@@ -328,16 +327,16 @@ def phase_kernels(torch, gbdt_kernel, forests=KERNEL_FORESTS, large=LARGE_FOREST
     bit-identical everywhere. Each timed shape by one event pair a call
     (``device_ms``), back to back, and at PROFILE_B by ``torch.profiler``."""
     rng = np.random.default_rng(0)
-    cases = [(t, d, b, KERNEL_ATOL) for t, d in forests for b in KERNEL_SHAPES_B]
-    cases += [(t, d, b, LARGE_ATOL) for t, d in large for b in LARGE_SHAPES_B]
+    cases = [(t, d, b, False) for t, d in forests for b in KERNEL_SHAPES_B]
+    cases += [(t, d, b, True) for t, d in large for b in LARGE_SHAPES_B]
     rows = []
-    for n_trees, depth, b, atol in cases:
+    for n_trees, depth, b, f64 in cases:
         args = forest_case(torch, rng, n_trees, depth, b)
         name = f"gbdt_forest T={n_trees} D={depth} B={b}"
-        err = check_forest(torch, gbdt_kernel, args, atol, name)
+        err = check_forest(torch, gbdt_kernel, args, f64, name)
         bound, bound_by = forest_bound(b, n_trees, depth)
         row = {"T": n_trees, "D": depth, "B": b, "max_abs_err": err,
-               "against": "float32 plain" if atol == KERNEL_ATOL else "float64 plain",
+               "against": "float64 plain" if f64 else "float32 plain",
                "repeatable": True,
                "kernel_ms": device_ms(torch, lambda: gbdt_kernel.gbdt_forest(*args)),
                "kernel_b2b_ms": device_ms_b2b(torch, lambda: gbdt_kernel.gbdt_forest(*args)),
@@ -358,7 +357,7 @@ def phase_kernels(torch, gbdt_kernel, forests=KERNEL_FORESTS, large=LARGE_FOREST
     for n_trees, depth, b, n_features in checks:
         args = forest_case(torch, rng, n_trees, depth, b, n_features)
         name = f"gbdt_forest T={n_trees} D={depth} B={b} F={n_features}"
-        err = check_forest(torch, gbdt_kernel, args, LARGE_ATOL, name)
+        err = check_forest(torch, gbdt_kernel, args, True, name)
         log(f"phase 3: {name} (check only): max_abs_err={err:.3g} against the float64 plain "
             f"version, two launches bit-identical")
     return rows
@@ -786,16 +785,8 @@ def phase_engine(torch, card: str, gbdt_kernel) -> dict:
                 f"engine: {steps} device steps but {launches} forest kernel launches")
         boundary = (compare_with_cpu(single_out, singles, store, cpu)
                     + compare_with_cpu(batch_out, batch, store, cpu))
-        # Device time of one full-batch score step, inputs already on the card.
-        x_step, bl_step = (torch.from_numpy(a).cuda() for a in store.gather_batch(batch))
-
-        def step():
-            with torch.inference_mode():
-                gpu._score_fn(gpu.get_params(), x_step, bl_step, gpu._thresholds)
-
-        # A long spin: an eager step's enqueue outlasts the default one on a
-        # slow host, and the events would then count host time.
-        step_ms = device_ms(torch, step, reps=20, sleep=B2B_SLEEP_CYCLES)
+        step = score_step(torch, gpu, store, batch)
+        step_ms = step_device_ms(torch, step)
         # The step's kernels by name, from the profiler: what its device time is.
         step_profile = profile_window(torch, step, top=50)
 
@@ -855,6 +846,24 @@ def phase_engine(torch, card: str, gbdt_kernel) -> dict:
     return result
 
 
+def score_step(torch, engine, store, batch):
+    """One full-batch score step of ``engine``, inputs already on the card."""
+    x_step, bl_step = (torch.from_numpy(a).cuda() for a in store.gather_batch(batch))
+
+    def step():
+        with torch.inference_mode():
+            engine._score_fn(engine.get_params(), x_step, bl_step, engine._thresholds)
+
+    return step
+
+
+def step_device_ms(torch, step) -> float:
+    """Device time of a score step, by CUDA events behind a long spin: an
+    eager step's enqueue outlasts the default spin on a slow host, and the
+    events would then count host time."""
+    return device_ms(torch, step, reps=20, sleep=B2B_SLEEP_CYCLES)
+
+
 def large_forest_engine(torch, gbdt_kernel, rng, store, bcfg, singles, batch) -> dict:
     """A ``gbdt`` engine on the card with a production-sized forest
     (LARGE_ENGINE_FOREST): the singles and the batch, its forest launches
@@ -883,13 +892,7 @@ def large_forest_engine(torch, gbdt_kernel, rng, store, bcfg, singles, batch) ->
                                  f"{launches} forest kernel launches")
         boundary = (compare_with_cpu(single_out, singles, store, cpu)
                     + compare_with_cpu(batch_out, batch, store, cpu))
-        x_step, bl_step = (torch.from_numpy(a).cuda() for a in store.gather_batch(batch))
-
-        def step():
-            with torch.inference_mode():
-                gpu._score_fn(gpu.get_params(), x_step, bl_step, gpu._thresholds)
-
-        step_ms = device_ms(torch, step, reps=20, sleep=B2B_SLEEP_CYCLES)
+        step_ms = step_device_ms(torch, score_step(torch, gpu, store, batch))
     finally:
         for eng in engines:
             eng.close()

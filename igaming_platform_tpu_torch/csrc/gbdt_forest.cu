@@ -60,27 +60,24 @@ constexpr int kMaxSharedBytes = 232448;  // 227 KB, what one block may take on H
 constexpr int kChunkMultiple = 4;        // keeps each chunk's sources 16-byte aligned
 constexpr int kMaxCluster = 8;           // the portable cluster size
 
-__host__ __device__ inline int align16(int bytes) { return (bytes + 15) & ~15; }
-
 // Odd, so 32 consecutive rows read one feature from 32 different banks.
 __host__ __device__ inline int slab_stride(int F) { return F | 1; }
 
+__host__ __device__ inline long long align16(long long bytes) { return (bytes + 15) & ~15LL; }
+
 // Bytes of one stage: feat and thr of `chunk` trees, and their leaves when
 // they live in shared memory.
-__host__ __device__ inline int stage_bytes(int chunk, int D) {
-  const int split = align16(chunk * D * 4);
-  return 2 * split + (D <= kMaxSharedLeafDepth ? align16(chunk * (4 << D)) : 0);
+__host__ __device__ inline long long stage_bytes(int chunk, int D) {
+  return 2 * align16(4LL * chunk * D) +
+         (D <= kMaxSharedLeafDepth ? align16(static_cast<long long>(chunk) << (D + 2)) : 0);
 }
 
-// The block's dynamic shared memory: the feature slab, the groups' partial
-// sums and the stages. In 64 bits: the launcher checks it before anything
-// is sized in int.
+// The block's dynamic shared memory: the feature slab, the warps' partial
+// sums and the stages. In 64 bits: the launcher checks it before the kernel
+// sizes anything in int.
 long long shared_bytes(int F, int D, int rows, int groups, int chunk, int stages) {
-  const long long split = (static_cast<long long>(chunk) * D * 4 + 15) & ~15LL;
-  const long long leaves =
-      D <= kMaxSharedLeafDepth ? ((static_cast<long long>(chunk) << (D + 2)) + 15) & ~15LL : 0;
-  const long long slab = (static_cast<long long>(rows) * slab_stride(F) * 4 + 15) & ~15LL;
-  return slab + align16(rows * groups * 4) + stages * (2 * split + leaves);
+  return align16(4LL * rows * slab_stride(F)) + align16(4LL * rows * groups) +
+         stages * stage_bytes(chunk, D);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -154,10 +151,11 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
   extern __shared__ __align__(16) unsigned char smem[];
   const int xs = slab_stride(F);
   float* s_x = reinterpret_cast<float*>(smem);
-  float* s_part = reinterpret_cast<float*>(smem + align16(rows * xs * 4));
-  unsigned char* s_stage = smem + align16(rows * xs * 4) + align16(rows * groups * 4);
-  const int split_bytes = align16(chunk * D * 4);
-  const int stage = stage_bytes(chunk, D);
+  const int slab_bytes = static_cast<int>(align16(rows * xs * 4));
+  float* s_part = reinterpret_cast<float*>(smem + slab_bytes);
+  unsigned char* s_stage = smem + slab_bytes + static_cast<int>(align16(rows * groups * 4));
+  const int split_bytes = static_cast<int>(align16(chunk * D * 4));
+  const int stage = static_cast<int>(stage_bytes(chunk, D));
 
   const int tid = threadIdx.x;
   const int r = tid % 32;  // this thread's first row in the block

@@ -11,9 +11,10 @@ The kernel is ``csrc/gbdt_forest.cu``, CUDA C++ for ``sm_90a``, built by
 ``ops/_build.py`` at first use and called through ctypes. It gathers
 ``x[b, feat[t, d]]`` directly instead of the TPU's one-hot selector
 product, so every split compares the exact float32 feature. A lane is a
-row; the forest streams through shared memory in chunks of trees, so its
-size is not bounded by shared memory (see the source's header).
-``launch_plan`` picks rows and warp-groups a block and trees a chunk.
+row (two at large batches); the forest streams through shared memory in
+chunks of trees, so its size is not bounded by shared memory; at small
+batches a thread-block cluster splits the trees (see the source's header).
+``launch_plan`` picks rows and warps a block, the cluster and trees a chunk.
 
 What bounds it on an H100: at the serving forest (T=64, D=4) bytes, about
 0.15 us at B=4096, under the launch itself; at production forests (T=1000,
