@@ -22,6 +22,7 @@ from test_torch_flash_attention_bwd import _split_mm, _tf32
 from igaming_platform_tpu.models.sequence import _dense_attention
 from igaming_platform_tpu.ops.pallas.flash_attention import _run_resident, _run_tiled
 from igaming_platform_tpu.ops.pallas.flash_attention import flash_attention as jflash
+from igaming_platform_tpu_torch.ops import tensor_core_model as tensor_core
 from igaming_platform_tpu_torch.ops.flash_attention import (
     check_args,
     flash_attention,
@@ -113,8 +114,10 @@ def _tf32_pair(x):
     return big, _tf32(x - big)
 
 
-def _mma(c, a, b):
-    """One mma.sync: c + a @ b, the k8 sum exact, rounded to float32 once."""
+def _mma_nearest(c, a, b):
+    """c + a @ b with the k8 sum exact, rounded to nearest float32 once: not
+    what the card does (``tensor_core_model.mma``), kept to show what such a
+    model lets through."""
     return (np.asarray(c, np.float64) + a.astype(np.float64) @ b.astype(np.float64)).astype(
         np.float32)
 
@@ -125,46 +128,55 @@ def _fma32(a, b, c):
         np.float32)
 
 
-def _emulated_fwd_3xtf32(q, k, v):
-    """The forward kernel's arithmetic on one head, 64-row blocks: per key
-    tile, the small terms chained into lo; big.big chained over two k8 steps
-    from zero, then added into hi in float32 with its rounding error kept
-    (Fast2Sum) and joined to lo; exp(fma(lo, scale, fma(hi, scale, -m))); the
-    tile's P.V from zero in the kernel's key order, joined by one fma."""
+def _emulated_fwd_3xtf32(q, k, v, mma=tensor_core.mma, compensated=True):
+    """The forward kernel's arithmetic on one head, 64-row blocks, with each
+    mma.sync by ``mma``: per key tile, the small terms chained into lo;
+    big.big chained over two k8 steps from zero, then added into hi in
+    float32 with its rounding error kept (Fast2Sum) and joined to lo
+    (``compensated=False``: big.big chained into hi over every k8 step, no
+    error kept); exp(fma(lo, scale, fma(hi, scale, -m))); the tile's P.V
+    from zero in the kernel's key order, joined by one fma. Each score
+    depends on its own key only, so the scores of every tile are taken at
+    once."""
     s, dh = q.shape
     tile = 64 if dh <= 32 else 32
     scale = np.float32(1.0 / math.sqrt(dh))
     qb, qs = _tf32_pair(q)
+    kp, vp = (np.pad(a, ((0, -s % 8), (0, 0))) for a in (k, v))
+    (kb, ks) = _tf32_pair(kp.T)
+    hi = np.zeros((s, kp.shape[0]), np.float32)
+    lo, err, big = hi, hi, hi
+    for c in range(0, dh, 8):
+        d = slice(c, c + 8)
+        lo = mma(mma(lo, qs[:, d], kb[d]), qb[:, d], ks[d])
+        if not compensated:
+            hi = mma(hi, qb[:, d], kb[d])
+            continue
+        big = mma(big, qb[:, d], kb[d])
+        if c % 16 == 8 or c == dh - 8:
+            err = err + (big - ((hi + big) - hi))
+            hi, big = hi + big, 0.0 * big
+    lo = lo + err
     m = np.full((s, 1), -np.inf, np.float32)
     l = np.zeros((s, 1), np.float32)
     acc = np.zeros((s, dh), np.float32)
     order = _pv_key_order()
     for t0 in range(0, s, tile):
         n = min(tile, s - t0)
-        kt, vt = (np.pad(a[t0:t0 + n], ((0, -n % 8), (0, 0))) for a in (k, v))
-        (kb, ks), (vb, vs) = _tf32_pair(kt.T), _tf32_pair(vt)
-        hi = np.zeros((s, kt.shape[0]), np.float32)
-        lo, err, big = hi, hi, hi
-        for c in range(0, dh, 8):
-            d = slice(c, c + 8)
-            lo = _mma(_mma(lo, qs[:, d], kb[d]), qb[:, d], ks[d])
-            big = _mma(big, qb[:, d], kb[d])
-            if c % 16 == 8 or c == dh - 8:
-                err = err + (big - ((hi + big) - hi))
-                hi, big = hi + big, 0.0 * big
-        lo = lo + err
-        m_new = np.maximum(m, (hi[:, :n] * scale).max(axis=1, keepdims=True))
+        keys = slice(t0, t0 + n + -n % 8)
+        vb, vs = _tf32_pair(vp[keys])
+        m_new = np.maximum(m, (hi[:, t0:t0 + n] * scale).max(axis=1, keepdims=True))
         corr = np.exp(m - m_new)
-        p = np.exp(_fma32(lo, scale, _fma32(hi, scale, -m_new)))
+        p = np.exp(_fma32(lo[:, keys], scale, _fma32(hi[:, keys], scale, -m_new)))
         p[:, n:] = 0.0
         l = l * corr + p.sum(axis=1, keepdims=True, dtype=np.float32)
         pb, ps = _tf32_pair(p)
         ta = np.zeros_like(acc)
-        for c in range(0, kt.shape[0], 8):
+        for c in range(0, vb.shape[0], 8):
             key = c + order
-            ta = _mma(ta, ps[:, key], vb[key])
-            ta = _mma(ta, pb[:, key], vs[key])
-            ta = _mma(ta, pb[:, key], vb[key])
+            ta = mma(ta, ps[:, key], vb[key])
+            ta = mma(ta, pb[:, key], vs[key])
+            ta = mma(ta, pb[:, key], vb[key])
         acc = _fma32(acc, corr, ta)
         m = m_new
     return acc / l, m + np.log(l)
@@ -179,29 +191,48 @@ def _dense_fwd(mm, q, k, v):
     return mm(e / l, v), mx + np.log(l)
 
 
-@pytest.mark.parametrize("amp", [1, 3])
-@pytest.mark.parametrize("s,dh", [(64, 32), (300, 32), (2048, 64)])
-def test_3xtf32_keeps_forward_bar(s, dh, amp):
-    """At the path's (S, Dh), one head of q, k, v at amplitude 1 and 3,
-    against a float64 forward: the forward kernel's emulated 3xTF32 keeps O
-    and LSE within half of the 2e-5 bar wherever the float32 dense forward
-    itself stays within the bar, and within the bar where it does not
-    (amplitude 3 at S = 2048: float32 sums of 64 products of magnitude 80
-    lie 1.45 bars off); split bf16 (the backward's scheme, even with exact
-    sums) misses the bar at amplitude 3."""
-    q, k, v = (a * np.float32(amp) for a in _qkv(s * dh + amp, s, dh))
+def _share_of_bar(q, k, v):
+    """A function giving how many 2e-5 bars an (O, LSE) pair lies from the
+    float64 forward of (q, k, v) at worst."""
     q64, k64, v64 = (a.astype(np.float64) for a in (q, k, v))
-    sc = q64 @ k64.T / math.sqrt(dh)
+    sc = q64 @ k64.T / math.sqrt(q.shape[1])
     mx = sc.max(axis=1, keepdims=True)
     e = np.exp(sc - mx)
     want = (e @ v64 / e.sum(axis=1, keepdims=True),
             mx + np.log(e.sum(axis=1, keepdims=True)))
+    return lambda got: max(float(np.max(np.abs(g - w) / (BAR + BAR * np.abs(w))))
+                           for g, w in zip(got, want))
 
-    def share_of_bar(got):
-        return max(float(np.max(np.abs(g - w) / (BAR + BAR * np.abs(w))))
-                   for g, w in zip(got, want))
 
+@pytest.mark.parametrize("amp", [1, 3])
+@pytest.mark.parametrize("s,dh", [(64, 32), (300, 32), (2048, 64)])
+def test_3xtf32_keeps_forward_bar(s, dh, amp):
+    """At the path's (S, Dh), one head of q, k, v at amplitude 1 and 3,
+    against a float64 forward: the forward kernel's emulated 3xTF32, on the
+    card's tensor-core sum, keeps O and LSE within half of the 2e-5 bar
+    wherever the float32 dense forward itself stays within the bar, and
+    within the bar where it does not (amplitude 3 at S = 2048: float32 sums
+    of 64 products of magnitude 80 lie 1.45 bars off); split bf16 (the
+    backward's scheme, even with exact sums) misses the bar at amplitude 3."""
+    q, k, v = (a * np.float32(amp) for a in _qkv(s * dh + amp, s, dh))
+    share_of_bar = _share_of_bar(q, k, v)
     limit = 0.5 if share_of_bar(_dense_fwd(np.matmul, q, k, v)) <= 1.0 else 1.0
     assert share_of_bar(_emulated_fwd_3xtf32(q, k, v)) <= limit
     if amp == 3:
         assert share_of_bar(_dense_fwd(_split_mm, q, k, v)) > 1.0
+
+
+def test_card_sum_rejects_uncompensated_chain():
+    """big.big chained into hi over every k8 step, with no compensation,
+    passes an emulation whose tensor core rounds each k-step sum to nearest,
+    and misses the bar on the card's sum, which cuts every term toward zero
+    (``ops/tensor_core_model.py``, measured with ``csrc/mma_probe.cu``). At
+    (300, 64), amplitude 4, the emulation on the card's sum rejects that
+    chain and keeps the kernel's compensated one within the bar, where the
+    float32 dense forward itself lies past it."""
+    q, k, v = (a * np.float32(4) for a in _qkv(300 * 64 + 4, 300, 64))
+    share_of_bar = _share_of_bar(q, k, v)
+    assert share_of_bar(_dense_fwd(np.matmul, q, k, v)) > 1.0
+    assert share_of_bar(_emulated_fwd_3xtf32(q, k, v, _mma_nearest, compensated=False)) <= 1.0
+    assert share_of_bar(_emulated_fwd_3xtf32(q, k, v, compensated=False)) > 1.0
+    assert share_of_bar(_emulated_fwd_3xtf32(q, k, v)) <= 1.0

@@ -9,7 +9,8 @@ and ``_xla_bwd`` at a ragged S. ``torch.autograd.grad`` through the port's
 2e-4, the JAX tests' bar for gradients: float32 sums in another order. The
 CUDA kernels themselves are held to the plain version on the card by
 chip_smoke.py; a numpy emulation of their arithmetic (split bf16: three bf16
-products per float32 product) pins here that it keeps that bar where one-term
+products per float32 product, chained on the card's tensor-core sum,
+``ops/tensor_core_model.py``) pins here that it keeps that bar where one-term
 rounding does not.
 """
 
@@ -23,6 +24,7 @@ import torch
 
 from igaming_platform_tpu.ops.pallas.flash_attention import _run_bwd, _xla_bwd
 from igaming_platform_tpu.ops.pallas.flash_attention import flash_attention as jflash
+from igaming_platform_tpu_torch.ops import tensor_core_model as tensor_core
 from igaming_platform_tpu_torch.ops.flash_attention import (
     FlashAttention,
     check_args,
@@ -122,6 +124,25 @@ def _split_mm(a, b):
     return (ah @ bh + ah @ bl + al @ bh).astype(np.float32)
 
 
+def _split_mm_card(a, b):
+    """a @ b as the backward kernels take it: split bf16, one accumulator
+    chained over k16 steps, each step's three products in the kernels'
+    order (lo.hi, hi.lo, hi.hi), each mma.sync as the card sums it."""
+    ah, bh = _bf16(a), _bf16(b)
+    al, bl = _bf16(a - ah), _bf16(b - bh)
+    k = a.shape[1]
+    pad = -k % 16
+    ah, al = (np.pad(x, ((0, 0), (0, pad))) for x in (ah, al))
+    bh, bl = (np.pad(x, ((0, pad), (0, 0))) for x in (bh, bl))
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for c in range(0, k + pad, 16):
+        d = slice(c, c + 16)
+        acc = tensor_core.mma(acc, al[:, d], bh[d])
+        acc = tensor_core.mma(acc, ah[:, d], bl[d])
+        acc = tensor_core.mma(acc, ah[:, d], bh[d])
+    return acc
+
+
 def _tf32_mm(a, b):
     return (_tf32(a).astype(np.float64) @ _tf32(b).astype(np.float64)).astype(np.float32)
 
@@ -136,9 +157,9 @@ def _emulated_bwd(mm, q, k, v, do, lse, dmat, scale):
 
 @pytest.mark.parametrize("s,dh", [(64, 32), (300, 32), (2048, 64)])
 def test_split_bf16_keeps_gradient_bar(s, dh):
-    """At the path's (S, Dh), BH 1, split bf16 keeps dQ, dK and dV within a
-    tenth of the 2e-4 bar against a float64 backward; one-term TF32 misses it
-    at S = 300."""
+    """At the path's (S, Dh), BH 1, split bf16 on the card's tensor-core sum
+    keeps dQ, dK and dV within a tenth of the 2e-4 bar against a float64
+    backward; one-term TF32 misses it at S = 300."""
     q, k, v, do = _arrays(s * dh, 4, s, dh)
     scale = 1.0 / math.sqrt(dh)
     q64, k64, v64, do64 = (a.astype(np.float64) for a in (q, k, v, do))
@@ -155,6 +176,6 @@ def test_split_bf16_keeps_gradient_bar(s, dh):
         return max(float(np.max(np.abs(g - w) / (GRAD_BAR + GRAD_BAR * np.abs(w))))
                    for g, w in zip(got, want))
 
-    assert share_of_bar(_emulated_bwd(_split_mm, *ins)) <= 0.1
+    assert share_of_bar(_emulated_bwd(_split_mm_card, *ins)) <= 0.1
     if (s, dh) == (300, 32):
         assert share_of_bar(_emulated_bwd(_tf32_mm, *ins)) > 1.0
