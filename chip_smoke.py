@@ -160,6 +160,17 @@ PARITY_STEPS, LOSS_RTOL, MIN_ACCURACY = 5, 1e-4, 0.95
 CONFIG3_TRAIN_POINT = (8, 2048)  # (batch, S)
 # The mma.sync rate: iterations of 8 chains a warp, 8 warps an SM.
 MMA_ITERS = 2048
+# The tensor-core probe: seeded operand tiles per family and instruction, each
+# run once through csrc/mma_probe.cu and held bit for bit to
+# ops/tensor_core_model.py's mma.
+PROBE_TILES = 2000
+# The serving front (phase 7): a native store at its default capacity filled
+# with 100,000 accounts of about 20 events each, ScoreBatch RPCs of 16,384
+# rows (4 chunks of 4096 through the host pipeline), and the RPC mix.
+SERVER_ACCOUNTS, SERVER_EVENTS_PER_ACCOUNT = 100_000, 20
+SERVER_BATCH_ROWS, SERVER_BATCHES = 16_384, 5
+SERVER_SINGLES, SERVER_ABUSE_CHECKS = 500, 50
+SERVER_NOW = 1_700_000_000.0  # the store's pinned clock
 # Spin cycles queued before each timed call, so the card is still busy
 # while the host enqueues the call: the events then bracket device work only.
 SLEEP_CYCLES = 4_000_000
@@ -723,22 +734,30 @@ def compare_with_cpu(responses, reqs, store, cpu_engine) -> int:
         "reason_mask": np.array([sum(1 << REASON_BIT_ORDER.index(c) for c in r.reason_codes)
                                  for r in responses]),
     }
+    return compare_columns(got, want)
+
+
+def compare_columns(got: dict, want: dict, what: str = "engine") -> int:
+    """Result columns of the card against the CPU engine's on the same rows:
+    rule_score and reason_mask exact, ml_score within ML_ATOL, score and
+    action exact except on rows within 1e-4 of a floor boundary whose
+    ml_score differs. Returns the number of such rows."""
     if not (np.isfinite(got["ml_score"]).all() and (got["ml_score"] >= 0).all()
             and (got["ml_score"] <= 1).all() and (got["score"] >= 0).all()
             and (got["score"] <= 100).all()):
-        raise AssertionError("engine: scores out of range")
+        raise AssertionError(f"{what}: scores out of range")
     for key in ("rule_score", "reason_mask"):
         if not np.array_equal(got[key], want[key]):
-            raise AssertionError(f"engine: {key} differs from the CPU engine")
+            raise AssertionError(f"{what}: {key} differs from the CPU engine")
     ml_err = float(np.abs(got["ml_score"] - want["ml_score"]).max())
     if ml_err > ML_ATOL:
-        raise AssertionError(f"engine: ml_score differs from the CPU engine by {ml_err}")
+        raise AssertionError(f"{what}: ml_score differs from the CPU engine by {ml_err}")
     pre = 0.4 * want["rule_score"] + 60.0 * want["ml_score"].astype(np.float64) + 1e-4
     same_ml = got["ml_score"].view(np.int32) == want["ml_score"].view(np.int32)
     checked = (np.abs(pre - np.round(pre)) > 1e-4) | same_ml
     for key in ("score", "action"):
         if not np.array_equal(got[key][checked], want[key][checked]):
-            raise AssertionError(f"engine: {key} differs from the CPU engine")
+            raise AssertionError(f"{what}: {key} differs from the CPU engine")
     return int((~checked).sum())
 
 
@@ -1309,6 +1328,303 @@ def phase_train(torch, card: str, fa) -> dict:
     return result
 
 
+def probe_tiles(rng, k: int, n: int):
+    """Operand tiles for the tensor-core probe, n of each of four families:
+    normal values over wide exponents; unit values with C zero or not; one
+    dominant product and tiny ones (the cut's bits); a large C and small
+    products. A and B are rounded to the instruction's operand type."""
+    from igaming_platform_tpu_torch.ops.tensor_core_model import round_operand
+
+    fams = [
+        (rng.normal(size=(n, 16, k)) * 2.0 ** rng.integers(-10, 10, (n, 16, k)),
+         rng.normal(size=(n, k, 8)) * 2.0 ** rng.integers(-10, 10, (n, k, 8)),
+         rng.normal(size=(n, 16, 8)) * 2.0 ** rng.integers(-20, 20, (n, 16, 8))),
+        (rng.normal(size=(n, 16, k)), rng.normal(size=(n, k, 8)),
+         rng.normal(size=(n, 16, 8)) * (rng.random((n, 1, 1)) < 0.5)),
+    ]
+    a = 2.0 ** -rng.integers(20, 34, (n, 16, k)) * rng.choice([-1, 1], (n, 16, k))
+    a[:, :, 0] = 1.0
+    fams.append((a, (1 + rng.integers(0, 8, (n, k, 8)) / 8.0) * rng.choice([-1, 1], (n, k, 8)),
+                 rng.choice([0.0, 1.0, -1.0, 3.0, 2.0 ** -10], (n, 16, 8))
+                 * (1 + rng.integers(0, 16, (n, 16, 8)) / 16.0)))
+    fams.append((rng.normal(size=(n, 16, k)),
+                 rng.normal(size=(n, k, 8)) * 2.0 ** -rng.integers(10, 30, (n, 1, 1)),
+                 rng.normal(size=(n, 16, 8)) * 4))
+    kind = "tf32" if k == 8 else "bf16"
+    a, b, c = (np.concatenate([f[i] for f in fams]).astype(np.float32) for i in range(3))
+    return round_operand(a, kind), round_operand(b, kind), c
+
+
+def phase_mma_probe(torch) -> dict:
+    """The CPU emulations' tensor core against the card's: PROBE_TILES tiles
+    of each family through ``csrc/mma_probe.cu``, TF32 m16n8k8 and bf16
+    m16n8k16, and every output held bit for bit to
+    ``ops/tensor_core_model.mma``."""
+    import ctypes
+
+    from igaming_platform_tpu_torch.ops import _build
+    from igaming_platform_tpu_torch.ops.tensor_core_model import mma
+
+    lib = _build.load("mma_probe")
+    lib.mma_probe_launch.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+    rng = np.random.default_rng(11)
+    out = {}
+    for name, k in (("tf32_m16n8k8", 8), ("bf16_m16n8k16", 16)):
+        a, b, c = probe_tiles(rng, k, PROBE_TILES)
+        ad, bd, cd = (torch.from_numpy(x).cuda() for x in (a, b, c))
+        dd = torch.empty_like(cd)
+        rc = lib.mma_probe_launch(int(k == 8), a.shape[0], ad.data_ptr(), bd.data_ptr(),
+                                  cd.data_ptr(), dd.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"mma_probe {name}: kernel launch failed ({rc})")
+        d = dd.cpu().numpy()
+        bad = sum(not np.array_equal(mma(c[i], a[i], b[i]).view(np.uint32), d[i].view(np.uint32))
+                  for i in range(a.shape[0]))
+        if bad:
+            raise AssertionError(f"mma_probe {name}: {bad} of {a.shape[0]} tiles differ from "
+                                 "ops/tensor_core_model.mma")
+        nearest = np.mean(d == (np.einsum("nik,nkj->nij", a.astype(np.float64),
+                                          b.astype(np.float64)) + c).astype(np.float32))
+        out[name] = {"tiles": int(a.shape[0]), "model_bit_equal": True,
+                     "share_equal_to_round_to_nearest": float(nearest)}
+        log(f"phase 3: mma_probe {name}: {a.shape[0]} tiles, every output bit-equal to "
+            f"ops/tensor_core_model.mma; {nearest:.4f} of outputs equal the exact sum rounded "
+            "to nearest")
+    return out
+
+
+def fill_native_store(native_store, now: float):
+    """The native store at its default capacity (1,000,000 accounts) filled
+    with SERVER_ACCOUNTS accounts of about SERVER_EVENTS_PER_ACCOUNT events
+    each over the last two days, through ``update_columns`` in chunks, some
+    bonus claims and blacklisted devices and IPs; the clock pinned at
+    ``now``."""
+    rng = np.random.default_rng(21)
+    store = native_store.NativeFeatureStore(clock=lambda: now)
+    n = SERVER_ACCOUNTS * SERVER_EVENTS_PER_ACCOUNT
+    accounts = rng.integers(0, SERVER_ACCOUNTS, n)
+    ts = np.sort(now - rng.random(n) * rng.choice([300.0, 3600.0, 172800.0], n))
+    amounts = rng.integers(100, 500_000, n)
+    types = np.array(["deposit", "withdraw", "bet", "win"])[
+        rng.choice(4, n, p=[0.3, 0.1, 0.5, 0.1])]
+    devices, ips = rng.integers(0, 300_000, n), rng.integers(0, 500_000, n)
+    chunk = 200_000
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        store.update_columns([f"acct{a}" for a in accounts[lo:hi]], amounts[lo:hi].tolist(),
+                             types[lo:hi].tolist(), [f"ip{i}" for i in ips[lo:hi]],
+                             [f"dev{d}" for d in devices[lo:hi]], ts[lo:hi])
+    for a in rng.integers(0, SERVER_ACCOUNTS, 20_000):
+        store.record_bonus_claim(f"acct{a}", wager_complete_rate=float(rng.random()))
+    for d in rng.integers(0, 300_000, 2_000):
+        store.add_to_blacklist("device", f"dev{d}")
+    for i in rng.integers(0, 500_000, 2_000):
+        store.add_to_blacklist("ip", f"ip{i}")
+    return store, n
+
+
+def server_requests(codec, rng, n: int) -> list[dict]:
+    types = ("deposit", "withdraw", "bet")
+    return [{"account_id": f"acct{rng.integers(0, SERVER_ACCOUNTS + 5_000)}",
+             "amount": int(rng.integers(100, 2_000_000)), "transaction_type": types[rng.integers(3)],
+             "ip_address": f"ip{rng.integers(0, 500_000)}",
+             "device_id": f"dev{rng.integers(0, 300_000)}", "currency": "EUR"}
+            for _ in range(n)]
+
+
+def http_call(port: int, path: str, body: dict | None = None) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def phase_server(torch, card: str, gbdt_kernel, fa) -> dict:
+    """The risk.v1 serving front on the card: the native store at deployment
+    size, ``assemble_risk_service`` with the ``mlp+gbdt`` backend and the
+    abuse detector at serving width, the HTTP sidecar bound (no gRPC: the
+    card's machine has no grpcio), and the RPC mix through the service's
+    byte handlers, requests built and responses read by the port's own
+    codec. Every ScoreBatch answer is held to a CPU engine on the same
+    gathered rows; the forest's launches must equal the device steps and the
+    forward's layers x forwards."""
+    from igaming_platform_tpu_torch.convert import from_jax_params, sequence_from_tree
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.core.enums import REASON_BIT_ORDER
+    from igaming_platform_tpu_torch.models.sequence import SeqConfig
+    from igaming_platform_tpu_torch.serve import native_store, scorer, server, wire
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+
+    reason_bit = {code.value: bit for bit, code in enumerate(REASON_BIT_ORDER)}
+    t0 = time.perf_counter()
+    store, n_events = fill_native_store(native_store, SERVER_NOW)
+    fill_s = time.perf_counter() - t0
+    log(f"phase 7: native store of {store.num_accounts()} accounts, {n_events} events, "
+        f"filled in {fill_s:.1f} s")
+    rng = np.random.default_rng(22)
+    tree = {"mlp": mlp_tree(rng, SERVE_HIDDEN), "gbdt": forest_tree(rng, SERVE_TREES, SERVE_DEPTH)}
+    seq_cfg = SeqConfig(**ABUSE_CFG)
+    config = RiskServiceConfig(batcher=BatcherConfig(
+        batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0))
+    assembled = server.assemble_risk_service(
+        config, ml_backend="mlp+gbdt", params=from_jax_params("mlp+gbdt", tree),
+        feature_store=store, abuse_params=sequence_from_tree(seq_tree(rng, ABUSE_CFG), seq_cfg),
+        device="cuda")
+    srv = server.RiskServer(assembled, grpc_port=-1, http_port=0)
+    svc, engine, det = assembled.service, assembled.engine, assembled.abuse
+    cpu = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=from_jax_params("mlp+gbdt", tree),
+                                    batcher_config=config.batcher, feature_store=store,
+                                    device="cpu", warmup=False)
+    try:
+        # Requests, built before the clock starts.
+        batches = [codec.encode(codec.SCORE_BATCH_REQUEST,
+                                {"transactions": server_requests(codec, rng, SERVER_BATCH_ROWS)})
+                   for _ in range(SERVER_BATCHES)]
+        singles = [codec.encode(codec.SCORE_TRANSACTION_REQUEST, r)
+                   for r in server_requests(codec, rng, SERVER_SINGLES)]
+        checked = [f"acct{a}" for a in rng.integers(0, SERVER_ACCOUNTS, SERVER_ABUSE_CHECKS)]
+        for acct in checked:  # the detector's histories, as the bridge would feed them
+            for i in range(int(rng.integers(5, 64))):
+                det.record_event(acct, int(rng.integers(500, 200_000)),
+                                 str(rng.choice(["deposit", "bet", "win", "withdraw"])),
+                                 device_id=f"dev{rng.integers(0, 300_000)}",
+                                 timestamp=SERVER_NOW - 3600.0 + 30.0 * i)
+        abuse_reqs = [codec.encode(codec.CHECK_BONUS_ABUSE_REQUEST, {"account_id": a})
+                      for a in checked]
+        svc.call("ScoreBatch", batches[0])  # the pipeline's first build off the count
+        torch.cuda.synchronize()
+
+        # The path's run: counts set to 0 just before, read just after.
+        gbdt_kernel.gbdt_forest.launches = 0
+        fa.flash_attention_fwd.launches = 0
+        steps0, fwd0 = engine.device_steps, det.device_steps
+        single_ms, batch_s, split, abuse_ms, batch_out = [], [], None, [], []
+        for payload in singles:
+            t = time.perf_counter()
+            svc.call("ScoreTransaction", payload)
+            single_ms.append((time.perf_counter() - t) * 1e3)
+        pipe = engine._host_pipeline
+        for payload in batches:
+            busy0 = dict(pipe.stats()["stage_busy_ms"])
+            t = time.perf_counter()
+            batch_out.append(svc.call("ScoreBatch", payload))
+            batch_s.append(time.perf_counter() - t)
+            if split is None:
+                busy = pipe.stats()["stage_busy_ms"]
+                split = {k: busy[k] - busy0[k] for k in busy}
+        for payload in abuse_reqs:
+            t = time.perf_counter()
+            svc.call("CheckBonusAbuse", payload)
+            abuse_ms.append((time.perf_counter() - t) * 1e3)
+        bl_resp = codec.decode(codec.ADD_TO_BLACKLIST_RESPONSE, svc.call(
+            "AddToBlacklist", codec.encode(codec.ADD_TO_BLACKLIST_REQUEST,
+                                           {"type": "device", "value": "dev-smoke"})))
+        hit = codec.decode(codec.CHECK_BLACKLIST_RESPONSE, svc.call(
+            "CheckBlacklist", codec.encode(codec.CHECK_BLACKLIST_REQUEST,
+                                           {"device_id": "dev-smoke"})))
+        svc.call("UpdateThresholds", codec.encode(codec.UPDATE_THRESHOLDS_REQUEST,
+                                                  {"block_threshold": 1, "review_threshold": 0}))
+        thresholds = codec.decode(codec.GET_THRESHOLDS_RESPONSE, svc.call("GetThresholds", b""))
+        blocked = codec.decode(codec.SCORE_TRANSACTION_RESPONSE,
+                               svc.call("ScoreTransaction", singles[0]))
+        svc.call("UpdateThresholds", codec.encode(codec.UPDATE_THRESHOLDS_REQUEST,
+                                                  {"block_threshold": 80, "review_threshold": 50}))
+        features = codec.decode(codec.GET_FEATURES_RESPONSE, svc.call(
+            "GetFeatures", codec.encode(codec.GET_FEATURES_REQUEST, {"account_id": "acct1"})))
+        health = http_call(srv.http_port, "/health")
+        ready = http_call(srv.http_port, "/ready")
+        debug = http_call(srv.http_port, "/debug/score",
+                          {"account_id": "acct2", "amount": 5000, "transaction_type": "deposit"})
+        torch.cuda.synchronize()
+        launches = gbdt_kernel.gbdt_forest.launches
+        fwd_launches = fa.flash_attention_fwd.launches
+        steps, forwards = engine.device_steps - steps0, det.device_steps - fwd0
+
+        if launches == 0 or launches != steps:
+            raise AssertionError(f"server: {steps} device steps but {launches} forest launches")
+        if fwd_launches == 0 or fwd_launches != seq_cfg.n_layers * forwards:
+            raise AssertionError(f"server: {forwards} forwards of {seq_cfg.n_layers} layers but "
+                                 f"{fwd_launches} attention kernel launches")
+        if not (bl_resp["success"] and hit["is_blacklisted"]):
+            raise AssertionError("server: AddToBlacklist/CheckBlacklist")
+        if (thresholds["block_threshold"], thresholds["review_threshold"]) != (1, 0) \
+                or blocked["action"] != 3 or engine.get_thresholds() != (80, 50):
+            raise AssertionError(f"server: thresholds {thresholds}, action {blocked['action']}")
+        if features["account_id"] != "acct1" or features["features"] is None:
+            raise AssertionError("server: GetFeatures")
+        if health != (200, {"status": "healthy"}) or ready[0] != 200 or not ready[1]["device"] \
+                or debug[0] != 200 or not 0 <= debug[1]["score"] <= 100:
+            raise AssertionError(f"server: sidecar {health} {ready} {debug}")
+
+        # Every ScoreBatch answer against the CPU engine on the same rows.
+        boundary = 0
+        for payload, out in zip(batches, batch_out):
+            x, bl = store.decode_gather(payload)
+            want = {k: v.numpy() for k, v in cpu.score_arrays(x, bl).items()}
+            rows = codec.decode(codec.SCORE_BATCH_RESPONSE, out)["results"]
+            if len(rows) != SERVER_BATCH_ROWS:
+                raise AssertionError(f"server: {len(rows)} rows answered")
+            got = {"score": np.array([r["score"] for r in rows]),
+                   "action": np.array([r["action"] for r in rows]),
+                   "rule_score": np.array([r["rule_score"] for r in rows]),
+                   "ml_score": np.array([r["ml_score"] for r in rows], dtype=np.float32),
+                   "reason_mask": np.array([sum(1 << reason_bit[c] for c in r["reason_codes"])
+                                            for r in rows])}
+            boundary += compare_columns(got, want, "server")
+            n = x.shape[0]
+            echo = codec.decode(codec.SCORE_BATCH_RESPONSE, wire.encode_score_batch(
+                *(np.zeros(n, np.int32) for _ in range(4)), np.zeros(n, np.float32),
+                np.zeros(n, np.int64), x))["results"]
+            if any(r["features"] != e["features"] for r, e in zip(rows, echo)):
+                raise AssertionError("server: the feature echo differs from the gathered rows")
+        # The host split of one RPC: the decode and gather, timed alone on
+        # the same payload, and the pipeline's busy time per stage.
+        t = time.perf_counter()
+        store.decode_gather(batches[0])
+        split["decode_gather"] = (time.perf_counter() - t) * 1e3
+    finally:
+        cpu.close()
+        srv.shutdown(grace=5.0)
+    result = {
+        "accounts": store.num_accounts(), "events": n_events, "fill_s": fill_s,
+        "launches": launches, "device_steps": steps,
+        "forward_launches": fwd_launches, "forwards": forwards,
+        "floor_boundary_rows": boundary,
+        "score_batch_rows": SERVER_BATCH_ROWS,
+        "score_batch_rows_per_s": [SERVER_BATCH_ROWS / t for t in batch_s],
+        "score_batch_ms": [t * 1e3 for t in batch_s],
+        "score_batch_host_split_ms": split,
+        "score_transaction_p50_ms": float(np.percentile(single_ms, 50)),
+        "score_transaction_p99_ms": float(np.percentile(single_ms, 99)),
+        "check_bonus_abuse_p50_ms": float(np.percentile(abuse_ms, 50)),
+        "check_bonus_abuse_p99_ms": float(np.percentile(abuse_ms, 99)),
+        "ready": ready[1],
+    }
+    log(f"phase 7: [{card}] ScoreBatch of {SERVER_BATCH_ROWS} rows bytes to bytes x"
+        f"{SERVER_BATCHES}: median {statistics.median(result['score_batch_rows_per_s']):.0f} "
+        "rows/s")
+    log(f"phase 7: [{card}] one ScoreBatch RPC's host split (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()) + f"; the RPC's wall {batch_s[0] * 1e3:.3f}")
+    log(f"phase 7: [{card}] ScoreTransaction x{SERVER_SINGLES}: p50 "
+        f"{result['score_transaction_p50_ms']:.3f} ms, p99 {result['score_transaction_p99_ms']:.3f}"
+        f" ms; CheckBonusAbuse x{SERVER_ABUSE_CHECKS}: p50 "
+        f"{result['check_bonus_abuse_p50_ms']:.3f} ms, p99 {result['check_bonus_abuse_p99_ms']:.3f} ms")
+    log(f"phase 7: {steps} device steps, {launches} forest launches; {forwards} forwards, "
+        f"{fwd_launches} attention launches; every ScoreBatch answer agrees with the CPU engine "
+        f"({boundary} floor-boundary rows not compared), feature echo bit-equal; /ready {ready[1]}")
+    log("phase 7: " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1328,7 +1644,7 @@ def main() -> int:
     # Phase 2: build every kernel, one nvcc each, started together.
     t0 = time.perf_counter()
     report = _build.build(["gbdt_forest", "flash_attention_fwd", "flash_attention_bwd",
-                           "mma_rate"])
+                           "mma_rate", "mma_probe"])
     log(f"phase 2: built in {time.perf_counter() - t0:.1f} s")
     for name, r in report.items():
         for line in r["log"].splitlines():
@@ -1339,6 +1655,7 @@ def main() -> int:
     floor = phase_launch_floor(torch)
     rows = phase_kernels(torch, gbdt_kernel)
     mma_rates = phase_mma_rate(torch)
+    probe = phase_mma_probe(torch)
     flash_rows = phase_flash(torch, fa)
     bwd_rows = phase_flash_bwd(torch, fa)
 
@@ -1347,6 +1664,8 @@ def main() -> int:
     abuse_run = phase_abuse(torch, card, fa)
     # Phase 6: the abuse detector's training path.
     train_run = phase_train(torch, card, fa)
+    # Phase 7: the risk.v1 serving front.
+    server_run = phase_server(torch, card, gbdt_kernel, fa)
 
     main_row = next(r for r in rows if (r["T"], r["D"], r["B"]) == (64, 4, BATCH_SIZE))
     flash_main = next(r for r in flash_rows if (r["BH"], r["S"], r["Dh"]) == FLASH_MAIN_SHAPE)
@@ -1362,6 +1681,7 @@ def main() -> int:
         "library_ms": None,
         "back_to_back_ms": main_row["kernel_b2b_ms"], "launch_floor_ms": floor,
         "launches_gbdt_engine_1000x6": engine["gbdt_engine_1000x6"]["launches"],
+        "launches_server": server_run["launches"],
         "shapes": rows,
     }, {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -1374,6 +1694,8 @@ def main() -> int:
         "bound_ms": flash_main["bound_ms"], "bound_by": flash_main["bound_by"],
         "library_ms": flash_main["library_ms"],
         "mma_sync_tflops": mma_rates,
+        "mma_probe": probe,
+        "launches_server": server_run["forward_launches"],
         "shapes": flash_rows,
     }, *({
         "name": f"flash_attention_bwd_{part}", "route": "cuda",

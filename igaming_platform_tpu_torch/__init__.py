@@ -9,8 +9,11 @@ module has one counterpart with the same name:
               the ensemble step and the abuse sequence transformer;
 - ``ops``     the hand-written CUDA kernels (sources in ``csrc/``), their
               wrappers, plain PyTorch versions and the nvcc build;
-- ``serve``   feature store, continuous batcher and the scoring engine,
-              the event bridge and the bonus-abuse detector;
+- ``serve``   feature stores (Python, and native C++ over ctypes), the
+              continuous batcher, the scoring engine with its wire paths and
+              host pipeline, the event bridge, the bonus-abuse detector, and
+              the risk.v1 front: its own proto3 codec, the native response
+              encoder, RiskService on bytes, and the server;
 - ``train``   the bonus-abuse detector's trainer.
 
 ``convert.from_jax_params`` carries the JAX package's params across. The

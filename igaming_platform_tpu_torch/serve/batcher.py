@@ -219,14 +219,26 @@ class ContinuousBatcher:
             it.future.set_result(res)
 
 
-def pad_batch(x: np.ndarray, batch_size: int) -> tuple[np.ndarray, int]:
+def pad_batch(x: np.ndarray, batch_size: int,
+              out: np.ndarray | None = None) -> tuple[np.ndarray, int]:
     """Pad rows with zeros up to the batch shape; returns (padded, n_valid).
-    A full batch is returned as-is."""
+
+    Without ``out`` a full batch is returned as-is. ``out`` is a staging
+    buffer of the padded shape (``serve/arena.py``): the rows are written
+    into it, the tail zeroed, even when the batch is full, since a pinned
+    staging buffer is what lets the copy to the card run asynchronously."""
     n = x.shape[0]
-    if n == batch_size:
-        return x, n
     if n > batch_size:
         raise ValueError(f"batch {n} exceeds batch shape {batch_size}")
+    if out is not None:
+        if out.shape != (batch_size, *x.shape[1:]) or out.dtype != x.dtype:
+            raise ValueError(f"pad buffer {out.shape}/{out.dtype} does not match "
+                             f"({batch_size}, *{x.shape[1:]})/{x.dtype}")
+        out[:n] = x
+        out[n:] = 0
+        return out, n
+    if n == batch_size:
+        return x, n
     padded = np.zeros((batch_size, *x.shape[1:]), dtype=x.dtype)
     padded[:n] = x
     return padded, n

@@ -7,8 +7,9 @@ detector's histories (the only writer of those histories), and publish risk
 events for blocked and high-score transactions. Used live (``drain`` or a
 consumer thread) and offline (``replay``, BASELINE config 2).
 
-``replay`` takes the object path of the JAX bridge. Its columnar path needs
-the native feature store, which the port does not have yet (``ROADMAP.md``).
+``replay`` takes the columnar path whenever the store has
+``gather_columns`` and ``update_columns`` (the native store), and the
+object path otherwise, as the JAX bridge does.
 """
 
 from __future__ import annotations
@@ -208,18 +209,18 @@ class ScoringBridge:
         batches in flight (0 = synchronous).
         """
         batch_size = min(batch_size or self.engine.batch_size, self.engine.batch_size)
+        store = self.engine.features
+        columnar = hasattr(store, "gather_columns") and hasattr(store, "update_columns")
         pending: list[tuple[Event, ScoreRequest]] = []
-        scored = 0
-        blocked = 0
+        counts = {"scored": 0, "blocked": 0}
         start = time.monotonic()
 
         def postprocess(item) -> None:
-            nonlocal scored, blocked
             chunk, handle = item
             host = self.engine._readback(handle)  # packed [5, B]: one transfer
             scores, actions, masks = host["score"], host["action"], host["reason_mask"]
             is_blocked = actions == ACTION_BLOCK
-            blocked += int(is_blocked.sum())
+            counts["blocked"] += int(is_blocked.sum())
             if self.publish_risk_events:
                 notable = np.nonzero(is_blocked | (scores >= self.high_score_threshold))[0]
                 for i in notable:
@@ -227,7 +228,7 @@ class ScoringBridge:
                     action = "block" if is_blocked[i] else "review"
                     reasons = [r.value for r in decode_reason_mask(int(masks[i]))]
                     self._publish_outcomes(ev, req, int(scores[i]), action, reasons)
-            scored += len(chunk)
+            counts["scored"] += len(chunk)
 
         pipeline = (
             CollectorPipeline(postprocess, pipeline_depth, name="replay-collector")
@@ -240,7 +241,10 @@ class ScoringBridge:
                 return
             chunk = pending[:]
             pending.clear()
-            x, bl = self.engine.features.gather_batch([r for _, r in chunk])
+            if columnar:
+                self._flush_columnar(chunk, pipeline, postprocess)
+                return
+            x, bl = store.gather_batch([r for _, r in chunk])
             handle = self.engine._launch(x, bl, self.engine.get_params())
             if pipeline is not None:
                 pipeline.put((chunk, handle))  # blocks at depth: backpressure
@@ -274,8 +278,32 @@ class ScoringBridge:
             pipeline.close()  # drains remaining batches; re-raises collector errors
         elapsed = time.monotonic() - start
         return {
-            "events_scored": scored,
-            "blocked": blocked,
+            "events_scored": counts["scored"],
+            "blocked": counts["blocked"],
             "elapsed_s": elapsed,
-            "txns_per_sec": scored / elapsed if elapsed > 0 else 0.0,
+            "txns_per_sec": counts["scored"] / elapsed if elapsed > 0 else 0.0,
         }
+
+    def _flush_columnar(self, chunk, pipeline, postprocess) -> None:
+        """One replay chunk through a columnar store (the JAX bridge's
+        ``_replay_columnar``): the chunk's fields as parallel columns, one
+        native gather and one native ingest for the whole chunk, scored on
+        the pre-transaction state and written back after."""
+        store = self.engine.features
+        accts = [req.account_id for _, req in chunk]
+        amts = [req.amount for _, req in chunk]
+        types = [req.tx_type for _, req in chunk]
+        ips = [req.ip for _, req in chunk]
+        devs = [req.device_id for _, req in chunk]
+        ts = [ev.timestamp for ev, _ in chunk]
+        x, bl = store.gather_columns(accts, amts, types, ips=ips, devices=devs)
+        handle = self.engine._launch(x, bl, self.engine.get_params())
+        if pipeline is not None:
+            pipeline.put((chunk, handle))  # blocks at depth: backpressure
+        else:
+            postprocess((chunk, handle))
+        store.update_columns(accts, amts, types, ips, devs, ts)
+        if self.abuse_detector is not None:
+            for i in range(len(ts)):
+                self.abuse_detector.record_event(accts[i], amts[i], types[i],
+                                                 device_id=devs[i], timestamp=ts[i])

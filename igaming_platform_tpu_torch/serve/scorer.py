@@ -15,20 +15,34 @@ path (risk.v1 ScoreTransaction / ScoreBatch):
   device-to-host copy brings it back;
 - ``score()`` rides the continuous batcher; ``score_batch`` runs chunks of
   ``batch_size`` directly;
+- the wire paths of ScoreBatch (``score_batch_wire_bytes``,
+  ``score_batch_wire``) gather through the native store, score in chunks
+  through the staged host pipeline (``serve/pipeline_engine.py``, or the
+  lockstep flow with ``HOST_PIPELINE=0``) and encode the whole response in
+  one native call, each chunk's rows reporting the time that chunk came
+  back;
 - thresholds are a device tensor input: ``set_thresholds`` rebuilds
-  nothing; ``swap_params`` installs new params atomically.
+  nothing; ``swap_params`` installs new params atomically, with their
+  fingerprint.
 
-Every batch runs on the engine's device. There is no host-CPU tier: on a
-CUDA engine a small batch goes to the card like a large one, and the CPU
-runs a batch only when the caller built the engine with ``device="cpu"``.
-Not ported yet: the host tier, the wire modes, the native store, the
-cached/index path, session state, drift, shadow and the decision ledger.
+Every batch runs on the engine's device. On a card, every copy and step
+goes on one CUDA stream the engine owns, whichever thread launches it, and
+launches are enqueued one at a time. There is no host-CPU tier: on a CUDA
+engine a small batch goes to the card like a large one, and the CPU runs a
+batch only when the caller built the engine with ``device="cpu"``. Not
+ported yet: the host tier, the index wire mode (``WIRE_MODE=index``
+raises), the cached path, session state, drift, shadow and the decision
+ledger.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import os
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Any
 
@@ -101,6 +115,36 @@ def _unpack_host(packed) -> dict:
     }
 
 
+RESULT_KEYS = ("score", "action", "reason_mask", "rule_score", "ml_score")
+
+
+def _device_readback(handle) -> dict:
+    """The device-to-host drain of one launch (``_launch_padded``'s handle):
+    wait for the packed [5, B] copy, then view its first n columns."""
+    host, done, n = handle
+    if done is not None:
+        done.synchronize()
+    return _unpack_host(host.numpy()[:, :n])
+
+
+def params_fingerprint(params: Any) -> str:
+    """Stable 16-hex digest over a params tree (name, dtype, shape and
+    bytes of every tensor, in tree order). Computed once per install,
+    never on the scoring path."""
+    h = hashlib.blake2b(digest_size=8)
+    if params is None:
+        h.update(b"none")
+        return h.hexdigest()
+    for key in sorted(params):
+        value = params[key]
+        tensors = value.state_dict() if hasattr(value, "state_dict") else value
+        for name, t in tensors.items():
+            arr = t.detach().cpu().numpy()
+            h.update(f"{key}.{name}:{arr.dtype}:{arr.shape}".encode())
+            h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
 class TorchScoringEngine:
     def __init__(
         self,
@@ -118,10 +162,27 @@ class TorchScoringEngine:
         self.ml_backend = ml_backend
         self._score_fn = make_score_fn(self.config, ml_backend, device=self.device)
         self._params = self._install(params)
+        self.params_fingerprint = params_fingerprint(self._params)
         self._params_lock = threading.Lock()
         self.features = feature_store or InMemoryFeatureStore()
+        # The one stream of every copy and step on a card; launches are
+        # enqueued under a lock, one at a time.
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._dispatch_lock = threading.Lock()
         bcfg = batcher_config or BatcherConfig()
         self.batch_size = bcfg.batch_size
+        self._pipeline_depth = bcfg.pipeline_depth
+        self.wire_mode = os.environ.get("WIRE_MODE", "row").lower()
+        if self.wire_mode not in ("row", "index"):
+            raise ValueError(f"WIRE_MODE={self.wire_mode!r} not supported (use 'row' or 'index')")
+        # Staged host pipeline for the wire paths: on by default;
+        # HOST_PIPELINE=0 (or host_pipeline=False) keeps the lockstep flow,
+        # which is also the parity reference of the pipeline.
+        env_pipe = os.environ.get("HOST_PIPELINE", "")
+        self._pipeline_enabled = (
+            bcfg.host_pipeline if env_pipe == "" else env_pipe not in ("0", "false"))
+        self._host_pipeline = None
+        self._host_pipeline_lock = threading.Lock()
         # Shape ladder: the throughput shape plus the smaller latency tiers.
         # A flush pads to the smallest shape that holds it.
         self._shapes = sorted(
@@ -151,6 +212,20 @@ class TorchScoringEngine:
 
     def close(self) -> None:
         self._batcher.stop()
+        if self._host_pipeline is not None:
+            self._host_pipeline.close()
+
+    def _ensure_pipeline(self):
+        """Build (once) the staged host pipeline; None when disabled."""
+        if not self._pipeline_enabled:
+            return None
+        if self._host_pipeline is None:
+            with self._host_pipeline_lock:
+                if self._host_pipeline is None:
+                    from igaming_platform_tpu_torch.serve.pipeline_engine import HostPipeline
+
+                    self._host_pipeline = HostPipeline(self, depth=self._pipeline_depth)
+        return self._host_pipeline
 
     # -- params / thresholds -------------------------------------------------
 
@@ -164,12 +239,20 @@ class TorchScoringEngine:
         """Atomically install new model parameters (copied to the device
         before the swap, so scoring never waits on the copy)."""
         installed = self._install(params)
+        fingerprint = params_fingerprint(installed)
         with self._params_lock:
             self._params = installed
+            self.params_fingerprint = fingerprint
 
     def get_params(self) -> Any:
         with self._params_lock:
             return self._params
+
+    def params_snapshot(self) -> tuple[Any, str]:
+        """(params, fingerprint) captured together: every chunk of a
+        multi-chunk job scores with one tree, even across a hot swap."""
+        with self._params_lock:
+            return self._params, self.params_fingerprint
 
     def _thresholds_tensor(self, block: int, review: int) -> torch.Tensor:
         return torch.tensor([block, review], dtype=torch.int32, device=self.device)
@@ -207,6 +290,94 @@ class TorchScoringEngine:
             r.response_time_ms = elapsed_ms
         return responses
 
+    # -- wire fast path (ScoreBatch RPC) -------------------------------------
+
+    def score_batch_wire(
+        self,
+        account_ids: list[str],
+        amounts: list[int],
+        tx_types: list[str],
+        ips: list[str] | None = None,
+        devices: list[str] | None = None,
+        fingerprints: list[str] | None = None,
+        *,
+        include_features: bool = True,
+    ) -> bytes:
+        """Columnar batch scoring straight to ScoreBatchResponse wire bytes:
+        no per-row request or response object. Row mode only: the index
+        mode's cached path is not ported yet."""
+        start = time.monotonic()
+        if self.wire_mode == "index":
+            raise NotImplementedError("WIRE_MODE=index needs the cached path, not ported yet")
+        if hasattr(self.features, "gather_columns"):
+            x, bl = self.features.gather_columns(
+                account_ids, amounts, tx_types, ips=ips, devices=devices,
+                fingerprints=fingerprints)
+        else:
+            x, bl = self.features.gather_batch([
+                ScoreRequest(account_id=account_ids[i], amount=amounts[i], tx_type=tx_types[i],
+                             ip=ips[i] if ips else "", device_id=devices[i] if devices else "",
+                             fingerprint=fingerprints[i] if fingerprints else "")
+                for i in range(len(account_ids))])
+        return self._score_rows_to_wire(x, bl, include_features, start)
+
+    def score_batch_wire_bytes(
+        self, payload: bytes, *, include_features: bool = True
+    ) -> tuple[bytes, int]:
+        """ScoreBatchRequest wire bytes -> (ScoreBatchResponse wire bytes,
+        rows): one native call decodes and gathers, the device scores in
+        chunks, one native call encodes. Raises ValueError on a malformed
+        request, RuntimeError when the store has no native decoder."""
+        start = time.monotonic()
+        if not hasattr(self.features, "decode_gather"):
+            raise RuntimeError("feature store has no native wire decoder")
+        x, bl = self.features.decode_gather(payload)
+        return self._score_rows_to_wire(x, bl, include_features, start), x.shape[0]
+
+    def _score_rows_to_wire(self, x: np.ndarray, bl: np.ndarray, include_features: bool,
+                            start: float) -> bytes:
+        """A gathered [N, 30] batch to response bytes: through the host
+        pipeline when enabled, else the lockstep flow. Bit-exact either way."""
+        pipe = self._ensure_pipeline()
+        if pipe is not None:
+            return pipe.score_rows_to_wire(x, bl, include_features, start)
+        return self._score_rows_encode(x, bl, include_features, start)
+
+    def _score_rows_encode(self, x: np.ndarray, bl: np.ndarray, include_features: bool,
+                           start: float) -> bytes:
+        """Lockstep chunked scoring to response bytes: chunk k's readback
+        overlaps chunk k+1's step, at most ``pipeline_depth`` chunks in
+        flight, and each row's response_time_ms is the time its chunk came
+        back (the per-call semantics of engine.go:263,312)."""
+        from igaming_platform_tpu_torch.serve.wire import encode_score_batch
+
+        total = x.shape[0]
+        if total == 0:
+            return b""
+        parts: dict[str, list[np.ndarray]] = {k: [] for k in RESULT_KEYS}
+        rtms = np.empty((total,), dtype=np.int64)
+        inflight: deque = deque()
+
+        def read_one() -> None:
+            handle, lo = inflight.popleft()
+            host = _device_readback(handle)
+            for k in RESULT_KEYS:
+                parts[k].append(host[k])
+            rtms[lo:lo + handle[2]] = int((time.monotonic() - start) * 1000.0)
+
+        params, _ = self.params_snapshot()
+        for lo in range(0, total, self.batch_size):
+            hi = min(lo + self.batch_size, total)
+            inflight.append((self._launch(x[lo:hi], bl[lo:hi], params), lo))
+            if len(inflight) > self._pipeline_depth:
+                read_one()
+        while inflight:
+            read_one()
+        cat = {k: np.concatenate(v) for k, v in parts.items()}
+        return encode_score_batch(cat["score"], cat["action"], cat["reason_mask"],
+                                  cat["rule_score"], cat["ml_score"], rtms,
+                                  x if include_features else None)
+
     def score_arrays(self, x: np.ndarray, blacklisted: np.ndarray | None = None) -> dict:
         """Score a pre-gathered [N, 30] batch as it is (no padding); returns
         the dict of [N] tensors on the engine's device."""
@@ -235,33 +406,43 @@ class TorchScoringEngine:
             self.device_steps += 1
 
     def _launch(self, x: np.ndarray, bl: np.ndarray, params: Any):
-        """Pad, copy to the device, run the step and start the copy of the
-        packed [5, B] result back to pinned host memory, without waiting.
-        Returns a handle for ``_readback``."""
+        """Pad into fresh arrays and launch (``_launch_padded``)."""
         n = x.shape[0]
         shape = self._pick_shape(n)
         xp, _ = pad_batch(x, shape)
         blp, _ = pad_batch(bl, shape)
-        xd = torch.from_numpy(xp).to(self.device)
-        bld = torch.from_numpy(blp).to(self.device)
-        with torch.inference_mode():
-            packed = _stack_packed(self._score_fn(params, xd, bld, self._thresholds))
-            if self.device.type == "cuda":
-                host = torch.empty(packed.shape, dtype=torch.int32, pin_memory=True)
-                host.copy_(packed, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-            else:
-                host, done = packed, None
-        self._count_step()
+        return self._launch_padded(xp, blp, n, params)
+
+    def _launch_padded(self, xp: np.ndarray, blp: np.ndarray, n: int, params: Any,
+                       hold=None):
+        """Copy one padded batch to the device, run the step and start the
+        copy of the packed [5, B] result back to pinned host memory, all on
+        the engine's stream, without waiting. From pinned staging buffers
+        the input copies are asynchronous too: ``hold``
+        (``serve/arena.StagingHold``) then gets the event recorded after
+        them, and keeps the buffers from the pool until it has passed.
+        Returns a handle for ``_readback``."""
+        cuda = self.device.type == "cuda"
+        with self._dispatch_lock, (torch.cuda.stream(self.stream) if cuda
+                                   else contextlib.nullcontext()):
+            xd = torch.from_numpy(xp).to(self.device, non_blocking=True)
+            bld = torch.from_numpy(blp).to(self.device, non_blocking=True)
+            if hold is not None and cuda:
+                hold.copied = torch.cuda.Event()
+                hold.copied.record(self.stream)
+            with torch.inference_mode():
+                packed = _stack_packed(self._score_fn(params, xd, bld, self._thresholds))
+                if cuda:
+                    host = torch.empty(packed.shape, dtype=torch.int32, pin_memory=True)
+                    host.copy_(packed, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(self.stream)
+                else:
+                    host, done = packed, None
+            self._count_step()
         return host, done, n
 
-    @staticmethod
-    def _readback(handle) -> dict:
-        host, done, n = handle
-        if done is not None:
-            done.synchronize()
-        return _unpack_host(host.numpy()[:, :n])
+    _readback = staticmethod(_device_readback)
 
     # Two-phase batcher hooks: dispatch on the launcher thread, collect on
     # the collector thread, so batch k+1 launches while batch k's results

@@ -1,0 +1,254 @@
+"""The risk service process: assembly, gRPC binding, HTTP sidecar, main().
+
+The port's counterpart of ``igaming_platform_tpu/serve/server.py``:
+environment config, then the feature store, the scoring engine (warmed up
+before it serves), the bonus-abuse detector, the event bridge and the
+``RiskGrpcService`` (``assemble_risk_service``); then ``RiskServer`` binds
+gRPC, when grpcio is installed and a port is asked for, and the HTTP
+sidecar (/health, /ready, /debug/thresholds, /debug/score), and shuts down
+on a signal: health NOT_SERVING, drain, stop.
+
+Run it as ``python -m igaming_platform_tpu_torch.serve.server``. It serves
+on the card; with no card it refuses to boot unless
+``SERVE_DEVICE_FALLBACK=cpu``, which serves on the host CPU with the abuse
+path under ``ABUSE_CPU_POLICY`` (default ``heuristic``), as the reference
+does. The other /debug pages, /metrics,
+the supervisor, the ledger, the online loop, the batch-feature refresh and
+the Orbax params vault are not ported yet (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import signal
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import torch
+
+from igaming_platform_tpu_torch.core.config import RiskServiceConfig
+from igaming_platform_tpu_torch.serve.abuse import SequenceAbuseDetector
+from igaming_platform_tpu_torch.serve.bridge import ScoringBridge
+from igaming_platform_tpu_torch.serve.events import InMemoryBroker, resolve_transport
+from igaming_platform_tpu_torch.serve.feature_store import InMemoryFeatureStore
+from igaming_platform_tpu_torch.serve.grpc_server import (
+    HealthServicer,
+    RiskGrpcService,
+    graceful_stop,
+    serve_risk,
+)
+from igaming_platform_tpu_torch.serve.native_store import NativeFeatureStore
+from igaming_platform_tpu_torch.serve.scorer import ScoreRequest, TorchScoringEngine
+
+logger = logging.getLogger(__name__)
+
+
+def resolve_model_boot(config, ml_backend: str = "mock", params=None):
+    """FRAUD_MODEL_PATH -> (ml_backend, params), then the ML_BACKEND
+    override. A missing checkpoint degrades to the mock scorer, as the
+    reference does (risk/cmd/main.go:62-63); one that exists raises, since
+    the checkpoint vault is not ported yet."""
+    if params is None and config.fraud_model_path:
+        if os.path.exists(config.fraud_model_path):
+            raise NotImplementedError(
+                f"FRAUD_MODEL_PATH={config.fraud_model_path}: loading a checkpoint needs "
+                "the params vault, not ported yet")
+        logger.warning("model path %s not found; using mock scorer", config.fraud_model_path)
+    if config.ml_backend:
+        ml_backend = config.ml_backend
+    return ml_backend, params
+
+
+def make_feature_store(kind: str):
+    """The store FEATURE_STORE names: the native C++ one for "auto" and
+    "native" (a library that does not build raises), the Python one for
+    "python"."""
+    if kind in ("auto", "native"):
+        return NativeFeatureStore()
+    if kind == "python":
+        return InMemoryFeatureStore()
+    raise NotImplementedError(f"FEATURE_STORE={kind!r} is not ported (use auto, native or python)")
+
+
+@dataclass
+class AssembledService:
+    """An assembled risk service, before any transport is bound."""
+
+    config: RiskServiceConfig
+    engine: TorchScoringEngine
+    abuse: SequenceAbuseDetector
+    bridge: ScoringBridge
+    service: RiskGrpcService
+
+
+def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend: str = "mock",
+                          params=None, feature_store=None, abuse_params=None,
+                          broker: InMemoryBroker | None = None, device: str = "cuda",
+                          abuse_policy: str = "model", warmup: bool = True) -> AssembledService:
+    """Build the store (``config.feature_store``, unless one is given), the
+    engine, the abuse detector (``abuse_policy``), the bridge and the
+    RiskGrpcService, on ``device``. Binds no transport."""
+    config = config or RiskServiceConfig.from_env()
+    ml_backend, params = resolve_model_boot(config, ml_backend, params)
+    store = feature_store if feature_store is not None else make_feature_store(config.feature_store)
+    engine = TorchScoringEngine(config.scoring, ml_backend=ml_backend, params=params,
+                                batcher_config=config.batcher, feature_store=store,
+                                device=device, warmup=warmup)
+    abuse = SequenceAbuseDetector(params=abuse_params, policy=abuse_policy, device=device)
+    bridge = ScoringBridge(engine, resolve_transport(broker, config.rabbitmq_url),
+                           abuse_detector=abuse)
+    service = RiskGrpcService(engine, abuse_detector=abuse.check,
+                              rate_limit_per_minute=config.rate_limit_per_minute)
+    return AssembledService(config, engine, abuse, bridge, service)
+
+
+class RiskServer:
+    """An assembled risk service behind gRPC (optional) and the HTTP sidecar."""
+
+    def __init__(self, assembled: AssembledService, *, grpc_port: int | None = None,
+                 http_port: int | None = None):
+        """``grpc_port`` None takes the config's; a negative one binds no
+        gRPC (health then lives only on the sidecar). ``http_port`` 0 picks
+        a free port."""
+        self.engine = assembled.engine
+        self.service = assembled.service
+        self.bridge = assembled.bridge
+        config = assembled.config
+        grpc_port = config.grpc_port if grpc_port is None else grpc_port
+        self.grpc_server, self.grpc_port = None, None
+        self.health = HealthServicer()
+        if grpc_port >= 0:
+            self.grpc_server, self.health, self.grpc_port = serve_risk(self.service, grpc_port)
+        self._stopped = threading.Event()
+        self._probe_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="device-probe")
+        self.http_server, self.http_port = self._start_http(
+            config.http_port if http_port is None else http_port)
+        self.bridge.start()
+        logger.info("risk server up: grpc=%s http=%d", self.grpc_port, self.http_port)
+
+    def device_alive(self, timeout_s: float = 2.0) -> bool:
+        """A tiny op on the engine's device, read back within ``timeout_s``:
+        a hung or lost device turns /ready false instead of hanging it."""
+
+        def probe() -> bool:
+            return int((torch.ones(1, device=self.engine.device) + 1).item()) == 2
+
+        try:
+            return self._probe_pool.submit(probe).result(timeout=timeout_s)
+        except Exception:  # noqa: BLE001 — timeout or device error
+            return False
+
+    # -- HTTP sidecar (main.go:160-202 equivalent) ---------------------------
+
+    def _start_http(self, port: int):
+        server_ref = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):  # quiet
+                pass
+
+            def _send(self, code: int, body: str):
+                data = body.encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):  # noqa: N802
+                if self.path == "/health":
+                    self._send(200, '{"status":"healthy"}')
+                elif self.path == "/ready":
+                    ready = not server_ref._stopped.is_set()
+                    device_ok = server_ref.device_alive() if ready else False
+                    self._send(200 if (ready and device_ok) else 503,
+                               json.dumps({"ready": ready and device_ok, "device": device_ok}))
+                elif self.path == "/debug/thresholds":
+                    block, review = server_ref.engine.get_thresholds()
+                    self._send(200, json.dumps({"block": block, "review": review}))
+                else:
+                    self._send(404, '{"error":"not found"}')
+
+            def do_POST(self):  # noqa: N802
+                length = int(self.headers.get("Content-Length", 0))
+                raw = self.rfile.read(length).decode() if length else "{}"
+                try:
+                    payload = json.loads(raw)
+                except json.JSONDecodeError:
+                    self._send(400, '{"error":"bad json"}')
+                    return
+                if self.path == "/debug/thresholds":
+                    server_ref.engine.set_thresholds(
+                        int(payload.get("block", 80)), int(payload.get("review", 50)))
+                    self._send(200, '{"ok":true}')
+                elif self.path == "/debug/score":
+                    resp = server_ref.engine.score(ScoreRequest(
+                        account_id=str(payload.get("account_id", "debug")),
+                        amount=int(payload.get("amount", 0)),
+                        tx_type=str(payload.get("transaction_type", "deposit")),
+                        ip=str(payload.get("ip", "")),
+                        device_id=str(payload.get("device_id", "")),
+                    ))
+                    self._send(200, json.dumps({
+                        "score": resp.score,
+                        "action": resp.action,
+                        "reasons": [r.value for r in resp.reason_codes],
+                        "rule_score": resp.rule_score,
+                        "ml_score": resp.ml_score,
+                        "response_time_ms": resp.response_time_ms,
+                    }))
+                else:
+                    self._send(404, '{"error":"not found"}')
+
+        httpd = ThreadingHTTPServer(("0.0.0.0", port), Handler)
+        thread = threading.Thread(target=httpd.serve_forever, name="http-sidecar", daemon=True)
+        thread.start()
+        return httpd, httpd.server_address[1]
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def shutdown(self, grace: float = 30.0) -> None:
+        """NOT_SERVING, stop the bridge, drain gRPC, then close the engine
+        (batcher and host pipeline), then stop the sidecar."""
+        self._stopped.set()
+        self.bridge.stop()
+        graceful_stop(self.grpc_server, self.health, grace, engine=self.engine)
+        self.http_server.shutdown()
+        self.http_server.server_close()
+        self._probe_pool.shutdown(wait=False)
+
+    def wait_for_signal(self) -> None:
+        done = threading.Event()
+
+        def handler(signum, frame):
+            logger.info("signal %d: shutting down", signum)
+            done.set()
+
+        signal.signal(signal.SIGINT, handler)
+        signal.signal(signal.SIGTERM, handler)
+        done.wait()
+        self.shutdown()
+
+
+def main() -> None:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    device, abuse_policy = "cuda", "model"
+    if not torch.cuda.is_available():
+        if os.environ.get("SERVE_DEVICE_FALLBACK", "").lower() != "cpu":
+            logger.error("no CUDA device: refusing to boot a degraded server. "
+                         "Set SERVE_DEVICE_FALLBACK=cpu to serve on the host CPU anyway.")
+            raise SystemExit(1)
+        device, abuse_policy = "cpu", os.environ.get("ABUSE_CPU_POLICY", "heuristic")
+        logger.warning("no CUDA device: SERVE_DEVICE_FALLBACK=cpu set, serving on the host "
+                       "CPU (abuse policy %s)", abuse_policy)
+    server = RiskServer(assemble_risk_service(device=device, abuse_policy=abuse_policy))
+    server.wait_for_signal()
+
+
+if __name__ == "__main__":
+    main()

@@ -6,7 +6,9 @@ duplicate) goes through the JAX package's ``ScoringBridge`` over a
 ``TPUScoringEngine`` (mock backend, Python store) and through the port's
 over a ``device="cpu"`` ``TorchScoringEngine``, each with an abuse detector.
 Both stores see one pinned clock. Counts, published risk events, feature
-rows and abuse histories must be equal, live (``drain``) and in ``replay``.
+rows and abuse histories must be equal, live (``drain``) and in ``replay``;
+and in ``replay`` over both packages' native stores, where both bridges
+take their columnar path.
 """
 
 import types
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 
 import igaming_platform_tpu.serve.feature_store as jfs
+import igaming_platform_tpu.serve.native_store as jns
 from igaming_platform_tpu.core.config import BatcherConfig as JBatcherConfig
 from igaming_platform_tpu.serve.abuse import SequenceAbuseDetector as JDetector
 from igaming_platform_tpu.serve.bridge import ScoringBridge as JBridge
@@ -26,6 +29,7 @@ from igaming_platform_tpu_torch.serve import events
 from igaming_platform_tpu_torch.serve.abuse import SequenceAbuseDetector
 from igaming_platform_tpu_torch.serve.bridge import ScoringBridge
 from igaming_platform_tpu_torch.serve.feature_store import InMemoryFeatureStore
+from igaming_platform_tpu_torch.serve.native_store import NativeFeatureStore
 from igaming_platform_tpu_torch.serve.scorer import TorchScoringEngine
 
 NOW = 1_700_000_000.0
@@ -49,11 +53,16 @@ def _stream(seed=0, n=400):
     return out
 
 
-def _bridges(monkeypatch, detector_kw):
-    monkeypatch.setattr(jfs, "time", types.SimpleNamespace(time=lambda: NOW))
-    jeng = TPUScoringEngine(batcher_config=JBatcherConfig(
+def _bridges(monkeypatch, detector_kw, native=False):
+    clock = types.SimpleNamespace(time=lambda: NOW)
+    monkeypatch.setattr(jfs, "time", clock)
+    monkeypatch.setattr(jns, "time", clock)
+    stores = ((jns.NativeFeatureStore(max_accounts=100), NativeFeatureStore(
+        max_accounts=100, clock=lambda: NOW)) if native
+        else (None, InMemoryFeatureStore(clock=lambda: NOW)))
+    jeng = TPUScoringEngine(feature_store=stores[0], batcher_config=JBatcherConfig(
         batch_size=64, latency_tiers=(), max_wait_ms=1))
-    teng = TorchScoringEngine(device="cpu", feature_store=InMemoryFeatureStore(clock=lambda: NOW),
+    teng = TorchScoringEngine(device="cpu", feature_store=stores[1],
                               batcher_config=BatcherConfig(batch_size=64, latency_tiers=(),
                                                            max_wait_ms=1))
     for eng in (jeng, teng):
@@ -85,9 +94,9 @@ def _assert_same_state(jb, tb, accounts):
                                   jb.abuse_detector._history_matrix(accounts, 64))
 
 
-@pytest.mark.parametrize("mode", ["drain", "replay"])
+@pytest.mark.parametrize("mode", ["drain", "replay", "replay_native"])
 def test_bridge_matches_jax(monkeypatch, mode):
-    jb, tb = _bridges(monkeypatch, dict(policy="heuristic"))
+    jb, tb = _bridges(monkeypatch, dict(policy="heuristic"), native=mode == "replay_native")
     stream = _stream()
     try:
         if mode == "drain":

@@ -1,0 +1,192 @@
+"""Port parity: serve/grpc_server.py and serve/server.py, the risk.v1 front.
+
+The JAX package's RiskGrpcService and the port's, each behind its own
+``serve_risk`` on the CPU over grpcio, get the same stores (the same seeded
+events with fixed timestamps, the clock pinned), the same params (carried by
+convert.py) and the same detector histories, on the ``mock`` and
+``mlp+gbdt`` backends. Every RPC of the slice goes to both as request bytes
+built with ``risk_pb2``. Both answers are parsed with ``risk_pb2``;
+response_time_ms and computed_at are zeroed; ml_score is held with
+tests/test_torch_ensemble.py::assert_outputs_match and abuse_score to the
+detector's atol 1e-5 (tests/test_torch_abuse.py), then set equal; every
+other byte must be equal. One case drives the port's byte handlers with no
+transport, as chip_smoke.py does on a machine without grpcio.
+"""
+
+import sys
+
+import grpc
+import numpy as np
+import pytest
+import torch
+from test_torch_abuse import _feed
+from test_torch_ensemble import assert_outputs_match, jax_tree
+from test_torch_sequence import SERVE_CFG, seq_tree
+from torch_front_common import T0, checked_rows, event_columns, fill, pin_jax_clock, requests
+
+from igaming_platform_tpu.core.config import BatcherConfig as JBatcherConfig
+from igaming_platform_tpu.models.sequence import SeqConfig as JSeqConfig
+from igaming_platform_tpu.proto_gen.risk.v1 import risk_pb2
+from igaming_platform_tpu.serve import grpc_server as jgrpc
+from igaming_platform_tpu.serve.abuse import SequenceAbuseDetector as JDetector
+from igaming_platform_tpu.serve.native_store import NativeFeatureStore as JaxNativeStore
+from igaming_platform_tpu.serve.scorer import TPUScoringEngine
+from igaming_platform_tpu_torch.convert import from_jax_params
+from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+from igaming_platform_tpu_torch.serve import grpc_server, server
+from igaming_platform_tpu_torch.serve.native_store import NativeFeatureStore
+
+N_ACCOUNTS = 50
+ABUSE_ATOL = 1e-5
+
+
+def _boot(backend):
+    """Both services over grpcio, with equal stores, params and histories."""
+    cols = event_columns(7, N_ACCOUNTS, 1200)
+    jstore, tstore = JaxNativeStore(max_accounts=500), NativeFeatureStore(max_accounts=500,
+                                                                          clock=lambda: T0)
+    fill([jstore, tstore], cols, bonus_accounts=[f"acct{a}" for a in range(0, N_ACCOUNTS, 3)],
+         blacklist=[("device", "dev4"), ("ip", "ip9"), ("fingerprint", "fp2")])
+    tree = jax_tree(backend)
+    seq, model = seq_tree(SERVE_CFG, seed=3)
+    jdet = JDetector(params=seq, cfg=JSeqConfig(**SERVE_CFG))
+    jengine = TPUScoringEngine(ml_backend=backend, params=tree or None, feature_store=jstore,
+                               batcher_config=JBatcherConfig(batch_size=64, max_wait_ms=1.0))
+    jservice = jgrpc.RiskGrpcService(jengine, abuse_detector=jdet.check)
+    config = RiskServiceConfig(batcher=BatcherConfig(batch_size=64, max_wait_ms=1.0))
+    assembled = server.assemble_risk_service(
+        config, ml_backend=backend, params=from_jax_params(backend, tree), feature_store=tstore,
+        abuse_params=model, device="cpu")
+    abuse_accounts = _feed([jdet, assembled.abuse])
+    jserver, _, jport = jgrpc.serve_risk(jservice, 0)
+    tserver, _, tport = grpc_server.serve_risk(assembled.service, 0)
+    channels = [grpc.insecure_channel(f"localhost:{p}") for p in (jport, tport)]
+    stubs = [grpc_server.make_risk_stub(c) for c in channels]
+    return {"stubs": stubs, "service": assembled.service, "abuse_accounts": abuse_accounts,
+            "close": lambda: ([c.close() for c in channels], jserver.stop(0), tserver.stop(0),
+                              jengine.close(), assembled.engine.close())}
+
+
+@pytest.fixture(scope="module")
+def services(request):
+    with pytest.MonkeyPatch.context() as mp:
+        for knob in ("SLO", "DRIFT", "RUNTIME_TELEMETRY"):  # the JAX planes the port has not
+            mp.setenv(knob, "0")
+        pin_jax_clock(mp)
+        booted = _boot(request.param)
+        yield request.param, booted
+        booted["close"]()
+
+
+def _via_grpc(stub, method, payload):
+    try:
+        return "OK", getattr(stub, method)(payload, timeout=60)
+    except grpc.RpcError as exc:
+        return exc.code().name, None
+
+
+def _via_bytes(service, method, payload):
+    try:
+        return "OK", service.call(method, payload)
+    except grpc_server.RpcAbort as exc:
+        return exc.code.name, None
+
+
+def _score_columns(rows):
+    return {"score": np.array([r.score for r in rows]), "action": np.array([r.action for r in rows]),
+            "rule_score": np.array([r.rule_score for r in rows]),
+            "ml_score": np.array([r.ml_score for r in rows], np.float32),
+            "reason_mask": np.array([sum(1 << _BIT[c] for c in r.reason_codes) for r in rows])}
+
+
+def _bit_of_reason():
+    from igaming_platform_tpu.core.enums import REASON_BIT_ORDER
+
+    return {code.value: bit for bit, code in enumerate(REASON_BIT_ORDER)}
+
+
+_BIT = _bit_of_reason()
+
+
+def _assert_same(method, want_bytes, got_bytes, label):
+    """Both answers parsed with risk_pb2, clock fields zeroed, float model
+    outputs held to their tolerances and set equal, then every byte equal."""
+    cls = getattr(risk_pb2, f"{method}Response")
+    want, got = cls.FromString(want_bytes), cls.FromString(got_bytes)
+    rows = {"ScoreTransaction": lambda m: [m], "ScoreBatch": lambda m: list(m.results)}.get(method)
+    if rows is not None:
+        wrows, grows = rows(want), rows(got)
+        assert len(wrows) == len(grows)
+        wcols, gcols = _score_columns(wrows), _score_columns(grows)
+        assert_outputs_match({k: torch.from_numpy(v) for k, v in gcols.items()}, wcols, label)
+        for w, g, exact in zip(wrows, grows, checked_rows(gcols, wcols)):
+            w.response_time_ms = g.response_time_ms = 0
+            g.ml_score = w.ml_score
+            if not exact:  # within 1e-4 of a floor boundary: excused above
+                g.score, g.action = w.score, w.action
+    elif method == "CheckBonusAbuse":
+        assert abs(got.abuse_score - want.abuse_score) <= ABUSE_ATOL, label
+        got.abuse_score = want.abuse_score
+    elif method == "GetFeatures":
+        want.computed_at.Clear()
+        got.computed_at.Clear()
+    assert got.SerializeToString() == want.SerializeToString(), label
+
+
+def _exchanges(accounts):
+    """(method, request message) in the order sent: every RPC of the slice,
+    thresholds changed midway and restored."""
+    txs = [risk_pb2.ScoreTransactionRequest(**r) for r in requests(8, 150, N_ACCOUNTS)]
+    out = [("ScoreTransaction", t) for t in txs[:10]]
+    out.append(("ScoreBatch", risk_pb2.ScoreBatchRequest(transactions=txs)))
+    out += [("CheckBonusAbuse", risk_pb2.CheckBonusAbuseRequest(account_id=a, bonus_id="b1"))
+            for a in accounts[:4] + accounts[-1:]]
+    out += [("AddToBlacklist", risk_pb2.AddToBlacklistRequest(type=t, value=v, reason="r"))
+            for t, v in (("device", "dev11"), ("ip", "ip3"), ("email", "x@y"))]
+    out += [("CheckBlacklist", risk_pb2.CheckBlacklistRequest(**kw))
+            for kw in ({"device_id": "dev11"}, {"ip_address": "ip3"}, {"fingerprint": "fp2"},
+                       {"device_id": "dev1", "email": "e"})]
+    out += [("GetFeatures", risk_pb2.GetFeaturesRequest(account_id=a))
+            for a in ("acct1", "acct7", "nobody")]
+    out.append(("UpdateThresholds", risk_pb2.UpdateThresholdsRequest(block_threshold=30,
+                                                                     review_threshold=10)))
+    out.append(("GetThresholds", risk_pb2.GetThresholdsRequest()))
+    out += [("ScoreTransaction", t) for t in txs[10:14]]
+    out.append(("ScoreBatch", risk_pb2.ScoreBatchRequest(transactions=txs[:70])))
+    out.append(("UpdateThresholds", risk_pb2.UpdateThresholdsRequest(block_threshold=80,
+                                                                     review_threshold=50)))
+    return out
+
+
+@pytest.mark.parametrize("services,transport", [("mock", "grpc"), ("mlp+gbdt", "grpc"),
+                                                ("mlp+gbdt", "bytes")], indirect=["services"])
+def test_port_answers_as_the_jax_server(services, transport):
+    backend, booted = services
+    jstub, tstub = booted["stubs"]
+    codes = []
+    for i, (method, msg) in enumerate(_exchanges(booted["abuse_accounts"])):
+        payload = msg.SerializeToString()
+        want = _via_grpc(jstub, method, payload)
+        got = (_via_grpc(tstub, method, payload) if transport == "grpc"
+               else _via_bytes(booted["service"], method, payload))
+        label = f"{backend} {transport} #{i} {method}"
+        assert got[0] == want[0], label
+        codes.append(got[0])
+        if want[0] == "OK":
+            _assert_same(method, want[1], got[1], label)
+    assert codes.count("INVALID_ARGUMENT") == 1 and codes.count("OK") == len(codes) - 1
+
+
+def test_unported_methods_and_missing_grpc(monkeypatch):
+    """PredictLTV and GetPlayerSegment answer UNIMPLEMENTED; without grpcio
+    ``serve_risk`` raises a RuntimeError that says what to do instead."""
+    service = grpc_server.RiskGrpcService(engine=None)
+    for method in ("PredictLTV", "GetPlayerSegment", "Nope"):
+        with pytest.raises(grpc_server.RpcAbort) as exc:
+            service.call(method, b"")
+        assert exc.value.code is grpc_server.StatusCode.UNIMPLEMENTED
+    assert {c.name: c.value for c in grpc_server.StatusCode} == {
+        c.name: c.value[0] for c in grpc.StatusCode}
+    monkeypatch.setitem(sys.modules, "grpc", None)
+    with pytest.raises(RuntimeError, match="needs grpcio"):
+        grpc_server.serve_risk(service, 0)
