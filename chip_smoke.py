@@ -55,7 +55,17 @@ sequences of 64 events). Phases:
    (steps + 1 eval forward)), its held-out accuracy, the trained model
    served by a card ``SequenceAbuseDetector``, where a step's time goes
    (host batch synthesis, device step, kernels by name), and one training
-   step at config-3 width at S=2048.
+   step at config-3 width at S=2048;
+7. serving front: a native store of 100,000 accounts, the risk.v1 RPC mix
+   through ``RiskGrpcService.call`` and the HTTP sidecar, every ScoreBatch
+   held to a CPU engine on the same rows;
+8. index path and session state, on phase 7's store: IDX1 frames through
+   ``RiskGrpcService.call`` into engine A (every account resident, the
+   transformer session head) and engine B (the default capacity, the
+   pattern head, CLOCK evicting), each held frame by frame to a CPU twin and
+   then bit for bit in its table and ring; rows/s, one RPC's split, the
+   cache and session counts, the launches per device step and the device
+   bytes of the table and ring.
 
 Any failure exits non-zero. The second-to-last lines are the ``kernels``
 JSON object and the card's name and power limit; the last line is the
@@ -170,7 +180,25 @@ PROBE_TILES = 2000
 SERVER_ACCOUNTS, SERVER_EVENTS_PER_ACCOUNT = 100_000, 20
 SERVER_BATCH_ROWS, SERVER_BATCHES = 16_384, 5
 SERVER_SINGLES, SERVER_ABUSE_CHECKS = 500, 50
-SERVER_NOW = 1_700_000_000.0  # the store's pinned clock
+SERVER_NOW = 1_700_000_000.0  # the store's clock: pinned in phase 7, stepped in phase 8
+STORE_CLOCK = [SERVER_NOW]
+# The index path and session state (phase 8), on phase 7's store. Engine A:
+# WIRE_MODE=index, every account resident after first touch, the transformer
+# session head; rounds of one 16,384-row IDX1 frame and then 100 one-row
+# frames, the clock stepping INDEX_STEP_S between them. Random rows come from
+# a hot set of 20,000 accounts (so accounts repeat inside a 4,096-row chunk
+# and windows warm across frames); INDEX_CYCLERS accounts outside it get a
+# machine-paced cycle, a bet in each large frame and a deposit in one small
+# frame, the same amount every time. Engine B: the default capacity, the
+# pattern head, 7 frames over every account, so CLOCK evicts and the ring
+# rehydrates.
+INDEX_ROUNDS, INDEX_CYCLERS, INDEX_HOT, INDEX_STEP_S = 5, 100, 20_000, 30.0
+INDEX_A_CAPACITY, INDEX_B_CAPACITY, INDEX_B_FRAMES = 131_072, 65_536, 7
+# The pinned transformer head scores the warm windows of this traffic
+# between about 0.20 and 0.25 (a CPU rehearsal at 3,000 accounts), never near
+# the default 0.7: engine A folds at about their median instead.
+INDEX_A_THRESHOLD = 0.23
+INDEX_SAMPLED_WINDOWS = 100
 # Spin cycles queued before each timed call, so the card is still busy
 # while the host enqueues the call: the events then bracket device work only.
 SLEEP_CYCLES = 4_000_000
@@ -1402,7 +1430,8 @@ def fill_native_store(native_store, now: float):
     bonus claims and blacklisted devices and IPs; the clock pinned at
     ``now``."""
     rng = np.random.default_rng(21)
-    store = native_store.NativeFeatureStore(clock=lambda: now)
+    STORE_CLOCK[0] = now
+    store = native_store.NativeFeatureStore(clock=lambda: STORE_CLOCK[0])
     n = SERVER_ACCOUNTS * SERVER_EVENTS_PER_ACCOUNT
     accounts = rng.integers(0, SERVER_ACCOUNTS, n)
     ts = np.sort(now - rng.random(n) * rng.choice([300.0, 3600.0, 172800.0], n))
@@ -1434,6 +1463,20 @@ def server_requests(codec, rng, n: int) -> list[dict]:
             for _ in range(n)]
 
 
+def response_columns(codec, payload: bytes) -> tuple[list, dict]:
+    """A ScoreBatchResponse's rows, and its result columns as arrays."""
+    from igaming_platform_tpu_torch.core.enums import REASON_BIT_ORDER
+
+    bit = {code.value: b for b, code in enumerate(REASON_BIT_ORDER)}
+    rows = codec.decode(codec.SCORE_BATCH_RESPONSE, payload)["results"]
+    return rows, {"score": np.array([r["score"] for r in rows]),
+                  "action": np.array([r["action"] for r in rows]),
+                  "rule_score": np.array([r["rule_score"] for r in rows]),
+                  "ml_score": np.array([r["ml_score"] for r in rows], dtype=np.float32),
+                  "reason_mask": np.array([sum(1 << bit[c] for c in r["reason_codes"])
+                                           for r in rows])}
+
+
 def http_call(port: int, path: str, body: dict | None = None) -> tuple[int, dict]:
     import urllib.error
     import urllib.request
@@ -1448,7 +1491,7 @@ def http_call(port: int, path: str, body: dict | None = None) -> tuple[int, dict
         return exc.code, json.loads(exc.read())
 
 
-def phase_server(torch, card: str, gbdt_kernel, fa) -> dict:
+def phase_server(torch, card: str, gbdt_kernel, fa, filled: tuple) -> dict:
     """The risk.v1 serving front on the card: the native store at deployment
     size, ``assemble_risk_service`` with the ``mlp+gbdt`` backend and the
     abuse detector at serving width, the HTTP sidecar bound (no gRPC: the
@@ -1459,15 +1502,11 @@ def phase_server(torch, card: str, gbdt_kernel, fa) -> dict:
     forward's layers x forwards."""
     from igaming_platform_tpu_torch.convert import from_jax_params, sequence_from_tree
     from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
-    from igaming_platform_tpu_torch.core.enums import REASON_BIT_ORDER
     from igaming_platform_tpu_torch.models.sequence import SeqConfig
-    from igaming_platform_tpu_torch.serve import native_store, scorer, server, wire
+    from igaming_platform_tpu_torch.serve import scorer, server, wire
     from igaming_platform_tpu_torch.serve import risk_codec as codec
 
-    reason_bit = {code.value: bit for bit, code in enumerate(REASON_BIT_ORDER)}
-    t0 = time.perf_counter()
-    store, n_events = fill_native_store(native_store, SERVER_NOW)
-    fill_s = time.perf_counter() - t0
+    store, n_events, fill_s = filled
     log(f"phase 7: native store of {store.num_accounts()} accounts, {n_events} events, "
         f"filled in {fill_s:.1f} s")
     rng = np.random.default_rng(22)
@@ -1570,15 +1609,9 @@ def phase_server(torch, card: str, gbdt_kernel, fa) -> dict:
         for payload, out in zip(batches, batch_out):
             x, bl = store.decode_gather(payload)
             want = {k: v.numpy() for k, v in cpu.score_arrays(x, bl).items()}
-            rows = codec.decode(codec.SCORE_BATCH_RESPONSE, out)["results"]
+            rows, got = response_columns(codec, out)
             if len(rows) != SERVER_BATCH_ROWS:
                 raise AssertionError(f"server: {len(rows)} rows answered")
-            got = {"score": np.array([r["score"] for r in rows]),
-                   "action": np.array([r["action"] for r in rows]),
-                   "rule_score": np.array([r["rule_score"] for r in rows]),
-                   "ml_score": np.array([r["ml_score"] for r in rows], dtype=np.float32),
-                   "reason_mask": np.array([sum(1 << reason_bit[c] for c in r["reason_codes"])
-                                            for r in rows])}
             boundary += compare_columns(got, want, "server")
             n = x.shape[0]
             echo = codec.decode(codec.SCORE_BATCH_RESPONSE, wire.encode_score_batch(
@@ -1625,6 +1658,381 @@ def phase_server(torch, card: str, gbdt_kernel, fa) -> dict:
     return result
 
 
+def index_traffic_a(wire, rng) -> list[tuple[float, bytes, bool]]:
+    """Engine A's frames in order, each with the store clock it is sent at
+    and whether it is a large frame: per round, one frame of
+    SERVER_BATCH_ROWS rows (hot-set rows, and each cycler's bet), then one
+    one-row frame per cycler (its deposit) INDEX_STEP_S later."""
+    accounts = rng.permutation(SERVER_ACCOUNTS)
+    cyclers, hot = accounts[:INDEX_CYCLERS], accounts[INDEX_CYCLERS:INDEX_CYCLERS + INDEX_HOT]
+    cycler_amount = rng.integers(1_000, 200_000, INDEX_CYCLERS)
+    frames = []
+    for r in range(INDEX_ROUNDS):
+        t = SERVER_NOW + 2 * INDEX_STEP_S * (r + 1)
+        n = SERVER_BATCH_ROWS
+        ids = hot[rng.integers(0, INDEX_HOT, n)]
+        amounts = rng.integers(100, 2_000_000, n)
+        kinds = np.array(["deposit", "withdraw", "bet"])[rng.integers(0, 3, n)]
+        pos = rng.choice(n, INDEX_CYCLERS, replace=False)
+        ids[pos], amounts[pos], kinds[pos] = cyclers, cycler_amount, "bet"
+        frames.append((t, wire.encode_index_batch(
+            [f"acct{a}" for a in ids], amounts, kinds.tolist(),
+            ips=[f"ip{i}" for i in rng.integers(0, 500_000, n)],
+            devices=[f"dev{d}" for d in rng.integers(0, 300_000, n)]), True))
+        frames += [(t + INDEX_STEP_S, wire.encode_index_batch(
+            [f"acct{cyclers[j]}"], [int(cycler_amount[j])], ["deposit"]), False)
+            for j in range(INDEX_CYCLERS)]
+    return frames
+
+
+def index_traffic_b(wire, rng) -> list[tuple[float, bytes, bool]]:
+    """Engine B's frames: every account once (more accounts than slots),
+    then the rest of the rows from the first two fifths of them, long
+    evicted by then; INDEX_CYCLERS accounts in every frame, bet and deposit
+    in turn."""
+    accounts = rng.permutation(SERVER_ACCOUNTS)
+    cyclers, rest = accounts[:INDEX_CYCLERS], accounts[INDEX_CYCLERS:]
+    per = SERVER_BATCH_ROWS - INDEX_CYCLERS
+    extra = INDEX_B_FRAMES * per - rest.size
+    ids_all = np.concatenate([rest, rest[rng.integers(0, rest.size * 2 // 5, extra)]])
+    frames = []
+    for f in range(INDEX_B_FRAMES):
+        ids = np.insert(ids_all[f * per:(f + 1) * per],
+                        np.sort(rng.integers(0, per, INDEX_CYCLERS)), cyclers)
+        n = ids.size
+        kinds = np.array(["deposit", "withdraw", "bet"])[rng.integers(0, 3, n)]
+        amounts = rng.integers(100, 2_000_000, n)
+        cyc = np.isin(ids, cyclers)
+        kinds[cyc], amounts[cyc] = ("bet", "deposit")[f % 2], 5_000
+        frames.append((SERVER_NOW + 1_000.0 + 2 * INDEX_STEP_S * f, wire.encode_index_batch(
+            [f"acct{a}" for a in ids], amounts, kinds.tolist(),
+            devices=[f"dev{d}" for d in rng.integers(0, 300_000, n)]), True))
+    return frames
+
+
+def compare_session_columns(got: dict, want: dict, threshold: float, what: str) -> tuple:
+    """``compare_columns`` for session rows, after excusing the rows one
+    side folded and the other did not where the folded side's ML score (the
+    head's probability) lies within 1e-4 of the threshold. Returns
+    (floor-boundary rows, threshold rows, folded rows)."""
+    from igaming_platform_tpu_torch.core.enums import SESSION_PATTERN_BIT
+
+    fold_g = (got["reason_mask"] >> SESSION_PATTERN_BIT) & 1
+    fold_w = (want["reason_mask"] >> SESSION_PATTERN_BIT) & 1
+    folded_ml = np.where(fold_g == 1, got["ml_score"], want["ml_score"])
+    near = (fold_g != fold_w) & (np.abs(folded_ml.astype(np.float64) - threshold) < 1e-4)
+    keep = ~near
+    boundary = compare_columns({k: v[keep] for k, v in got.items()},
+                               {k: v[keep] for k, v in want.items()}, what)
+    return boundary, int(near.sum()), int(fold_g.sum())
+
+
+class RpcSplit:
+    """Host time of one index-mode RPC by stage, from timing shims around the
+    functions each stage calls: decode, lookup, dispatch (the launch of a
+    chunk, with its session bookkeeping and copies), readback, encode."""
+
+    def __init__(self, engine, scorer, wire):
+        self.ms = dict.fromkeys(("decode", "lookup", "dispatch", "readback", "encode"), 0.0)
+        self._patches = [(wire, "decode_index_batch", "decode"), (engine.cache, "lookup", "lookup"),
+                         (engine, "_launch_cached", "dispatch"),
+                         (scorer, "_device_readback", "readback"),
+                         (wire, "encode_score_batch", "encode")]
+
+    def _timed(self, fn, stage):
+        def shim(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.ms[stage] += (time.perf_counter() - t) * 1e3
+        return shim
+
+    def __enter__(self):
+        self._saved = [(obj, name, obj.__dict__.get(name)) for obj, name, _ in self._patches]
+        for obj, name, stage in self._patches:
+            setattr(obj, name, self._timed(getattr(obj, name), stage))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, old in self._saved:
+            if old is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old)
+
+
+def drive_index(svc, cpu_svc, engine, frames, threshold, what, scorer, wire, codec) -> dict:
+    """Every frame through the card's service and then the CPU twin's, the
+    store clock set to the frame's time; each card answer held to the twin's
+    (``compare_session_columns``). The large frames are timed bytes to bytes,
+    the last one also split by stage."""
+    large_s, single_s, split = [], [], None
+    boundary = near = folds = 0
+    n_large = sum(large for _, _, large in frames)
+    for t, frame, large in frames:
+        STORE_CLOCK[0] = t
+        timer = RpcSplit(engine, scorer, wire) if large and len(large_s) == n_large - 1 else None
+        start = time.perf_counter()
+        if timer is None:
+            out = svc.call("ScoreBatch", frame)
+        else:
+            with timer:
+                out = svc.call("ScoreBatch", frame)
+            split = timer.ms
+        (large_s if large else single_s).append(time.perf_counter() - start)
+        want = cpu_svc.call("ScoreBatch", frame)
+        rows, got = response_columns(codec, out)
+        if len(rows) != wire.decode_index_batch(frame)[1].size or any(r["features"] for r in rows):
+            raise AssertionError(f"{what}: {len(rows)} rows, or a feature echo")
+        b, n, f = compare_session_columns(got, response_columns(codec, want)[1], threshold, what)
+        boundary, near, folds = boundary + b, near + n, folds + f
+    split["wall"] = large_s[-1] * 1e3
+    return {"large_s": large_s, "single_s": single_s, "split_ms": split,
+            "floor_boundary_rows": boundary, "threshold_rows": near, "folded_rows": folds}
+
+
+def check_twin_state(torch, engine, cpu, rng, what: str) -> int:
+    """The card's table and session ring, cursor and length bit-equal to the
+    CPU twin's, and INDEX_SAMPLED_WINDOWS resident accounts' device windows
+    equal to the host index. Returns the number of windows compared."""
+    pairs = [(engine.cache.table, cpu.cache.table),
+             (engine.session.session_ring, cpu.session.session_ring),
+             (engine.session.session_cursor, cpu.session.session_cursor),
+             (engine.session.session_length, cpu.session.session_length)]
+    for name, (dev, host) in zip(("table", "ring", "cursor", "length"), pairs):
+        if not torch.equal(dev.cpu(), host):
+            raise AssertionError(f"{what}: the card's {name} differs from the CPU twin's")
+    resident = sorted(engine.cache._slots.items())
+    picks = rng.choice(len(resident), min(INDEX_SAMPLED_WINDOWS, len(resident)), replace=False)
+    for i in picks:
+        account, slot = resident[i]
+        if not np.array_equal(engine.session.device_window(slot),
+                              engine.session.twin_window(account)):
+            raise AssertionError(f"{what}: {account}'s device window differs from its host index")
+    return len(picks)
+
+
+def phase_index(torch, card: str, gbdt_kernel, fa, store, row_rows_per_s: float,
+                device: str = "cuda") -> dict:
+    """The index wire mode and session state on the card, on phase 7's store:
+    engine A (``assemble_risk_service``, WIRE_MODE=index, capacity
+    INDEX_A_CAPACITY, the transformer head) takes ``index_traffic_a``
+    through ``RiskGrpcService.call`` with the sidecar bound; engine B (the
+    default capacity, the pattern head) takes ``index_traffic_b``. Each is
+    held frame by frame to a CPU twin fed the same frames, and after its run
+    its table and ring bit for bit. The forest's launches must equal each
+    engine's device steps, and the forward's engine A's (one layer).
+    ``device="cpu"`` runs the same path with the plain versions, to
+    rehearse it without a card (the launch checks are then skipped)."""
+    import os
+
+    from igaming_platform_tpu_torch.convert import from_jax_params
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.serve import grpc_server, scorer, server, wire
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+
+    rng = np.random.default_rng(23)
+    params = from_jax_params("mlp+gbdt", {"mlp": mlp_tree(rng, SERVE_HIDDEN),
+                                          "gbdt": forest_tree(rng, SERVE_TREES, SERVE_DEPTH)})
+    bcfg = BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0)
+    on_card = device == "cuda"
+    knobs = ("WIRE_MODE", "SESSION_STATE", "SESSION_HEAD", "SESSION_FLAG_THRESHOLD")
+    saved = {k: os.environ.get(k) for k in knobs}
+    result = {}
+    try:
+        for name, capacity, head, threshold, traffic in (
+                ("a", INDEX_A_CAPACITY, "transformer", INDEX_A_THRESHOLD, index_traffic_a),
+                ("b", INDEX_B_CAPACITY, "pattern", 0.7, index_traffic_b)):
+            os.environ.update({"WIRE_MODE": "index", "SESSION_STATE": "1", "SESSION_HEAD": head,
+                               "SESSION_FLAG_THRESHOLD": str(threshold)})
+            frames = traffic(wire, rng)
+            if on_card:
+                torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated() if on_card else 0
+            if name == "a":
+                assembled = server.assemble_risk_service(
+                    RiskServiceConfig(batcher=bcfg), ml_backend="mlp+gbdt", params=params,
+                    feature_store=store, device=device, feature_cache=capacity, warmup=False)
+                engine, svc = assembled.engine, assembled.service
+            else:
+                engine = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params,
+                                                   batcher_config=bcfg, feature_store=store,
+                                                   device=device, feature_cache=capacity,
+                                                   warmup=False)
+                svc = grpc_server.RiskGrpcService(engine)
+            # One row-path step first: the engine's stream gets its cuBLAS
+            # workspace (32 MiB) before the cache's bytes are counted.
+            engine._readback(engine._launch(np.zeros((1, N_FEATURES), np.float32),
+                                            np.zeros((1,), bool), engine.get_params()))
+            if on_card:
+                torch.cuda.synchronize()
+            mem1 = torch.cuda.memory_allocated() if on_card else 0
+            t0 = time.perf_counter()
+            engine.ensure_cache()
+            build_s = time.perf_counter() - t0
+            if on_card:
+                torch.cuda.synchronize()
+            state_bytes = (torch.cuda.memory_allocated() if on_card else 0) - mem1
+            srv = server.RiskServer(assembled, grpc_port=-1, http_port=0) if name == "a" else None
+            cpu = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params,
+                                            batcher_config=bcfg, feature_store=store,
+                                            device="cpu", feature_cache=capacity, warmup=False)
+            try:
+                cpu.ensure_cache()
+                # Store writes reach both caches' dirty sets.
+                store.delta_listener = lambda a, caches=(engine.cache, cpu.cache): [
+                    c.note_update(a) for c in caches]
+                if on_card:
+                    torch.cuda.synchronize()
+                # The path's run: counts set to 0 just before, read just after.
+                gbdt_kernel.gbdt_forest.launches = 0
+                fa.flash_attention_fwd.launches = 0
+                steps0 = engine.device_steps
+                half = len(frames) // 2
+                cpu_svc = grpc_server.RiskGrpcService(cpu)
+                run = drive_index(svc, cpu_svc, engine, frames[:half], threshold,
+                                  f"index {name}", scorer, wire, codec)
+                # A write-back of 500 accounts between frames: the next
+                # lookups fold the dirty rows.
+                touched = [f"acct{a}" for a in rng.integers(0, SERVER_ACCOUNTS, 500)]
+                store.update_columns(touched, [777] * 500, ["bet"] * 500, [""] * 500,
+                                     ["dev-index"] * 500, [STORE_CLOCK[0]] * 500)
+                deltas0 = engine.cache.stats()["deltas_applied"]
+                rest = drive_index(svc, cpu_svc, engine, frames[half:], threshold,
+                                   f"index {name}", scorer, wire, codec)
+                steps = engine.device_steps - steps0
+                forest, forwards = gbdt_kernel.gbdt_forest.launches, fa.flash_attention_fwd.launches
+                if on_card and (steps == 0 or forest != steps
+                                or forwards != (steps if head == "transformer" else 0)):
+                    raise AssertionError(f"index {name}: {steps} device steps, {forest} forest "
+                                         f"launches, {forwards} forward launches")
+                windows = check_twin_state(torch, engine, cpu, rng, f"index {name}")
+                stats, snap = engine.cache.stats(), engine.session.snapshot()
+                if stats != cpu.cache.stats() or snap != cpu.session.snapshot():
+                    raise AssertionError(f"index {name}: counts differ from the CPU twin's")
+                if stats["deltas_applied"] - deltas0 < 1:
+                    raise AssertionError(f"index {name}: the write-back folded no row")
+                pages = {}
+                if srv is not None:
+                    pages = {p: http_call(srv.http_port, f"/debug/{p}")
+                             for p in ("cachez", "sessionz")}
+                    if pages["cachez"] != (200, {**stats, "shards": engine.cache.shard_stats(),
+                                                 "session_shards":
+                                                     engine.session.shard_stats()}) \
+                            or pages["sessionz"] != (200, snap):
+                        raise AssertionError(f"index {name}: sidecar pages {pages}")
+            finally:
+                store.delta_listener = None
+                cpu.close()
+                if srv is not None:
+                    srv.shutdown(grace=5.0)
+                else:
+                    engine.close()
+            large, singles = run["large_s"] + rest["large_s"], run["single_s"] + rest["single_s"]
+            result[name] = {
+                "capacity": capacity, "head": head, "flag_threshold": threshold,
+                "large_frames": len(large), "small_frames": len(singles),
+                "rows": sum(wire.decode_index_batch(f)[1].size for _, f, _ in frames),
+                "score_batch_rows_per_s": [SERVER_BATCH_ROWS / t for t in large],
+                "one_row_frame_p50_ms": (float(np.percentile(singles, 50)) * 1e3
+                                         if singles else None),
+                "split_ms": rest["split_ms"], "cache": stats,
+                "session": {k: snap[k] for k in ("appends", "rehydrations", "admissions", "rows",
+                                                 "accounts_tracked")},
+                "device_steps": steps, "forest_launches": forest, "forward_launches": forwards,
+                "folded_rows": run["folded_rows"] + rest["folded_rows"],
+                "threshold_rows": run["threshold_rows"] + rest["threshold_rows"],
+                "floor_boundary_rows": run["floor_boundary_rows"] + rest["floor_boundary_rows"],
+                "windows_compared": windows, "state_bytes": state_bytes,
+                "state_bytes_expected": engine.cache.hbm_bytes() + engine.session.hbm_bytes(),
+                "engine_bytes": mem1 - mem0, "ensure_cache_s": build_s,
+            }
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        STORE_CLOCK[0] = SERVER_NOW
+    a, b = result["a"], result["b"]
+    if a["folded_rows"] == 0 or b["folded_rows"] == 0:
+        raise AssertionError(f"index: folded rows A {a['folded_rows']}, B {b['folded_rows']}")
+    if b["cache"]["evictions"] == 0 or b["session"]["rehydrations"] == 0:
+        raise AssertionError(f"index b: evictions {b['cache']['evictions']}, rehydrations "
+                             f"{b['session']['rehydrations']}")
+    if a["cache"]["evictions"] != 0:
+        raise AssertionError("index a: an eviction with every account fitting")
+    for name, r in result.items():
+        log(f"phase 8: [{card}] engine {name.upper()} ({r['head']} head, capacity "
+            f"{r['capacity']}): IDX1 ScoreBatch of {SERVER_BATCH_ROWS} rows bytes to bytes x"
+            f"{r['large_frames']}: median {statistics.median(r['score_batch_rows_per_s']):.0f} "
+            f"rows/s (row mode, phase 7: {row_rows_per_s:.0f} rows/s)"
+            + (f"; {r['small_frames']} one-row frames, p50 {r['one_row_frame_p50_ms']:.3f} ms"
+               if r["small_frames"] else ""))
+        log(f"phase 8: [{card}] engine {name.upper()}: one RPC's host split (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in r["split_ms"].items()))
+        c, sess = r["cache"], r["session"]
+        log(f"phase 8: engine {name.upper()}: hits {c['hits']}, misses {c['misses']}, deltas "
+            f"{c['deltas_applied']}, evictions {c['evictions']}; session appends "
+            f"{sess['appends']}, admissions {sess['admissions']}, rehydrations "
+            f"{sess['rehydrations']}, rows {sess['rows']}; {r['folded_rows']} rows folded")
+        log(f"phase 8: engine {name.upper()}: {r['device_steps']} device steps, "
+            f"{r['forest_launches']} forest launches, {r['forward_launches']} forward launches; "
+            f"table and ring {r['state_bytes']} bytes on the device (expected "
+            f"{r['state_bytes_expected']}), built in {r['ensure_cache_s']:.1f} s; every answer "
+            f"agrees with the CPU twin ({r['floor_boundary_rows']} floor-boundary and "
+            f"{r['threshold_rows']} threshold rows excused), table, ring, cursor and length "
+            f"bit-equal, {r['windows_compared']} windows equal to the host index")
+    log("phase 8: " + json.dumps(result))
+    return result
+
+
+# Phase 7 alone in a fresh process of the checkout it runs in, printing one
+# "TURN " JSON line: for ``phase7_turns``.
+_PHASE7_TURN = r"""
+import inspect, json, statistics, sys, time, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from igaming_platform_tpu_torch.ops import _build, gbdt_kernel
+from igaming_platform_tpu_torch.ops import flash_attention as fa
+from igaming_platform_tpu_torch.serve import native_store
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build(["gbdt_forest", "flash_attention_fwd"])
+card = c.nvidia_smi_line()
+if "filled" in inspect.signature(c.phase_server).parameters:
+    t = time.perf_counter()
+    filled = (*c.fill_native_store(native_store, c.SERVER_NOW), time.perf_counter() - t)
+    r = c.phase_server(torch, card, gbdt_kernel, fa, filled)
+else:
+    r = c.phase_server(torch, card, gbdt_kernel, fa)
+print("TURN " + json.dumps({"median": statistics.median(r["score_batch_rows_per_s"]),
+    "rows_per_s": r["score_batch_rows_per_s"], "st_p50": r["score_transaction_p50_ms"],
+    "st_p99": r["score_transaction_p99_ms"], "card": card}))
+"""
+
+
+def phase7_turns(parent: str, turns: str = "pccppc") -> list[dict]:
+    """Phase 7 of two checkouts in turns on one card, each run in its own
+    process: ``p`` runs the checkout at ``parent`` (a ``git archive`` unpack
+    of the parent commit, whose ``phase_server`` may fill its own store),
+    ``c`` this one. Returns the runs' medians and latencies in turn order.
+    Run it as ``python3 -c "import chip_smoke as c; c.phase7_turns('dir')"``."""
+    runs = []
+    for turn in turns:
+        where = parent if turn == "p" else "."
+        out = subprocess.run([sys.executable, "-c", _PHASE7_TURN], cwd=where,
+                             capture_output=True, text=True, check=False)
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("TURN ")]
+        if out.returncode or not lines:
+            raise AssertionError(f"phase 7 in {where}: exit {out.returncode}\n"
+                                 + out.stderr[-3000:])
+        runs.append({"checkout": "parent" if turn == "p" else "change",
+                     **json.loads(lines[0][5:])})
+        log(f"phase 7 turn {len(runs)}: " + json.dumps(runs[-1]))
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -1664,8 +2072,15 @@ def main() -> int:
     abuse_run = phase_abuse(torch, card, fa)
     # Phase 6: the abuse detector's training path.
     train_run = phase_train(torch, card, fa)
-    # Phase 7: the risk.v1 serving front.
-    server_run = phase_server(torch, card, gbdt_kernel, fa)
+    # Phase 7: the risk.v1 serving front; phase 8: its index path and
+    # session state, on the same store.
+    from igaming_platform_tpu_torch.serve import native_store
+
+    t0 = time.perf_counter()
+    filled = (*fill_native_store(native_store, SERVER_NOW), time.perf_counter() - t0)
+    server_run = phase_server(torch, card, gbdt_kernel, fa, filled)
+    index_run = phase_index(torch, card, gbdt_kernel, fa, filled[0],
+                            statistics.median(server_run["score_batch_rows_per_s"]))
 
     main_row = next(r for r in rows if (r["T"], r["D"], r["B"]) == (64, 4, BATCH_SIZE))
     flash_main = next(r for r in flash_rows if (r["BH"], r["S"], r["Dh"]) == FLASH_MAIN_SHAPE)
@@ -1682,6 +2097,7 @@ def main() -> int:
         "back_to_back_ms": main_row["kernel_b2b_ms"], "launch_floor_ms": floor,
         "launches_gbdt_engine_1000x6": engine["gbdt_engine_1000x6"]["launches"],
         "launches_server": server_run["launches"],
+        "launches_index": index_run["a"]["forest_launches"] + index_run["b"]["forest_launches"],
         "shapes": rows,
     }, {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -1696,6 +2112,7 @@ def main() -> int:
         "mma_sync_tflops": mma_rates,
         "mma_probe": probe,
         "launches_server": server_run["forward_launches"],
+        "launches_index": index_run["a"]["forward_launches"],
         "shapes": flash_rows,
     }, *({
         "name": f"flash_attention_bwd_{part}", "route": "cuda",

@@ -26,6 +26,18 @@ def constant(key: str, value: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
+def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``. To a card it goes through a
+    fresh page-locked copy and an asynchronous copy on the current stream:
+    PyTorch's pinned-memory cache hands that staging block out again only
+    after the copy has completed, so the caller may reuse ``arr`` at once.
+    On the CPU the tensor shares ``arr``'s memory."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -15,7 +15,10 @@ redis_store.go:244-293):
 arithmetic into the float32 row, as the JAX package's does, so both stores
 gather the same bits. Both take ``now`` so that a caller can pin the clock;
 the port's store also takes a ``clock`` for the calls that pass none.
-The JAX store's fault-injection seam is not part of the port.
+Every write calls ``delta_listener`` (when set) with the account id, after
+the write: the device feature cache (``serve/device_cache.py``) marks the
+account's resident row stale there. The JAX store's fault-injection seam is
+not part of the port.
 """
 
 from __future__ import annotations
@@ -86,6 +89,17 @@ class InMemoryFeatureStore:
         self._lock = threading.RLock()
         self._hll_precision = hll_precision
         self._blacklists: dict[str, set[str]] = {"device": set(), "ip": set(), "fingerprint": set()}
+        # Write-back hook of the device feature cache: called with the
+        # account id after every write. Must be cheap and must not raise.
+        self.delta_listener = None
+
+    @property
+    def clock(self) -> Callable[[], float]:
+        return self._clock
+
+    def _emit_delta(self, account_id: str) -> None:
+        if self.delta_listener is not None:
+            self.delta_listener(account_id)
 
     def _state(self, account_id: str, now: float) -> _AccountState:
         st = self._accounts.get(account_id)
@@ -149,6 +163,7 @@ class InMemoryFeatureStore:
             elif event.tx_type == "win":
                 st.total_wins += event.amount
                 st.win_count += 1
+        self._emit_delta(event.account_id)
 
     def load_batch_features(
         self, account_id: str, *,
@@ -177,6 +192,7 @@ class InMemoryFeatureStore:
                 st.bonus_claim_count = bonus_claim_count
             if created_at is not None:
                 st.created_at = created_at
+        self._emit_delta(account_id)
 
     def record_bonus_claim(self, account_id: str, wager_complete_rate: float | None = None) -> None:
         with self._lock:
@@ -184,6 +200,7 @@ class InMemoryFeatureStore:
             st.bonus_claim_count += 1
             if wager_complete_rate is not None:
                 st.bonus_wager_complete = wager_complete_rate
+        self._emit_delta(account_id)
 
     # -- reads --------------------------------------------------------------
 

@@ -8,8 +8,9 @@ handler takes the request's wire bytes and returns the response as a
 ``RawProtoMessage``, or raises ``RpcAbort`` with a status. Requests are
 decoded and responses encoded by the port's own codec
 (``serve/risk_codec.py``): ScoreBatch goes bytes to bytes through the native
-store and encoder; ScoreTransaction's answer goes through the same native
-encoder. So the service needs no transport: ``call(method, payload)``
+store and encoder, or, for an index-mode frame (``IDX1``), through the
+engine's device feature cache (``score_batch_wire_index``);
+ScoreTransaction's answer goes through the same native encoder. So the service needs no transport: ``call(method, payload)``
 drives it directly, as ``chip_smoke.py`` does on a machine without grpcio.
 
 ``serve_risk`` binds it to grpcio with identity (de)serializers, and
@@ -36,7 +37,7 @@ from igaming_platform_tpu_torch.core.features import NUM_FEATURES, F, FeatureVec
 from igaming_platform_tpu_torch.serve import risk_codec as codec
 from igaming_platform_tpu_torch.serve.abuse import AbuseShed
 from igaming_platform_tpu_torch.serve.scorer import ScoreRequest
-from igaming_platform_tpu_torch.serve.wire import RawProtoMessage
+from igaming_platform_tpu_torch.serve.wire import INDEX_WIRE_MAGIC, RawProtoMessage
 
 logger = logging.getLogger(__name__)
 
@@ -46,7 +47,6 @@ RISK_SERVICE = "risk.v1.RiskService"
 RISK_METHOD_NAMES = ("ScoreTransaction", "ScoreBatch", "CheckBonusAbuse", "AddToBlacklist",
                      "CheckBlacklist", "GetFeatures", "UpdateThresholds", "GetThresholds",
                      "PredictLTV", "GetPlayerSegment")
-_INDEX_WIRE_MAGIC = b"IDX1"  # an index-mode ScoreBatch frame (the cached path)
 _ACTION_CODES = {"approve": 1, "review": 2, "block": 3}
 
 
@@ -293,9 +293,18 @@ class RiskGrpcService:
             self._bulk_gate.release()
 
     def _score_batch_admitted(self, buf: bytes) -> bytes:
-        if buf[:4] == _INDEX_WIRE_MAGIC:
-            raise RpcAbort(StatusCode.UNIMPLEMENTED,
-                           "index-mode ScoreBatch unavailable: the cached path is not ported")
+        if buf[:4] == INDEX_WIRE_MAGIC:
+            # An index-mode frame: slots and per-transaction context go to the
+            # device feature table, never an [N, 30] matrix. The answer is
+            # still a risk.v1 ScoreBatchResponse.
+            try:
+                return self.engine.score_batch_wire_index(buf)[0]
+            except ValueError as exc:
+                raise RpcAbort(StatusCode.INVALID_ARGUMENT,
+                               f"bad index-mode ScoreBatch frame: {exc}") from exc
+            except RuntimeError as exc:
+                raise RpcAbort(StatusCode.UNIMPLEMENTED,
+                               f"index-mode ScoreBatch unavailable: {exc}") from exc
         if hasattr(self.engine.features, "decode_gather"):
             # One native call decodes and gathers, one encodes.
             try:

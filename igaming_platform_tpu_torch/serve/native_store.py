@@ -12,8 +12,10 @@ one call, with no per-row Python object.
 String account ids map to dense indices inside the library; device and IP
 strings hash to stable 64-bit values (blake2b, as ``serve/hll.py``). Every
 gather takes ``now``; the store's ``clock`` stands in wherever a call gives
-no time, so that a caller can pin it for a whole run. A library that does
-not build raises: nothing falls back to the Python store.
+no time, so that a caller can pin it for a whole run. Every write calls
+``delta_listener`` (when set) with the account id, as the Python store
+does. A library that does not build raises: nothing falls back to the
+Python store.
 """
 
 from __future__ import annotations
@@ -27,8 +29,7 @@ import numpy as np
 
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES, F
 from igaming_platform_tpu_torch.serve import _native_build
-
-_TX_TYPE_CODES = {"deposit": 0, "withdraw": 1, "bet": 2, "win": 3}
+from igaming_platform_tpu_torch.serve.wire import TX_TYPE_CODES
 
 _hash_cache: dict[str, int] = {}
 
@@ -130,6 +131,17 @@ class NativeFeatureStore:
         # sets (fs_blacklist_add) are the ones the wire decoder consults.
         self._blacklists: dict[str, set[str]] = {"device": set(), "ip": set(), "fingerprint": set()}
         self._bl_codes = {"device": 0, "ip": 1, "fingerprint": 2}
+        # Write-back hook of the device feature cache (see
+        # InMemoryFeatureStore.delta_listener).
+        self.delta_listener = None
+
+    @property
+    def clock(self) -> Callable[[], float]:
+        return self._clock
+
+    def _emit_delta(self, account_id: str) -> None:
+        if self.delta_listener is not None:
+            self.delta_listener(account_id)
 
     def __del__(self):
         handle = getattr(self, "_handle", None)
@@ -160,9 +172,10 @@ class NativeFeatureStore:
             return
         self._lib.fs_update(
             self._handle, idx, event.timestamp or self._clock(), int(event.amount),
-            _TX_TYPE_CODES.get(event.tx_type, 4),
+            TX_TYPE_CODES.get(event.tx_type, 4),
             _hash64(event.device_id), _hash64(event.ip),
         )
+        self._emit_delta(event.account_id)
 
     def update_batch(self, events) -> None:
         """Batched ingest: one native call for a whole event chunk."""
@@ -190,12 +203,14 @@ class NativeFeatureStore:
             -1 if bonus_claim_count is None else bonus_claim_count,
             -1.0 if created_at is None else created_at,
         )
+        self._emit_delta(account_id)
 
     def record_bonus_claim(self, account_id: str, wager_complete_rate: float | None = None) -> None:
         idx = self._idx(account_id)
         if idx >= 0:
             rate = -1.0 if wager_complete_rate is None else float(wager_complete_rate)
             self._lib.fs_record_bonus(self._handle, idx, rate)
+            self._emit_delta(account_id)
 
     # -- reads --------------------------------------------------------------
 
@@ -239,7 +254,7 @@ class NativeFeatureStore:
         n = out.shape[0]
         idxs = self._resolve_many(account_ids, create=False)
         amts = np.asarray(amounts, dtype=np.int64)
-        types = np.fromiter((_TX_TYPE_CODES.get(t, 4) for t in tx_types), np.int32, n)
+        types = np.fromiter((TX_TYPE_CODES.get(t, 4) for t in tx_types), np.int32, n)
         self._lib.fs_fill_rows(self._handle, n, idxs, amts, types, now or self._clock(), out)
 
     def gather_batch(self, requests, now: float | None = None):
@@ -291,10 +306,13 @@ class NativeFeatureStore:
         if (ts == 0).any():
             ts = np.where(ts == 0, self._clock(), ts)
         amts = np.fromiter(amounts, np.int64, n)
-        types = np.fromiter((_TX_TYPE_CODES.get(t, 4) for t in tx_types), np.int32, n)
+        types = np.fromiter((TX_TYPE_CODES.get(t, 4) for t in tx_types), np.int32, n)
         dev = np.fromiter((_hash64(d) for d in devices), np.uint64, n)
         ip = np.fromiter((_hash64(i) for i in ips), np.uint64, n)
         self._lib.fs_update_batch(self._handle, n, idxs, ts, amts, types, dev, ip)
+        if self.delta_listener is not None:
+            for a in account_ids:
+                self._emit_delta(a)
 
     def num_accounts(self) -> int:
         return int(self._lib.fs_num_accounts(self._handle))

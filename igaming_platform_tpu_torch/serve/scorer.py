@@ -21,18 +21,32 @@ path (risk.v1 ScoreTransaction / ScoreBatch):
   lockstep flow with ``HOST_PIPELINE=0``) and encode the whole response in
   one native call, each chunk's rows reporting the time that chunk came
   back;
+- the index wire mode (``IDX1`` frames through ``score_batch_wire_index``,
+  or ``WIRE_MODE=index`` for the columnar ``score_batch_wire``) scores
+  through the device feature cache (``serve/device_cache.py``, built by
+  ``ensure_cache``: eagerly with ``feature_cache``/``FEATURE_CACHE``, else
+  on the first index request): each chunk's ``lookup`` copies pending
+  deltas into the table, then the cached step gathers the rows on the
+  device; only slots and the per-transaction context cross to the card;
+- with ``session_state``/``SESSION_STATE=1`` the cached step is the fused
+  session step (``serve/session_state.py``): the session head over each
+  account's event ring (``SESSION_HEAD=pattern|transformer``) folds into the
+  ensemble and the event is appended to the ring, in the same step; rows
+  scored on the row paths meanwhile are counted as bypass;
 - thresholds are a device tensor input: ``set_thresholds`` rebuilds
   nothing; ``swap_params`` installs new params atomically, with their
   fingerprint.
 
 Every batch runs on the engine's device. On a card, every copy and step
 goes on one CUDA stream the engine owns, whichever thread launches it, and
-launches are enqueued one at a time. There is no host-CPU tier: on a CUDA
-engine a small batch goes to the card like a large one, and the CPU runs a
-batch only when the caller built the engine with ``device="cpu"``. Not
-ported yet: the host tier, the index wire mode (``WIRE_MODE=index``
-raises), the cached path, session state, drift, shadow and the decision
-ledger.
+launches are enqueued one at a time (``_on_stream``); the cache's delta
+copies and the ring's admission copies go on that stream too, so a write
+never overtakes a step enqueued before it. There is no host-CPU tier: on a
+CUDA engine a small batch goes to the card like a large one, and the CPU
+runs a batch only when the caller built the engine with ``device="cpu"``.
+Not ported yet: the host tier, the slot-sharded cache and ring, drift,
+shadow and the decision ledger (the session fields a ledger note would
+carry are returned by ``_launch_cached``).
 """
 
 from __future__ import annotations
@@ -51,7 +65,7 @@ import torch
 
 from igaming_platform_tpu_torch.convert import BACKEND_KEYS, params_to
 from igaming_platform_tpu_torch.core.config import BatcherConfig, ScoringConfig
-from igaming_platform_tpu_torch.core.device import resolve_device
+from igaming_platform_tpu_torch.core.device import host_to_device, resolve_device
 from igaming_platform_tpu_torch.core.enums import ReasonCode, action_from_code, decode_reason_mask
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES, FeatureVector
 from igaming_platform_tpu_torch.models.ensemble import make_score_fn
@@ -156,6 +170,8 @@ class TorchScoringEngine:
         feature_store: InMemoryFeatureStore | None = None,
         device: str | torch.device = "cuda",
         warmup: bool = True,
+        feature_cache: bool | int | None = None,
+        session_state: bool | None = None,
     ):
         self.device = resolve_device(device)
         self.config = config or ScoringConfig()
@@ -194,6 +210,26 @@ class TorchScoringEngine:
         # forest kernel once); read by tests and the chip smoke.
         self.device_steps = 0
         self._steps_lock = threading.Lock()
+        # The device feature cache: built by ensure_cache(), eagerly at
+        # warmup when ``feature_cache``/FEATURE_CACHE asks (an int is the
+        # capacity) or WIRE_MODE=index, else on the first index request.
+        self.cache = None
+        self._cached_fn = None
+        self._cache_lock = threading.Lock()
+        if feature_cache is None:
+            feature_cache = os.environ.get("FEATURE_CACHE", "") not in ("", "0")
+        self._cache_capacity = (
+            feature_cache if isinstance(feature_cache, int) and not isinstance(feature_cache, bool)
+            else int(os.environ.get("FEATURE_CACHE_CAPACITY", "65536")))
+        self._cache_eager = bool(feature_cache)
+        # Session state (SESSION_STATE=1 or session_state=True): built with
+        # the cache, sharing its slot index and CLOCK.
+        from igaming_platform_tpu_torch.serve import session_state as session_mod
+
+        self.session = None
+        self._session_fn = None
+        self._session_enabled = (session_mod.session_enabled_env() if session_state is None
+                                 else bool(session_state))
         self._batcher = ContinuousBatcher(
             bcfg, dispatch=self._dispatch_requests, collect=self._collect_requests)
         if warmup:
@@ -204,11 +240,15 @@ class TorchScoringEngine:
 
     def warmup(self) -> None:
         """Run every shape of the ladder once before taking traffic, so the
-        first request pays neither the kernel build nor a first launch."""
+        first request pays neither the kernel build nor a first launch; then
+        build the feature cache when it is asked for eagerly or the wire
+        mode is index."""
         for shape in self._shapes:
             x = np.zeros((shape, NUM_FEATURES), dtype=np.float32)
             bl = np.zeros((shape,), dtype=bool)
             self._readback(self._launch(x, bl, self.get_params()))
+        if self._cache_eager or self.wire_mode == "index":
+            self.ensure_cache()
 
     def close(self) -> None:
         self._batcher.stop()
@@ -304,11 +344,20 @@ class TorchScoringEngine:
         include_features: bool = True,
     ) -> bytes:
         """Columnar batch scoring straight to ScoreBatchResponse wire bytes:
-        no per-row request or response object. Row mode only: the index
-        mode's cached path is not ported yet."""
+        no per-row request or response object. With ``WIRE_MODE=index`` the
+        rows score through the device feature cache, and the response has no
+        feature echo (the rows never exist on the host)."""
         start = time.monotonic()
         if self.wire_mode == "index":
-            raise NotImplementedError("WIRE_MODE=index needs the cached path, not ported yet")
+            from igaming_platform_tpu_torch.serve.wire import TX_TYPE_CODES, encode_score_batch
+
+            self.ensure_cache()
+            total = len(account_ids)
+            types = [TX_TYPE_CODES.get(t, 4) for t in tx_types]
+            bl = self._blacklist_flags(total, ips, devices, fingerprints)
+            cat, rtms = self._indexed_outputs(list(account_ids), amounts, types, bl, start)
+            return encode_score_batch(cat["score"], cat["action"], cat["reason_mask"],
+                                      cat["rule_score"], cat["ml_score"], rtms, None)
         if hasattr(self.features, "gather_columns"):
             x, bl = self.features.gather_columns(
                 account_ids, amounts, tx_types, ips=ips, devices=devices,
@@ -392,6 +441,245 @@ class TorchScoringEngine:
         """Post-transaction write-back (engine.go:486-488)."""
         self.features.update(event)
 
+    # -- the device feature cache and the session plane -----------------------
+
+    def _note_session_bypass(self, n: int) -> None:
+        """Rows scored on a row path while session state is on: counted as
+        bypass (the account's window does not advance), never silent."""
+        if self.session is not None and n > 0:
+            self.session.note_bypass(n)
+
+    def ensure_cache(self):
+        """Build (once) the device feature table and the cached step, run the
+        step at every ladder shape, and build the session plane when it is
+        on. Called at warmup or by the first index-mode request."""
+        if self.cache is not None:
+            return self.cache
+        with self._cache_lock:
+            if self.cache is not None:
+                return self.cache
+            from igaming_platform_tpu_torch.serve.device_cache import (
+                DeviceFeatureCache,
+                compose_rows,
+            )
+
+            if self._cache_capacity < self.batch_size:
+                # A chunk may hold batch_size distinct accounts, and a lookup
+                # never reclaims a slot its own rows read.
+                raise ValueError(f"feature cache capacity {self._cache_capacity} is smaller "
+                                 f"than the batch size {self.batch_size}")
+
+            max_age = os.environ.get("FEATURE_CACHE_MAX_AGE_S")
+            cache = DeviceFeatureCache(self.features, capacity=self._cache_capacity,
+                                       device=self.device, on_stream=self._on_stream,
+                                       max_age_s=float(max_age) if max_age else None)
+            # The store's write-back hook: every update marks the account's
+            # row for the next lookup's delta copy.
+            if hasattr(self.features, "delta_listener"):
+                self.features.delta_listener = cache.note_update
+            score_fn = self._score_fn
+
+            def cached_step(params, table, flags, idxs, amounts, types, bl, thr):
+                x, blv = compose_rows(table, flags, idxs, amounts, types, bl)
+                return _stack_packed(score_fn(params, x, blv, thr))
+
+            self._cached_fn = cached_step
+            params = self.get_params()
+            for shape in self._shapes:
+                args = self._device_args(np.zeros((shape,), np.int64),
+                                         np.zeros((shape,), np.float32),
+                                         np.full((shape,), 4, np.int32), np.zeros((shape,), bool))
+                self._readback(self._enqueue(
+                    lambda: cached_step(params, cache.table, cache.flags, *args(),
+                                        self._thresholds), shape))
+            self._ensure_session(cache)
+            self.cache = cache
+        return cache
+
+    def _ensure_session(self, cache) -> None:
+        """Build (once) the session plane beside a new cache: the device ring
+        and host index, the fused step, run at every ladder shape against
+        the scratch slot (no real window moves), and the cache's admission
+        hook, so one CLOCK decision governs both tables. The caller holds
+        ``_cache_lock``."""
+        if not self._session_enabled or self.session is not None:
+            return
+        from igaming_platform_tpu_torch.serve import session_state as session_mod
+
+        mgr = session_mod.SessionStateManager(cache.capacity, device=self.device,
+                                              on_stream=self._on_stream)
+        step = session_mod.make_session_step(
+            self._score_fn, self.config, mgr.head_fn, capacity=cache.capacity,
+            n_events=mgr.n_events, min_events=mgr.min_events,
+            flag_threshold=mgr.flag_threshold)
+        self._session_fn = step
+        params = self.get_params()
+        with mgr.lock:
+            for shape in self._shapes:
+                args = self._device_args(
+                    np.zeros((shape,), np.int64), np.full((shape,), cache.capacity, np.int64),
+                    np.arange(shape, dtype=np.int32), np.zeros((shape,), np.float32),
+                    np.full((shape,), 4, np.int32),
+                    np.zeros((shape, session_mod.EVENT_WIDTH), np.float32),
+                    np.zeros((shape,), bool), np.zeros((0,), np.int64))
+
+                def warm():
+                    idxs, sidx, occ, amounts, types, events, bl, app = args()
+                    packed, ring, cur, ln = step(
+                        params, mgr.head_params, cache.table, cache.flags, mgr.session_ring,
+                        mgr.session_cursor, mgr.session_length, idxs, sidx, occ, amounts,
+                        types, events, bl, self._thresholds, app)
+                    mgr.adopt(ring, cur, ln)
+                    return packed
+
+                self._readback(self._enqueue(warm, shape))
+        cache.session_hook = mgr.on_admit
+        self.session = mgr
+
+    def _device_args(self, *arrays: np.ndarray):
+        """A thunk that copies ``arrays`` to the engine's device; called
+        inside ``_enqueue``, so the copies go on the engine's stream."""
+        return lambda: [host_to_device(a, self.device) for a in arrays]
+
+    def _launch_cached(self, idxs: np.ndarray, amounts: np.ndarray, types: np.ndarray,
+                       bl: np.ndarray, params: Any, account_ids=None, now: float | None = None):
+        """Launch the cached step: the device gathers the rows from the
+        table; only int32 slots and the per-transaction context cross to the
+        card. Pad rows read slot 0, scored and discarded.
+
+        With session state on (and ``account_ids`` given) the fused session
+        step runs instead: the host index commit and the device append under
+        the manager's lock, so the ring advances in the host index's order.
+        Returns (handle, n, session_meta); ``session_meta`` holds each row's
+        post-append length, event sequence number and lazy session hash
+        (``SessionChunkAudit``) and the chunk's time, the fields a decision
+        ledger records; None on the plain path."""
+        n = idxs.shape[0]
+        shape = self._pick_shape(n)
+        idxsp, _ = pad_batch(idxs.astype(np.int64), shape)
+        amtp, _ = pad_batch(amounts, shape)
+        typp, _ = pad_batch(types, shape)
+        blp, _ = pad_batch(bl, shape)
+        cache, mgr = self.cache, self.session
+        if mgr is not None and account_ids is not None:
+            from igaming_platform_tpu_torch.serve.session_state import surviving_appends
+
+            with mgr.lock:
+                ts = now if now is not None else cache.clock()
+                events, occ, post_len, seqs, audit = mgr.prepare_chunk(
+                    account_ids, amounts, types, ts)
+                evp, _ = pad_batch(events, shape)
+                occp, _ = pad_batch(occ, shape)
+                # Pad rows all target the scratch slot, at distinct ranks.
+                sidxp = np.full((shape,), mgr.capacity, dtype=np.int64)
+                sidxp[:n] = idxs
+                occp[n:] = np.arange(shape - n, dtype=np.int32)
+                args = self._device_args(idxsp, sidxp, occp, amtp, typp, evp, blp,
+                                         surviving_appends(idxs, occ, mgr.n_events))
+
+                def step():
+                    *inputs, app = args()
+                    packed, ring, cur, ln = self._session_fn(
+                        params, mgr.head_params, cache.table, cache.flags, mgr.session_ring,
+                        mgr.session_cursor, mgr.session_length, *inputs, self._thresholds, app)
+                    mgr.adopt(ring, cur, ln)
+                    return packed
+
+                handle = self._enqueue(step, n)
+            return handle, n, {"ts": ts, "lens": post_len, "seqs": seqs, "hashes": audit}
+        args = self._device_args(idxsp, amtp, typp, blp)
+        handle = self._enqueue(
+            lambda: self._cached_fn(params, cache.table, cache.flags, *args(), self._thresholds), n)
+        return handle, n, None
+
+    def _blacklist_flags(self, n: int, ips, devices, fingerprints) -> np.ndarray:
+        """The per-request blacklist vector from the store's host sets: the
+        part of the gather the cached path keeps on the host."""
+        bl = np.zeros((n,), dtype=bool)
+        if not any(getattr(self.features, "_blacklists", {}).values()):
+            return bl
+
+        def col(values, i) -> str:
+            if values is None:
+                return ""
+            v = values[i]
+            return v.decode() if isinstance(v, (bytes, memoryview)) else v
+
+        for i in range(n):
+            bl[i] = self.features.check_blacklist(col(devices, i), col(fingerprints, i),
+                                                  col(ips, i))
+        return bl
+
+    def _indexed_outputs(self, account_ids, amounts, types, bl, start: float,
+                         now: float | None = None):
+        """Chunked scoring through the cached step -> (result dict, per-row
+        response times). Chunks go lookup, then launch, in order (each
+        lookup copies pending deltas into the table before its step); at
+        most ``pipeline_depth`` chunks are in flight."""
+        total = len(account_ids)
+        amounts32 = np.ascontiguousarray(amounts, dtype=np.float32)
+        types32 = np.ascontiguousarray(types, dtype=np.int32)
+        parts: dict[str, list[np.ndarray]] = {k: [] for k in RESULT_KEYS}
+        rtms = np.empty((total,), dtype=np.int64)
+        inflight: deque = deque()
+        params, _ = self.params_snapshot()
+        session_on = self.session is not None
+
+        def read_one() -> None:
+            handle, lo, n, _session_meta = inflight.popleft()
+            host = _device_readback(handle)
+            for k in RESULT_KEYS:
+                parts[k].append(host[k])
+            rtms[lo:lo + n] = int((time.monotonic() - start) * 1000.0)
+            # A decision ledger (not ported yet) notes each chunk here, with
+            # its session fields.
+
+        for lo in range(0, total, self.batch_size):
+            hi = min(lo + self.batch_size, total)
+            with self.cache.step_lock:
+                idxs = self.cache.lookup(account_ids[lo:hi], now=now)
+                handle, n, smeta = self._launch_cached(
+                    idxs, amounts32[lo:hi], types32[lo:hi], bl[lo:hi], params,
+                    account_ids=account_ids[lo:hi] if session_on else None, now=now)
+            inflight.append((handle, lo, n, smeta))
+            if len(inflight) > self._pipeline_depth:
+                read_one()
+        while inflight:
+            read_one()
+        cat = {k: np.concatenate(v) if len(v) > 1 else v[0] for k, v in parts.items()}
+        return cat, rtms
+
+    def score_columns_cached(self, account_ids, amounts, tx_types, ips=None, devices=None,
+                             fingerprints=None, now: float | None = None) -> dict:
+        """Columnar scoring through the device feature table -> the result
+        dict (score, action, reason_mask, rule_score, ml_score as host
+        arrays). Bit-identical to the host-gather path for the same ``now``."""
+        self.ensure_cache()
+        from igaming_platform_tpu_torch.serve.wire import TX_TYPE_CODES
+
+        n = len(account_ids)
+        types = [TX_TYPE_CODES.get(t, 4) for t in tx_types]
+        bl = self._blacklist_flags(n, ips, devices, fingerprints)
+        cat, _ = self._indexed_outputs(list(account_ids), amounts, types, bl,
+                                       time.monotonic(), now=now)
+        return cat
+
+    def score_batch_wire_index(self, payload: bytes) -> tuple[bytes, int]:
+        """An index-mode ScoreBatch frame (``IDX1``) -> (risk.v1
+        ScoreBatchResponse bytes without the feature echo, rows). Raises
+        ValueError on a malformed frame."""
+        from igaming_platform_tpu_torch.serve.wire import decode_index_batch, encode_score_batch
+
+        start = time.monotonic()
+        ids, amounts, codes, ips, devices, fingerprints = decode_index_batch(payload)
+        if len(ids) == 0:
+            return b"", 0
+        self.ensure_cache()
+        bl = self._blacklist_flags(len(ids), ips, devices, fingerprints)
+        cat, rtms = self._indexed_outputs(ids, amounts, codes, bl, start)
+        return encode_score_batch(cat["score"], cat["action"], cat["reason_mask"],
+                                  cat["rule_score"], cat["ml_score"], rtms, None), len(ids)
+
     # -- internals -----------------------------------------------------------
 
     def _pick_shape(self, n: int) -> int:
@@ -413,34 +701,49 @@ class TorchScoringEngine:
         blp, _ = pad_batch(bl, shape)
         return self._launch_padded(xp, blp, n, params)
 
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """The engine's dispatch lock and, on a card, its stream: every copy,
+        step and state write of the engine is enqueued inside this."""
+        with self._dispatch_lock, (torch.cuda.stream(self.stream) if self.stream is not None
+                                   else contextlib.nullcontext()):
+            yield
+
+    def _enqueue(self, step, n: int):
+        """Run ``step`` (its input copies and its launches; it returns the
+        packed [5, B] result) on the engine's stream, then start the copy of
+        the result back to pinned host memory, without waiting. Returns a
+        handle for ``_readback``."""
+        with self._on_stream(), torch.inference_mode():
+            packed = step()
+            if self.stream is not None:
+                host = torch.empty(packed.shape, dtype=torch.int32, pin_memory=True)
+                host.copy_(packed, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.stream)
+            else:
+                host, done = packed, None
+            self._count_step()
+        return host, done, n
+
     def _launch_padded(self, xp: np.ndarray, blp: np.ndarray, n: int, params: Any,
                        hold=None):
         """Copy one padded batch to the device, run the step and start the
-        copy of the packed [5, B] result back to pinned host memory, all on
-        the engine's stream, without waiting. From pinned staging buffers
-        the input copies are asynchronous too: ``hold``
+        copy of the packed [5, B] result back (``_enqueue``). From pinned
+        staging buffers the input copies are asynchronous too: ``hold``
         (``serve/arena.StagingHold``) then gets the event recorded after
-        them, and keeps the buffers from the pool until it has passed.
-        Returns a handle for ``_readback``."""
-        cuda = self.device.type == "cuda"
-        with self._dispatch_lock, (torch.cuda.stream(self.stream) if cuda
-                                   else contextlib.nullcontext()):
+        them, and keeps the buffers from the pool until it has passed."""
+        self._note_session_bypass(n)
+
+        def step():
             xd = torch.from_numpy(xp).to(self.device, non_blocking=True)
             bld = torch.from_numpy(blp).to(self.device, non_blocking=True)
-            if hold is not None and cuda:
+            if hold is not None and self.stream is not None:
                 hold.copied = torch.cuda.Event()
                 hold.copied.record(self.stream)
-            with torch.inference_mode():
-                packed = _stack_packed(self._score_fn(params, xd, bld, self._thresholds))
-                if cuda:
-                    host = torch.empty(packed.shape, dtype=torch.int32, pin_memory=True)
-                    host.copy_(packed, non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record(self.stream)
-                else:
-                    host, done = packed, None
-            self._count_step()
-        return host, done, n
+            return _stack_packed(self._score_fn(params, xd, bld, self._thresholds))
+
+        return self._enqueue(step, n)
 
     _readback = staticmethod(_device_readback)
 

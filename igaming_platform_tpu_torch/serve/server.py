@@ -5,8 +5,14 @@ environment config, then the feature store, the scoring engine (warmed up
 before it serves), the bonus-abuse detector, the event bridge and the
 ``RiskGrpcService`` (``assemble_risk_service``); then ``RiskServer`` binds
 gRPC, when grpcio is installed and a port is asked for, and the HTTP
-sidecar (/health, /ready, /debug/thresholds, /debug/score), and shuts down
-on a signal: health NOT_SERVING, drain, stop.
+sidecar (/health, /ready, /debug/thresholds, /debug/score, /debug/cachez and
+/debug/sessionz), and shuts down on a signal: health NOT_SERVING, drain,
+stop. The engine reads its cache and session knobs (``WIRE_MODE``,
+``FEATURE_CACHE``, ``FEATURE_CACHE_CAPACITY``, ``FEATURE_CACHE_MAX_AGE_S``,
+``SESSION_STATE``, ``SESSION_EVENTS``, ``SESSION_MIN_EVENTS``,
+``SESSION_FLAG_THRESHOLD``, ``SESSION_HEAD``) from the environment;
+``assemble_risk_service`` also takes ``feature_cache`` and
+``session_state``.
 
 Run it as ``python -m igaming_platform_tpu_torch.serve.server``. It serves
 on the card; with no card it refuses to boot unless
@@ -88,16 +94,20 @@ class AssembledService:
 def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend: str = "mock",
                           params=None, feature_store=None, abuse_params=None,
                           broker: InMemoryBroker | None = None, device: str = "cuda",
-                          abuse_policy: str = "model", warmup: bool = True) -> AssembledService:
+                          abuse_policy: str = "model", warmup: bool = True,
+                          feature_cache: bool | int | None = None,
+                          session_state: bool | None = None) -> AssembledService:
     """Build the store (``config.feature_store``, unless one is given), the
     engine, the abuse detector (``abuse_policy``), the bridge and the
-    RiskGrpcService, on ``device``. Binds no transport."""
+    RiskGrpcService, on ``device``. ``feature_cache`` and ``session_state``
+    go to the engine (None: its environment knobs). Binds no transport."""
     config = config or RiskServiceConfig.from_env()
     ml_backend, params = resolve_model_boot(config, ml_backend, params)
     store = feature_store if feature_store is not None else make_feature_store(config.feature_store)
     engine = TorchScoringEngine(config.scoring, ml_backend=ml_backend, params=params,
                                 batcher_config=config.batcher, feature_store=store,
-                                device=device, warmup=warmup)
+                                device=device, warmup=warmup, feature_cache=feature_cache,
+                                session_state=session_state)
     abuse = SequenceAbuseDetector(params=abuse_params, policy=abuse_policy, device=device)
     bridge = ScoringBridge(engine, resolve_transport(broker, config.rabbitmq_url),
                            abuse_detector=abuse)
@@ -170,6 +180,22 @@ class RiskServer:
                 elif self.path == "/debug/thresholds":
                     block, review = server_ref.engine.get_thresholds()
                     self._send(200, json.dumps({"block": block, "review": review}))
+                elif self.path == "/debug/cachez":
+                    cache = server_ref.engine.cache
+                    if cache is None:
+                        self._send(404, '{"error":"feature cache disabled"}')
+                        return
+                    snap = cache.stats()
+                    snap["shards"] = cache.shard_stats()
+                    if server_ref.engine.session is not None:
+                        snap["session_shards"] = server_ref.engine.session.shard_stats()
+                    self._send(200, json.dumps(snap))
+                elif self.path == "/debug/sessionz":
+                    session = server_ref.engine.session
+                    if session is None:
+                        self._send(404, '{"error":"session state disabled"}')
+                        return
+                    self._send(200, json.dumps(session.snapshot()))
                 else:
                     self._send(404, '{"error":"not found"}')
 

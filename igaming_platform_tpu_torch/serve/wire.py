@@ -8,13 +8,18 @@ the Python protobuf serializer's for the same rows.
 
 ``RawProtoMessage`` lets a handler return pre-serialized bytes through the
 ``SerializeToString`` seam. A codec that does not build raises: the port
-has no per-row protobuf encoder to fall back to. The index frames of the
-cached path are not ported yet.
+has no per-row protobuf encoder to fall back to.
+
+The index frames (``IDX1``) of the cached path are here too:
+``encode_index_batch`` and ``decode_index_batch``, byte for byte the JAX
+package's format, and ``TX_TYPE_CODES``, the wire's transaction-type codes,
+which the native store reads as well.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import numpy as np
 
@@ -28,6 +33,12 @@ _REASONS_OFF = np.zeros((len(REASON_BIT_ORDER) + 1,), dtype=np.int32)
 np.cumsum([len(code.value.encode()) for code in REASON_BIT_ORDER], out=_REASONS_OFF[1:])
 
 _lib = None
+
+# Wire transaction-type codes: deposit=0 withdraw=1 bet=2 win=3, anything
+# else 4 ("other"). The index frames, the native store's C calls and the
+# session event codec all use these.
+TX_TYPE_CODES = {"deposit": 0, "withdraw": 1, "bet": 2, "win": 3}
+TX_TYPE_NAMES = ("deposit", "withdraw", "bet", "win", "")
 
 
 def _library():
@@ -116,3 +127,98 @@ def encode_score_batch(
     if written < 0:
         raise RuntimeError("wire codec sizing failed")
     return buf.raw[:written]
+
+
+# ---------------------------------------------------------------------------
+# Index-mode ScoreBatch frames (the device-resident feature cache)
+# ---------------------------------------------------------------------------
+#
+# A compact columnar alternative to the risk.v1 ScoreBatchRequest proto,
+# carried through the same raw-bytes ScoreBatch seam: a 4-byte magic tells
+# the frame from a proto, whose first byte is always the field-1 tag 0x0A.
+# The server resolves account ids against the device-resident feature
+# table and ships only int32 slot indices and the per-transaction context
+# to the device. The response stays a risk.v1 ScoreBatchResponse, without
+# the feature echo (the rows never exist on the host).
+#
+# Layout (little-endian):
+#   b"IDX1" | u32 n
+#   i64 amounts[n]
+#   u8  tx_type_codes[n]       (deposit=0 withdraw=1 bet=2 win=3 other=4)
+#   4 string columns - account_id, ip, device_id, fingerprint - each:
+#     u8 present; if present: u32 offs[n+1] (cumulative) | blob bytes
+
+INDEX_WIRE_MAGIC = b"IDX1"
+
+
+def _encode_str_column(values, n: int) -> bytes:
+    if values is None:
+        return b"\x00"
+    if len(values) != n:
+        raise ValueError(f"column length {len(values)} != {n} rows")
+    encoded = [v.encode() if isinstance(v, str) else bytes(v) for v in values]
+    offs = np.zeros((n + 1,), dtype=np.uint32)
+    np.cumsum([len(e) for e in encoded], out=offs[1:])
+    return b"\x01" + offs.tobytes() + b"".join(encoded)
+
+
+def encode_index_batch(account_ids, amounts, tx_types, ips=None, devices=None,
+                       fingerprints=None) -> bytes:
+    """Serialize an index-mode ScoreBatch frame (the client side)."""
+    n = len(account_ids)
+    amounts_arr = np.ascontiguousarray(amounts, dtype=np.int64)
+    if amounts_arr.shape != (n,):
+        raise ValueError(f"amounts shape {amounts_arr.shape} != ({n},)")
+    codes = np.fromiter((TX_TYPE_CODES.get(t, 4) for t in tx_types), np.uint8, n)
+    return b"".join([
+        INDEX_WIRE_MAGIC, struct.pack("<I", n), amounts_arr.tobytes(), codes.tobytes(),
+        _encode_str_column(account_ids, n), _encode_str_column(ips, n),
+        _encode_str_column(devices, n), _encode_str_column(fingerprints, n),
+    ])
+
+
+def _decode_str_column(payload: memoryview, pos: int, n: int):
+    if pos + 1 > len(payload):
+        raise ValueError("index frame truncated (column flag)")
+    present = payload[pos]
+    pos += 1
+    if present == 0:
+        return None, pos
+    if present != 1:
+        raise ValueError(f"bad column flag {present}")
+    end_offs = pos + 4 * (n + 1)
+    if end_offs > len(payload):
+        raise ValueError("index frame truncated (offsets)")
+    offs = np.frombuffer(payload[pos:end_offs], dtype=np.uint32)
+    if n and (np.diff(offs.astype(np.int64)) < 0).any():
+        raise ValueError("index frame offsets not monotonic")
+    blob_len = int(offs[-1])
+    pos = end_offs
+    if pos + blob_len > len(payload):
+        raise ValueError("index frame truncated (blob)")
+    blob = payload[pos:pos + blob_len]
+    return [bytes(blob[offs[i]:offs[i + 1]]) for i in range(n)], pos + blob_len
+
+
+def decode_index_batch(payload: bytes):
+    """Parse an index-mode frame -> (account_ids: list[bytes], amounts
+    i64[n], tx_type_codes u8[n], ips, devices, fingerprints), the last three
+    list[bytes] or None. Raises ValueError on a malformed frame."""
+    mv = memoryview(payload)
+    if len(mv) < 8 or bytes(mv[:4]) != INDEX_WIRE_MAGIC:
+        raise ValueError("not an index-mode frame")
+    (n,) = struct.unpack_from("<I", payload, 4)
+    pos = 8
+    end = pos + 8 * n
+    if end + n > len(mv):
+        raise ValueError("index frame truncated (numeric columns)")
+    amounts = np.frombuffer(mv[pos:end], dtype=np.int64)
+    codes = np.frombuffer(mv[end:end + n], dtype=np.uint8)
+    pos = end + n
+    ids, pos = _decode_str_column(mv, pos, n)
+    if ids is None:
+        raise ValueError("index frame missing account_id column")
+    ips, pos = _decode_str_column(mv, pos, n)
+    devices, pos = _decode_str_column(mv, pos, n)
+    fingerprints, pos = _decode_str_column(mv, pos, n)
+    return ids, amounts, codes, ips, devices, fingerprints

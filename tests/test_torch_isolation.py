@@ -92,5 +92,6 @@ def test_importing_every_module_loads_none_of_them():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120, check=True)
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "igaming_platform_tpu_torch.serve.scorer" in loaded
+    for m in ("scorer", "device_cache", "session_state", "wire", "grpc_server", "server"):
+        assert f"igaming_platform_tpu_torch.serve.{m}" in loaded, m
     assert not [m for m in loaded if _forbidden(m)]

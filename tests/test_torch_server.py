@@ -4,8 +4,11 @@ The JAX package's RiskGrpcService and the port's, each behind its own
 ``serve_risk`` on the CPU over grpcio, get the same stores (the same seeded
 events with fixed timestamps, the clock pinned), the same params (carried by
 convert.py) and the same detector histories, on the ``mock`` and
-``mlp+gbdt`` backends. Every RPC of the slice goes to both as request bytes
-built with ``risk_pb2``. Both answers are parsed with ``risk_pb2``;
+``mlp+gbdt`` backends, with ``WIRE_MODE=index`` (each engine's feature cache
+built at warmup, its clock pinned too). Every RPC of the slice goes to both
+as request bytes built with ``risk_pb2``, and ScoreBatch also as index-mode
+frames (``IDX1``, built with the JAX package's ``encode_index_batch``), one
+of them truncated. Both answers are parsed with ``risk_pb2``;
 response_time_ms and computed_at are zeroed; ml_score is held with
 tests/test_torch_ensemble.py::assert_outputs_match and abuse_score to the
 detector's atol 1e-5 (tests/test_torch_abuse.py), then set equal; every
@@ -14,6 +17,7 @@ transport, as chip_smoke.py does on a machine without grpcio.
 """
 
 import sys
+import types
 
 import grpc
 import numpy as np
@@ -27,7 +31,9 @@ from torch_front_common import T0, checked_rows, event_columns, fill, pin_jax_cl
 from igaming_platform_tpu.core.config import BatcherConfig as JBatcherConfig
 from igaming_platform_tpu.models.sequence import SeqConfig as JSeqConfig
 from igaming_platform_tpu.proto_gen.risk.v1 import risk_pb2
+from igaming_platform_tpu.serve import device_cache as jax_device_cache
 from igaming_platform_tpu.serve import grpc_server as jgrpc
+from igaming_platform_tpu.serve import wire as jax_wire
 from igaming_platform_tpu.serve.abuse import SequenceAbuseDetector as JDetector
 from igaming_platform_tpu.serve.native_store import NativeFeatureStore as JaxNativeStore
 from igaming_platform_tpu.serve.scorer import TPUScoringEngine
@@ -35,6 +41,7 @@ from igaming_platform_tpu_torch.convert import from_jax_params
 from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
 from igaming_platform_tpu_torch.serve import grpc_server, server
 from igaming_platform_tpu_torch.serve.native_store import NativeFeatureStore
+from igaming_platform_tpu_torch.serve.wire import RawProtoMessage
 
 N_ACCOUNTS = 50
 ABUSE_ATOL = 1e-5
@@ -72,7 +79,9 @@ def services(request):
     with pytest.MonkeyPatch.context() as mp:
         for knob in ("SLO", "DRIFT", "RUNTIME_TELEMETRY"):  # the JAX planes the port has not
             mp.setenv(knob, "0")
+        mp.setenv("WIRE_MODE", "index")
         pin_jax_clock(mp)
+        mp.setattr(jax_device_cache, "time", types.SimpleNamespace(time=lambda: T0))
         booted = _boot(request.param)
         yield request.param, booted
         booted["close"]()
@@ -133,12 +142,22 @@ def _assert_same(method, want_bytes, got_bytes, label):
     assert got.SerializeToString() == want.SerializeToString(), label
 
 
+def _index_frame(txs) -> RawProtoMessage:
+    """An index-mode ScoreBatch frame of ``txs``, as a message whose bytes
+    are the frame."""
+    return RawProtoMessage(jax_wire.encode_index_batch(
+        [t.account_id for t in txs], [t.amount for t in txs],
+        [t.transaction_type or "deposit" for t in txs], ips=[t.ip_address for t in txs],
+        devices=[t.device_id for t in txs], fingerprints=[t.fingerprint for t in txs]))
+
+
 def _exchanges(accounts):
     """(method, request message) in the order sent: every RPC of the slice,
     thresholds changed midway and restored."""
     txs = [risk_pb2.ScoreTransactionRequest(**r) for r in requests(8, 150, N_ACCOUNTS)]
     out = [("ScoreTransaction", t) for t in txs[:10]]
     out.append(("ScoreBatch", risk_pb2.ScoreBatchRequest(transactions=txs)))
+    out.append(("ScoreBatch", _index_frame(txs)))
     out += [("CheckBonusAbuse", risk_pb2.CheckBonusAbuseRequest(account_id=a, bonus_id="b1"))
             for a in accounts[:4] + accounts[-1:]]
     out += [("AddToBlacklist", risk_pb2.AddToBlacklistRequest(type=t, value=v, reason="r"))
@@ -153,6 +172,8 @@ def _exchanges(accounts):
     out.append(("GetThresholds", risk_pb2.GetThresholdsRequest()))
     out += [("ScoreTransaction", t) for t in txs[10:14]]
     out.append(("ScoreBatch", risk_pb2.ScoreBatchRequest(transactions=txs[:70])))
+    out.append(("ScoreBatch", _index_frame(txs[40:120])))
+    out.append(("ScoreBatch", RawProtoMessage(_index_frame(txs[:9]).SerializeToString()[:-3])))
     out.append(("UpdateThresholds", risk_pb2.UpdateThresholdsRequest(block_threshold=80,
                                                                      review_threshold=50)))
     return out
@@ -174,7 +195,8 @@ def test_port_answers_as_the_jax_server(services, transport):
         codes.append(got[0])
         if want[0] == "OK":
             _assert_same(method, want[1], got[1], label)
-    assert codes.count("INVALID_ARGUMENT") == 1 and codes.count("OK") == len(codes) - 1
+    assert codes.count("INVALID_ARGUMENT") == 2 and codes.count("OK") == len(codes) - 2
+    assert booted["service"].engine.cache.stats()["hits"] > 0
 
 
 def test_unported_methods_and_missing_grpc(monkeypatch):
@@ -190,3 +212,65 @@ def test_unported_methods_and_missing_grpc(monkeypatch):
     monkeypatch.setitem(sys.modules, "grpc", None)
     with pytest.raises(RuntimeError, match="needs grpcio"):
         grpc_server.serve_risk(service, 0)
+
+
+def test_index_mode_sidecar_pages(monkeypatch):
+    """WIRE_MODE=index and SESSION_STATE=1 through ``assemble_risk_service``
+    over the Python store (no native decoder): a protobuf ScoreBatch goes
+    through the columnar index path and answers as the same rows in an IDX1
+    frame; a ScoreTransaction is counted as session bypass; /debug/cachez
+    and /debug/sessionz serve ``cache.stats()`` and ``session.snapshot()``,
+    and 404 on a server without them."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from igaming_platform_tpu_torch.serve.feature_store import (
+        InMemoryFeatureStore,
+        TransactionEvent,
+    )
+
+    def page(port, path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as exc:
+            return exc.code, None
+
+    for knob, value in (("WIRE_MODE", "index"), ("SESSION_STATE", "1"),
+                        ("FEATURE_CACHE_CAPACITY", "256")):
+        monkeypatch.setenv(knob, value)
+    config = RiskServiceConfig(batcher=BatcherConfig(batch_size=64, max_wait_ms=1.0))
+    store = InMemoryFeatureStore(clock=lambda: T0)
+    for a, m, k, ip, dev, ts in zip(*event_columns(7, N_ACCOUNTS, 400)):
+        store.update(TransactionEvent(a, m, k, ip=ip, device_id=dev, timestamp=ts))
+    servers = [server.RiskServer(server.assemble_risk_service(
+        config, feature_store=store, device="cpu", session_state=on), grpc_port=-1, http_port=0)
+        for on in (True, False)]
+    try:
+        svc = servers[0].service
+        txs = [risk_pb2.ScoreTransactionRequest(**r) for r in requests(9, 90, N_ACCOUNTS)]
+        via_proto = risk_pb2.ScoreBatchResponse.FromString(svc.call(
+            "ScoreBatch", risk_pb2.ScoreBatchRequest(transactions=txs).SerializeToString()))
+        svc.call("ScoreTransaction", txs[0].SerializeToString())
+        status, sessionz = page(servers[0].http_port, "/debug/sessionz")
+        assert status == 200 and sessionz == svc.engine.session.snapshot()
+        assert sessionz["appends"] == 90 and sessionz["rows"]["bypass"] == 1
+        via_frame = risk_pb2.ScoreBatchResponse.FromString(
+            svc.call("ScoreBatch", _index_frame(txs).SerializeToString()))
+        for r in list(via_proto.results) + list(via_frame.results):
+            r.response_time_ms = 0
+            assert not r.HasField("features")  # no echo: the rows never reach the host
+        # The second pass appends each account's second event: the rows
+        # differ only by session state (reason bits of cold windows).
+        assert [r.rule_score for r in via_frame.results] == [r.rule_score for r in via_proto.results]
+        status, cachez = page(servers[0].http_port, "/debug/cachez")
+        cache = svc.engine.cache
+        assert status == 200 and cachez == {**cache.stats(), "shards": cache.shard_stats(),
+                                             "session_shards": svc.engine.session.shard_stats()}
+        assert cachez["hits"] >= 90 and cachez["capacity"] == 256
+        assert page(servers[1].http_port, "/debug/sessionz")[0] == 404
+        assert page(servers[1].http_port, "/debug/cachez")[0] == 200  # index mode: a cache
+    finally:
+        for srv in servers:
+            srv.shutdown(grace=1.0)

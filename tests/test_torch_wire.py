@@ -1,12 +1,14 @@
-"""Port parity: serve/wire.py (the native response encoder) and
-serve/risk_codec.py (the port's hand risk.v1 codec).
+"""Port parity: serve/wire.py (the native response encoder and the
+index-mode frames) and serve/risk_codec.py (the port's hand risk.v1 codec).
 
 ``encode_score_batch`` must give the JAX package's bytes on the same seeded
 arrays, with and without the feature echo, at 0, 1 and 4097 rows. Every
 message of the slice, built from a seed with numpy plus edge cases (empty
 strings, negative int64 amounts, ml_score 0.0 and -0.0, non-ASCII ids),
 must encode to the bytes of the JAX package's generated ``risk_pb2``, and
-decode from them (unknown fields appended) to the same fields.
+decode from them (unknown fields appended) to the same fields. Index-mode
+frames (``IDX1``) encode to the JAX codec's bytes and decode to what it
+decodes; malformed ones raise in both.
 """
 
 import struct
@@ -142,6 +144,47 @@ def test_single_score_response_matches_pb2(ml_score):
     got = codec.encode_score_response(int(score), int(action), int(mask), int(rule), ml_score,
                                       int(rtms), x)
     assert got == want
+
+
+@pytest.mark.parametrize("n", [0, 1, 300])
+def test_index_frames_match_jax(n):
+    """``encode_index_batch`` gives the JAX codec's bytes, with every string
+    column and without the optional ones, and ``decode_index_batch`` reads
+    back what the JAX decoder reads."""
+    rng = np.random.default_rng(n)
+    ids = [STRINGS[i] + str(i) for i in rng.integers(0, len(STRINGS), n)]
+    amounts = rng.integers(-2**40, 2**40, n)
+    kinds = [("deposit", "withdraw", "bet", "win", "refund", "")[k] for k in rng.integers(0, 6, n)]
+    cols = [[STRINGS[i] for i in rng.integers(0, len(STRINGS), n)] for _ in range(3)]
+    for optional in (cols, [None, cols[1], None]):
+        frame = wire.encode_index_batch(ids, amounts, kinds, *optional)
+        assert frame == jax_wire.encode_index_batch(ids, amounts, kinds, *optional)
+        got, want = wire.decode_index_batch(frame), jax_wire.decode_index_batch(frame)
+        for g, w in zip(got, want):
+            if isinstance(w, np.ndarray):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)
+            else:
+                assert g == w
+    assert wire.TX_TYPE_CODES == jax_wire.TX_TYPE_CODES
+    assert wire.INDEX_WIRE_MAGIC == jax_wire.INDEX_WIRE_MAGIC
+
+
+def _frame_cases():
+    good = jax_wire.encode_index_batch(["a", "bb"], [5, 6], ["bet", "win"], ips=["1", "2"])
+    return [b"IDX1", b"XXXX" + good[4:], good[:9], good[:-1], good[:26] + b"\x02" + good[27:],
+            jax_wire.encode_index_batch(["a"], [1], ["bet"])[:17] + b"\x00",
+            good[:30] + (7).to_bytes(4, "little") + good[34:]]
+
+
+@pytest.mark.parametrize("frame", _frame_cases())
+def test_index_frames_refuse_malformed_bytes(frame):
+    """Truncated frames, a wrong magic, a bad column flag, a missing account
+    column and offsets that go backwards raise ValueError in both codecs."""
+    with pytest.raises(ValueError):
+        jax_wire.decode_index_batch(frame)
+    with pytest.raises(ValueError):
+        wire.decode_index_batch(frame)
 
 
 @pytest.mark.parametrize("payload", [b"\x0a\x05ab", b"\x08\x80\x80", b"\x0a\x02\xff\xfe",
