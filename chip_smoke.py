@@ -57,15 +57,26 @@ sequences of 64 events). Phases:
    (host batch synthesis, device step, kernels by name), and one training
    step at config-3 width at S=2048;
 7. serving front: a native store of 100,000 accounts, the risk.v1 RPC mix
-   through ``RiskGrpcService.call`` and the HTTP sidecar, every ScoreBatch
-   held to a CPU engine on the same rows;
+   through ``RiskGrpcService.call`` (its drift engine bound, as by default)
+   and the HTTP sidecar, every ScoreBatch held to a CPU engine on the same
+   rows;
 8. index path and session state, on phase 7's store: IDX1 frames through
    ``RiskGrpcService.call`` into engine A (every account resident, the
    transformer session head) and engine B (the default capacity, the
    pattern head, CLOCK evicting), each held frame by frame to a CPU twin and
    then bit for bit in its table and ring; rows/s, one RPC's split, the
    cache and session counts, the launches per device step and the device
-   bytes of the table and ring.
+   bytes of the table and ring;
+9. the score step's variants, on phase 7's store: engine C, ``mlp+gbdt_int8``
+   quantized by the port from phase 7's params, on the int8 wire, with its
+   service's drift engine and a second tree in shadow, through ScoreBatch and
+   ScoreTransaction RPCs, each held to a CPU twin (answers, every RPC's
+   sketch, the shadow's window), forest launches two a step; engine A of
+   phase 8 with drift and a shadow for two frames, held to its twin the same
+   way and bit for bit in its table and ring; then, in turns on phase 7's
+   engine, ScoreBatch rows/s with the drift engine unbound and bound and on
+   the float32, bf16 and int8 wires, each wire's host encode per row, and one
+   step's kernels by name without and with the sketch.
 
 Any failure exits non-zero. The second-to-last lines are the ``kernels``
 JSON object and the card's name and power limit; the last line is the
@@ -126,9 +137,10 @@ ML_ATOL = 1e-5  # cuBLAS float32 sums the MLP's products in another order
 REPS = 50
 # Attention shapes (B*H, S, Dh): the abuse detector (one check, 256
 # accounts), BASELINE config 3 (benchmarks/configs.py: 64 x 2 heads at
-# S=256, 8 x 2 at 2048, 2 x 2 at 8192, the TPU's tiled range) and a ragged S.
+# S=256, 8 x 2 at 2048, 2 x 2 at 8192, the TPU's tiled range), a ragged S,
+# and the transformer session head (4 heads x a 4096-row or 256-row chunk).
 FLASH_SHAPES = ((2, 64, 32), (512, 64, 32), (128, 256, 64), (16, 2048, 64),
-                (4, 8192, 64), (4, 300, 32))
+                (4, 8192, 64), (4, 300, 32), (16384, 16, 8), (1024, 16, 8))
 FLASH_MAIN_SHAPE = (512, 64, 32)  # check_batch of 256 accounts
 FLASH_TOL = 2e-5  # rtol and atol of O and LSE: the JAX tests' bar, float32 sums reordered
 # Checked, not timed: the head sizes, block widths (128-row blocks at long S,
@@ -199,6 +211,14 @@ INDEX_A_CAPACITY, INDEX_B_CAPACITY, INDEX_B_FRAMES = 131_072, 65_536, 7
 # the default 0.7: engine A folds at about their median instead.
 INDEX_A_THRESHOLD = 0.23
 INDEX_SAMPLED_WINDOWS = 100
+# The score step's variants (phase 9), on phase 7's store. Engine C: the
+# int8 backends on the int8 wire with drift and a shadow, VARIANT_RPCS
+# ScoreBatch RPCs of SERVER_BATCH_ROWS and VARIANT_SINGLES ScoreTransaction
+# RPCs; engine A of phase 8 with drift and a shadow for VARIANT_FRAMES
+# frames; then VARIANT_TURN_RPCS RPCs a turn on phase 7's engine. A sketch's
+# moments are float32 sums in another order on the card: rtol 1e-4.
+VARIANT_RPCS, VARIANT_SINGLES, VARIANT_FRAMES, VARIANT_TURN_RPCS = 5, 200, 2, 5
+CALIBRATION_ROWS, MAX_VARIANT_BOUNDARY, MOMENT_RTOL = 4096, 10, 1e-4
 # Spin cycles queued before each timed call, so the card is still busy
 # while the host enqueues the call: the events then bracket device work only.
 SLEEP_CYCLES = 4_000_000
@@ -1847,6 +1867,13 @@ def phase_index(torch, card: str, gbdt_kernel, fa, store, row_rows_per_s: float,
             os.environ.update({"WIRE_MODE": "index", "SESSION_STATE": "1", "SESSION_HEAD": head,
                                "SESSION_FLAG_THRESHOLD": str(threshold)})
             frames = traffic(wire, rng)
+            # The CPU twin and its service first: a service installs the
+            # process's drift engine and closes the one installed before it,
+            # so the card's service, built next, keeps its own.
+            cpu = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params,
+                                            batcher_config=bcfg, feature_store=store,
+                                            device="cpu", feature_cache=capacity, warmup=False)
+            cpu_svc = grpc_server.RiskGrpcService(cpu)
             if on_card:
                 torch.cuda.synchronize()
             mem0 = torch.cuda.memory_allocated() if on_card else 0
@@ -1875,9 +1902,7 @@ def phase_index(torch, card: str, gbdt_kernel, fa, store, row_rows_per_s: float,
                 torch.cuda.synchronize()
             state_bytes = (torch.cuda.memory_allocated() if on_card else 0) - mem1
             srv = server.RiskServer(assembled, grpc_port=-1, http_port=0) if name == "a" else None
-            cpu = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params,
-                                            batcher_config=bcfg, feature_store=store,
-                                            device="cpu", feature_cache=capacity, warmup=False)
+            cpu.bind_drift(None)  # its drift engine was closed by the card's service
             try:
                 cpu.ensure_cache()
                 # Store writes reach both caches' dirty sets.
@@ -1890,7 +1915,6 @@ def phase_index(torch, card: str, gbdt_kernel, fa, store, row_rows_per_s: float,
                 fa.flash_attention_fwd.launches = 0
                 steps0 = engine.device_steps
                 half = len(frames) // 2
-                cpu_svc = grpc_server.RiskGrpcService(cpu)
                 run = drive_index(svc, cpu_svc, engine, frames[:half], threshold,
                                   f"index {name}", scorer, wire, codec)
                 # A write-back of 500 accounts between frames: the next
@@ -1925,10 +1949,12 @@ def phase_index(torch, card: str, gbdt_kernel, fa, store, row_rows_per_s: float,
             finally:
                 store.delta_listener = None
                 cpu.close()
+                cpu_svc.close()
                 if srv is not None:
                     srv.shutdown(grace=5.0)
                 else:
                     engine.close()
+                    svc.close()
             large, singles = run["large_s"] + rest["large_s"], run["single_s"] + rest["single_s"]
             result[name] = {
                 "capacity": capacity, "head": head, "flag_threshold": threshold,
@@ -1985,6 +2011,474 @@ def phase_index(torch, card: str, gbdt_kernel, fa, store, row_rows_per_s: float,
             f"{r['threshold_rows']} threshold rows excused), table, ring, cursor and length "
             f"bit-equal, {r['windows_compared']} windows equal to the host index")
     log("phase 8: " + json.dumps(result))
+    return result
+
+
+def server_tree(seed: int) -> dict:
+    """An ``mlp+gbdt`` params tree at serving width, drawn as phase 7 draws its
+    own (seed 22)."""
+    rng = np.random.default_rng(seed)
+    return {"mlp": mlp_tree(rng, SERVE_HIDDEN), "gbdt": forest_tree(rng, SERVE_TREES, SERVE_DEPTH)}
+
+
+def sketch_diff(got, want) -> dict:
+    """Two sketch vectors: histogram bins that differ (must be 0) and the
+    largest relative error of the moments (must be under MOMENT_RTOL)."""
+    from igaming_platform_tpu_torch.obs import drift as drift_mod
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    hist = slice(drift_mod.OFF_FHIST, drift_mod.SKETCH_LEN)
+    mom = slice(0, drift_mod.OFF_FHIST)
+    rel = np.abs(got[mom] - want[mom]) / np.maximum(np.abs(want[mom]), 1e-30)
+    return {"bins_differing": int((got[hist] != want[hist]).sum()),
+            "moment_rel_err": float(rel.max())}
+
+
+def check_sketches(pairs, what: str) -> dict:
+    """Every (card, twin) sketch pair: histograms equal, moments within
+    MOMENT_RTOL. Returns the totals."""
+    diffs = [sketch_diff(g, w) for g, w in pairs]
+    out = {"sketches": len(diffs), "bins_differing": sum(d["bins_differing"] for d in diffs),
+           "moment_rel_err": max(d["moment_rel_err"] for d in diffs)}
+    if out["bins_differing"] or out["moment_rel_err"] > MOMENT_RTOL:
+        raise AssertionError(f"{what}: sketches differ from the CPU twin's: {out}")
+    return out
+
+
+def window_delta(drift, before: np.ndarray) -> np.ndarray:
+    """The drift engine's window after its queue drains, less ``before``."""
+    if not drift.drain(30.0):
+        raise AssertionError("drift: the queue did not drain")
+    return drift.window_vec() - before
+
+
+def single_columns(codec, payloads: list[bytes]) -> dict:
+    """ScoreTransactionResponse bytes as result columns."""
+    from igaming_platform_tpu_torch.core.enums import REASON_BIT_ORDER
+
+    bit = {code.value: b for b, code in enumerate(REASON_BIT_ORDER)}
+    rows = [codec.decode(codec.SCORE_TRANSACTION_RESPONSE, p) for p in payloads]
+    return {"score": np.array([r["score"] for r in rows]),
+            "action": np.array([r["action"] for r in rows]),
+            "rule_score": np.array([r["rule_score"] for r in rows]),
+            "ml_score": np.array([r["ml_score"] for r in rows], dtype=np.float32),
+            "reason_mask": np.array([sum(1 << bit[c] for c in r["reason_codes"])
+                                     for r in rows])}
+
+
+def response_from_score(resp) -> dict:
+    """One engine ScoreResponse as a row of result columns."""
+    from igaming_platform_tpu_torch.core.enums import REASON_BIT_ORDER
+
+    return {"score": resp.score, "action": {"approve": 1, "review": 2, "block": 3}[resp.action],
+            "rule_score": resp.rule_score, "ml_score": np.float32(resp.ml_score),
+            "reason_mask": sum(1 << REASON_BIT_ORDER.index(c) for c in resp.reason_codes)}
+
+
+def shadow_pair(engine, cpu, cand, capture: bool):
+    """A ShadowScorer of ``cand`` on the card's engine and on its CPU twin,
+    each feeding its engine's drift engine; with ``capture`` each also keeps
+    the candidate results in order."""
+    from igaming_platform_tpu_torch.serve.shadow import ShadowScorer
+
+    out = []
+    for eng in (engine, cpu):
+        got = []
+        drift = eng.drift
+
+        def hook(c, p, n, got=got, drift=drift):
+            drift.note_shadow_result(c, p, n)
+            if capture:
+                got.append(c)
+
+        sh = ShadowScorer(eng, cand, queue_max_rows=1 << 22, on_result=hook)
+        eng.shadow = sh
+        out.append((sh, got))
+    return out
+
+
+def compare_shadow_reports(card: dict, twin: dict, boundary: int, what: str) -> None:
+    """The card's shadow window against the twin's: the same rows, and the
+    same flips and score deltas but for at most ``boundary`` rows."""
+    w, t = card["window"], twin["window"]
+    if (w["rows"] != t["rows"] or card["errors"] or twin["errors"] or card["rows_dropped"]
+            or twin["rows_dropped"] or abs(w["action_flips"] - t["action_flips"]) > boundary
+            or abs(w["score_delta_mean"] - t["score_delta_mean"]) * w["rows"] > 2 * boundary + 1
+            or abs(w["ml_delta_max"] - t["ml_delta_max"]) > 2 * ML_ATOL):
+        raise AssertionError(f"{what}: shadow report {w} differs from the CPU twin's {t}")
+
+
+def variants_int8(torch, gbdt_kernel, store, device: str) -> dict:
+    """Engine C: ``mlp+gbdt_int8`` quantized by the port from phase 7's
+    params (the store's first CALIBRATION_ROWS accounts as calibration),
+    WIRE_DTYPE=int8, its service's drift engine, and a candidate in shadow;
+    VARIANT_RPCS ScoreBatch and VARIANT_SINGLES ScoreTransaction RPCs
+    through ``RiskGrpcService.call``, each held to a CPU twin (answers, each
+    RPC's sketch, the shadow's window); forest launches = 2 x device steps;
+    /debug/driftz after the drain."""
+    import os
+
+    from igaming_platform_tpu_torch.convert import from_jax_params
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.core.features import normalize, standardize_for_model
+    from igaming_platform_tpu_torch.obs import drift as drift_mod
+    from igaming_platform_tpu_torch.ops import quantize
+    from igaming_platform_tpu_torch.serve import grpc_server, scorer, server
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+
+    n_cal = min(CALIBRATION_ROWS, store.num_accounts())
+    x_cal, _ = store.gather_columns([f"acct{i}" for i in range(n_cal)], [0] * n_cal,
+                                    ["deposit"] * n_cal)
+    cal = standardize_for_model(normalize(torch.from_numpy(x_cal))).numpy()
+    t = time.perf_counter()
+    qtree, backend = quantize.quantize_checkpoint(server_tree(22), "mlp+gbdt", cal)
+    qcand, _ = quantize.quantize_checkpoint(server_tree(29), "mlp+gbdt", cal)
+    quantize_s = time.perf_counter() - t
+    params, cand = from_jax_params(backend, qtree), from_jax_params(backend, qcand)
+    bcfg = BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0)
+    os.environ["WIRE_DTYPE"] = "int8"
+    os.environ.pop("DRIFT", None)
+    assembled = server.assemble_risk_service(RiskServiceConfig(batcher=bcfg), ml_backend=backend,
+                                             params=params, feature_store=store, device=device)
+    srv = server.RiskServer(assembled, grpc_port=-1, http_port=0)
+    svc, engine = assembled.service, assembled.engine
+    cpu = scorer.TorchScoringEngine(ml_backend=backend, params=params, batcher_config=bcfg,
+                                    feature_store=store, device="cpu", warmup=False)
+    cpu_drift = drift_mod.DriftEngine()
+    cpu.bind_drift(cpu_drift)
+    (sh, _), (cpu_sh, _) = shadow_pair(engine, cpu, cand, capture=False)
+    rng = np.random.default_rng(24)
+    batches = [codec.encode(codec.SCORE_BATCH_REQUEST,
+                            {"transactions": server_requests(codec, rng, SERVER_BATCH_ROWS)})
+               for _ in range(VARIANT_RPCS)]
+    singles = [codec.encode(codec.SCORE_TRANSACTION_REQUEST, r)
+               for r in server_requests(codec, rng, VARIANT_SINGLES)]
+    drift = svc.drift
+    try:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        # The path's run: counts set to 0 just before, read just after.
+        gbdt_kernel.gbdt_forest.launches = 0
+        steps0 = engine.device_steps
+        batch_s, outs, card_sketches = [], [], []
+        for payload in batches:
+            before = drift.window_vec()
+            t = time.perf_counter()
+            outs.append(svc.call("ScoreBatch", payload))
+            batch_s.append(time.perf_counter() - t)
+            card_sketches.append(window_delta(drift, before))
+        before = drift.window_vec()
+        single_out = [svc.call("ScoreTransaction", p) for p in singles]
+        card_sketches.append(window_delta(drift, before))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = gbdt_kernel.gbdt_forest.launches
+        steps = engine.device_steps - steps0
+        if device == "cuda" and (steps == 0 or launches != 2 * steps):
+            raise AssertionError(f"int8 engine: {steps} device steps, {launches} forest launches "
+                                 "(a live candidate: two a step)")
+        if not sh.drain(60.0):
+            raise AssertionError("int8 engine: the shadow did not drain")
+        status, driftz = http_call(srv.http_port, "/debug/driftz")
+        rows = VARIANT_RPCS * SERVER_BATCH_ROWS + VARIANT_SINGLES
+        if status != 200 or driftz["window"]["rows"] != rows \
+                or driftz["stats"]["rows_sketched"] != rows or driftz["stats"]["errors"]:
+            raise AssertionError(f"int8 engine: /debug/driftz {status} {driftz.get('window')} "
+                                 f"{driftz.get('stats')} for {rows} rows scored")
+        status, shadowz = http_call(srv.http_port, "/debug/shadowz")
+        if status != 200 or shadowz["shadow"]["fused_batches"] != steps:
+            raise AssertionError(f"int8 engine: /debug/shadowz {status} {shadowz}")
+
+        # The CPU twin: the same RPCs through the same engine paths.
+        boundary, twin_sketches = 0, []
+        for payload, out in zip(batches, outs):
+            before = cpu_drift.window_vec()
+            want = cpu.score_batch_wire_bytes(payload)[0]
+            twin_sketches.append(window_delta(cpu_drift, before))
+            boundary += compare_columns(response_columns(codec, out)[1],
+                                        response_columns(codec, want)[1], "int8 engine")
+        before = cpu_drift.window_vec()
+        want_single = [response_from_score(cpu.score(grpc_server.RiskGrpcService._request_from_proto(
+            codec.decode(codec.SCORE_TRANSACTION_REQUEST, p)))) for p in singles]
+        twin_sketches.append(window_delta(cpu_drift, before))
+        boundary += compare_columns(single_columns(codec, single_out),
+                                    {k: np.array([r[k] for r in want_single])
+                                     for k in want_single[0]}, "int8 engine singles")
+        if boundary > MAX_VARIANT_BOUNDARY:
+            raise AssertionError(f"int8 engine: {boundary} floor-boundary rows")
+        sketches = check_sketches(zip(card_sketches, twin_sketches), "int8 engine")
+        if not cpu_sh.drain(120.0):
+            raise AssertionError("int8 engine: the twin's shadow did not drain")
+        report, twin_report = sh.report(), cpu_sh.report()
+        compare_shadow_reports(report, twin_report, boundary, "int8 engine")
+    finally:
+        sh.close()
+        cpu_sh.close()
+        cpu.close()
+        cpu_drift.close()
+        srv.shutdown(grace=5.0)
+    return {"backend": backend, "wire": "int8", "quantize_s": quantize_s,
+            "calibration_rows": n_cal, "device_steps": steps, "forest_launches": launches,
+            "score_batch_rows_per_s": [SERVER_BATCH_ROWS / t for t in batch_s],
+            "floor_boundary_rows": boundary, "sketch_check": sketches,
+            "driftz_window_rows": driftz["window"]["rows"], "shadow_window": report["window"],
+            "shadow_fused_batches": report["fused_batches"]}
+
+
+def variants_session(torch, gbdt_kernel, fa, store, device: str) -> dict:
+    """Engine A of phase 8 (index path, the transformer session head) with
+    its service's drift engine and a candidate in shadow, for VARIANT_FRAMES
+    frames of phase 8's traffic, each held to a CPU twin: answers, each
+    frame's sketch, every chunk's candidate result; then the table and ring
+    bit-equal. Forest launches = 2 x device steps, forward launches = device
+    steps (the head runs once a step for both)."""
+    import os
+
+    from igaming_platform_tpu_torch.convert import from_jax_params
+    from igaming_platform_tpu_torch.core.config import BatcherConfig
+    from igaming_platform_tpu_torch.obs import drift as drift_mod
+    from igaming_platform_tpu_torch.serve import grpc_server, scorer, wire
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+
+    # Phase 8's params and the first frames of its engine A, drawn as it draws them.
+    rng = np.random.default_rng(23)
+    params = from_jax_params("mlp+gbdt", {"mlp": mlp_tree(rng, SERVE_HIDDEN),
+                                          "gbdt": forest_tree(rng, SERVE_TREES, SERVE_DEPTH)})
+    frames = index_traffic_a(wire, rng)[:VARIANT_FRAMES]
+    cand = from_jax_params("mlp+gbdt", server_tree(30))
+    os.environ.update({"WIRE_DTYPE": "float32", "WIRE_MODE": "index", "SESSION_STATE": "1",
+                       "SESSION_HEAD": "transformer",
+                       "SESSION_FLAG_THRESHOLD": str(INDEX_A_THRESHOLD)})
+    bcfg = BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0)
+    engines = [scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params,
+                                         batcher_config=bcfg, feature_store=store, device=d,
+                                         feature_cache=INDEX_A_CAPACITY, warmup=False)
+               for d in (device, "cpu")]
+    engine, cpu = engines
+    svc = grpc_server.RiskGrpcService(engine)
+    cpu_drift = drift_mod.DriftEngine()
+    cpu.bind_drift(cpu_drift)
+    pairs = []
+    try:
+        for eng in engines:
+            eng.ensure_cache()
+        store.delta_listener = lambda a: [e.cache.note_update(a) for e in engines]
+        pairs = shadow_pair(engine, cpu, cand, capture=True)
+        drift = svc.drift
+        if device == "cuda":
+            torch.cuda.synchronize()
+        # The path's run: counts set to 0 just before, read just after.
+        gbdt_kernel.gbdt_forest.launches = 0
+        fa.flash_attention_fwd.launches = 0
+        steps0 = engine.device_steps
+        outs, card_sketches = [], []
+        for t, frame, _ in frames:
+            STORE_CLOCK[0] = t
+            before = drift.window_vec()
+            outs.append(svc.call("ScoreBatch", frame))
+            card_sketches.append(window_delta(drift, before))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        steps = engine.device_steps - steps0
+        forest, forwards = gbdt_kernel.gbdt_forest.launches, fa.flash_attention_fwd.launches
+        if device == "cuda" and (steps == 0 or forest != 2 * steps or forwards != steps):
+            raise AssertionError(f"session variants: {steps} device steps, {forest} forest and "
+                                 f"{forwards} forward launches")
+        boundary = near = 0
+        twin_sketches = []
+        for (t, frame, _), out in zip(frames, outs):
+            STORE_CLOCK[0] = t
+            before = cpu_drift.window_vec()
+            want = cpu.score_batch_wire_index(frame)[0]
+            twin_sketches.append(window_delta(cpu_drift, before))
+            b, n, _ = compare_session_columns(response_columns(codec, out)[1],
+                                              response_columns(codec, want)[1],
+                                              INDEX_A_THRESHOLD, "session variants")
+            boundary, near = boundary + b, near + n
+        sketches = check_sketches(zip(card_sketches, twin_sketches), "session variants")
+        (sh, got), (cpu_sh, want_c) = pairs
+        if not (sh.drain(60.0) and cpu_sh.drain(120.0)) or len(got) != len(want_c) or not got:
+            raise AssertionError(f"session variants: {len(got)} and {len(want_c)} shadow batches")
+        for g, w in zip(got, want_c):
+            b, n, _ = compare_session_columns(g, w, INDEX_A_THRESHOLD, "session shadow")
+            boundary, near = boundary + b, near + n
+        if boundary > MAX_VARIANT_BOUNDARY:
+            raise AssertionError(f"session variants: {boundary} floor-boundary rows")
+        report = sh.report()
+        compare_shadow_reports(report, cpu_sh.report(), boundary + near, "session variants")
+        windows = check_twin_state(torch, engine, cpu, rng, "session variants")
+    finally:
+        store.delta_listener = None
+        for sh, _ in pairs:
+            sh.close()
+        for eng in engines:
+            eng.close()
+        svc.close()
+        cpu_drift.close()
+        STORE_CLOCK[0] = SERVER_NOW
+    return {"frames": len(frames), "rows": sum(wire.decode_index_batch(f)[1].size
+                                               for _, f, _ in frames),
+            "device_steps": steps, "forest_launches": forest, "forward_launches": forwards,
+            "floor_boundary_rows": boundary, "threshold_rows": near, "sketch_check": sketches,
+            "shadow_window": report["window"], "windows_compared": windows}
+
+
+def variants_turns(torch, store, device: str) -> dict:
+    """Phase 7's engine (``mlp+gbdt``) in turns on one card, VARIANT_TURN_RPCS
+    ScoreBatch RPCs of SERVER_BATCH_ROWS rows each turn (rows/s, median):
+    the drift engine unbound (as with DRIFT=0) and bound, order off, on, on,
+    off; then the float32, bf16 and int8 row wires with drift on, order f32,
+    bf16, int8, int8, bf16, f32. Also the host cost of each wire's encode
+    and one BATCH_SIZE-row step's kernels by name without and with the
+    sketch."""
+    import os
+
+    from igaming_platform_tpu_torch.convert import from_jax_params
+    from igaming_platform_tpu_torch.core.config import BatcherConfig
+    from igaming_platform_tpu_torch.obs import drift as drift_mod
+    from igaming_platform_tpu_torch.obs.drift import sketch_kernel
+    from igaming_platform_tpu_torch.ops.quantize import wire_quantize_int8
+    from igaming_platform_tpu_torch.serve import grpc_server, scorer
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+
+    params = from_jax_params("mlp+gbdt", server_tree(22))
+    rng = np.random.default_rng(25)
+    payloads = [codec.encode(codec.SCORE_BATCH_REQUEST,
+                             {"transactions": server_requests(codec, rng, SERVER_BATCH_ROWS)})
+                for _ in range(VARIANT_TURN_RPCS)]
+    bcfg = BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0)
+    os.environ["DRIFT"] = "0"  # each engine gets a drift engine of its own below
+    built = {}
+    try:
+        for wire_name in ("float32", "bf16", "int8"):
+            os.environ["WIRE_DTYPE"] = wire_name
+            eng = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params,
+                                            batcher_config=bcfg, feature_store=store,
+                                            device=device)
+            drift = drift_mod.DriftEngine()
+            eng.bind_drift(drift)
+            svc = grpc_server.RiskGrpcService(eng)
+            svc.call("ScoreBatch", payloads[0])  # the pipeline's build, off the clock
+            built[wire_name] = (eng, svc, drift)
+
+        def turn(svc) -> dict:
+            """One turn: rows/s of each RPC, and the pipeline's busy ms per
+            stage (dispatch holds the wire's encode) per RPC."""
+            pipe = svc.engine._host_pipeline
+            busy0 = pipe.stats()["stage_busy_ms"]
+            rates = []
+            for payload in payloads:
+                t = time.perf_counter()
+                svc.call("ScoreBatch", payload)
+                rates.append(SERVER_BATCH_ROWS / (time.perf_counter() - t))
+            busy = pipe.stats()["stage_busy_ms"]
+            return {"rows_per_s": rates, "stage_busy_ms_per_rpc": {
+                k: (busy[k] - busy0[k]) / len(payloads) for k in busy}}
+
+        eng, svc, drift = built["float32"]
+        drift_turns = []
+        for on in (False, True, True, False):
+            eng.bind_drift(drift if on else None)
+            drift_turns.append({"drift": on, **turn(svc)})
+        wire_turns = [{"wire": w, **turn(built[w][1])}
+                      for w in ("float32", "bf16", "int8", "int8", "bf16", "float32")]
+        for _, _, d in built.values():
+            d.drain(30.0)
+
+        x, bl = store.decode_gather(payloads[0])
+        chunk = x[:BATCH_SIZE]
+        encode_us = {}
+        for name, fn in (("bf16", scorer.encode_bf16), ("int8", wire_quantize_int8)):
+            times = []
+            for _ in range(20):
+                t = time.perf_counter()
+                fn(chunk)
+                times.append(time.perf_counter() - t)
+            encode_us[name] = statistics.median(times) * 1e6 / BATCH_SIZE
+        kernels = None
+        if device == "cuda":
+            xd, bld = (torch.from_numpy(a[:BATCH_SIZE]).cuda() for a in (x, bl))
+
+            def step(sketch: bool):
+                def run():
+                    with torch.inference_mode():
+                        out = eng._score_fn(eng.get_params(), xd, bld, eng._thresholds)
+                        if sketch:
+                            sketch_kernel(xd, scorer._stack_packed(out), BATCH_SIZE)
+                return run
+
+            kernels = {}
+            for name, fn in (("step", step(False)), ("step_and_sketch", step(True)),
+                             ("step", step(False))):
+                kernels.setdefault(name, {"device_ms": [], "profile": None})
+                kernels[name]["device_ms"].append(step_device_ms(torch, fn))
+                kernels[name]["profile"] = profile_window(torch, fn, top=60)
+    finally:
+        for eng, svc, drift in built.values():
+            eng.close()
+            svc.close()
+            drift.close()
+        os.environ.pop("DRIFT", None)
+    return {"drift_turns": drift_turns, "wire_turns": wire_turns,
+            "encode_us_per_row": encode_us, "step_kernels": kernels}
+
+
+def phase_variants(torch, card: str, gbdt_kernel, fa, store, device: str = "cuda") -> dict:
+    """Phase 9, on phase 7's store: the score step's variants. Engine C
+    (``variants_int8``), engine A with drift and a shadow
+    (``variants_session``), and the turns on phase 7's engine
+    (``variants_turns``). ``device="cpu"`` rehearses it without a card (the
+    launch checks and the kernel profile are then skipped)."""
+    import os
+
+    knobs = ("WIRE_DTYPE", "DRIFT", "DRIFT_WINDOW_S", "WIRE_MODE", "SESSION_STATE",
+             "SESSION_HEAD", "SESSION_FLAG_THRESHOLD")
+    saved = {k: os.environ.get(k) for k in knobs}
+    t0 = time.perf_counter()
+    try:
+        # A window longer than the phase, so /debug/driftz counts every row.
+        os.environ["DRIFT_WINDOW_S"] = "3600"
+        c = variants_int8(torch, gbdt_kernel, store, device)
+        a = variants_session(torch, gbdt_kernel, fa, store, device)
+        turns = variants_turns(torch, store, device)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    result = {"int8_engine": c, "session_engine": a, "turns": turns,
+              "seconds": time.perf_counter() - t0}
+    log(f"phase 9: [{card}] engine C ({c['backend']}, int8 wire, drift, a candidate in shadow): "
+        f"ScoreBatch of {SERVER_BATCH_ROWS} rows x{VARIANT_RPCS}: median "
+        f"{statistics.median(c['score_batch_rows_per_s']):.0f} rows/s; {c['device_steps']} "
+        f"device steps, {c['forest_launches']} forest launches; answers, every RPC's sketch "
+        f"({c['sketch_check']}) and the shadow window agree with the CPU twin "
+        f"({c['floor_boundary_rows']} floor-boundary rows excused); /debug/driftz window "
+        f"{c['driftz_window_rows']} rows; quantized in {c['quantize_s']:.3f} s")
+    log(f"phase 9: engine A with drift and a shadow, {a['frames']} frames of {a['rows']} rows: "
+        f"{a['device_steps']} device steps, {a['forest_launches']} forest and "
+        f"{a['forward_launches']} forward launches; answers, sketches ({a['sketch_check']}) and "
+        f"every candidate result agree with the CPU twin ({a['floor_boundary_rows']} "
+        f"floor-boundary and {a['threshold_rows']} threshold rows excused); table, ring, cursor "
+        f"and length bit-equal")
+    for tr in turns["drift_turns"] + turns["wire_turns"]:
+        what = (f"drift {'on ' if tr['drift'] else 'off'}" if "drift" in tr
+                else f"wire {tr['wire']}")
+        log(f"phase 9: [{card}] {what}: median {statistics.median(tr['rows_per_s']):.0f} rows/s; "
+            "busy ms per RPC: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in tr["stage_busy_ms_per_rpc"].items()))
+    log(f"phase 9: host encode per row: " + ", ".join(
+        f"{k} {v:.4f} us" for k, v in turns["encode_us_per_row"].items()))
+    for name, k in (turns["step_kernels"] or {}).items():
+        prof = k["profile"]
+        if prof["device_ms"] is not None:
+            log(f"phase 9: [{card}] one {BATCH_SIZE}-row {name}: {k['device_ms']} ms by events; "
+                f"{prof['device_ms']:.6f} ms of kernels in {sum(r['count'] for r in prof['top'])} "
+                "launches; by name: " + "; ".join(
+                    f"{r['kernel']} {r['device_ms']:.6f} ms x{r['count']}" for r in prof["top"]))
+    log(f"phase 9: {result['seconds']:.1f} s")
+    log("phase 9: " + json.dumps(result))
     return result
 
 
@@ -2081,6 +2575,8 @@ def main() -> int:
     server_run = phase_server(torch, card, gbdt_kernel, fa, filled)
     index_run = phase_index(torch, card, gbdt_kernel, fa, filled[0],
                             statistics.median(server_run["score_batch_rows_per_s"]))
+    # Phase 9: the score step's variants (int8, drift, shadow), same store.
+    variants_run = phase_variants(torch, card, gbdt_kernel, fa, filled[0])
 
     main_row = next(r for r in rows if (r["T"], r["D"], r["B"]) == (64, 4, BATCH_SIZE))
     flash_main = next(r for r in flash_rows if (r["BH"], r["S"], r["Dh"]) == FLASH_MAIN_SHAPE)
@@ -2098,6 +2594,8 @@ def main() -> int:
         "launches_gbdt_engine_1000x6": engine["gbdt_engine_1000x6"]["launches"],
         "launches_server": server_run["launches"],
         "launches_index": index_run["a"]["forest_launches"] + index_run["b"]["forest_launches"],
+        "launches_variants": (variants_run["int8_engine"]["forest_launches"]
+                              + variants_run["session_engine"]["forest_launches"]),
         "shapes": rows,
     }, {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -2113,6 +2611,7 @@ def main() -> int:
         "mma_probe": probe,
         "launches_server": server_run["forward_launches"],
         "launches_index": index_run["a"]["forward_launches"],
+        "launches_variants": variants_run["session_engine"]["forward_launches"],
         "shapes": flash_rows,
     }, *({
         "name": f"flash_attention_bwd_{part}", "route": "cuda",

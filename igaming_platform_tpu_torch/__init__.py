@@ -14,6 +14,8 @@ module has one counterpart with the same name:
               host pipeline, the event bridge, the bonus-abuse detector, and
               the risk.v1 front: its own proto3 codec, the native response
               encoder, RiskService on bytes, and the server;
+- ``obs``     the drift observatory (feature and score sketches of every
+              scored batch against a pinned reference);
 - ``train``   the bonus-abuse detector's trainer.
 
 ``convert.from_jax_params`` carries the JAX package's params across. The

@@ -9,6 +9,13 @@ for that backend, on the CPU:
 - ``gbdt``: ``{"feat", "thr", "leaves", "bias"}`` -> a dict of tensors
 - ``multitask``: ``{"trunk": {"layers"}, "fraud_head", "ltv_head",
   "churn_head"}`` -> ``models.multitask.MultiTask``
+- ``mlp_int8`` and ``multitask_int8``: an int8 MLP tree (``ops/quantize.py``
+  ``quantize_mlp``: ``{"layers": [{"wq", "scale", "b"}, ...],
+  "input_scale"}``) -> ``ops.quantize.QuantizedMLP``, int8 codes kept int8
+- ``gbdt_int8``: ``quantize_gbdt``'s tree (``{"feat", "thr_q", "thr_scale",
+  "leaves_q", "leaf_scale", "bias"}``) -> a dict of tensors, the codes int8
+  and the scales float32, plus the float32 thresholds and leaves the forest
+  kernel reads (``ops.quantize.forest_images``)
 
 ``sequence_from_tree(tree, cfg)`` does the same for the abuse detector's
 sequence model (``init_sequence_model``'s tree) -> ``models.sequence.SequenceModel``,
@@ -38,6 +45,7 @@ from igaming_platform_tpu_torch.models.sequence import (
     SeqConfig,
     SequenceModel,
 )
+from igaming_platform_tpu_torch.ops.quantize import QuantizedDense, QuantizedMLP, forest_images
 
 # Which params each backend reads.
 BACKEND_KEYS = {
@@ -46,6 +54,10 @@ BACKEND_KEYS = {
     "gbdt": ("gbdt",),
     "mlp+gbdt": ("mlp", "gbdt"),
     "multitask": ("multitask",),
+    "mlp_int8": ("mlp_int8",),
+    "gbdt_int8": ("gbdt_int8",),
+    "mlp+gbdt_int8": ("mlp_int8", "gbdt_int8"),
+    "multitask_int8": ("multitask_int8",),
 }
 
 
@@ -78,6 +90,22 @@ def gbdt_from_tree(tree: dict, n_features: int = NUM_FEATURES) -> dict[str, torc
         "leaves": _f32(tree["leaves"]),
         "bias": _f32(tree["bias"]).reshape(()),
     }
+
+
+def quantized_mlp_from_tree(tree: dict) -> QuantizedMLP:
+    return QuantizedMLP([QuantizedDense(layer["wq"], layer["scale"], layer["b"])
+                         for layer in tree["layers"]], tree.get("input_scale"))
+
+
+def quantized_gbdt_from_tree(tree: dict) -> dict[str, torch.Tensor]:
+    thr, leaves = forest_images(tree)
+    out = gbdt_from_tree({"feat": tree["feat"], "thr": thr, "leaves": leaves,
+                          "bias": tree["bias"]})
+    out.update({"thr_q": torch.from_numpy(np.array(tree["thr_q"], dtype=np.int8)),
+                "thr_scale": _f32(tree["thr_scale"]),
+                "leaves_q": torch.from_numpy(np.array(tree["leaves_q"], dtype=np.int8)),
+                "leaf_scale": _f32(tree["leaf_scale"])})
+    return out
 
 
 def sequence_from_tree(tree: dict, cfg: SeqConfig) -> SequenceModel:
@@ -122,7 +150,9 @@ def sequence_to_tree(model: SequenceModel) -> dict:
     }
 
 
-_CONVERTERS = {"mlp": mlp_from_tree, "gbdt": gbdt_from_tree, "multitask": multitask_from_tree}
+_CONVERTERS = {"mlp": mlp_from_tree, "gbdt": gbdt_from_tree, "multitask": multitask_from_tree,
+               "mlp_int8": quantized_mlp_from_tree, "gbdt_int8": quantized_gbdt_from_tree,
+               "multitask_int8": quantized_mlp_from_tree}
 
 
 def from_jax_params(ml_backend: str, tree: dict) -> dict[str, Any]:

@@ -5,9 +5,10 @@ pipeline: engine.go:262-323). One function over a [B, 30] batch on one
 device; PyTorch runs it eagerly, op by op, where the JAX package compiles
 it into one XLA program.
 
-Backends: ``mock``, ``mlp``, ``gbdt``, ``mlp+gbdt`` and ``multitask``. The
-int8 variants and the routed mixture wait for later slices; their names,
-like any other, raise.
+Backends: ``mock``, ``mlp``, ``gbdt``, ``mlp+gbdt``, ``multitask`` and their
+int8 variants ``mlp_int8``, ``gbdt_int8``, ``mlp+gbdt_int8`` and
+``multitask_int8`` (``ops/quantize.py``). The routed mixture waits for the
+multi-device slice; its name, like any other unknown one, raises.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ from igaming_platform_tpu_torch.models import mlp as mlp_mod
 from igaming_platform_tpu_torch.models.mock_model import mock_predict
 from igaming_platform_tpu_torch.models.multitask import fraud_predict
 from igaming_platform_tpu_torch.models.rules import apply_rules
+from igaming_platform_tpu_torch.ops.quantize import gbdt_predict_int8, mlp_predict_int8
 
-BACKENDS = ("mock", "mlp", "gbdt", "mlp+gbdt", "multitask")
+BACKENDS = ("mock", "mlp", "gbdt", "mlp+gbdt", "multitask",
+            "mlp_int8", "gbdt_int8", "mlp+gbdt_int8", "multitask_int8")
 
 # Bit index of ML_HIGH_RISK in the reason mask (REASON_BIT_ORDER[8]).
 ML_HIGH_RISK_BIT = 8
@@ -90,6 +93,9 @@ def make_score_fn(
       - "gbdt": oblivious forest (``params["gbdt"]``, a dict of tensors)
       - "mlp+gbdt": mean of the MLP and GBDT probabilities
       - "multitask": fraud head of the multi-task net (``params["multitask"]``)
+      - "mlp_int8", "gbdt_int8", "mlp+gbdt_int8", "multitask_int8": the same
+        with int8 params (``ops/quantize.py``; the multitask variant is its
+        fraud path as an int8 MLP)
 
     The returned fn has signature ``f(params, x_raw, blacklisted,
     thresholds=None)``: ``x_raw`` a [B, 30] float32 raw batch, ``blacklisted``
@@ -126,11 +132,20 @@ def make_score_fn(
             ml = mlp_mod.mlp_predict(params["mlp"], xn)
         elif ml_backend == "gbdt":
             ml = gbdt_mod.gbdt_predict(params["gbdt"], xn)
+        elif ml_backend == "mlp_int8":
+            ml = mlp_predict_int8(params["mlp_int8"], xn)
+        elif ml_backend == "gbdt_int8":
+            ml = gbdt_predict_int8(params["gbdt_int8"], xn)
         elif ml_backend == "mlp+gbdt":
             ml = 0.5 * (mlp_mod.mlp_predict(params["mlp"], xn)
                         + gbdt_mod.gbdt_predict(params["gbdt"], xn))
-        else:
+        elif ml_backend == "mlp+gbdt_int8":
+            ml = 0.5 * (mlp_predict_int8(params["mlp_int8"], xn)
+                        + gbdt_predict_int8(params["gbdt_int8"], xn))
+        elif ml_backend == "multitask":
             ml = fraud_predict(params["multitask"], xn)
+        else:
+            ml = mlp_predict_int8(params["multitask_int8"], xn)
 
         rule_score, mask = apply_rules(x_raw, blacklisted, cfg)
         final, action, mask = combine(rule_score, ml, mask, cfg, thresholds)

@@ -56,18 +56,25 @@ _TXA, _TD, _TW, _TB = (int(F.TX_AMOUNT), int(F.TX_TYPE_DEPOSIT), int(F.TX_TYPE_W
                        int(F.TX_TYPE_BET))
 
 
-def compose_rows(table: torch.Tensor, flags: torch.Tensor, idxs: torch.Tensor,
-                 amounts: torch.Tensor, types: torch.Tensor,
-                 bl: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The cached step's input: the table's rows at ``idxs`` with the four
-    context columns overwritten (amount and the deposit/withdraw/bet
-    one-hots of the wire code), and the blacklist ORed with the slots'
-    flags. Returns ([B, 30] float32, [B] bool)."""
+def compose_features(table: torch.Tensor, idxs: torch.Tensor, amounts: torch.Tensor,
+                     types: torch.Tensor) -> torch.Tensor:
+    """The table's rows at ``idxs`` with the four context columns
+    overwritten (amount and the deposit/withdraw/bet one-hots of the wire
+    code): [B, 30] float32."""
     x = table.index_select(0, idxs)
     x[:, _TXA] = amounts
     x[:, _TD] = (types == 0).to(x.dtype)
     x[:, _TW] = (types == 1).to(x.dtype)
     x[:, _TB] = (types == 2).to(x.dtype)
+    return x
+
+
+def compose_rows(table: torch.Tensor, flags: torch.Tensor, idxs: torch.Tensor,
+                 amounts: torch.Tensor, types: torch.Tensor,
+                 bl: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cached step's input: ``compose_features`` and the blacklist ORed
+    with the slots' flags. Returns ([B, 30] float32, [B] bool)."""
+    x = compose_features(table, idxs, amounts, types)
     return x, torch.logical_or(bl, flags.index_select(0, idxs))
 
 

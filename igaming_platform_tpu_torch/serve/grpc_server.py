@@ -16,10 +16,14 @@ drives it directly, as ``chip_smoke.py`` does on a machine without grpcio.
 ``serve_risk`` binds it to grpcio with identity (de)serializers, and
 ``make_risk_stub`` gives a bytes-in, bytes-out client; ``serve_risk`` is the
 one place the port imports ``grpc``, inside its body. PredictLTV and
-GetPlayerSegment answer UNIMPLEMENTED until the LTV model is ported. Not
-ported yet: deadline admission, the burn-shed gate, the supervisor, the
-flight recorder, metrics and tracing, reflection and the wallet service
-(``ROADMAP.md``).
+GetPlayerSegment answer UNIMPLEMENTED until the LTV model is ported.
+
+As in the JAX package, the service installs the process's drift engine
+(``obs/drift.py``) and binds it to the engine unless ``DRIFT=0``: every
+batch the engine scores is then sketched. ``close()`` unbinds, closes and
+uninstalls it. Not ported yet: deadline admission, the burn-shed gate, the
+supervisor, the flight recorder, metrics and tracing, reflection and the
+wallet service (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import numpy as np
 
 from igaming_platform_tpu_torch.core.enums import REASON_BIT_ORDER
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES, F, FeatureVector
+from igaming_platform_tpu_torch.obs import drift as drift_mod
 from igaming_platform_tpu_torch.serve import risk_codec as codec
 from igaming_platform_tpu_torch.serve.abuse import AbuseShed
 from igaming_platform_tpu_torch.serve.scorer import ScoreRequest
@@ -232,6 +237,28 @@ class RiskGrpcService:
             p99_slo_ms=float(os.environ.get("BULK_P99_SLO_MS", "50")),
         )
         self._bulk_admit_wait_s = float(os.environ.get("BULK_ADMIT_WAIT_S", "0.02"))
+        # The drift observatory (DRIFT=0 opts out): the process's default
+        # engine, bound to the scoring engine, as the JAX service does.
+        self.drift = None
+        if os.environ.get("DRIFT", "1") != "0" and hasattr(engine, "bind_drift"):
+            self.drift = drift_mod.install(drift_mod.DriftEngine())
+            engine.bind_drift(self.drift)
+        else:
+            drift_mod.uninstall()
+
+    def close(self) -> None:
+        """Unbind the drift engine from the scoring engine, close it (its
+        queued sketches are folded first) and uninstall it if it is still
+        the process default. Idempotent."""
+        drift, self.drift = self.drift, None
+        if drift is None:
+            return
+        if getattr(self.engine, "drift", None) is drift:
+            self.engine.bind_drift(None)
+        if drift_mod.get_default() is drift:
+            drift_mod.uninstall()
+        else:
+            drift.close()
 
     def call(self, method: str, payload: bytes) -> bytes:
         """Answer one RPC on bytes, with no transport: the response bytes,

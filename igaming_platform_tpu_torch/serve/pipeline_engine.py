@@ -8,7 +8,8 @@ k-1:
 - **decode/gather** stays on the calling RPC thread (the native one-call
   decode and gather); with several RPCs in flight those calls already run
   beside everything below;
-- **stage workers** pad each chunk into a staging buffer from an
+- **stage workers** encode each chunk for the row wire (``WIRE_DTYPE``)
+  and pad it into a staging buffer of the wire's dtype from an
   :class:`~igaming_platform_tpu_torch.serve.arena.ArenaPool` (pinned host
   memory on a card) and launch the step without waiting. The launch takes
   the engine's CUDA stream itself: the current stream is per thread, and a
@@ -169,6 +170,10 @@ class HostPipeline:
         buffer copies asynchronously."""
         n = hi - lo
         chunk, blc = job.x[lo:hi], job.bl[lo:hi]
+        if self._engine._wire_encode is not None:
+            # The row wire's encode (WIRE_DTYPE), before padding: the staging
+            # buffers take the wire's dtype.
+            chunk = self._engine._wire_encode(chunk)
         shape = self._engine._pick_shape(n)
         if n == shape and not self._pinned:
             return self._engine._launch_padded(chunk, blc, n, job.params), None

@@ -35,7 +35,23 @@ path (risk.v1 ScoreTransaction / ScoreBatch):
   scored on the row paths meanwhile are counted as bypass;
 - thresholds are a device tensor input: ``set_thresholds`` rebuilds
   nothing; ``swap_params`` installs new params atomically, with their
-  fingerprint.
+  fingerprint;
+- ``WIRE_DTYPE=bf16|int8`` ships the row paths' batches to the card as
+  bfloat16 bits (rounded to nearest even on the host) or as the int8 wire
+  codes of ``ops/quantize.py``, and the step decodes them at its head; the
+  index path keeps its float32 table;
+- with a drift engine bound (``bind_drift``; ``RiskGrpcService`` binds one
+  unless ``DRIFT=0``) every step also reduces a sketch of the rows it
+  scored (``obs/drift.py``), and with a shadow scorer attached
+  (``engine.shadow``, ``serve/shadow.py``) every step also scores the
+  candidate params on the same rows, both in the step's own enqueue on the
+  engine's stream. ``FUSED=0`` gives the split layout: the sketch is its
+  own enqueue after the step, over the device copy of the batch (the int8
+  wire's codes are counted as skipped, not sketched), and the shadow's
+  worker scores the candidate from that device copy (``SHADOW_FUSED=0``
+  alone does the latter). The drift and shadow workers read the step's
+  tensors only after the CUDA event recorded after it; neither can fail,
+  delay or change an answer.
 
 Every batch runs on the engine's device. On a card, every copy and step
 goes on one CUDA stream the engine owns, whichever thread launches it, and
@@ -44,9 +60,9 @@ copies and the ring's admission copies go on that stream too, so a write
 never overtakes a step enqueued before it. There is no host-CPU tier: on a
 CUDA engine a small batch goes to the card like a large one, and the CPU
 runs a batch only when the caller built the engine with ``device="cpu"``.
-Not ported yet: the host tier, the slot-sharded cache and ring, drift,
-shadow and the decision ledger (the session fields a ledger note would
-carry are returned by ``_launch_cached``).
+Not ported yet: the host tier, the slot-sharded cache and ring and the
+decision ledger (the session fields a ledger note would carry are returned
+by ``_launch_cached``).
 """
 
 from __future__ import annotations
@@ -57,8 +73,8 @@ import os
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass
-from typing import Any
+from dataclasses import dataclass, field
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -69,6 +85,8 @@ from igaming_platform_tpu_torch.core.device import host_to_device, resolve_devic
 from igaming_platform_tpu_torch.core.enums import ReasonCode, action_from_code, decode_reason_mask
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES, FeatureVector
 from igaming_platform_tpu_torch.models.ensemble import make_score_fn
+from igaming_platform_tpu_torch.obs.drift import cached_sketch_kernel, sketch_kernel
+from igaming_platform_tpu_torch.ops.quantize import wire_dequantize_int8, wire_quantize_int8
 from igaming_platform_tpu_torch.serve.batcher import ContinuousBatcher, pad_batch
 from igaming_platform_tpu_torch.serve.feature_store import InMemoryFeatureStore, TransactionEvent
 
@@ -141,6 +159,62 @@ def _device_readback(handle) -> dict:
     return _unpack_host(host.numpy()[:, :n])
 
 
+def encode_bf16(x: np.ndarray) -> np.ndarray:
+    """Host side of ``WIRE_DTYPE=bf16``: float32 rows -> their bfloat16
+    bits (torch's round to nearest even), as int16, the dtype numpy can
+    hold and pin."""
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy()
+
+
+def wire_codec(name: str) -> tuple[np.dtype, Callable[[np.ndarray], np.ndarray] | None]:
+    """``WIRE_DTYPE`` -> (the numpy dtype of the row wire, its host encoder,
+    None for float32). An unknown value raises: a typo would otherwise
+    ship float32 while the operator believes the wire is compressed."""
+    name = name.lower()
+    if name in ("", "f32", "fp32", "float32"):
+        return np.dtype(np.float32), None
+    if name in ("bf16", "bfloat16"):
+        return np.dtype(np.int16), encode_bf16
+    if name == "int8":
+        return np.dtype(np.int8), wire_quantize_int8
+    raise ValueError(f"WIRE_DTYPE={name!r} not supported (use 'bf16', 'int8' or 'float32')")
+
+
+def decode_wire(xd: torch.Tensor) -> torch.Tensor:
+    """Device side of the row wire: the step's float32 [B, 30] rows from
+    the batch as it crossed (float32, bfloat16 bits as int16, or int8
+    codes)."""
+    if xd.dtype == torch.int16:
+        return xd.view(torch.bfloat16).to(torch.float32)
+    if xd.dtype == torch.int8:
+        return wire_dequantize_int8(xd)
+    return xd
+
+
+@dataclass
+class _Variants:
+    """What one step hands the drift and shadow seams: the sketch and the
+    candidate's packed result computed in the step's own enqueue (None when
+    not fused), or what the split layout needs instead: a thunk computing
+    the sketch in a later enqueue (``compressed`` when the batch is int8
+    wire codes, which are not sketched) and the device copy of the batch
+    (``echo``, None on the index paths) with its blacklist and thresholds
+    for the shadow's own step."""
+
+    sketch: torch.Tensor | None = None
+    shadow_out: torch.Tensor | None = None
+    gen: int | None = None
+    # The fused sketch or candidate raised: counted, nothing handed on.
+    sketch_failed: bool = False
+    shadow_failed: bool = False
+    split_sketch: Callable[[], torch.Tensor] | None = field(default=None, repr=False)
+    compressed: bool = False
+    echo: torch.Tensor | None = None
+    bl: torch.Tensor | None = None
+    thresholds: torch.Tensor | None = None
+
+
 def params_fingerprint(params: Any) -> str:
     """Stable 16-hex digest over a params tree (name, dtype, shape and
     bytes of every tensor, in tree order). Computed once per install,
@@ -181,6 +255,15 @@ class TorchScoringEngine:
         self.params_fingerprint = params_fingerprint(self._params)
         self._params_lock = threading.Lock()
         self.features = feature_store or InMemoryFeatureStore()
+        self._wire_dtype, self._wire_encode = wire_codec(os.environ.get("WIRE_DTYPE", ""))
+        # The drift engine (bind_drift) and the shadow scorer (set by its
+        # owner); None keeps each seam one attribute check. FUSED=0 keeps
+        # both on the split layout, SHADOW_FUSED=0 the shadow alone.
+        self.drift = None
+        self.shadow = None
+        self._fused_enabled = os.environ.get("FUSED", "1") not in ("0", "false")
+        self._shadow_fused_enabled = os.environ.get("SHADOW_FUSED", "1") not in ("0", "false")
+        self._shadow_fused_ready = False
         # The one stream of every copy and step on a card; launches are
         # enqueued under a lock, one at a time.
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -214,7 +297,6 @@ class TorchScoringEngine:
         # warmup when ``feature_cache``/FEATURE_CACHE asks (an int is the
         # capacity) or WIRE_MODE=index, else on the first index request.
         self.cache = None
-        self._cached_fn = None
         self._cache_lock = threading.Lock()
         if feature_cache is None:
             feature_cache = os.environ.get("FEATURE_CACHE", "") not in ("", "0")
@@ -227,7 +309,8 @@ class TorchScoringEngine:
         from igaming_platform_tpu_torch.serve import session_state as session_mod
 
         self.session = None
-        self._session_fn = None
+        # The fused session step per (sketch, shadow) variant.
+        self._session_fns: dict[tuple[bool, bool], Callable] = {}
         self._session_enabled = (session_mod.session_enabled_env() if session_state is None
                                  else bool(session_state))
         self._batcher = ContinuousBatcher(
@@ -266,6 +349,118 @@ class TorchScoringEngine:
 
                     self._host_pipeline = HostPipeline(self, depth=self._pipeline_depth)
         return self._host_pipeline
+
+    # -- the drift and shadow seams -------------------------------------------
+
+    def bind_drift(self, drift_engine) -> None:
+        """Attach a DriftEngine (``obs/drift.py``; None detaches): from the
+        next step on, every step also reduces a sketch of the rows it
+        scored, and the drift worker folds it. Eager torch compiles nothing,
+        so binding only runs the sketch once at every ladder shape, off the
+        request path, so that no request pays its first launches."""
+        if drift_engine is not None:
+            with self._on_stream(), torch.inference_mode():
+                for shape in self._shapes:
+                    sketch_kernel(torch.zeros((shape, NUM_FEATURES), device=self.device),
+                                  torch.zeros((5, shape), dtype=torch.int32, device=self.device),
+                                  shape)
+        self.drift = drift_engine
+
+    def _on_shadow_candidate(self, shadow) -> None:
+        """The shadow scorer's hook (its constructor, ``set_candidate``,
+        ``rebind_engine``). The JAX engine compiles the shadow variants of
+        its fused programs here, on a background thread; eager torch
+        compiles nothing, so this only marks the variant ready: from the
+        next step on a live candidate is scored in the step's own enqueue."""
+        self._shadow_fused_ready = True
+
+    def _fused_shadow_state(self):
+        """(generation, candidate params) when the next step scores a live
+        candidate in its own enqueue; else None."""
+        shadow = self.shadow
+        if (shadow is None or not self._fused_enabled or not self._shadow_fused_enabled
+                or not self._shadow_fused_ready):
+            return None
+        return shadow.active_state()
+
+    def _step_variants(self, packed: torch.Tensor, x: torch.Tensor, bl: torch.Tensor,
+                       thr: torch.Tensor, n: int, *, split_sketch: Callable[[], torch.Tensor],
+                       echo: torch.Tensor | None = None,
+                       compressed: bool = False) -> _Variants | None:
+        """Inside a step's enqueue, after its score: the fused sketch of the
+        scored rows ``x`` and the candidate's score of them, or what the
+        split layout needs; None when neither drift nor a shadow is bound."""
+        if self.drift is None and self.shadow is None:
+            return None
+        v = _Variants(split_sketch=split_sketch, compressed=compressed, echo=echo, bl=bl,
+                      thresholds=thr)
+        if self._fused_enabled and self.drift is not None:
+            try:
+                v.sketch = sketch_kernel(x, packed, n)
+            except Exception:  # noqa: BLE001 — never fails the step; counted by _note_drift
+                v.sketch_failed = True
+        sstate = self._fused_shadow_state()
+        if sstate is not None:
+            try:
+                v.gen = sstate[0]
+                v.shadow_out = _stack_packed(self._score_fn(sstate[1], x, bl, thr))
+            except Exception:  # noqa: BLE001 — never fails the step; counted by _note_shadow
+                v.shadow_failed = True
+        return v
+
+    def _record_event(self):
+        """A CUDA event recorded now on the engine's stream; None on the CPU."""
+        if self.stream is None:
+            return None
+        event = torch.cuda.Event()
+        event.record(self.stream)
+        return event
+
+    def _note_drift(self, v: _Variants, n: int, ready) -> None:
+        """Hand one step's sketch to the drift engine: the fused one, or the
+        split layout's own enqueue after the step; int8 wire codes on the
+        split layout are counted as skipped. Never raises: a failure is
+        counted by the drift engine."""
+        drift = self.drift
+        if drift is None:
+            return
+        try:
+            if v.sketch_failed:
+                drift.note_error()
+            elif v.sketch is not None:
+                drift.submit(v.sketch, n, ready)
+            elif v.compressed:
+                drift.note_skipped(n, "compressed")
+            else:
+                with self._on_stream(), torch.inference_mode():
+                    sketch = v.split_sketch()
+                    ready = self._record_event()
+                drift.submit(sketch, n, ready)
+        except Exception:  # noqa: BLE001 — drift must never fail scoring; counted
+            drift.note_error()
+
+    def _note_shadow(self, packed: torch.Tensor, v: _Variants, n: int, ready) -> None:
+        """Hand one step to the shadow scorer: the candidate's packed result
+        from the step's enqueue, or the device copy of the batch for the
+        shadow's own step; index-path rows on the split layout are counted
+        as skipped. Never raises: a failure is counted by the shadow."""
+        shadow = self.shadow
+        if shadow is None:
+            return
+        try:
+            if v.shadow_failed:
+                shadow.note_error()
+            elif v.shadow_out is not None:
+                shadow.submit_scored(packed, v.shadow_out, n, v.gen, ready)
+            elif v.echo is None:
+                shadow.note_skipped(n)
+            else:
+                # On the CPU the batch's tensor shares the staging buffer,
+                # which the pipeline reuses after the readback: copy it.
+                echo = v.echo if self.stream is not None else v.echo.clone()
+                shadow.submit_echo(packed, echo, v.bl, n, v.thresholds, ready)
+        except Exception:  # noqa: BLE001 — the shadow must never fail scoring; counted
+            shadow.note_error()
 
     # -- params / thresholds -------------------------------------------------
 
@@ -428,12 +623,17 @@ class TorchScoringEngine:
                                   x if include_features else None)
 
     def score_arrays(self, x: np.ndarray, blacklisted: np.ndarray | None = None) -> dict:
-        """Score a pre-gathered [N, 30] batch as it is (no padding); returns
-        the dict of [N] tensors on the engine's device."""
+        """Score a pre-gathered [N, 30] float32 batch as it is (no padding),
+        through the row wire (``WIRE_DTYPE``) as a launched batch would go;
+        returns the dict of [N] tensors on the engine's device. No drift or
+        shadow note."""
         if blacklisted is None:
             blacklisted = np.zeros((x.shape[0],), dtype=bool)
+        if self._wire_encode is not None and x.dtype != self._wire_dtype:
+            x = self._wire_encode(np.asarray(x, np.float32))
         with torch.inference_mode():
-            out = self._score_fn(self.get_params(), x, blacklisted, self._thresholds)
+            xd = decode_wire(torch.from_numpy(np.ascontiguousarray(x)).to(self.device))
+            out = self._score_fn(self.get_params(), xd, blacklisted, self._thresholds)
         self._count_step()
         return out
 
@@ -458,10 +658,7 @@ class TorchScoringEngine:
         with self._cache_lock:
             if self.cache is not None:
                 return self.cache
-            from igaming_platform_tpu_torch.serve.device_cache import (
-                DeviceFeatureCache,
-                compose_rows,
-            )
+            from igaming_platform_tpu_torch.serve.device_cache import DeviceFeatureCache
 
             if self._cache_capacity < self.batch_size:
                 # A chunk may hold batch_size distinct accounts, and a lookup
@@ -477,24 +674,65 @@ class TorchScoringEngine:
             # row for the next lookup's delta copy.
             if hasattr(self.features, "delta_listener"):
                 self.features.delta_listener = cache.note_update
-            score_fn = self._score_fn
-
-            def cached_step(params, table, flags, idxs, amounts, types, bl, thr):
-                x, blv = compose_rows(table, flags, idxs, amounts, types, bl)
-                return _stack_packed(score_fn(params, x, blv, thr))
-
-            self._cached_fn = cached_step
             params = self.get_params()
             for shape in self._shapes:
                 args = self._device_args(np.zeros((shape,), np.int64),
                                          np.zeros((shape,), np.float32),
                                          np.full((shape,), 4, np.int32), np.zeros((shape,), bool))
                 self._readback(self._enqueue(
-                    lambda: cached_step(params, cache.table, cache.flags, *args(),
-                                        self._thresholds), shape))
+                    lambda: self._cached_step(params, cache, *args())[0], shape))
             self._ensure_session(cache)
             self.cache = cache
         return cache
+
+    def _cached_step(self, params, cache, idxs, amounts, types, bl):
+        """The cached step: (packed [5, B], the composed rows, their
+        blacklist, the thresholds it used)."""
+        from igaming_platform_tpu_torch.serve.device_cache import compose_rows
+
+        x, blv = compose_rows(cache.table, cache.flags, idxs, amounts, types, bl)
+        thr = self._thresholds
+        return _stack_packed(self._score_fn(params, x, blv, thr)), x, blv, thr
+
+    def _session_step_for(self, mgr, sketch: bool, shadow: bool):
+        """The fused session step of one (sketch, shadow) variant over the
+        session plane ``mgr``, built on first use."""
+        step = self._session_fns.get((sketch, shadow))
+        if step is None:
+            from igaming_platform_tpu_torch.serve import session_state as session_mod
+
+            step = session_mod.make_session_step(
+                self._score_fn, self.config, mgr.head_fn, capacity=mgr.capacity,
+                n_events=mgr.n_events, min_events=mgr.min_events,
+                flag_threshold=mgr.flag_threshold, sketch=sketch, shadow=shadow)
+            self._session_fns[(sketch, shadow)] = step
+        return step
+
+    def _session_variant_step(self, mgr, sketch: bool, sstate, n: int, *args):
+        """Run the session step variant that carries the sketch and the live
+        candidate (``sstate``) and return (its outputs, ``_Variants``). The
+        step writes the ring only after both, so a variant that raises has
+        changed nothing: its error is counted by the shadow (or the drift
+        engine) and the next simpler variant runs, down to the plain step."""
+        shadow = sstate is not None
+        v = _Variants()
+        while True:
+            extra = (sstate[1] if shadow else None, n) if sketch or shadow else ()
+            try:
+                res = self._session_step_for(mgr, sketch, shadow)(*args, *extra)
+                break
+            except Exception:  # noqa: BLE001 — the observers never fail the step
+                if shadow:
+                    shadow, v.shadow_failed = False, True
+                elif sketch:
+                    sketch, v.sketch_failed = False, True
+                else:
+                    raise
+        if sketch:
+            v.sketch = res[4]
+        if shadow:
+            v.gen, v.shadow_out = sstate[0], res[-1]
+        return res, v
 
     def _ensure_session(self, cache) -> None:
         """Build (once) the session plane beside a new cache: the device ring
@@ -508,11 +746,7 @@ class TorchScoringEngine:
 
         mgr = session_mod.SessionStateManager(cache.capacity, device=self.device,
                                               on_stream=self._on_stream)
-        step = session_mod.make_session_step(
-            self._score_fn, self.config, mgr.head_fn, capacity=cache.capacity,
-            n_events=mgr.n_events, min_events=mgr.min_events,
-            flag_threshold=mgr.flag_threshold)
-        self._session_fn = step
+        step = self._session_step_for(mgr, False, False)
         params = self.get_params()
         with mgr.lock:
             for shape in self._shapes:
@@ -579,18 +813,33 @@ class TorchScoringEngine:
 
                 def step():
                     *inputs, app = args()
-                    packed, ring, cur, ln = self._session_fn(
-                        params, mgr.head_params, cache.table, cache.flags, mgr.session_ring,
-                        mgr.session_cursor, mgr.session_length, *inputs, self._thresholds, app)
-                    mgr.adopt(ring, cur, ln)
-                    return packed
+                    sketch = self._fused_enabled and self.drift is not None
+                    sstate = self._fused_shadow_state()
+                    res, v = self._session_variant_step(
+                        mgr, sketch, sstate, n, params, mgr.head_params, cache.table, cache.flags,
+                        mgr.session_ring, mgr.session_cursor, mgr.session_length, *inputs,
+                        self._thresholds, app)
+                    packed = res[0]
+                    mgr.adopt(*res[1:4])
+                    if self.drift is None and self.shadow is None:
+                        return packed
+                    idx_d, amt_d, typ_d = inputs[0], inputs[3], inputs[4]
+                    v.split_sketch = lambda: cached_sketch_kernel(
+                        cache.table, idx_d, amt_d, typ_d, packed, n)
+                    return packed, v
 
                 handle = self._enqueue(step, n)
             return handle, n, {"ts": ts, "lens": post_len, "seqs": seqs, "hashes": audit}
         args = self._device_args(idxsp, amtp, typp, blp)
-        handle = self._enqueue(
-            lambda: self._cached_fn(params, cache.table, cache.flags, *args(), self._thresholds), n)
-        return handle, n, None
+
+        def cached():
+            idx_d, amt_d, typ_d, bl_d = args()
+            packed, x, blv, thr = self._cached_step(params, cache, idx_d, amt_d, typ_d, bl_d)
+            return packed, self._step_variants(
+                packed, x, blv, thr, n, split_sketch=lambda: cached_sketch_kernel(
+                    cache.table, idx_d, amt_d, typ_d, packed, n))
+
+        return self._enqueue(cached, n), n, None
 
     def _blacklist_flags(self, n: int, ips, devices, fingerprints) -> np.ndarray:
         """The per-request blacklist vector from the store's host sets: the
@@ -697,6 +946,9 @@ class TorchScoringEngine:
         """Pad into fresh arrays and launch (``_launch_padded``)."""
         n = x.shape[0]
         shape = self._pick_shape(n)
+        if self._wire_encode is not None:
+            # Encode before padding: zero pads stay zero in either wire.
+            x = self._wire_encode(x)
         xp, _ = pad_batch(x, shape)
         blp, _ = pad_batch(bl, shape)
         return self._launch_padded(xp, blp, n, params)
@@ -711,19 +963,24 @@ class TorchScoringEngine:
 
     def _enqueue(self, step, n: int):
         """Run ``step`` (its input copies and its launches; it returns the
-        packed [5, B] result) on the engine's stream, then start the copy of
-        the result back to pinned host memory, without waiting. Returns a
+        packed [5, B] result, or that and the step's ``_Variants``) on the
+        engine's stream, then start the copy of the result back to pinned
+        host memory, without waiting, and hand the variants to the drift and
+        shadow seams with the event recorded after the copy. Returns a
         handle for ``_readback``."""
         with self._on_stream(), torch.inference_mode():
-            packed = step()
+            res = step()
+            packed, variants = res if isinstance(res, tuple) else (res, None)
             if self.stream is not None:
                 host = torch.empty(packed.shape, dtype=torch.int32, pin_memory=True)
                 host.copy_(packed, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self.stream)
             else:
-                host, done = packed, None
+                host = packed
+            done = self._record_event()
             self._count_step()
+        if variants is not None and n > 0:
+            self._note_drift(variants, n, done)
+            self._note_shadow(packed, variants, n, done)
         return host, done, n
 
     def _launch_padded(self, xp: np.ndarray, blp: np.ndarray, n: int, params: Any,
@@ -732,16 +989,21 @@ class TorchScoringEngine:
         copy of the packed [5, B] result back (``_enqueue``). From pinned
         staging buffers the input copies are asynchronous too: ``hold``
         (``serve/arena.StagingHold``) then gets the event recorded after
-        them, and keeps the buffers from the pool until it has passed."""
+        them, and keeps the buffers from the pool until it has passed. The
+        batch crosses in the wire's dtype and is decoded at the step's head."""
         self._note_session_bypass(n)
 
         def step():
             xd = torch.from_numpy(xp).to(self.device, non_blocking=True)
             bld = torch.from_numpy(blp).to(self.device, non_blocking=True)
-            if hold is not None and self.stream is not None:
-                hold.copied = torch.cuda.Event()
-                hold.copied.record(self.stream)
-            return _stack_packed(self._score_fn(params, xd, bld, self._thresholds))
+            if hold is not None:
+                hold.copied = self._record_event()
+            x = decode_wire(xd)
+            thr = self._thresholds
+            packed = _stack_packed(self._score_fn(params, x, bld, thr))
+            return packed, self._step_variants(
+                packed, x, bld, thr, n, split_sketch=lambda: sketch_kernel(x, packed, n),
+                echo=xd, compressed=xd.dtype == torch.int8)
 
         return self._enqueue(step, n)
 

@@ -5,9 +5,14 @@ environment config, then the feature store, the scoring engine (warmed up
 before it serves), the bonus-abuse detector, the event bridge and the
 ``RiskGrpcService`` (``assemble_risk_service``); then ``RiskServer`` binds
 gRPC, when grpcio is installed and a port is asked for, and the HTTP
-sidecar (/health, /ready, /debug/thresholds, /debug/score, /debug/cachez and
-/debug/sessionz), and shuts down on a signal: health NOT_SERVING, drain,
-stop. The engine reads its cache and session knobs (``WIRE_MODE``,
+sidecar (/health, /ready, /debug/thresholds, /debug/score, /debug/cachez,
+/debug/sessionz, /debug/driftz and /debug/shadowz), and shuts down on a
+signal: health NOT_SERVING, drain, stop. The drift observatory is on unless
+``DRIFT=0`` (``RiskGrpcService`` installs it; ``DRIFT_REF`` names a pinned
+reference to load at boot); ``POST /debug/driftz`` pins the current window
+as the reference, or loads or saves one. A shadow scorer is attached to the
+engine by its caller (``engine.shadow``; in the JAX package the online
+loop does it). The engine reads its cache and session knobs (``WIRE_MODE``,
 ``FEATURE_CACHE``, ``FEATURE_CACHE_CAPACITY``, ``FEATURE_CACHE_MAX_AGE_S``,
 ``SESSION_STATE``, ``SESSION_EVENTS``, ``SESSION_MIN_EVENTS``,
 ``SESSION_FLAG_THRESHOLD``, ``SESSION_HEAD``) from the environment;
@@ -37,6 +42,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import torch
 
 from igaming_platform_tpu_torch.core.config import RiskServiceConfig
+from igaming_platform_tpu_torch.obs import drift as drift_mod
 from igaming_platform_tpu_torch.serve.abuse import SequenceAbuseDetector
 from igaming_platform_tpu_torch.serve.bridge import ScoringBridge
 from igaming_platform_tpu_torch.serve.events import InMemoryBroker, resolve_transport
@@ -196,6 +202,18 @@ class RiskServer:
                         self._send(404, '{"error":"session state disabled"}')
                         return
                     self._send(200, json.dumps(session.snapshot()))
+                elif self.path == "/debug/driftz":
+                    drift = drift_mod.get_default()
+                    if drift is None:
+                        self._send(404, '{"error":"drift observatory disabled"}')
+                        return
+                    self._send(200, json.dumps(drift.snapshot()))
+                elif self.path == "/debug/shadowz":
+                    shadow = server_ref.engine.shadow
+                    if shadow is None:
+                        self._send(404, '{"error":"no shadow scorer attached"}')
+                        return
+                    self._send(200, json.dumps({"shadow": shadow.report()}))
                 else:
                     self._send(404, '{"error":"not found"}')
 
@@ -227,8 +245,41 @@ class RiskServer:
                         "ml_score": resp.ml_score,
                         "response_time_ms": resp.response_time_ms,
                     }))
+                elif self.path == "/debug/driftz":
+                    self._drift_action(payload)
                 else:
                     self._send(404, '{"error":"not found"}')
+
+            def _drift_action(self, payload: dict) -> None:
+                """{"action": "pin_reference"} pins the current window;
+                {"action": "load"|"save", "path": ...} reads or writes a
+                reference file."""
+                drift = drift_mod.get_default()
+                if drift is None:
+                    self._send(404, '{"error":"drift observatory disabled"}')
+                    return
+                action = str(payload.get("action", ""))
+                try:
+                    if action == "pin_reference":
+                        min_rows = payload.get("min_rows")
+                        ref = drift.pin_reference(
+                            source=str(payload.get("source", "pinned-via-driftz")),
+                            min_rows=int(min_rows) if min_rows is not None else None)
+                    elif action == "load":
+                        ref = drift.load_reference(str(payload["path"]))
+                    elif action == "save":
+                        ref = drift.reference
+                        if ref is None:
+                            raise ValueError("no reference pinned")
+                        ref.save(str(payload["path"]))
+                    else:
+                        raise ValueError(f"unknown driftz action {action!r} (use "
+                                         "pin_reference|load|save)")
+                except (KeyError, ValueError, OSError) as exc:
+                    self._send(400, json.dumps({"error": str(exc)}))
+                    return
+                self._send(200, json.dumps({"ok": True, "reference": ref.meta(),
+                                            "alerts": drift.alerts_active()}))
 
         httpd = ThreadingHTTPServer(("0.0.0.0", port), Handler)
         thread = threading.Thread(target=httpd.serve_forever, name="http-sidecar", daemon=True)
@@ -239,10 +290,17 @@ class RiskServer:
 
     def shutdown(self, grace: float = 30.0) -> None:
         """NOT_SERVING, stop the bridge, drain gRPC, then close the engine
-        (batcher and host pipeline), then stop the sidecar."""
+        (batcher and host pipeline), drain the shadow scorer and the drift
+        engine (every scored batch folded), close the service (which closes
+        the drift engine), then stop the sidecar."""
         self._stopped.set()
         self.bridge.stop()
         graceful_stop(self.grpc_server, self.health, grace, engine=self.engine)
+        if self.engine.shadow is not None:
+            self.engine.shadow.drain()
+        if self.service.drift is not None:
+            self.service.drift.drain()
+        self.service.close()
         self.http_server.shutdown()
         self.http_server.server_close()
         self._probe_pool.shutdown(wait=False)

@@ -32,10 +32,11 @@ engine's stream, under the manager's lock:
   result does not depend on the order of the adds.
 
 The host index (``_twin``) is authoritative: every decision's window can
-be rebuilt from it (``SessionChunkAudit`` hashes it lazily). The
-slot-sharded layout (``plan``), the fused drift sketch and shadow variants
-and the metrics sink are not ported yet: they raise, and ``shard_stats``
-gives the unsharded answer.
+be rebuilt from it (``SessionChunkAudit`` hashes it lazily). The step's
+drift sketch and shadow variants (``make_session_step(sketch=, shadow=)``)
+reduce and re-score the same composed rows in the same step. The
+slot-sharded layout (``plan``) and the metrics sink are not ported yet: they
+raise, and ``shard_stats`` gives the unsharded answer.
 """
 
 from __future__ import annotations
@@ -302,17 +303,26 @@ def make_session_step(score_fn, cfg, head_fn, *, capacity: int, n_events: int,
     has its ML score raised to that probability, the ``SESSION_PATTERN``
     bit set and score and action recombined; below the threshold a warm
     row's outputs equal the session-off step's. Cold rows never fold and
-    carry ``SESSION_COLD``. The fused drift-sketch and shadow variants and
-    the slot-sharded ``plan`` are not ported yet."""
-    if sketch or shadow:
-        raise NotImplementedError("the fused sketch/shadow session variants are not ported yet "
-                                  "(ROADMAP.md)")
+    carry ``SESSION_COLD``.
+
+    ``sketch``/``shadow`` select a variant whose signature gains trailing
+    ``(..., cand, n)`` and whose outputs extend to ``(packed, ring, cursor,
+    length[, sketch][, shadow_packed])``: the drift sketch of the composed
+    rows (``obs/drift.sketch_kernel`` over the first ``n``), and the
+    candidate params ``cand`` scored on the same rows and folded with the
+    same head probability, warm and cold rows as production, computed
+    before the append; the head runs once and the ring is appended once.
+    The slot-sharded ``plan`` is not ported yet."""
     if plan is not None:
         raise NotImplementedError("the slot-sharded session step is not ported yet (ROADMAP.md)")
     from igaming_platform_tpu_torch.models.ensemble import ML_HIGH_RISK_BIT, combine
+    from igaming_platform_tpu_torch.obs.drift import sketch_kernel
     from igaming_platform_tpu_torch.serve.device_cache import compose_rows
 
     def session_fold(out, sprob, fold, cold, thr):
+        """One params' base outputs folded with the head's result; shared by
+        production and the shadow (``sprob``, ``fold``, ``cold`` do not
+        depend on the params)."""
         ml = out["ml_score"].to(torch.float32)
         ml2 = torch.where(fold, torch.maximum(ml, sprob), ml)
         # combine() is pure in (rule, ml, mask): strip the ML bit the base
@@ -325,7 +335,7 @@ def make_session_step(score_fn, cfg, head_fn, *, capacity: int, n_events: int,
         return _stack(final, action, mask, out["rule_score"], ml2)
 
     def step(params, sparams, table, flags, ring, cursor, length, idxs, sidx, occ,
-             amounts, types, events, bl, thr, app):
+             amounts, types, events, bl, thr, app, cand=None, n=None):
         x, blv = compose_rows(table, flags, idxs, amounts, types, bl)
         out = score_fn(params, x, blv, thr)
 
@@ -336,6 +346,11 @@ def make_session_step(score_fn, cfg, head_fn, *, capacity: int, n_events: int,
         fold = torch.logical_and(warm, sprob >= flag_threshold)
         cold = torch.logical_and(torch.logical_not(warm), real)
         packed = session_fold(out, sprob, fold, cold, thr)
+        extra = []
+        if sketch:
+            extra.append(sketch_kernel(x, packed, n))
+        if shadow:
+            extra.append(session_fold(score_fn(cand, x, blv, thr), sprob, fold, cold, thr))
 
         # The append, after every read of the batch-start state above.
         wpos = torch.remainder(cursor.index_select(0, sidx) + occ, n_events)
@@ -343,10 +358,12 @@ def make_session_step(score_fn, cfg, head_fn, *, capacity: int, n_events: int,
         ones = torch.ones_like(sidx, dtype=cursor.dtype)
         cursor.index_add_(0, sidx, ones).remainder_(n_events)
         length.index_add_(0, sidx, ones).clamp_(max=n_events)
-        # The scratch slot stays empty, so a pad row never looks warm.
-        cursor[capacity] = 0
-        length[capacity] = 0
-        return packed, ring, cursor, length
+        # The scratch slot stays empty, so a pad row never looks warm. Fill
+        # kernels: ``cursor[capacity] = 0`` would copy a host scalar with a
+        # blocking copy, which waits for the stream.
+        cursor[capacity:].fill_(0)
+        length[capacity:].fill_(0)
+        return (packed, ring, cursor, length, *extra)
 
     return step
 

@@ -78,7 +78,7 @@ def test_make_score_fn_matches_jax(backend):
 
 
 def test_unknown_backend_raises():
-    for name in ("routed", "mlp_int8", "gbdt_int8", "nope"):
+    for name in ("routed", "mlp_int4", "gbdt_fp8", "nope"):
         with pytest.raises(ValueError, match="unknown ml backend"):
             make_score_fn(ScoringConfig(), name, device="cpu")
 

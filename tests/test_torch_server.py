@@ -5,7 +5,10 @@ The JAX package's RiskGrpcService and the port's, each behind its own
 events with fixed timestamps, the clock pinned), the same params (carried by
 convert.py) and the same detector histories, on the ``mock`` and
 ``mlp+gbdt`` backends, with ``WIRE_MODE=index`` (each engine's feature cache
-built at warmup, its clock pinned too). Every RPC of the slice goes to both
+built at warmup, its clock pinned too), and on ``mlp+gbdt`` also with the
+bf16 and int8 row wires (``WIRE_DTYPE``). The port's service runs its drift
+observatory (on by default); the JAX one runs without its SLO, drift and
+runtime-telemetry planes. Every RPC of the slice goes to both
 as request bytes built with ``risk_pb2``, and ScoreBatch also as index-mode
 frames (``IDX1``, built with the JAX package's ``encode_index_batch``), one
 of them truncated. Both answers are parsed with ``risk_pb2``;
@@ -14,6 +17,11 @@ tests/test_torch_ensemble.py::assert_outputs_match and abuse_score to the
 detector's atol 1e-5 (tests/test_torch_abuse.py), then set equal; every
 other byte must be equal. One case drives the port's byte handlers with no
 transport, as chip_smoke.py does on a machine without grpcio.
+
+The sidecar's /debug/driftz and /debug/shadowz answer with the keys the JAX
+server's pages have (its ``DriftEngine.snapshot()`` and
+``{"shadow": ShadowScorer.report()}``), and POST /debug/driftz pins, saves
+and loads a reference.
 """
 
 import sys
@@ -25,6 +33,7 @@ import pytest
 import torch
 from test_torch_abuse import _feed
 from test_torch_ensemble import assert_outputs_match, jax_tree
+from test_torch_rules_mock import _raw_batch
 from test_torch_sequence import SERVE_CFG, seq_tree
 from torch_front_common import T0, checked_rows, event_columns, fill, pin_jax_clock, requests
 
@@ -47,8 +56,9 @@ N_ACCOUNTS = 50
 ABUSE_ATOL = 1e-5
 
 
-def _boot(backend):
-    """Both services over grpcio, with equal stores, params and histories."""
+def _boot(backend, mp):
+    """Both services over grpcio, with equal stores, params and histories:
+    the JAX one with ``DRIFT=0``, the port's with its default drift engine."""
     cols = event_columns(7, N_ACCOUNTS, 1200)
     jstore, tstore = JaxNativeStore(max_accounts=500), NativeFeatureStore(max_accounts=500,
                                                                           clock=lambda: T0)
@@ -60,6 +70,7 @@ def _boot(backend):
     jengine = TPUScoringEngine(ml_backend=backend, params=tree or None, feature_store=jstore,
                                batcher_config=JBatcherConfig(batch_size=64, max_wait_ms=1.0))
     jservice = jgrpc.RiskGrpcService(jengine, abuse_detector=jdet.check)
+    mp.delenv("DRIFT")
     config = RiskServiceConfig(batcher=BatcherConfig(batch_size=64, max_wait_ms=1.0))
     assembled = server.assemble_risk_service(
         config, ml_backend=backend, params=from_jax_params(backend, tree), feature_store=tstore,
@@ -69,20 +80,24 @@ def _boot(backend):
     tserver, _, tport = grpc_server.serve_risk(assembled.service, 0)
     channels = [grpc.insecure_channel(f"localhost:{p}") for p in (jport, tport)]
     stubs = [grpc_server.make_risk_stub(c) for c in channels]
+    assert assembled.service.drift is not None and assembled.engine.drift is not None
     return {"stubs": stubs, "service": assembled.service, "abuse_accounts": abuse_accounts,
             "close": lambda: ([c.close() for c in channels], jserver.stop(0), tserver.stop(0),
-                              jengine.close(), assembled.engine.close())}
+                              jengine.close(), assembled.engine.close(),
+                              assembled.service.close())}
 
 
 @pytest.fixture(scope="module")
 def services(request):
     with pytest.MonkeyPatch.context() as mp:
-        for knob in ("SLO", "DRIFT", "RUNTIME_TELEMETRY"):  # the JAX planes the port has not
+        for knob in ("SLO", "DRIFT", "RUNTIME_TELEMETRY"):  # JAX planes, off for its service
             mp.setenv(knob, "0")
         mp.setenv("WIRE_MODE", "index")
+        backend, _, wire = request.param.partition("/")
+        mp.setenv("WIRE_DTYPE", wire or "float32")
         pin_jax_clock(mp)
         mp.setattr(jax_device_cache, "time", types.SimpleNamespace(time=lambda: T0))
-        booted = _boot(request.param)
+        booted = _boot(backend, mp)
         yield request.param, booted
         booted["close"]()
 
@@ -180,9 +195,13 @@ def _exchanges(accounts):
 
 
 @pytest.mark.parametrize("services,transport", [("mock", "grpc"), ("mlp+gbdt", "grpc"),
-                                                ("mlp+gbdt", "bytes")], indirect=["services"])
+                                                ("mlp+gbdt", "bytes"), ("mlp+gbdt/bf16", "bytes"),
+                                                ("mlp+gbdt/int8", "bytes")],
+                         indirect=["services"])
 def test_port_answers_as_the_jax_server(services, transport):
     backend, booted = services
+    wire_bytes = {"": 4, "bf16": 2, "int8": 1}[backend.partition("/")[2]]
+    assert booted["service"].engine._wire_dtype.itemsize == wire_bytes
     jstub, tstub = booted["stubs"]
     codes = []
     for i, (method, msg) in enumerate(_exchanges(booted["abuse_accounts"])):
@@ -274,3 +293,98 @@ def test_index_mode_sidecar_pages(monkeypatch):
     finally:
         for srv in servers:
             srv.shutdown(grace=1.0)
+
+
+def _keys(tree):
+    """The nested key structure of a JSON payload (dicts by key, lists by
+    their first element)."""
+    if isinstance(tree, dict):
+        return {k: _keys(v) for k, v in tree.items()}
+    if isinstance(tree, list) and tree:
+        return [_keys(tree[0])]
+    return None
+
+
+def test_drift_and_shadow_sidecar_pages(monkeypatch, tmp_path):
+    """/debug/driftz and /debug/shadowz against the JAX server's payloads'
+    keys, after traffic and a pinned reference; POST /debug/driftz pins,
+    saves and loads; the pages 404 without a drift engine or a shadow; the
+    shutdown drains and closes the drift engine."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from igaming_platform_tpu.core.config import ScoringConfig as JScoringConfig
+    from igaming_platform_tpu.obs import drift as jdrift
+    from igaming_platform_tpu.serve.shadow import ShadowScorer as JShadowScorer
+    from igaming_platform_tpu_torch.obs import drift as tdrift
+    from igaming_platform_tpu_torch.serve.feature_store import InMemoryFeatureStore
+    from igaming_platform_tpu_torch.serve.shadow import ShadowScorer
+
+    def call(port, path, body=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     data=None if body is None else json.dumps(body).encode(),
+                                     method="GET" if body is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as exc:
+            return exc.code, json.loads(exc.read())
+
+    monkeypatch.delenv("DRIFT", raising=False)
+    monkeypatch.setenv("DRIFT_MIN_ROWS", "10")
+    tree = jax_tree("mlp+gbdt")
+    config = RiskServiceConfig(batcher=BatcherConfig(batch_size=64, max_wait_ms=1.0))
+    srv = server.RiskServer(server.assemble_risk_service(
+        config, ml_backend="mlp+gbdt", params=from_jax_params("mlp+gbdt", tree),
+        feature_store=InMemoryFeatureStore(clock=lambda: T0), device="cpu"),
+        grpc_port=-1, http_port=0)
+    jde = jdrift.DriftEngine(jdrift.DriftConfig(min_rows=10))
+    jsh = JShadowScorer(types.SimpleNamespace(config=JScoringConfig(), ml_backend="mlp+gbdt",
+                                              params_fingerprint="f"), tree)
+    try:
+        port, drift = srv.http_port, srv.service.drift
+        assert call(port, "/debug/shadowz")[0] == 404
+        txs = [risk_pb2.ScoreTransactionRequest(**r) for r in requests(10, 90, N_ACCOUNTS)]
+        payload = risk_pb2.ScoreBatchRequest(transactions=txs).SerializeToString()
+        srv.service.call("ScoreBatch", payload)
+        assert drift.drain(10.0)
+        assert call(port, "/debug/driftz", {"action": "save", "path": "x"})[0] == 400
+        assert call(port, "/debug/driftz", {"action": "nope"})[0] == 400
+        status, pinned = call(port, "/debug/driftz", {"action": "pin_reference"})
+        assert status == 200 and pinned["ok"] and pinned["reference"]["rows"] == 90
+        path = str(tmp_path / "ref.json")
+        assert call(port, "/debug/driftz", {"action": "save", "path": path})[0] == 200
+        assert jdrift.DriftReference.load(path).fingerprint() == pinned["reference"]["fingerprint"]
+        assert call(port, "/debug/driftz", {"action": "load", "path": path})[0] == 200
+        srv.engine.shadow = ShadowScorer(srv.engine, from_jax_params("mlp+gbdt", tree))
+        srv.service.call("ScoreBatch", payload)
+        assert drift.drain(10.0) and srv.engine.shadow.drain(10.0)
+        status, driftz = call(port, "/debug/driftz")
+        assert status == 200 and driftz["window"]["rows"] == 180
+        x = _raw_batch(48, 90)
+        jde.submit(jdrift.np_sketch(x, np.zeros(90), np.ones(90)), 90)
+        assert jde.drain(10.0)
+        jde.pin_reference()
+        assert _keys(driftz) == _keys(json.loads(json.dumps(jde.snapshot())))
+        status, shadowz = call(port, "/debug/shadowz")
+        assert status == 200 and shadowz["shadow"]["window"]["rows"] == 90
+        assert shadowz["shadow"]["window"]["action_flips"] == 0  # the candidate is production
+        assert _keys(shadowz) == _keys({"shadow": json.loads(json.dumps(jsh.report()))})
+    finally:
+        jde.close()
+        jsh.close()
+        shadow = srv.engine.shadow
+        srv.shutdown(grace=1.0)
+        if shadow is not None:
+            shadow.close()
+    assert tdrift.get_default() is None and srv.service.drift is None
+    monkeypatch.setenv("DRIFT", "0")
+    off = server.RiskServer(server.assemble_risk_service(
+        config, feature_store=InMemoryFeatureStore(clock=lambda: T0), device="cpu"),
+        grpc_port=-1, http_port=0)
+    try:
+        assert call(off.http_port, "/debug/driftz")[0] == 404
+        assert call(off.http_port, "/debug/driftz", {"action": "pin_reference"})[0] == 404
+    finally:
+        off.shutdown(grace=1.0)

@@ -102,17 +102,17 @@ def _ring_state(rng, capacity: int, n: int):
     return ring, cursor, length
 
 
-@pytest.mark.parametrize("backend", ["mock", "mlp+gbdt"])
-@pytest.mark.parametrize("head", ["pattern", "transformer"])
-def test_session_step_matches_jax(head, backend):
+def _step_case(head, backend):
+    """One fused-step case: a ring with wrapped cursors, 33 real rows (slot 3
+    nine times, more than the ring's 6; slots 5 and 7 twice; the rest once)
+    and 7 pad rows on the scratch slot; the JAX step's arguments and the
+    port's."""
     rng = np.random.default_rng(len(head) + len(backend))
     capacity, n_ev, min_ev, shape = 12, 6, 3, 40
     thr = THRESHOLDS[head]
     ring, cursor, length = _ring_state(rng, capacity, n_ev)
     table = _raw_batch(5, capacity)
     flags = rng.random(capacity) < 0.2
-    # 33 real rows: slot 3 nine times (more than the ring's 6), slots 5 and 7
-    # twice, the rest once; 7 pad rows on the scratch slot.
     sidx_real = rng.permutation(np.concatenate([np.full(9, 3), [5, 5, 7, 7],
                                                 rng.choice([0, 1, 2, 4, 6, 8, 9, 10, 11], 20)]))
     n = sidx_real.shape[0]
@@ -138,17 +138,6 @@ def test_session_step_matches_jax(head, backend):
     thresholds = np.array([70, 40], np.int32)
     jhead, jsp, thead, tsp = _heads(head)
     tree = jax_tree(backend)
-
-    jstep = jss.make_session_step(jmake_score_fn(JScoringConfig(), backend), JScoringConfig(),
-                                  jhead, capacity=capacity, n_events=n_ev, min_events=min_ev,
-                                  flag_threshold=thr)
-    jout = jax.jit(jstep)(tree, jsp, table, flags, ring, cursor, length, idxs, sidx, occ, amounts, types,
-                 events, bl, thresholds)
-    want, jring, jcur, jlen = (np.asarray(a) for a in jout)
-
-    tstep = tss.make_session_step(make_score_fn(ScoringConfig(), backend, device="cpu"),
-                                  ScoringConfig(), thead, capacity=capacity, n_events=n_ev,
-                                  min_events=min_ev, flag_threshold=thr)
     t = {k: torch.from_numpy(v.copy()) for k, v in
          (("ring", ring), ("cur", cursor), ("len", length))}
     cast = {"idxs": idxs, "sidx": sidx}
@@ -156,27 +145,88 @@ def test_session_step_matches_jax(head, backend):
         torch.from_numpy(a) for a in (occ, amounts, types, events, bl)]
     app = torch.from_numpy(tss.surviving_appends(sidx_real, occ_real, n_ev))
     assert app.numel() == n - 3  # three of slot 3's nine writes are overwritten
-    params = from_jax_params(backend, tree) if tree else None
+    step_kw = dict(capacity=capacity, n_events=n_ev, min_events=min_ev, flag_threshold=thr)
+    return {
+        "n": n, "thr": thr, "min_ev": min_ev, "n_ev": n_ev, "sidx": sidx, "tree": tree,
+        "jhead": jhead, "jsp": jsp, "thead": thead, "tsp": tsp, "step_kw": step_kw,
+        "jargs": (tree, jsp, table, flags, ring, cursor, length, idxs, sidx, occ, amounts,
+                  types, events, bl, thresholds),
+        "targs": (from_jax_params(backend, tree) if tree else None, tsp,
+                  torch.from_numpy(table), torch.from_numpy(flags), t["ring"], t["cur"],
+                  t["len"], *args, torch.from_numpy(thresholds), app),
+        "ring": ring, "cursor": cursor, "length": length, "events": events, "t": t, "args": args,
+    }
+
+
+@pytest.mark.parametrize("backend", ["mock", "mlp+gbdt"])
+@pytest.mark.parametrize("head", ["pattern", "transformer"])
+def test_session_step_matches_jax(head, backend):
+    c = _step_case(head, backend)
+    thr, n_ev, min_ev, sidx = c["thr"], c["n_ev"], c["min_ev"], c["sidx"]
+    jhead, jsp, thead, tsp = c["jhead"], c["jsp"], c["thead"], c["tsp"]
+    jstep = jss.make_session_step(jmake_score_fn(JScoringConfig(), backend), JScoringConfig(),
+                                  jhead, **c["step_kw"])
+    jout = jax.jit(jstep)(*c["jargs"])
+    want, jring, jcur, jlen = (np.asarray(a) for a in jout)
+
+    tstep = tss.make_session_step(make_score_fn(ScoringConfig(), backend, device="cpu"),
+                                  ScoringConfig(), thead, **c["step_kw"])
+    t, args = c["t"], c["args"]
     with torch.inference_mode():
         # The windows and the head's probability, before the step appends.
-        jwin, jlp = jss.build_windows(ring, cursor, length, sidx, events, n_ev)
+        jwin, jlp = jss.build_windows(c["ring"], c["cursor"], c["length"], sidx, c["events"],
+                                      n_ev)
         twin, tlp = tss.build_windows(t["ring"], t["cur"], t["len"], args[1], args[5], n_ev)
         np.testing.assert_array_equal(twin.numpy(), np.asarray(jwin))
         np.testing.assert_array_equal(tlp.numpy(), np.asarray(jlp))
         jprob = np.asarray(jhead(jsp, jwin, jlp), np.float32)
         tprob = thead(tsp, twin, tlp).numpy()
         np.testing.assert_allclose(tprob, jprob, rtol=0, atol=SPROB_ATOL)
-        packed, ring2, cur2, len2 = tstep(params, tsp, torch.from_numpy(table),
-                                          torch.from_numpy(flags), t["ring"], t["cur"], t["len"],
-                                          *args, torch.from_numpy(thresholds), app)
+        packed, ring2, cur2, len2 = tstep(*c["targs"])
     assert ring2 is t["ring"] and cur2 is t["cur"] and len2 is t["len"]  # in place
     np.testing.assert_array_equal(ring2.numpy(), jring)
     np.testing.assert_array_equal(cur2.numpy(), jcur)
     np.testing.assert_array_equal(len2.numpy(), jlen)
-    warm = (jlp >= min_ev) & (sidx < capacity)
+    warm = (jlp >= min_ev) & (sidx < c["step_kw"]["capacity"])
     assert 0 < int((warm & (jprob >= thr)).sum()) < int(warm.sum())  # some rows fold, some not
     near = np.abs(jprob - thr) < 1e-4
     assert_session_outputs_match(_unpack(packed), _unpack(want), near, f"{head}/{backend}")
+
+
+@pytest.mark.parametrize("head", ["pattern", "transformer"])
+def test_session_step_sketch_and_shadow_variants_match_jax(head):
+    """``make_session_step(sketch=True, shadow=True)``: the sketch of the
+    composed rows and the candidate's packed result (folded with the same
+    head result) against the JAX variant's; production's result and the
+    ring as the plain step's."""
+    from test_torch_drift import assert_sketch_equal
+
+    backend = "mlp+gbdt"
+    c = _step_case(head, backend)
+    cand_tree = jax_tree("mlp+gbdt")
+    cand_tree["gbdt"] = dict(cand_tree["gbdt"], bias=np.float32(0.4))
+    cand_tree["mlp"] = {"layers": [dict(layer, b=layer["b"] + np.float32(0.05))
+                                   for layer in cand_tree["mlp"]["layers"]]}
+    n = c["n"]
+    jstep = jss.make_session_step(jmake_score_fn(JScoringConfig(), backend), JScoringConfig(),
+                                  c["jhead"], sketch=True, shadow=True, **c["step_kw"])
+    jout = [np.asarray(a) for a in jax.jit(jstep)(*c["jargs"], cand_tree, np.int32(n))]
+    tstep = tss.make_session_step(make_score_fn(ScoringConfig(), backend, device="cpu"),
+                                  ScoringConfig(), c["thead"], sketch=True, shadow=True,
+                                  **c["step_kw"])
+    with torch.inference_mode():
+        tout = tstep(*c["targs"], from_jax_params(backend, cand_tree), n)
+    assert len(tout) == len(jout) == 6
+    for name, got, want in zip(("ring", "cursor", "length"), tout[1:4], jout[1:4]):
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+    jwin, jlp = jss.build_windows(c["ring"], c["cursor"], c["length"], c["sidx"], c["events"],
+                                  c["n_ev"])
+    near = np.abs(np.asarray(c["jhead"](c["jsp"], jwin, jlp), np.float32) - c["thr"]) < 1e-4
+    assert_session_outputs_match(_unpack(tout[0]), _unpack(jout[0]), near, f"{head} production")
+    assert_session_outputs_match(_unpack(tout[5]), _unpack(jout[5]), near, f"{head} shadow")
+    assert not np.array_equal(tout[5].numpy(), tout[0].numpy())  # the candidate differs
+    assert_sketch_equal(tout[4].numpy(), jout[4], f"{head} sketch")
+    assert tout[4][0] == n
 
 
 def test_prepare_chunk_and_audit_match_jax():
