@@ -122,6 +122,12 @@ FOREST_CHECK_SHAPES = ((5, 1, 3, 30), (33, 8, 100, 30), (7, 9, 70, 30), (40, 12,
                        (2000, 2, 1000, 30))
 # Forests whose kernel time torch.profiler also reads, at these B.
 PROFILE_B = (256, 4096)
+# Batch invariance (phase 3): the leading B rows of a full batch, launched
+# alone, must give the bits of the same rows inside the full batch's launch:
+# for the forest kernel at these forests (whose launch plans differ by B),
+# asserted; for the packed step of an mlp and an mlp+gbdt engine at the
+# ladder's shapes, counted (cuBLAS picks its algorithm by M).
+INVARIANCE_FORESTS, INVARIANCE_B = ((64, 4), (600, 4), (1000, 6)), (1, 256, 2048)
 N_FEATURES = 30
 SERVE_TREES, SERVE_DEPTH, SERVE_HIDDEN = 64, 4, (128, 128)
 # Phase 4's second engine: the gbdt backend with a production-sized forest.
@@ -219,6 +225,17 @@ INDEX_SAMPLED_WINDOWS = 100
 # moments are float32 sums in another order on the card: rtol 1e-4.
 VARIANT_RPCS, VARIANT_SINGLES, VARIANT_FRAMES, VARIANT_TURN_RPCS = 5, 200, 2, 5
 CALIBRATION_ROWS, MAX_VARIANT_BOUNDARY, MOMENT_RTOL = 4096, 10, 1e-4
+# The decision ledger and replay (phase 10), on phase 7's store. Engine L:
+# mlp+gbdt with an MLP of SERVE_HIDDEN and a LARGE_ENGINE_FOREST forest,
+# LEDGER_DIR set, takes LEDGER_SINGLES ScoreTransaction RPCs, SERVER_BATCHES
+# ScoreBatch RPCs of SERVER_BATCH_ROWS rows, one score_batch of
+# LEDGER_DIRECT requests, then a swap to a second tree and
+# LEDGER_AFTER_SWAP more ScoreBatch RPCs, the ledger flushed after each.
+# Engine A of phase 8, with a ledger of its own, takes LEDGER_INDEX_ROUNDS
+# large IDX1 frames and the first round's INDEX_CYCLERS one-row frames.
+# Then phase 7's engine in turns, its ledger unbound and bound,
+# VARIANT_TURN_RPCS RPCs a turn.
+LEDGER_SINGLES, LEDGER_DIRECT, LEDGER_AFTER_SWAP, LEDGER_INDEX_ROUNDS = 500, 1000, 2, 3
 # Spin cycles queued before each timed call, so the card is still busy
 # while the host enqueues the call: the events then bracket device work only.
 SLEEP_CYCLES = 4_000_000
@@ -422,12 +439,65 @@ def phase_kernels(torch, gbdt_kernel, forests=KERNEL_FORESTS, large=LARGE_FOREST
     return rows
 
 
+def differing_rows(bits, x: np.ndarray, sizes=INVARIANCE_B) -> dict[int, int]:
+    """Per B of ``sizes``: how many rows of ``bits(x[:B])`` differ in any bit
+    from the same rows of ``bits(x)``; ``bits`` gives an int32 [rows, k]."""
+    full = bits(x)
+    return {b: int((bits(x[:b]) != full[:b]).any(axis=1).sum()) for b in sizes}
+
+
+def phase_batch_invariance(torch, gbdt_kernel) -> dict:
+    """A row's answer must not depend on the batch it rides in. The forest
+    kernel at INVARIANCE_FORESTS over a seeded 4096-row batch: the leading
+    1, 256 and 2048 rows launched alone against the same rows of the full
+    launch, 0 differing rows asserted. Then the packed step (``_launch``,
+    the engine's own padding to a ladder shape) of an mlp and an mlp+gbdt
+    engine (MLP 128x128, forest 1,000 x 6) the same way: counted, not
+    asserted."""
+    from igaming_platform_tpu_torch.convert import from_jax_params
+    from igaming_platform_tpu_torch.core.config import BatcherConfig
+    from igaming_platform_tpu_torch.serve.scorer import RESULT_KEYS, TorchScoringEngine
+
+    rng = np.random.default_rng(9)
+    out = {"forest": {}, "engine": {}}
+    for n_trees, depth in INVARIANCE_FORESTS:
+        x, *forest = forest_case(torch, rng, n_trees, depth, BATCH_SIZE)
+        diffs = differing_rows(lambda xb: gbdt_kernel.gbdt_forest(xb, *forest).view(
+            torch.int32).cpu().numpy()[:, None], x)
+        out["forest"][f"{n_trees}x{depth}"] = diffs
+        log(f"phase 3: batch invariance, gbdt_forest T={n_trees} D={depth}: rows differing "
+            f"from the B={BATCH_SIZE} launch {json.dumps(diffs)}")
+        if any(diffs.values()):
+            raise AssertionError(f"gbdt_forest T={n_trees} D={depth}: a row's margin depends "
+                                 f"on its batch: {diffs}")
+    tree = {"mlp": mlp_tree(rng, SERVE_HIDDEN), "gbdt": forest_tree(rng, *LARGE_ENGINE_FOREST)}
+    x = (rng.random((BATCH_SIZE, N_FEATURES)) * 100.0).astype(np.float32)
+    bl = np.zeros((BATCH_SIZE,), dtype=bool)
+    for backend in ("mlp", "mlp+gbdt"):
+        engine = TorchScoringEngine(
+            ml_backend=backend, device="cuda", params=from_jax_params(backend, tree),
+            batcher_config=BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS))
+        try:
+            params = engine.get_params()
+
+            def bits(xb):
+                h = engine._readback(engine._launch(xb, bl[:xb.shape[0]], params))
+                return np.stack([h[k].view(np.int32) for k in RESULT_KEYS], axis=1)
+
+            out["engine"][backend] = diffs = differing_rows(bits, x)
+        finally:
+            engine.close()
+        log(f"phase 3: batch invariance, {backend} packed step at shapes "
+            f"{[engine._pick_shape(b) for b in INVARIANCE_B]}: rows differing from the "
+            f"B={BATCH_SIZE} step {json.dumps(diffs)}")
+    return out
+
+
 def forest_plan_sweep(torch, gbdt_kernel, shapes=((64, 4, 256), (64, 4, 4096), (600, 4, 256),
                                                   (600, 4, 4096), (1000, 6, 256),
                                                   (1000, 6, 4096), (256, 10, 256),
                                                   (256, 10, 4096)),
-                      rows=(32, 64), groups=(4, 8, 16, 32),
-                      clusters=(1, 2, 4, 8)) -> list[dict]:
+                      rows=(32, 64), clusters=(1, 2, 4, 8)) -> list[dict]:
     """Back-to-back time of the forest kernel under launch plans other than
     ``launch_plan``'s (``plan_for``), through its C entry point, each held
     to the plain version in float64: for tuning the plan, not part of
@@ -442,8 +512,8 @@ def forest_plan_sweep(torch, gbdt_kernel, shapes=((64, 4, 256), (64, 4, 4096), (
                                              bias.double())
         y = torch.empty(b, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
-        for r, cl, g in itertools.product(rows, clusters, groups):
-            plan = gbdt_kernel.plan_for(b, N_FEATURES, n_trees, depth, r, g, cl)
+        for r, cl in itertools.product(rows, clusters):
+            plan = gbdt_kernel.plan_for(b, N_FEATURES, n_trees, depth, r, cl)
             if plan.shared_bytes > gbdt_kernel.MAX_SHARED_BYTES:
                 continue
 
@@ -451,7 +521,8 @@ def forest_plan_sweep(torch, gbdt_kernel, shapes=((64, 4, 256), (64, 4, 4096), (
                 if lib.gbdt_forest_launch(x.data_ptr(), feat.data_ptr(), thr.data_ptr(),
                                           leaves.data_ptr(), bias.data_ptr(), y.data_ptr(), b,
                                           N_FEATURES, n_trees, depth, plan.rows, plan.groups,
-                                          plan.chunk, plan.cluster, plan.span, stream):
+                                          plan.chunk, plan.cluster, plan.span,
+                                          plan.tree_block, stream):
                     raise RuntimeError(f"gbdt_forest: launch refused: {plan}")
 
             run()
@@ -464,6 +535,85 @@ def forest_plan_sweep(torch, gbdt_kernel, shapes=((64, 4, 256), (64, 4, 4096), (
                    "b2b_ms": device_ms_b2b(torch, run)}
             out.append(row)
             log(f"plan sweep: {json.dumps(row)}")
+    return out
+
+
+def load_forest_module(parent: str):
+    """The forest kernel of another checkout at ``parent``: its
+    ``csrc/gbdt_forest.cu`` built with this tree's flags into
+    ``build/parent_forest/`` and its ``ops/gbdt_kernel.py`` loaded under
+    another name, launching that build."""
+    import ctypes
+    import importlib.util
+    from pathlib import Path
+
+    from igaming_platform_tpu_torch.ops import _build
+
+    root = Path(parent) / "igaming_platform_tpu_torch"
+    out = Path("build/parent_forest")
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / "libgbdt_forest_parent.so"
+    built = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
+                            str(root / "csrc" / "gbdt_forest.cu")], capture_output=True, text=True)
+    if built.returncode:
+        raise RuntimeError(f"parent forest kernel build failed:\n{built.stdout}{built.stderr}")
+    spec = importlib.util.spec_from_file_location("parent_gbdt_kernel",
+                                                  root / "ops" / "gbdt_kernel.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib = ctypes.CDLL(str(so))
+    load, _build.load = _build.load, (lambda name: lib)
+    try:
+        mod._lib()  # declares the parent's entry point signature on this library
+    finally:
+        _build.load = load
+    mod._lib = lambda: lib
+    return mod
+
+
+def forest_turns(parent: str, shapes=((64, 4, 1), (64, 4, 256), (64, 4, 2048), (64, 4, 4096),
+                                      (16, 3, 256), (16, 3, 4096), (600, 4, 1), (600, 4, 256),
+                                      (600, 4, 2048), (600, 4, 4096), (1000, 6, 1),
+                                      (1000, 6, 256), (1000, 6, 2048), (1000, 6, 4096),
+                                      (256, 10, 256), (256, 10, 4096))) -> dict:
+    """This tree's forest kernel against the one of the checkout at
+    ``parent`` (a ``git archive`` unpack), in one process: each kernel's
+    rows differing from its own full launch (``differing_rows``) at the
+    INVARIANCE_FORESTS and (256, 10), (16, 3); then at each (T, D, B) of
+    ``shapes`` both timed in turns (parent, change, change, parent) by one
+    event pair a call and back to back, and by the profiler at PROFILE_B.
+    Run it as ``python3 -c "import chip_smoke as c; c.forest_turns('dir')"``."""
+    import torch
+
+    from igaming_platform_tpu_torch.ops import gbdt_kernel
+
+    log(nvidia_smi_line())
+    kernels = (("parent", load_forest_module(parent)), ("change", gbdt_kernel))
+    rng = np.random.default_rng(9)
+    out = {"invariance": {}, "times": []}
+    for n_trees, depth in (*INVARIANCE_FORESTS, (256, 10), (16, 3)):
+        x, *forest = forest_case(torch, rng, n_trees, depth, BATCH_SIZE)
+        for name, mod in kernels:
+            diffs = differing_rows(lambda xb: mod.gbdt_forest(xb, *forest).view(
+                torch.int32).cpu().numpy()[:, None], x)
+            out["invariance"][f"{name} {n_trees}x{depth}"] = diffs
+            log(f"forest turns: {name} T={n_trees} D={depth}: rows differing from the "
+                f"B={BATCH_SIZE} launch {json.dumps(diffs)}")
+    for n_trees, depth, b in shapes:
+        args = forest_case(torch, rng, n_trees, depth, b)
+        row = {"T": n_trees, "D": depth, "B": b, "parent": [], "change": [],
+               "plan": gbdt_kernel.launch_plan(b, N_FEATURES, n_trees, depth,
+                                               gbdt_kernel._sm_count(0))._asdict()}
+        for name, mod in (kernels[0], kernels[1], kernels[1], kernels[0]):
+            run = lambda: mod.gbdt_forest(*args)  # noqa: E731
+            row[name].append({"per_pair_ms": device_ms(torch, run),
+                              "back_to_back_ms": device_ms_b2b(torch, run)})
+        for name, mod in kernels:
+            row[f"{name}_profiler_ms"] = (profiled_kernel_ms(
+                torch, lambda: mod.gbdt_forest(*args), "gbdt_forest_kernel")
+                if b in PROFILE_B else None)
+        out["times"].append(row)
+        log(f"forest turns: {json.dumps(row)}")
     return out
 
 
@@ -1678,16 +1828,16 @@ def phase_server(torch, card: str, gbdt_kernel, fa, filled: tuple) -> dict:
     return result
 
 
-def index_traffic_a(wire, rng) -> list[tuple[float, bytes, bool]]:
+def index_traffic_a(wire, rng, rounds: int = INDEX_ROUNDS) -> list[tuple[float, bytes, bool]]:
     """Engine A's frames in order, each with the store clock it is sent at
-    and whether it is a large frame: per round, one frame of
+    and whether it is a large frame: per round (``rounds``), one frame of
     SERVER_BATCH_ROWS rows (hot-set rows, and each cycler's bet), then one
     one-row frame per cycler (its deposit) INDEX_STEP_S later."""
     accounts = rng.permutation(SERVER_ACCOUNTS)
     cyclers, hot = accounts[:INDEX_CYCLERS], accounts[INDEX_CYCLERS:INDEX_CYCLERS + INDEX_HOT]
     cycler_amount = rng.integers(1_000, 200_000, INDEX_CYCLERS)
     frames = []
-    for r in range(INDEX_ROUNDS):
+    for r in range(rounds):
         t = SERVER_NOW + 2 * INDEX_STEP_S * (r + 1)
         n = SERVER_BATCH_ROWS
         ids = hot[rng.integers(0, INDEX_HOT, n)]
@@ -2482,6 +2632,304 @@ def phase_variants(torch, card: str, gbdt_kernel, fa, store, device: str = "cuda
     return result
 
 
+def snapshot_rows(ledger_mod, directory: str) -> dict[str, int]:
+    """Rows of a WAL that carry a feature snapshot, by wire mode (path)."""
+    out: dict[str, int] = {}
+    for rec in ledger_mod.iter_records(directory):
+        if rec.features is not None:
+            out[rec.wire_mode] = out.get(rec.wire_mode, 0) + 1
+    return out
+
+
+def timed_replay(replay, directory: str, device: str) -> tuple[dict, float]:
+    t = time.perf_counter()
+    verdict = replay.replay_directory(directory, batch=BATCH_SIZE, tiers=LATENCY_TIERS,
+                                      device=device)
+    return verdict, time.perf_counter() - t
+
+
+def ledger_engine_l(torch, gbdt_kernel, store, directory: str, device: str) -> dict:
+    """Engine L through ``assemble_risk_service`` with ``LEDGER_DIR`` set and
+    its sidecar bound: ScoreTransaction RPCs (the batcher at small shapes,
+    each answer's ``risk-decision-id`` checked), ScoreBatch RPCs (the host
+    pipeline), one ``score_batch``, a swap with both trees in the params
+    vault, more ScoreBatch RPCs; the ledger flushed after each, no row
+    dropped. Then the WAL replayed on ``device`` and, on a card, on the CPU
+    (its mismatches counted, not asserted)."""
+    import os
+
+    from igaming_platform_tpu_torch.convert import from_jax_params
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.serve import ledger as ledger_mod
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+    from igaming_platform_tpu_torch.serve import server
+    from igaming_platform_tpu_torch.serve.scorer import ScoreRequest
+    from igaming_platform_tpu_torch.tools import replay
+    from igaming_platform_tpu_torch.train.promote import vault_save
+
+    rng = np.random.default_rng(26)
+    params = [from_jax_params("mlp+gbdt", {"mlp": mlp_tree(rng, SERVE_HIDDEN),
+                                           "gbdt": forest_tree(rng, *LARGE_ENGINE_FOREST)})
+              for _ in range(2)]
+    fps = [vault_save(os.path.join(directory, "params-vault"), p, "mlp+gbdt") for p in params]
+    singles = [codec.encode(codec.SCORE_TRANSACTION_REQUEST, r)
+               for r in server_requests(codec, rng, LEDGER_SINGLES)]
+    batches = [codec.encode(codec.SCORE_BATCH_REQUEST,
+                            {"transactions": server_requests(codec, rng, SERVER_BATCH_ROWS)})
+               for _ in range(SERVER_BATCHES + LEDGER_AFTER_SWAP)]
+    direct = [ScoreRequest(account_id=r["account_id"], amount=r["amount"],
+                           tx_type=r["transaction_type"], ip=r["ip_address"],
+                           device_id=r["device_id"])
+              for r in server_requests(codec, rng, LEDGER_DIRECT)]
+    os.environ["LEDGER_DIR"] = directory
+    try:
+        assembled = server.assemble_risk_service(
+            RiskServiceConfig(batcher=BatcherConfig(batch_size=BATCH_SIZE,
+                                                    latency_tiers=LATENCY_TIERS, max_wait_ms=2.0)),
+            ml_backend="mlp+gbdt", params=params[0], feature_store=store, device=device)
+    finally:
+        os.environ.pop("LEDGER_DIR")
+    srv = server.RiskServer(assembled, grpc_port=-1, http_port=0)
+    engine, svc, led = assembled.engine, assembled.service, assembled.ledger
+    try:
+        if engine.params_fingerprint != fps[0] or engine.ledger is not led:
+            raise AssertionError("ledger L: the vault's fingerprint or the ledger's binding")
+        engine._ensure_pipeline()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        # The path's run: counts set to 0 just before, read just after.
+        gbdt_kernel.gbdt_forest.launches = 0
+        steps0 = engine.device_steps
+        t0 = time.perf_counter()
+        ids = []
+        for payload in singles:
+            ids.append(dict(svc.call_with_trailing("ScoreTransaction", payload)[1]).get(
+                "risk-decision-id", ""))
+            led.flush(30.0)
+        for payload in batches[:SERVER_BATCHES]:
+            svc.call("ScoreBatch", payload)
+            led.flush(30.0)
+        responses = engine.score_batch(direct)
+        led.flush(30.0)
+        engine.swap_params(params[1])
+        for payload in batches[SERVER_BATCHES:]:
+            svc.call("ScoreBatch", payload)
+            led.flush(30.0)
+        run_s = time.perf_counter() - t0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches, steps = gbdt_kernel.gbdt_forest.launches, engine.device_steps - steps0
+        stats = led.stats()
+        ledgerz = http_call(srv.http_port, "/debug/ledgerz")
+    finally:
+        srv.shutdown(grace=5.0)
+    rows = (LEDGER_SINGLES + LEDGER_DIRECT
+            + SERVER_BATCH_ROWS * (SERVER_BATCHES + LEDGER_AFTER_SWAP))
+    if device == "cuda" and (steps == 0 or launches != steps):
+        raise AssertionError(f"ledger L: {steps} device steps but {launches} forest launches")
+    if (stats["records_dropped"] or stats["records_appended"] != rows
+            or ledgerz[0] != 200 or ledgerz[1]["records_appended"] != rows):
+        raise AssertionError(f"ledger L: {rows} rows answered, ledger {stats}")
+    if not all(ids) or len(set(ids)) != LEDGER_SINGLES or not all(r.decision_id for r in responses):
+        raise AssertionError("ledger L: an answer without its decision id")
+    by_path = snapshot_rows(ledger_mod, directory)
+    verdict, replay_s = timed_replay(replay, directory, device)
+    if not (verdict["ok"] and verdict["mismatches"] == 0
+            and verdict["params_fingerprint_mismatch"] == 0
+            and verdict["replayed"] == sum(by_path.values()) == rows
+            and set(verdict["replayed_by_params_fp"]) == set(fps)):
+        raise AssertionError(f"ledger L: replay {json.dumps(verdict)[:2000]}")
+    cpu = None
+    if device == "cuda":
+        cpu, _ = timed_replay(replay, directory, "cpu")
+    return {"rows": rows, "snapshot_rows_by_path": by_path, "run_s": run_s,
+            "device_steps": steps, "forest_launches": launches, "ledger": stats,
+            "fingerprints": fps, "replay": {k: verdict[k] for k in (
+                "ok", "records_total", "replayed", "replayed_by_params_fp", "mismatches",
+                "params_fingerprint_mismatch", "device")},
+            "replay_s": replay_s, "replay_records_per_s": verdict["records_total"] / replay_s,
+            "cpu_replay_mismatches": None if cpu is None else cpu["mismatches"],
+            "cpu_replay_ok": None if cpu is None else cpu["ok"]}
+
+
+def ledger_engine_a(torch, gbdt_kernel, fa, store, directory: str, device: str) -> dict:
+    """Engine A of phase 8 (index mode, the transformer session head) with
+    ``LEDGER_DIR`` set: LEDGER_INDEX_ROUNDS large IDX1 frames and the first
+    round's one-row frames, the ledger flushed after each; then its WAL
+    replayed on ``device``: every session row's window rebuilt from the
+    ledger's order and its hash verified."""
+    import os
+
+    from igaming_platform_tpu_torch.convert import from_jax_params
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.serve import server, wire
+    from igaming_platform_tpu_torch.tools import replay
+
+    rng = np.random.default_rng(27)
+    frames = index_traffic_a(wire, rng, LEDGER_INDEX_ROUNDS)
+    frames = [f for i, f in enumerate(frames) if f[2] or i <= INDEX_CYCLERS]
+    knobs = {"WIRE_MODE": "index", "SESSION_STATE": "1", "SESSION_HEAD": "transformer",
+             "SESSION_FLAG_THRESHOLD": str(INDEX_A_THRESHOLD), "LEDGER_DIR": directory}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:  # the session plane reads its knobs when ensure_cache builds it
+        assembled = server.assemble_risk_service(
+            RiskServiceConfig(batcher=BatcherConfig(batch_size=BATCH_SIZE,
+                                                    latency_tiers=LATENCY_TIERS, max_wait_ms=2.0)),
+            ml_backend="mlp+gbdt", params=from_jax_params("mlp+gbdt", server_tree(27)),
+            feature_store=store, device=device, feature_cache=INDEX_A_CAPACITY, warmup=False)
+        assembled.engine.ensure_cache()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    srv = server.RiskServer(assembled, grpc_port=-1, http_port=0)
+    engine, svc, led = assembled.engine, assembled.service, assembled.ledger
+    try:
+        if engine.session.head != "transformer":
+            raise AssertionError(f"ledger A: session head {engine.session.head}")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        # The path's run: counts set to 0 just before, read just after.
+        gbdt_kernel.gbdt_forest.launches = 0
+        fa.flash_attention_fwd.launches = 0
+        steps0 = engine.device_steps
+        for t, frame, _large in frames:
+            STORE_CLOCK[0] = t
+            svc.call("ScoreBatch", frame)
+            led.flush(30.0)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        steps = engine.device_steps - steps0
+        forest, forwards = gbdt_kernel.gbdt_forest.launches, fa.flash_attention_fwd.launches
+        stats = led.stats()
+    finally:
+        STORE_CLOCK[0] = SERVER_NOW
+        srv.shutdown(grace=5.0)
+    rows = sum(wire.decode_index_batch(f)[1].size for _, f, _ in frames)
+    if device == "cuda" and (steps == 0 or forest != steps or forwards != steps):
+        raise AssertionError(f"ledger A: {steps} device steps, {forest} forest launches, "
+                             f"{forwards} forward launches")
+    if stats["records_dropped"] or stats["records_appended"] != rows:
+        raise AssertionError(f"ledger A: {rows} rows answered, ledger {stats}")
+    verdict, replay_s = timed_replay(replay, directory, device)
+    if not (verdict["ok"] and verdict["session_ok"]
+            and verdict["session_verified"] == verdict["session_records"] == rows
+            and verdict["skipped_no_snapshot"] == rows):
+        raise AssertionError(f"ledger A: replay {json.dumps(verdict)[:2000]}")
+    return {"rows": rows, "frames": len(frames), "device_steps": steps,
+            "forest_launches": forest, "forward_launches": forwards, "ledger": stats,
+            "replay": {k: verdict[k] for k in ("ok", "records_total", "session_records",
+                                                "session_verified", "session_chain_gaps",
+                                                "session_resets", "session_ok", "device")},
+            "replay_s": replay_s, "replay_records_per_s": verdict["records_total"] / replay_s}
+
+
+def ledger_turns(torch, store, directory: str, device: str) -> dict:
+    """Phase 7's engine (drift bound, as by default) in turns, its ledger
+    unbound and bound, order off, on, on, off, VARIANT_TURN_RPCS ScoreBatch
+    RPCs of SERVER_BATCH_ROWS rows a turn (rows/s), the ledger left to
+    catch up between turns, off the clock; then the writer's counts, which
+    must add up to the rows noted, its fsync p99 and the WAL's bytes a
+    record."""
+    from igaming_platform_tpu_torch.convert import from_jax_params
+    from igaming_platform_tpu_torch.core.config import BatcherConfig
+    from igaming_platform_tpu_torch.serve import grpc_server, scorer
+    from igaming_platform_tpu_torch.serve import ledger as ledger_mod
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+
+    rng = np.random.default_rng(28)
+    payloads = [codec.encode(codec.SCORE_BATCH_REQUEST,
+                             {"transactions": server_requests(codec, rng, SERVER_BATCH_ROWS)})
+                for _ in range(VARIANT_TURN_RPCS)]
+    engine = scorer.TorchScoringEngine(
+        ml_backend="mlp+gbdt", params=from_jax_params("mlp+gbdt", server_tree(22)),
+        batcher_config=BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS,
+                                     max_wait_ms=2.0), feature_store=store, device=device)
+    svc = grpc_server.RiskGrpcService(engine)
+    led = ledger_mod.DecisionLedger(directory)
+    turns = []
+    try:
+        svc.call("ScoreBatch", payloads[0])  # the pipeline's build, off the clock
+        for on in (False, True, True, False):
+            engine.ledger = led if on else None
+            rates = []
+            for payload in payloads:
+                t = time.perf_counter()
+                svc.call("ScoreBatch", payload)
+                rates.append(SERVER_BATCH_ROWS / (time.perf_counter() - t))
+            engine.ledger = None
+            turns.append({"ledger": on, "rows_per_s": rates, "catch_up_s": None})
+            if on:
+                t = time.perf_counter()
+                led.flush(120.0)
+                turns[-1]["catch_up_s"] = time.perf_counter() - t
+        stats = led.stats()
+    finally:
+        engine.close()
+        svc.close()
+        led.close()
+    noted = 2 * VARIANT_TURN_RPCS * SERVER_BATCH_ROWS
+    if stats["records_appended"] + stats["records_dropped"] != noted:
+        raise AssertionError(f"ledger turns: {noted} rows noted, ledger {stats}")
+    return {"turns": turns, "rows_noted": noted, "records_appended": stats["records_appended"],
+            "records_dropped": stats["records_dropped"], "fsync_p99_ms": stats["fsync_p99_ms"],
+            "fsync_count": stats["fsync_count"],
+            "wal_bytes_per_record": (stats["wal_bytes"] / stats["durable_records"]
+                                     if stats["durable_records"] else None)}
+
+
+def phase_ledger(torch, card: str, gbdt_kernel, fa, store, device: str = "cuda") -> dict:
+    """Phase 10, on phase 7's store: the decision ledger and replay. Engine L
+    (``ledger_engine_l``), engine A with a ledger (``ledger_engine_a``),
+    each WAL replayed bit-exact on the card, and the ledger's cost on phase
+    7's engine (``ledger_turns``). ``device="cpu"`` rehearses it without a
+    card (the launch checks and the CPU replay are then skipped)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-ledger-")
+    try:
+        lrun = ledger_engine_l(torch, gbdt_kernel, store, f"{root}/l", device)
+        arun = ledger_engine_a(torch, gbdt_kernel, fa, store, f"{root}/a", device)
+        turns = ledger_turns(torch, store, f"{root}/turns", device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result = {"engine_l": lrun, "engine_a": arun, "turns": turns,
+              "seconds": time.perf_counter() - t0}
+    rp = lrun["replay"]
+    log(f"phase 10: [{card}] engine L ({LARGE_ENGINE_FOREST[0]} x {LARGE_ENGINE_FOREST[1]} "
+        f"forest): {lrun['rows']} rows noted in {lrun['run_s']:.1f} s, none dropped; "
+        f"{lrun['device_steps']} device steps, {lrun['forest_launches']} forest launches; "
+        f"replay on {rp['device']}: ok={rp['ok']}, {rp['replayed']} of "
+        f"{rp['records_total']} records replayed ({json.dumps(lrun['snapshot_rows_by_path'])} "
+        f"with a snapshot), {rp['mismatches']} mismatches, "
+        f"{rp['params_fingerprint_mismatch']} fingerprint mismatches, by fingerprint "
+        f"{json.dumps(rp['replayed_by_params_fp'])}; {lrun['replay_records_per_s']:.0f} "
+        f"records/s; the same WAL replayed on the CPU: {lrun['cpu_replay_mismatches']} "
+        "mismatches (not asserted)")
+    ra = arun["replay"]
+    log(f"phase 10: [{card}] engine A ({arun['frames']} IDX1 frames): {arun['rows']} rows noted, "
+        f"none dropped; {arun['device_steps']} device steps, {arun['forest_launches']} forest and "
+        f"{arun['forward_launches']} forward launches; replay: session_ok={ra['session_ok']}, "
+        f"{ra['session_verified']} of {ra['session_records']} session hashes verified, "
+        f"{arun['replay_records_per_s']:.0f} records/s")
+    for tr in turns["turns"]:
+        log(f"phase 10: [{card}] ledger {'on ' if tr['ledger'] else 'off'}: median "
+            f"{statistics.median(tr['rows_per_s']):.0f} rows/s"
+            + (f"; the writer caught up {tr['catch_up_s']:.3f} s after the turn"
+               if tr["ledger"] else ""))
+    log(f"phase 10: the writer: {turns['records_appended']} appended, "
+        f"{turns['records_dropped']} dropped of {turns['rows_noted']} noted; fsync p99 "
+        f"{turns['fsync_p99_ms']} ms; {turns['wal_bytes_per_record']:.1f} WAL bytes a record")
+    log(f"phase 10: {result['seconds']:.1f} s")
+    log("phase 10: " + json.dumps(result))
+    return result
+
+
 # Phase 7 alone in a fresh process of the checkout it runs in, printing one
 # "TURN " JSON line: for ``phase7_turns``.
 _PHASE7_TURN = r"""
@@ -2556,6 +3004,7 @@ def main() -> int:
     # Phase 3: each kernel against its plain version.
     floor = phase_launch_floor(torch)
     rows = phase_kernels(torch, gbdt_kernel)
+    invariance = phase_batch_invariance(torch, gbdt_kernel)
     mma_rates = phase_mma_rate(torch)
     probe = phase_mma_probe(torch)
     flash_rows = phase_flash(torch, fa)
@@ -2577,6 +3026,8 @@ def main() -> int:
                             statistics.median(server_run["score_batch_rows_per_s"]))
     # Phase 9: the score step's variants (int8, drift, shadow), same store.
     variants_run = phase_variants(torch, card, gbdt_kernel, fa, filled[0])
+    # Phase 10: the decision ledger and replay, same store.
+    ledger_run = phase_ledger(torch, card, gbdt_kernel, fa, filled[0])
 
     main_row = next(r for r in rows if (r["T"], r["D"], r["B"]) == (64, 4, BATCH_SIZE))
     flash_main = next(r for r in flash_rows if (r["BH"], r["S"], r["Dh"]) == FLASH_MAIN_SHAPE)
@@ -2591,11 +3042,14 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None,
         "back_to_back_ms": main_row["kernel_b2b_ms"], "launch_floor_ms": floor,
+        "batch_invariance": invariance,
         "launches_gbdt_engine_1000x6": engine["gbdt_engine_1000x6"]["launches"],
         "launches_server": server_run["launches"],
         "launches_index": index_run["a"]["forest_launches"] + index_run["b"]["forest_launches"],
         "launches_variants": (variants_run["int8_engine"]["forest_launches"]
                               + variants_run["session_engine"]["forest_launches"]),
+        "launches_ledger": (ledger_run["engine_l"]["forest_launches"]
+                            + ledger_run["engine_a"]["forest_launches"]),
         "shapes": rows,
     }, {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -2612,6 +3066,7 @@ def main() -> int:
         "launches_server": server_run["forward_launches"],
         "launches_index": index_run["a"]["forward_launches"],
         "launches_variants": variants_run["session_engine"]["forward_launches"],
+        "launches_ledger": ledger_run["engine_a"]["forward_launches"],
         "shapes": flash_rows,
     }, *({
         "name": f"flash_attention_bwd_{part}", "route": "cuda",

@@ -38,11 +38,19 @@
 //   rows, each a slice of `span` trees, and the first adds the others' sums
 //   from their shared memory (distributed shared memory) after a cluster
 //   barrier.
-// - Each thread sums its trees in tree order, the groups' partial sums are
-//   added in group order and the cluster's in rank order. So two launches
-//   give the same bits.
+// - A row's tree sum associates in one order, fixed by the forest and not by
+//   the launch plan (ops/gbdt_kernel.py::sum_order): the trees fall in tree
+//   blocks of `tree_block` consecutive trees; inside a tree block, `groups`
+//   partial sums interleave (partial p adds the tree block's trees p,
+//   p + groups, ... in order, from 0); a tree block's sum adds its partials
+//   in order, and the row's sum adds the tree blocks' sums in order, then
+//   the bias. Warp g keeps partial g of each tree block; a chunk takes whole
+//   tree blocks or a whole share of one, a cluster rank whole tree blocks;
+//   each tree block's sum lands in shared memory and the first rank adds
+//   every tree block of the cluster in order. So a row gives the same bits
+//   alone or inside any batch, and two launches give the same bits.
 //
-// The launch plan (rows, groups, chunk, cluster, span) comes from the
+// The launch plan (rows, groups, chunk, cluster, span, tree_block) comes from the
 // caller, ops/gbdt_kernel.py::launch_plan, and is checked here.
 
 #include <cooperative_groups.h>
@@ -72,12 +80,21 @@ __host__ __device__ inline long long stage_bytes(int chunk, int D) {
          (D <= kMaxSharedLeafDepth ? align16(static_cast<long long>(chunk) << (D + 2)) : 0);
 }
 
+// Tree blocks that `trees` consecutive trees from a tree block's start touch:
+// the most a chunk ends, and those of the forest.
+__host__ __device__ inline int tree_blocks(int trees, int tree_block) {
+  return (trees + tree_block - 1) / tree_block;
+}
+
 // The block's dynamic shared memory: the feature slab, the warps' partial
-// sums and the stages. In 64 bits: the launcher checks it before the kernel
-// sizes anything in int.
-long long shared_bytes(int F, int D, int rows, int groups, int chunk, int stages) {
-  return align16(4LL * rows * slab_stride(F)) + align16(4LL * rows * groups) +
-         stages * stage_bytes(chunk, D);
+// sums of the tree blocks a chunk ends, a sum for every tree block of the
+// forest and the stages. In 64 bits: the launcher checks it before the
+// kernel sizes anything in int.
+long long shared_bytes(int F, int D, int T, int rows, int groups, int chunk, int stages,
+                       int tree_block) {
+  return align16(4LL * rows * slab_stride(F)) +
+         align16(4LL * rows * groups * tree_blocks(chunk, tree_block)) +
+         align16(4LL * rows * tree_blocks(T, tree_block)) + stages * stage_bytes(chunk, D);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -145,15 +162,24 @@ __global__ void __launch_bounds__(kMaxThreads)
 gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
                    const float* __restrict__ thr, const float* __restrict__ leaves,
                    const float* __restrict__ bias, float* __restrict__ out, int B, int F,
-                   int T, int D_rt, int rows, int groups, int chunk, int cluster, int span) {
+                   int T, int D_rt, int rows, int groups, int chunk, int cluster, int span,
+                   int tree_block) {
   constexpr bool kSharedLeaves = kD > 0;
   const int D = kD > 0 ? kD : D_rt;
   extern __shared__ __align__(16) unsigned char smem[];
   const int xs = slab_stride(F);
   float* s_x = reinterpret_cast<float*>(smem);
   const int slab_bytes = static_cast<int>(align16(rows * xs * 4));
+  // s_part[q][g][row]: warp g's partial of the q-th tree block this chunk ends.
   float* s_part = reinterpret_cast<float*>(smem + slab_bytes);
-  unsigned char* s_stage = smem + slab_bytes + static_cast<int>(align16(rows * groups * 4));
+  const int part_bytes =
+      static_cast<int>(align16(rows * groups * tree_blocks(chunk, tree_block) * 4));
+  // s_tree[k][row]: the sum of the rank's k-th tree block; in the first rank
+  // of a cluster, at the end, of the forest's k-th.
+  const int n_forest_blocks = tree_blocks(T, tree_block);
+  float* s_tree = reinterpret_cast<float*>(smem + slab_bytes + part_bytes);
+  unsigned char* s_stage =
+      smem + slab_bytes + part_bytes + static_cast<int>(align16(rows * n_forest_blocks * 4));
   const int split_bytes = static_cast<int>(align16(chunk * D * 4));
   const int stage = static_cast<int>(stage_bytes(chunk, D));
 
@@ -215,6 +241,24 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
     xr[k] = reinterpret_cast<const unsigned char*>(s_x + (r + 32 * k) * xs);
     acc[k] = 0.0f;
   }
+  // A segment: the trees of one tree block inside one chunk.
+  const int seg = min(tree_block, chunk);
+  int n_tree = 0;  // tree blocks of this rank summed into s_tree
+  // The sums of the `count` tree blocks whose partials are in s_part: their
+  // partials added in order, one thread a (tree block, row). Runs between
+  // two barriers that s_part's writes sit outside of.
+  auto fold = [&](int count) {
+    for (int i = tid; i < count * rows; i += blockDim.x) {
+      const int q = i / rows, row = i - q * rows;
+      const float* p = s_part + q * groups * rows + row;
+      float sum = p[0];
+#pragma unroll 16
+      for (int k = 1; k < groups; ++k) sum += p[k * rows];
+      s_tree[(n_tree + q) * rows + row] = sum;
+    }
+    n_tree += count;
+  };
+  int ended = 0;  // tree blocks the last chunk ended
   for (int c = 0; c < n_chunks; ++c) {
     if (c + 1 < n_chunks) {
       fill(c + 1);
@@ -223,6 +267,8 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
       cp_async_wait<0>();
     }
     __syncthreads();
+    fold(ended);  // the last chunk's tree blocks, before this one writes s_part
+    ended = 0;
     const int t0 = t_begin + c * chunk;
     const int n = min(chunk, t_end - t0);
     unsigned char* st = s_stage + (c & 1) * stage;
@@ -236,76 +282,104 @@ gbdt_forest_kernel(const float* __restrict__ x, const int* __restrict__ feat,
     }
     __syncthreads();
     const float* s_thr = reinterpret_cast<const float*>(st + split_bytes);
-    if constexpr (kSharedLeaves) {
-      const float* s_leaves = reinterpret_cast<const float*>(st + 2 * split_bytes);
+    for (int s0 = 0; s0 < n; s0 += seg) {
+      const int s1 = min(n, s0 + seg);
+      if constexpr (kSharedLeaves) {
+        const float* s_leaves = reinterpret_cast<const float*>(st + 2 * split_bytes);
 #pragma unroll 2
-      for (int j = g; j < n; j += groups) {
-        int f[kD], tb[kD];
-        load_splits<kD>(s_feat + j * kD, f);
-        load_splits<kD>(reinterpret_cast<const int*>(s_thr) + j * kD, tb);
-        int leaf[kRows] = {};
+        for (int j = s0 + g; j < s1; j += groups) {
+          int f[kD], tb[kD];
+          load_splits<kD>(s_feat + j * kD, f);
+          load_splits<kD>(reinterpret_cast<const int*>(s_thr) + j * kD, tb);
+          int leaf[kRows] = {};
 #pragma unroll
-        for (int d = 0; d < kD; ++d) {
+          for (int d = 0; d < kD; ++d) {
 #pragma unroll
-          for (int k = 0; k < kRows; ++k) {
-            const float v = *reinterpret_cast<const float*>(xr[k] + f[d]);
-            leaf[k] |= static_cast<int>(v > __int_as_float(tb[d])) << d;
+            for (int k = 0; k < kRows; ++k) {
+              const float v = *reinterpret_cast<const float*>(xr[k] + f[d]);
+              leaf[k] |= static_cast<int>(v > __int_as_float(tb[d])) << d;
+            }
           }
-        }
 #pragma unroll
-        for (int k = 0; k < kRows; ++k) acc[k] += s_leaves[(j << kD) + leaf[k]];
+          for (int k = 0; k < kRows; ++k) acc[k] += s_leaves[(j << kD) + leaf[k]];
+        }
+      } else {
+        const float* g_leaves = leaves + (static_cast<size_t>(t0) << D);
+        for (int j = s0 + g; j < s1; j += groups) {
+          const int* fj = s_feat + j * D;
+          const float* tj = s_thr + j * D;
+          int leaf[kRows] = {};
+          for (int d = 0; d < D; ++d) {
+#pragma unroll
+            for (int k = 0; k < kRows; ++k) {
+              leaf[k] |= static_cast<int>(*reinterpret_cast<const float*>(xr[k] + fj[d]) > tj[d])
+                         << d;
+            }
+          }
+          const float* lj = g_leaves + (static_cast<size_t>(j) << D);
+#pragma unroll
+          for (int k = 0; k < kRows; ++k) acc[k] += __ldg(lj + leaf[k]);
+        }
       }
-    } else {
-      const float* g_leaves = leaves + (static_cast<size_t>(t0) << D);
-      for (int j = g; j < n; j += groups) {
-        const int* fj = s_feat + j * D;
-        const float* tj = s_thr + j * D;
-        int leaf[kRows] = {};
-        for (int d = 0; d < D; ++d) {
+      // A tree block ends at a multiple of `tree_block` trees past the
+      // rank's first tree, or at its last tree: each warp hands over its
+      // partial.
+      if ((t0 + s1 - t_begin) % tree_block == 0 || t0 + s1 == t_end) {
 #pragma unroll
-          for (int k = 0; k < kRows; ++k) {
-            leaf[k] |= static_cast<int>(*reinterpret_cast<const float*>(xr[k] + fj[d]) > tj[d])
-                       << d;
-          }
+        for (int k = 0; k < kRows; ++k) {
+          s_part[(ended * groups + g) * rows + r + 32 * k] = acc[k];
+          acc[k] = 0.0f;
         }
-        const float* lj = g_leaves + (static_cast<size_t>(j) << D);
-#pragma unroll
-        for (int k = 0; k < kRows; ++k) acc[k] += __ldg(lj + leaf[k]);
+        ++ended;
       }
     }
     if (c + 2 < n_chunks) __syncthreads();  // this stage is refilled next
   }
-
-#pragma unroll
-  for (int k = 0; k < kRows; ++k) s_part[g * rows + r + 32 * k] = acc[k];
   __syncthreads();
-  // Thread i adds up row i's partial sums (the warps' in order), in place.
-  for (int row = tid; row < rows; row += blockDim.x) {
-    float sum = s_part[row];
-#pragma unroll 8
-    for (int k = 1; k < groups; ++k) sum += s_part[k * rows + row];
-    s_part[row] = sum;  // the block's sum over its trees
-  }
-  if (cluster == 1) {
-    for (int row = tid; row < n_rows; row += blockDim.x) out[row0 + row] = s_part[row] + *bias;
-    return;
-  }
-  cg::cluster_group cl = cg::this_cluster();
-  cl.sync();  // every block's sums are in its shared memory
-  if (rank == 0) {
+  if (cluster == 1 && n_forest_blocks == 1) {
+    // One tree block (the serving forests): its partials added in order,
+    // then the bias, as fold and the row's sum below would, in one pass.
     for (int row = tid; row < n_rows; row += blockDim.x) {
       float sum = s_part[row];
-      for (int k = 1; k < cluster; ++k) sum += cl.map_shared_rank(s_part, k)[row];
+#pragma unroll 16
+      for (int k = 1; k < groups; ++k) sum += s_part[k * rows + row];
       out[row0 + row] = sum + *bias;
     }
+    return;
   }
-  cl.sync();  // no block leaves while its sums are read
+  fold(ended);
+  if (cluster > 1) {
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();  // every rank's tree block sums are in its shared memory
+    if (rank == 0) {
+      // The later ranks' tree block sums, copied in beside the first rank's
+      // (independent loads, issued together), so that the row's sum below
+      // adds them all from local shared memory.
+      const int per_rank = span / tree_block;
+      for (int i = n_tree * rows + tid; i < n_forest_blocks * rows; i += blockDim.x) {
+        const int k = i / rows, row = i - k * rows;
+        const int q = k / per_rank;
+        s_tree[i] = cl.map_shared_rank(s_tree, q)[(k - q * per_rank) * rows + row];
+      }
+    }
+    cl.sync();  // no block leaves while its sums are read
+    if (rank != 0) return;
+  } else {
+    __syncthreads();  // every tree block's sum is in s_tree
+  }
+  // The row's sum: the forest's tree blocks in order, then the bias.
+  for (int row = tid; row < n_rows; row += blockDim.x) {
+    float sum = s_tree[row];
+#pragma unroll 8
+    for (int k = 1; k < n_forest_blocks; ++k) sum += s_tree[k * rows + row];
+    out[row0 + row] = sum + *bias;
+  }
 }
 
 template <int kD, int kRows>
 int launch(const void* x, const void* feat, const void* thr, const void* leaves,
            const void* bias, void* out, int B, int F, int T, int D, int rows, int groups,
-           int chunk, int cluster, int span, int smem, cudaStream_t stream) {
+           int chunk, int cluster, int span, int tree_block, int smem, cudaStream_t stream) {
   // Once per depth variant: allow dynamic shared memory above 48 KB.
   static const cudaError_t attr =
       cudaFuncSetAttribute(gbdt_forest_kernel<kD, kRows>,
@@ -330,7 +404,7 @@ int launch(const void* x, const void* feat, const void* thr, const void* leaves,
       static_cast<const int*>(feat), static_cast<const float*>(thr),
       static_cast<const float*>(leaves),
       static_cast<const float*>(bias), static_cast<float*>(out), B, F, T, D, rows, groups, chunk,
-      cluster, span);
+      cluster, span, tree_block);
   return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
 }
 
@@ -340,25 +414,32 @@ int launch(const void* x, const void* feat, const void* thr, const void* leaves,
 // launch was accepted. All pointers are device pointers: x [B, F] float32,
 // feat [T, D] int32, thr [T, D] float32, leaves [T, 2^D] float32, bias [1]
 // float32, out [B] float32, all contiguous. The plan: `rows` rows a block
-// (32, or 64 for two rows a lane), `groups` warps a block (at most 32),
-// `cluster` blocks (1, 2, 4 or 8) sharing each set of rows, each taking
-// `span` trees (T when cluster is 1, else a multiple of 4 with
-// cluster * span >= T), `chunk` trees a stage (span, or a multiple of 4
-// below it: a ring of two stages then). Allocates nothing, does not sync.
+// (32, or 64 for two rows a lane), `groups` warps a block (at most 32), one
+// for each interleaved partial sum of a tree block of `tree_block` trees (a
+// multiple of 4 and of groups), `cluster` blocks (1, 2, 4 or 8) sharing each
+// set of rows, each taking `span` trees (T when cluster is 1, else a
+// multiple of tree_block with cluster * span >= T), `chunk` trees a stage
+// (span, or below it a multiple of 4 and of groups that divides tree_block
+// or that tree_block divides: a ring of two stages then). Allocates nothing,
+// does not sync.
 extern "C" int gbdt_forest_launch(const void* x, const void* feat, const void* thr,
                                   const void* leaves, const void* bias, void* out, int B,
                                   int F, int T, int D, int rows, int groups, int chunk,
-                                  int cluster, int span, void* stream) {
+                                  int cluster, int span, int tree_block, void* stream) {
   if (B <= 0 || F <= 0 || T <= 0 || D < 1 || D > kMaxDepth || (rows != 32 && rows != 64) ||
       groups <= 0 || 32 * groups > kMaxThreads || cluster < 1 || cluster > kMaxCluster ||
-      (cluster & (cluster - 1)) != 0 ||
+      (cluster & (cluster - 1)) != 0 || tree_block <= 0 || tree_block % kChunkMultiple != 0 ||
+      tree_block % groups != 0 ||
       (cluster == 1 ? span != T
-                    : span % kChunkMultiple != 0 || static_cast<long long>(span) * cluster < T) ||
-      chunk <= 0 || chunk > span || (chunk < span && chunk % kChunkMultiple != 0) ||
+                    : span % tree_block != 0 || static_cast<long long>(span) * cluster < T) ||
+      chunk <= 0 || chunk > span ||
+      (chunk < span && (chunk % kChunkMultiple != 0 || chunk % groups != 0 ||
+                        (chunk % tree_block != 0 && tree_block % chunk != 0))) ||
       (B + rows - 1) / rows > (1 << 30) / cluster) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem = shared_bytes(F, D, rows, groups, chunk, chunk < span ? 2 : 1);
+  const long long smem =
+      shared_bytes(F, D, T, rows, groups, chunk, chunk < span ? 2 : 1, tree_block);
   if (smem > kMaxSharedBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -367,16 +448,17 @@ extern "C" int gbdt_forest_launch(const void* x, const void* feat, const void* t
 #define GBDT_CASE(d, k)                                                                      \
   case d * 2 + (k - 1):                                                                      \
     return launch<d, k>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups, chunk, \
-                        cluster, span, static_cast<int>(smem), st);
+                        cluster, span, tree_block, static_cast<int>(smem), st);
 #define GBDT_DEPTH(d) GBDT_CASE(d, 1) GBDT_CASE(d, 2)
     GBDT_DEPTH(1) GBDT_DEPTH(2) GBDT_DEPTH(3) GBDT_DEPTH(4)
     GBDT_DEPTH(5) GBDT_DEPTH(6) GBDT_DEPTH(7) GBDT_DEPTH(8)
 #undef GBDT_DEPTH
 #undef GBDT_CASE
     default:
-      return rows == 64 ? launch<0, 2>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups,
-                                       chunk, cluster, span, static_cast<int>(smem), st)
-                        : launch<0, 1>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups,
-                                       chunk, cluster, span, static_cast<int>(smem), st);
+      return rows == 64
+                 ? launch<0, 2>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups, chunk,
+                                cluster, span, tree_block, static_cast<int>(smem), st)
+                 : launch<0, 1>(x, feat, thr, leaves, bias, out, B, F, T, D, rows, groups, chunk,
+                                cluster, span, tree_block, static_cast<int>(smem), st);
   }
 }

@@ -14,7 +14,10 @@ product, so every split compares the exact float32 feature. A lane is a
 row (two at large batches); the forest streams through shared memory in
 chunks of trees, so its size is not bounded by shared memory; at small
 batches a thread-block cluster splits the trees (see the source's header).
-``launch_plan`` picks rows and warps a block, the cluster and trees a chunk.
+``launch_plan`` picks rows a block, the cluster and trees a chunk. A row's
+margin adds its trees in one order, ``sum_order``, which the forest's size
+fixes and every plan keeps: so a row gives the same bits whatever batch it
+rides in.
 
 What bounds it on an H100: at the serving forest (T=64, D=4) bytes, about
 0.15 us at B=4096, under the launch itself; at production forests (T=1000,
@@ -46,15 +49,22 @@ CHUNK_MULTIPLE = 4  # kChunkMultiple
 MAX_CLUSTER = 8  # kMaxCluster
 # The plan's choices, from a sweep on an H100 (chip_smoke.forest_plan_sweep):
 # rows a lane (one, or two at a batch whose 32-row blocks fill the card);
-# splits (trees x depth) a warp walks, and at most 16 warps while the leaves
-# sit in shared memory; splits a block of a cluster takes at least; and the
-# bytes of one stage of the ring (two stages stay under 100 KB, so two
-# blocks fit an SM).
+# splits (trees x depth) a block of a cluster takes at least; and the bytes
+# of one stage of the ring (two stages stay under 100 KB, so two blocks fit
+# an SM).
 LANES = 32
-SPLITS_PER_GROUP = 32
-MAX_GROUPS_SHARED_LEAVES = 16
 SPLITS_PER_BLOCK = 256
 STAGE_BYTES = 48 * 1024
+# The sum order (``sum_order``): a partial sum, and so a warp, for every
+# TREES_PER_PARTIAL trees up to MAX_PARTIALS; tree blocks of TREE_BLOCK
+# trees, doubled until a forest has at most MAX_TREE_BLOCKS of them.
+TREES_PER_PARTIAL = 8
+MAX_PARTIALS = 16
+TREE_BLOCK = 64
+MAX_TREE_BLOCKS = 32
+# Tree blocks a chunk holds at most: each takes a [partials, rows] slab of
+# partial sums in shared memory.
+MAX_CHUNK_TREE_BLOCKS = 8
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -68,7 +78,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("gbdt_forest")
     fn = lib.gbdt_forest_launch
     if fn.argtypes is None:
-        fn.argtypes = [_VOIDP] * 6 + [_INT] * 9 + [_VOIDP]
+        fn.argtypes = [_VOIDP] * 6 + [_INT] * 10 + [_VOIDP]
         fn.restype = _INT
     return lib
 
@@ -84,15 +94,42 @@ def stage_bytes(chunk: int, depth: int) -> int:
     return 2 * _align16(chunk * depth * 4) + leaves
 
 
+class SumOrder(NamedTuple):
+    """The order in which the kernel adds a row's trees: the trees fall in
+    tree blocks of ``tree_block`` consecutive trees; inside a tree block,
+    ``partials`` partial sums interleave (partial p adds the block's trees p,
+    p + partials, ... in order, from 0.0); a tree block's sum adds its
+    partials in order, the row's sum adds the tree blocks' sums in order,
+    then the bias."""
+
+    partials: int
+    tree_block: int
+
+
+@functools.lru_cache(maxsize=256)
+def sum_order(n_trees: int) -> SumOrder:
+    """The sum order of a forest of ``n_trees`` trees: it depends on nothing
+    else, so every launch plan of the forest, at any batch size, adds a row's
+    trees the same way."""
+    partials = 1
+    while partials < MAX_PARTIALS and partials * TREES_PER_PARTIAL < n_trees:
+        partials *= 2
+    tree_block = TREE_BLOCK
+    while -(-n_trees // tree_block) > MAX_TREE_BLOCKS:
+        tree_block *= 2
+    return SumOrder(partials, tree_block)
+
+
 class LaunchPlan(NamedTuple):
     rows: int  # rows a block: 32, one a lane, or 64, two a lane
-    groups: int  # warps a block, each walking every groups-th tree
+    groups: int  # warps a block, warp g keeping partial g of each tree block
     cluster: int  # blocks of a cluster sharing the same rows
-    span: int  # trees each block of a cluster takes
-    chunk: int  # trees a stage
+    span: int  # trees each block of a cluster takes: whole tree blocks
+    chunk: int  # trees a stage: whole tree blocks, or a share of one
     stages: int  # 1 when one chunk holds a block's trees, else a ring of 2
     grid: int  # blocks
     shared_bytes: int  # dynamic shared memory a block
+    tree_block: int  # trees a tree block (sum_order)
 
 
 @functools.lru_cache(maxsize=256)
@@ -101,42 +138,46 @@ def launch_plan(b: int, n_features: int, n_trees: int, depth: int, n_sms: int) -
     a card of ``n_sms`` SMs: 32 rows a block, or 64 (two a lane) when 32-row
     blocks would fill the card and the forest can be split in two; while the
     row blocks leave SMs idle, clusters of up to 8 blocks that split the
-    trees, each keeping at least SPLITS_PER_BLOCK splits; a warp for every
-    SPLITS_PER_GROUP splits of a block; as many trees a chunk as STAGE_BYTES
-    holds."""
+    trees, each keeping at least SPLITS_PER_BLOCK splits and a tree block;
+    a warp for each partial sum of ``sum_order``; as many trees a chunk as
+    STAGE_BYTES holds, in whole tree blocks or a share of one."""
     splits = n_trees * depth
+    n_tree_blocks = -(-n_trees // sum_order(n_trees).tree_block)
     rows = LANES
     if -(-b // LANES) * 2 > n_sms and splits >= 2 * SPLITS_PER_BLOCK:
         rows = 2 * LANES
     row_blocks = -(-b // rows)
     cluster = 1
     while (cluster < MAX_CLUSTER and row_blocks * cluster * 2 <= n_sms
-           and splits >= cluster * 2 * SPLITS_PER_BLOCK):
+           and splits >= cluster * 2 * SPLITS_PER_BLOCK and n_tree_blocks >= cluster * 2):
         cluster *= 2
-    most = MAX_GROUPS_SHARED_LEAVES if depth <= MAX_SHARED_LEAF_DEPTH else MAX_THREADS // LANES
-    groups = max(1, min(most, -(-_span(n_trees, cluster) * depth // SPLITS_PER_GROUP)))
-    return plan_for(b, n_features, n_trees, depth, rows, groups, cluster)
+    return plan_for(b, n_features, n_trees, depth, rows, cluster)
 
 
-def _span(n_trees: int, cluster: int) -> int:
-    """Trees each block of a cluster takes: all, or a multiple of 4."""
-    if cluster == 1:
-        return n_trees
-    return -(-n_trees // (cluster * CHUNK_MULTIPLE)) * CHUNK_MULTIPLE
+def _tree_blocks(n_trees: int, tree_block: int) -> int:
+    return -(-n_trees // tree_block)
 
 
-def plan_for(b: int, n_features: int, n_trees: int, depth: int, rows: int, groups: int,
+def plan_for(b: int, n_features: int, n_trees: int, depth: int, rows: int,
              cluster: int) -> LaunchPlan:
-    """The rest of a plan given its rows, groups and cluster: the span, as
-    many trees a chunk as STAGE_BYTES holds, the stages, grid and bytes."""
-    span = _span(n_trees, cluster)
+    """The rest of a plan given its rows and cluster: a warp for each
+    partial sum, the span in whole tree blocks, as many trees a chunk as
+    STAGE_BYTES holds (up to MAX_CHUNK_TREE_BLOCKS whole tree blocks, or a
+    power of two dividing one), the stages, grid and bytes."""
+    order = sum_order(n_trees)
+    tb = order.tree_block
+    span = n_trees if cluster == 1 else -(-_tree_blocks(n_trees, tb) // cluster) * tb
     per_tree = 8 * depth + (4 << depth if depth <= MAX_SHARED_LEAF_DEPTH else 0)
-    fit = max(CHUNK_MULTIPLE, (STAGE_BYTES - 48) // per_tree // CHUNK_MULTIPLE * CHUNK_MULTIPLE)
-    chunk = min(span, fit)
+    fit = (STAGE_BYTES - 48) // per_tree
+    chunk = (min(fit // tb, MAX_CHUNK_TREE_BLOCKS) * tb if fit >= tb
+             else 1 << (fit.bit_length() - 1))
+    chunk = min(span, max(chunk, order.partials, CHUNK_MULTIPLE))
     stages = 1 if chunk == span else 2
-    shared = (_align16(rows * (n_features | 1) * 4) + _align16(rows * groups * 4)
-              + stages * stage_bytes(chunk, depth))
-    return LaunchPlan(rows, groups, cluster, span, chunk, stages, -(-b // rows) * cluster, shared)
+    shared = (_align16(rows * (n_features | 1) * 4)
+              + _align16(rows * order.partials * _tree_blocks(chunk, tb) * 4)
+              + _align16(rows * _tree_blocks(n_trees, tb) * 4) + stages * stage_bytes(chunk, depth))
+    return LaunchPlan(rows, order.partials, cluster, span, chunk, stages,
+                      -(-b // rows) * cluster, shared, tb)
 
 
 @functools.lru_cache(maxsize=None)
@@ -206,7 +247,7 @@ def gbdt_forest(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
     rc = _lib().gbdt_forest_launch(
         x.data_ptr(), feat.data_ptr(), thr.data_ptr(), leaves.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b, n_features, n_trees, depth, plan.rows, plan.groups, plan.chunk,
-        plan.cluster, plan.span, stream)
+        plan.cluster, plan.span, plan.tree_block, stream)
     if rc != 0:
         raise RuntimeError(f"gbdt_forest: kernel launch failed with CUDA error {rc}")
     with _count_lock:

@@ -10,8 +10,12 @@ decoded and responses encoded by the port's own codec
 (``serve/risk_codec.py``): ScoreBatch goes bytes to bytes through the native
 store and encoder, or, for an index-mode frame (``IDX1``), through the
 engine's device feature cache (``score_batch_wire_index``);
-ScoreTransaction's answer goes through the same native encoder. So the service needs no transport: ``call(method, payload)``
-drives it directly, as ``chip_smoke.py`` does on a machine without grpcio.
+ScoreTransaction's answer goes through the same native encoder. So the
+service needs no transport: ``call(method, payload)`` drives it directly, as
+``chip_smoke.py`` does on a machine without grpcio, and
+``call_with_trailing`` also returns the trailing metadata a handler set: a
+ScoreTransaction whose decision a ledger noted carries
+``("risk-decision-id", id)``, the key a label backfill joins on.
 
 ``serve_risk`` binds it to grpcio with identity (de)serializers, and
 ``make_risk_stub`` gives a bytes-in, bytes-out client; ``serve_risk`` is the
@@ -75,6 +79,17 @@ class StatusCode(enum.Enum):
     UNAVAILABLE = 14
     DATA_LOSS = 15
     UNAUTHENTICATED = 16
+
+
+class _TrailingCollector:
+    """The part of a grpcio servicer context a handler uses here: it
+    collects the trailing metadata for ``call_with_trailing``."""
+
+    def __init__(self):
+        self.trailing: tuple[tuple[str, str], ...] = ()
+
+    def set_trailing_metadata(self, pairs) -> None:
+        self.trailing = tuple(pairs)
 
 
 class RpcAbort(Exception):
@@ -264,10 +279,21 @@ class RiskGrpcService:
         """Answer one RPC on bytes, with no transport: the response bytes,
         or RpcAbort. A handler that fails otherwise is INTERNAL, as the
         recovery interceptor of the reference maps it."""
+        return self._invoke(method, payload, None)
+
+    def call_with_trailing(self, method: str,
+                           payload: bytes) -> tuple[bytes, tuple[tuple[str, str], ...]]:
+        """``call``, and the trailing metadata pairs the handler set."""
+        context = _TrailingCollector()
+        return self._invoke(method, payload, context), context.trailing
+
+    def _invoke(self, method: str, payload: bytes, context) -> bytes:
+        """One RPC on bytes; ``context`` (a grpcio servicer context, a
+        ``_TrailingCollector`` or None) receives the trailing metadata."""
         if method not in RISK_METHOD_NAMES:
             raise RpcAbort(StatusCode.UNIMPLEMENTED, f"unknown method {method}")
         try:
-            return getattr(self, method)(payload).SerializeToString()
+            return getattr(self, method)(payload, context).SerializeToString()
         except RpcAbort:
             raise
         except Exception as exc:  # noqa: BLE001 — recovery interceptor
@@ -308,6 +334,11 @@ class RiskGrpcService:
         resp = self.engine.score(self._request_from_proto(req))
         # The single-transaction latency is the SLO the bulk gate protects.
         self._bulk_gate.observe_single_ms(resp.response_time_ms)
+        if resp.decision_id and context is not None:
+            # The ledger's join key, for callers that later post the
+            # decision's outcome (POST /debug/outcomes), without a change to
+            # the response message.
+            context.set_trailing_metadata((("risk-decision-id", resp.decision_id),))
         return RawProtoMessage(self._score_to_bytes(resp))
 
     def ScoreBatch(self, request: bytes, context=None):  # noqa: N802
@@ -428,11 +459,13 @@ class RiskGrpcService:
 
 
 def _rpc(grpc, fn):
-    """A grpcio handler over a bytes handler: RpcAbort becomes its status."""
+    """A grpcio handler over a bytes handler ``fn(request, context)``: the
+    handler sets trailing metadata on grpcio's context, and RpcAbort becomes
+    its status."""
 
     def handler(request, context):
         try:
-            return fn(request)
+            return fn(request, context)
         except RpcAbort as abort:
             context.abort(getattr(grpc.StatusCode, abort.code.name), abort.details)
 
@@ -461,7 +494,7 @@ def serve_risk(service: RiskGrpcService, port: int, max_workers: int = 32):
 
     server.add_generic_rpc_handlers((
         grpc.method_handlers_generic_handler(RISK_SERVICE, handlers(
-            {name: (lambda payload, name=name: service.call(name, payload))
+            {name: (lambda payload, context, name=name: service._invoke(name, payload, context))
              for name in RISK_METHOD_NAMES})),
         grpc.method_handlers_generic_handler("grpc.health.v1.Health",
                                              handlers({"Check": health.check})),

@@ -21,7 +21,9 @@ k-1:
   :class:`~igaming_platform_tpu_torch.serve.arena.StagingHold` that also
   waits for the event recorded after the buffers' own copies;
 - the native response encode runs back on the submitting thread, so the
-  encodes of concurrent RPCs run side by side.
+  encodes of concurrent RPCs run side by side; the decision ledger's note
+  of the RPC (``serve/ledger.py``) runs there too, just before it, with the
+  params fingerprint captured with the params at submit.
 
 Results are bit-exact with the lockstep path (``TorchScoringEngine.
 _score_rows_encode``): the same chunk boundaries, the same padded shapes,
@@ -40,6 +42,7 @@ from typing import Any
 
 import numpy as np
 
+from igaming_platform_tpu_torch.serve import ledger as ledger_mod
 from igaming_platform_tpu_torch.serve.arena import ArenaPool, StagingHold
 from igaming_platform_tpu_torch.serve.batcher import pad_batch
 from igaming_platform_tpu_torch.serve.scorer import RESULT_KEYS, _device_readback
@@ -51,14 +54,17 @@ class _Job:
     """One wire batch moving through the pipeline (one RPC's rows)."""
 
     __slots__ = ("x", "bl", "include_features", "start", "total", "n_chunks", "parts",
-                 "rtms", "future", "done_chunks", "params")
+                 "rtms", "future", "done_chunks", "params", "params_fp", "account_ids")
 
     def __init__(self, x: np.ndarray, bl: np.ndarray, include_features: bool, start: float,
-                 n_chunks: int, params: Any):
+                 n_chunks: int, snapshot: tuple[Any, str], account_ids=None):
         self.x = x
         self.bl = bl
-        # Captured at submit: every chunk of the job scores with one tree.
-        self.params = params
+        # Captured together at submit: every chunk of the job scores with one
+        # tree, and the ledger notes that tree's fingerprint even if a swap
+        # lands before the encode.
+        self.params, self.params_fp = snapshot
+        self.account_ids = account_ids
         self.include_features = include_features
         self.start = start
         self.total = x.shape[0]
@@ -131,10 +137,10 @@ class HostPipeline:
     # -- submission ----------------------------------------------------------
 
     def score_rows_to_wire(self, x: np.ndarray, bl: np.ndarray, include_features: bool,
-                           start: float) -> bytes:
+                           start: float, account_ids=None) -> bytes:
         """Gathered [N, 30] rows -> ScoreBatchResponse wire bytes through the
-        workers. Blocks the caller until its batch is back, then encodes on
-        this thread."""
+        workers. Blocks the caller until its batch is back, then notes it to
+        the engine's ledger and encodes on this thread."""
         if self._closed:
             raise RuntimeError("host pipeline is closed")
         total = x.shape[0]
@@ -142,7 +148,8 @@ class HostPipeline:
             return b""
         batch = self._engine.batch_size
         n_chunks = (total + batch - 1) // batch
-        job = _Job(x, bl, include_features, start, n_chunks, self._engine.params_snapshot()[0])
+        job = _Job(x, bl, include_features, start, n_chunks, self._engine.params_snapshot(),
+                   account_ids)
         for idx, lo in enumerate(range(0, total, batch)):
             # Blocks when the stage queue is full: backpressure on the caller.
             self._stage_q.put((job, idx, lo, min(lo + batch, total)))
@@ -155,6 +162,9 @@ class HostPipeline:
         t0 = time.monotonic()
         try:
             cat = {k: np.concatenate([p[k] for p in job.parts]) for k in RESULT_KEYS}
+            ledger_mod.note_decisions(self._engine, cat, n=job.total, wire_mode="wire_row",
+                                      x=job.x, bl=job.bl, account_ids=job.account_ids,
+                                      params_fp=job.params_fp)
             return encode_score_batch(
                 cat["score"], cat["action"], cat["reason_mask"], cat["rule_score"],
                 cat["ml_score"], job.rtms, job.x if job.include_features else None)

@@ -51,7 +51,16 @@ path (risk.v1 ScoreTransaction / ScoreBatch):
   worker scores the candidate from that device copy (``SHADOW_FUSED=0``
   alone does the latter). The drift and shadow workers read the step's
   tensors only after the CUDA event recorded after it; neither can fail,
-  delay or change an answer.
+  delay or change an answer;
+- with a decision ledger bound (``engine.ledger``, ``serve/ledger.py``;
+  ``LEDGER_DIR`` on the server) every path notes each batch it answered,
+  after the readback, as host numpy, with the params fingerprint captured
+  at dispatch: the batcher's flushes (``"single"``), each ``score_batch``
+  chunk (``"batch"``, which stamps ``decision_id`` on its responses), each
+  wire RPC (``"wire_row"``, on the lockstep path and in the host pipeline's
+  encode) and the index path (``"index"``: with session state one note per
+  chunk with its session fields, else one per call without a feature
+  snapshot). The ledger never fails, delays or changes an answer.
 
 Every batch runs on the engine's device. On a card, every copy and step
 goes on one CUDA stream the engine owns, whichever thread launches it, and
@@ -60,9 +69,7 @@ copies and the ring's admission copies go on that stream too, so a write
 never overtakes a step enqueued before it. There is no host-CPU tier: on a
 CUDA engine a small batch goes to the card like a large one, and the CPU
 runs a batch only when the caller built the engine with ``device="cpu"``.
-Not ported yet: the host tier, the slot-sharded cache and ring and the
-decision ledger (the session fields a ledger note would carry are returned
-by ``_launch_cached``).
+Not ported yet: the host tier and the slot-sharded cache and ring.
 """
 
 from __future__ import annotations
@@ -88,6 +95,7 @@ from igaming_platform_tpu_torch.models.ensemble import make_score_fn
 from igaming_platform_tpu_torch.obs.drift import cached_sketch_kernel, sketch_kernel
 from igaming_platform_tpu_torch.ops.quantize import wire_dequantize_int8, wire_quantize_int8
 from igaming_platform_tpu_torch.serve.batcher import ContinuousBatcher, pad_batch
+from igaming_platform_tpu_torch.serve import ledger as ledger_mod
 from igaming_platform_tpu_torch.serve.feature_store import InMemoryFeatureStore, TransactionEvent
 
 
@@ -120,6 +128,9 @@ class ScoreResponse:
     ml_score: float
     response_time_ms: float
     features: FeatureVector
+    # The ledger's join key (serve/ledger.py): set when a decision ledger is
+    # bound, "" otherwise.
+    decision_id: str = ""
 
 
 def _stack_packed(out: dict) -> torch.Tensor:
@@ -261,6 +272,9 @@ class TorchScoringEngine:
         # both on the split layout, SHADOW_FUSED=0 the shadow alone.
         self.drift = None
         self.shadow = None
+        # The decision ledger (serve/ledger.py), bound by the serving layer;
+        # None keeps every note one attribute check.
+        self.ledger = None
         self._fused_enabled = os.environ.get("FUSED", "1") not in ("0", "false")
         self._shadow_fused_enabled = os.environ.get("SHADOW_FUSED", "1") not in ("0", "false")
         self._shadow_fused_ready = False
@@ -518,8 +532,11 @@ class TorchScoringEngine:
         for i in range(0, len(reqs), self.batch_size):
             chunk = reqs[i : i + self.batch_size]
             x, bl = self.features.gather_batch(chunk)
-            host = self._readback(self._launch(x, bl, self.get_params()))
-            responses.extend(self._row_response(host, x, j) for j in range(len(chunk)))
+            params, fp = self.params_snapshot()
+            host = self._readback(self._launch(x, bl, params))
+            rows = [self._row_response(host, x, j) for j in range(len(chunk))]
+            self._note_decisions_requests(host, x, bl, chunk, rows, "batch", fp)
+            responses.extend(rows)
         elapsed_ms = (time.monotonic() - start) * 1000.0
         for r in responses:
             r.response_time_ms = elapsed_ms
@@ -563,7 +580,7 @@ class TorchScoringEngine:
                              ip=ips[i] if ips else "", device_id=devices[i] if devices else "",
                              fingerprint=fingerprints[i] if fingerprints else "")
                 for i in range(len(account_ids))])
-        return self._score_rows_to_wire(x, bl, include_features, start)
+        return self._score_rows_to_wire(x, bl, include_features, start, account_ids)
 
     def score_batch_wire_bytes(
         self, payload: bytes, *, include_features: bool = True
@@ -579,16 +596,18 @@ class TorchScoringEngine:
         return self._score_rows_to_wire(x, bl, include_features, start), x.shape[0]
 
     def _score_rows_to_wire(self, x: np.ndarray, bl: np.ndarray, include_features: bool,
-                            start: float) -> bytes:
+                            start: float, account_ids=None) -> bytes:
         """A gathered [N, 30] batch to response bytes: through the host
-        pipeline when enabled, else the lockstep flow. Bit-exact either way."""
+        pipeline when enabled, else the lockstep flow. Bit-exact either way.
+        ``account_ids``, where the caller still has them (the columnar path),
+        ride to the decision ledger; the bytes path notes rows without them."""
         pipe = self._ensure_pipeline()
         if pipe is not None:
-            return pipe.score_rows_to_wire(x, bl, include_features, start)
-        return self._score_rows_encode(x, bl, include_features, start)
+            return pipe.score_rows_to_wire(x, bl, include_features, start, account_ids)
+        return self._score_rows_encode(x, bl, include_features, start, account_ids)
 
     def _score_rows_encode(self, x: np.ndarray, bl: np.ndarray, include_features: bool,
-                           start: float) -> bytes:
+                           start: float, account_ids=None) -> bytes:
         """Lockstep chunked scoring to response bytes: chunk k's readback
         overlaps chunk k+1's step, at most ``pipeline_depth`` chunks in
         flight, and each row's response_time_ms is the time its chunk came
@@ -609,7 +628,7 @@ class TorchScoringEngine:
                 parts[k].append(host[k])
             rtms[lo:lo + handle[2]] = int((time.monotonic() - start) * 1000.0)
 
-        params, _ = self.params_snapshot()
+        params, fp = self.params_snapshot()
         for lo in range(0, total, self.batch_size):
             hi = min(lo + self.batch_size, total)
             inflight.append((self._launch(x[lo:hi], bl[lo:hi], params), lo))
@@ -618,6 +637,8 @@ class TorchScoringEngine:
         while inflight:
             read_one()
         cat = {k: np.concatenate(v) for k, v in parts.items()}
+        ledger_mod.note_decisions(self, cat, n=total, wire_mode="wire_row", x=x, bl=bl,
+                                  account_ids=account_ids, params_fp=fp)
         return encode_score_batch(cat["score"], cat["action"], cat["reason_mask"],
                                   cat["rule_score"], cat["ml_score"], rtms,
                                   x if include_features else None)
@@ -871,17 +892,26 @@ class TorchScoringEngine:
         parts: dict[str, list[np.ndarray]] = {k: [] for k in RESULT_KEYS}
         rtms = np.empty((total,), dtype=np.int64)
         inflight: deque = deque()
-        params, _ = self.params_snapshot()
+        params, fp = self.params_snapshot()
         session_on = self.session is not None
 
         def read_one() -> None:
-            handle, lo, n, _session_meta = inflight.popleft()
+            handle, lo, n, smeta = inflight.popleft()
             host = _device_readback(handle)
             for k in RESULT_KEYS:
                 parts[k].append(host[k])
             rtms[lo:lo + n] = int((time.monotonic() - start) * 1000.0)
-            # A decision ledger (not ported yet) notes each chunk here, with
-            # its session fields.
+            if smeta is not None:
+                # Session-scored chunks are noted one by one: one note, one
+                # step, one batch-start snapshot of the windows, so replay
+                # rebuilds every row's window (duplicate accounts included)
+                # from the ledger's order and the recorded session fields.
+                ledger_mod.note_decisions(
+                    self, host, n=n, wire_mode="index", tier="device", bl=bl[lo:lo + n],
+                    account_ids=account_ids[lo:lo + n], amounts=amounts32[lo:lo + n],
+                    tx_codes=types32[lo:lo + n], params_fp=fp, ts=smeta["ts"],
+                    session_lens=smeta["lens"], session_seqs=smeta["seqs"],
+                    session_hashes=smeta["hashes"])
 
         for lo in range(0, total, self.batch_size):
             hi = min(lo + self.batch_size, total)
@@ -896,6 +926,13 @@ class TorchScoringEngine:
         while inflight:
             read_one()
         cat = {k: np.concatenate(v) if len(v) > 1 else v[0] for k, v in parts.items()}
+        if not session_on:
+            # The rows live in the device table and never reach the host, so
+            # the records carry the per-transaction context and the outputs
+            # without a feature snapshot (replay counts them as skipped).
+            ledger_mod.note_decisions(self, cat, n=total, wire_mode="index", tier="device", bl=bl,
+                                      account_ids=account_ids, amounts=amounts32,
+                                      tx_codes=types32, params_fp=fp)
         return cat, rtms
 
     def score_columns_cached(self, account_ids, amounts, tx_types, ips=None, devices=None,
@@ -1015,12 +1052,31 @@ class TorchScoringEngine:
 
     def _dispatch_requests(self, reqs: list[ScoreRequest]):
         x, bl = self.features.gather_batch(reqs)
-        return self._launch(x, bl, self.get_params()), x
+        params, fp = self.params_snapshot()
+        return self._launch(x, bl, params), x, bl, reqs, fp
 
     def _collect_requests(self, handle) -> list[ScoreResponse]:
-        launched, x = handle
+        launched, x, bl, reqs, fp = handle
         host = self._readback(launched)
-        return [self._row_response(host, x, i) for i in range(x.shape[0])]
+        rows = [self._row_response(host, x, i) for i in range(x.shape[0])]
+        self._note_decisions_requests(host, x, bl, reqs, rows, "single", fp)
+        return rows
+
+    def _note_decisions_requests(self, out: dict, x: np.ndarray, bl: np.ndarray, reqs,
+                                 responses: list[ScoreResponse], wire_mode: str,
+                                 params_fp: str) -> None:
+        """The ledger note of the request-object paths (batcher, direct
+        batch): one note for the launched batch, with the fingerprint it was
+        dispatched with, and its decision ids stamped on the responses."""
+        if self.ledger is None and self.shadow is None:
+            return
+        prefix = ledger_mod.note_decisions(
+            self, out, n=len(responses), wire_mode=wire_mode, x=x, bl=bl, params_fp=params_fp,
+            account_ids=[r.account_id for r in reqs], amounts=[r.amount for r in reqs],
+            tx_codes=[r.tx_type for r in reqs])
+        if prefix is not None:
+            for i, resp in enumerate(responses):
+                resp.decision_id = f"{prefix}.{i}"
 
     @staticmethod
     def _row_response(out: dict, x: np.ndarray, i: int) -> ScoreResponse:

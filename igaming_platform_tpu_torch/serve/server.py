@@ -19,13 +19,22 @@ loop does it). The engine reads its cache and session knobs (``WIRE_MODE``,
 ``assemble_risk_service`` also takes ``feature_cache`` and
 ``session_state``.
 
+``LEDGER_DIR`` opens the decision ledger (``serve/ledger.py``): every
+decision the engine hands out is appended to a WAL there, in the JAX
+server's format, with the sink ``LEDGER_SINK`` names (``clickhouse`` or
+none); ``GET /debug/ledgerz`` shows its counters, ``POST /debug/outcomes``
+appends label backfills (outcome records) joined by decision id, and the
+ledger is closed after the engine drains on shutdown. Its WAL replays with
+``python -m igaming_platform_tpu_torch.tools.replay``, on the device that
+scored it.
+
 Run it as ``python -m igaming_platform_tpu_torch.serve.server``. It serves
 on the card; with no card it refuses to boot unless
 ``SERVE_DEVICE_FALLBACK=cpu``, which serves on the host CPU with the abuse
 path under ``ABUSE_CPU_POLICY`` (default ``heuristic``), as the reference
 does. The other /debug pages, /metrics,
-the supervisor, the ledger, the online loop, the batch-feature refresh and
-the Orbax params vault are not ported yet (``ROADMAP.md``).
+the supervisor, the online loop, the batch-feature refresh and loading a
+JAX Orbax checkpoint are not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from igaming_platform_tpu_torch.serve.abuse import SequenceAbuseDetector
 from igaming_platform_tpu_torch.serve.bridge import ScoringBridge
 from igaming_platform_tpu_torch.serve.events import InMemoryBroker, resolve_transport
 from igaming_platform_tpu_torch.serve.feature_store import InMemoryFeatureStore
+from igaming_platform_tpu_torch.serve import ledger as ledger_mod
 from igaming_platform_tpu_torch.serve.grpc_server import (
     HealthServicer,
     RiskGrpcService,
@@ -62,13 +72,13 @@ logger = logging.getLogger(__name__)
 def resolve_model_boot(config, ml_backend: str = "mock", params=None):
     """FRAUD_MODEL_PATH -> (ml_backend, params), then the ML_BACKEND
     override. A missing checkpoint degrades to the mock scorer, as the
-    reference does (risk/cmd/main.go:62-63); one that exists raises, since
-    the checkpoint vault is not ported yet."""
+    reference does (risk/cmd/main.go:62-63); one that exists raises: how
+    the card reads a JAX Orbax checkpoint is not chosen yet."""
     if params is None and config.fraud_model_path:
         if os.path.exists(config.fraud_model_path):
             raise NotImplementedError(
-                f"FRAUD_MODEL_PATH={config.fraud_model_path}: loading a checkpoint needs "
-                "the params vault, not ported yet")
+                f"FRAUD_MODEL_PATH={config.fraud_model_path}: reading a JAX Orbax checkpoint "
+                "is not ported yet (ROADMAP.md)")
         logger.warning("model path %s not found; using mock scorer", config.fraud_model_path)
     if config.ml_backend:
         ml_backend = config.ml_backend
@@ -95,6 +105,7 @@ class AssembledService:
     abuse: SequenceAbuseDetector
     bridge: ScoringBridge
     service: RiskGrpcService
+    ledger: ledger_mod.DecisionLedger | None = None
 
 
 def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend: str = "mock",
@@ -106,7 +117,10 @@ def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend
     """Build the store (``config.feature_store``, unless one is given), the
     engine, the abuse detector (``abuse_policy``), the bridge and the
     RiskGrpcService, on ``device``. ``feature_cache`` and ``session_state``
-    go to the engine (None: its environment knobs). Binds no transport."""
+    go to the engine (None: its environment knobs). With ``LEDGER_DIR`` set,
+    opens the decision ledger there and binds it to the engine; whoever
+    does not hand the assembly to a ``RiskServer`` closes it. Binds no
+    transport."""
     config = config or RiskServiceConfig.from_env()
     ml_backend, params = resolve_model_boot(config, ml_backend, params)
     store = feature_store if feature_store is not None else make_feature_store(config.feature_store)
@@ -119,7 +133,14 @@ def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend
                            abuse_detector=abuse)
     service = RiskGrpcService(engine, abuse_detector=abuse.check,
                               rate_limit_per_minute=config.rate_limit_per_minute)
-    return AssembledService(config, engine, abuse, bridge, service)
+    ledger = None
+    ledger_dir = os.environ.get("LEDGER_DIR", "")
+    if ledger_dir:
+        ledger = ledger_mod.DecisionLedger(ledger_dir, sink=ledger_mod.sink_from_env())
+        engine.ledger = ledger
+        logger.info("decision ledger at %s (sink=%s)", ledger_dir,
+                    os.environ.get("LEDGER_SINK", "") or "none")
+    return AssembledService(config, engine, abuse, bridge, service, ledger)
 
 
 class RiskServer:
@@ -133,6 +154,7 @@ class RiskServer:
         self.engine = assembled.engine
         self.service = assembled.service
         self.bridge = assembled.bridge
+        self.ledger = assembled.ledger
         config = assembled.config
         grpc_port = config.grpc_port if grpc_port is None else grpc_port
         self.grpc_server, self.grpc_port = None, None
@@ -208,6 +230,12 @@ class RiskServer:
                         self._send(404, '{"error":"drift observatory disabled"}')
                         return
                     self._send(200, json.dumps(drift.snapshot()))
+                elif self.path == "/debug/ledgerz":
+                    ledger = server_ref.ledger
+                    if ledger is None:
+                        self._send(404, '{"error":"ledger disabled"}')
+                        return
+                    self._send(200, json.dumps(ledger.stats()))
                 elif self.path == "/debug/shadowz":
                     shadow = server_ref.engine.shadow
                     if shadow is None:
@@ -247,8 +275,48 @@ class RiskServer:
                     }))
                 elif self.path == "/debug/driftz":
                     self._drift_action(payload)
+                elif self.path == "/debug/outcomes":
+                    self._outcomes(payload)
                 else:
                     self._send(404, '{"error":"not found"}')
+
+            def _outcomes(self, payload) -> None:
+                """Label backfill: ``{"decision_id", "label", "source"}`` or
+                ``{"outcomes": [...]}`` of them, appended as outcome records.
+                A malformed body is a 400; the answer counts accepted rows and
+                decision ids this process did not issue (still appended: the
+                WAL may hold them from before a restart)."""
+                ledger = server_ref.ledger
+                if ledger is None:
+                    self._send(404, '{"error":"ledger disabled"}')
+                    return
+                if not isinstance(payload, dict):
+                    self._send(400, '{"error":"body must be a JSON object"}')
+                    return
+                rows = payload.get("outcomes")
+                if rows is None:
+                    rows = [payload]
+                if not isinstance(rows, list):
+                    self._send(400, '{"error":"outcomes must be a list"}')
+                    return
+                for row in rows:
+                    if not isinstance(row, dict) or not str(row.get("decision_id", "")):
+                        self._send(400, json.dumps({
+                            "error": "each outcome needs a non-empty decision_id",
+                            "bad_row": repr(row)[:120]}))
+                        return
+                accepted = unknown = 0
+                for row in rows:
+                    did = str(row["decision_id"])
+                    if not ledger.knows_decision(did):
+                        unknown += 1
+                    if ledger.append_outcome(ledger_mod.OutcomeRecord(
+                            decision_id=did, label=1 if row.get("label") else 0,
+                            source=str(row.get("source", "manual")),
+                            ts_unix=ledger_mod.wall_clock())):
+                        accepted += 1
+                self._send(200, json.dumps({"accepted": accepted, "unknown": unknown,
+                                            "submitted": len(rows)}))
 
             def _drift_action(self, payload: dict) -> None:
                 """{"action": "pin_reference"} pins the current window;
@@ -290,12 +358,16 @@ class RiskServer:
 
     def shutdown(self, grace: float = 30.0) -> None:
         """NOT_SERVING, stop the bridge, drain gRPC, then close the engine
-        (batcher and host pipeline), drain the shadow scorer and the drift
-        engine (every scored batch folded), close the service (which closes
-        the drift engine), then stop the sidecar."""
+        (batcher and host pipeline), close the ledger (every admitted
+        decision is noted by then; its WAL is flushed and its sink given a
+        bounded catch-up), drain the shadow scorer and the drift engine
+        (every scored batch folded), close the service (which closes the
+        drift engine), then stop the sidecar."""
         self._stopped.set()
         self.bridge.stop()
         graceful_stop(self.grpc_server, self.health, grace, engine=self.engine)
+        if self.ledger is not None:
+            self.ledger.close()
         if self.engine.shadow is not None:
             self.engine.shadow.drain()
         if self.service.drift is not None:

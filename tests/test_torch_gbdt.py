@@ -187,3 +187,87 @@ def test_launch_plan_invariants(b, n_features, n_trees, depth):
             for g in range(plan.groups):
                 walked[t0 + np.arange(g, n, plan.groups)] += 1
     assert (walked == 1).all()
+
+
+def _emulate_kernel_sums(v: np.ndarray, plan, n_trees: int) -> np.ndarray:
+    """A row's margin less its bias as csrc/gbdt_forest.cu adds it under
+    ``plan``, in float32 from the [R, T] leaf values ``v``: rank, chunk,
+    segment, warp; each warp's partial handed over where a tree block ends;
+    a tree block's partials added in warp order; rank 0 adds every rank's
+    tree block sums in rank order."""
+    f32 = np.float32
+    ranks = []
+    for rank in range(plan.cluster):
+        t_begin = min(n_trees, rank * plan.span)
+        t_end = min(n_trees, t_begin + plan.span)
+        acc = np.zeros((plan.groups, v.shape[0]), f32)
+        sums = []
+        for t0 in range(t_begin, t_end, plan.chunk):
+            n = min(plan.chunk, t_end - t0)
+            seg = min(plan.tree_block, plan.chunk)
+            for s0 in range(0, n, seg):
+                s1 = min(n, s0 + seg)
+                for g in range(plan.groups):
+                    for j in range(s0 + g, s1, plan.groups):
+                        acc[g] = acc[g] + v[:, t0 + j]
+                if (t0 + s1 - t_begin) % plan.tree_block == 0 or t0 + s1 == t_end:
+                    s = acc[0].copy()
+                    for g in range(1, plan.groups):
+                        s = s + acc[g]
+                    sums.append(s)
+                    acc[:] = f32(0)
+        ranks.append(sums)
+    blocks = [s for sums in ranks for s in sums]
+    total = blocks[0]
+    for s in blocks[1:]:
+        total = total + s
+    return total
+
+
+def _canonical_sums(v: np.ndarray, n_trees: int) -> np.ndarray:
+    """The same sum straight from ``sum_order``'s description."""
+    order = gbdt_kernel.sum_order(n_trees)
+    blocks = []
+    for k0 in range(0, n_trees, order.tree_block):
+        k1 = min(n_trees, k0 + order.tree_block)
+        parts = []
+        for p in range(order.partials):
+            acc = np.zeros(v.shape[0], np.float32)
+            for t in range(k0 + p, k1, order.partials):
+                acc = acc + v[:, t]
+            parts.append(acc)
+        s = parts[0]
+        for q in parts[1:]:
+            s = s + q
+        blocks.append(s)
+    total = blocks[0]
+    for s in blocks[1:]:
+        total = total + s
+    return total
+
+
+@pytest.mark.parametrize("n_trees,depth", [(64, 4), (16, 3), (600, 4), (1000, 6), (256, 10),
+                                           (301, 5), (2000, 2), (33, 8), (5, 1), (3000, 3)])
+def test_launch_plan_sum_order(n_trees, depth):
+    """Every plan ``launch_plan`` gives a forest, at B = 1, 256, 2048 and
+    4096 (the ladder's shapes and a single row) on a 132-SM card, adds a
+    row's trees in ``sum_order``'s one order: the kernel's additions,
+    emulated in float32 on leaf values of scales 1e-3 to 1e3, give the same
+    bits under every plan and equal the order's own sum, which a plain
+    ``np.sum`` misses. So a row's margin does not depend on its batch."""
+    rng = np.random.default_rng(n_trees)
+    v = (rng.normal(size=(16, n_trees)) * 10.0 ** rng.uniform(-3, 3, (16, n_trees))).astype(
+        np.float32)
+    want = _canonical_sums(v, n_trees)
+    plans = {gbdt_kernel.launch_plan(b, N_FEATURES, n_trees, depth, 132)
+             for b in (1, 256, 2048, 4096)}
+    for plan in plans:
+        assert plan.groups == gbdt_kernel.sum_order(n_trees).partials
+        assert plan.tree_block == gbdt_kernel.sum_order(n_trees).tree_block
+        assert plan.cluster == 1 or plan.span % plan.tree_block == 0
+        assert plan.chunk == plan.span or (plan.chunk % plan.groups == 0 and (
+            plan.chunk % plan.tree_block == 0 or plan.tree_block % plan.chunk == 0))
+        np.testing.assert_array_equal(_emulate_kernel_sums(v, plan, n_trees), want)
+    if n_trees >= 600:
+        assert len(plans) > 1  # the plans differ by B; the order does not
+        assert not np.array_equal(np.sum(v, axis=1, dtype=np.float32), want)
