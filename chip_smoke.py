@@ -2830,10 +2830,12 @@ def ledger_engine_a(torch, gbdt_kernel, fa, store, directory: str, device: str) 
 def ledger_turns(torch, store, directory: str, device: str) -> dict:
     """Phase 7's engine (drift bound, as by default) in turns, its ledger
     unbound and bound, order off, on, on, off, VARIANT_TURN_RPCS ScoreBatch
-    RPCs of SERVER_BATCH_ROWS rows a turn (rows/s), the ledger left to
-    catch up between turns, off the clock; then the writer's counts, which
-    must add up to the rows noted, its fsync p99 and the WAL's bytes a
-    record."""
+    RPCs of SERVER_BATCH_ROWS rows a turn (rows/s, and the process's CPU
+    seconds over the RPCs), the ledger left to catch up between turns, off
+    the clock; for each on-turn the writer's wall and CPU seconds and its
+    expand-and-encode CPU µs a record (``DecisionLedger.stats``); then the
+    writer's counts, which must add up to the rows noted, its fsync p99 and
+    the WAL's bytes a record."""
     from igaming_platform_tpu_torch.convert import from_jax_params
     from igaming_platform_tpu_torch.core.config import BatcherConfig
     from igaming_platform_tpu_torch.serve import grpc_server, scorer
@@ -2853,19 +2855,31 @@ def ledger_turns(torch, store, directory: str, device: str) -> dict:
     turns = []
     try:
         svc.call("ScoreBatch", payloads[0])  # the pipeline's build, off the clock
+        writer_keys = ("writer_busy_s", "writer_cpu_s", "encode_cpu_s", "encoded_records")
         for on in (False, True, True, False):
+            before = led.stats()
             engine.ledger = led if on else None
             rates = []
+            cpu0 = time.process_time()
             for payload in payloads:
                 t = time.perf_counter()
                 svc.call("ScoreBatch", payload)
                 rates.append(SERVER_BATCH_ROWS / (time.perf_counter() - t))
             engine.ledger = None
-            turns.append({"ledger": on, "rows_per_s": rates, "catch_up_s": None})
+            turns.append({"ledger": on, "rows_per_s": rates,
+                          "rpc_s": sum(SERVER_BATCH_ROWS / r for r in rates),
+                          "process_cpu_s": time.process_time() - cpu0, "catch_up_s": None})
             if on:
                 t = time.perf_counter()
                 led.flush(120.0)
                 turns[-1]["catch_up_s"] = time.perf_counter() - t
+                after = led.stats()
+                writer = {k: after[k] - before[k] for k in writer_keys}
+                n = writer["encoded_records"]
+                writer["encode_us_per_record"] = writer["encode_cpu_s"] / n * 1e6 if n else None
+                writer["writer_cpu_us_per_record"] = (writer["writer_cpu_s"] / n * 1e6
+                                                      if n else None)
+                turns[-1]["writer"] = writer
         stats = led.stats()
     finally:
         engine.close()
@@ -2918,10 +2932,14 @@ def phase_ledger(torch, card: str, gbdt_kernel, fa, store, device: str = "cuda")
         f"{ra['session_verified']} of {ra['session_records']} session hashes verified, "
         f"{arun['replay_records_per_s']:.0f} records/s")
     for tr in turns["turns"]:
+        w = tr.get("writer")
         log(f"phase 10: [{card}] ledger {'on ' if tr['ledger'] else 'off'}: median "
-            f"{statistics.median(tr['rows_per_s']):.0f} rows/s"
-            + (f"; the writer caught up {tr['catch_up_s']:.3f} s after the turn"
-               if tr["ledger"] else ""))
+            f"{statistics.median(tr['rows_per_s']):.0f} rows/s; the RPCs {tr['rpc_s']:.3f} s "
+            f"of wall, the process {tr['process_cpu_s']:.3f} s of CPU"
+            + (f"; the writer caught up {tr['catch_up_s']:.3f} s after the turn, busy "
+               f"{w['writer_busy_s']:.3f} s of wall and {w['writer_cpu_s']:.3f} s of CPU, "
+               f"encode {w['encode_us_per_record']:.2f} µs of CPU a record"
+               if w else ""))
     log(f"phase 10: the writer: {turns['records_appended']} appended, "
         f"{turns['records_dropped']} dropped of {turns['rows_noted']} noted; fsync p99 "
         f"{turns['fsync_p99_ms']} ms; {turns['wal_bytes_per_record']:.1f} WAL bytes a record")

@@ -821,6 +821,13 @@ class DecisionLedger:
         self.append_errors = 0
         self.fsync_count = 0
         self._fsync_ms: deque[float] = deque(maxlen=2048)
+        # The writer's own time: wall seconds in _write_batches, and the
+        # thread's CPU seconds there and in the expand-and-encode alone (a
+        # thread waiting for the interpreter lock takes no CPU time).
+        self.writer_busy_s = 0.0
+        self.writer_cpu_s = 0.0
+        self.encode_cpu_s = 0.0
+        self.encoded_records = 0
 
         # Segment state (guarded by _cv): [seq, path, end_offset,
         # end_count] per segment; the last entry is the open one.
@@ -1047,14 +1054,19 @@ class DecisionLedger:
         if not batches:
             return False
         wrote_any = False
+        wall0, cpu0 = time.perf_counter(), time.thread_time()
+        encode_cpu, encoded = 0.0, 0
         for batch in batches:
             try:
+                c0 = time.thread_time()
                 records = batch.to_records()
                 frames = []
                 for rec in records:
                     payload = encode_entry(rec)
                     frames.append(_FRAME.pack(len(payload), zlib.crc32(payload))
                                   + payload)
+                encode_cpu += time.thread_time() - c0
+                encoded += len(records)
                 chaos.fire("ledger.append")
                 self._write_blob(frames, records)
                 wrote_any = True
@@ -1071,6 +1083,11 @@ class DecisionLedger:
                 # Brief jittered pause so an fs outage doesn't spin the
                 # writer hot while scoring keeps enqueueing.
                 time.sleep(0.02 * _jitter())
+        with self._cv:
+            self.writer_busy_s += time.perf_counter() - wall0
+            self.writer_cpu_s += time.thread_time() - cpu0
+            self.encode_cpu_s += encode_cpu
+            self.encoded_records += encoded
         return wrote_any
 
     def _write_blob(self, frames: list[bytes],
@@ -1300,6 +1317,10 @@ class DecisionLedger:
                 "segments": len(segs),
                 "current_segment": segs[-1][1] if segs else None,
                 "wal_bytes": sum(s[2] for s in segs),
+                "writer_busy_s": self.writer_busy_s,
+                "writer_cpu_s": self.writer_cpu_s,
+                "encode_cpu_s": self.encode_cpu_s,
+                "encoded_records": self.encoded_records,
             }
         stats["fsync_p99_ms"] = self._fsync_p99_ms()
         with self._sink_cv:
@@ -1422,6 +1443,7 @@ def note_decisions(
     tx_codes=None,
     model_version: str | None = None,
     params_fp: str | None = None,
+    thresholds: tuple[int, int] | None = None,
     mark_root: bool = True,
     ts: float | None = None,
     session_lens=None,
@@ -1434,11 +1456,14 @@ def note_decisions(
     the batch decision-id prefix (row i is ``<prefix>.<i>``), or None when no
     ledger is bound. Never raises.
 
-    Callers pass the params fingerprint captured at dispatch
-    (``engine.params_snapshot``): a hot swap can land between the step and
-    this seam, and the fingerprint after it would be one replay catches as
-    unreplayable. ``trace_id`` is ``""`` and ``mark_root`` sets nothing until
-    ``obs/tracing`` is ported.
+    Callers pass the params fingerprint and the (block, review) thresholds
+    captured at dispatch (``engine.params_snapshot``,
+    ``engine.thresholds_snapshot``): a hot swap or an ``UpdateThresholds``
+    can land between the step and this seam, and the values after it would
+    be ones replay catches as unreplayable. Without ``thresholds`` the
+    engine's current pair is noted, as the JAX package does. ``trace_id``
+    is ``""`` and ``mark_root`` sets nothing until ``obs/tracing`` is
+    ported.
 
     A bound shadow scorer (``engine.shadow``) is handed compiled-tier rows
     at the launch seam; this seam only counts a heuristic tier's rows as
@@ -1452,7 +1477,8 @@ def note_decisions(
         return None
     try:
         prefix = next_batch_prefix()
-        block_thr, review_thr = engine.get_thresholds()
+        block_thr, review_thr = (thresholds if thresholds is not None
+                                 else engine.get_thresholds())
         # The port has no host-CPU tier: a compiled batch ran on the device.
         tier_codes = np.full((n,), TIER_CODES.get(tier or "device", 0), np.uint8)
         # Session-scored chunks pass the timestamp the session plane used for

@@ -54,16 +54,20 @@ class _Job:
     """One wire batch moving through the pipeline (one RPC's rows)."""
 
     __slots__ = ("x", "bl", "include_features", "start", "total", "n_chunks", "parts",
-                 "rtms", "future", "done_chunks", "params", "params_fp", "account_ids")
+                 "rtms", "future", "done_chunks", "params", "params_fp", "thr", "thr_host",
+                 "account_ids")
 
     def __init__(self, x: np.ndarray, bl: np.ndarray, include_features: bool, start: float,
-                 n_chunks: int, snapshot: tuple[Any, str], account_ids=None):
+                 n_chunks: int, snapshot: tuple[Any, str], thresholds: tuple[Any, tuple],
+                 account_ids=None):
         self.x = x
         self.bl = bl
         # Captured together at submit: every chunk of the job scores with one
-        # tree, and the ledger notes that tree's fingerprint even if a swap
-        # lands before the encode.
+        # tree and one pair of thresholds, and the ledger notes that tree's
+        # fingerprint and those thresholds even if a swap or an
+        # UpdateThresholds lands before the encode.
         self.params, self.params_fp = snapshot
+        self.thr, self.thr_host = thresholds
         self.account_ids = account_ids
         self.include_features = include_features
         self.start = start
@@ -149,7 +153,7 @@ class HostPipeline:
         batch = self._engine.batch_size
         n_chunks = (total + batch - 1) // batch
         job = _Job(x, bl, include_features, start, n_chunks, self._engine.params_snapshot(),
-                   account_ids)
+                   self._engine.thresholds_snapshot(), account_ids)
         for idx, lo in enumerate(range(0, total, batch)):
             # Blocks when the stage queue is full: backpressure on the caller.
             self._stage_q.put((job, idx, lo, min(lo + batch, total)))
@@ -164,7 +168,7 @@ class HostPipeline:
             cat = {k: np.concatenate([p[k] for p in job.parts]) for k in RESULT_KEYS}
             ledger_mod.note_decisions(self._engine, cat, n=job.total, wire_mode="wire_row",
                                       x=job.x, bl=job.bl, account_ids=job.account_ids,
-                                      params_fp=job.params_fp)
+                                      params_fp=job.params_fp, thresholds=job.thr_host)
             return encode_score_batch(
                 cat["score"], cat["action"], cat["reason_mask"], cat["rule_score"],
                 cat["ml_score"], job.rtms, job.x if job.include_features else None)
@@ -186,14 +190,15 @@ class HostPipeline:
             chunk = self._engine._wire_encode(chunk)
         shape = self._engine._pick_shape(n)
         if n == shape and not self._pinned:
-            return self._engine._launch_padded(chunk, blc, n, job.params), None
+            return self._engine._launch_padded(chunk, blc, n, job.params, thr=job.thr), None
         xp = self._arena.acquire((shape, chunk.shape[1]), chunk.dtype)
         blp = self._arena.acquire((shape,), np.bool_)
         pad_batch(chunk, shape, out=xp)
         pad_batch(blc, shape, out=blp)
         hold = StagingHold(self._arena, (xp, blp))
         try:
-            return self._engine._launch_padded(xp, blp, n, job.params, hold=hold), hold
+            return self._engine._launch_padded(xp, blp, n, job.params, hold=hold,
+                                               thr=job.thr), hold
         except BaseException:
             hold.release()
             raise

@@ -54,13 +54,17 @@ path (risk.v1 ScoreTransaction / ScoreBatch):
   delay or change an answer;
 - with a decision ledger bound (``engine.ledger``, ``serve/ledger.py``;
   ``LEDGER_DIR`` on the server) every path notes each batch it answered,
-  after the readback, as host numpy, with the params fingerprint captured
-  at dispatch: the batcher's flushes (``"single"``), each ``score_batch``
-  chunk (``"batch"``, which stamps ``decision_id`` on its responses), each
-  wire RPC (``"wire_row"``, on the lockstep path and in the host pipeline's
-  encode) and the index path (``"index"``: with session state one note per
+  after the readback, as host numpy, with the params fingerprint and the
+  thresholds captured at dispatch: the batcher's flushes (``"single"``),
+  each ``score_batch`` chunk (``"batch"``, which stamps ``decision_id`` on
+  its responses), each wire RPC (``"wire_row"``, on the lockstep path and
+  in the host pipeline's encode) and the index path (``"index"``: with session state one note per
   chunk with its session fields, else one per call without a feature
-  snapshot). The ledger never fails, delays or changes an answer.
+  snapshot). The ledger never fails or changes an answer, and a row it
+  cannot keep (a full queue, a failed append) is counted as dropped. It
+  does slow answers: with it bound, bulk ScoreBatch callers got about a
+  quarter of the rows/s, its writer thread sharing the interpreter with
+  them (``PERF.md`` §5, ``ROADMAP.md`` Queue 1 item 7).
 
 Every batch runs on the engine's device. On a card, every copy and step
 goes on one CUDA stream the engine owns, whichever thread launches it, and
@@ -301,8 +305,10 @@ class TorchScoringEngine:
         self._shapes = sorted(
             {t for t in bcfg.latency_tiers if 0 < t < self.batch_size} | {self.batch_size}
         )
-        self._thresholds_host = (self.config.block_threshold, self.config.review_threshold)
-        self._thresholds = self._thresholds_tensor(*self._thresholds_host)
+        # (device tensor, host pair), replaced as one: a dispatch reads both
+        # at once (``thresholds_snapshot``).
+        host_thr = (self.config.block_threshold, self.config.review_threshold)
+        self._thr_state = (self._thresholds_tensor(*host_thr), host_thr)
         # Device steps launched (every step of a gbdt backend launches the
         # forest kernel once); read by tests and the chip smoke.
         self.device_steps = 0
@@ -506,14 +512,24 @@ class TorchScoringEngine:
     def _thresholds_tensor(self, block: int, review: int) -> torch.Tensor:
         return torch.tensor([block, review], dtype=torch.int32, device=self.device)
 
+    @property
+    def _thresholds(self) -> torch.Tensor:
+        return self._thr_state[0]
+
     def get_thresholds(self) -> tuple[int, int]:
-        return self._thresholds_host
+        return self._thr_state[1]
+
+    def thresholds_snapshot(self) -> tuple[torch.Tensor, tuple[int, int]]:
+        """(device tensor, (block, review)) of one ``set_thresholds``: a
+        dispatch launches with the tensor and notes the pair, so a record
+        carries the thresholds that scored it even if they change before
+        the readback."""
+        return self._thr_state
 
     def set_thresholds(self, block: int, review: int) -> None:
         """Runtime threshold tuning (engine.go:498-504): a new [2] input
         tensor, nothing rebuilt."""
-        t = self._thresholds_tensor(block, review)
-        self._thresholds, self._thresholds_host = t, (int(block), int(review))
+        self._thr_state = (self._thresholds_tensor(block, review), (int(block), int(review)))
 
     # -- scoring -------------------------------------------------------------
 
@@ -533,9 +549,10 @@ class TorchScoringEngine:
             chunk = reqs[i : i + self.batch_size]
             x, bl = self.features.gather_batch(chunk)
             params, fp = self.params_snapshot()
-            host = self._readback(self._launch(x, bl, params))
+            thr, thr_host = self.thresholds_snapshot()
+            host = self._readback(self._launch(x, bl, params, thr))
             rows = [self._row_response(host, x, j) for j in range(len(chunk))]
-            self._note_decisions_requests(host, x, bl, chunk, rows, "batch", fp)
+            self._note_decisions_requests(host, x, bl, chunk, rows, "batch", fp, thr_host)
             responses.extend(rows)
         elapsed_ms = (time.monotonic() - start) * 1000.0
         for r in responses:
@@ -629,16 +646,17 @@ class TorchScoringEngine:
             rtms[lo:lo + handle[2]] = int((time.monotonic() - start) * 1000.0)
 
         params, fp = self.params_snapshot()
+        thr, thr_host = self.thresholds_snapshot()
         for lo in range(0, total, self.batch_size):
             hi = min(lo + self.batch_size, total)
-            inflight.append((self._launch(x[lo:hi], bl[lo:hi], params), lo))
+            inflight.append((self._launch(x[lo:hi], bl[lo:hi], params, thr), lo))
             if len(inflight) > self._pipeline_depth:
                 read_one()
         while inflight:
             read_one()
         cat = {k: np.concatenate(v) for k, v in parts.items()}
         ledger_mod.note_decisions(self, cat, n=total, wire_mode="wire_row", x=x, bl=bl,
-                                  account_ids=account_ids, params_fp=fp)
+                                  account_ids=account_ids, params_fp=fp, thresholds=thr_host)
         return encode_score_batch(cat["score"], cat["action"], cat["reason_mask"],
                                   cat["rule_score"], cat["ml_score"], rtms,
                                   x if include_features else None)
@@ -706,13 +724,13 @@ class TorchScoringEngine:
             self.cache = cache
         return cache
 
-    def _cached_step(self, params, cache, idxs, amounts, types, bl):
+    def _cached_step(self, params, cache, idxs, amounts, types, bl, thr=None):
         """The cached step: (packed [5, B], the composed rows, their
-        blacklist, the thresholds it used)."""
+        blacklist, the thresholds it used: ``thr``, else the engine's)."""
         from igaming_platform_tpu_torch.serve.device_cache import compose_rows
 
         x, blv = compose_rows(cache.table, cache.flags, idxs, amounts, types, bl)
-        thr = self._thresholds
+        thr = self._thresholds if thr is None else thr
         return _stack_packed(self._score_fn(params, x, blv, thr)), x, blv, thr
 
     def _session_step_for(self, mgr, sketch: bool, shadow: bool):
@@ -797,10 +815,12 @@ class TorchScoringEngine:
         return lambda: [host_to_device(a, self.device) for a in arrays]
 
     def _launch_cached(self, idxs: np.ndarray, amounts: np.ndarray, types: np.ndarray,
-                       bl: np.ndarray, params: Any, account_ids=None, now: float | None = None):
-        """Launch the cached step: the device gathers the rows from the
-        table; only int32 slots and the per-transaction context cross to the
-        card. Pad rows read slot 0, scored and discarded.
+                       bl: np.ndarray, params: Any, account_ids=None, now: float | None = None,
+                       thr=None):
+        """Launch the cached step with the thresholds tensor ``thr`` (else
+        the engine's): the device gathers the rows from the table; only
+        int32 slots and the per-transaction context cross to the card. Pad
+        rows read slot 0, scored and discarded.
 
         With session state on (and ``account_ids`` given) the fused session
         step runs instead: the host index commit and the device append under
@@ -811,6 +831,7 @@ class TorchScoringEngine:
         ledger records; None on the plain path."""
         n = idxs.shape[0]
         shape = self._pick_shape(n)
+        thr = self._thresholds if thr is None else thr
         idxsp, _ = pad_batch(idxs.astype(np.int64), shape)
         amtp, _ = pad_batch(amounts, shape)
         typp, _ = pad_batch(types, shape)
@@ -839,7 +860,7 @@ class TorchScoringEngine:
                     res, v = self._session_variant_step(
                         mgr, sketch, sstate, n, params, mgr.head_params, cache.table, cache.flags,
                         mgr.session_ring, mgr.session_cursor, mgr.session_length, *inputs,
-                        self._thresholds, app)
+                        thr, app)
                     packed = res[0]
                     mgr.adopt(*res[1:4])
                     if self.drift is None and self.shadow is None:
@@ -855,7 +876,7 @@ class TorchScoringEngine:
 
         def cached():
             idx_d, amt_d, typ_d, bl_d = args()
-            packed, x, blv, thr = self._cached_step(params, cache, idx_d, amt_d, typ_d, bl_d)
+            packed, x, blv, _ = self._cached_step(params, cache, idx_d, amt_d, typ_d, bl_d, thr)
             return packed, self._step_variants(
                 packed, x, blv, thr, n, split_sketch=lambda: cached_sketch_kernel(
                     cache.table, idx_d, amt_d, typ_d, packed, n))
@@ -893,6 +914,7 @@ class TorchScoringEngine:
         rtms = np.empty((total,), dtype=np.int64)
         inflight: deque = deque()
         params, fp = self.params_snapshot()
+        thr, thr_host = self.thresholds_snapshot()
         session_on = self.session is not None
 
         def read_one() -> None:
@@ -909,8 +931,8 @@ class TorchScoringEngine:
                 ledger_mod.note_decisions(
                     self, host, n=n, wire_mode="index", tier="device", bl=bl[lo:lo + n],
                     account_ids=account_ids[lo:lo + n], amounts=amounts32[lo:lo + n],
-                    tx_codes=types32[lo:lo + n], params_fp=fp, ts=smeta["ts"],
-                    session_lens=smeta["lens"], session_seqs=smeta["seqs"],
+                    tx_codes=types32[lo:lo + n], params_fp=fp, thresholds=thr_host,
+                    ts=smeta["ts"], session_lens=smeta["lens"], session_seqs=smeta["seqs"],
                     session_hashes=smeta["hashes"])
 
         for lo in range(0, total, self.batch_size):
@@ -919,7 +941,7 @@ class TorchScoringEngine:
                 idxs = self.cache.lookup(account_ids[lo:hi], now=now)
                 handle, n, smeta = self._launch_cached(
                     idxs, amounts32[lo:hi], types32[lo:hi], bl[lo:hi], params,
-                    account_ids=account_ids[lo:hi] if session_on else None, now=now)
+                    account_ids=account_ids[lo:hi] if session_on else None, now=now, thr=thr)
             inflight.append((handle, lo, n, smeta))
             if len(inflight) > self._pipeline_depth:
                 read_one()
@@ -932,7 +954,7 @@ class TorchScoringEngine:
             # without a feature snapshot (replay counts them as skipped).
             ledger_mod.note_decisions(self, cat, n=total, wire_mode="index", tier="device", bl=bl,
                                       account_ids=account_ids, amounts=amounts32,
-                                      tx_codes=types32, params_fp=fp)
+                                      tx_codes=types32, params_fp=fp, thresholds=thr_host)
         return cat, rtms
 
     def score_columns_cached(self, account_ids, amounts, tx_types, ips=None, devices=None,
@@ -979,7 +1001,7 @@ class TorchScoringEngine:
         with self._steps_lock:
             self.device_steps += 1
 
-    def _launch(self, x: np.ndarray, bl: np.ndarray, params: Any):
+    def _launch(self, x: np.ndarray, bl: np.ndarray, params: Any, thr=None):
         """Pad into fresh arrays and launch (``_launch_padded``)."""
         n = x.shape[0]
         shape = self._pick_shape(n)
@@ -988,7 +1010,7 @@ class TorchScoringEngine:
             x = self._wire_encode(x)
         xp, _ = pad_batch(x, shape)
         blp, _ = pad_batch(bl, shape)
-        return self._launch_padded(xp, blp, n, params)
+        return self._launch_padded(xp, blp, n, params, thr=thr)
 
     @contextlib.contextmanager
     def _on_stream(self):
@@ -1021,14 +1043,16 @@ class TorchScoringEngine:
         return host, done, n
 
     def _launch_padded(self, xp: np.ndarray, blp: np.ndarray, n: int, params: Any,
-                       hold=None):
+                       hold=None, thr=None):
         """Copy one padded batch to the device, run the step and start the
         copy of the packed [5, B] result back (``_enqueue``). From pinned
         staging buffers the input copies are asynchronous too: ``hold``
         (``serve/arena.StagingHold``) then gets the event recorded after
         them, and keeps the buffers from the pool until it has passed. The
-        batch crosses in the wire's dtype and is decoded at the step's head."""
+        batch crosses in the wire's dtype and is decoded at the step's head.
+        ``thr`` is the thresholds tensor the step uses, else the engine's."""
         self._note_session_bypass(n)
+        thr = self._thresholds if thr is None else thr
 
         def step():
             xd = torch.from_numpy(xp).to(self.device, non_blocking=True)
@@ -1036,7 +1060,6 @@ class TorchScoringEngine:
             if hold is not None:
                 hold.copied = self._record_event()
             x = decode_wire(xd)
-            thr = self._thresholds
             packed = _stack_packed(self._score_fn(params, x, bld, thr))
             return packed, self._step_variants(
                 packed, x, bld, thr, n, split_sketch=lambda: sketch_kernel(x, packed, n),
@@ -1053,25 +1076,28 @@ class TorchScoringEngine:
     def _dispatch_requests(self, reqs: list[ScoreRequest]):
         x, bl = self.features.gather_batch(reqs)
         params, fp = self.params_snapshot()
-        return self._launch(x, bl, params), x, bl, reqs, fp
+        thr, thr_host = self.thresholds_snapshot()
+        return self._launch(x, bl, params, thr), x, bl, reqs, fp, thr_host
 
     def _collect_requests(self, handle) -> list[ScoreResponse]:
-        launched, x, bl, reqs, fp = handle
+        launched, x, bl, reqs, fp, thr_host = handle
         host = self._readback(launched)
         rows = [self._row_response(host, x, i) for i in range(x.shape[0])]
-        self._note_decisions_requests(host, x, bl, reqs, rows, "single", fp)
+        self._note_decisions_requests(host, x, bl, reqs, rows, "single", fp, thr_host)
         return rows
 
     def _note_decisions_requests(self, out: dict, x: np.ndarray, bl: np.ndarray, reqs,
                                  responses: list[ScoreResponse], wire_mode: str,
-                                 params_fp: str) -> None:
+                                 params_fp: str, thresholds: tuple[int, int]) -> None:
         """The ledger note of the request-object paths (batcher, direct
-        batch): one note for the launched batch, with the fingerprint it was
-        dispatched with, and its decision ids stamped on the responses."""
+        batch): one note for the launched batch, with the fingerprint and
+        thresholds it was dispatched with, and its decision ids stamped on
+        the responses."""
         if self.ledger is None and self.shadow is None:
             return
         prefix = ledger_mod.note_decisions(
             self, out, n=len(responses), wire_mode=wire_mode, x=x, bl=bl, params_fp=params_fp,
+            thresholds=thresholds,
             account_ids=[r.account_id for r in reqs], amounts=[r.amount for r in reqs],
             tx_codes=[r.tx_type for r in reqs])
         if prefix is not None:

@@ -3,7 +3,7 @@
 The port's counterpart of ``tools/replay.py``::
 
     python -m igaming_platform_tpu_torch.tools.replay --dir LEDGER_DIR \\
-        [--device cuda|cpu] [--batch N] [--tiers 256,2048] \\
+        [--device cuda|cpu] [--batch N] \\
         [--params tree.npz|mock] [--params-vault DIR] [--out verdict.json]
     python -m igaming_platform_tpu_torch.tools.replay --verify [--device cpu]
 
@@ -39,10 +39,14 @@ Two departures from the JAX tool:
 - **The chunks the engine used.** The JAX tool re-chunks each group of
   records by ``batch`` and ignores how the rows were batched. This tool
   replays each note batch (each decision-id prefix) in the chunks the
-  engine used: the same ``batch_size`` (``--batch``, default
-  ``BatcherConfig().batch_size``) from the batch's first row, and the
-  smallest shape of the same ladder (``--tiers``) for each chunk. Every row
-  then meets the launch plan and the library algorithms it was scored with.
+  engine used: the same ``batch_size`` from the batch's first row, and the
+  smallest shape of the same ladder for each chunk. Every row then meets
+  the launch plan and the library algorithms it was scored with. From the
+  command line the batch size is ``--batch``, by default the server's
+  (``BATCH_SIZE``, as ``RiskServiceConfig.from_env`` reads it), and the
+  ladder is ``BatcherConfig().latency_tiers``, the only one the server
+  runs; an engine built with other tiers is replayed through
+  :func:`replay_directory`'s ``tiers``.
 - **The backend of a record** is its ``model_version`` less a
   ``+degraded-heuristic`` suffix; the JAX tool cuts at the first ``+``,
   which turns ``mlp+gbdt`` into ``mlp``.
@@ -63,7 +67,7 @@ import sys
 
 import numpy as np
 
-from igaming_platform_tpu_torch.core.config import BatcherConfig
+from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
 
 _COMPARE_FIELDS = ("score", "action", "reason_mask", "rule_score", "ml_score_bits")
 _DEGRADED_SUFFIX = "+degraded-heuristic"
@@ -500,10 +504,10 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--out", help="write the verdict artifact here")
     parser.add_argument("--device", default="cuda",
                         help="the device that scored the ledger (cuda, or cpu)")
-    parser.add_argument("--batch", type=int, default=BatcherConfig().batch_size,
-                        help="the scoring engine's batch size")
-    parser.add_argument("--tiers", default=",".join(map(str, BatcherConfig().latency_tiers)),
-                        help="the scoring engine's latency tiers, comma-separated")
+    parser.add_argument("--batch", type=int,
+                        default=RiskServiceConfig.from_env().batcher.batch_size,
+                        help="the scoring engine's batch size (default: the server's, "
+                             "BATCH_SIZE)")
     parser.add_argument("--params",
                         help="pinned params: a JAX-layout tree .npz (save_params_tree), or mock")
     parser.add_argument("--params-vault",
@@ -516,8 +520,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.verify:
         verdict = run_verify(device=args.device)
     elif args.dir:
-        tiers = tuple(int(t) for t in args.tiers.split(",") if t.strip())
-        verdict = replay_directory(args.dir, batch=args.batch, tiers=tiers, params=args.params,
+        verdict = replay_directory(args.dir, batch=args.batch, params=args.params,
                                    vault_dir=args.params_vault, device=args.device)
     else:
         parser.error("need --dir or --verify")

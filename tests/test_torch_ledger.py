@@ -19,8 +19,9 @@ and identity seams pinned alike in both (tests/torch_ledger_common.py):
   1e-4 of a floor boundary whose ml_score differs; ml_score atol 1e-6;
   params_fp equal where both packages hash the same tree, the mock's; the
   port's trace_id "" until obs/tracing is ported);
-  the fingerprint captured at dispatch across a ``swap_params``; decision
-  ids on responses and in ScoreTransaction's trailing metadata;
+  the fingerprint captured at dispatch across a ``swap_params``, and the
+  thresholds across a ``set_thresholds``; decision ids on responses and in
+  ScoreTransaction's trailing metadata; the writer's own time counted;
 - chaos ``ledger.append`` faults never fail scoring and are counted; a
   full queue drops, counts and never blocks; the server's ``LEDGER_DIR``,
   ``/debug/ledgerz`` and ``/debug/outcomes``.
@@ -504,6 +505,65 @@ def test_dispatch_fingerprint_across_swap(path, tmp_path, monkeypatch):
     recs = list(pl.iter_records(d))
     assert teng.params_fingerprint != before
     assert recs and recs[0].params_fp == before
+
+
+@pytest.mark.parametrize("path", ["batch", "single", "wire_lockstep", "wire_pipeline",
+                                  "session"])
+def test_dispatch_thresholds_across_update(path, tmp_path, monkeypatch):
+    """New thresholds set between a batch's dispatch and its note leave the
+    thresholds that scored it on every record: each record's action is the
+    one its own score and thresholds give."""
+    pin_ledgers(monkeypatch)
+    monkeypatch.setenv("SESSION_EVENTS", "6")
+    stores = seed_stores()
+    _, teng = engines(jax_tree("mlp+gbdt"), "mlp+gbdt", stores,
+                      feature_cache=32 if path == "session" else None,
+                      session_state=path == "session")
+    teng.set_thresholds(1, 0)  # every row blocks or reviews; at (101, 100) every row approves
+    d = str(tmp_path / "thr")
+    led = _bound(teng, pl, d)
+    name = "_launch_cached" if path == "session" else (
+        "_launch_padded" if path == "wire_pipeline" else "_launch")
+    launch = getattr(teng, name)
+
+    def launch_then_update(*a, **k):
+        out = launch(*a, **k)
+        teng.set_thresholds(101, 100)  # after the first launch; later ones score with these
+        return out
+
+    monkeypatch.setattr(teng, name, launch_then_update)
+    try:
+        if path == "session":
+            teng.score_columns_cached(["lg-1", "lg-2"], [500, 700], ["bet", "bet"], now=T0)
+        else:
+            _drive(teng, path, requests(40)[1])
+        assert led.flush(5.0)
+    finally:
+        teng.ledger = None
+        led.close()
+        teng.close()
+    recs = list(pl.iter_records(d))
+    assert recs and teng.get_thresholds() == (101, 100)
+    assert (recs[0].block_threshold, recs[0].review_threshold) == (1, 0)
+    for r in recs:
+        want = (3 if r.score >= r.block_threshold else
+                2 if r.score >= r.review_threshold else 1)
+        assert r.action == want, r.decision_id
+
+
+def test_writer_time_counted(tmp_path):
+    """``stats`` counts the writer's wall and CPU seconds and the records it
+    encoded, the figures phase 10 of chip_smoke.py reads a record's cost from."""
+    led = pl.DecisionLedger(str(tmp_path / "w"))
+    try:
+        assert led._append_ready([record(pl, i, features=True) for i in range(50)])
+        assert led.flush(5.0)
+        s = led.stats()
+    finally:
+        led.close()
+    assert s["encoded_records"] == s["records_appended"] == 50
+    assert 0.0 < s["encode_cpu_s"] <= s["writer_cpu_s"]
+    assert s["writer_busy_s"] > 0.0
 
 
 def test_chaos_append_faults_never_fail_scoring(tmp_path, monkeypatch):

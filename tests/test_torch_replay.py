@@ -143,7 +143,7 @@ def test_replay_across_swap_through_vault(tmp_path, monkeypatch):
     replay.save_params_tree(params, TREE)
     got = replay.load_params_tree(params)
     np.testing.assert_array_equal(got["mlp"]["layers"][1]["w"], TREE["mlp"]["layers"][1]["w"])
-    args = ["--dir", d, "--device", "cpu", "--batch", "32", "--tiers", "8", "--params", params,
+    args = ["--dir", d, "--device", "cpu", "--batch", "32", "--params", params,
             "--params-vault", str(tmp_path / "empty"), "--out", str(tmp_path / "v.json")]
     assert replay.main(args) == 1  # the swapped tree is in no source
     verdict = replay.replay_directory(d, batch=32, tiers=(8,), device="cpu", params=params,
