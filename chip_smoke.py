@@ -33,14 +33,20 @@ sequences of 64 events). Phases:
    the forward is also held on amplitude-3 inputs to the plain version in
    float64; both are checked at the head sizes, block widths and edges the
    timed shapes do not reach; and the card's ``mma.sync`` rate, the
-   attention kernels' practical ceiling;
+   attention kernels' practical ceiling; the dense kernel of the MLP layers
+   at the main path's layer shapes, bit-equal to its plain version on the
+   card, timed beside ``torch.matmul`` of the same operands; the score
+   step's transcendentals on the card against the CPU; and batch
+   invariance (a row's bits alone and inside a 4096-row batch) of the
+   forest and dense kernels and of the mlp, mlp+gbdt and multitask steps,
+   asserted, and of the transformer session head, counted;
 4. engine: a feature store of 10,000 accounts, 20 single requests and one
    batch of 4096, the launch counts of that run, and the CPU comparison;
    then the device time of one step and its kernels by name, where a
    batch's host time goes, and the latency of 1000 sequential ``score()``
    calls; then a ``gbdt`` engine with a forest of 1,000 trees of depth 6
    through the same singles and batch, against the CPU engine;
-5. abuse: a seeded wallet event stream of 2,000 accounts drained through
+5. abuse: a seeded wallet event stream of 1,000 accounts drained through
    the bridge into the card's detector, ``check_batch`` over every account
    and ``check`` on a sample, the attention kernel's launch count of that
    run, and the same stream through a CPU bridge and detector; then
@@ -76,7 +82,15 @@ sequences of 64 events). Phases:
    way and bit for bit in its table and ring; then, in turns on phase 7's
    engine, ScoreBatch rows/s with the drift engine unbound and bound and on
    the float32, bf16 and int8 wires, each wire's host encode per row, and one
-   step's kernels by name without and with the sketch.
+   step's kernels by name without and with the sketch;
+10. the decision ledger and replay, on phase 7's store (``phase_ledger``);
+11. the trained model, on phase 7's store: the assembly booted from
+    ``FRAUD_MODEL_PATH`` with the released golden ``.npz`` (its scores
+    reproduced) and with a multitask tree of 256x256, whose ScoreBatch and
+    ScoreTransaction answers are held bit for bit to a CPU twin booted from
+    the same file; PredictLTV and GetPlayerSegment for 1,000 accounts and
+    the LTV batch job over a wallet of 100,000 accounts, each equal to the
+    CPU.
 
 Any failure exits non-zero. The second-to-last lines are the ``kernels``
 JSON object and the card's name and power limit; the last line is the
@@ -89,6 +103,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -124,12 +139,29 @@ FOREST_CHECK_SHAPES = ((5, 1, 3, 30), (33, 8, 100, 30), (7, 9, 70, 30), (40, 12,
 PROFILE_B = (256, 4096)
 # Batch invariance (phase 3): the leading B rows of a full batch, launched
 # alone, must give the bits of the same rows inside the full batch's launch:
-# for the forest kernel at these forests (whose launch plans differ by B),
-# asserted; for the packed step of an mlp and an mlp+gbdt engine at the
-# ladder's shapes, counted (cuBLAS picks its algorithm by M).
+# asserted for the forest kernel at these forests (whose launch plans differ
+# by B), the dense kernel, and the packed step of the mlp, mlp+gbdt and
+# multitask engines at the ladder's shapes; counted for the transformer
+# session head (float32 cuBLAS products) and for torch.matmul (cuBLAS picks
+# its sgemm by M).
 INVARIANCE_FORESTS, INVARIANCE_B = ((64, 4), (600, 4), (1000, 6)), (1, 256, 2048)
 N_FEATURES = 30
 SERVE_TREES, SERVE_DEPTH, SERVE_HIDDEN = 64, 4, (128, 128)
+# The multitask backend at its default width (models/multitask.py
+# DEFAULT_TRUNK): phase 3's batch invariance and phase 11's full-width boot.
+MULTITASK_TRUNK = (256, 256)
+# The dense kernel (csrc/dense_bf16.cu) at the main path's layers (B, K, N):
+# the mlp engines' 30->128 and 128->128 and the multitask trunk's 30->256 and
+# 256->256 at a 4096-row step, and 256->256 at the ScoreTransaction tier;
+# checked only: the heads (N = 1), odd K and N, ragged B. Against the
+# product in float64 of the same bf16 operands: at most DENSE_F64_ATOL
+# (float32 sums of up to 257 products, outputs up to about 10).
+DENSE_SHAPES = ((4096, 30, 128), (4096, 128, 128), (4096, 30, 256), (4096, 256, 256),
+                (256, 256, 256))
+DENSE_MAIN_SHAPE = (4096, 256, 256)
+DENSE_CHECK_SHAPES = ((1, 30, 1), (4096, 256, 1), (4097, 128, 1), (33, 13, 3), (70, 257, 65),
+                      (5, 8, 200))
+DENSE_F64_ATOL = 1e-5
 # Phase 4's second engine: the gbdt backend with a production-sized forest.
 LARGE_ENGINE_FOREST = (1000, 6)
 BATCH_SIZE, LATENCY_TIERS = 4096, (256, 2048)
@@ -177,7 +209,9 @@ GRAD_TOL = 2e-4  # rtol and atol of gradients: the JAX tests' bar, float32 sums 
 ABUSE_CFG = dict(d_model=64, n_heads=2, n_layers=2, d_ff=128)
 CONFIG3_CFG = dict(d_model=128, n_heads=2, n_layers=2, d_ff=256)
 CONFIG3_POINTS = ((64, 256), (8, 2048), (2, 8192))  # (batch, S)
-ABUSE_ACCOUNTS, ABUSE_MAX_EVENTS = 2_000, 64
+# Phase 5's stream: its drain, on the card and again on the CPU, is the
+# longest part of the script, so it stays at 1,000 accounts.
+ABUSE_ACCOUNTS, ABUSE_MAX_EVENTS = 1_000, 64
 ABUSE_BATCH, ABUSE_CHECKS, ABUSE_LATENCY = 256, 200, 1000
 ABUSE_ATOL = 1e-4  # card against CPU detector: float32 through two layers, sums reordered
 STREAM_T0 = 1_700_000_000.0
@@ -236,6 +270,13 @@ CALIBRATION_ROWS, MAX_VARIANT_BOUNDARY, MOMENT_RTOL = 4096, 10, 1e-4
 # Then phase 7's engine in turns, its ledger unbound and bound,
 # VARIANT_TURN_RPCS RPCs a turn.
 LEDGER_SINGLES, LEDGER_DIRECT, LEDGER_AFTER_SWAP, LEDGER_INDEX_ROUNDS = 500, 1000, 2, 3
+# The trained model and LTV (phase 11), on phase 7's store: the released
+# golden checkpoint (GOLDEN_DIR), a MULTITASK_TRUNK tree through the same RPC
+# mix as phase 7, LTV_ACCOUNTS accounts through the two LTV RPCs, and the LTV
+# batch job over a wallet of WALLET_ACCOUNTS accounts and WALLET_TXS
+# transactions.
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+LTV_ACCOUNTS, WALLET_ACCOUNTS, WALLET_TXS = 1_000, 100_000, 2_000_000
 # Spin cycles queued before each timed call, so the card is still busy
 # while the host enqueues the call: the events then bracket device work only.
 SLEEP_CYCLES = 4_000_000
@@ -446,20 +487,55 @@ def differing_rows(bits, x: np.ndarray, sizes=INVARIANCE_B) -> dict[int, int]:
     return {b: int((bits(x[:b]) != full[:b]).any(axis=1).sum()) for b in sizes}
 
 
-def phase_batch_invariance(torch, gbdt_kernel) -> dict:
-    """A row's answer must not depend on the batch it rides in. The forest
-    kernel at INVARIANCE_FORESTS over a seeded 4096-row batch: the leading
-    1, 256 and 2048 rows launched alone against the same rows of the full
-    launch, 0 differing rows asserted. Then the packed step (``_launch``,
-    the engine's own padding to a ladder shape) of an mlp and an mlp+gbdt
-    engine (MLP 128x128, forest 1,000 x 6) the same way: counted, not
-    asserted."""
+def multitask_tree(rng, trunk) -> dict:
+    """A multitask params tree in the JAX layout: He-init trunk, three heads."""
+    dims = (N_FEATURES, *trunk)
+
+    def layer(a, b, scale):
+        return {"w": (rng.normal(size=(a, b)) * scale).astype(np.float32),
+                "b": (rng.normal(size=(b,)) * 0.05).astype(np.float32)}
+
+    head = np.sqrt(1.0 / trunk[-1])
+    trunk_layers = [layer(a, b, np.sqrt(2.0 / a)) for a, b in zip(dims[:-1], dims[1:])]
+    return {"trunk": {"layers": trunk_layers},
+            "fraud_head": layer(trunk[-1], 1, head), "ltv_head": layer(trunk[-1], 1, head),
+            "churn_head": layer(trunk[-1], 1, head)}
+
+
+def session_windows(rng, n: int):
+    """[n, SESSION_EVENTS, EVENT_WIDTH] windows of seeded events, as the
+    session ring holds them (``encode_events_host``), each with a seeded
+    length and zeros past it."""
+    from igaming_platform_tpu_torch.serve import session_state as ss
+
+    n_events = ss.default_events()
+    ev = ss.encode_events_host(rng.integers(100, 500_000, n * n_events),
+                               rng.integers(0, 5, n * n_events),
+                               rng.exponential(600.0, n * n_events))
+    win = ev.reshape(n, n_events, -1)
+    lengths = rng.integers(1, n_events + 1, n)
+    win[np.arange(n_events)[None, :] >= lengths[:, None]] = 0.0
+    return win, lengths
+
+
+def phase_batch_invariance(torch, gbdt_kernel, dense_mod) -> dict:
+    """A row's answer must not depend on the batch it rides in. Over seeded
+    4096-row batches, the leading 1, 256 and 2048 rows launched alone
+    against the same rows of the full launch, 0 differing rows asserted:
+    the forest kernel at INVARIANCE_FORESTS; the dense kernel at 30->128 and
+    256->256 (``torch.matmul`` of the same operands counted beside it, the
+    cuBLAS sgemm it replaces); the packed step (``_launch``, the engine's
+    own padding to a ladder shape) of an mlp and an mlp+gbdt engine (MLP
+    128x128, forest 1,000 x 6) and of a multitask engine (trunk 256x256).
+    Counted, not asserted: the transformer session head (``SESSION_HEAD=
+    transformer``, engine A's) over seeded windows."""
     from igaming_platform_tpu_torch.convert import from_jax_params
     from igaming_platform_tpu_torch.core.config import BatcherConfig
+    from igaming_platform_tpu_torch.serve import session_state as ss
     from igaming_platform_tpu_torch.serve.scorer import RESULT_KEYS, TorchScoringEngine
 
     rng = np.random.default_rng(9)
-    out = {"forest": {}, "engine": {}}
+    out = {"forest": {}, "dense": {}, "cublas_sgemm": {}, "engine": {}}
     for n_trees, depth in INVARIANCE_FORESTS:
         x, *forest = forest_case(torch, rng, n_trees, depth, BATCH_SIZE)
         diffs = differing_rows(lambda xb: gbdt_kernel.gbdt_forest(xb, *forest).view(
@@ -470,10 +546,24 @@ def phase_batch_invariance(torch, gbdt_kernel) -> dict:
         if any(diffs.values()):
             raise AssertionError(f"gbdt_forest T={n_trees} D={depth}: a row's margin depends "
                                  f"on its batch: {diffs}")
-    tree = {"mlp": mlp_tree(rng, SERVE_HIDDEN), "gbdt": forest_tree(rng, *LARGE_ENGINE_FOREST)}
+    for _, k, n in ((BATCH_SIZE, 30, 128), (BATCH_SIZE, 256, 256)):
+        x, w, b = dense_case(torch, rng, BATCH_SIZE, k, n)
+        xb = dense_mod.round_bf16(x)
+        name = f"{k}->{n}"
+        out["dense"][name] = diffs = differing_rows(
+            lambda xs: dense_mod.dense(xs, w, b).view(torch.int32).cpu().numpy(), x)
+        out["cublas_sgemm"][name] = lib = differing_rows(
+            lambda xs: torch.matmul(xs, w).view(torch.int32).cpu().numpy(), xb)
+        log(f"phase 3: batch invariance, dense_bf16 {name}: rows differing from the "
+            f"B={BATCH_SIZE} launch {json.dumps(diffs)} (torch.matmul of the same operands: "
+            f"{json.dumps(lib)})")
+        if any(diffs.values()):
+            raise AssertionError(f"dense_bf16 {name}: a row's bits depend on its batch: {diffs}")
+    tree = {"mlp": mlp_tree(rng, SERVE_HIDDEN), "gbdt": forest_tree(rng, *LARGE_ENGINE_FOREST),
+            "multitask": multitask_tree(rng, MULTITASK_TRUNK)}
     x = (rng.random((BATCH_SIZE, N_FEATURES)) * 100.0).astype(np.float32)
     bl = np.zeros((BATCH_SIZE,), dtype=bool)
-    for backend in ("mlp", "mlp+gbdt"):
+    for backend in ("mlp", "mlp+gbdt", "multitask"):
         engine = TorchScoringEngine(
             ml_backend=backend, device="cuda", params=from_jax_params(backend, tree),
             batcher_config=BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS))
@@ -490,6 +580,134 @@ def phase_batch_invariance(torch, gbdt_kernel) -> dict:
         log(f"phase 3: batch invariance, {backend} packed step at shapes "
             f"{[engine._pick_shape(b) for b in INVARIANCE_B]}: rows differing from the "
             f"B={BATCH_SIZE} step {json.dumps(diffs)}")
+        if any(diffs.values()):
+            raise AssertionError(f"{backend} packed step: a row's answer depends on its batch: "
+                                 f"{diffs}")
+    head = ss.session_head_params(torch.device("cuda"))
+    win, lengths = session_windows(rng, BATCH_SIZE)
+    win_d, len_d = torch.from_numpy(win).cuda(), torch.from_numpy(lengths).cuda()
+    with torch.inference_mode():
+        out["session_head_transformer"] = diffs = differing_rows(
+            lambda w: ss.transformer_scores(head, win_d[:w.shape[0]], len_d[:w.shape[0]]).view(
+                torch.int32).cpu().numpy()[:, None], win)
+    log(f"phase 3: batch invariance, the transformer session head over {BATCH_SIZE} seeded "
+        f"windows: rows differing from the B={BATCH_SIZE} forward {json.dumps(diffs)} "
+        "(counted, not asserted)")
+    return out
+
+
+def dense_case(torch, rng, b: int, k: int, n: int):
+    """Seeded operands of one layer on the card: unit-scale activations
+    (ReLU outputs past the 30 features), He-init weights rounded to bf16 as
+    ``Dense`` keeps them, small biases."""
+    from igaming_platform_tpu_torch.ops.dense import round_bf16
+
+    x = rng.normal(size=(b, k)).astype(np.float32)
+    if k > N_FEATURES:
+        x = np.maximum(x, 0.0)
+    w = (rng.normal(size=(k, n)) * np.sqrt(2.0 / k)).astype(np.float32)
+    bias = (rng.normal(size=(n,)) * 0.05).astype(np.float32)
+    return (torch.from_numpy(x).cuda(), round_bf16(torch.from_numpy(w)).cuda(),
+            torch.from_numpy(bias).cuda())
+
+
+def dense_bound(b: int, k: int, n: int) -> tuple[float, str]:
+    """Least time for one layer on this card: 2*B*K*N float32 operations
+    at the CUDA cores' rate, or the bytes of x, w, the bias and the output
+    once each."""
+    ops_ms = 2.0 * b * k * n / FP32_OPS_PER_S * 1e3
+    bytes_ms = 4.0 * (b * k + k * n + n + b * n) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def check_dense(torch, dense_mod, x, w, b, name: str) -> float:
+    """The kernel bit-equal to ``dense_plain`` on the card and to a second
+    launch, finite, of the right shape, within DENSE_F64_ATOL of the float64
+    product of the same operands. Returns that error."""
+    got, again = (dense_mod.dense(x, w, b) for _ in range(2))
+    plain = dense_mod.dense_plain(x, w, b)
+    exact = dense_mod.round_bf16(x).double() @ w.double() + b.double()
+    torch.cuda.synchronize()
+    if got.shape != (x.shape[0], w.shape[1]) or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: bad output")
+    if not torch.equal(got.view(torch.int32), plain.view(torch.int32)):
+        bad = int((got.view(torch.int32) != plain.view(torch.int32)).sum())
+        raise AssertionError(f"{name}: {bad} outputs differ in bits from dense_plain on the card")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{name}: two launches gave different bits")
+    err = float((got.double() - exact).abs().max())
+    if err > DENSE_F64_ATOL:
+        raise AssertionError(f"{name}: max error {err} from float64 > {DENSE_F64_ATOL}")
+    return err
+
+
+def phase_dense(torch, dense_mod, floor: dict) -> list[dict]:
+    """The dense kernel at DENSE_SHAPES, checked (``check_dense``) and timed
+    by one event pair a call and back to back, beside the empty kernel's
+    ``floor``, ``dense_plain`` on the card and ``torch.matmul`` of the same
+    bf16-rounded float32 operands (cuBLAS sgemm, TF32 off: the library
+    time); DENSE_CHECK_SHAPES checked only."""
+    rng = np.random.default_rng(10)
+    rows = []
+    for b, k, n in DENSE_SHAPES:
+        x, w, bias = dense_case(torch, rng, b, k, n)
+        name = f"dense_bf16 B={b} K={k} N={n}"
+        err = check_dense(torch, dense_mod, x, w, bias, name)
+        xb = dense_mod.round_bf16(x)
+        bound, bound_by = dense_bound(b, k, n)
+        run = lambda: dense_mod.dense(x, w, bias)  # noqa: E731
+        library = lambda: torch.matmul(xb, w)  # noqa: E731
+        row = {"B": b, "K": k, "N": n, "max_abs_err": err, "against": "float64 product",
+               "bit_equal_plain": True, "repeatable": True,
+               "kernel_ms": device_ms(torch, run), "kernel_b2b_ms": device_ms_b2b(torch, run),
+               "plain_ms": device_ms(torch, lambda: dense_mod.dense_plain(x, w, bias)),
+               "library_ms": device_ms(torch, library),
+               "library_b2b_ms": device_ms_b2b(torch, library),
+               "bound_ms": bound, "bound_by": bound_by,
+               "launch_floor_ms": floor["back_to_back_ms"]}
+        row["bound_share"] = bound / row["kernel_b2b_ms"]
+        rows.append(row)
+        log(f"phase 3: {name}: max_abs_err={err:.3g} against the float64 product, bit-equal to "
+            f"dense_plain on the card, two launches bit-identical; kernel_ms="
+            f"{row['kernel_ms']:.6f} back_to_back_ms={row['kernel_b2b_ms']:.6f} (empty kernel "
+            f"{floor['back_to_back_ms']:.6f}) plain_ms={row['plain_ms']:.6f} torch.matmul_ms="
+            f"{row['library_ms']:.6f} (back to back {row['library_b2b_ms']:.6f}) bound_ms="
+            f"{bound:.6f} ({bound_by}, {100 * row['bound_share']:.1f}% of it back to back)")
+    for b, k, n in DENSE_CHECK_SHAPES:
+        x, w, bias = dense_case(torch, rng, b, k, n)
+        name = f"dense_bf16 B={b} K={k} N={n}"
+        err = check_dense(torch, dense_mod, x, w, bias, name)
+        log(f"phase 3: {name} (check only): max_abs_err={err:.3g} against the float64 product, "
+            "bit-equal to dense_plain on the card")
+    return rows
+
+
+def phase_device_numerics(torch, n: int = 1 << 20) -> dict:
+    """The score step's transcendentals on the card against the CPU, over
+    ``n`` seeded float32 values (features spanning 10^-3 to 10^8, logits of
+    scale 6): how many give other bits with torch's float32 ``log1p`` and
+    ``sigmoid`` (counted), and with ``core/numerics.py``'s, rounded from
+    float64 (0 asserted: the CPU twins and replay depend on it)."""
+    from igaming_platform_tpu_torch.core import numerics
+
+    rng = np.random.default_rng(12)
+    vals = torch.from_numpy((rng.random(n) * 10.0 ** rng.integers(-3, 9, n)).astype(np.float32))
+    logits = torch.from_numpy((rng.normal(size=n) * 6.0).astype(np.float32))
+
+    def differ(fn, v):
+        return int((fn(v).view(torch.int32) != fn(v.cuda()).view(torch.int32).cpu()).sum())
+
+    out = {"values": n,
+           "torch_log1p_float32": differ(torch.log1p, vals),
+           "torch_sigmoid_float32": differ(torch.sigmoid, logits),
+           "numerics_log1p": differ(numerics.log1p, vals),
+           "numerics_sigmoid": differ(numerics.sigmoid, logits)}
+    log(f"phase 3: the card against the CPU over {n} values, outputs with other bits: "
+        f"float32 log1p {out['torch_log1p_float32']}, sigmoid {out['torch_sigmoid_float32']}; "
+        f"rounded from float64 (core/numerics.py) log1p {out['numerics_log1p']}, sigmoid "
+        f"{out['numerics_sigmoid']}")
+    if out["numerics_log1p"] or out["numerics_sigmoid"]:
+        raise AssertionError(f"core/numerics.py gives other bits on the card: {out}")
     return out
 
 
@@ -961,6 +1179,7 @@ def compare_columns(got: dict, want: dict, what: str = "engine") -> int:
 
 def phase_engine(torch, card: str, gbdt_kernel) -> dict:
     from igaming_platform_tpu_torch.convert import from_jax_params
+    from igaming_platform_tpu_torch.ops import dense as dense_mod
     from igaming_platform_tpu_torch.core.config import BatcherConfig
     from igaming_platform_tpu_torch.serve import feature_store as store_mod
     from igaming_platform_tpu_torch.serve import scorer
@@ -989,17 +1208,23 @@ def phase_engine(torch, card: str, gbdt_kernel) -> dict:
 
         # The main path's run: counts set to 0 just before, read just after.
         gbdt_kernel.gbdt_forest.launches = 0
+        dense_mod.dense.launches = 0
         steps0 = gpu.device_steps
         single_out = [gpu.score(req) for req in singles]
         t = time.perf_counter()
         batch_out = gpu.score_batch(batch)
         batch_s = [time.perf_counter() - t]
         launches = gbdt_kernel.gbdt_forest.launches
+        dense_launches = dense_mod.dense.launches
         steps = gpu.device_steps - steps0
 
         if launches == 0 or launches != steps:
             raise AssertionError(
                 f"engine: {steps} device steps but {launches} forest kernel launches")
+        layers = len(tree["mlp"]["layers"])
+        if dense_launches != layers * steps:
+            raise AssertionError(f"engine: {steps} device steps of {layers} MLP layers but "
+                                 f"{dense_launches} dense kernel launches")
         boundary = (compare_with_cpu(single_out, singles, store, cpu)
                     + compare_with_cpu(batch_out, batch, store, cpu))
         step = score_step(torch, gpu, store, batch)
@@ -1031,7 +1256,8 @@ def phase_engine(torch, card: str, gbdt_kernel) -> dict:
             eng.close()
     large = large_forest_engine(torch, gbdt_kernel, rng, store, bcfg, singles, batch)
     result = {
-        "launches": launches, "device_steps": steps, "floor_boundary_rows": boundary,
+        "launches": launches, "dense_launches": dense_launches, "device_steps": steps,
+        "floor_boundary_rows": boundary,
         "batch_rows_per_s": [BATCH_SIZE / s for s in batch_s],
         "single_n": N_LATENCY,
         "single_p50_ms": float(np.percentile(single_ms, 50)),
@@ -1047,7 +1273,8 @@ def phase_engine(torch, card: str, gbdt_kernel) -> dict:
         f"score() x{N_LATENCY} sequential: p50 {result['single_p50_ms']:.3f} ms, "
         f"p99 {result['single_p99_ms']:.3f} ms; device time of one {BATCH_SIZE}-row step "
         f"{step_ms:.6f} ms")
-    log(f"phase 4: {steps} device steps, {launches} forest kernel launches; agrees with the "
+    log(f"phase 4: {steps} device steps, {launches} forest kernel launches, {dense_launches} "
+        f"dense kernel launches; agrees with the "
         f"CPU engine ({boundary} floor-boundary rows not compared)")
     if step_profile["device_ms"] is not None:
         log(f"phase 4: one {BATCH_SIZE}-row step's kernels (torch.profiler): "
@@ -1142,11 +1369,12 @@ def seq_tree(rng, cfg: dict) -> dict:
 
 
 def wallet_stream(events_mod, seed: int = 6):
-    """Wallet events of 2,000 accounts, oldest first: about one in six runs
-    the abuse shape (deposit, bonus grant, rapid wagers, quick withdrawal)
-    on a few shared devices, some of them blacklisted; the others deposit,
-    bet and win at a human pace on their own devices. Some non-money events
-    and ten redelivered duplicates. Ends just before STREAM_T0."""
+    """Wallet events of ABUSE_ACCOUNTS accounts, oldest first: about one in
+    six runs the abuse shape (deposit, bonus grant, rapid wagers, quick
+    withdrawal) on a few shared devices, some of them blacklisted; the
+    others deposit, bet and win at a human pace on their own devices. Some
+    non-money events and ten redelivered duplicates. Ends just before
+    STREAM_T0."""
     rng = np.random.default_rng(seed)
     stream = []
     for a in range(ABUSE_ACCOUNTS):
@@ -2948,6 +3176,293 @@ def phase_ledger(torch, card: str, gbdt_kernel, fa, store, device: str = "cuda")
     return result
 
 
+def ltv_feature_rows(rng, n: int) -> np.ndarray:
+    """[n, 25] seeded LTV features of players: tenure, recency, sessions,
+    money columns in dollars, counts and flags, each column spread over the
+    formulas' thresholds."""
+    from igaming_platform_tpu_torch.models.ltv import L, NUM_LTV_FEATURES
+
+    f = np.zeros((n, NUM_LTV_FEATURES), np.float32)
+    f[:, L.DAYS_SINCE_REGISTRATION] = rng.exponential(200.0, n)
+    f[:, L.DAYS_SINCE_LAST_DEPOSIT] = rng.exponential(20.0, n)
+    f[:, L.DAYS_SINCE_LAST_BET] = rng.exponential(12.0, n)
+    f[:, L.TOTAL_ACTIVE_DAYS] = rng.integers(0, 300, n)
+    f[:, L.SESSIONS_PER_WEEK] = rng.exponential(2.5, n)
+    f[:, L.TOTAL_DEPOSITS] = rng.lognormal(6.0, 1.8, n)
+    f[:, L.TOTAL_WITHDRAWALS] = f[:, L.TOTAL_DEPOSITS] * rng.random(n) * 1.2
+    f[:, L.NET_REVENUE] = f[:, L.TOTAL_DEPOSITS] - f[:, L.TOTAL_WITHDRAWALS]
+    f[:, L.DEPOSIT_FREQUENCY] = rng.exponential(2.0, n)
+    f[:, L.BET_COUNT] = rng.integers(0, 1000, n)
+    f[:, L.GAMES_PLAYED] = rng.integers(0, 12, n)
+    f[:, L.BONUSES_CLAIMED] = rng.integers(0, 6, n)
+    f[:, L.BONUS_CONVERSION_RATE] = rng.random(n)
+    f[:, L.PUSH_ENABLED:L.HAS_VIP_MANAGER + 1] = rng.random((n, 3)) < 0.3
+    f[:, L.SUPPORT_TICKETS] = rng.integers(0, 6, n)
+    return f
+
+
+def write_wallet(path: str, rng, n_accounts: int, n_txs: int, now: float) -> None:
+    """A SQLite wallet store in the schema the LTV scan reads (accounts
+    ``id``, ``created_at``; transactions ``account_id``, ``type``,
+    ``amount`` in cents, ``status``, ``created_at``, ``completed_at``),
+    written with raw SQL: ``n_accounts`` accounts opened over the last 400
+    days, ``n_txs`` transactions over deposit, bet, win, withdraw and
+    bonus_grant after each account's opening, 1 in 50 still pending."""
+    import sqlite3
+
+    created = now - rng.random(n_accounts) * 400 * 86_400.0
+    acct = rng.integers(0, n_accounts, n_txs)
+    kinds = np.array(["deposit", "bet", "win", "withdraw", "bonus_grant"])[
+        rng.choice(5, n_txs, p=[0.2, 0.5, 0.2, 0.07, 0.03])]
+    amounts = rng.lognormal(7.5, 1.5, n_txs).astype(np.int64) + 100
+    ts = created[acct] + rng.random(n_txs) * (now - created[acct])
+    done = np.where(rng.random(n_txs) < 0.02, "pending", "completed")
+    con = sqlite3.connect(path)
+    try:
+        con.executescript(
+            "PRAGMA journal_mode=OFF; PRAGMA synchronous=OFF;"
+            "CREATE TABLE accounts (id TEXT PRIMARY KEY, created_at REAL NOT NULL);"
+            "CREATE TABLE transactions (id INTEGER PRIMARY KEY, account_id TEXT NOT NULL,"
+            " type TEXT NOT NULL, amount INTEGER NOT NULL, status TEXT NOT NULL,"
+            " created_at REAL NOT NULL, completed_at REAL);")
+        con.executemany("INSERT INTO accounts VALUES (?, ?)",
+                        zip((f"acct{i}" for i in range(n_accounts)), created.tolist()))
+        con.executemany(
+            "INSERT INTO transactions (account_id, type, amount, status, created_at,"
+            " completed_at) VALUES (?, ?, ?, ?, ?, ?)",
+            zip((f"acct{a}" for a in acct.tolist()), kinds.tolist(), amounts.tolist(),
+                done.tolist(), ts.tolist(), (ts + 2.0).tolist()))
+        con.commit()
+    finally:
+        con.close()
+
+
+def f32_bits(values) -> np.ndarray:
+    return np.asarray(values, np.float32).view(np.int32)
+
+
+def trained_golden(torch, server, config, store, device: str) -> dict:
+    """The port's assembly booted from FRAUD_MODEL_PATH=the released golden
+    ``.npz``, the golden features scored through its engine: ``score`` and
+    ``action`` equal to the committed float32 ones, ``ml_score`` within
+    1e-6."""
+    with open(f"{GOLDEN_DIR}/released_scores.json") as f:
+        golden = json.load(f)
+    x = np.load(f"{GOLDEN_DIR}/released_features.npz")["x"]
+    assembled = server.assemble_risk_service(config, feature_store=store, device=device)
+    try:
+        engine = assembled.engine
+        if engine.ml_backend != "multitask":
+            raise AssertionError(f"golden boot: backend {engine.ml_backend}")
+        out = {k: v.cpu().numpy() for k, v in engine.score_arrays(x).items()}
+    finally:
+        assembled.engine.close()
+        assembled.service.close()
+    err = float(np.abs(out["ml_score"].astype(np.float64)
+                       - np.array(golden["f32"]["ml_score"])).max())
+    if not (np.array_equal(out["score"], golden["f32"]["score"])
+            and np.array_equal(out["action"], golden["f32"]["action"]) and err <= 1e-6):
+        raise AssertionError(f"golden boot: score/action differ or ml_score off by {err}")
+    return {"rows": int(x.shape[0]), "ml_score_max_abs_err": err, "trunk": golden["trunk"]}
+
+
+def trained_ltv(server_svc, codec, ltv_mod, rng, device: str) -> dict:
+    """PredictLTV and GetPlayerSegment for LTV_ACCOUNTS accounts through the
+    service, its ``ltv_source`` seeded, each answer held to the CPU's
+    ``predict_batch`` of the same rows: integer fields exact, floats bit for
+    bit."""
+    rows = ltv_feature_rows(rng, LTV_ACCOUNTS)
+    server_svc.ltv_source = lambda a: rows[int(a[4:])] if a.startswith("acct") else None
+    want = {k: v.numpy() for k, v in ltv_mod.predict_batch(rows, "cpu").items()}
+    ms = {"PredictLTV": [], "GetPlayerSegment": []}
+    bad = 0
+    for i in range(LTV_ACCOUNTS):
+        req = codec.encode(codec.PREDICT_LTV_REQUEST, {"account_id": f"acct{i}"})
+        t = time.perf_counter()
+        p = codec.decode(codec.PREDICT_LTV_RESPONSE, server_svc.call("PredictLTV", req))
+        ms["PredictLTV"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        g = codec.decode(codec.GET_PLAYER_SEGMENT_RESPONSE,
+                         server_svc.call("GetPlayerSegment", req))
+        ms["GetPlayerSegment"].append((time.perf_counter() - t) * 1e3)
+        action = ltv_mod.ACTIONS[int(want["action"][i])]
+        ok = (p["account_id"] == g["account_id"] == f"acct{i}"
+              and p["segment"] == g["segment"] == int(want["segment"][i])
+              and p["predicted_active_days"] == int(want["survival_days"][i])
+              and p["next_best_action"] == action and g["recommended_actions"] == [action]
+              and p["predicted_at"] is not None
+              and f32_bits(p["predicted_ltv"]) == f32_bits(want["ltv"][i])
+              and f32_bits(g["ltv"]) == f32_bits(want["ltv"][i])
+              and f32_bits(p["churn_risk"]) == f32_bits(g["churn_risk"])
+              == f32_bits(want["churn_risk"][i])
+              and f32_bits(p["confidence"]) == f32_bits(want["confidence"][i]))
+        bad += not ok
+    if bad:
+        raise AssertionError(f"LTV RPCs: {bad} of {LTV_ACCOUNTS} accounts differ from the CPU")
+    server_svc.ltv_source = None
+    return {"accounts": LTV_ACCOUNTS, "segments": {int(k): int(v) for k, v in zip(
+                *np.unique(want["segment"], return_counts=True))},
+            **{f"{m}_p50_ms": float(np.percentile(v, 50)) for m, v in ms.items()},
+            **{f"{m}_p99_ms": float(np.percentile(v, 99)) for m, v in ms.items()}}
+
+
+def trained_ltv_job(ltv_job, root: str, rng, device: str) -> dict:
+    """The LTV batch job over a written wallet of WALLET_ACCOUNTS accounts
+    and WALLET_TXS transactions, on ``device`` and on the CPU: records and
+    segments equal; seconds split into scan, device pass and records."""
+    path = f"{root}/wallet.db"
+    t = time.perf_counter()
+    write_wallet(path, rng, WALLET_ACCOUNTS, WALLET_TXS, SERVER_NOW)
+    write_s = time.perf_counter() - t
+    timings = {}
+    got = ltv_job.run_batch_job(path, now=SERVER_NOW, device=device, timings=timings)
+    cpu_timings = {}
+    want = ltv_job.run_batch_job(path, now=SERVER_NOW, device="cpu", timings=cpu_timings)
+    if got["count"] != WALLET_ACCOUNTS or got != want:
+        raise AssertionError(f"LTV job: {got['count']} players; differs from the CPU job: "
+                             f"{got != want}")
+    return {"accounts": WALLET_ACCOUNTS, "transactions": WALLET_TXS, "write_s": write_s,
+            "seconds": timings, "cpu_seconds": cpu_timings,
+            "segments": {k: len(v) for k, v in sorted(got["segments"].items())}}
+
+
+def phase_trained(torch, card: str, dense_mod, store, phase7: dict, device: str = "cuda",
+                  singles: int = SERVER_SINGLES, batch_rows: int = SERVER_BATCH_ROWS) -> dict:
+    """Phase 11, on phase 7's store: the trained multitask backend booted
+    from FRAUD_MODEL_PATH and the LTV model. (a) The released golden
+    (``trained_golden``). (b) A multitask tree of MULTITASK_TRUNK drawn from
+    a seed, saved as an ``.npz`` and booted through the assembly, against a
+    CPU twin booted from the same file: SERVER_BATCHES ScoreBatch RPCs of
+    ``batch_rows`` rows and ``singles`` ScoreTransaction RPCs, every answer
+    bit-equal to the twin's (the dense kernel adds as ``dense_plain``, the
+    transcendentals round from float64); the dense kernel's launches equal
+    3 a device step (two trunk layers and the fraud head). (c) The LTV RPCs
+    (``trained_ltv``) and (d) the batch job (``trained_ltv_job``).
+    ``device="cpu"`` rehearses it without a card (the launch check then
+    skipped)."""
+    import shutil
+    import tempfile
+
+    from igaming_platform_tpu_torch.convert import save_params_tree
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.models import ltv as ltv_mod
+    from igaming_platform_tpu_torch.serve import grpc_server, ltv_job, scorer, server
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(111)
+    bcfg = BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0)
+    root = tempfile.mkdtemp(prefix="chip-smoke-trained-")
+    try:
+        golden = trained_golden(torch, server, RiskServiceConfig(
+            fraud_model_path=f"{GOLDEN_DIR}/released_multitask.npz", batcher=bcfg), store, device)
+        npz = f"{root}/multitask.npz"
+        save_params_tree(npz, {"multitask": multitask_tree(rng, MULTITASK_TRUNK)})
+        config = RiskServiceConfig(fraud_model_path=npz, batcher=bcfg)
+        assembled = server.assemble_risk_service(config, feature_store=store, device=device)
+        svc, engine = assembled.service, assembled.engine
+        cpu_backend, cpu_params = server.resolve_model_boot(config)
+        cpu = scorer.TorchScoringEngine(ml_backend=cpu_backend, params=cpu_params,
+                                        batcher_config=bcfg, feature_store=store, device="cpu",
+                                        warmup=False)
+        cpu_svc = grpc_server.RiskGrpcService(cpu)
+        try:
+            if engine.ml_backend != "multitask" or cpu.ml_backend != "multitask":
+                raise AssertionError(f"boot: {engine.ml_backend}, twin {cpu.ml_backend}")
+            batches = [codec.encode(codec.SCORE_BATCH_REQUEST,
+                                    {"transactions": server_requests(codec, rng, batch_rows)})
+                       for _ in range(SERVER_BATCHES)]
+            single_reqs = [codec.encode(codec.SCORE_TRANSACTION_REQUEST, r)
+                           for r in server_requests(codec, rng, singles)]
+            svc.call("ScoreBatch", batches[0])  # the pipeline's first build off the count
+            if device == "cuda":
+                torch.cuda.synchronize()
+
+            # The path's run: counts set to 0 just before, read just after.
+            dense_mod.dense.launches = 0
+            steps0 = engine.device_steps
+            single_ms, single_out, batch_s, batch_out = [], [], [], []
+            for payload in single_reqs:
+                t = time.perf_counter()
+                single_out.append(svc.call("ScoreTransaction", payload))
+                single_ms.append((time.perf_counter() - t) * 1e3)
+            for payload in batches:
+                t = time.perf_counter()
+                batch_out.append(svc.call("ScoreBatch", payload))
+                batch_s.append(time.perf_counter() - t)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            launches = dense_mod.dense.launches
+            steps = engine.device_steps - steps0
+            if device == "cuda" and (steps == 0 or launches != 3 * steps):
+                raise AssertionError(f"trained: {steps} device steps but {launches} dense "
+                                     "launches (3 a step)")
+
+            # Every answer against the CPU twin's, bit for bit.
+            for payload, out in zip(single_reqs, single_out):
+                got, want = (codec.decode(codec.SCORE_TRANSACTION_RESPONSE, b)
+                             for b in (out, cpu_svc.call("ScoreTransaction", payload)))
+                got["response_time_ms"] = want["response_time_ms"] = 0
+                if codec.encode(codec.SCORE_TRANSACTION_RESPONSE, got) != codec.encode(
+                        codec.SCORE_TRANSACTION_RESPONSE, want):
+                    raise AssertionError(f"trained: a ScoreTransaction differs from the twin: "
+                                         f"{got} {want}")
+            for payload, out in zip(batches, batch_out):
+                rows, got = response_columns(codec, out)
+                twin_rows, want = response_columns(codec, cpu_svc.call("ScoreBatch", payload))
+                if len(rows) != batch_rows or any(
+                        not np.array_equal(f32_bits(got[k]) if k == "ml_score" else got[k],
+                                           f32_bits(want[k]) if k == "ml_score" else want[k])
+                        for k in want):
+                    raise AssertionError("trained: a ScoreBatch answer differs from the twin")
+                if any(r["features"] != w["features"] for r, w in zip(rows, twin_rows)):
+                    raise AssertionError("trained: the feature echo differs from the twin")
+            ltv = trained_ltv(svc, codec, ltv_mod, rng, device)
+        finally:
+            cpu_svc.close()
+            cpu.close()
+            assembled.engine.close()
+            assembled.service.close()
+        job = trained_ltv_job(ltv_job, root, rng, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result = {
+        "golden": golden, "trunk": list(MULTITASK_TRUNK), "dense_launches": launches,
+        "device_steps": steps, "score_batch_rows": batch_rows,
+        "score_batch_rows_per_s": [batch_rows / t for t in batch_s],
+        "score_transaction_p50_ms": float(np.percentile(single_ms, 50)),
+        "score_transaction_p99_ms": float(np.percentile(single_ms, 99)),
+        "phase7_mlp_gbdt": {k: phase7.get(k) for k in (
+            "score_batch_rows_per_s", "score_transaction_p50_ms", "score_transaction_p99_ms")},
+        "ltv_rpcs": ltv, "ltv_job": job, "seconds": time.perf_counter() - t0,
+    }
+    p7 = result["phase7_mlp_gbdt"]
+    log(f"phase 11: [{card}] golden booted from released_multitask.npz: {golden['rows']} rows, "
+        f"score and action exact, ml_score within {golden['ml_score_max_abs_err']:.3g}")
+    log(f"phase 11: [{card}] multitask {MULTITASK_TRUNK} booted from FRAUD_MODEL_PATH: "
+        f"ScoreBatch of {batch_rows} rows x{SERVER_BATCHES}: median "
+        f"{statistics.median(result['score_batch_rows_per_s']):.0f} rows/s (phase 7's mlp+gbdt: "
+        f"{statistics.median(p7['score_batch_rows_per_s'] or [0]):.0f}); ScoreTransaction "
+        f"x{singles}: p50 {result['score_transaction_p50_ms']:.3f} ms, p99 "
+        f"{result['score_transaction_p99_ms']:.3f} ms (phase 7: "
+        f"{p7['score_transaction_p50_ms'] or 0:.3f}, {p7['score_transaction_p99_ms'] or 0:.3f}); "
+        f"{steps} device steps, {launches} dense launches; every answer bit-equal to the CPU "
+        "twin booted from the same file")
+    log(f"phase 11: [{card}] PredictLTV and GetPlayerSegment x{ltv['accounts']}: bit-equal to "
+        f"the CPU's predict_batch; p50 {ltv['PredictLTV_p50_ms']:.3f} and "
+        f"{ltv['GetPlayerSegment_p50_ms']:.3f} ms, p99 {ltv['PredictLTV_p99_ms']:.3f} and "
+        f"{ltv['GetPlayerSegment_p99_ms']:.3f} ms; segments {json.dumps(ltv['segments'])}")
+    js, jc = job["seconds"], job["cpu_seconds"]
+    log(f"phase 11: [{card}] LTV job over {job['accounts']} accounts and {job['transactions']} "
+        f"transactions (written in {job['write_s']:.1f} s): scan {js['scan_s']:.3f} s, device "
+        f"pass {js['device_s']:.3f} s, records {js['records_s']:.3f} s (CPU job: "
+        f"{jc['scan_s']:.3f}, {jc['device_s']:.3f}, {jc['records_s']:.3f}); records and "
+        f"segments equal to the CPU job's; segments {json.dumps(job['segments'])}")
+    log(f"phase 11: {result['seconds']:.1f} s")
+    log("phase 11: " + json.dumps(result))
+    return result
+
+
 # Phase 7 alone in a fresh process of the checkout it runs in, printing one
 # "TURN " JSON line: for ``phase7_turns``.
 _PHASE7_TURN = r"""
@@ -3000,6 +3515,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from igaming_platform_tpu_torch.ops import _build, gbdt_kernel
+    from igaming_platform_tpu_torch.ops import dense as dense_mod
     from igaming_platform_tpu_torch.ops import flash_attention as fa
 
     # Phase 1: environment.
@@ -3012,7 +3528,7 @@ def main() -> int:
     # Phase 2: build every kernel, one nvcc each, started together.
     t0 = time.perf_counter()
     report = _build.build(["gbdt_forest", "flash_attention_fwd", "flash_attention_bwd",
-                           "mma_rate", "mma_probe"])
+                           "dense_bf16", "mma_rate", "mma_probe"])
     log(f"phase 2: built in {time.perf_counter() - t0:.1f} s")
     for name, r in report.items():
         for line in r["log"].splitlines():
@@ -3022,7 +3538,9 @@ def main() -> int:
     # Phase 3: each kernel against its plain version.
     floor = phase_launch_floor(torch)
     rows = phase_kernels(torch, gbdt_kernel)
-    invariance = phase_batch_invariance(torch, gbdt_kernel)
+    dense_rows = phase_dense(torch, dense_mod, floor)
+    numerics_run = phase_device_numerics(torch)
+    invariance = phase_batch_invariance(torch, gbdt_kernel, dense_mod)
     mma_rates = phase_mma_rate(torch)
     probe = phase_mma_probe(torch)
     flash_rows = phase_flash(torch, fa)
@@ -3046,10 +3564,14 @@ def main() -> int:
     variants_run = phase_variants(torch, card, gbdt_kernel, fa, filled[0])
     # Phase 10: the decision ledger and replay, same store.
     ledger_run = phase_ledger(torch, card, gbdt_kernel, fa, filled[0])
+    # Phase 11: the trained multitask model booted from FRAUD_MODEL_PATH,
+    # the LTV RPCs and the LTV batch job, same store.
+    trained_run = phase_trained(torch, card, dense_mod, filled[0], server_run)
 
     main_row = next(r for r in rows if (r["T"], r["D"], r["B"]) == (64, 4, BATCH_SIZE))
     flash_main = next(r for r in flash_rows if (r["BH"], r["S"], r["Dh"]) == FLASH_MAIN_SHAPE)
     bwd_main = next(r for r in bwd_rows if (r["BH"], r["S"], r["Dh"]) == FLASH_BWD_MAIN_SHAPE)
+    dense_main = next(r for r in dense_rows if (r["B"], r["K"], r["N"]) == DENSE_MAIN_SHAPE)
     kernels = {"kernels": [{
         "name": "gbdt_forest", "route": "cuda",
         "source": "igaming_platform_tpu_torch/csrc/gbdt_forest.cu",
@@ -3097,7 +3619,27 @@ def main() -> int:
         "library_ms": bwd_main["library_ms"],
         "plain_and_library_compute": "dQ, dK and dV together",
         "shapes": bwd_rows,
-    } for part, line in (("dq", 251), ("dkv", 261)))]}
+    } for part, line in (("dq", 251), ("dkv", 261))), {
+        "name": "dense_bf16", "route": "cuda",
+        "source": "igaming_platform_tpu_torch/csrc/dense_bf16.cu",
+        "replaces": None,
+        "repair": ("not a TPU kernel: the bf16 dense of igaming_platform_tpu/models/mlp.py:64-74 "
+                   "(_dense, compiled by XLA), in a sum order that no batch size changes, in "
+                   "place of cuBLAS's float32 sgemm, whose order follows M"),
+        "launches": engine["dense_launches"] + trained_run["dense_launches"],
+        "launches_engine": engine["dense_launches"],
+        "launches_trained": trained_run["dense_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in dense_rows),
+        "ms": dense_main["kernel_ms"], "plain_ms": dense_main["plain_ms"],
+        "bound_ms": dense_main["bound_ms"], "bound_by": dense_main["bound_by"],
+        "library_ms": dense_main["library_ms"],
+        "library": "torch.matmul of the same bf16-rounded float32 operands (TF32 off)",
+        "back_to_back_ms": dense_main["kernel_b2b_ms"], "launch_floor_ms": floor,
+        "batch_invariance": {k: invariance[k] for k in ("dense", "cublas_sgemm", "engine",
+                                                         "session_head_transformer")},
+        "device_numerics": numerics_run,
+        "shapes": dense_rows,
+    }]}
     log(json.dumps(kernels))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

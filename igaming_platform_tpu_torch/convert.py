@@ -24,6 +24,12 @@ the JAX package's tree of numpy arrays.
 
 ``params_to(params, device)`` copies them to a device. Neither needs JAX:
 the tree is plain numpy.
+
+``save_params_tree`` and ``load_params_tree`` keep such a tree in an
+``.npz``, one array per leaf, its path joined by ``/``: the form in which a
+JAX checkpoint reaches the card (``tools/export_params_npz.py`` writes it
+from an Orbax checkpoint or a flax ``.msgpack``), and the form
+``FRAUD_MODEL_PATH`` and replay's ``--params`` read.
 """
 
 from __future__ import annotations
@@ -173,3 +179,45 @@ def params_to(params: dict[str, Any] | None, device: torch.device | str) -> dict
         else:
             out[key] = {k: v.to(device) for k, v in value.items()}
     return out
+
+
+def save_params_tree(path: str, tree: dict) -> None:
+    """A JAX-layout params tree (nested dicts and lists of numpy arrays) to
+    an ``.npz``, one array per leaf, its path joined by ``/``."""
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(node, prefix: str) -> None:
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}/")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}/")
+        else:
+            flat[prefix[:-1]] = np.asarray(node)
+
+    walk(tree, "")
+    with open(path, "wb") as f:
+        np.savez(f, **flat)
+
+
+def load_params_tree(path: str) -> dict:
+    """The tree :func:`save_params_tree` wrote: numeric path parts become
+    list positions."""
+    root: dict = {}
+    with np.load(path, allow_pickle=False) as z:
+        for key in z.files:
+            node = root
+            parts = key.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = z[key]
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)

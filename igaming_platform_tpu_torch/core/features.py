@@ -8,10 +8,11 @@ a device once and reused.
 
 ``normalize(..., ref_compat=True)`` reproduces the reference's stubbed
 identity ``log1p`` (onnx_model.go:193-195) for the mock scorer's golden
-parity. The default applies the real ``log1p``. Where that runs, PyTorch's
-``log1p`` and XLA's CPU one are different float32 approximations (within
-0.6 and 2.5 ulp of the exact value), so the two packages agree there to a
-few ulp, not bit for bit. Every other column is bit-exact.
+parity. The default applies the real ``log1p``, rounded from float64
+(``core/numerics.py``: the same bits on the CPU and the card). Where that
+runs, XLA's CPU ``log1p`` is another float32 approximation (within 2.5 ulp
+of the exact value), so the two packages agree there to a few ulp, not bit
+for bit. Every other column is bit-exact.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from igaming_platform_tpu_torch.core import numerics
 from igaming_platform_tpu_torch.core.device import constant
 
 
@@ -134,7 +136,7 @@ def standardize_for_model(xn: torch.Tensor) -> torch.Tensor:
     """Signed-log squash of the features `normalize` leaves unbounded:
     sign(x)*log1p(|x|) on those, the rest passed through untouched."""
     xn = torch.as_tensor(xn, dtype=torch.float32)
-    squashed = torch.sign(xn) * torch.log1p(torch.abs(xn))
+    squashed = torch.sign(xn) * numerics.log1p(torch.abs(xn))
     d = xn.device
     return xn * _const("squash_keep", d) + squashed * _const("squash", d)
 
@@ -150,7 +152,7 @@ def normalize(x: torch.Tensor, *, ref_compat: bool = False) -> torch.Tensor:
     if ref_compat:
         logged = torch.where(x <= 0.0, 0.0, x)
     else:
-        logged = torch.where(x <= 0.0, 0.0, torch.log1p(torch.clamp_min(x, 0.0)))
+        logged = torch.where(x <= 0.0, 0.0, numerics.log1p(torch.clamp_min(x, 0.0)))
     x = x * _const("log_keep", d) + logged * _const("log", d)
 
     scaled = torch.clamp((x - _const("mm_min", d)) * _const("mm_scale", d), 0.0, 1.0)

@@ -22,6 +22,7 @@ from typing import Any
 
 import torch
 
+from igaming_platform_tpu_torch.core import numerics
 from igaming_platform_tpu_torch.ops.gbdt_kernel import gbdt_forest
 
 Params = dict[str, Any]
@@ -35,4 +36,4 @@ def gbdt_raw(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def gbdt_predict(params: Params, x: torch.Tensor) -> torch.Tensor:
     """[B, F] normalized features -> [B] probability in [0, 1]."""
-    return torch.sigmoid(gbdt_raw(params, x))
+    return numerics.sigmoid(gbdt_raw(params, x))

@@ -14,6 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from igaming_platform_tpu_torch.core import numerics
 from igaming_platform_tpu_torch.models.mlp import Dense
 
 
@@ -39,10 +40,10 @@ class MultiTask(nn.Module):
         ltv = self.ltv_head(h)[..., 0]
         churn_logit = self.churn_head(h)[..., 0]
         return {
-            "fraud": torch.sigmoid(fraud_logit),
+            "fraud": numerics.sigmoid(fraud_logit),
             "fraud_logit": fraud_logit,
             "ltv": ltv,
-            "churn": torch.sigmoid(churn_logit),
+            "churn": numerics.sigmoid(churn_logit),
             "churn_logit": churn_logit,
         }
 
@@ -50,4 +51,4 @@ class MultiTask(nn.Module):
 def fraud_predict(model: MultiTask, x: torch.Tensor) -> torch.Tensor:
     """[B, 30] -> [B] fraud probability. Runs the trunk and the fraud head
     only: the LTV and churn heads do not feed the fraud score."""
-    return torch.sigmoid(model.fraud_head(model.trunk_features(x))[..., 0])
+    return numerics.sigmoid(model.fraud_head(model.trunk_features(x))[..., 0])

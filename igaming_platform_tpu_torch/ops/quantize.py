@@ -43,6 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from igaming_platform_tpu_torch.core import numerics
 from igaming_platform_tpu_torch.core.device import constant
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES, F
 from igaming_platform_tpu_torch.models.gbdt import gbdt_predict
@@ -201,7 +202,13 @@ def _quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def dense_int8(x: torch.Tensor, layer: QuantizedDense) -> torch.Tensor:
     """float32 [B, D_in] -> float32 [B, D_out]: the int8 product of the
     row-quantized activations and the weight codes, exact in float32,
-    dequantized by the row and channel scales."""
+    dequantized by the row and channel scales.
+
+    Its ``torch.matmul`` needs no fixed order, unlike ``ops/dense.py``:
+    every product and partial sum is an integer of magnitude at most
+    127 * 127 * D_in, below 2**24 (4,129,024 at the serving fan-in of 256;
+    ``quantize_mlp`` refuses a fan-in past ``MAX_EXACT_FAN_IN``), so each
+    is exact in float32 and any order, in any batch, gives the same bits."""
     xq, xs = _quantize_rows(x)
     acc = torch.matmul(xq, layer.wq_f32)
     return acc * xs[:, None] * layer.scale[None, :] + layer.b
@@ -214,7 +221,7 @@ def mlp_predict_int8(qparams: QuantizedMLP, x: torch.Tensor) -> torch.Tensor:
         h = h / qparams.input_scale[None, :]  # undo the fold (quantize_mlp)
     for layer in qparams.layers[:-1]:
         h = torch.relu(dense_int8(h, layer))
-    return torch.sigmoid(dense_int8(h, qparams.layers[-1])[..., 0])
+    return numerics.sigmoid(dense_int8(h, qparams.layers[-1])[..., 0])
 
 
 def gbdt_predict_int8(qparams: Params, x: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 The port's counterpart of the risk half of
 ``igaming_platform_tpu/serve/grpc_server.py``. ``RiskGrpcService`` answers
-ScoreTransaction, ScoreBatch, CheckBonusAbuse, AddToBlacklist,
-CheckBlacklist, GetFeatures, UpdateThresholds and GetThresholds: each
+all ten risk.v1 RPCs, ScoreTransaction, ScoreBatch, PredictLTV,
+GetPlayerSegment, CheckBonusAbuse, AddToBlacklist, CheckBlacklist,
+GetFeatures, UpdateThresholds and GetThresholds: each
 handler takes the request's wire bytes and returns the response as a
 ``RawProtoMessage``, or raises ``RpcAbort`` with a status. Requests are
 decoded and responses encoded by the port's own codec
@@ -17,10 +18,15 @@ service needs no transport: ``call(method, payload)`` drives it directly, as
 ScoreTransaction whose decision a ledger noted carries
 ``("risk-decision-id", id)``, the key a label backfill joins on.
 
+PredictLTV and GetPlayerSegment score one account's 25 LTV features, from
+the ``ltv_source`` callable (zeros when it has none), through
+``models/ltv.py`` on the engine's device, as the JAX handlers do; the JAX
+service's background lane turn and its ``ltv_segment_total`` counter wait
+for the port's lane gate and metrics (``ROADMAP.md``).
+
 ``serve_risk`` binds it to grpcio with identity (de)serializers, and
 ``make_risk_stub`` gives a bytes-in, bytes-out client; ``serve_risk`` is the
-one place the port imports ``grpc``, inside its body. PredictLTV and
-GetPlayerSegment answer UNIMPLEMENTED until the LTV model is ported.
+one place the port imports ``grpc``, inside its body.
 
 As in the JAX package, the service installs the process's drift engine
 (``obs/drift.py``) and binds it to the engine unless ``DRIFT=0``: every
@@ -42,6 +48,7 @@ import numpy as np
 
 from igaming_platform_tpu_torch.core.enums import REASON_BIT_ORDER
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES, F, FeatureVector
+from igaming_platform_tpu_torch.models import ltv as ltv_mod
 from igaming_platform_tpu_torch.obs import drift as drift_mod
 from igaming_platform_tpu_torch.serve import risk_codec as codec
 from igaming_platform_tpu_torch.serve.abuse import AbuseShed
@@ -50,8 +57,7 @@ from igaming_platform_tpu_torch.serve.wire import INDEX_WIRE_MAGIC, RawProtoMess
 
 logger = logging.getLogger(__name__)
 
-# The risk.v1 methods the binding registers: the eight answered here, and
-# the two LTV methods, which answer UNIMPLEMENTED.
+# The risk.v1 methods the binding registers: all ten.
 RISK_SERVICE = "risk.v1.RiskService"
 RISK_METHOD_NAMES = ("ScoreTransaction", "ScoreBatch", "CheckBonusAbuse", "AddToBlacklist",
                      "CheckBlacklist", "GetFeatures", "UpdateThresholds", "GetThresholds",
@@ -235,14 +241,17 @@ def _feature_fields(f: FeatureVector) -> dict:
 class RiskGrpcService:
     """risk.v1.RiskService over the port's scoring engine and abuse detector."""
 
-    def __init__(self, engine, abuse_detector=None, rate_limit_per_minute: int = 0):
+    def __init__(self, engine, abuse_detector=None, rate_limit_per_minute: int = 0,
+                 ltv_source=None):
         """
         engine: serve.scorer.TorchScoringEngine
         abuse_detector: callable(account_id, bonus_id) -> (score, signals, linked)
         rate_limit_per_minute: per-account ScoreTransaction cap (0 disables)
+        ltv_source: callable(account_id) -> 25 LTV features or None
         """
         self.engine = engine
         self.abuse_detector = abuse_detector
+        self.ltv_source = ltv_source
         self._rate_limiter = _FixedWindowRateLimiter(rate_limit_per_minute)
         # Bulk ScoreBatch work is admitted through a bounded gate: past
         # BULK_MAX_INFLIGHT concurrent RPCs (after a short wait) it sheds
@@ -380,14 +389,42 @@ class RiskGrpcService:
             ips=[t["ip_address"] for t in txs], devices=[t["device_id"] for t in txs],
             fingerprints=[t["fingerprint"] for t in txs])
 
-    # -- LTV (not ported yet) --
+    # -- LTV --
+
+    def _ltv(self, account_id: str) -> dict:
+        """One account's LTV outputs (host numpy scalars): its features from
+        ``ltv_source``, zeros when there is none, on the engine's device."""
+        row = self.ltv_source(account_id) if self.ltv_source is not None else None
+        x = (np.zeros((1, ltv_mod.NUM_LTV_FEATURES), np.float32) if row is None
+             else np.asarray(row, np.float32).reshape(1, ltv_mod.NUM_LTV_FEATURES))
+        out = ltv_mod.predict_batch(x, self.engine.device)
+        return {k: v.cpu().numpy()[0] for k, v in out.items()}
 
     def PredictLTV(self, request: bytes, context=None):  # noqa: N802
-        raise RpcAbort(StatusCode.UNIMPLEMENTED, "PredictLTV: the LTV model is not ported yet")
+        req = codec.decode(codec.PREDICT_LTV_REQUEST, request)
+        out = self._ltv(req["account_id"])
+        now_ns = time.time_ns()
+        return RawProtoMessage(codec.encode(codec.PREDICT_LTV_RESPONSE, {
+            "account_id": req["account_id"],
+            "predicted_ltv": float(out["ltv"]),
+            "segment": int(out["segment"]),
+            "churn_risk": float(out["churn_risk"]),
+            "predicted_active_days": int(out["survival_days"]),
+            "confidence": float(out["confidence"]),
+            "next_best_action": ltv_mod.ACTIONS[int(out["action"])],
+            "predicted_at": {"seconds": now_ns // 10**9, "nanos": now_ns % 10**9},
+        }))
 
     def GetPlayerSegment(self, request: bytes, context=None):  # noqa: N802
-        raise RpcAbort(StatusCode.UNIMPLEMENTED,
-                       "GetPlayerSegment: the LTV model is not ported yet")
+        req = codec.decode(codec.GET_PLAYER_SEGMENT_REQUEST, request)
+        out = self._ltv(req["account_id"])
+        return RawProtoMessage(codec.encode(codec.GET_PLAYER_SEGMENT_RESPONSE, {
+            "account_id": req["account_id"],
+            "segment": int(out["segment"]),
+            "ltv": float(out["ltv"]),
+            "churn_risk": float(out["churn_risk"]),
+            "recommended_actions": [ltv_mod.ACTIONS[int(out["action"])]],
+        }))
 
     # -- bonus abuse --
 

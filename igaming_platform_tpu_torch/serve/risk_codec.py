@@ -2,7 +2,8 @@
 
 The port's counterpart of the generated ``risk_pb2`` module of the JAX
 package (``proto/risk/v1/risk.proto``), without protobuf: the card's
-machine has none. A message is a dict keyed by field name. ``decode``
+machine has none; ``TIMESTAMP`` is ``google.protobuf.Timestamp``. A
+message is a dict keyed by field name. ``decode``
 fills every field with its proto3 default (``""``, ``0``, ``False``,
 ``0.0``, ``[]``, or ``None`` for an absent sub-message) and skips unknown
 fields and the ``metadata`` map, as the server ignores it. ``encode``
@@ -97,6 +98,20 @@ UPDATE_THRESHOLDS_RESPONSE = _fields(
     (1, "success", BOOL), (2, "block_threshold", INT32), (3, "review_threshold", INT32))
 GET_THRESHOLDS_REQUEST = _fields()
 GET_THRESHOLDS_RESPONSE = _fields((1, "block_threshold", INT32), (2, "review_threshold", INT32))
+# risk.v1 Segment: the codes of models/ltv.py's SEG_* constants.
+SEGMENT = {"SEGMENT_UNSPECIFIED": 0, "SEGMENT_VIP": 1, "SEGMENT_HIGH": 2, "SEGMENT_MEDIUM": 3,
+           "SEGMENT_LOW": 4, "SEGMENT_CHURNING": 5}
+PREDICT_LTV_REQUEST = _fields((1, "account_id", STRING))
+PREDICT_LTV_RESPONSE = _fields(
+    (1, "account_id", STRING), (2, "predicted_ltv", FLOAT), (3, "segment", ENUM),
+    (4, "churn_risk", FLOAT), (5, "predicted_active_days", INT32), (6, "confidence", FLOAT),
+    (7, "next_best_action", STRING), (8, "predicted_at", MESSAGE, TIMESTAMP),
+)
+GET_PLAYER_SEGMENT_REQUEST = _fields((1, "account_id", STRING))
+GET_PLAYER_SEGMENT_RESPONSE = _fields(
+    (1, "account_id", STRING), (2, "segment", ENUM), (3, "ltv", FLOAT), (4, "churn_risk", FLOAT),
+    (5, "recommended_actions", STRING, None, True),
+)
 # grpc.health.v1: HealthCheckRequest, HealthCheckResponse (status 1 = SERVING,
 # 2 = NOT_SERVING).
 HEALTH_CHECK_REQUEST = _fields((1, "service", STRING))

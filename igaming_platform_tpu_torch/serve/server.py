@@ -32,9 +32,10 @@ Run it as ``python -m igaming_platform_tpu_torch.serve.server``. It serves
 on the card; with no card it refuses to boot unless
 ``SERVE_DEVICE_FALLBACK=cpu``, which serves on the host CPU with the abuse
 path under ``ABUSE_CPU_POLICY`` (default ``heuristic``), as the reference
-does. The other /debug pages, /metrics,
-the supervisor, the online loop, the batch-feature refresh and loading a
-JAX Orbax checkpoint are not ported yet (``ROADMAP.md``).
+does. ``FRAUD_MODEL_PATH`` boots a trained multitask checkpoint from its
+``.npz`` (``resolve_model_boot``). The other /debug pages, /metrics, the
+supervisor, the online loop and the batch-feature refresh are not ported
+yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -50,7 +51,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
+from igaming_platform_tpu_torch.convert import from_jax_params, load_params_tree
 from igaming_platform_tpu_torch.core.config import RiskServiceConfig
+from igaming_platform_tpu_torch.core.features import NUM_FEATURES
 from igaming_platform_tpu_torch.obs import drift as drift_mod
 from igaming_platform_tpu_torch.serve.abuse import SequenceAbuseDetector
 from igaming_platform_tpu_torch.serve.bridge import ScoringBridge
@@ -71,18 +74,45 @@ logger = logging.getLogger(__name__)
 
 def resolve_model_boot(config, ml_backend: str = "mock", params=None):
     """FRAUD_MODEL_PATH -> (ml_backend, params), then the ML_BACKEND
-    override. A missing checkpoint degrades to the mock scorer, as the
-    reference does (risk/cmd/main.go:62-63); one that exists raises: how
-    the card reads a JAX Orbax checkpoint is not chosen yet."""
+    override, with the JAX server's semantics: a checkpoint that loads boots
+    the ``multitask`` backend; a path that does not exist, or one that does
+    not load, degrades to the mock scorer with a warning (the reference's
+    risk/cmd/main.go:62-63). The card reads a JAX checkpoint as an ``.npz``
+    of its multitask tree (``convert.load_params_tree``'s layout, which
+    ``python -m tools.export_params_npz`` writes from an Orbax checkpoint or
+    a flax ``.msgpack``): an Orbax directory, a corrupt file or a tree that
+    is not multitask does not load."""
     if params is None and config.fraud_model_path:
-        if os.path.exists(config.fraud_model_path):
-            raise NotImplementedError(
-                f"FRAUD_MODEL_PATH={config.fraud_model_path}: reading a JAX Orbax checkpoint "
-                "is not ported yet (ROADMAP.md)")
-        logger.warning("model path %s not found; using mock scorer", config.fraud_model_path)
+        path = config.fraud_model_path
+        if not os.path.exists(path):
+            logger.warning("model path %s not found; using mock scorer", path)
+        elif os.path.isdir(path):
+            logger.warning(
+                "model path %s is a directory, not an .npz: convert an Orbax checkpoint with "
+                "tools/export_params_npz.py (`python -m tools.export_params_npz %s OUT.npz`); "
+                "using mock scorer", path, path)
+        else:
+            try:
+                params = load_multitask(path)
+                ml_backend = "multitask"
+                logger.info("loaded fraud model from %s", path)
+            except Exception:  # noqa: BLE001 — any failed load degrades, as in the JAX server
+                logger.warning("failed to load model at %s; using mock scorer", path,
+                               exc_info=True)
     if config.ml_backend:
         ml_backend = config.ml_backend
     return ml_backend, params
+
+
+def load_multitask(path: str) -> dict:
+    """The port's ``multitask`` params from an ``.npz`` holding a multitask
+    tree under ``multitask``. Raises on anything else."""
+    tree = load_params_tree(path)["multitask"]
+    first = tree["trunk"]["layers"][0]["w"]
+    if first.ndim != 2 or first.shape[0] != NUM_FEATURES:
+        raise ValueError(f"{path}: the trunk's first layer takes {first.shape[0]} features, "
+                         f"not {NUM_FEATURES}")
+    return from_jax_params("multitask", {"multitask": tree})
 
 
 def make_feature_store(kind: str):

@@ -25,7 +25,7 @@ written on the card and replayed with ``--device cpu`` differs in
 to start without a card unless it is asked for the CPU.
 
 The params: ``--params`` names a JAX-layout params tree saved with
-:func:`save_params_tree` (numpy arrays in an ``.npz``, keys joined by
+``convert.save_params_tree`` (numpy arrays in an ``.npz``, keys joined by
 ``/``), carried over by ``convert.from_jax_params``, or ``mock`` for the
 mock backend, which has none; then the params vault
 (``<dir>/params-vault`` unless ``--params-vault`` names another,
@@ -67,56 +67,11 @@ import sys
 
 import numpy as np
 
+from igaming_platform_tpu_torch.convert import load_params_tree
 from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
 
 _COMPARE_FIELDS = ("score", "action", "reason_mask", "rule_score", "ml_score_bits")
 _DEGRADED_SUFFIX = "+degraded-heuristic"
-
-
-# ---------------------------------------------------------------------------
-# The pinned params: a JAX-layout tree in an .npz
-
-
-def save_params_tree(path: str, tree: dict) -> None:
-    """A JAX-layout params tree (nested dicts and lists of numpy arrays) to
-    an ``.npz``, one array per leaf, its path joined by ``/``."""
-    flat: dict[str, np.ndarray] = {}
-
-    def walk(node, prefix: str) -> None:
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, f"{prefix}{k}/")
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(v, f"{prefix}{i}/")
-        else:
-            flat[prefix[:-1]] = np.asarray(node)
-
-    walk(tree, "")
-    with open(path, "wb") as f:
-        np.savez(f, **flat)
-
-
-def load_params_tree(path: str) -> dict:
-    """The tree :func:`save_params_tree` wrote: numeric path parts become
-    list positions."""
-    root: dict = {}
-    with np.load(path, allow_pickle=False) as z:
-        for key in z.files:
-            node = root
-            parts = key.split("/")
-            for part in parts[:-1]:
-                node = node.setdefault(part, {})
-            node[parts[-1]] = z[key]
-
-    def lists(node):
-        if not isinstance(node, dict):
-            return node
-        if node and all(k.isdigit() for k in node):
-            return [lists(node[str(i)]) for i in range(len(node))]
-        return {k: lists(v) for k, v in node.items()}
-
-    return lists(root)
 
 
 def _backend_of(model_version: str) -> str:
@@ -509,7 +464,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="the scoring engine's batch size (default: the server's, "
                              "BATCH_SIZE)")
     parser.add_argument("--params",
-                        help="pinned params: a JAX-layout tree .npz (save_params_tree), or mock")
+                        help="pinned params: a JAX-layout tree .npz "
+                             "(convert.save_params_tree), or mock")
     parser.add_argument("--params-vault",
                         help="fingerprint-keyed params vault (default: <dir>/params-vault "
                              "when present)")

@@ -31,6 +31,7 @@ from igaming_platform_tpu_torch.serve.bridge import ScoringBridge
 from igaming_platform_tpu_torch.serve.feature_store import InMemoryFeatureStore
 from igaming_platform_tpu_torch.serve.native_store import NativeFeatureStore
 from igaming_platform_tpu_torch.serve.scorer import TorchScoringEngine
+from torch_front_common import no_jax_hostprof  # noqa: F401 — a fixture
 
 NOW = 1_700_000_000.0
 MONEY = ("deposit", "withdraw", "bet", "win", "bonus_grant", "bonus_wager", "refund")
@@ -94,6 +95,7 @@ def _assert_same_state(jb, tb, accounts):
                                   jb.abuse_detector._history_matrix(accounts, 64))
 
 
+@pytest.mark.usefixtures("no_jax_hostprof")
 @pytest.mark.parametrize("mode", ["drain", "replay", "replay_native"])
 def test_bridge_matches_jax(monkeypatch, mode):
     jb, tb = _bridges(monkeypatch, dict(policy="heuristic"), native=mode == "replay_native")

@@ -1,5 +1,8 @@
 """The port stands alone: no module of igaming_platform_tpu_torch, and not
-chip_smoke.py, imports jax, flax, grpc, protobuf or the JAX package.
+chip_smoke.py, imports jax, flax, grpc, protobuf, the JAX package or the
+repository's ``tools`` (``tools/export_params_npz.py`` converts JAX
+checkpoints on the JAX side; it lives outside the port and imports nothing
+of it).
 
 One exception: ``serve/grpc_server.py`` imports ``grpc`` inside the body of
 ``serve_risk`` and ``make_risk_stub``, the optional gRPC binding, which only
@@ -21,7 +24,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "igaming_platform_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "grpc", "google.protobuf", "igaming_platform_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "grpc", "google.protobuf", "igaming_platform_tpu", "tools")
 
 
 def _forbidden(module: str) -> bool:
@@ -67,6 +70,16 @@ def test_matcher():
     assert _forbidden("jax.numpy") and _forbidden("igaming_platform_tpu.serve")
     assert _forbidden("google.protobuf.message") and _forbidden("grpc")
     assert not _forbidden("igaming_platform_tpu_torch.serve") and not _forbidden("jaxtyping_x")
+    assert _forbidden("tools.export_params_npz")
+    assert not _forbidden("igaming_platform_tpu_torch.tools.replay")
+
+
+def test_checkpoint_converter_stays_outside_the_port():
+    converter = REPO / "tools" / "export_params_npz.py"
+    assert converter.exists() and PORT not in converter.parents
+    imported = {m for m, _ in _imports(converter)}
+    assert "igaming_platform_tpu.train.checkpoint" in imported
+    assert not [m for m in imported if m.startswith("igaming_platform_tpu_torch")]
 
 
 def test_no_forbidden_import_statement():
@@ -92,6 +105,7 @@ def test_importing_every_module_loads_none_of_them():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120, check=True)
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
-    for m in ("scorer", "device_cache", "session_state", "wire", "grpc_server", "server"):
-        assert f"igaming_platform_tpu_torch.serve.{m}" in loaded, m
+    for m in ("serve.scorer", "serve.device_cache", "serve.session_state", "serve.wire",
+              "serve.grpc_server", "serve.server", "serve.ltv_job", "models.ltv", "ops.dense"):
+        assert f"igaming_platform_tpu_torch.{m}" in loaded, m
     assert not [m for m in loaded if _forbidden(m)]

@@ -25,7 +25,7 @@ from torch_ledger_common import T0, engines, pin_ledgers, record, requests, seed
 from igaming_platform_tpu.obs import drift as jdrift
 from igaming_platform_tpu.serve import ledger as jl
 from igaming_platform_tpu.serve.supervisor import heuristic_scores as jheuristic
-from igaming_platform_tpu_torch.convert import from_jax_params
+from igaming_platform_tpu_torch.convert import from_jax_params, load_params_tree, save_params_tree
 from igaming_platform_tpu_torch.obs import drift as pdrift
 from igaming_platform_tpu_torch.serve import ledger as pl
 from igaming_platform_tpu_torch.serve.supervisor import heuristic_scores
@@ -140,8 +140,8 @@ def test_replay_across_swap_through_vault(tmp_path, monkeypatch):
         2 * ([(32,), (8,)] + [(8,)] * 3 + [(32, 8)] * 2))
 
     params = str(tmp_path / "tree.npz")
-    replay.save_params_tree(params, TREE)
-    got = replay.load_params_tree(params)
+    save_params_tree(params, TREE)
+    got = load_params_tree(params)
     np.testing.assert_array_equal(got["mlp"]["layers"][1]["w"], TREE["mlp"]["layers"][1]["w"])
     args = ["--dir", d, "--device", "cpu", "--batch", "32", "--params", params,
             "--params-vault", str(tmp_path / "empty"), "--out", str(tmp_path / "v.json")]

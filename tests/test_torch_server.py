@@ -219,13 +219,16 @@ def test_port_answers_as_the_jax_server(services, transport):
 
 
 def test_unported_methods_and_missing_grpc(monkeypatch):
-    """PredictLTV and GetPlayerSegment answer UNIMPLEMENTED; without grpcio
-    ``serve_risk`` raises a RuntimeError that says what to do instead."""
-    service = grpc_server.RiskGrpcService(engine=None)
-    for method in ("PredictLTV", "GetPlayerSegment", "Nope"):
-        with pytest.raises(grpc_server.RpcAbort) as exc:
-            service.call(method, b"")
-        assert exc.value.code is grpc_server.StatusCode.UNIMPLEMENTED
+    """Only a method risk.v1 does not have answers UNIMPLEMENTED: PredictLTV
+    and GetPlayerSegment answer (tests/test_torch_ltv.py holds them to the
+    JAX service); without grpcio ``serve_risk`` raises a RuntimeError that
+    says what to do instead."""
+    service = grpc_server.RiskGrpcService(engine=types.SimpleNamespace(device="cpu"))
+    with pytest.raises(grpc_server.RpcAbort) as exc:
+        service.call("Nope", b"")
+    assert exc.value.code is grpc_server.StatusCode.UNIMPLEMENTED
+    for method in ("PredictLTV", "GetPlayerSegment"):
+        assert service.call(method, b"")
     assert {c.name: c.value for c in grpc_server.StatusCode} == {
         c.name: c.value[0] for c in grpc.StatusCode}
     monkeypatch.setitem(sys.modules, "grpc", None)

@@ -4,9 +4,11 @@ seeded event columns with fixed timestamps, one clock pinned for the JAX
 package's native store and the port's, and the masks under which two
 risk.v1 responses are compared."""
 
+import os
 import types
 
 import numpy as np
+import pytest
 
 from igaming_platform_tpu.serve import native_store as jax_native_store
 
@@ -41,6 +43,27 @@ def pin_jax_clock(monkeypatch, now: float = T0) -> None:
     """The JAX package's native store reads ``time.time()`` wherever a call
     gives no time: pin that module's clock only."""
     monkeypatch.setattr(jax_native_store, "time", types.SimpleNamespace(time=lambda: now))
+
+
+@pytest.fixture
+def no_jax_hostprof():
+    """The JAX package's host profiler off (``HOSTPROF=0``) for one test,
+    then back as it was. Its GC callback takes the profiler's lock, which
+    the same thread may already hold when it allocates a new stage's
+    accumulator (``igaming_platform_tpu/obs/hostprof.py``, ``_on_span``):
+    the JAX engine's batcher thread then waits on itself for good. The
+    profiler computes nothing a port test compares."""
+    from igaming_platform_tpu.obs import hostprof
+
+    before = os.environ.get("HOSTPROF")
+    os.environ["HOSTPROF"] = "0"
+    hostprof.reinstall_from_env()
+    yield
+    if before is None:
+        del os.environ["HOSTPROF"]
+    else:
+        os.environ["HOSTPROF"] = before
+    hostprof.reinstall_from_env()
 
 
 def requests(seed: int, n: int, n_accounts: int) -> list[dict]:
