@@ -21,9 +21,18 @@ import torch
 
 def log1p(x: torch.Tensor) -> torch.Tensor:
     """float32 ``log1p(x)``, rounded from float64."""
-    return torch.log1p(x.to(torch.float64)).to(torch.float32)
+    return _rounded(torch.log1p, x)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """float32 ``sigmoid(x)``, rounded from float64."""
-    return torch.sigmoid(x.to(torch.float64)).to(torch.float32)
+    return _rounded(torch.sigmoid, x)
+
+
+def _rounded(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of float32 ``x`` evaluated in float64 and stored as float32:
+    the widening is one elementwise pass, and the function and the rounding
+    another (``out=`` of another dtype computes in the input's and casts as it
+    stores), so a call costs two launches, not three. ``out=`` records no
+    gradient: these serve the score step, not training."""
+    return fn(x.to(torch.float64), out=torch.empty_like(x, dtype=torch.float32))

@@ -210,6 +210,14 @@ def predict_batch(f, device: str | torch.device = "cuda") -> dict[str, torch.Ten
     }
 
 
+def to_host(out: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """``predict_batch``'s outputs as numpy arrays in one copy from the
+    device: stacked as int32 words, the float32 ones viewed back, bits kept."""
+    words = torch.stack([v.view(torch.int32) for v in out.values()]).cpu().numpy()
+    return {k: w.view(np.float32) if v.dtype == torch.float32 else w
+            for (k, v), w in zip(out.items(), words)}
+
+
 def segment_players(f, device: str | torch.device = "cuda") -> dict[int, np.ndarray]:
     """Row indices by segment code (SegmentPlayers, ltv.go:401-414)."""
     seg = predict_batch(f, device)["segment"].cpu().numpy()

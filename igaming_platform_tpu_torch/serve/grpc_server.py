@@ -397,8 +397,8 @@ class RiskGrpcService:
         row = self.ltv_source(account_id) if self.ltv_source is not None else None
         x = (np.zeros((1, ltv_mod.NUM_LTV_FEATURES), np.float32) if row is None
              else np.asarray(row, np.float32).reshape(1, ltv_mod.NUM_LTV_FEATURES))
-        out = ltv_mod.predict_batch(x, self.engine.device)
-        return {k: v.cpu().numpy()[0] for k, v in out.items()}
+        out = ltv_mod.to_host(ltv_mod.predict_batch(x, self.engine.device))
+        return {k: v[0] for k, v in out.items()}
 
     def PredictLTV(self, request: bytes, context=None):  # noqa: N802
         req = codec.decode(codec.PREDICT_LTV_REQUEST, request)

@@ -30,7 +30,8 @@ import time
 import numpy as np
 import torch
 
-from igaming_platform_tpu_torch.models.ltv import ACTIONS, NUM_LTV_FEATURES, L, predict_batch
+from igaming_platform_tpu_torch.models.ltv import (ACTIONS, NUM_LTV_FEATURES, L, predict_batch,
+                                                   to_host)
 
 _SECONDS_PER_DAY = 86_400.0
 
@@ -118,10 +119,20 @@ def run_batch_job(db_path: str, now: float | None = None, device: str = "cuda",
     device pass (the outputs back on the host) and the records."""
     t0 = time.perf_counter()
     ids, x = ltv_features_from_wallet(db_path, now=now)
-    t1 = time.perf_counter()
+    if timings is not None:
+        timings["scan_s"] = time.perf_counter() - t0
+    return batch_result(ids, x, device, timings)
+
+
+def batch_result(ids: list[str], x: np.ndarray, device: str = "cuda",
+                 timings: dict | None = None) -> dict:
+    """The job's answer for a scanned feature matrix: one device pass, then
+    the records and the segment groupings. ``timings``, when given, receives
+    the seconds of the device pass and of the records."""
     if not ids:
         return {"players": [], "segments": {}, "count": 0}
-    out = {k: v.cpu().numpy() for k, v in predict_batch(x, device).items()}
+    t1 = time.perf_counter()
+    out = to_host(predict_batch(x, device))
     t2 = time.perf_counter()
     records = [
         {
@@ -139,7 +150,7 @@ def run_batch_job(db_path: str, now: float | None = None, device: str = "cuda",
     for rec in records:
         grouped.setdefault(str(rec["segment"]), []).append(rec["account_id"])
     if timings is not None:
-        timings.update(scan_s=t1 - t0, device_s=t2 - t1, records_s=time.perf_counter() - t2)
+        timings.update(device_s=t2 - t1, records_s=time.perf_counter() - t2)
     return {"players": records, "segments": grouped, "count": len(records)}
 
 

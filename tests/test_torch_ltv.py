@@ -6,7 +6,8 @@ on the CPU:
 - ``predict_batch`` on [4096, 25] rows, many of them on a threshold of
   every formula (days 3, 7, 14 and 30, sessions 1, 3 and 5, deposit
   frequency 1, 2 and 4, bets 20 and 100, churn landing on 0.3 and 0.7,
-  LTV an ulp from 100, 1,000 and 10,000 dollars): integer outputs exact
+  LTV an ulp from 100, 1,000 and 10,000 dollars, for established and for
+  new players): integer outputs exact
   against ``predict_batch_jit``, the JAX server's function, and every float
   bit for bit against ``predict_batch`` run op by op. The port keeps the
   source's association; XLA's compiled program folds ``x * 30 * 12`` into
@@ -76,6 +77,19 @@ def ltv_rows(seed: int, n: int = 4096) -> np.ndarray:
         net = np.float32(thr / keep)
         nets += [np.nextafter(net, np.float32(0)), net, np.nextafter(net, np.float32(1e9))]
     f[on, L.NET_REVENUE] = rng.choice(np.array(nets, np.float32), on.size)
+    # New players (under 30 days), the same churn, their LTV 360 times the
+    # daily run rate, landing within 3 ulps of a segment threshold: the
+    # branch whose constants XLA folds.
+    new = np.arange(8, n, 17)
+    f[new] = 0
+    dsr = rng.choice(np.array([1, 3, 10, 29, 29.5], np.float32), new.size)
+    f[new, L.DAYS_SINCE_REGISTRATION] = dsr
+    f[new, L.DAYS_SINCE_LAST_BET] = 14
+    thr = rng.choice(np.array([jltv.MEDIUM_THRESHOLD, jltv.HIGH_THRESHOLD,
+                               jltv.VIP_THRESHOLD], np.float32), new.size)
+    net = (thr / keep * dsr / np.float32(360)).astype(np.float32)
+    f[new, L.NET_REVENUE] = (net.view(np.int32) + rng.integers(-3, 4, new.size,
+                                                                dtype=np.int32)).view(np.float32)
     return f
 
 

@@ -4,7 +4,6 @@ seeded event columns with fixed timestamps, one clock pinned for the JAX
 package's native store and the port's, and the masks under which two
 risk.v1 responses are compared."""
 
-import os
 import types
 
 import numpy as np
@@ -47,23 +46,31 @@ def pin_jax_clock(monkeypatch, now: float = T0) -> None:
 
 @pytest.fixture
 def no_jax_hostprof():
-    """The JAX package's host profiler off (``HOSTPROF=0``) for one test,
-    then back as it was. Its GC callback takes the profiler's lock, which
-    the same thread may already hold when it allocates a new stage's
-    accumulator (``igaming_platform_tpu/obs/hostprof.py``, ``_on_span``):
-    the JAX engine's batcher thread then waits on itself for good. The
-    profiler computes nothing a port test compares."""
+    """The JAX package's host profiler off for one test, then the very
+    profiler the process had put back. Its GC callback takes the profiler's
+    lock, which the same thread may already hold while it allocates a new
+    stage's accumulator (``igaming_platform_tpu/obs/hostprof.py``,
+    ``_on_span``): the JAX engine's batcher thread then waits on itself for
+    good. A fresh profiler allocates every stage anew, so the process's own
+    one comes back, its stages kept, and later tests meet no more of those
+    allocations than they would without this fixture. The profiler computes
+    nothing a port test compares."""
     from igaming_platform_tpu.obs import hostprof
 
-    before = os.environ.get("HOSTPROF")
-    os.environ["HOSTPROF"] = "0"
-    hostprof.reinstall_from_env()
-    yield
-    if before is None:
-        del os.environ["HOSTPROF"]
-    else:
-        os.environ["HOSTPROF"] = before
-    hostprof.reinstall_from_env()
+    with hostprof._DEFAULT_LOCK:
+        saved = hostprof._DEFAULT
+        was_installed = saved is not None and saved._installed
+        if saved is not None:
+            saved.uninstall()
+        hostprof._DEFAULT = hostprof.HostProfiler(enabled=False)
+    try:
+        yield
+    finally:
+        with hostprof._DEFAULT_LOCK:
+            hostprof._DEFAULT.uninstall()
+            hostprof._DEFAULT = saved
+            if was_installed:
+                saved.install()
 
 
 def requests(seed: int, n: int, n_accounts: int) -> list[dict]:

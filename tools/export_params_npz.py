@@ -25,8 +25,6 @@ import sys
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
 
 def _lists(node):
     """A restored tree with numpy leaves, dicts whose keys are all list
