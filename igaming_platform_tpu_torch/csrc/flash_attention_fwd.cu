@@ -64,10 +64,11 @@
 // block is 4 warps and owns 64 rows, unless BH * ceil(S/64) blocks would
 // leave SMs idle: then it owns 16 rows and each of its 4 warps takes a
 // quarter of every key tile with its own (m, l, acc); the four are merged in
-// warp order at the end, so relaunches repeat bit for bit. A warp that saw no key (S = 16
-// against 64-key tiles) has m = -inf and l = 0, and adds exactly 0.
-// (4, 300, 32) gets 76 blocks instead of 12, one check() (2, 64, 32) 8
-// instead of 2.
+// warp order at the end, so relaunches repeat bit for bit. A warp that saw
+// no key (S = 16 against 64-key tiles) has m = -inf and l = 0, and adds
+// exactly 0. (4, 300, 32) gets 76 blocks instead of 12, one check() (2, 64,
+// 32) 8 instead of 2. Where S <= 64 at Dh <= 32 a 64-row block's warps sum
+// in the same quarters (fwd_for), so the two layouts agree bit for bit.
 //
 // What bounds it: operations, 4 * BH*S^2*Dh (QK^T and PV) against 16 * BH*S*Dh
 // bytes of q, k, v and o. chip_smoke.py takes them at 989/3 TFLOP/s (the bf16
@@ -199,16 +200,47 @@ __device__ __forceinline__ void split_own(const float* src, float* kp) {
   }
 }
 
+// The state (m, l, acc) of a row's earlier keys merged with (mo, lo, ao) of
+// later ones: both rescaled to the larger max. One fixed sequence of
+// roundings (explicit fmaf), so that a tile merged across warps (16-row
+// blocks) and one merged in quarters within a warp (kQuarters) agree bit for
+// bit. m is finite (its keys include a valid one); mo = -inf adds exactly 0.
+template <int kKs>
+__device__ __forceinline__ void merge_state(float (&m)[2], float (&l)[2], float (&acc)[kKs][4],
+                                            const float (&mo)[2], const float (&lo)[2],
+                                            const float (&ao)[kKs][4]) {
+  float fs[2], fo[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mn = fmaxf(m[h], mo[h]);
+    fs[h] = expf(m[h] - mn);
+    fo[h] = mo[h] == -INFINITY ? 0.0f : expf(mo[h] - mn);
+    l[h] = fmaf(l[h], fs[h], __fmul_rn(lo[h], fo[h]));
+    m[h] = mn;
+  }
+#pragma unroll
+  for (int nd = 0; nd < kKs; ++nd) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[nd][i] = fmaf(acc[nd][i], fs[i >> 1], __fmul_rn(ao[nd][i], fo[i >> 1]));
+    }
+  }
+}
+
 // A block owns 64 / kSplit query rows of one (b*h) and loops over key tiles.
-template <int Dh, int kSplit, int kWarps>
+// kQuarters (4 warps, 64 rows, a single key tile): each warp sums the tile's
+// keys in four quarters, each from an empty state, merged in order: the
+// arithmetic of the 16-row layout, whose 4 warps take a quarter each.
+template <int Dh, int kSplit, int kWarps, bool kQuarters = false>
 __global__ void __launch_bounds__(32 * kWarps)
 flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            float* __restrict__ lse, int S, float scale) {
   using G = Geo<Dh, kSplit, kWarps>;
   static_assert((kSplit == 4 && kWarps == 4) || kSplit == 1, "4 warps split keys, or none");
+  static_assert(!kQuarters || (kSplit == 1 && kWarps == 4), "quarters emulate 4 warps' split");
   constexpr int kRows = 16 * kWarps / kSplit;  // query rows of a block
-  constexpr int kChunk = G::kTile / kSplit;  // keys of each tile a warp takes
+  constexpr int kChunk = G::kTile / (kQuarters ? 4 : kSplit);  // keys of each tile a pass group takes
   constexpr int kPass = kChunk < G::kSub ? kChunk : G::kSub;  // ... in one pass
   constexpr int kNt = kPass / 8;             // n8 score tiles of a pass
   extern __shared__ __align__(16) float smem[];
@@ -266,6 +298,9 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
       acc[nd][i] = 0.0f;
     }
   }
+  // kQuarters: the merged state of the quarters done so far.
+  float mq[2] = {-INFINITY, -INFINITY}, lq[2] = {0.0f, 0.0f}, aq[G::kKs][4];
+  int quarters = 0;
 
 #pragma unroll 1
   for (int j = 0; j < n_tiles; ++j) {
@@ -284,8 +319,9 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
     const float* kp = planes;
     const float* vp = kp + G::kTile * G::kLdK;
 #pragma unroll 1
-    for (int c0 = sp * kChunk; c0 < (sp + 1) * kChunk; c0 += kPass) {  // within the tile
-      const int key0 = j * G::kTile + c0;                                // ... within the head
+    for (int c0 = sp * kChunk; c0 < (kQuarters ? G::kTile : (sp + 1) * kChunk);
+         c0 += kPass) {                  // within the tile
+      const int key0 = j * G::kTile + c0;  // ... within the head
       if (key0 >= S) {
         break;  // a warp past the last key
       }
@@ -408,7 +444,36 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
           acc[nd][i] = fmaf(acc[nd][i], corr[i >> 1], ta[nd][i]);
         }
       }
+      if constexpr (kQuarters) {  // this quarter into the merged state, then empty again
+        if (quarters++ == 0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) mq[h] = m[h], lq[h] = l[h];
+#pragma unroll
+          for (int nd = 0; nd < G::kKs; ++nd)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) aq[nd][i] = acc[nd][i];
+        } else {
+          merge_state<G::kKs>(mq, lq, aq, m, l, acc);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) m[h] = -INFINITY, l[h] = 0.0f;
+#pragma unroll
+        for (int nd = 0; nd < G::kKs; ++nd)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[nd][i] = 0.0f;
+      }
     }
+  }
+  if constexpr (kQuarters) {
+    // Quarters past the last key merge as the 16-row layout's idle warps do
+    // (an empty state: exactly 0), then the merged state is the row's.
+    for (; quarters < 4; ++quarters) merge_state<G::kKs>(mq, lq, aq, m, l, acc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) m[h] = mq[h], l[h] = lq[h];
+#pragma unroll
+    for (int nd = 0; nd < G::kKs; ++nd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nd][i] = aq[nd][i];
   }
 
   if (kSplit > 1) {
@@ -441,23 +506,20 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
 #pragma unroll 1
     for (int w = 1; w < kSplit; ++w) {
       const float* r = red + (w - 1) * kPark * 32 + lane;
-      float fs[2], fo[2];
+      float mo[2], lo[2], ao[G::kKs][4];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float mo = r[32 * h];
-        const float mn = fmaxf(m[h], mo);
-        fs[h] = expf(m[h] - mn);
-        fo[h] = mo == -INFINITY ? 0.0f : expf(mo - mn);
-        l[h] = l[h] * fs[h] + r[32 * (2 + h)] * fo[h];
-        m[h] = mn;
+        mo[h] = r[32 * h];
+        lo[h] = r[32 * (2 + h)];
       }
 #pragma unroll
       for (int nd = 0; nd < G::kKs; ++nd) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          acc[nd][i] = acc[nd][i] * fs[i >> 1] + r[32 * (4 + 4 * nd + i)] * fo[i >> 1];
+          ao[nd][i] = r[32 * (4 + 4 * nd + i)];
         }
       }
+      merge_state<G::kKs>(m, l, acc, mo, lo, ao);
     }
   }
 
@@ -480,13 +542,13 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
-template <int Dh, int kSplit, int kWarps>
+template <int Dh, int kSplit, int kWarps, bool kQuarters = false>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
                float scale, cudaStream_t stream) {
   using G = Geo<Dh, kSplit, kWarps>;
   constexpr int bytes = G::kSmem * 4;
   static const cudaError_t attr =
-      cudaFuncSetAttribute(flash_attention_fwd_kernel<Dh, kSplit, kWarps>,
+      cudaFuncSetAttribute(flash_attention_fwd_kernel<Dh, kSplit, kWarps, kQuarters>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) {
     return static_cast<int>(attr);
@@ -496,17 +558,31 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
   if (grid.y > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  flash_attention_fwd_kernel<Dh, kSplit, kWarps><<<grid, G::kBlock, bytes, stream>>>(
+  flash_attention_fwd_kernel<Dh, kSplit, kWarps, kQuarters><<<grid, G::kBlock, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), static_cast<float*>(lse), S, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The layout may follow BH only where it cannot change a row's bits. The
+// 16-row layout's four warps each sum a quarter of every key tile and merge
+// (merge_state), another order than one warp's pass over the tile. So where
+// the keys fit one tile (S <= 64) at Dh <= 32 (the abuse detector, the
+// session head), the 64-row layout sums that tile in quarters merged the
+// same way (kQuarters), and a row gets the same bits in either layout: one
+// check() as inside a batch. Past one tile, or at Dh 64 and 128, a few
+// heads still take the 16-row layout, whose bits then differ from a large
+// batch's.
 template <int Dh>
 int fwd_for(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int S,
             float scale, cudaStream_t st) {
   if (narrow_blocks(BH, S)) {
     return launch_fwd<Dh, 4, 4>(q, k, v, o, lse, BH, S, scale, st);
+  }
+  if constexpr (Dh <= 32) {
+    if (S <= 64) {
+      return launch_fwd<Dh, 1, 4, true>(q, k, v, o, lse, BH, S, scale, st);
+    }
   }
   if constexpr (Dh <= 64) {
     // BH * ceil(S / 128) = BH * ceil(ceil(S / 2) / 64) blocks fill the SMs.

@@ -3,10 +3,24 @@
 Counterpart of ``igaming_platform_tpu/models/ltv.py`` (the reference's
 ``prediction/ltv.go``): every formula is branchless elementwise arithmetic
 over a [B, 25] float32 feature matrix, so a whole player table scores in one
-pass on one device. No kernel: these are torch ops, in the JAX package's
-float32 association, one op at a time.
+pass on one device. No kernel: these are torch ops, one op at a time.
 
-Numerics. The two divisions (``base_ltv``) divide by a tensor, as the JAX
+Numerics: the arithmetic of the program the JAX service runs. The JAX
+server's LTV RPCs and its batch job answer with ``predict_batch_jit``, and
+XLA's CPU program for ``base_ltv`` is not the source's association:
+
+- new players' ``net / max(dsr, 1) * 30 * 12`` is one multiply by 360;
+- established players' ``net + monthly * months`` is one fused
+  multiply-add, rounded once (``core/numerics.py::fma``);
+- on a single row (B = 1, as every LTV RPC sends) XLA's simplifier also
+  moves both constants together: ``monthly * months`` becomes
+  ``(net / max(dsr, 1) * engagement) * 360``, fused with the add.
+
+``predict_batch`` follows the program of its batch's size, so its outputs
+equal ``predict_batch_jit``'s bit for bit at every B, on the CPU and on the
+card (``tests/test_torch_ltv.py``; ``chip_smoke.py`` phase 11 holds the card
+to ``tests/golden/ltv_jit.npz``). Eager JAX, op by op, rounds each step and
+differs from both in ``ltv``. The division divides by a tensor, as the JAX
 function does: on CUDA a division by a Python scalar is a multiplication by
 its rounded reciprocal. Constants enter as Python scalars of elementwise
 ops, never as host values written into a device tensor.
@@ -18,6 +32,8 @@ import enum
 
 import numpy as np
 import torch
+
+from igaming_platform_tpu_torch.core.numerics import fma
 
 
 class L(enum.IntEnum):
@@ -119,15 +135,19 @@ def churn_risk(f: torch.Tensor) -> torch.Tensor:
 
 
 def base_ltv(f: torch.Tensor) -> torch.Tensor:
-    """Projected lifetime value in dollars (ltv.go:155-178)."""
+    """Projected lifetime value in dollars (ltv.go:155-178), as XLA's program
+    for ``f``'s batch size computes it (see the module's docstring)."""
     dsr = f[:, L.DAYS_SINCE_REGISTRATION]
     net = f[:, L.NET_REVENUE]
-    # A division by a tensor, as in JAX (ltv.py:114,118 there).
-    monthly = net / torch.clamp_min(dsr, 1.0) * 30.0
+    daily = net / torch.clamp_min(dsr, 1.0)  # a division by a tensor, as in JAX
+    engagement = engagement_score(f)
     # New players (< 30 days): 12 months at the current run-rate.
-    new_value = monthly * 12.0
+    new_value = daily * 360.0
     # Established: realized + engagement-scaled remaining months.
-    est_value = net + monthly * (12.0 * engagement_score(f))
+    if f.shape[0] == 1:
+        est_value = fma(daily * engagement, torch.full_like(net, 360.0), net)
+    else:
+        est_value = fma(daily * 30.0, engagement * 12.0, net)
     return torch.where(dsr < 30, new_value, est_value)
 
 

@@ -11,9 +11,15 @@ kernels, forward and backward, for CUDA tensors, the plain dense versions
 for CPU tensors, as the JAX model takes the Pallas kernels on a TPU and the
 einsum elsewhere.
 
-Numerics follow the JAX code: float32 matmuls (no bf16, no TF32), the
+Numerics follow the JAX code: float32 products (no bf16, no TF32), the
 population variance in layer norm, ``jax.nn.gelu``'s default tanh
 approximation, and a mean pool over S that includes left-padded zero events.
+Every ``Affine`` layer adds its float32 products in one order fixed by K
+(``ops/dense.py``'s ``dense_f32``, the hand kernel ``csrc/dense_fixed.cu``
+on a card), not cuBLAS's, whose order follows M: so a player's score does
+not depend on the batch it rides in (one ``check()`` and the same account
+inside ``check_batch``, a session-head row in any chunk), on the card as on
+the CPU. Its gradient keeps ``torch.matmul``: training needs no fixed order.
 The ring and Ulysses attention strategies (sequence sharding over a mesh)
 are not ported yet.
 """
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from igaming_platform_tpu_torch.core.device import constant
+from igaming_platform_tpu_torch.ops.dense import dense_f32
 from igaming_platform_tpu_torch.ops.flash_attention import flash_attention
 
 # Per-event feature layout for wagering histories:
@@ -82,8 +89,25 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+class _FixedOrderAffine(torch.autograd.Function):
+    """``dense_f32`` forward on [rows, in]; ``torch.matmul`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return dense_f32(x, w, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        return (grad @ w.t() if need_x else None, x.t() @ grad if need_w else None,
+                grad.sum(0) if need_b else None)
+
+
 class Affine(nn.Module):
-    """``x @ w + b`` in float32; ``w`` is [in, out] as in the JAX params."""
+    """``x @ w + b`` in float32, its sums in ``dense_f32``'s fixed order;
+    ``w`` is [in, out] as in the JAX params."""
 
     def __init__(self, w: torch.Tensor, b: torch.Tensor):
         super().__init__()
@@ -93,7 +117,8 @@ class Affine(nn.Module):
         self.b = nn.Parameter(b.to(torch.float32).contiguous())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.w) + self.b
+        rows = x.reshape(-1, x.shape[-1]).contiguous()
+        return _FixedOrderAffine.apply(rows, self.w, self.b).view(*x.shape[:-1], -1)
 
 
 class LayerNorm(nn.Module):
@@ -147,6 +172,21 @@ class SequenceModel(nn.Module):
         self.embed, self.ln_f, self.head = embed, ln_f, head
         self.layers = nn.ModuleList(layers)
 
+    @staticmethod
+    def pool(h: torch.Tensor) -> torch.Tensor:
+        """[B, S, d] -> [B, d]: the mean over S, padded positions included,
+        summed in a tree that S alone fixes (position i + S/2 onto i, an odd
+        last position carried, until one is left), then times 1/S. Torch's
+        mean picks its reduction order by the batch on the card (at S = 64 a
+        lone sequence's mean differed from its own inside 4,096); these adds
+        are elementwise."""
+        s = h.shape[1]
+        while h.shape[1] > 1:
+            half = h.shape[1] // 2
+            folded = h[:, :half] + h[:, half:2 * half]
+            h = torch.cat([folded, h[:, 2 * half:]], dim=1) if h.shape[1] % 2 else folded
+        return h[:, 0] * (1.0 / s)
+
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         """Returns {"abuse": [B] in [0, 1], "abuse_logit": [B], "hidden": [B, d]}."""
         dev = self.head.w.device
@@ -156,9 +196,15 @@ class SequenceModel(nn.Module):
         hid = self.embed(x) + hpos[None]
         for layer in self.layers:
             hid = layer(hid)
-        pooled = self.ln_f(hid).mean(dim=1)
+        pooled = self.pool(self.ln_f(hid))
         logit = self.head(pooled)[..., 0]
-        return {"abuse": torch.sigmoid(logit), "abuse_logit": logit, "hidden": pooled}
+        # The sigmoid in float64, rounded once: torch's float32 one takes
+        # another approximation on the CPU for the tail of a vector than for
+        # its body, and another on the card, so a row's bits would follow
+        # its position in the batch and the device (core/numerics.py; this
+        # form keeps the gradient).
+        abuse = torch.sigmoid(logit.double()).to(torch.float32)
+        return {"abuse": abuse, "abuse_logit": logit, "hidden": pooled}
 
 
 def init_sequence_model(cfg: SeqConfig = SeqConfig(), seed: int = 0) -> SequenceModel:

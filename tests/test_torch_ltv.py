@@ -1,35 +1,44 @@
 """Port parity: models/ltv.py, the two LTV RPCs and serve/ltv_job.py.
 
 Inputs come from a numpy seed and go through the JAX function and the port
-on the CPU:
+on the CPU. The JAX service and job answer with ``predict_batch_jit``, whose
+XLA program folds ``x * 30 * 12`` into ``x * 360`` and fuses
+``net + monthly * months`` into one FMA (and, on a single row, moves both
+constants onto ``net / days * engagement``); the port follows that program,
+so every output is held bit for bit:
 
-- ``predict_batch`` on [4096, 25] rows, many of them on a threshold of
-  every formula (days 3, 7, 14 and 30, sessions 1, 3 and 5, deposit
-  frequency 1, 2 and 4, bets 20 and 100, churn landing on 0.3 and 0.7,
-  LTV an ulp from 100, 1,000 and 10,000 dollars, for established and for
-  new players): integer outputs exact
-  against ``predict_batch_jit``, the JAX server's function, and every float
-  bit for bit against ``predict_batch`` run op by op. The port keeps the
-  source's association; XLA's compiled program folds ``x * 30 * 12`` into
-  ``x * 360`` and contracts ``net + monthly * months`` into an FMA, so the
-  jitted ``ltv`` lies within 2 float32 ulps (rtol 3e-7) and its other
-  floats are bit-equal;
+- ``predict_batch`` against ``predict_batch_jit`` over 100,000 rows, many of
+  them on a threshold of every formula (days 3, 7, 14 and 30, sessions 1, 3
+  and 5, deposit frequency 1, 2 and 4, bets 20 and 100, churn landing on 0.3
+  and 0.7, LTV an ulp from 100, 1,000 and 10,000 dollars, for established and
+  for new players), at one call, and at 1 and 3 rows a call; against eager
+  JAX, op by op, every output but ``ltv``;
+- ``fma`` against the exact value, on a double-rounding case;
+- the committed golden of ``predict_batch_jit``'s outputs
+  (``tests/golden/ltv_jit.npz``, which ``chip_smoke.py`` holds the card to):
+  the jit still writes it and the port reproduces it; regenerate it with
+  ``JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_ltv.py``;
 - ``PredictLTV`` and ``GetPlayerSegment`` through the port's bytes service
   against the JAX service's handlers for the same ``ltv_source``, decoded by
-  protobuf, ``predicted_at`` excluded, floats as above;
+  protobuf, ``predicted_at`` excluded;
 - ``run_batch_job`` against the JAX job on a wallet written by the JAX
-  ``SQLiteStore`` and ``WalletService``: the same records and segments.
+  ``SQLiteStore`` and ``WalletService``, at 400 values of ``now``: the same
+  records and segments.
 """
 
 import json
+from fractions import Fraction
+from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from igaming_platform_tpu.models import ltv as jltv
 from igaming_platform_tpu.proto_gen.risk.v1 import risk_pb2
 from igaming_platform_tpu.serve import ltv_job as jjob
 from igaming_platform_tpu.serve.grpc_server import RiskGrpcService as JaxService
+from igaming_platform_tpu_torch.core.numerics import fma
 from igaming_platform_tpu_torch.models import ltv as tltv
 from igaming_platform_tpu_torch.serve import grpc_server
 from igaming_platform_tpu_torch.serve import ltv_job as tjob
@@ -37,7 +46,8 @@ from test_ltv_job import seeded_db
 from torch_front_common import no_jax_hostprof  # noqa: F401 — a fixture
 
 L = jltv.L
-LTV_RTOL = 3e-7  # XLA's folded constants and FMA: 2 float32 ulps
+GOLDEN = Path(__file__).parent / "golden" / "ltv_jit.npz"
+GOLDEN_ROWS, GOLDEN_SINGLES = 4096, 256  # the golden's batch; its leading rows scored one a call
 
 
 def ltv_rows(seed: int, n: int = 4096) -> np.ndarray:
@@ -93,25 +103,46 @@ def ltv_rows(seed: int, n: int = 4096) -> np.ndarray:
     return f
 
 
-def _assert_outputs(got: dict, want: dict, jit: bool, what: str) -> None:
+def _bits(out: dict) -> dict:
+    return {k: np.asarray(v).view(np.int32) for k, v in out.items()}
+
+
+def _assert_outputs(got: dict, want: dict, what: str, skip=()) -> None:
     assert set(got) == set(want), what
     for key, w in want.items():
         g = got[key]
         assert g.dtype == w.dtype and g.shape == w.shape, (what, key)
-        if key == "ltv" and jit:
-            np.testing.assert_allclose(g, w, rtol=LTV_RTOL, atol=0, err_msg=f"{what} {key}")
-        else:
+        if key not in skip:
             np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32),
                                           err_msg=f"{what} {key}")
 
 
-def test_predict_batch_against_jax():
-    f = ltv_rows(0)
-    got = {k: v.numpy() for k, v in tltv.predict_batch(f, "cpu").items()}
+def _port(f: np.ndarray) -> dict:
+    return {k: v.numpy() for k, v in tltv.predict_batch(f, "cpu").items()}
+
+
+def _jit(f: np.ndarray) -> dict:
+    return {k: np.asarray(v) for k, v in jltv.predict_batch_jit(f).items()}
+
+
+def _in_calls(fn, f: np.ndarray, rows: int) -> dict:
+    """``fn`` over ``f`` in calls of ``rows`` rows, the outputs joined."""
+    parts = [fn(f[i:i + rows]) for i in range(0, f.shape[0], rows)]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+@pytest.mark.parametrize("rows_a_call,n", [(100_000, 100_000), (3, 3_000), (1, 2_000)])
+def test_predict_batch_against_jax(rows_a_call, n):
+    """Bit-equal to the jit on all seven outputs, whatever rows a call (the
+    single-row program differs from the batch one); against eager JAX, every
+    output but ``ltv``, which eager JAX rounds step by step."""
+    f = ltv_rows(0, 100_000)[:n]
+    got = _in_calls(_port, f, rows_a_call)
+    _assert_outputs(got, _in_calls(_jit, f, rows_a_call), what=f"jit, {rows_a_call} rows a call")
+    if rows_a_call != f.shape[0]:
+        return
     _assert_outputs(got, {k: np.asarray(v) for k, v in jltv.predict_batch(f).items()},
-                    jit=False, what="eager")
-    _assert_outputs(got, {k: np.asarray(v) for k, v in jltv.predict_batch_jit(f).items()},
-                    jit=True, what="jit")
+                    what="eager", skip=("ltv",))
     # Every segment, every action and both sides of the churn override occur.
     assert set(np.unique(got["segment"])) == {1, 2, 3, 4, 5}
     assert set(np.unique(got["action"])) == set(range(len(jltv.ACTIONS)))
@@ -122,6 +153,55 @@ def test_predict_batch_against_jax():
     for code in want:
         np.testing.assert_array_equal(seg[code], want[code])
     assert tltv.ACTIONS == jltv.ACTIONS and tltv.LTV_FEATURE_NAMES == jltv.LTV_FEATURE_NAMES
+
+
+def test_fma_rounds_once():
+    """``fma`` against the exact value, rounded to nearest float32: seeded
+    operands, and a case where the float64 sum lands on a float32 midpoint
+    the exact value lies beyond (1 + 2^-24 + 2^-60: rounding twice gives
+    1.0, once 1 + 2^-23), either sign."""
+    rng = np.random.default_rng(4)
+    a = (rng.normal(size=2000) * 10.0 ** rng.integers(-3, 4, 2000)).astype(np.float32)
+    b = (rng.normal(size=2000) * 10.0 ** rng.integers(-3, 4, 2000)).astype(np.float32)
+    c = (rng.normal(size=2000) * 10.0 ** rng.integers(-3, 4, 2000)).astype(np.float32)
+    tie = np.float32(2.0 ** -24 * (1 + 2.0 ** -12)), np.float32(1 - 2.0 ** -12 + 2.0 ** -24)
+    a = np.concatenate([a, [tie[0], -tie[0]]]).astype(np.float32)
+    b = np.concatenate([b, [tie[1], tie[1]]]).astype(np.float32)
+    c = np.concatenate([c, [1.0, -1.0]]).astype(np.float32)
+    got = fma(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    for i in range(a.size):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+        lo = np.float32(float(exact))  # a neighbour of the exact value; the nearer of its two wins
+        hi = np.nextafter(lo, np.float32(np.inf) if Fraction(float(lo)) < exact else np.float32(-np.inf))
+        d_lo, d_hi = abs(Fraction(float(lo)) - exact), abs(Fraction(float(hi)) - exact)
+        want = lo if d_lo < d_hi or (d_lo == d_hi and lo.view(np.int32) % 2 == 0) else hi
+        assert got[i].view(np.int32) == want.view(np.int32), (i, a[i], b[i], c[i])
+    assert got[-2] == np.float32(1 + 2.0 ** -23) and got[-1] == -got[-2]
+
+
+def ltv_golden() -> dict:
+    """``predict_batch_jit``'s outputs over GOLDEN_ROWS seeded rows in one
+    call, and over their leading GOLDEN_SINGLES rows one a call, with the
+    rows."""
+    f = ltv_rows(7, GOLDEN_ROWS)
+    out = {"features": f}
+    out.update({f"batch_{k}": v for k, v in _jit(f).items()})
+    out.update({f"single_{k}": v for k, v in _in_calls(_jit, f[:GOLDEN_SINGLES], 1).items()})
+    return out
+
+
+def test_ltv_golden_reproduced():
+    """The jit still writes the committed golden, and the port reproduces
+    it bit for bit in both of its programs."""
+    with np.load(GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    fresh = ltv_golden()
+    assert sorted(golden) == sorted(fresh)
+    for k, v in fresh.items():
+        np.testing.assert_array_equal(golden[k].view(np.int32), v.view(np.int32), err_msg=k)
+    f = golden["features"]
+    for kind, got in (("batch", _port(f)), ("single", _in_calls(_port, f[:GOLDEN_SINGLES], 1))):
+        _assert_outputs(got, {k: golden[f"{kind}_{k}"] for k in got}, what=kind)
 
 
 @pytest.mark.usefixtures("no_jax_hostprof")
@@ -149,15 +229,11 @@ def test_ltv_rpcs_answer_as_the_jax_service():
         assert got.predicted_at.seconds > 0
         for msg in (want, got):
             msg.ClearField("predicted_at")
-        assert got.predicted_ltv == pytest.approx(want.predicted_ltv, rel=LTV_RTOL, abs=0)
-        got.predicted_ltv = want.predicted_ltv
         assert got == want, account
         req = risk_pb2.GetPlayerSegmentRequest(account_id=account)
         want = jsvc.GetPlayerSegment(req, None)
         got = risk_pb2.GetPlayerSegmentResponse.FromString(
             tsvc.call("GetPlayerSegment", req.SerializeToString()))
-        assert got.ltv == pytest.approx(want.ltv, rel=LTV_RTOL, abs=0)
-        got.ltv = want.ltv
         assert got == want, account
     # No features: the zeros row, as in the JAX service.
     assert risk_pb2.GetPlayerSegmentResponse.FromString(tsvc.call(
@@ -166,12 +242,16 @@ def test_ltv_rpcs_answer_as_the_jax_service():
 
 
 def test_batch_job_against_jax(tmp_path):
+    """The same records as the JAX job at 400 values of ``now``: the
+    accounts' ages, and with them the branch and rounding of each LTV,
+    change with it (the wallet is stamped from the wall clock)."""
     path = seeded_db(tmp_path)
-    now = 1_800_000_000.0
-    want = jjob.run_batch_job(path, now=now)
-    timings = {}
-    got = tjob.run_batch_job(path, now=now, device="cpu", timings=timings)
-    assert got == want and got["count"] == 3
+    for i in range(400):
+        now = 1_800_000_000 + i * 3607.3
+        want = jjob.run_batch_job(path, now=now)
+        timings = {}
+        got = tjob.run_batch_job(path, now=now, device="cpu", timings=timings)
+        assert got == want and got["count"] == 3, now
     assert set(timings) == {"scan_s", "device_s", "records_s"}
     ids, x = tjob.ltv_features_from_wallet(path, now=now)
     jids, jx = jjob.ltv_features_from_wallet(path, now=now)
@@ -189,3 +269,8 @@ def test_batch_job_against_jax(tmp_path):
     assert tjob.main([path, str(out), "--device", "cpu"]) == 0
     written = json.loads(out.read_text())
     assert written["device"] == "cpu" and written["count"] == 3
+
+
+if __name__ == "__main__":
+    np.savez_compressed(GOLDEN, **ltv_golden())
+    print(f"wrote {GOLDEN}")

@@ -82,3 +82,23 @@ def test_default_init_has_the_jax_layout():
     assert abs(w.std() - np.asarray(tree["embed"]["w"]).std()) < 0.1
     with pytest.raises(ValueError, match="sequence params do not match"):
         sequence_from_tree(tree, tseq.SeqConfig(d_model=64, n_heads=2, n_layers=1, d_ff=128))
+
+
+@pytest.mark.parametrize("cfg,s", [
+    (SERVE_CFG, 64),                                        # the abuse detector
+    (dict(d_model=32, n_heads=4, n_layers=1, d_ff=64), 16),  # the transformer session head
+])
+def test_forward_bits_do_not_depend_on_the_batch(cfg, s):
+    """On the CPU (the plain attention, ``dense_f32_plain`` layers): rows 1,
+    3 and 40 of a 64-row batch, run alone, give the bits of the full run."""
+    _, model = seq_tree(cfg, seed=3)
+    x = np.random.default_rng(4).normal(size=(64, s, jseq.EVENT_DIM)).astype(np.float32)
+    x[1, : s // 2] = 0.0
+    with torch.inference_mode():
+        full = model(torch.from_numpy(x))
+        for rows in (1, 3, 40):
+            part = model(torch.from_numpy(x[:rows]))
+            for key in ("abuse", "hidden"):
+                np.testing.assert_array_equal(part[key].numpy().view(np.int32),
+                                              full[key][:rows].numpy().view(np.int32),
+                                              err_msg=f"{key}, {rows} rows")
