@@ -179,6 +179,18 @@ DENSE_F32_MAIN_SHAPE = (16384, 64, 192)  # the detector's qkv in one check_batch
 DENSE_F32_CHECK_SHAPES = ((1, 12, 1), (33, 13, 3), (70, 257, 65), (5, 8, 200), (16, 32, 96))
 # The timing split: the bf16 mode at B = 4096, N = 256 over these K.
 DENSE_K_SWEEP = (32, 64, 128, 256, 512)
+# The builds of csrc/dense_fixed.cu ``dense_variants`` compares, each a set
+# of its build-time knobs (the rest at their defaults): the staging
+# (DENSE_STAGING 1: a cp.async ring of DENSE_STAGES stages of DENSE_BK k,
+# float32; 2: the bf16 mode staged as bf16, DENSE_BF16_BK k a stage), blocks
+# an SM at least (DENSE_MIN_BLOCKS), and the timing probes of the default
+# kernel (DENSE_PROBE 1: every cycle reads a stage's first k; 2: nothing
+# staged past the first stage; wrong answers, timed in the split only).
+DENSE_VARIANTS = ({"DENSE_STAGING": 1, "DENSE_STAGES": 2}, {"DENSE_STAGING": 1},
+                  {"DENSE_STAGING": 1, "DENSE_STAGES": 4}, {"DENSE_STAGING": 1, "DENSE_BK": 32},
+                  {"DENSE_STAGING": 1, "DENSE_BK": 128, "DENSE_MIN_BLOCKS": 1},
+                  {"DENSE_STAGING": 2}, {"DENSE_STAGING": 2, "DENSE_BF16_BK": 64},
+                  {"DENSE_PROBE": 1}, {"DENSE_PROBE": 2})
 # Phase 4's second engine: the gbdt backend with a production-sized forest.
 LARGE_ENGINE_FOREST = (1000, 6)
 BATCH_SIZE, LATENCY_TIERS = 4096, (256, 2048)
@@ -300,7 +312,6 @@ SLEEP_CYCLES = 4_000_000
 # The same, before a run of REPS back-to-back calls: long enough for the host
 # to enqueue all of them (checked on every run).
 B2B_SLEEP_CYCLES = 40_000_000
-
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -911,7 +922,7 @@ def load_parent_module(parent: str, source: str, module: str):
     root = Path(parent) / "igaming_platform_tpu_torch"
     out = Path("build/parent_kernels")
     out.mkdir(parents=True, exist_ok=True)
-    so = out / f"lib{source}_parent.so"
+    so = out / f"lib{source}_{Path(parent).resolve().name}.so"
     built = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
                             str(root / "csrc" / f"{source}.cu")], capture_output=True, text=True)
     if built.returncode:
@@ -970,7 +981,7 @@ def kernel_turns(parent: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     log(nvidia_smi_line())
-    dense = (("parent", load_parent_module(parent, "dense_bf16", "dense").dense),
+    dense = (("parent", load_parent_module(parent, dense_source(parent), "dense").dense),
              ("change", dense_mod.dense))
     flash = (("parent", load_parent_module(parent, "flash_attention_fwd",
                                            "flash_attention").flash_attention_fwd),
@@ -1010,6 +1021,142 @@ def kernel_turns(parent: str) -> dict:
         row = {"BH": bh, "S": s, "Dh": dh, **turns(flash, lambda fn: lambda: fn(q, k, v))}
         out["flash"].append(row)
         log(f"kernel turns: flash {json.dumps(row)}")
+    return out
+
+
+def dense_source(root: str) -> str:
+    """The dense kernel's source in the checkout at ``root``: ``dense_fixed``,
+    or ``dense_bf16`` before the float32 mode."""
+    from pathlib import Path
+
+    csrc = Path(root) / "igaming_platform_tpu_torch" / "csrc"
+    return next(name for name in ("dense_fixed", "dense_bf16") if (csrc / f"{name}.cu").exists())
+
+
+def dense_variants(*parents: str, variants=DENSE_VARIANTS) -> dict:
+    """The dense kernel's staging, variant by variant, in one process: this
+    tree's ``csrc/dense_fixed.cu`` built with each set of knobs of
+    ``variants`` (a ``-D`` each), all ``nvcc`` at once, its register use logged,
+    beside the dense kernels of the checkouts at ``parents`` (``git archive``
+    unpacks) and this tree's own build. Each variant's bf16 mode is held
+    bit-equal to ``dense_plain`` at DENSE_SHAPES, DENSE_CHECK_SHAPES and
+    DENSE_K_SWEEP, and its float32 mode to ``dense_f32_plain`` at
+    DENSE_F32_SHAPES and DENSE_F32_CHECK_SHAPES; a parent's bf16 output must
+    equal this tree's. Then, back to back, every kernel in turns (the list,
+    then the list reversed) at DENSE_SHAPES beside ``torch.matmul``, a
+    float32 to bf16 copy of x (what a bf16 copy of x made before the kernel
+    would cost at least) and the bound; the timing split over DENSE_K_SWEEP
+    at B=4096, N=256; and the variants' float32 mode at DENSE_F32_SHAPES
+    beside ``torch.addmm``.
+    Run it as ``python3 -c "import chip_smoke as c; c.dense_variants('dir', ...)"``."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from igaming_platform_tpu_torch.ops import _build
+    from igaming_platform_tpu_torch.ops import dense as dense_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(nvidia_smi_line())
+    out_dir = Path("build/dense_variants")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = _build.CSRC / "dense_fixed.cu"
+    procs = {}
+    for i, knobs in enumerate(variants):
+        name = " ".join(f"{k}={v}" for k, v in knobs.items())
+        so = out_dir / f"libdense_fixed_variant{i}.so"
+        procs[name] = (so, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, *(f"-D{k}={v}" for k, v in knobs.items()),
+             "-o", str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"dense variant {name}: build failed:\n{text}")
+        for line in text.splitlines():  # per kernel: <mode, lanes' rows, rows a lane>
+            if "Function properties for" in line or "registers" in line or "spill" in line:
+                log(f"dense variants: {name}: {line.strip()}")
+        libs[name] = ctypes.CDLL(str(so))
+
+    def wrapper(lib, entry):
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def run(x, w, b):
+            y = torch.empty((x.shape[0], w.shape[1]), device="cuda")
+            if fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), x.shape[0],
+                  x.shape[1], w.shape[1], torch.cuda.current_stream().cuda_stream):
+                raise RuntimeError(f"{entry}: launch failed")
+            return y
+        return run
+
+    probes = {name: wrapper(lib, "dense_bf16_launch") for name, lib in libs.items()
+              if "DENSE_PROBE" in name}  # timed in the split only: wrong answers
+    bf16 = {name: wrapper(lib, "dense_bf16_launch") for name, lib in libs.items()
+            if name not in probes}
+    f32 = {name: wrapper(lib, "dense_f32_launch") for name, lib in libs.items()
+           if name not in probes}
+    for parent in parents:
+        mod = load_parent_module(parent, dense_source(parent), "dense")
+        bf16[f"parent {Path(parent).name}"] = mod.dense
+        if hasattr(mod, "dense_f32"):
+            f32[f"parent {Path(parent).name}"] = mod.dense_f32
+    bf16["this tree"] = dense_mod.dense
+    f32["this tree"] = dense_mod.dense_f32
+
+    def equal(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def in_turns(kernels, args):
+        times = {name: [] for name in kernels}
+        order = list(kernels)
+        for name in order + order[::-1]:
+            times[name].append(device_ms_b2b(torch, lambda: kernels[name](*args)))
+        return times
+
+    rng = np.random.default_rng(10)
+    out = {"bf16": [], "f32": [], "k_sweep": {}}
+    checked = [(b, k, n, False) for b, k, n in (*DENSE_SHAPES, *DENSE_CHECK_SHAPES)]
+    checked += [(BATCH_SIZE, k, 256, False) for k in DENSE_K_SWEEP]
+    checked += [(b, k, n, True) for b, k, n in (*DENSE_F32_SHAPES, *DENSE_F32_CHECK_SHAPES)]
+    for b, k, n, is_f32 in checked:
+        x, w, bias = dense_case(torch, rng, b, k, n, is_f32)
+        want = (dense_mod.dense_f32_plain if is_f32 else dense_mod.dense_plain)(x, w, bias)
+        for name, fn in (f32 if is_f32 else bf16).items():
+            if not equal(fn(x, w, bias), want):
+                raise AssertionError(f"dense variants: {name} {'f32' if is_f32 else 'bf16'} "
+                                     f"B={b} K={k} N={n}: other bits than the plain version")
+    log(f"dense variants: {len(checked)} shapes, every kernel bit-equal to its plain version")
+    for b, k, n in DENSE_SHAPES:
+        x, w, bias = dense_case(torch, rng, b, k, n)
+        xo, xh = dense_mod.round_bf16(x), torch.empty((b, k), dtype=torch.bfloat16, device="cuda")
+        row = {"B": b, "K": k, "N": n, "bound_ms": dense_bound(b, k, n)[0],
+               "bound_by": dense_bound(b, k, n)[1],
+               **in_turns({**bf16, "torch.matmul": lambda x, w, b: torch.matmul(xo, w),
+                           "x to bf16": lambda x, w, b: xh.copy_(x)}, (x, w, bias))}
+        out["bf16"].append(row)
+        log(f"dense variants: bf16 {json.dumps(row)}")
+    for name, fn in {**bf16, **probes}.items():
+        sweep = {}
+        for k in DENSE_K_SWEEP:
+            x, w, bias = dense_case(torch, rng, BATCH_SIZE, k, 256)
+            sweep[k] = device_ms_b2b(torch, lambda: fn(x, w, bias))
+        slope, intercept = np.polyfit(np.array(DENSE_K_SWEEP, dtype=np.float64),
+                                      [sweep[k] for k in DENSE_K_SWEEP], 1)
+        out["k_sweep"][name] = {"b2b_ms": sweep, "ms_per_k": slope, "fixed_ms": intercept,
+                                "share_of_peak_in_the_k_loop":
+                                    2.0 * BATCH_SIZE * 256 / (slope * 1e-3) / FP32_OPS_PER_S}
+        log(f"dense variants: timing split {name} {json.dumps(out['k_sweep'][name])}")
+    for b, k, n in DENSE_F32_SHAPES:
+        x, w, bias = dense_case(torch, rng, b, k, n, True)
+        row = {"B": b, "K": k, "N": n, "bound_ms": dense_bound(b, k, n)[0],
+               **in_turns({**f32, "torch.addmm": lambda x, w, b: torch.addmm(b, x, w)},
+                          (x, w, bias))}
+        out["f32"].append(row)
+        log(f"dense variants: f32 {json.dumps(row)}")
     return out
 
 

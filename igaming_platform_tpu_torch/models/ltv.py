@@ -16,10 +16,11 @@ XLA's CPU program for ``base_ltv`` is not the source's association:
   moves both constants together: ``monthly * months`` becomes
   ``(net / max(dsr, 1) * engagement) * 360``, fused with the add.
 
-``predict_batch`` follows the program of its batch's size, so its outputs
-equal ``predict_batch_jit``'s bit for bit at every B, on the CPU and on the
-card (``tests/test_torch_ltv.py``; ``chip_smoke.py`` phase 11 holds the card
-to ``tests/golden/ltv_jit.npz``). Eager JAX, op by op, rounds each step and
+``predict_batch`` follows the program of its batch's size: its outputs
+equal ``predict_batch_jit``'s bit for bit at the sizes tested (B = 1, 2, 3,
+4, 8, 17, 4,096 and 100,000: ``tests/test_torch_ltv.py``), on the CPU and on
+the card (``chip_smoke.py`` phase 11 holds the card to
+``tests/golden/ltv_jit.npz``). Eager JAX, op by op, rounds each step and
 differs from both in ``ltv``. The division divides by a tensor, as the JAX
 function does: on CUDA a division by a Python scalar is a multiplication by
 its rounded reciprocal. Constants enter as Python scalars of elementwise

@@ -11,8 +11,8 @@ so every output is held bit for bit:
   them on a threshold of every formula (days 3, 7, 14 and 30, sessions 1, 3
   and 5, deposit frequency 1, 2 and 4, bets 20 and 100, churn landing on 0.3
   and 0.7, LTV an ulp from 100, 1,000 and 10,000 dollars, for established and
-  for new players), at one call, and at 1 and 3 rows a call; against eager
-  JAX, op by op, every output but ``ltv``;
+  for new players), at one call, and at 17, 8, 4, 3, 2 and 1 rows a call;
+  against eager JAX, op by op, every output but ``ltv``;
 - ``fma`` against the exact value, on a double-rounding case;
 - the committed golden of ``predict_batch_jit``'s outputs
   (``tests/golden/ltv_jit.npz``, which ``chip_smoke.py`` holds the card to):
@@ -131,11 +131,13 @@ def _in_calls(fn, f: np.ndarray, rows: int) -> dict:
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
-@pytest.mark.parametrize("rows_a_call,n", [(100_000, 100_000), (3, 3_000), (1, 2_000)])
+@pytest.mark.parametrize("rows_a_call,n", [(100_000, 100_000), (17, 3_400), (8, 2_000),
+                                           (4, 2_000), (3, 3_000), (2, 2_000), (1, 2_000)])
 def test_predict_batch_against_jax(rows_a_call, n):
-    """Bit-equal to the jit on all seven outputs, whatever rows a call (the
-    single-row program differs from the batch one); against eager JAX, every
-    output but ``ltv``, which eager JAX rounds step by step."""
+    """Bit-equal to the jit on all seven outputs at 100,000 rows a call and
+    at 17, 8, 4, 3, 2 and 1 (the single-row program differs from the batch
+    one; the small batches take the vector loop's tail); against eager JAX,
+    every output but ``ltv``, which eager JAX rounds step by step."""
     f = ltv_rows(0, 100_000)[:n]
     got = _in_calls(_port, f, rows_a_call)
     _assert_outputs(got, _in_calls(_jit, f, rows_a_call), what=f"jit, {rows_a_call} rows a call")
