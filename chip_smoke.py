@@ -52,11 +52,10 @@ sequences of 64 events). Phases:
    the bridge into the card's detector, ``check_batch`` over every account
    and ``check`` on a sample (bit-equal to ``check_batch``, asserted), the
    attention and dense_f32 kernels' launch counts of that run, and the same
-   stream through a CPU bridge and detector; the layers on ``torch.matmul``
-   and on ``dense_f32`` in turns; then
-   ``check()`` latency, ``check_batch(256)`` throughput and the device time
-   of one forward at BASELINE config 3's width (d_model 128, 2 heads of 64)
-   at S = 256, 2048 and 8192;
+   stream through a CPU bridge and detector; then ``check()`` latency,
+   ``check_batch(256)`` throughput and the device time of one forward at
+   BASELINE config 3's width (d_model 128, 2 heads of 64) at S = 256, 2048
+   and 8192;
 6. training: one seeded model trained 5 steps on the card and on the CPU
    from the same batches (per-step losses and every step-1 gradient
    compared, every gradient on the card nonzero); then the full 200-step
@@ -179,18 +178,12 @@ DENSE_F32_MAIN_SHAPE = (16384, 64, 192)  # the detector's qkv in one check_batch
 DENSE_F32_CHECK_SHAPES = ((1, 12, 1), (33, 13, 3), (70, 257, 65), (5, 8, 200), (16, 32, 96))
 # The timing split: the bf16 mode at B = 4096, N = 256 over these K.
 DENSE_K_SWEEP = (32, 64, 128, 256, 512)
-# The builds of csrc/dense_fixed.cu ``dense_variants`` compares, each a set
-# of its build-time knobs (the rest at their defaults): the staging
-# (DENSE_STAGING 1: a cp.async ring of DENSE_STAGES stages of DENSE_BK k,
-# float32; 2: the bf16 mode staged as bf16, DENSE_BF16_BK k a stage), blocks
-# an SM at least (DENSE_MIN_BLOCKS), and the timing probes of the default
-# kernel (DENSE_PROBE 1: every cycle reads a stage's first k; 2: nothing
-# staged past the first stage; wrong answers, timed in the split only).
-DENSE_VARIANTS = ({"DENSE_STAGING": 1, "DENSE_STAGES": 2}, {"DENSE_STAGING": 1},
-                  {"DENSE_STAGING": 1, "DENSE_STAGES": 4}, {"DENSE_STAGING": 1, "DENSE_BK": 32},
-                  {"DENSE_STAGING": 1, "DENSE_BK": 128, "DENSE_MIN_BLOCKS": 1},
-                  {"DENSE_STAGING": 2}, {"DENSE_STAGING": 2, "DENSE_BF16_BK": 64},
-                  {"DENSE_PROBE": 1}, {"DENSE_PROBE": 2})
+# The builds of csrc/dense_fixed.cu ``dense_variants`` times beside the
+# default, each a set of its build-time knobs: the timing probes
+# (DENSE_PROBE 1: every cycle reads a stage's first k, so the operand loads
+# leave the loop; 2: nothing staged past the first stage; wrong answers,
+# timed in the split only).
+DENSE_VARIANTS = ({"DENSE_PROBE": 1}, {"DENSE_PROBE": 2})
 # Phase 4's second engine: the gbdt backend with a production-sized forest.
 LARGE_ENGINE_FOREST = (1000, 6)
 BATCH_SIZE, LATENCY_TIERS = 4096, (256, 2048)
@@ -241,8 +234,6 @@ CONFIG3_POINTS = ((64, 256), (8, 2048), (2, 8192))  # (batch, S)
 ABUSE_ACCOUNTS, ABUSE_MAX_EVENTS = 2_000, 64
 ABUSE_BATCH, ABUSE_CHECKS, ABUSE_LATENCY = 256, 200, 1000
 ABUSE_ATOL = 1e-4  # card against CPU detector: float32 through two layers, sums reordered
-# check() calls a turn when the affine layers' two versions take turns.
-ABUSE_TURN_CHECKS = 200
 STREAM_T0 = 1_700_000_000.0
 # Training: steps compared between the card and the CPU, their loss bar
 # (float32 through two layers and Adam, sums reordered), the least held-out
@@ -690,16 +681,6 @@ def phase_batch_invariance(torch, gbdt_kernel, dense_mod) -> dict:
     hist[::3, :ABUSE_MAX_EVENTS // 2] = 0.0  # left-padded histories, as check_batch builds them
     out["stages"] = {"session_head": stage_log(torch, head, win_d),
                      "abuse_detector": stage_log(torch, detector, hist)}
-    # The same logs with the layers on cuBLAS's float32 sgemm, as Affine ran
-    # before its fixed order (logged only): what the fixed order repaired.
-    out["stages_matmul"] = affine_turns(torch, lambda: {
-        "session_head": stage_log(torch, head, win_d),
-        "abuse_detector": stage_log(torch, detector, hist)}, turns=("matmul",))["matmul"][0]
-    for model_name, stages in out["stages_matmul"].items():
-        differing = {stage: counts for stage, counts in stages.items()
-                     if any(counts["alone"].values()) or any(counts["forward"].values())}
-        log(f"phase 3: batch invariance, {model_name} with torch.matmul layers, stages with "
-            f"differing rows: {json.dumps(differing)}")
     for model_name, stages in out["stages"].items():
         for stage, counts in stages.items():
             log(f"phase 3: batch invariance, {model_name} stage {stage}: rows differing from the "
@@ -1034,20 +1015,21 @@ def dense_source(root: str) -> str:
 
 
 def dense_variants(*parents: str, variants=DENSE_VARIANTS) -> dict:
-    """The dense kernel's staging, variant by variant, in one process: this
-    tree's ``csrc/dense_fixed.cu`` built with each set of knobs of
-    ``variants`` (a ``-D`` each), all ``nvcc`` at once, its register use logged,
-    beside the dense kernels of the checkouts at ``parents`` (``git archive``
-    unpacks) and this tree's own build. Each variant's bf16 mode is held
-    bit-equal to ``dense_plain`` at DENSE_SHAPES, DENSE_CHECK_SHAPES and
-    DENSE_K_SWEEP, and its float32 mode to ``dense_f32_plain`` at
-    DENSE_F32_SHAPES and DENSE_F32_CHECK_SHAPES; a parent's bf16 output must
-    equal this tree's. Then, back to back, every kernel in turns (the list,
-    then the list reversed) at DENSE_SHAPES beside ``torch.matmul``, a
-    float32 to bf16 copy of x (what a bf16 copy of x made before the kernel
-    would cost at least) and the bound; the timing split over DENSE_K_SWEEP
-    at B=4096, N=256; and the variants' float32 mode at DENSE_F32_SHAPES
-    beside ``torch.addmm``.
+    """The dense kernel against its parents and its own builds, in one
+    process: this tree's ``csrc/dense_fixed.cu`` also built with each set of
+    knobs of ``variants`` (a ``-D`` each; the timing probes), all ``nvcc``
+    at once, register use logged, beside the dense kernels of the checkouts
+    at ``parents`` (``git archive`` unpacks). Each kernel that is not a
+    probe is held bit-equal to ``dense_plain`` (bf16 mode) at DENSE_SHAPES,
+    DENSE_CHECK_SHAPES and DENSE_K_SWEEP, and to ``dense_f32_plain``
+    (float32 mode) at DENSE_F32_SHAPES and DENSE_F32_CHECK_SHAPES. Then,
+    back to back, every kernel in turns (the list, then the list reversed)
+    at DENSE_SHAPES beside ``torch.matmul``, a float32 to bf16 copy of x
+    (what a bf16 copy of x made before the kernel would cost at least) and
+    the bound; the timing split over DENSE_K_SWEEP at B=4096, N=256, probes
+    included (the k loop's share of the card's float32 rate with and without
+    the operand loads and the staging); and the float32 mode at
+    DENSE_F32_SHAPES beside ``torch.addmm``.
     Run it as ``python3 -c "import chip_smoke as c; c.dense_variants('dir', ...)"``."""
     import ctypes
     from pathlib import Path
@@ -1816,29 +1798,6 @@ def affine_layers(cfg) -> int:
     return 2 + 4 * cfg.n_layers
 
 
-def affine_turns(torch, measure, turns=("matmul", "fixed", "fixed", "matmul")) -> dict:
-    """``measure()`` with the sequence model's layers on float32
-    ``torch.matmul`` (cuBLAS, as before the fixed order) and on the
-    fixed-order ``dense_f32``, in
-    ``turns``: by default matmul, fixed, fixed, matmul (the cost of the
-    fixed order)."""
-    from igaming_platform_tpu_torch.models.sequence import Affine
-
-    fixed = Affine.forward
-
-    def matmul(self, x):
-        return torch.matmul(x, self.w) + self.b
-
-    out = {"matmul": [], "fixed": []}
-    try:
-        for name in turns:
-            Affine.forward = matmul if name == "matmul" else fixed
-            out[name].append(measure())
-    finally:
-        Affine.forward = fixed
-    return out
-
-
 def phase_abuse(torch, card: str, fa) -> dict:
     from igaming_platform_tpu_torch.convert import sequence_from_tree
     from igaming_platform_tpu_torch.models.sequence import SeqConfig
@@ -1946,26 +1905,6 @@ def phase_abuse(torch, card: str, fa) -> dict:
         with torch.inference_mode():
             step_ms = device_ms(torch, lambda: det.params(x_step), reps=20)
             one_ms = device_ms(torch, lambda: det.params(x_one), reps=20)
-        def abuse_costs():
-            ms = []
-            for i in range(ABUSE_TURN_CHECKS):
-                t = time.perf_counter()
-                det.check(accounts[(i * 7) % ABUSE_ACCOUNTS])
-                ms.append((time.perf_counter() - t) * 1e3)
-            rates = []
-            for i in range(5):
-                t = time.perf_counter()
-                det.check_batch(accounts[i * ABUSE_BATCH:(i + 1) * ABUSE_BATCH])
-                rates.append(ABUSE_BATCH / (time.perf_counter() - t))
-            with torch.inference_mode():
-                return {"check_p50_ms": float(np.percentile(ms, 50)),
-                        "check_batch_256_seq_per_s": statistics.median(rates),
-                        "forward_256_device_ms": device_ms(torch, lambda: det.params(x_step), 20),
-                        "forward_1_device_ms": device_ms(torch, lambda: det.params(x_one), 20)}
-
-        turns = affine_turns(torch, abuse_costs)
-        log(f"phase 5: [{card}] the sequence model's affine layers on torch.matmul and on "
-            f"dense_f32, in turns: {json.dumps(turns)}")
         profiles = {
             "check_x50": profile_window(
                 torch, lambda: [det.check(a) for a in accounts[:50]]),
@@ -2001,7 +1940,6 @@ def phase_abuse(torch, card: str, fa) -> dict:
     result = {
         "events": len(stream), "launches": launches, "forward_passes": steps,
         "dense_f32_launches": dense_launches, "check_vs_check_batch_differing": check_vs_batch,
-        "affine_turns": turns,
         "bridge_counts": counts[0], "risk_events": len(risk_events[0]),
         "score_max_abs_err": score_err, "near_threshold_checks": near,
         "drain_s": drain_s, "cpu_drain_s": cpu_drain_s,
@@ -2159,15 +2097,6 @@ def phase_train(torch, card: str, fa) -> dict:
     loop = profile_window(torch, lambda: [at.train_step(model, opt, *b) for b in batches[:5]],
                           top=100)
 
-    def step_costs():  # five steps: wall, and kernel time from the profiler
-        prof = profile_window(torch, lambda: [at.train_step(model, opt, *b) for b in batches[:5]])
-        return {"step_wall_ms": prof["wall_ms"] / 5,
-                "step_kernel_ms": prof["device_ms"] / 5 if prof["device_ms"] else None}
-
-    turns = affine_turns(torch, step_costs)
-    log(f"phase 6: [{card}] a training step with the affine layers on torch.matmul and on "
-        f"dense_f32, in turns: {json.dumps(turns)}")
-
     # One training step at BASELINE config 3's width.
     cfg3 = SeqConfig(**CONFIG3_CFG)
     model3 = sequence_from_tree(seq_tree(np.random.default_rng(11), CONFIG3_CFG), cfg3).to("cuda")
@@ -2192,7 +2121,7 @@ def phase_train(torch, card: str, fa) -> dict:
         "served_scores": {"abuser": abuser, "player": player},
         "train_s": train_s, "wall_ms_per_step": train_s * 1e3 / tcfg.steps,
         "batch_synthesis_host_ms": synth_ms, "step_wall_ms": step_wall_ms,
-        "step_device_ms": step_ms, "affine_turns": turns,
+        "step_device_ms": step_ms,
         "loop_5_steps": {**loop, "top": loop["top"][:8], "split": kernel_split(loop)},
         "config3_step": {"batch": b3, "S": s3, "device_ms": step3_ms,
                          "wall_ms": prof3["wall_ms"], "kernel_ms": prof3["device_ms"],

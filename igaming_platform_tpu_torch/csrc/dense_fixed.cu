@@ -35,93 +35,61 @@
 // outputs, warp p its partial p, i.e. the k = p (mod 8) of every staged
 // stage. Within a warp every lane reads the same k, so its 32 lanes sit as
 // a classic GEMM warp (4 x 8, 8 x 4 or 16 x 2 lanes, 8 x 8 outputs each):
-// per k a lane reads 8 x and 8 w values from shared memory for 64 FMAs,
-// with 64 accumulators in registers. The fold goes through shared memory:
-// each warp writes its partial tile over the staging buffers, then each
-// thread adds the 8 partials of its outputs in the tree above, adds the
-// bias and writes whole rows, 16 bytes a thread. The lanes' layout is the
-// one whose block width (64, 32 or 16 columns) wastes the fewest of N's
-// columns, and at small B a lane takes 4 or 2 rows instead of 8, so the
-// grid still gives each SM two blocks. CUDA-core arithmetic, no tensor
-// cores: the card's mma.sync sum is not IEEE (ops/tensor_core_model.py) and
-// would lose the equality with the plain versions. One launch a call, no
-// allocation, no sync.
-//
-// Staging, chosen at build time (DENSE_STAGING, below; chip_smoke.py's
-// dense_variants times them side by side): 0, through registers as float32
-// (dense_reg_kernel, the default); 1, a cp.async ring, float32, x by 16-byte
-// copies row-major and read as scalars (dense_ring_kernel); 2, the bf16
-// mode packed as bf16 through registers (dense_bf16_kernel). No staging
-// beat 0 at every shape of the main path; what bounds 0 is its staging
-// (DENSE_PROBE's split: the k loop at about 38% of 67 TFLOP/s, 76% with
-// nothing staged past the first stage).
+// per k a lane reads 8 x and 8 w values from shared memory, four 16-byte
+// loads that the warp's lanes share (4 or 8 distinct addresses, one bank
+// pass each), for 64 FMAs, with 64 accumulators in registers. x (rounded to
+// bf16 in that mode) and w are staged in shared memory as float32, k-major,
+// in 32-k stages, double buffered: the next stage's global loads go to
+// registers before this stage's products, to shared memory after them, one
+// barrier a stage. (A cp.async ring of float32 stages, and the bf16 mode
+// staged as packed bf16, were no faster at the main path's shapes: PERF.md.)
+// The fold goes through shared memory: each warp writes its partial tile over
+// the staging buffers, then each thread adds the 8 partials of its outputs
+// in the tree above, adds the bias and writes whole rows, 16 bytes a
+// thread. The lanes' layout is the one whose block width (64, 32 or 16
+// columns) wastes the fewest of N's columns, and at small B a lane takes 4
+// or 2 rows instead of 8, so the grid still gives each SM two blocks.
+// CUDA-core arithmetic, no tensor cores: the card's mma.sync sum is not
+// IEEE (ops/tensor_core_model.py) and would lose the equality with the plain
+// versions. One launch a call, no allocation, no sync.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
-// Build-time knobs of the staging (chip_smoke.py's dense_variants builds
-// other values): stages in the ring, and k a stage where it fits.
-#ifndef DENSE_STAGES
-#define DENSE_STAGES 3
-#endif
-#ifndef DENSE_BK
-#define DENSE_BK 64
-#endif
-// The staging: 0 through registers as float32 (dense_reg_kernel); 1 by
-// cp.async into a ring of DENSE_STAGES stages of DENSE_BK k as float32, x
-// rounded in place in the bf16 mode (dense_ring_kernel); 2 the bf16 mode
-// staged as bf16 through registers (dense_bf16_kernel), of DENSE_BF16_BK k
-// a stage, the float32 mode as 1.
-#ifndef DENSE_STAGING
-#define DENSE_STAGING 0
-#endif
-#ifndef DENSE_BF16_BK
-#define DENSE_BF16_BK 32
-#endif
-// Timing probes, wrong answers: 1 reads each warp's first k of a stage over
-// and over (the same shared-memory words, which the compiler may keep in
-// registers); 2 also stages nothing past the first stages.
+// Timing probes (chip_smoke.py's dense_variants), wrong answers: 1 reads
+// each warp's first k of a stage for all its k (the operand loads out of
+// the loop); 2 also stages nothing past the first stage.
 #ifndef DENSE_PROBE
 #define DENSE_PROBE 0
-#endif
-// Blocks an SM holds at least: 2 caps a thread at 128 registers.
-#ifndef DENSE_MIN_BLOCKS
-#define DENSE_MIN_BLOCKS 2
 #endif
 
 namespace {
 
 constexpr int kPartials = 8;   // ops/dense.py PARTIALS: one a warp
 constexpr int kThreads = 32 * kPartials;
-constexpr int kStages = DENSE_STAGES;
+constexpr int kBK = 32;        // k a stage: 4 of each warp's partial
 constexpr int kPad = 4;        // floats past each staged row: 16-byte aligned rows
-constexpr int kRingBytes = 220 * 1024 / DENSE_MIN_BLOCKS;  // a block's ring at most
 
-static_assert(kStages >= 2, "the ring needs a stage in flight");
-static_assert(DENSE_BK % kPartials == 0 && DENSE_BK >= 32, "a stage must hold whole cycles of the partials");
+static_assert(kBK % kPartials == 0, "a stage must hold whole cycles of the partials");
 
 // A warp's lanes sit kLR down the tile's rows by 32 / kLR across its
-// columns; a lane takes kTM rows (kLR apart: row i * kLR + lr) and 8 columns
-// (two chunks of 4, 4 * 32 / kLR apart).
+// columns; a lane takes kTM rows (in chunks of up to 4, kLR * chunk apart)
+// and 8 columns (two chunks of 4, 4 * 32 / kLR apart).
 template <int kLR, int kTM>
-struct RingTile {
+struct Tile {
   static constexpr int kLC = 32 / kLR;
   static constexpr int kBM = kLR * kTM;  // rows a block
   static constexpr int kBN = kLC * 8;    // columns a block
-  static constexpr int kWLd = kBN + kPad;  // floats a staged k row of w; a row of a partial tile
-  // k a stage: DENSE_BK where the ring fits kRingBytes, else 32
-  static constexpr int kBK =
-      kStages * DENSE_BK * (kBM + kBN + 2 * kPad) * 4 <= kRingBytes ? DENSE_BK : 32;
-  static constexpr int kXLd = kBK + kPad;  // floats a staged row of x
-  static constexpr int kXStage = kBM * kXLd, kWStage = kBK * kWLd;
-  static constexpr int kX16 = kBM * kBK / 4;  // 16-byte pieces of x a stage
-  static constexpr int kW16 = kBK * kBN / 4;  // of w
-  static constexpr int kRing = kStages * (kXStage + kWStage);
+  static constexpr int kRC = kTM < 4 ? kTM : 4;  // rows a chunk
+  static constexpr int kXLd = kBM + kPad;  // floats a staged k row of x
+  static constexpr int kWLd = kBN + kPad;  // of w; and a row of a partial tile
+  static constexpr int kXPer = kBM * kBK / kThreads;  // x values a thread stages
+  static constexpr int kWPer = kBN * kBK / kThreads;  // w values
+  static constexpr int kWRows = kThreads / kBN;       // w k rows a pass of the block
+  static constexpr int kStage = 2 * kBK * (kXLd + kWLd);
   static constexpr int kFold = kPartials * kBM * kWLd;
-  static constexpr int kSmemBytes = 4 * (kRing > kFold ? kRing : kFold);
-  static_assert(kBM % 8 == 0 && kBK % 32 == 0, "bad tile");
+  static constexpr int kSmemBytes = 4 * (kStage > kFold ? kStage : kFold);
+  static_assert(kBM % 8 == 0 && kXPer >= 1 && kWPer >= 1, "bad tile");
 };
 
 template <bool kF32>
@@ -145,92 +113,11 @@ __device__ __forceinline__ void load_vec(float* v, const float* p) {
   }
 }
 
-// cp.async: `bytes` of the copy's size read from src, the rest zero-filled.
-__device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void copy16(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int kPending>
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// The fold's second half: each thread adds, 4 columns at a time, the 8
-// partials of its outputs (a block's partial tiles, [partial][row][column]
-// with rows kLd floats apart, in shared memory) in the fixed tree, adds the
-// bias and writes whole rows, 16 bytes a thread where N allows.
-template <int kBM, int kBN, int kLd>
-__device__ __forceinline__ void fold_out(const float* part, const float* __restrict__ bias,
-                                         float* __restrict__ out, long long row0, int col0,
-                                         int B, int N) {
-  const bool vec = (N & 3) == 0;
-  for (int v = threadIdx.x; v < kBM * kBN / 4; v += kThreads) {
-    const int r = v / (kBN / 4), c = (v % (kBN / 4)) * 4;
-    const long long gr = row0 + r;
-    const int gc = col0 + c;
-    if (gr >= B || gc >= N) continue;
-    float s[kPartials][4];
-#pragma unroll
-    for (int q = 0; q < kPartials; ++q) load_vec<4>(s[q], part + (q * kBM + r) * kLd + c);
-    float o[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float s01 = __fadd_rn(s[0][j], s[1][j]), s23 = __fadd_rn(s[2][j], s[3][j]);
-      const float s45 = __fadd_rn(s[4][j], s[5][j]), s67 = __fadd_rn(s[6][j], s[7][j]);
-      const float sum = __fadd_rn(__fadd_rn(s01, s23), __fadd_rn(s45, s67));
-      o[j] = gc + j < N ? __fadd_rn(sum, bias[gc + j]) : 0.0f;
-    }
-    float* dst = out + gr * N + gc;
-    if (vec) {
-      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (gc + j < N) dst[j] = o[j];
-      }
-    }
-  }
-}
-
-// The register-staged kernel: x (rounded to bf16 in that mode) and w staged
-// in shared memory as float32, k-major, in 32-k stages, double buffered:
-// the next stage's global loads go to registers before this stage's
-// products, to shared memory after them, one barrier a stage. A lane's
-// rows sit in chunks of up to 4 (kRC), kLR * chunk apart.
-constexpr int kRegBK = 32;  // k a stage: 4 of each warp's partial
-
-template <int kLR, int kTM>
-struct RegTile {
-  static constexpr int kLC = 32 / kLR;
-  static constexpr int kBM = kLR * kTM;  // rows a block
-  static constexpr int kBN = kLC * 8;    // columns a block
-  static constexpr int kRC = kTM < 4 ? kTM : 4;  // rows a chunk
-  static constexpr int kXLd = kBM + kPad;  // floats a staged k row of x
-  static constexpr int kWLd = kBN + kPad;  // of w; and a row of a partial tile
-  static constexpr int kXPer = kBM * kRegBK / kThreads;  // x values a thread stages
-  static constexpr int kWPer = kBN * kRegBK / kThreads;  // w values
-  static constexpr int kWRows = kThreads / kBN;          // w k rows a pass of the block
-  static constexpr int kStage = 2 * kRegBK * (kXLd + kWLd);
-  static constexpr int kFold = kPartials * kBM * kWLd;
-  static constexpr int kSmemBytes = 4 * (kStage > kFold ? kStage : kFold);
-  static_assert(kBM % 8 == 0 && kXPer >= 1 && kWPer >= 1, "bad tile");
-};
-
 template <bool kF32, int kLR, int kTM>
-__global__ void __launch_bounds__(kThreads, DENSE_MIN_BLOCKS)
-dense_reg_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ bias, float* __restrict__ out, int B, int K, int N) {
-  using T = RegTile<kLR, kTM>;
-  constexpr int kBK = kRegBK;
+__global__ void __launch_bounds__(kThreads, 2)
+dense_fixed_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ bias, float* __restrict__ out, int B, int K, int N) {
+  using T = Tile<kLR, kTM>;
   extern __shared__ float4 smem4[];
   float* const xs = reinterpret_cast<float*>(smem4);  // [stage][k][row]
   float* const ws = xs + 2 * kBK * T::kXLd;           // [stage][k][column]
@@ -302,8 +189,8 @@ dense_reg_kernel(const float* __restrict__ x, const float* __restrict__ w,
     __syncthreads();
   }
 
-  // The fold: each warp's partial tile over the staging buffers, then the
-  // outputs.
+  // The fold: each warp's partial tile over the staging buffers, then each
+  // thread's outputs, 4 columns at a time, in the fixed tree, plus the bias.
   float* const part = xs;  // [partial][row][column]
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
@@ -315,335 +202,33 @@ dense_reg_kernel(const float* __restrict__ x, const float* __restrict__ w,
         make_float4(acc[i * 8 + 4], acc[i * 8 + 5], acc[i * 8 + 6], acc[i * 8 + 7]);
   }
   __syncthreads();
-  fold_out<T::kBM, T::kBN, T::kWLd>(part, bias, out, row0, col0, B, N);
-}
-
-template <bool kF32, int kLR, int kTM>
-__global__ void __launch_bounds__(kThreads, DENSE_MIN_BLOCKS)
-dense_ring_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ out, int B, int K, int N,
-                   bool x16, bool w16) {
-  using T = RingTile<kLR, kTM>;
-  constexpr int kBK = T::kBK;
-  extern __shared__ float4 smem4[];
-  float* const xs = reinterpret_cast<float*>(smem4);  // [stage][row][k]
-  float* const ws = xs + kStages * T::kXStage;        // [stage][k][column]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, p = tid >> 5;  // the warp is partial p
-  const int lr = lane / T::kLC, lc = lane % T::kLC;
-  const long long row0 = static_cast<long long>(blockIdx.x) * T::kBM;
-  const int col0 = blockIdx.y * T::kBN;
-  const int nk = (K + kBK - 1) / kBK;
-
-  // x by 16-byte pieces where its rows are whole, aligned 16-byte pieces
-  // (x16), else by values; w likewise (w16). Consecutive threads take
-  // consecutive pieces of a row.
-  auto issue = [&](int kt) {
-    const int k0 = kt * kBK, buf = kt % kStages;
-    float* xb = xs + buf * T::kXStage;
-    float* wb = ws + buf * T::kWStage;
-    if (x16) {
+  const bool vec = (N & 3) == 0;
+  for (int v = tid; v < T::kBM * T::kBN / 4; v += kThreads) {
+    const int r = v / (T::kBN / 4), c = (v % (T::kBN / 4)) * 4;
+    const long long gr = row0 + r;
+    const int gc = col0 + c;
+    if (gr >= B || gc >= N) continue;
+    float s[kPartials][4];
 #pragma unroll
-      for (int c = tid; c < T::kX16; c += kThreads) {
-        const int r = c / (kBK / 4), kq = (c % (kBK / 4)) * 4;
-        const long long gr = row0 + r;
-        const int bytes = gr < B && k0 + kq < K ? 16 : 0;  // K is a multiple of 4
-        copy16(xb + r * T::kXLd + kq, bytes ? x + gr * K + k0 + kq : x, bytes);
-      }
+    for (int q = 0; q < kPartials; ++q) load_vec<4>(s[q], part + (q * T::kBM + r) * T::kWLd + c);
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float s01 = __fadd_rn(s[0][j], s[1][j]), s23 = __fadd_rn(s[2][j], s[3][j]);
+      const float s45 = __fadd_rn(s[4][j], s[5][j]), s67 = __fadd_rn(s[6][j], s[7][j]);
+      const float sum = __fadd_rn(__fadd_rn(s01, s23), __fadd_rn(s45, s67));
+      o[j] = gc + j < N ? __fadd_rn(sum, bias[gc + j]) : 0.0f;
+    }
+    float* dst = out + gr * N + gc;
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
     } else {
-#pragma unroll 1
-      for (int e = tid; e < T::kBM * kBK; e += kThreads) {
-        const int r = e / kBK, k = e % kBK;
-        const long long gr = row0 + r;
-        const bool ok = gr < B && k0 + k < K;
-        copy4(xb + r * T::kXLd + k, ok ? x + gr * K + k0 + k : x, ok);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (gc + j < N) dst[j] = o[j];
       }
-    }
-    if (w16) {
-#pragma unroll
-      for (int c = tid; c < T::kW16; c += kThreads) {
-        const int kr = c / (T::kBN / 4), cc = (c % (T::kBN / 4)) * 4;
-        const int gk = k0 + kr, gc = col0 + cc;
-        const int bytes = gk < K && gc < N ? 16 : 0;  // N is a multiple of 4
-        copy16(wb + kr * T::kWLd + cc, bytes ? w + static_cast<long long>(gk) * N + gc : w,
-               bytes);
-      }
-    } else {
-#pragma unroll 1
-      for (int e = tid; e < kBK * T::kBN; e += kThreads) {
-        const int kr = e / T::kBN, cc = e % T::kBN;
-        const int gk = k0 + kr, gc = col0 + cc;
-        const bool ok = gk < K && gc < N;
-        copy4(wb + kr * T::kWLd + cc, ok ? w + static_cast<long long>(gk) * N + gc : w, ok);
-      }
-    }
-  };
-  // The bf16 mode rounds the x values this thread copied, once they landed.
-  auto round_x = [&](int buf) {
-    float* xb = xs + buf * T::kXStage;
-    if (x16) {
-#pragma unroll
-      for (int c = tid; c < T::kX16; c += kThreads) {
-        float* v = xb + (c / (kBK / 4)) * T::kXLd + (c % (kBK / 4)) * 4;
-        float4 q = *reinterpret_cast<float4*>(v);
-        q.x = __bfloat162float(__float2bfloat16_rn(q.x));
-        q.y = __bfloat162float(__float2bfloat16_rn(q.y));
-        q.z = __bfloat162float(__float2bfloat16_rn(q.z));
-        q.w = __bfloat162float(__float2bfloat16_rn(q.w));
-        *reinterpret_cast<float4*>(v) = q;
-      }
-    } else {
-#pragma unroll 1
-      for (int e = tid; e < T::kBM * kBK; e += kThreads) {
-        float* v = xb + (e / kBK) * T::kXLd + e % kBK;
-        *v = __bfloat162float(__float2bfloat16_rn(*v));
-      }
-    }
-  };
-
-  float acc[kTM * 8];
-#pragma unroll
-  for (int i = 0; i < kTM * 8; ++i) acc[i] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) issue(s);
-    commit();  // one group a stage, empty past K, so the waits count alike
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    wait_copies<kStages - 2>();  // this thread's copies of stage kt have landed
-    const int buf = kt % kStages;
-    if constexpr (!kF32) round_x(buf);
-    __syncthreads();  // stage kt visible to all; stage kt - 1 summed by all
-    if (DENSE_PROBE < 2 && kt + kStages - 1 < nk) issue(kt + kStages - 1);  // into stage kt - 1's buffer
-    commit();
-    const float* xb = xs + buf * T::kXStage + lr * T::kXLd + p;
-    const float* wb = ws + buf * T::kWStage + p * T::kWLd + lc * 4;
-    auto sum_stage = [&](int steps) {
-#pragma unroll
-      for (int c = 0; c < kBK / kPartials; ++c) {
-        if (c >= steps) break;
-        const int kc = DENSE_PROBE ? 0 : c * kPartials;  // this warp's k less p, ascending
-        float xv[kTM], wv[8];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) xv[i] = xb[i * kLR * T::kXLd + kc];
-        load_vec<4>(wv, wb + kc * T::kWLd);
-        load_vec<4>(wv + 4, wb + kc * T::kWLd + 4 * T::kLC);
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i * 8 + j] = mac<kF32>(xv[i], wv[j], acc[i * 8 + j]);
-      }
-    };
-    // A whole stage with no exit (its loads can run ahead); the last, past
-    // K, only its cycles that hold a k below K.
-    if ((kt + 1) * kBK <= K) {
-      sum_stage(kBK / kPartials);
-    } else {
-      sum_stage((K - kt * kBK + kPartials - 1) / kPartials);
     }
   }
-  wait_copies<0>();
-  __syncthreads();  // every warp done with the ring
-
-  // The fold: each warp's partial tile over the ring, then the outputs.
-  float* const part = xs;  // [partial][row][column]
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    float* dst = part + (p * T::kBM + i * kLR + lr) * T::kWLd + lc * 4;
-    *reinterpret_cast<float4*>(dst) =
-        make_float4(acc[i * 8], acc[i * 8 + 1], acc[i * 8 + 2], acc[i * 8 + 3]);
-    *reinterpret_cast<float4*>(dst + 4 * T::kLC) =
-        make_float4(acc[i * 8 + 4], acc[i * 8 + 5], acc[i * 8 + 6], acc[i * 8 + 7]);
-  }
-  __syncthreads();
-  fold_out<T::kBM, T::kBN, T::kWLd>(part, bias, out, row0, col0, B, N);
-}
-
-// The bf16 mode, staged as bf16: x and w packed two values a 32-bit word,
-// so a lane's 8 rows of x and 8 columns of w at one k are 16 bytes each, one
-// 16-byte load apiece, and a warp's loads of a k move half the bytes of the
-// float32 ring's (shared memory delivers 128 bytes a clock to an SM, 4 FMAs
-// a delivered float32 word at the 8 x 8 tile, what the card's 128 lanes of
-// FMA need: float32 staging leaves the two bound together). A lane's rows
-// and columns are consecutive here: rows lr * kTM + i, columns lc * 8 + j.
-// Unpacking costs an integer op a value (a shift or a mask). Staged through
-// registers (cp.async cannot narrow): the next stage's global loads go to
-// registers before this stage's products, packed and stored after them,
-// one barrier a stage.
-template <int kLR, int kTM>
-struct Bf16Tile {
-  static constexpr int kLC = 32 / kLR;
-  static constexpr int kBM = kLR * kTM;  // rows a block
-  static constexpr int kBN = kLC * 8;    // columns a block
-  static constexpr int kBK = DENSE_BF16_BK;
-  static constexpr int kXLd = kBM + 8;   // bf16 a staged k row of x: 16-byte aligned rows
-  static constexpr int kWLd = kBN + 8;   // of w
-  static constexpr int kPLd = kBN + kPad;  // floats a row of a partial tile
-  static constexpr int kXSlots = kBK * kBM / 2;  // row pairs a stage
-  static constexpr int kWSlots = kBK * kBN / 2;  // column pairs a stage
-  static constexpr int kXPer = (kXSlots + kThreads - 1) / kThreads;
-  static constexpr int kWPer = (kWSlots + kThreads - 1) / kThreads;
-  static constexpr int kStageBytes = 2 * kBK * (kXLd + kWLd);
-  static constexpr int kFoldBytes = 4 * kPartials * kBM * kPLd;
-  static constexpr int kSmemBytes =
-      2 * kStageBytes > kFoldBytes ? 2 * kStageBytes : kFoldBytes;
-  static_assert(kBM % 8 == 0 && kBK % 8 == 0, "bad tile");
-};
-
-template <int kN>
-__device__ __forceinline__ void load_words(unsigned* v, const __nv_bfloat16* p) {
-  if constexpr (kN == 4) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
-    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-  } else if constexpr (kN == 2) {
-    const uint2 q = *reinterpret_cast<const uint2*>(p);
-    v[0] = q.x, v[1] = q.y;
-  } else {
-    static_assert(kN == 1, "1, 2 or 4 words");
-    v[0] = *reinterpret_cast<const unsigned*>(p);
-  }
-}
-
-__device__ __forceinline__ float low_bf16(unsigned v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float high_bf16(unsigned v) { return __uint_as_float(v & 0xffff0000u); }
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
-template <int kLR, int kTM>
-__global__ void __launch_bounds__(kThreads, DENSE_MIN_BLOCKS)
-dense_bf16_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ bias, float* __restrict__ out, int B, int K, int N) {
-  using T = Bf16Tile<kLR, kTM>;
-  constexpr int kBK = T::kBK;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* const xs = reinterpret_cast<__nv_bfloat16*>(smem4);  // [buf][k][row]
-  __nv_bfloat16* const ws = xs + 2 * kBK * T::kXLd;                   // [buf][k][column]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, p = tid >> 5;  // the warp is partial p
-  const int lr = lane / T::kLC, lc = lane % T::kLC;
-  const long long row0 = static_cast<long long>(blockIdx.x) * T::kBM;
-  const int col0 = blockIdx.y * T::kBN;
-  const int nk = (K + kBK - 1) / kBK;
-
-  // Slot s of a stage's x: row pair rp, k; a warp's 32 slots are 8 k by 4
-  // row pairs (32-byte pieces of a row in global memory, no bank conflict
-  // in shared memory). Slot s of w: k, column pair cp, lanes along columns.
-  auto x_slot = [](int s, int& k, int& rp) {
-    k = s % 8 + 8 * ((s / 32) % (kBK / 8));
-    rp = (s / 8) % 4 + 4 * (s / (4 * kBK));
-  };
-  float xr[2 * T::kXPer], wr[2 * T::kWPer];
-  auto load = [&](int kt) {
-    const int k0 = kt * kBK;
-#pragma unroll
-    for (int j = 0; j < T::kXPer; ++j) {
-      const int s = tid + j * kThreads;
-      int k, rp;
-      x_slot(s, k, rp);
-      const long long gr = row0 + 2 * rp;
-      const bool in = (T::kXSlots % kThreads == 0 || s < T::kXSlots) && k0 + k < K;
-      const float* src = x + gr * K + k0 + k;
-      xr[2 * j] = in && gr < B ? __ldg(src) : 0.0f;
-      xr[2 * j + 1] = in && gr + 1 < B ? __ldg(src + K) : 0.0f;
-    }
-#pragma unroll
-    for (int j = 0; j < T::kWPer; ++j) {
-      const int s = tid + j * kThreads;
-      const int k = s / (T::kBN / 2), gc = col0 + 2 * (s % (T::kBN / 2));
-      const bool in = (T::kWSlots % kThreads == 0 || s < T::kWSlots) && k0 + k < K;
-      const float* src = w + static_cast<long long>(k0 + k) * N + gc;
-      wr[2 * j] = in && gc < N ? __ldg(src) : 0.0f;
-      wr[2 * j + 1] = in && gc + 1 < N ? __ldg(src + 1) : 0.0f;
-    }
-  };
-  auto store = [&](int buf) {
-    unsigned* xb = reinterpret_cast<unsigned*>(xs + buf * kBK * T::kXLd);
-    unsigned* wb = reinterpret_cast<unsigned*>(ws + buf * kBK * T::kWLd);
-#pragma unroll
-    for (int j = 0; j < T::kXPer; ++j) {
-      const int s = tid + j * kThreads;
-      if (T::kXSlots % kThreads != 0 && s >= T::kXSlots) continue;
-      int k, rp;
-      x_slot(s, k, rp);
-      xb[k * (T::kXLd / 2) + rp] = pack_bf16(xr[2 * j], xr[2 * j + 1]);
-    }
-#pragma unroll
-    for (int j = 0; j < T::kWPer; ++j) {
-      const int s = tid + j * kThreads;
-      if (T::kWSlots % kThreads != 0 && s >= T::kWSlots) continue;
-      const int k = s / (T::kBN / 2), cp = s % (T::kBN / 2);
-      wb[k * (T::kWLd / 2) + cp] = pack_bf16(wr[2 * j], wr[2 * j + 1]);  // exact: bf16 values
-    }
-  };
-
-  float acc[kTM * 8];
-#pragma unroll
-  for (int i = 0; i < kTM * 8; ++i) acc[i] = 0.0f;
-
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0, buf = 0; kt < nk; ++kt, buf ^= 1) {
-#if DENSE_PROBE >= 2
-    const bool more = false;  // probe: no staging past the first stage
-#else
-    const bool more = kt + 1 < nk;
-#endif
-    if (more) load(kt + 1);  // in flight while this stage's products run
-    const __nv_bfloat16* xb = xs + buf * kBK * T::kXLd + lr * kTM;
-    const __nv_bfloat16* wb = ws + buf * kBK * T::kWLd + lc * 8;
-    auto sum_stage = [&](int steps) {
-#pragma unroll
-      for (int c = 0; c < kBK / kPartials; ++c) {
-        if (c >= steps) break;
-        const int kc = c * kPartials + p;  // this warp's k, ascending
-        unsigned xp[kTM / 2], wp[4];
-#if DENSE_PROBE
-        const int kl = p;  // probe: every cycle reads the stage's first k
-#else
-        const int kl = kc;
-#endif
-        load_words<kTM / 2>(xp, xb + kl * T::kXLd);
-        load_words<4>(wp, wb + kl * T::kWLd);
-        float wv[8];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wv[2 * j] = low_bf16(wp[j]), wv[2 * j + 1] = high_bf16(wp[j]);
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const float xv = i % 2 ? high_bf16(xp[i / 2]) : low_bf16(xp[i / 2]);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i * 8 + j] = fmaf(xv, wv[j], acc[i * 8 + j]);
-        }
-      }
-    };
-    if ((kt + 1) * kBK <= K) {
-      sum_stage(kBK / kPartials);
-    } else {
-      sum_stage((K - kt * kBK + kPartials - 1) / kPartials);
-    }
-    if (more) store(buf ^ 1);  // the other buffer: last read before the previous barrier
-    __syncthreads();
-  }
-
-  // The fold, as the float32 ring's: partial tiles over the staging
-  // buffers, then each output's 8 partials in the fixed tree, plus the bias.
-  float* const part = reinterpret_cast<float*>(smem4);  // [partial][row][column]
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    float* dst = part + (p * T::kBM + lr * kTM + i) * T::kPLd + lc * 8;
-    *reinterpret_cast<float4*>(dst) =
-        make_float4(acc[i * 8], acc[i * 8 + 1], acc[i * 8 + 2], acc[i * 8 + 3]);
-    *reinterpret_cast<float4*>(dst + 4) =
-        make_float4(acc[i * 8 + 4], acc[i * 8 + 5], acc[i * 8 + 6], acc[i * 8 + 7]);
-  }
-  __syncthreads();
-  fold_out<T::kBM, T::kBN, T::kPLd>(part, bias, out, row0, col0, B, N);
 }
 
 int sm_count() {
@@ -658,68 +243,40 @@ int sm_count() {
   return n;
 }
 
-// `attr`: the result of raising the kernel's shared-memory limit to `smem`,
-// done once a kernel by the caller.
-template <typename Kernel, typename... Args>
-int launch_kernel(cudaError_t attr, Kernel kernel, int smem, int bm, int bn, int B, int N,
-                  cudaStream_t stream, Args... args) {
+template <bool kF32, int kLR, int kTM>
+int launch_tile(const void* x, const void* w, const void* bias, void* out, int B, int K, int N,
+                cudaStream_t stream) {
+  using T = Tile<kLR, kTM>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(dense_fixed_kernel<kF32, kLR, kTM>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (attr != cudaSuccess) {
     return static_cast<int>(attr);
   }
-  const dim3 grid((B + bm - 1) / bm, (N + bn - 1) / bn);
+  const dim3 grid((B + T::kBM - 1) / T::kBM, (N + T::kBN - 1) / T::kBN);
   if (grid.y > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  dense_fixed_kernel<kF32, kLR, kTM><<<grid, kThreads, T::kSmemBytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(out), B, K, N);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kF32, int kLR, int kTM>
-int launch_tile(const void* x, const void* w, const void* bias, void* out, int B, int K, int N,
-                bool x16, bool w16, cudaStream_t stream) {
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(bias);
-  float* of = static_cast<float*>(out);
-  if constexpr (DENSE_STAGING == 0) {
-    using T = RegTile<kLR, kTM>;
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        dense_reg_kernel<kF32, kLR, kTM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        T::kSmemBytes);
-    return launch_kernel(attr, dense_reg_kernel<kF32, kLR, kTM>, T::kSmemBytes, T::kBM, T::kBN, B, N,
-                         stream, xf, wf, bf, of, B, K, N);
-  } else if constexpr (DENSE_STAGING == 2 && !kF32) {
-    using T = Bf16Tile<kLR, kTM>;
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        dense_bf16_kernel<kLR, kTM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        T::kSmemBytes);
-    return launch_kernel(attr, dense_bf16_kernel<kLR, kTM>, T::kSmemBytes, T::kBM, T::kBN, B, N,
-                         stream, xf, wf, bf, of, B, K, N);
-  } else {
-    using T = RingTile<kLR, kTM>;
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        dense_ring_kernel<kF32, kLR, kTM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        T::kSmemBytes);
-    return launch_kernel(attr, dense_ring_kernel<kF32, kLR, kTM>, T::kSmemBytes, T::kBM, T::kBN, B,
-                         N, stream, xf, wf, bf, of, B, K, N, x16, w16);
-  }
 }
 
 template <bool kF32, int kLR>
 int launch_rows(const void* x, const void* w, const void* bias, void* out, int B, int K, int N,
-                bool x16, bool w16, cudaStream_t stream) {
+                cudaStream_t stream) {
   // 8 rows a lane, or 4 or 2 while the grid would give an SM fewer than two
   // blocks. The plan changes the speed, never the bits.
-  constexpr int kBN = 32 / kLR * 8;  // columns a block, whatever the staging
-  const long long col_blocks = (N + kBN - 1) / kBN;
+  const long long col_blocks = (N + Tile<kLR, 8>::kBN - 1) / Tile<kLR, 8>::kBN;
   auto blocks = [&](int tm) {
     const long long rows = static_cast<long long>(kLR) * tm;
     return (B + rows - 1) / rows * col_blocks;
   };
   const long long want = 2LL * sm_count();
-  if (blocks(8) >= want) return launch_tile<kF32, kLR, 8>(x, w, bias, out, B, K, N, x16, w16, stream);
-  if (blocks(4) >= want) return launch_tile<kF32, kLR, 4>(x, w, bias, out, B, K, N, x16, w16, stream);
-  return launch_tile<kF32, kLR, 2>(x, w, bias, out, B, K, N, x16, w16, stream);
+  if (blocks(8) >= want) return launch_tile<kF32, kLR, 8>(x, w, bias, out, B, K, N, stream);
+  if (blocks(4) >= want) return launch_tile<kF32, kLR, 4>(x, w, bias, out, B, K, N, stream);
+  return launch_tile<kF32, kLR, 2>(x, w, bias, out, B, K, N, stream);
 }
 
 template <bool kF32>
@@ -729,10 +286,6 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B, int
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // x and w by 16-byte copies where their rows are whole, aligned 16-byte
-  // pieces.
-  const bool x16 = K % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
-  const bool w16 = N % 4 == 0 && reinterpret_cast<std::uintptr_t>(w) % 16 == 0;
   // The lanes' layout whose block width (64, 32 or 16 columns) wastes the
   // fewest of N's columns; the wider one on a tie.
   const int rows_of_lanes[3] = {4, 8, 16};
@@ -742,9 +295,9 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B, int
     if (over < waste) best = lr, waste = over;
   }
   switch (best) {
-    case 4: return launch_rows<kF32, 4>(x, w, bias, out, B, K, N, x16, w16, st);
-    case 8: return launch_rows<kF32, 8>(x, w, bias, out, B, K, N, x16, w16, st);
-    default: return launch_rows<kF32, 16>(x, w, bias, out, B, K, N, x16, w16, st);
+    case 4: return launch_rows<kF32, 4>(x, w, bias, out, B, K, N, st);
+    case 8: return launch_rows<kF32, 8>(x, w, bias, out, B, K, N, st);
+    default: return launch_rows<kF32, 16>(x, w, bias, out, B, K, N, st);
   }
 }
 
