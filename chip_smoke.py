@@ -94,7 +94,21 @@ sequences of 64 events). Phases:
     the same file; PredictLTV and GetPlayerSegment for 1,000 accounts and
     the LTV batch job over a wallet of 100,000 accounts, each equal to the
     CPU; ``predict_batch`` bit-equal to the JAX service's jit outputs
-    committed in ``tests/golden/ltv_jit.npz``.
+    committed in ``tests/golden/ltv_jit.npz``;
+12. training and the online loop, on phase 7's store: the multitask trainer
+    at ``TrainConfig``'s defaults (batch 1024, trunk 256x256) 5 steps on the
+    card and on the CPU from one tree and the same batches (losses, step-1
+    weight gradients within one bf16 ulp, 5 dense launches a step), ``fit``
+    for 400 steps (the loss falls; wall and device ms a step, kernels by
+    name), ``run_eval`` at the JAX defaults (every gate ok),
+    ``distill_serving_params`` at its defaults (MAEs beside a CPU twin's; the
+    students served by a card ``mlp+gbdt`` engine held to a CPU twin, forest
+    launches counted), ``device_parity.run`` (``ok``), a checkpoint resumed by
+    a ``TrainingLoop`` and booted through ``FRAUD_MODEL_PATH`` with
+    ``ONLINE_LOOP=1`` (answers bit-equal to a CPU twin), outcomes posted, ticks
+    until a promotion that is ledgered, vaulted and replayed with 0
+    mismatches, a rollback replayed again, and ScoreBatch rows/s with the
+    loop idle and ticking.
 
 Any failure exits non-zero. The second-to-last lines are the ``kernels``
 JSON object and the card's name and power limit; the last line is the
@@ -1490,6 +1504,11 @@ def requests(scorer, n: int, seed: int):
 def compare_with_cpu(responses, reqs, store, cpu_engine) -> int:
     """Responses of the card against the CPU engine on the same rows.
     Returns the number of floor-boundary rows left unchecked."""
+    return compare_columns(*engine_columns(responses, reqs, store, cpu_engine))
+
+
+def engine_columns(responses, reqs, store, cpu_engine) -> tuple[dict, dict]:
+    """(the responses' result columns, the CPU engine's on the same rows)."""
     x = np.stack([r.features.to_array() for r in responses])
     bl = np.array([store.check_blacklist(r.device_id, r.fingerprint, r.ip) for r in reqs])
     want = {k: v.numpy() for k, v in cpu_engine.score_arrays(x, bl).items()}
@@ -1504,7 +1523,7 @@ def compare_with_cpu(responses, reqs, store, cpu_engine) -> int:
         "reason_mask": np.array([sum(1 << REASON_BIT_ORDER.index(c) for c in r.reason_codes)
                                  for r in responses]),
     }
-    return compare_columns(got, want)
+    return got, want
 
 
 def compare_columns(got: dict, want: dict, what: str = "engine") -> int:
@@ -3890,6 +3909,503 @@ def phase_trained(torch, card: str, dense_mod, store, phase7: dict, device: str 
     return result
 
 
+# Training and the online loop (phase 12), on phase 7's store. (a) One
+# seeded MULTITASK_TRUNK tree trained TRAIN_PARITY_STEPS steps of
+# TrainConfig's batch on the card and on the CPU from the same batches;
+# (b) fit for FIT_STEPS; (c) run_eval at EVAL_ROWS / EVAL_STEPS (the JAX
+# defaults); (d) distillation at DistillConfig's defaults and
+# device_parity.run at its defaults; (e) a checkpoint resumed by a
+# TrainingLoop for RESUME_STEPS and booted through FRAUD_MODEL_PATH; (f) the
+# assembly with ONLINE_LOOP=1 on that model: ONLINE_OUTCOMES outcomes
+# posted (ONLINE_HARD_NEGATIVES of them hard negatives), up to ONLINE_TICKS
+# ticks, then ScoreBatch rows/s with the loop idle and ticking on its
+# thread, ONLINE_TURN_RPCS RPCs a turn. The promotion gates are the JAX
+# tests' (tests/test_online_promotion.py), set through PROMOTE_*.
+TRAIN_BATCH, TRAIN_PARITY_STEPS, FIT_STEPS, FIT_PROFILE_STEPS = 1024, 5, 400, 20
+EVAL_ROWS, EVAL_STEPS = (60_000, 20_000), 400
+DISTILL_CFG, PARITY_ROWS, PARITY_STEPS_MT = {}, 40_000, 300  # DistillConfig(**DISTILL_CFG)
+RESUME_STEPS = 10
+ONLINE_OUTCOMES, ONLINE_HARD_NEGATIVES, ONLINE_TICKS, ONLINE_TURN_RPCS = 512, 128, 8, 5
+ONLINE_BATCH_ROWS = SERVER_BATCH_ROWS
+PROMOTE_ENV = {"PROMOTE_MIN_AUC": "0.55", "PROMOTE_MAX_AUC_DROP": "0.5",
+               "PROMOTE_MIN_SHADOW_ROWS": "8", "PROMOTE_MAX_FLIP_RATE": "1.0",
+               "PROMOTE_MIN_POST_AUC": "0.55"}
+DENSE_PER_FORWARD = 5  # two trunk layers and three heads
+
+
+def bf16_bits(t) -> np.ndarray:
+    """float32 values that hold bf16 numbers, as their bf16 bit patterns."""
+    return (np.asarray(t, np.float32).view(np.int32) >> 16).astype(np.int32)
+
+
+def seeded_trainer(tree, device: str):
+    """A ``Trainer`` at TrainConfig's defaults but TRAIN_BATCH and
+    MULTITASK_TRUNK, on ``device``, holding the JAX-layout ``tree`` and a
+    fresh Adam state."""
+    from igaming_platform_tpu_torch import convert
+    from igaming_platform_tpu_torch.train import trainer
+
+    t = trainer.Trainer(trainer.TrainConfig(batch_size=TRAIN_BATCH, trunk=MULTITASK_TRUNK),
+                        device=device)
+    model = convert.train_multitask_from_tree(tree).to(device)
+    t.state = trainer.TrainState(model, trainer.AdamState.zeros(list(model.parameters())), 0)
+    return t
+
+
+def train_parity(torch, dense_mod, tree, device: str) -> dict:
+    """(a) The card against the CPU: one tree, the same batches, losses at
+    LOSS_RTOL, step-1 weight gradients equal or one bf16 ulp apart, every
+    gradient on the card nonzero, 5 dense launches a step."""
+    from igaming_platform_tpu_torch.train import data
+
+    runs = {}
+    stream = data.make_stream(TRAIN_BATCH, seed=21)
+    batches = [next(stream) for _ in range(TRAIN_PARITY_STEPS)]
+    for side, dev in (("card", device), ("cpu", "cpu")):
+        t = seeded_trainer(tree, dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        dense_mod.dense.launches = 0
+        losses, grads = [], None
+        for b in batches:
+            losses.append(t.train_step(b)["loss"])
+            if grads is None:
+                grads = [p.grad.detach().cpu().clone() for p in t.state.params.parameters()]
+        runs[side] = {"losses": losses, "grads": grads, "launches": dense_mod.dense.launches}
+    card, cpu = runs["card"], runs["cpu"]
+    if device == "cuda" and card["launches"] != DENSE_PER_FORWARD * TRAIN_PARITY_STEPS:
+        raise AssertionError(f"train: {card['launches']} dense launches in "
+                             f"{TRAIN_PARITY_STEPS} steps")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    if not np.isfinite(card["losses"]).all() or rel > LOSS_RTOL:
+        raise AssertionError(f"train: card losses {card['losses']} against {cpu['losses']}")
+    names = [n for n, _ in t.state.params.named_parameters()]
+    zero = [n for n, g in zip(names, card["grads"]) if not g.abs().max() > 0]
+    if zero:
+        raise AssertionError(f"train: no gradient on the card for {zero}")
+    one_ulp, bias_err = 0, 0.0
+    for n, g, w in zip(names, card["grads"], cpu["grads"]):
+        if n.endswith(".w"):
+            d = np.abs(bf16_bits(g.numpy()) - bf16_bits(w.numpy()))
+            if (d > 1).any():
+                raise AssertionError(f"train: {int((d > 1).sum())} step-1 gradients of {n} "
+                                     "more than one bf16 ulp from the CPU's")
+            one_ulp += int((d == 1).sum())
+        else:
+            bias_err = max(bias_err, float((g - w).abs().max()))
+    return {"losses": card["losses"], "cpu_losses": cpu["losses"], "loss_max_rel": rel,
+            "weight_grads_one_ulp": one_ulp,
+            "weight_grads": sum(g.numel() for n, g in zip(names, card["grads"])
+                                if n.endswith(".w")),
+            "bias_grad_max_abs_err": bias_err, "dense_launches": card["launches"]}
+
+
+def train_fit(torch, dense_mod, tree, device: str):
+    """(b) fit for FIT_STEPS on the card: the loss falls, the launches are
+    5 a step; wall ms a step, and a FIT_PROFILE_STEPS window's device time
+    by kernel. Returns (the trainer, the result)."""
+    from igaming_platform_tpu_torch.train import data, trainer
+
+    t = seeded_trainer(tree, device)
+    first = next(data.make_stream(TRAIN_BATCH, seed=22))
+    with torch.no_grad():
+        _, m0 = trainer.loss_and_metrics(t.cfg, t.state.params, *(
+            torch.from_numpy(a).to(device) for a in (first.x, first.fraud, first.ltv,
+                                                     first.churn)))
+    loss0 = float(m0["loss"])
+    logged = []
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dense_mod.dense.launches = 0
+    t0 = time.perf_counter()
+    final = t.fit(FIT_STEPS, data=data.make_stream(TRAIN_BATCH, seed=22), log_every=50,
+                  log_fn=lambda step, m: logged.append((step, m["loss"])))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dense_mod.dense.launches
+    if device == "cuda" and launches != DENSE_PER_FORWARD * FIT_STEPS:
+        raise AssertionError(f"fit: {launches} dense launches in {FIT_STEPS} steps")
+    if not (np.isfinite(final["loss"]) and final["loss"] < loss0):
+        raise AssertionError(f"fit: the loss went from {loss0} to {final['loss']}")
+    result = {"steps": FIT_STEPS, "loss_before": loss0, "final": final, "logged": logged,
+              "wall_s": wall_s, "wall_ms_per_step": wall_s * 1e3 / FIT_STEPS,
+              "dense_launches": launches}
+    if device == "cuda":
+        stream = data.make_stream(TRAIN_BATCH, seed=23)
+        prof = profile_window(torch, lambda: t.fit(FIT_PROFILE_STEPS, data=stream, log_every=0),
+                              top=12)
+        n = FIT_PROFILE_STEPS
+        result["profile"] = {
+            "steps": n, "wall_ms_per_step": prof["wall_ms"] / n,
+            "device_ms_per_step": None if prof["device_ms"] is None else prof["device_ms"] / n,
+            "host_share": None if prof["busy_share"] is None else 1.0 - prof["busy_share"],
+            "kernels": [{**k, "device_ms": k["device_ms"] / n, "count": k["count"] / n}
+                        for k in prof["top"]]}
+    return t, result
+
+
+def train_eval(torch, device: str) -> dict:
+    """(c) run_eval at the JAX defaults, written through the CLI's writer:
+    every ordering and eval gate ok."""
+    import tempfile
+
+    from igaming_platform_tpu_torch.train import eval as eval_mod
+
+    t0 = time.perf_counter()
+    result = eval_mod.run_eval(n_train=EVAL_ROWS[0], n_test=EVAL_ROWS[1], steps=EVAL_STEPS,
+                               device=device)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-eval-") as root:
+        with open(f"{root}/eval.json", "w") as f:
+            json.dump(result, f)
+    bad = [k for k, ok in result["ordering"].items() if not ok]
+    bad += [k for k, row in result["gates"].items() if not row["ok"]]
+    if bad:
+        raise AssertionError(f"eval: gates failed {bad}: {json.dumps(result['models'])}")
+    return {"models": result["models"], "train": result["train"],
+            "ordering": result["ordering"], "gates": result["gates"],
+            "seconds": time.perf_counter() - t0}
+
+
+def train_distill(torch, gbdt_kernel, store, device: str) -> dict:
+    """(d) distill_serving_params at its defaults on the card and on the
+    CPU (both MAEs); its students serve in a card mlp+gbdt engine held to a
+    CPU twin as phase 4 holds its engine; then device_parity.run."""
+    from igaming_platform_tpu_torch.convert import params_to
+    from igaming_platform_tpu_torch.core.config import BatcherConfig
+    from igaming_platform_tpu_torch.serve import scorer
+    from igaming_platform_tpu_torch.train import device_parity, distill
+
+    cfg = distill.DistillConfig(**DISTILL_CFG)
+    t0 = time.perf_counter()
+    params, maes = distill.distill_serving_params(cfg, device=device)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, twin_maes = distill.distill_serving_params(cfg, device="cpu")
+    twin_s = time.perf_counter() - t0
+    bcfg = BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0)
+    engine = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params, batcher_config=bcfg,
+                                       feature_store=store, device=device)
+    cpu = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params_to(params, "cpu"),
+                                    batcher_config=bcfg, feature_store=store, device="cpu",
+                                    warmup=False)
+    try:
+        rng = np.random.default_rng(31)
+        reqs = [scorer.ScoreRequest(account_id=r["account_id"], amount=r["amount"],
+                                    tx_type=r["transaction_type"], ip=r["ip_address"],
+                                    device_id=r["device_id"])
+                for r in server_requests(None, rng, BATCH_SIZE)]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        gbdt_kernel.gbdt_forest.launches = 0
+        responses = engine.score_batch(reqs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = gbdt_kernel.gbdt_forest.launches
+        if device == "cuda" and launches == 0:
+            raise AssertionError("distill: the distilled engine launched no forest kernel")
+        got, want = engine_columns(responses, reqs, store, cpu)
+        unchecked = compare_columns(got, want, "distilled engine")
+        bit_equal = int((got["ml_score"].view(np.int32) == want["ml_score"].view(np.int32)).sum())
+    finally:
+        engine.close()
+        cpu.close()
+    t0 = time.perf_counter()
+    parity = device_parity.run(n_rows=PARITY_ROWS, steps=PARITY_STEPS_MT, device=device)
+    parity_s = time.perf_counter() - t0
+    if not parity["ok"]:
+        raise AssertionError(f"device parity: {json.dumps(parity)}")
+    return {"maes": maes, "twin_maes": twin_maes, "card_s": card_s, "twin_s": twin_s,
+            "engine_rows": len(reqs), "engine_bit_equal_rows": bit_equal,
+            "engine_unchecked_rows": unchecked, "forest_launches": launches,
+            "device_parity": parity, "device_parity_s": parity_s}
+
+
+def twin_rpcs_equal(codec, svc, cpu_svc, rng, n_batches: int, batch_rows: int,
+                    singles: int) -> None:
+    """ScoreBatch and ScoreTransaction RPCs through a service and its CPU
+    twin: every answer bit-equal (response times aside)."""
+    for _ in range(n_batches):
+        payload = codec.encode(codec.SCORE_BATCH_REQUEST,
+                               {"transactions": server_requests(codec, rng, batch_rows)})
+        rows, got = response_columns(codec, svc.call("ScoreBatch", payload))
+        twin_rows, want = response_columns(codec, cpu_svc.call("ScoreBatch", payload))
+        if len(rows) != batch_rows or any(
+                not np.array_equal(f32_bits(got[k]) if k == "ml_score" else got[k],
+                                   f32_bits(want[k]) if k == "ml_score" else want[k])
+                for k in want):
+            raise AssertionError("a ScoreBatch answer differs from the CPU twin")
+    for r in server_requests(codec, rng, singles):
+        payload = codec.encode(codec.SCORE_TRANSACTION_REQUEST, r)
+        got, want = (codec.decode(codec.SCORE_TRANSACTION_RESPONSE, b)
+                     for b in (svc.call("ScoreTransaction", payload),
+                               cpu_svc.call("ScoreTransaction", payload)))
+        got["response_time_ms"] = want["response_time_ms"] = 0
+        if got != want:
+            raise AssertionError(f"a ScoreTransaction differs from the CPU twin: {got} {want}")
+
+
+def score_batch_rpc(codec, svc, rng, rows: int) -> float:
+    """One ScoreBatch RPC of ``rows`` rows; returns its rows/s."""
+    payload = codec.encode(codec.SCORE_BATCH_REQUEST,
+                           {"transactions": server_requests(codec, rng, rows)})
+    t = time.perf_counter()
+    svc.call("ScoreBatch", payload)
+    return rows / (time.perf_counter() - t)
+
+
+def plant_outcomes(ledger_mod, directory: str, rng) -> list[dict]:
+    """Outcomes for decisions of a WAL: ONLINE_HARD_NEGATIVES of those
+    scored at or over review cleared (label 0: hard negatives), a quarter of
+    the rest marked fraud, the others cleared."""
+    recs = [r for r in ledger_mod.iter_records(directory) if r.features is not None]
+    high = [r for r in recs if r.score >= r.review_threshold][:ONLINE_HARD_NEGATIVES]
+    low = [r for r in recs if r.score < r.review_threshold][:ONLINE_OUTCOMES - len(high)]
+    rows = [{"decision_id": r.decision_id, "label": 0, "source": "dispute_cleared"}
+            for r in high]
+    rows += [{"decision_id": r.decision_id, "label": int(rng.random() < 0.25),
+              "source": "review"} for r in low]
+    return rows
+
+
+def online_assembly(torch, card: str, store, ckpt: str, device: str) -> dict:
+    """(e) and (f): the assembly with ONLINE_LOOP=1, LEDGER_DIR and
+    FRAUD_MODEL_PATH=the checkpoint, held to a CPU twin booted from the same
+    file; outcomes posted; ticks through POST /debug/promotion until a
+    promotion, which is ledgered, vaulted and replayed; a rollback, replayed;
+    then ScoreBatch rows/s with the loop idle and ticking in turns."""
+    import shutil
+    import tempfile
+
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.serve import grpc_server, scorer, server
+    from igaming_platform_tpu_torch.serve import ledger as ledger_mod
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+    from igaming_platform_tpu_torch.tools import replay
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-online-")
+    wal = f"{root}/wal"
+    env = {"ONLINE_LOOP": "1", "LEDGER_DIR": wal, "ONLINE_TICK_S": "3600", **PROMOTE_ENV}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    rng = np.random.default_rng(41)
+    bcfg = BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0)
+    config = RiskServiceConfig(fraud_model_path=ckpt, batcher=bcfg)
+    # The twin's service first: a service installs the process's drift engine.
+    cpu_backend, cpu_params = server.resolve_model_boot(config)
+    cpu = scorer.TorchScoringEngine(ml_backend=cpu_backend, params=cpu_params,
+                                    batcher_config=bcfg, feature_store=store, device="cpu",
+                                    warmup=False)
+    cpu_svc = grpc_server.RiskGrpcService(cpu)
+    srv = None
+    try:
+        srv = server.RiskServer(server.assemble_risk_service(config, feature_store=store,
+                                                             device=device),
+                                grpc_port=-1, http_port=0)
+        svc, engine, online, port = srv.service, srv.engine, srv.online, srv.http_port
+        if engine.ml_backend != "multitask" or online is None:
+            raise AssertionError(f"online: booted {engine.ml_backend}, loop {online}")
+        boot_fp = engine.params_fingerprint
+        # (e) The checkpoint's answers against the CPU twin, bit for bit.
+        twin_rpcs_equal(codec, svc, cpu_svc, rng, 2, ONLINE_BATCH_ROWS, 50)
+        if engine.params_fingerprint != boot_fp:
+            raise AssertionError("online: the served params changed before any tick")
+        # (f) Outcomes, hard negatives planted, through the sidecar: one RPC
+        # under a review threshold at the 90th percentile of the scores so
+        # far, so that a tenth of its rows are flagged for review, then the
+        # thresholds restored.
+        if not srv.ledger.flush(30.0):
+            raise AssertionError("online: the ledger did not flush")
+        p90 = int(np.percentile([r.score for r in ledger_mod.iter_records(wal)], 90))
+        block, review = engine.get_thresholds()
+        http_call(port, "/debug/thresholds", {"block": max(block, p90 + 1), "review": max(p90, 1)})
+        score_batch_rpc(codec, svc, rng, ONLINE_BATCH_ROWS)
+        http_call(port, "/debug/thresholds", {"block": block, "review": review})
+        if not srv.ledger.flush(30.0):
+            raise AssertionError("online: the ledger did not flush")
+        outcomes = plant_outcomes(ledger_mod, wal, rng)
+        planted = sum(1 for o in outcomes if o["source"] == "dispute_cleared")
+        if not planted:
+            raise AssertionError("online: no decision flagged for review to clear")
+        status, out = http_call(port, "/debug/outcomes", {"outcomes": outcomes})
+        if status != 200 or out["accepted"] != len(outcomes) or out["unknown"]:
+            raise AssertionError(f"online: outcomes {status} {out}")
+        if not srv.ledger.flush(30.0):
+            raise AssertionError("online: the ledger did not flush")
+        ticks, pinned = [], False
+        for _ in range(ONLINE_TICKS):
+            status, rep = http_call(port, "/debug/promotion", {"action": "tick"})
+            if status != 200:
+                raise AssertionError(f"online: tick {status} {rep}")
+            ticks.append({"tick_ms": online.last_tick_ms,
+                          "split_ms": dict(online.last_tick_split_ms), "history": [
+                h["event"] for h in rep["history"]], "gates": rep["last_gate_table"],
+                "post_check": rep["last_post_check"]})
+            log(f"phase 12: tick {len(ticks)}: {online.last_tick_ms} ms "
+                f"{json.dumps(online.last_tick_split_ms)}, gates "
+                f"{json.dumps(rep['last_gate_table'])}, post {json.dumps(rep['last_post_check'])}")
+            if rep["promotions"]:
+                break
+            gates = rep["last_gate_table"] or {}
+            if not gates.get("drift_quiet", {}).get("ok", True) and not pinned:
+                # The drift gate blocks: pin this traffic as the reference.
+                status, out = http_call(port, "/debug/driftz", {"action": "pin_reference"})
+                if status != 200:
+                    raise AssertionError(f"online: pin_reference {status} {out}")
+                pinned = True
+            score_batch_rpc(codec, svc, rng, ONLINE_BATCH_ROWS)
+            if not engine.shadow.drain(30.0):
+                raise AssertionError("online: the shadow did not drain")
+        report = online.report()
+        if not report["miner"]["hard_negatives"]:
+            raise AssertionError(f"online: the miner found no hard negative: {report['miner']}")
+        promo = report["promotion"]
+        if promo["promotions"] != 1 or promo["history"][-1]["event"] != "promote":
+            raise AssertionError(f"online: no promotion in {len(ticks)} ticks: "
+                                 f"{json.dumps(ticks)}")
+        new_fp = promo["history"][-1]["new_fp"]
+        if engine.params_fingerprint != new_fp or new_fp == boot_fp:
+            raise AssertionError("online: the promoted params do not serve")
+        score_batch_rpc(codec, svc, rng, ONLINE_BATCH_ROWS)  # decisions after the boundary
+        if not srv.ledger.flush(30.0):
+            raise AssertionError("online: the ledger did not flush")
+        records = [(r.event, r.old_fp, r.new_fp) for r in ledger_mod.iter_promotions(wal)]
+        vault = sorted(os.listdir(f"{wal}/params-vault"))
+        if records != [("promote", boot_fp, new_fp)] or not {
+                f"{boot_fp}.npz", f"{new_fp}.npz"} <= set(vault):
+            raise AssertionError(f"online: ledger {records}, vault {vault}")
+        verdict, replay_s = timed_replay(replay, wal, device)
+        if not verdict["ok"] or verdict["params_fingerprint_mismatch"] or len(
+                verdict["replayed_by_params_fp"]) != 2:
+            raise AssertionError(f"online: replay across the promotion: {json.dumps(verdict)}")
+        status, rep = http_call(port, "/debug/promotion", {"action": "rollback"})
+        if status != 200 or rep["rollbacks"] != 1 or engine.params_fingerprint != boot_fp:
+            raise AssertionError(f"online: rollback {status} {rep.get('history')}")
+        score_batch_rpc(codec, svc, rng, ONLINE_BATCH_ROWS)
+        if not srv.ledger.flush(30.0):
+            raise AssertionError("online: the ledger did not flush")
+        verdict2, replay2_s = timed_replay(replay, wal, device)
+        if not verdict2["ok"] or verdict2["params_fingerprint_mismatch"] or [
+                p["event"] for p in verdict2["promotions"]] != ["promote", "rollback"]:
+            raise AssertionError(f"online: replay after the rollback: {json.dumps(verdict2)}")
+
+        # ScoreBatch rows/s with the loop idle and ticking on its thread, in
+        # turns; the controller paused so that no swap lands in a turn.
+        http_call(port, "/debug/promotion", {"action": "pause"})
+        online.stop(close_shadow=False)  # the boot's ticker, waiting out ONLINE_TICK_S
+        online.tick_s = 0.0
+        turns = []
+        for on in (False, True, True, False):
+            ticks0 = online.ticks
+            if on:
+                online.start()
+            rates = [score_batch_rpc(codec, svc, rng, ONLINE_BATCH_ROWS)
+                     for _ in range(ONLINE_TURN_RPCS)]
+            if on:
+                online.stop(close_shadow=False)
+            turns.append({"loop": "ticking" if on else "idle", "rows_per_s": rates,
+                          "median": statistics.median(rates), "ticks": online.ticks - ticks0,
+                          "last_tick_ms": online.last_tick_ms,
+                          "last_tick_split_ms": dict(online.last_tick_split_ms)})
+        report = online.report()
+    finally:
+        if srv is not None:
+            srv.shutdown(grace=5.0)
+        cpu_svc.close()
+        cpu.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    if srv.online._thread is not None:
+        raise AssertionError("online: the loop's thread outlived the shutdown")
+    return {"ticks": ticks, "drift_pinned": pinned, "outcomes": len(outcomes),
+            "hard_negatives_planted": planted, "review_threshold_p90": p90,
+            "miner": report["miner"], "learner": report["learner"],
+            "promotion": {k: report["promotion"][k] for k in ("promotions", "rollbacks",
+                                                               "last_good_probe_auc")},
+            "promoted_fp": new_fp, "boot_fp": boot_fp, "vault": vault,
+            "replay": {k: verdict[k] for k in ("replayed", "mismatches",
+                                               "replayed_by_params_fp")},
+            "replay_s": replay_s, "replay_after_rollback_s": replay2_s,
+            "turns": turns, "promote_env": PROMOTE_ENV}
+
+
+def phase_online(torch, card: str, dense_mod, gbdt_kernel, store, device: str = "cuda") -> dict:
+    """Phase 12, on phase 7's store: the multitask trainer, evaluation,
+    distillation, device parity, checkpoints and the online loop
+    (``train_parity``, ``train_fit``, ``train_eval``, ``train_distill``,
+    ``online_assembly``). ``device="cpu"`` rehearses it without a card (the
+    launch checks then skipped)."""
+    import shutil
+    import tempfile
+
+    from igaming_platform_tpu_torch.train import checkpoint, loop, trainer
+
+    t0 = time.perf_counter()
+    tree = multitask_tree(np.random.default_rng(121), MULTITASK_TRUNK)
+    parity = train_parity(torch, dense_mod, tree, device)
+    log(f"phase 12: [{card}] {TRAIN_PARITY_STEPS} steps of {TRAIN_BATCH} x {MULTITASK_TRUNK} on "
+        f"the card and the CPU: losses agree to {parity['loss_max_rel']:.3g} (relative); "
+        f"{parity['weight_grads_one_ulp']} of {parity['weight_grads']} step-1 weight gradients "
+        f"one bf16 ulp from the CPU's, none further; bias gradients within "
+        f"{parity['bias_grad_max_abs_err']:.3g}; {parity['dense_launches']} dense launches")
+    fitted, fit = train_fit(torch, dense_mod, tree, device)
+    prof = fit.get("profile", {})
+    log(f"phase 12: [{card}] fit {FIT_STEPS} steps: loss {fit['loss_before']:.4f} -> "
+        f"{fit['final']['loss']:.4f}, {fit['wall_ms_per_step']:.3f} ms of wall a step; "
+        f"profiled {FIT_PROFILE_STEPS} steps: {prof.get('wall_ms_per_step')} ms wall, "
+        f"{prof.get('device_ms_per_step')} ms device a step, host share "
+        f"{prof.get('host_share')}")
+    ev = train_eval(torch, device)
+    log(f"phase 12: [{card}] run_eval {EVAL_ROWS} rows, {EVAL_STEPS} steps: every gate ok; "
+        f"AUC multitask {ev['models']['multitask_trained']['auc']}, gbdt "
+        f"{ev['models']['gbdt_trained']['auc']}, mock {ev['models']['mock']['auc']}, rules "
+        f"{ev['models']['rules_only']['auc']}; training s {json.dumps(ev['train'])}")
+    dist = train_distill(torch, gbdt_kernel, store, device)
+    log(f"phase 12: [{card}] distill_serving_params: MAEs {json.dumps(dist['maes'])} (CPU twin "
+        f"{json.dumps(dist['twin_maes'])}), {dist['card_s']:.1f} s (CPU {dist['twin_s']:.1f}); "
+        f"served {dist['engine_rows']} rows, {dist['engine_bit_equal_rows']} ml_score bit-equal "
+        f"to the CPU twin, {dist['forest_launches']} forest launches; device_parity "
+        f"{json.dumps({k: dist['device_parity'][k] for k in ('multitask', 'gbdt', 'ok')})}")
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        checkpoint.save_checkpoint(root, fitted.state)
+        resumed = loop.TrainingLoop(config=loop.LoopConfig(
+            checkpoint_dir=root, checkpoint_every=RESUME_STEPS, swap_every=0),
+            train_config=trainer.TrainConfig(batch_size=TRAIN_BATCH, trunk=MULTITASK_TRUNK),
+            device=device)
+        if resumed.trainer.state.step != fitted.state.step or not all(
+                torch.equal(a, b) for a, b in zip(resumed.trainer.state.params.parameters(),
+                                                  fitted.state.params.parameters())):
+            raise AssertionError("checkpoint: the resumed trainer is not the saved one")
+        resumed.run_steps(RESUME_STEPS)
+        ckpt = checkpoint.latest_checkpoint(root)
+        if resumed.checkpoints != 1 or not ckpt.endswith(
+                f"step_{fitted.state.step + RESUME_STEPS:08d}.npz"):
+            raise AssertionError(f"checkpoint: resumed loop wrote {ckpt}")
+        online_run = online_assembly(torch, card, store, ckpt, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    turns = online_run["turns"]
+    log(f"phase 12: [{card}] ONLINE_LOOP=1 on the resumed checkpoint: answers bit-equal to the "
+        f"CPU twin; {online_run['outcomes']} outcomes ({online_run['hard_negatives_planted']} "
+        f"hard negatives) -> promotion in {len(online_run['ticks'])} ticks "
+        f"({[t['tick_ms'] for t in online_run['ticks']]} ms), ledgered, vaulted, replayed with "
+        f"0 mismatches ({online_run['replay']['replayed']} records), rolled back and replayed; "
+        f"ScoreBatch rows/s " + ", ".join(f"{t['loop']} {t['median']:.0f} ({t['ticks']} ticks)"
+                                         for t in turns))
+    result = {"parity": parity, "fit": fit, "eval": ev, "distill": dist, "online": online_run,
+              "dense_launches": parity["dense_launches"] + fit["dense_launches"],
+              "forest_launches": dist["forest_launches"], "seconds": time.perf_counter() - t0}
+    log(f"phase 12: {result['seconds']:.1f} s")
+    log("phase 12: " + json.dumps(result, default=str))
+    return result
+
+
 # Phase 7 alone in a fresh process of the checkout it runs in, printing one
 # "TURN " JSON line: for ``phase7_turns``.
 _PHASE7_TURN = r"""
@@ -3995,6 +4511,9 @@ def main() -> int:
     # Phase 11: the trained multitask model booted from FRAUD_MODEL_PATH,
     # the LTV RPCs and the LTV batch job, same store.
     trained_run = phase_trained(torch, card, dense_mod, filled[0], server_run)
+    # Phase 12: the multitask trainer, distillation, evaluation, device
+    # parity, checkpoints and ONLINE_LOOP=1, same store.
+    online_run = phase_online(torch, card, dense_mod, gbdt_kernel, filled[0])
 
     main_row = next(r for r in rows if (r["T"], r["D"], r["B"]) == (64, 4, BATCH_SIZE))
     flash_main = next(r for r in flash_rows if (r["BH"], r["S"], r["Dh"]) == FLASH_MAIN_SHAPE)
@@ -4020,6 +4539,7 @@ def main() -> int:
                               + variants_run["session_engine"]["forest_launches"]),
         "launches_ledger": (ledger_run["engine_l"]["forest_launches"]
                             + ledger_run["engine_a"]["forest_launches"]),
+        "launches_distilled": online_run["forest_launches"],
         "shapes": rows,
     }, {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -4056,9 +4576,11 @@ def main() -> int:
         "repair": ("not a TPU kernel: the bf16 dense of igaming_platform_tpu/models/mlp.py:64-74 "
                    "(_dense, compiled by XLA), in a sum order that no batch size changes, in "
                    "place of cuBLAS's float32 sgemm, whose order follows M"),
-        "launches": engine["dense_launches"] + trained_run["dense_launches"],
+        "launches": (engine["dense_launches"] + trained_run["dense_launches"]
+                     + online_run["dense_launches"]),
         "launches_engine": engine["dense_launches"],
         "launches_trained": trained_run["dense_launches"],
+        "launches_train": online_run["dense_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in dense_rows if "max_abs_err" in r),
         "ms": dense_main["kernel_ms"], "plain_ms": dense_main["plain_ms"],
         "bound_ms": dense_main["bound_ms"], "bound_by": dense_main["bound_by"],

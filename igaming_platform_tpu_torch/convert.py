@@ -22,6 +22,14 @@ sequence model (``init_sequence_model``'s tree) -> ``models.sequence.SequenceMod
 and ``sequence_to_tree(model)`` is its inverse: a trained model's params as
 the JAX package's tree of numpy arrays.
 
+``train_multitask_from_tree(tree)`` gives the trainable net
+(``models.multitask.TrainMultiTask``, float32 master weights) of a JAX
+multitask tree, and ``multitask_to_tree(model)`` is its inverse: the trained
+master weights as the JAX tree of numpy arrays, which the JAX engine scores.
+``trainer_state_from_jax(params, opt_state, step)`` carries a JAX trainer's
+state (its params, ``optax.adamw``'s ``mu``/``nu`` and count, as numpy) into
+the port's ``train.trainer.TrainState``.
+
 ``params_to(params, device)`` copies them to a device. Neither needs JAX:
 the tree is plain numpy.
 
@@ -42,8 +50,8 @@ import torch
 from torch import nn
 
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES
-from igaming_platform_tpu_torch.models.mlp import MLP, Dense
-from igaming_platform_tpu_torch.models.multitask import MultiTask
+from igaming_platform_tpu_torch.models.mlp import MLP, Dense, TrainDense
+from igaming_platform_tpu_torch.models.multitask import MultiTask, TrainMultiTask
 from igaming_platform_tpu_torch.models.sequence import (
     Affine,
     Block,
@@ -156,6 +164,69 @@ def sequence_to_tree(model: SequenceModel) -> dict:
     }
 
 
+MULTITASK_LAYERS = ("fraud_head", "ltv_head", "churn_head")
+
+
+def train_multitask_from_tree(tree: dict) -> TrainMultiTask:
+    """The trainable multitask net, on the CPU, of a JAX multitask tree."""
+    def layer(p):
+        return TrainDense(_f32(p["w"]), _f32(p["b"]))
+
+    return TrainMultiTask([layer(p) for p in tree["trunk"]["layers"]],
+                          *(layer(tree[h]) for h in MULTITASK_LAYERS))
+
+
+def multitask_layers(model: TrainMultiTask) -> list[tuple[tuple, TrainDense]]:
+    """(path in the JAX tree, layer) for every layer, trunk first then the
+    heads: the order of ``model.parameters()``."""
+    return ([(("trunk", "layers", i), layer) for i, layer in enumerate(model.trunk)]
+            + [((h,), getattr(model, h)) for h in MULTITASK_LAYERS])
+
+
+def multitask_to_tree(model: TrainMultiTask, tensors: list[torch.Tensor] | None = None) -> dict:
+    """The JAX multitask tree of numpy arrays for ``model``'s master weights,
+    or for ``tensors`` laid out as ``model.parameters()`` (an Adam moment)."""
+    flat = iter(tensors if tensors is not None else list(model.parameters()))
+    tree: dict = {"trunk": {"layers": []}}
+    for path, _layer in multitask_layers(model):
+        leaf = {"w": next(flat).detach().cpu().numpy().copy(),
+                "b": next(flat).detach().cpu().numpy().copy()}
+        if path[0] == "trunk":
+            tree["trunk"]["layers"].append(leaf)
+        else:
+            tree[path[0]] = leaf
+    return tree
+
+
+def tree_leaves(model: TrainMultiTask, tree: dict) -> list[torch.Tensor]:
+    """A JAX-layout multitask tree's arrays as float32 tensors in
+    ``model.parameters()`` order."""
+    out = []
+    for path, _layer in multitask_layers(model):
+        node = tree["trunk"]["layers"][path[2]] if path[0] == "trunk" else tree[path[0]]
+        out += [_f32(node["w"]), _f32(node["b"])]
+    return out
+
+
+def trainer_state_from_jax(params: dict, opt_state: Any, step: int,
+                           device: torch.device | str = "cpu"):
+    """The port's ``TrainState`` on ``device`` from a JAX trainer's params,
+    its ``optax.adamw`` state (the ``ScaleByAdamState`` first in the chain,
+    or that state itself, or a dict with ``count``, ``mu`` and ``nu``) and
+    step, all as numpy."""
+    from igaming_platform_tpu_torch.train.trainer import AdamState, TrainState
+
+    adam = opt_state
+    if isinstance(adam, (tuple, list)) and not hasattr(adam, "mu"):
+        adam = adam[0]
+    get = adam.get if isinstance(adam, dict) else (lambda k: getattr(adam, k))
+    model = train_multitask_from_tree(params).to(device)
+    count = torch.tensor(int(np.asarray(get("count"))), dtype=torch.int32, device=device)
+    state = AdamState(count, [t.to(device) for t in tree_leaves(model, get("mu"))],
+                      [t.to(device) for t in tree_leaves(model, get("nu"))])
+    return TrainState(model, state, int(step))
+
+
 _CONVERTERS = {"mlp": mlp_from_tree, "gbdt": gbdt_from_tree, "multitask": multitask_from_tree,
                "mlp_int8": quantized_mlp_from_tree, "gbdt_int8": quantized_gbdt_from_tree,
                "multitask_int8": quantized_mlp_from_tree}
@@ -169,7 +240,9 @@ def from_jax_params(ml_backend: str, tree: dict) -> dict[str, Any]:
 
 
 def params_to(params: dict[str, Any] | None, device: torch.device | str) -> dict[str, Any] | None:
-    """A copy of the port's params on ``device``; the input is left as it was."""
+    """A copy of the port's params on ``device``; the input is left as it was.
+    On a card the caller's stream has finished the copy when this returns,
+    so another stream (an engine's) may read it at once."""
     if params is None:
         return None
     out = {}
@@ -178,6 +251,9 @@ def params_to(params: dict[str, Any] | None, device: torch.device | str) -> dict
             out[key] = copy.deepcopy(value).to(device)
         else:
             out[key] = {k: v.to(device) for k, v in value.items()}
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
     return out
 
 

@@ -27,6 +27,11 @@ torch ops, vectorised over the partials: K / 8 steps over a [B, 8, N]
 accumulator. ``dense.launches`` and ``dense_f32.launches`` count kernel
 launches.
 
+``dense_train(x, w, b)`` is ``dense`` for training: ``w`` is a float32
+master weight, rounded to bf16 on every call, and ``DenseFn``'s backward
+gives the JAX package's gradients of ``_dense``, each product rounded to
+bf16 as XLA's program rounds it (below).
+
 Not a TPU kernel: it is the repair of a fault of the port (a row's
 ``ml_score``, and the sequence model's score, depended on its batch), not a
 port of a Pallas call.
@@ -161,3 +166,41 @@ def dense_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 dense.launches = 0
 dense_f32.launches = 0
+
+
+class DenseFn(torch.autograd.Function):
+    """``dense(x, round_bf16(w), b)`` with the gradients ``jax.grad`` takes
+    through ``_dense`` (``models/mlp.py:64-74`` of the JAX package). Its
+    jaxpr holds, for a float32 cotangent ``dy`` [B, N]:
+
+    - ``dw = f32(bf16(bf16(x)^T . dy))`` and ``dx = f32(bf16(dy . bf16(w)^T))``:
+      each product accumulated in float32 from the float32 cotangent, then
+      rounded to bf16 (the transpose of the forward's ``astype(bfloat16)``);
+    - ``db = sum_B dy`` in float32.
+
+    Autograd through ``.to(torch.bfloat16)`` would round the cotangent
+    instead. The backward products run outside the fixed-order kernel, as
+    JAX's run outside any Pallas call: ``torch.matmul`` (with TF32 off on a
+    card, as ``chip_smoke.py`` sets it)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        w_bf16 = round_bf16(w).contiguous()
+        ctx.save_for_backward(round_bf16(x), w_bf16)
+        return dense(x, w_bf16, b)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x_bf16, w_bf16 = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = round_bf16(torch.matmul(dy, w_bf16.t())) if ctx.needs_input_grad[0] else None
+        dw = round_bf16(torch.matmul(x_bf16.t(), dy)) if ctx.needs_input_grad[1] else None
+        db = dy.sum(0) if ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
+def dense_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[B, K] float32 -> [B, N] float32: ``dense`` on the bf16 rounding of the
+    float32 master weight ``w``, differentiable as ``DenseFn`` says."""
+    return DenseFn.apply(x, w, b)

@@ -64,7 +64,7 @@ path (risk.v1 ScoreTransaction / ScoreBatch):
   cannot keep (a full queue, a failed append) is counted as dropped. It
   does slow answers: with it bound, bulk ScoreBatch callers got about a
   quarter of the rows/s, its writer thread sharing the interpreter with
-  them (``PERF.md`` §5, ``ROADMAP.md`` Queue 1 item 7).
+  them (``PERF.md`` §5, ``ROADMAP.md`` Queue 1, the benchmark's first target).
 
 Every batch runs on the engine's device. On a card, every copy and step
 goes on one CUDA stream the engine owns, whichever thread launches it, and

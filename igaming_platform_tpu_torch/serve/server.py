@@ -6,16 +6,17 @@ before it serves), the bonus-abuse detector, the event bridge and the
 ``RiskGrpcService`` (``assemble_risk_service``); then ``RiskServer`` binds
 gRPC, when grpcio is installed and a port is asked for, and the HTTP
 sidecar (/health, /ready, /debug/thresholds, /debug/score, /debug/cachez,
-/debug/sessionz, /debug/driftz and /debug/shadowz), and shuts down on a
-signal: health NOT_SERVING, drain, stop. The drift observatory is on unless
+/debug/sessionz, /debug/driftz, /debug/ledgerz, /debug/outcomes,
+/debug/shadowz and /debug/promotion), and shuts down on a signal: health
+NOT_SERVING, drain, stop. The drift observatory is on unless
 ``DRIFT=0`` (``RiskGrpcService`` installs it; ``DRIFT_REF`` names a pinned
 reference to load at boot); ``POST /debug/driftz`` pins the current window
 as the reference, or loads or saves one. A shadow scorer is attached to the
-engine by its caller (``engine.shadow``; in the JAX package the online
-loop does it). The engine reads its cache and session knobs (``WIRE_MODE``,
-``FEATURE_CACHE``, ``FEATURE_CACHE_CAPACITY``, ``FEATURE_CACHE_MAX_AGE_S``,
-``SESSION_STATE``, ``SESSION_EVENTS``, ``SESSION_MIN_EVENTS``,
-``SESSION_FLAG_THRESHOLD``, ``SESSION_HEAD``) from the environment;
+engine by the online loop, or by its caller (``engine.shadow``). The engine
+reads its cache and session knobs (``WIRE_MODE``, ``FEATURE_CACHE``,
+``FEATURE_CACHE_CAPACITY``, ``FEATURE_CACHE_MAX_AGE_S``, ``SESSION_STATE``,
+``SESSION_EVENTS``, ``SESSION_MIN_EVENTS``, ``SESSION_FLAG_THRESHOLD``,
+``SESSION_HEAD``) from the environment;
 ``assemble_risk_service`` also takes ``feature_cache`` and
 ``session_state``.
 
@@ -28,14 +29,27 @@ ledger is closed after the engine drains on shutdown. Its WAL replays with
 ``python -m igaming_platform_tpu_torch.tools.replay``, on the device that
 scored it.
 
+``ONLINE_LOOP=1`` closes the learning loop in place (``train/online.py``):
+a miner tails the WAL for outcome-labelled hard examples, a learner trains
+a multitask candidate on the engine's device (on its own stream), a
+``ShadowScorer`` scores it beside production (its results joined to the
+drift engine's shadow window) and the ``PromotionController`` hot-swaps it
+in, or back out, through the gates of ``train/gates.py`` (``PROMOTE_*``),
+vaulting every tree it serves under ``<LEDGER_DIR>/params-vault``. It needs
+``LEDGER_DIR`` and the ``multitask`` backend (``FRAUD_MODEL_PATH`` or
+``ML_BACKEND``); either missing fails the boot. ``GET /debug/shadowz``
+returns the loop's report; ``POST /debug/promotion`` takes ``{"action":
+"pause"|"resume"|"rollback"|"inject_regression"|"tick"}``. On shutdown the
+loop stops before the drain.
+
 Run it as ``python -m igaming_platform_tpu_torch.serve.server``. It serves
 on the card; with no card it refuses to boot unless
 ``SERVE_DEVICE_FALLBACK=cpu``, which serves on the host CPU with the abuse
 path under ``ABUSE_CPU_POLICY`` (default ``heuristic``), as the reference
 does. ``FRAUD_MODEL_PATH`` boots a trained multitask checkpoint from its
 ``.npz`` (``resolve_model_boot``). The other /debug pages, /metrics, the
-supervisor, the online loop and the batch-feature refresh are not ported
-yet (``ROADMAP.md``).
+supervisor and the batch-feature refresh are not ported yet
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -136,6 +150,7 @@ class AssembledService:
     bridge: ScoringBridge
     service: RiskGrpcService
     ledger: ledger_mod.DecisionLedger | None = None
+    online: object | None = None  # train.online.OnlineLoop, not started
 
 
 def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend: str = "mock",
@@ -149,10 +164,15 @@ def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend
     RiskGrpcService, on ``device``. ``feature_cache`` and ``session_state``
     go to the engine (None: its environment knobs). With ``LEDGER_DIR`` set,
     opens the decision ledger there and binds it to the engine; whoever
-    does not hand the assembly to a ``RiskServer`` closes it. Binds no
-    transport."""
+    does not hand the assembly to a ``RiskServer`` closes it. With
+    ``ONLINE_LOOP=1`` also builds the online loop, which the ``RiskServer``
+    starts. Binds no transport."""
     config = config or RiskServiceConfig.from_env()
     ml_backend, params = resolve_model_boot(config, ml_backend, params)
+    ledger_dir = os.environ.get("LEDGER_DIR", "")
+    online = os.environ.get("ONLINE_LOOP", "") == "1"
+    if online:
+        check_online_boot(ml_backend, ledger_dir)
     store = feature_store if feature_store is not None else make_feature_store(config.feature_store)
     engine = TorchScoringEngine(config.scoring, ml_backend=ml_backend, params=params,
                                 batcher_config=config.batcher, feature_store=store,
@@ -164,13 +184,43 @@ def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend
     service = RiskGrpcService(engine, abuse_detector=abuse.check,
                               rate_limit_per_minute=config.rate_limit_per_minute)
     ledger = None
-    ledger_dir = os.environ.get("LEDGER_DIR", "")
     if ledger_dir:
         ledger = ledger_mod.DecisionLedger(ledger_dir, sink=ledger_mod.sink_from_env())
         engine.ledger = ledger
         logger.info("decision ledger at %s (sink=%s)", ledger_dir,
                     os.environ.get("LEDGER_SINK", "") or "none")
-    return AssembledService(config, engine, abuse, bridge, service, ledger)
+    loop = make_online_loop(engine, ledger, ledger_dir, service) if online else None
+    return AssembledService(config, engine, abuse, bridge, service, ledger, loop)
+
+
+def check_online_boot(ml_backend: str, ledger_dir: str) -> None:
+    """``ONLINE_LOOP=1``'s preconditions, checked before anything is built:
+    a silently disabled learning loop is drift's best friend, so a config
+    error fails the boot."""
+    if not ledger_dir:
+        raise RuntimeError("ONLINE_LOOP=1 requires LEDGER_DIR: the miner tails the decision "
+                           "WAL for labeled hard examples")
+    if ml_backend != "multitask":
+        raise RuntimeError("ONLINE_LOOP=1 requires the trainable multitask backend "
+                           f"(ML_BACKEND=multitask); got {ml_backend!r}")
+
+
+def make_online_loop(engine: TorchScoringEngine, ledger, ledger_dir: str, service):
+    """The online loop of ``ONLINE_LOOP=1`` over ``engine``, not started."""
+    from igaming_platform_tpu_torch.serve.shadow import ShadowScorer
+    from igaming_platform_tpu_torch.train.online import LedgerMiner, OnlineLearner, OnlineLoop
+    from igaming_platform_tpu_torch.train.promote import PromotionController
+
+    shadow = ShadowScorer(engine)
+    engine.shadow = shadow
+    # Candidate-against-production divergence trends in the drift engine's
+    # windows, so a drifting candidate shows before any gate judges it.
+    if service.drift is not None:
+        shadow.on_result = service.drift.note_shadow_result
+    controller = PromotionController(engine, shadow, ledger=ledger,
+                                     vault_dir=os.path.join(ledger_dir, "params-vault"))
+    return OnlineLoop(miner=LedgerMiner(ledger_dir), learner=OnlineLearner(device=engine.device),
+                      shadow=shadow, controller=controller)
 
 
 class RiskServer:
@@ -185,6 +235,7 @@ class RiskServer:
         self.service = assembled.service
         self.bridge = assembled.bridge
         self.ledger = assembled.ledger
+        self.online = assembled.online
         config = assembled.config
         grpc_port = config.grpc_port if grpc_port is None else grpc_port
         self.grpc_server, self.grpc_port = None, None
@@ -196,6 +247,9 @@ class RiskServer:
         self.http_server, self.http_port = self._start_http(
             config.http_port if http_port is None else http_port)
         self.bridge.start()
+        if self.online is not None:
+            self.online.start()
+            logger.info("online learning loop up (tick=%.1fs)", self.online.tick_s)
         logger.info("risk server up: grpc=%s http=%d", self.grpc_port, self.http_port)
 
     def device_alive(self, timeout_s: float = 2.0) -> bool:
@@ -267,6 +321,9 @@ class RiskServer:
                         return
                     self._send(200, json.dumps(ledger.stats()))
                 elif self.path == "/debug/shadowz":
+                    if server_ref.online is not None:
+                        self._send(200, json.dumps(server_ref.online.report()))
+                        return
                     shadow = server_ref.engine.shadow
                     if shadow is None:
                         self._send(404, '{"error":"no shadow scorer attached"}')
@@ -307,6 +364,8 @@ class RiskServer:
                     self._drift_action(payload)
                 elif self.path == "/debug/outcomes":
                     self._outcomes(payload)
+                elif self.path == "/debug/promotion":
+                    self._promotion(payload)
                 else:
                     self._send(404, '{"error":"not found"}')
 
@@ -348,6 +407,35 @@ class RiskServer:
                 self._send(200, json.dumps({"accepted": accepted, "unknown": unknown,
                                             "submitted": len(rows)}))
 
+            def _promotion(self, payload) -> None:
+                """The promotion controller's knobs: {"action": "pause" |
+                "resume" | "rollback" | "inject_regression" | "tick"}; answers
+                the controller's report."""
+                online = server_ref.online
+                if online is None:
+                    self._send(404, '{"error":"online loop disabled"}')
+                    return
+                ctl = online.controller
+                action = str(payload.get("action", "")) if isinstance(payload, dict) else ""
+                try:
+                    if action == "pause":
+                        ctl.pause()
+                    elif action == "resume":
+                        ctl.resume()
+                    elif action == "rollback":
+                        ctl.force_rollback(str(payload.get("reason", "operator /debug/promotion")))
+                    elif action == "inject_regression":
+                        ctl.inject_regression()
+                    elif action == "tick":
+                        online.tick()
+                    else:
+                        raise ValueError(f"unknown promotion action {action!r} (use "
+                                         "pause|resume|rollback|inject_regression|tick)")
+                except ValueError as exc:
+                    self._send(400, json.dumps({"error": str(exc)}))
+                    return
+                self._send(200, json.dumps(ctl.report()))
+
             def _drift_action(self, payload: dict) -> None:
                 """{"action": "pin_reference"} pins the current window;
                 {"action": "load"|"save", "path": ...} reads or writes a
@@ -387,13 +475,17 @@ class RiskServer:
     # -- lifecycle -----------------------------------------------------------
 
     def shutdown(self, grace: float = 30.0) -> None:
-        """NOT_SERVING, stop the bridge, drain gRPC, then close the engine
+        """NOT_SERVING, stop the online loop, stop the bridge, drain gRPC, then close the engine
         (batcher and host pipeline), close the ledger (every admitted
         decision is noted by then; its WAL is flushed and its sink given a
         bounded catch-up), drain the shadow scorer and the drift engine
         (every scored batch folded), close the service (which closes the
         drift engine), then stop the sidecar."""
         self._stopped.set()
+        if self.online is not None:
+            # Stop the learner and the promotion ticker before the drain: a
+            # hot swap mid-shutdown has nothing left to serve with.
+            self.online.stop()
         self.bridge.stop()
         graceful_stop(self.grpc_server, self.health, grace, engine=self.engine)
         if self.ledger is not None:

@@ -4,7 +4,7 @@ The port's counterpart of ``heuristic_scores`` in
 ``igaming_platform_tpu/serve/supervisor.py``. The replay tool re-scores the
 decisions a JAX server took in its ``DEGRADED_CPU_HEURISTIC`` tier with it.
 The rest of the supervisor (circuit breakers, serving states, the wrapped
-engine and its heuristic fallback) comes with Queue 1 item 10
+engine and its heuristic fallback) comes with Queue 1 item 4
 (``ROADMAP.md``); until then the port's engine has no degraded tier.
 """
 

@@ -4,6 +4,7 @@ The port's counterpart of ``tools/driftref.py``::
 
     python -m igaming_platform_tpu_torch.tools.driftref --ledger LEDGER_DIR --out ref.json
     python -m igaming_platform_tpu_torch.tools.driftref --ledger LEDGER_DIR --verify
+    python -m igaming_platform_tpu_torch.tools.driftref --synthetic --rows 20000 --seed 7 --out ref.json
 
 It walks a ledger directory (``serve/ledger.py``), folds every decision's
 feature snapshot, score and action into the drift sketch (``obs/drift.py``
@@ -15,9 +16,10 @@ minted from a WAL the port wrote loads in both packages.
 
 ``--verify`` mints from the ledger, round-trips the reference through save
 and load, and checks that its self-PSI is about 0.
-``--synthetic`` (minting from the labeled generator) needs
-``train/fraudgen.py``, which comes with Queue 1 item 9 (``ROADMAP.md``):
-until then it raises NotImplementedError.
+``--synthetic`` mints from the labeled generator (``train/fraudgen.py``)
+scored through the stock mock ensemble, as the JAX tool does: the bring-up
+path when no ledger history exists yet. It scores on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -87,6 +89,37 @@ def sketch_from_ledger(directory: str, max_rows: int = 500_000,
     return vec, cal, stats
 
 
+def sketch_from_synthetic(rows: int, seed: int,
+                          device: str = "cuda") -> tuple[np.ndarray, np.ndarray, dict]:
+    """(sketch vector, calibration, stats) of the labeled generator's rows
+    scored through the stock mock ensemble on ``device``: real scores and
+    actions, not placeholders."""
+    import torch
+
+    from igaming_platform_tpu_torch.core.config import ScoringConfig
+    from igaming_platform_tpu_torch.core.device import resolve_device
+    from igaming_platform_tpu_torch.models.ensemble import make_score_fn
+    from igaming_platform_tpu_torch.train.fraudgen import generate_labeled
+
+    dev = resolve_device(device)
+    x, y, _kind = generate_labeled(np.random.default_rng(seed), rows)
+    cfg = ScoringConfig()
+    fn = make_score_fn(cfg, "mock", device=dev)
+    thresholds = torch.tensor([cfg.block_threshold, cfg.review_threshold], dtype=torch.int32,
+                              device=dev)
+    out = fn(None, torch.from_numpy(x).to(dev), torch.zeros(rows, dtype=torch.bool, device=dev),
+             thresholds)
+    scores = out["score"].cpu().numpy().astype(np.int64)
+    actions = out["action"].cpu().numpy().astype(np.int64)
+    vec = drift_mod.np_sketch(x, scores, actions)
+    cal = np.zeros((drift_mod.N_SCORE_BINS, 2), np.float64)
+    sbin = np.clip(scores // drift_mod.SCORE_BIN_WIDTH, 0, drift_mod.N_SCORE_BINS - 1)
+    cal[:, 0] = np.bincount(sbin, minlength=drift_mod.N_SCORE_BINS)
+    cal[:, 1] = np.bincount(sbin, weights=np.asarray(y, np.float64),
+                            minlength=drift_mod.N_SCORE_BINS)
+    return vec, cal, {"rows": rows, "seed": seed, "source": "synthetic"}
+
+
 def mint(directory: str, max_rows: int = 500_000):
     """(the reference minted from a ledger directory, its sketch vector,
     the mint's stats)."""
@@ -123,7 +156,10 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--ledger", help="decision-ledger directory to mint from")
     ap.add_argument("--synthetic", action="store_true",
-                    help="mint from the labeled synthetic generator (not ported yet)")
+                    help="mint from the labeled synthetic generator")
+    ap.add_argument("--rows", type=int, default=20_000, help="synthetic rows (with --synthetic)")
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--device", default="cuda", help="where --synthetic scores (cuda or cpu)")
     ap.add_argument("--max-rows", type=int, default=500_000,
                     help="newest-N cap when minting from a large ledger")
     ap.add_argument("--out", default="drift-ref.json")
@@ -132,8 +168,13 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     if args.synthetic:
-        raise NotImplementedError(
-            "--synthetic needs train/fraudgen.py, not ported yet (ROADMAP.md Queue 1 item 9)")
+        vec, cal, stats = sketch_from_synthetic(args.rows, args.seed, args.device)
+        ref = drift_mod.DriftReference.from_sketch(
+            vec, source=f"synthetic:rows={args.rows}:seed={args.seed}",
+            calibration=cal if cal[:, 0].sum() > 0 else None)
+        ref.save(args.out)
+        print(json.dumps({"ok": True, "out": args.out, "reference": ref.meta(), "stats": stats}))
+        return 0
     if not args.ledger:
         ap.error("need --ledger DIR")
     if args.verify:

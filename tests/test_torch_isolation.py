@@ -1,8 +1,8 @@
 """The port stands alone: no module of igaming_platform_tpu_torch, and not
-chip_smoke.py, imports jax, flax, grpc, protobuf, the JAX package or the
-repository's ``tools`` (``tools/export_params_npz.py`` converts JAX
-checkpoints on the JAX side; it lives outside the port and imports nothing
-of it).
+chip_smoke.py, imports jax, flax, optax, orbax, ml_dtypes, msgpack, grpc,
+protobuf, the JAX package or the repository's ``tools``
+(``tools/export_params_npz.py`` converts JAX checkpoints on the JAX side;
+it lives outside the port and imports nothing of it).
 
 One exception: ``serve/grpc_server.py`` imports ``grpc`` inside the body of
 ``serve_risk`` and ``make_risk_stub``, the optional gRPC binding, which only
@@ -24,7 +24,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "igaming_platform_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "grpc", "google.protobuf", "igaming_platform_tpu", "tools")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "msgpack", "grpc",
+             "google.protobuf", "igaming_platform_tpu", "tools")
 
 
 def _forbidden(module: str) -> bool:
@@ -71,6 +72,8 @@ def test_matcher():
     assert _forbidden("google.protobuf.message") and _forbidden("grpc")
     assert not _forbidden("igaming_platform_tpu_torch.serve") and not _forbidden("jaxtyping_x")
     assert _forbidden("tools.export_params_npz")
+    assert _forbidden("optax") and _forbidden("orbax.checkpoint") and _forbidden("ml_dtypes")
+    assert _forbidden("msgpack") and not _forbidden("optaxish")
     assert not _forbidden("igaming_platform_tpu_torch.tools.replay")
 
 
@@ -106,6 +109,7 @@ def test_importing_every_module_loads_none_of_them():
                           text=True, timeout=120, check=True)
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     for m in ("serve.scorer", "serve.device_cache", "serve.session_state", "serve.wire",
-              "serve.grpc_server", "serve.server", "serve.ltv_job", "models.ltv", "ops.dense"):
+              "serve.grpc_server", "serve.server", "serve.ltv_job", "models.ltv", "ops.dense",
+              "train.trainer", "train.checkpoint", "train.online", "train.eval"):
         assert f"igaming_platform_tpu_torch.{m}" in loaded, m
     assert not [m for m in loaded if _forbidden(m)]

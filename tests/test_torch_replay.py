@@ -253,5 +253,9 @@ def test_driftref_from_port_wal_loads_in_both(tmp_path):
     assert driftref.main(["--ledger", d, "--verify"]) == 0
     fp = pdrift.DriftReference.load(out).fingerprint()
     assert jdrift.DriftReference.load(out).fingerprint() == fp
-    with pytest.raises(NotImplementedError):
-        driftref.main(["--synthetic"])
+    # --synthetic mints from the labeled generator (held to the JAX tool's
+    # file in tests/test_torch_online.py); its reference loads in both.
+    syn = str(tmp_path / "syn.json")
+    assert driftref.main(["--synthetic", "--rows", "512", "--device", "cpu", "--out", syn]) == 0
+    assert jdrift.DriftReference.load(syn).fingerprint() == \
+        pdrift.DriftReference.load(syn).fingerprint()
