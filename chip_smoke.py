@@ -245,7 +245,7 @@ GRAD_TOL = 2e-4  # rtol and atol of gradients: the JAX tests' bar, float32 sums 
 ABUSE_CFG = dict(d_model=64, n_heads=2, n_layers=2, d_ff=128)
 CONFIG3_CFG = dict(d_model=128, n_heads=2, n_layers=2, d_ff=256)
 CONFIG3_POINTS = ((64, 256), (8, 2048), (2, 8192))  # (batch, S)
-ABUSE_ACCOUNTS, ABUSE_MAX_EVENTS = 2_000, 64
+ABUSE_ACCOUNTS, ABUSE_MAX_EVENTS = 1_600, 64  # the drain sets most of the script's time
 ABUSE_BATCH, ABUSE_CHECKS, ABUSE_LATENCY = 256, 200, 1000
 ABUSE_ATOL = 1e-4  # card against CPU detector: float32 through two layers, sums reordered
 STREAM_T0 = 1_700_000_000.0
@@ -2577,7 +2577,8 @@ def drive_index(svc, cpu_svc, engine, frames, threshold, what, scorer, wire, cod
     n_large = sum(large for _, _, large in frames)
     for t, frame, large in frames:
         STORE_CLOCK[0] = t
-        timer = RpcSplit(engine, scorer, wire) if large and len(large_s) == n_large - 1 else None
+        timer = (RpcSplit(getattr(engine, "inner", engine), scorer, wire)
+                 if large and len(large_s) == n_large - 1 else None)
         start = time.perf_counter()
         if timer is None:
             out = svc.call("ScoreBatch", frame)
@@ -4406,6 +4407,472 @@ def phase_online(torch, card: str, dense_mod, gbdt_kernel, store, device: str = 
     return result
 
 
+# Phase 13: the operations plane on phase 7's store.
+PLANE_MIX_SINGLES, PLANE_MIX_BATCHES, PLANE_MIX_LTV, PLANE_MIX_ABUSE = 40, 3, 3, 10
+PLANE_SINGLES = 500  # ScoreTransaction latency under bulk load
+PLANE_TURN_BATCHES, PLANE_TURN_SINGLES = 5, 100  # a turn of the plane's cost
+PLANE_WATCHDOG_S = 2.0  # the drill's watchdog (the default, DEVICE_STEP_DEADLINE_S, is 30 s)
+PLANE_WEDGE_MS = 3000  # the drill's stalled readbacks: the collect, its hedge, the rebuild's first
+PLANE_DEGRADED = 8  # ScoreTransactions answered while the engine rebuilds
+PLANE_PROFILE_S = 1.0
+PLANE_ANNOTATE_ROWS = 4096
+
+
+def http_text(port: int, path: str) -> tuple[int, str]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def exposition(text: str) -> dict[str, float]:
+    """Prometheus text -> {sample with its labels: value}, exemplars dropped."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.split(" # ")[0].rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+def plane_assembly(server, config, tree, store, abuse_params, device: str, env: dict):
+    """``assemble_risk_service`` as a user boots it, under ``env`` (the
+    process's environment restored after)."""
+    from igaming_platform_tpu_torch.convert import from_jax_params
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return server.assemble_risk_service(
+            config, ml_backend="mlp+gbdt", params=from_jax_params("mlp+gbdt", tree),
+            feature_store=store, abuse_params=abuse_params, device=device)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bulk_traffic(svc, rpc_error, batches: list, stop) -> dict:
+    """ScoreBatch RPCs back to back until ``stop`` is set, a shed honouring
+    its ``grpc-retry-pushback-ms`` as a client would: RPCs answered and
+    shed."""
+    out = {"rpcs": 0, "sheds": 0}
+    i = 0
+    while not stop.is_set():
+        try:
+            svc.call("ScoreBatch", batches[i % len(batches)])
+            out["rpcs"] += 1
+        except rpc_error as exc:
+            out["sheds"] += 1
+            stop.wait(float(dict(exc.trailing).get("grpc-retry-pushback-ms", 250)) / 1e3)
+        i += 1
+    return out
+
+
+def timed_calls(svc, method: str, payloads: list, codes: dict | None = None) -> list[float]:
+    """Milliseconds of each answered call; every call's status code counted
+    in ``codes`` by (method, code), sheds included."""
+    from igaming_platform_tpu_torch.serve.grpc_server import RpcAbort
+
+    ms = []
+    for payload in payloads:
+        t = time.perf_counter()
+        try:
+            svc.call(method, payload)
+            code = "OK"
+            ms.append((time.perf_counter() - t) * 1e3)
+        except RpcAbort as exc:
+            code = exc.code.name
+        if codes is not None:
+            codes[(method, code)] = codes.get((method, code), 0) + 1
+    return ms
+
+
+def plane_drill(torch, svc, engine, store, codec, singles, batch, gbdt_kernel, dense_mod,
+                device: str) -> dict:
+    """The supervisor drill on the default assembly: stalled readbacks
+    (``device.readback`` wedges, a host-side stall: the card stays healthy)
+    trip the watchdog; the answers while the engine rebuilds (its first
+    warm-up readback stalled too) are the heuristic tier's on the same rows;
+    the rebuild's warm-up launches the forest and dense kernels; the breaker
+    closes."""
+    from igaming_platform_tpu_torch.serve import chaos, grpc_server, supervisor
+    from igaming_platform_tpu_torch.serve.scorer import ScoreRequest
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated() if cuda else 0
+    gbdt_kernel.gbdt_forest.launches = 0
+    dense_mod.dense.launches = 0
+    sup = engine.supervisor
+    # A short watchdog for the drill alone: under full load a host stall (a
+    # profiler's trace export) can hold a step past 2 s without a fault.
+    watchdog, engine._watchdog_s = engine._watchdog_s, PLANE_WATCHDOG_S
+    if sup.state != supervisor.SERVING:
+        raise AssertionError(f"drill: the supervisor is {sup.snapshot()} before the fault")
+    # Three stalled readbacks: the batch's collect and its hedge, then the
+    # rebuild's first warm-up step, so the degraded tier answers while the
+    # device is still stalled (a rebuild on a healthy card takes a fraction
+    # of a second).
+    chaos.install(f"seed=13;device.readback=wedge:p=1.0:ms={PLANE_WEDGE_MS}:count=3")
+    t_trip = time.perf_counter()
+    try:
+        svc.call("ScoreTransaction", singles[0][1])
+        raise AssertionError("drill: a wedged readback answered")
+    except grpc_server.RpcAbort as exc:
+        if exc.code.name != "UNAVAILABLE" or dict(exc.trailing).get(
+                "grpc-retry-pushback-ms") is None:
+            raise AssertionError(f"drill: {exc.code.name} {exc.trailing}") from exc
+    tripped_s = time.perf_counter() - t_trip
+    if sup.breaker("device").state == supervisor.CLOSED:
+        raise AssertionError("drill: the device breaker did not open")
+    # A ScoreBatch while the circuit is open: the heuristic tier on the
+    # rows the store decodes and gathers.
+    x, bl = store.decode_gather(batch)
+    want = supervisor.heuristic_scores(x, bl, engine.get_thresholds())
+    _, got = response_columns(codec, engine.score_batch_wire_bytes(batch)[0])
+    if engine.rebuilds == 0 and not all(np.array_equal(got[k], want[k]) for k in (
+            "score", "action", "rule_score", "reason_mask", "ml_score")):
+        raise AssertionError("drill: the degraded ScoreBatch is not the heuristic tier's")
+    # Degraded answers, each against the heuristic tier on the same rows.
+    thresholds = engine.get_thresholds()
+    degraded = int(engine.rebuilds == 0)
+    for fields, payload in singles[1:1 + PLANE_DEGRADED]:
+        got = codec.decode(codec.SCORE_TRANSACTION_RESPONSE, svc.call("ScoreTransaction",
+                                                                       payload))
+        if "DEGRADED_CPU_HEURISTIC" not in got["reason_codes"]:
+            continue  # the rebuild finished first
+        x, bl = store.gather_batch([ScoreRequest(
+            account_id=fields["account_id"], amount=fields["amount"],
+            tx_type=fields["transaction_type"], ip=fields["ip_address"],
+            device_id=fields["device_id"])])
+        want = supervisor.heuristic_scores(x, bl, thresholds)
+        if (got["score"], got["action"], got["rule_score"]) != (
+                int(want["score"][0]), int(want["action"][0]), int(want["rule_score"][0])) \
+                or np.float32(got["ml_score"]) != want["ml_score"][0]:
+            raise AssertionError(f"drill: degraded answer {got} is not the heuristic's {want}")
+        degraded += 1
+    if degraded == 0:
+        raise AssertionError("drill: no degraded answer while the engine rebuilt")
+    deadline = time.monotonic() + 60
+    while engine.rebuilds < 1 and time.monotonic() < deadline:
+        time.sleep(0.02)
+    if engine.rebuilds != 1:
+        raise AssertionError(f"drill: {engine.rebuilds} rebuilds")
+    rebuilt_s = time.perf_counter() - t_trip
+    chaos.clear()
+    probes, close_by = 0, time.monotonic() + 20
+    while sup.breaker("device").state != supervisor.CLOSED and time.monotonic() < close_by:
+        # Each probe on another account: one account's calls meet its rate limit.
+        svc.call("ScoreTransaction", singles[1 + PLANE_DEGRADED + probes % (
+            len(singles) - 1 - PLANE_DEGRADED)][1])
+        probes += 1
+        time.sleep(0.01)
+    closed_s = time.perf_counter() - t_trip
+    engine._watchdog_s = watchdog
+    if sup.breaker("device").state != supervisor.CLOSED or sup.state != supervisor.SERVING:
+        raise AssertionError(f"drill: after {probes} probes {sup.snapshot()}, probes out "
+                             f"{sup.breaker('device')._probes_out}")
+    if cuda:
+        torch.cuda.synchronize()
+    forest, dense = gbdt_kernel.gbdt_forest.launches, dense_mod.dense.launches
+    return {"tripped_s": tripped_s, "rebuilt_s": rebuilt_s, "trip_to_closed_s": closed_s,
+            "degraded_answers": degraded, "probes": probes, "forest_launches": forest,
+            "dense_launches": dense, "rebuilds": engine.rebuilds,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20 if cuda else None,
+            "before_mib": mem0 / 2**20, "supervisor": sup.snapshot()["state"]}
+
+
+def phase_plane(torch, card: str, gbdt_kernel, fa, dense_mod, store, device: str = "cuda") -> dict:
+    """Phase 13, on phase 7's store: the risk server assembled as a user boots
+    it (supervisor, SLO engine, deadline plane, drift; ``mlp+gbdt`` and the
+    detector; ``DEVICE_STEP_DEADLINE_S`` short for the drill) behind the HTTP
+    sidecar. The RPC mix, then ``/metrics``: the request counters by method
+    and code equal the RPCs sent, the ``risk_score`` count the rows scored,
+    one flight entry a root. A ``risk-deadline-ms: 0`` call sheds, counted;
+    ScoreTransaction latency under 16,384-row ScoreBatch load; the
+    supervisor drill; ``/debug/profilez`` under traffic; the plane's cost,
+    the default assembly against ``SUPERVISOR=0 SLO=0`` in turns, and a
+    4096-row step's device time with and without ``annotate``. Every part
+    logs its line as it ends.
+    ``device="cpu"`` rehearses it without a card (the launch and profiler
+    checks then skipped)."""
+    import threading
+
+    from igaming_platform_tpu_torch.convert import from_jax_params, sequence_from_tree
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.models.sequence import SeqConfig
+    from igaming_platform_tpu_torch.obs import flight, tracing
+    from igaming_platform_tpu_torch.obs.perfmodel import device_step_time
+    from igaming_platform_tpu_torch.serve import grpc_server, scorer, server
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    rng = np.random.default_rng(130)
+    tree = server_tree(22)
+    seq_cfg = SeqConfig(**ABUSE_CFG)
+    abuse_tree = seq_tree(rng, ABUSE_CFG)
+    config = RiskServiceConfig(batcher=BatcherConfig(
+        batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0))
+    # The plane off first: its SLO=0 uninstalls the process's SLO engine,
+    # which the default assembly then installs.
+    off = plane_assembly(server, config, tree, store, sequence_from_tree(abuse_tree, seq_cfg),
+                         device, {"SUPERVISOR": "0", "SLO": "0"})
+    on = plane_assembly(server, config, tree, store, sequence_from_tree(abuse_tree, seq_cfg),
+                        device, {})
+    srv = server.RiskServer(on, grpc_port=-1, http_port=0)
+    svc, engine, det = on.service, on.engine, on.abuse
+    cpu = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=from_jax_params("mlp+gbdt", tree),
+                                    batcher_config=config.batcher, feature_store=store,
+                                    device="cpu", warmup=False)
+    stop = threading.Event()
+    try:
+        fields = server_requests(codec, rng, PLANE_SINGLES + PLANE_MIX_SINGLES + 64)
+        singles = [(f, codec.encode(codec.SCORE_TRANSACTION_REQUEST, f)) for f in fields]
+        batches = [codec.encode(codec.SCORE_BATCH_REQUEST, {
+            "transactions": server_requests(codec, rng, SERVER_BATCH_ROWS)}) for _ in range(4)]
+        ltv = [codec.encode(codec.PREDICT_LTV_REQUEST, {"account_id": f"acct{a}"})
+               for a in rng.integers(0, SERVER_ACCOUNTS, PLANE_MIX_LTV)]
+        segment = [codec.encode(codec.GET_PLAYER_SEGMENT_REQUEST, {"account_id": f"acct{a}"})
+                   for a in rng.integers(0, SERVER_ACCOUNTS, PLANE_MIX_LTV)]
+        checked = [f"acct{a}" for a in rng.integers(0, SERVER_ACCOUNTS, PLANE_MIX_ABUSE)]
+        for acct in checked:
+            for i in range(int(rng.integers(5, 64))):
+                det.record_event(acct, int(rng.integers(500, 200_000)), "bet",
+                                 device_id=f"dev{rng.integers(0, 300_000)}",
+                                 timestamp=SERVER_NOW - 3600.0 + 30.0 * i)
+        abuse = [codec.encode(codec.CHECK_BONUS_ABUSE_REQUEST, {"account_id": a}) for a in checked]
+        inner = engine.inner
+        for e in (engine, off.engine):  # the pipelines' first build, off the counts and SLO
+            e.score_batch_wire_bytes(batches[0])
+        if cuda:
+            torch.cuda.synchronize()
+
+        # The plane's cost, off, on, on, off: ScoreBatch turns first, before
+        # any interactive call arms the burn-shed gate, then ScoreTransaction
+        # turns.
+        turns = []
+        for name in ("off", "on", "on", "off"):
+            tsvc = off.service if name == "off" else svc
+            codes: dict = {}
+            bs = [SERVER_BATCH_ROWS / ms * 1e3 for ms in timed_calls(
+                tsvc, "ScoreBatch", batches[:1] * PLANE_TURN_BATCHES, codes)]
+            turns.append({"plane": name, "rows_per_s": bs,
+                          "median_rows_per_s": statistics.median(bs) if bs else None,
+                          "sheds": sum(n for (_, c), n in codes.items() if c != "OK")})
+        for turn in turns:
+            tsvc = off.service if turn["plane"] == "off" else svc
+            st = timed_calls(tsvc, "ScoreTransaction",
+                             [p for _, p in singles[1:1 + PLANE_TURN_SINGLES]])
+            turn["st_p99_ms"] = float(np.percentile(st, 99))
+
+        annotate = {}
+        if cuda:
+            # The step alone on device inputs: the score function and the
+            # packed result, as ``_enqueue`` runs it.
+            xs, bls = store.decode_gather(batches[3])
+            params, thr = inner.get_params(), inner.thresholds_snapshot()[0]
+            xd = torch.from_numpy(xs[:PLANE_ANNOTATE_ROWS]).to(device)
+            bld = torch.from_numpy(bls[:PLANE_ANNOTATE_ROWS]).to(device)
+
+            def plain():
+                with torch.inference_mode():
+                    scorer._stack_packed(inner._score_fn(params, xd, bld, thr))
+
+            def annotated():
+                with tracing.annotate("score_step"), torch.inference_mode():
+                    scorer._stack_packed(inner._score_fn(params, xd, bld, thr))
+
+            # Events around launches queued behind a sleep kernel: the device
+            # time, not the host's enqueue of about 90 launches.
+            with torch.cuda.stream(inner.stream):
+                for name, fn in (("plain", plain), ("annotate", annotated),
+                                 ("annotate", annotated), ("plain", plain)):
+                    annotate.setdefault(name, []).append(device_ms(torch, fn))
+            annotate["host_enqueue_bound"] = device_step_time(plain, stream=inner.stream) * 1e3
+
+        log(f"phase 13: [{card}] the plane's cost in turns: " + "; ".join(
+            f"{t['plane']} {t['median_rows_per_s']} rows/s ({t['sheds']} shed), ST p99 "
+            f"{t['st_p99_ms']:.3f} ms" for t in turns)
+            + f"; 4096-row step device ms {json.dumps(annotate)}")
+
+        # The RPC mix, its counts set to 0 just before and read just after.
+        mix_singles = singles[-PLANE_MIX_SINGLES:]
+        gbdt_kernel.gbdt_forest.launches = 0
+        dense_mod.dense.launches = 0
+        fa.flash_attention_fwd.launches = 0
+        before = exposition(http_text(srv.http_port, "/metrics")[1])
+        flight.DEFAULT_RECORDER.clear()
+        steps0, fwd0 = engine.device_steps, det.device_steps
+        sent: dict = {}
+        timed_calls(svc, "ScoreTransaction", [p for _, p in mix_singles], sent)
+        timed_calls(svc, "ScoreBatch", batches[:PLANE_MIX_BATCHES], sent)
+        timed_calls(svc, "PredictLTV", ltv, sent)
+        timed_calls(svc, "GetPlayerSegment", segment, sent)
+        timed_calls(svc, "CheckBonusAbuse", abuse, sent)
+        if cuda:
+            torch.cuda.synchronize()
+        mix_launches = {"forest": gbdt_kernel.gbdt_forest.launches,
+                        "dense": dense_mod.dense.launches,
+                        "attention": fa.flash_attention_fwd.launches,
+                        "device_steps": engine.device_steps - steps0,
+                        "forwards": det.device_steps - fwd0}
+        status, text = http_text(srv.http_port, "/metrics")
+        after = exposition(text)
+
+        def delta(key: str) -> float:
+            return after.get(key, 0.0) - before.get(key, 0.0)
+
+        rows = (sent.get(("ScoreTransaction", "OK"), 0)
+                + sent.get(("ScoreBatch", "OK"), 0) * SERVER_BATCH_ROWS)
+        for (method, code), n in sent.items():
+            got = delta(f'risk_grpc_requests_total{{code="{code}",method="{method}"}}')
+            if got != n:
+                raise AssertionError(f"plane: {method} {code} counted {got}, sent {n}")
+        if delta("risk_risk_score_count") != rows or delta("risk_txns_scored_total") != rows:
+            raise AssertionError(f"plane: risk_score counted {delta('risk_risk_score_count')}, "
+                                 f"{rows} rows scored")
+        entries = flight.DEFAULT_RECORDER.snapshot()
+        if len(entries) != sum(sent.values()) or {e["method"] for e in entries} != {
+                m for m, _ in sent}:
+            raise AssertionError(f"plane: {len(entries)} flight entries for "
+                                 f"{sum(sent.values())} roots")
+        breakdown = flight.stage_breakdown(entries, "ScoreBatch")
+        if cuda and (mix_launches["forest"] != mix_launches["device_steps"]
+                     or mix_launches["forest"] == 0
+                     or mix_launches["dense"] != len(tree["mlp"]["layers"]) * mix_launches[
+                         "device_steps"]
+                     or mix_launches["attention"] != seq_cfg.n_layers * mix_launches["forwards"]
+                     or mix_launches["attention"] == 0):
+            raise AssertionError(f"plane: launches {mix_launches}")
+
+        stages = breakdown.get("stages", {})
+        mix_sent = {f"{m} {c}": n for (m, c), n in sent.items()}
+        log(f"phase 13: [{card}] RPC mix {json.dumps(mix_sent)}: /metrics counters "
+            "equal the RPCs sent by method and code, "
+            f"risk_score counted {rows} rows, {len(entries)} flight entries; ScoreBatch stage p50 "
+            "(ms): " + ", ".join(f"{k} {v.get('p50_ms')}" for k, v in sorted(stages.items())))
+
+        # Deadlines: a spent budget sheds at admission, counted.
+        expired0 = exposition(http_text(srv.http_port, "/metrics")[1]).get(
+            'risk_deadline_expired_total{stage="admission"}', 0.0)
+        try:
+            svc.call("ScoreTransaction", singles[0][1], (("risk-deadline-ms", "0"),))
+            raise AssertionError("plane: a spent deadline was scored")
+        except grpc_server.RpcAbort as exc:
+            if exc.code.name != "DEADLINE_EXCEEDED" or not exc.shed:
+                raise AssertionError(f"plane: a spent deadline answered {exc.code.name}") from exc
+        expired = exposition(http_text(srv.http_port, "/metrics")[1]).get(
+            'risk_deadline_expired_total{stage="admission"}', 0.0) - expired0
+        if expired != 1:
+            raise AssertionError(f"plane: {expired} admission sheds counted")
+
+        # ScoreTransaction under bulk load, and /debug/profilez under traffic.
+        hedged0, yields0 = inner._batcher.batches_hedged, inner.lane_gate.yields
+        bulk: dict = {}
+        bulk_thread = threading.Thread(target=lambda: bulk.update(bulk_traffic(
+            svc, grpc_server.RpcAbort, batches, stop)), daemon=True)
+        bulk_thread.start()
+        status, prof = http_call(srv.http_port, f"/debug/profilez?seconds={PLANE_PROFILE_S}")
+        if status != 200:
+            raise AssertionError(f"plane: profilez {status} {prof}")
+        kernels = prof["kernels"]
+        forest_events = sum(n for k, n in kernels.items() if "gbdt_forest_kernel" in k)
+        dense_events = sum(n for k, n in kernels.items() if "dense_fixed_kernel" in k)
+        if cuda and (forest_events == 0 or dense_events == 0):
+            raise AssertionError(f"plane: the profile caught {prof['kernel_events']} kernel "
+                                 f"events, forest {forest_events}, dense {dense_events}")
+        depths, st_ms = [], []
+        for i, (_, payload) in enumerate(singles[1:1 + PLANE_SINGLES]):
+            t = time.perf_counter()
+            svc.call("ScoreTransaction", payload)
+            st_ms.append((time.perf_counter() - t) * 1e3)
+            if i % 25 == 0:
+                depths.append(inner.deadline_snapshot()["lanes"])
+        stop.set()
+        bulk_thread.join(60)
+        stop.clear()
+        deadline_snap = inner.deadline_snapshot()
+        loaded = {"p50_ms": float(np.percentile(st_ms, 50)),
+                  "p99_ms": float(np.percentile(st_ms, 99)), "bulk": bulk,
+                  "max_lane_depth": {lane: max(d[lane] for d in depths) for lane in depths[0]},
+                  "batches_hedged": deadline_snap["batches_hedged"] - hedged0,
+                  "lane_gate_yields": deadline_snap["lane_gate_yields"] - yields0,
+                  "expired_shed": deadline_snap["expired_shed"],
+                  "dead_dispatched": deadline_snap["dead_dispatched"]}
+
+        log(f"phase 13: [{card}] risk-deadline-ms 0 shed as DEADLINE_EXCEEDED, counted; "
+            f"ScoreTransaction x{PLANE_SINGLES} under {SERVER_BATCH_ROWS}-row ScoreBatch load: p50 "
+            f"{loaded['p50_ms']:.3f} ms, p99 {loaded['p99_ms']:.3f} ms; bulk {json.dumps(bulk)}; "
+            f"max lane depths {json.dumps(loaded['max_lane_depth'])}; bulk dispatches that yielded "
+            f"to an interactive batch {loaded['lane_gate_yields']}; batches_hedged "
+            f"{loaded['batches_hedged']}")
+        log(f"phase 13: [{card}] /debug/profilez?seconds={PLANE_PROFILE_S} under traffic: "
+            f"{prof['kernel_events']} kernel events, gbdt_forest_kernel {forest_events}, "
+            f"dense_fixed_kernel {dense_events}")
+
+        # The supervisor drill; the first engine's answers kept to hold the
+        # rebuilt one's to.
+        _, first = response_columns(codec, engine.score_batch_wire_bytes(batches[2])[0])
+        drill = plane_drill(torch, svc, engine, store, codec, singles[-40:], batches[1],
+                            gbdt_kernel, dense_mod, device)
+        shapes = len(engine.inner._shapes)
+        if cuda and (drill["forest_launches"] < 2 * shapes
+                     or drill["dense_launches"] < 2 * shapes * len(tree["mlp"]["layers"])):
+            raise AssertionError(f"drill: the rebuild's warm-up launched {drill}")
+        # The rebuilt engine: bit-equal to the first engine on the card, and
+        # to the CPU twin as phase 7 holds the card to it (the forest's card
+        # sum is not bit-equal to the CPU's, PERF.md §6).
+        x, bl = store.decode_gather(batches[2])
+        want = {k: v.numpy() for k, v in cpu.score_arrays(x, bl).items()}
+        _, got = response_columns(codec, engine.score_batch_wire_bytes(batches[2])[0])
+        differing = sum(int((got[k] != first[k]).sum()) for k in ("score", "action", "rule_score",
+                                                                   "reason_mask"))
+        differing += int((got["ml_score"].view(np.int32) != first["ml_score"].view(np.int32)).sum())
+        if differing:
+            raise AssertionError(f"drill: {differing} values of the rebuilt engine's answers "
+                                 "differ from the first engine's")
+        drill["cpu_twin_boundary_rows"] = compare_columns(got, want, "drill")
+        log(f"phase 13: [{card}] drill: UNAVAILABLE with pushback after {drill['tripped_s']:.3f} s, "
+            f"{drill['degraded_answers']} degraded answers equal to heuristic_scores, rebuilt at "
+            f"{drill['rebuilt_s']:.3f} s (warm-up: {drill['forest_launches']} forest, "
+            f"{drill['dense_launches']} dense launches), breaker closed at "
+            f"{drill['trip_to_closed_s']:.3f} s; answers then bit-equal to the first engine's "
+            f"and within phase 7's tolerance of the CPU twin ({drill['cpu_twin_boundary_rows']} "
+            "floor-boundary rows not compared); peak "
+            f"device memory {drill['peak_mib']} MiB (before {drill['before_mib']:.1f})")
+
+    finally:
+        stop.set()
+        cpu.close()
+        srv.shutdown(grace=5.0)
+        off.engine.close()
+        off.service.close()
+    result = {"mix": {"sent": mix_sent,
+                      "launches": mix_launches, "rows": rows,
+                      "scoreBatch_stage_breakdown": breakdown},
+              "deadline": {"admission_sheds": expired, **loaded}, "drill": drill,
+              "profilez": {"kernel_events": prof["kernel_events"], "forest": forest_events,
+                           "dense": dense_events, "seconds": prof["seconds"]},
+              "turns": turns, "annotate_step_ms": annotate,
+              "forest_launches": mix_launches["forest"] + drill["forest_launches"],
+              "dense_launches": mix_launches["dense"] + drill["dense_launches"],
+              "attention_launches": mix_launches["attention"],
+              "seconds": time.perf_counter() - t_phase}
+    log(f"phase 13: {result['seconds']:.1f} s")
+    log("phase 13: " + json.dumps(result, default=str))
+    return result
+
+
 # Phase 7 alone in a fresh process of the checkout it runs in, printing one
 # "TURN " JSON line: for ``phase7_turns``.
 _PHASE7_TURN = r"""
@@ -4502,6 +4969,9 @@ def main() -> int:
     t0 = time.perf_counter()
     filled = (*fill_native_store(native_store, SERVER_NOW), time.perf_counter() - t0)
     server_run = phase_server(torch, card, gbdt_kernel, fa, filled)
+    # Phase 13: the operations plane, on the same store while the process is
+    # young (the profiler's capture is part of it).
+    plane_run = phase_plane(torch, card, gbdt_kernel, fa, dense_mod, filled[0])
     index_run = phase_index(torch, card, gbdt_kernel, fa, filled[0],
                             statistics.median(server_run["score_batch_rows_per_s"]))
     # Phase 9: the score step's variants (int8, drift, shadow), same store.
@@ -4540,6 +5010,7 @@ def main() -> int:
         "launches_ledger": (ledger_run["engine_l"]["forest_launches"]
                             + ledger_run["engine_a"]["forest_launches"]),
         "launches_distilled": online_run["forest_launches"],
+        "launches_plane": plane_run["forest_launches"],
         "shapes": rows,
     }, {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -4557,6 +5028,7 @@ def main() -> int:
         "launches_index": index_run["a"]["forward_launches"],
         "launches_variants": variants_run["session_engine"]["forward_launches"],
         "launches_ledger": ledger_run["engine_a"]["forward_launches"],
+        "launches_plane": plane_run["attention_launches"],
         "shapes": flash_rows,
     }, *({
         "name": f"flash_attention_bwd_{part}", "route": "cuda",
@@ -4581,6 +5053,7 @@ def main() -> int:
         "launches_engine": engine["dense_launches"],
         "launches_trained": trained_run["dense_launches"],
         "launches_train": online_run["dense_launches"],
+        "launches_plane": plane_run["dense_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in dense_rows if "max_abs_err" in r),
         "ms": dense_main["kernel_ms"], "plain_ms": dense_main["plain_ms"],
         "bound_ms": dense_main["bound_ms"], "bound_by": dense_main["bound_by"],

@@ -102,8 +102,7 @@ class BatcherConfig:
     # HOST_PIPELINE=0) keeps the lockstep per-RPC flow.
     host_pipeline: bool = True
     # Transient device failures: replay the in-flight batch this many times
-    # before failing its requests. Read by the batcher's retry path, which
-    # is not ported yet (ROADMAP.md).
+    # before failing its requests (serve/batcher.py's collect side).
     device_retries: int = 1
 
 

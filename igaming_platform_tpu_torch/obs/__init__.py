@@ -1,1 +1,2 @@
-"""obs of the PyTorch port: the drift observatory (see the package docstring)."""
+"""obs of the PyTorch port: metrics, tracing and the flight recorder, OTLP
+export, the SLO engine, the step-time model, and the drift observatory."""

@@ -28,8 +28,8 @@ it. The vector stays referenced by the queue until then.
 Histogram edges are fixed and scale-free: features bin by
 ``sign(v) * log1p(|v|)`` over [-2, 18] in 16 bins, scores in 20 bins of
 five points. The layout and ``EDGES_SPEC`` are the JAX package's, so
-``edges_fingerprint()`` is equal in both. Not ported yet: the
-``risk_drift_*`` metrics (``metrics=`` raises), the host profiler's thread
+``edges_fingerprint()`` is equal in both. A ``metrics=`` registry gets the
+``risk_drift_*`` families. Not ported yet: the host profiler's thread
 registration, ``fleet_drift_block`` and ``summary_block``.
 """
 
@@ -461,10 +461,8 @@ class DriftEngine:
 
     def __init__(self, config: DriftConfig | None = None, *, metrics=None,
                  clock: Callable[[], float] = time.monotonic):
-        if metrics is not None:
-            raise NotImplementedError("drift metrics need obs/metrics.py, not ported yet "
-                                      "(ROADMAP.md)")
         self.config = config or DriftConfig.from_env()
+        self._metrics = metrics
         self._clock = clock
         self.edges_fp = edges_fingerprint()
 
@@ -520,10 +518,14 @@ class DriftEngine:
             with self._cv:
                 if self._stopping or len(self._pending) >= self.config.queue_max:
                     self.rows_dropped += n
-                    return False
-                self._pending.append((sketch, int(n), self._clock(), ready))
-                self._cv.notify()
-            return True
+                    dropped = True
+                else:
+                    self._pending.append((sketch, int(n), self._clock(), ready))
+                    dropped = False
+                    self._cv.notify()
+            if self._metrics is not None and dropped:
+                self._metrics.drift_rows_total.inc(n, outcome="dropped")
+            return not dropped
         except Exception:  # noqa: BLE001 — drift accounting must never fail scoring
             return False
 
@@ -532,6 +534,8 @@ class DriftEngine:
         split path): counted, so coverage gaps are visible."""
         with self._cv:
             self.rows_skipped += n
+        if self._metrics is not None:
+            self._metrics.drift_rows_total.inc(n, outcome="skipped")
 
     def note_error(self) -> None:
         with self._cv:
@@ -620,6 +624,8 @@ class DriftEngine:
                     self.sketches_total += 1
                     self.rows_sketched += n
                     self._prune(bucket)
+                if self._metrics is not None:
+                    self._metrics.drift_rows_total.inc(n, outcome="sketched")
                 now = self._clock()
                 if int(now) != self._last_eval_sec:
                     self._last_eval_sec = int(now)
@@ -713,8 +719,10 @@ class DriftEngine:
             return
         with self._cv:
             active = self._alerts[kind]
+            fire = False
             if not active and value >= raise_thr:
                 self._alerts[kind] = True
+                fire = True
                 self._events.append({"t": round(now - self._started_at, 3), "kind": kind,
                                      "event": "raised", "value": round(value, 4),
                                      "threshold": raise_thr})
@@ -723,6 +731,11 @@ class DriftEngine:
                 self._events.append({"t": round(now - self._started_at, 3), "kind": kind,
                                      "event": "cleared", "value": round(value, 4),
                                      "threshold": clear_thr})
+            state = self._alerts[kind]
+        if self._metrics is not None:
+            self._metrics.drift_alert.set(1.0 if state else 0.0, kind=kind)
+            if fire:
+                self._metrics.drift_alerts_total.inc(kind=kind)
 
     def evaluate(self, now: float | None = None) -> dict:
         """Recompute window-versus-reference divergences and flip alert
@@ -745,6 +758,12 @@ class DriftEngine:
             out_metric = max(table["score_psi"], table["action_psi"])
             self._update_alert("score", out_metric, cfg.score_psi_alert,
                                0.5 * cfg.score_psi_alert, now)
+            if self._metrics is not None:
+                for name, row in table["features"].items():
+                    self._metrics.drift_psi.set(row["psi"], feature=name)
+                    self._metrics.drift_ks.set(row["ks"], feature=name)
+                self._metrics.drift_output_psi.set(table["score_psi"], dist="score")
+                self._metrics.drift_output_psi.set(table["action_psi"], dist="action")
         cal = self._cal_window(now)
         cal_outcomes = int(cal[:, 0].sum())
         err, curve = calibration_error(cal, ref.calibration if ref is not None else None)
@@ -755,12 +774,18 @@ class DriftEngine:
         }
         if err is not None and cal_outcomes >= cfg.cal_min_outcomes:
             self._update_alert("calibration", err, cfg.cal_alert, 0.5 * cfg.cal_alert, now)
+            if self._metrics is not None:
+                self._metrics.drift_calibration_error.set(err)
         sh = self._shadow_window(now)
         result["shadow"] = {
             "window_rows": int(sh[0]),
             "flip_rate": round(sh[1] / sh[0], 4) if sh[0] else 0.0,
             "score_delta_mean": round(sh[2] / sh[0], 4) if sh[0] else 0.0,
         }
+        if self._metrics is not None:
+            self._metrics.drift_window_rows.set(rows)
+            if sh[0]:
+                self._metrics.drift_shadow_divergence.set(sh[2] / sh[0])
         self._last_eval = result
         return result
 

@@ -4,10 +4,14 @@ The port's copy of ``igaming_platform_tpu/serve/chaos.py`` (pure Python,
 kept apart so the port imports nothing of the JAX package). A fault plan is
 a seed plus a list of (seam, fault) specs, injected at well-known choke
 points, so recovery behaviour becomes something tests assert. In the port
-the decision ledger fires ``ledger.append`` and ``ledger.sink``
-(``serve/ledger.py``), and ``CHAOS_PLAN`` is parsed for the replay tool's
-``--verify``; the other seams wait for the native store's chaos hooks and
-the supervisor (``ROADMAP.md``).
+the engine fires ``device.dispatch`` and ``device.readback``
+(``serve/scorer.py``; the host pipeline's readback worker reads back through
+it), both feature stores fire ``feature_store.gather``, and the decision
+ledger fires ``ledger.append`` and ``ledger.sink`` (``serve/ledger.py``);
+the supervisor (``serve/supervisor.py``) classifies what they raise.
+``CHAOS_PLAN`` is installed at the server's boot and parsed for the replay
+tool's ``--verify``; the fleet, AMQP and work-channel seams wait for their
+modules (``ROADMAP.md``).
 
 Seams (each a single ``chaos.fire(seam)`` call at the choke point):
 

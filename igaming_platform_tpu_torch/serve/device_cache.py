@@ -34,9 +34,10 @@ Semantics, as in the JAX package:
 The port writes the table in place where the JAX package rebinds a new
 array. Every device write goes on the engine's one CUDA stream, under its
 dispatch lock (``on_stream``), so a delta copy enqueued after a step runs
-after that step has read the old rows. The slot-sharded layout over a mesh
-(``parallel/state_sharding.py``) and the metrics sink are not ported yet:
-``mesh`` and ``metrics`` raise, ``shard_stats`` gives the unsharded answer.
+after that step has read the old rows. A ``metrics=`` registry
+(``bind_metrics``) gets the ``feature_cache_*`` families. The slot-sharded
+layout over a mesh (``parallel/state_sharding.py``) is not ported yet:
+``mesh`` raises, ``shard_stats`` gives the unsharded answer.
 """
 
 from __future__ import annotations
@@ -91,8 +92,6 @@ class DeviceFeatureCache:
         if mesh is not None:
             raise NotImplementedError(
                 "a slot-sharded feature cache over a mesh is not ported yet (ROADMAP.md)")
-        if metrics is not None:
-            raise NotImplementedError("cache metrics need obs/, not ported yet (ROADMAP.md)")
         self.device = resolve_device(device)
         self.capacity = int(capacity)
         self.features = feature_store
@@ -122,6 +121,7 @@ class DeviceFeatureCache:
         self.misses = 0
         self.evictions = 0
         self.deltas_applied = 0
+        self._metrics = metrics
 
         with self._on_stream():
             self.table = torch.zeros((self.capacity, NUM_FEATURES), dtype=torch.float32,
@@ -131,7 +131,32 @@ class DeviceFeatureCache:
     # -- metrics and surfaces -------------------------------------------------
 
     def bind_metrics(self, metrics: Any) -> None:
-        raise NotImplementedError("cache metrics need obs/, not ported yet (ROADMAP.md)")
+        """Attach a ServiceMetrics (``obs/metrics.py``); the counts so far
+        are flushed into it at once."""
+        if metrics is self._metrics:
+            return
+        self._metrics = metrics
+        with self._lock:
+            self._export_metrics(self.hits, self.misses, self.evictions, self.deltas_applied)
+
+    def _export_metrics(self, hits: int, misses: int, evicts: int, deltas: int) -> None:
+        """Caller holds the lock: the ``feature_cache_*`` counters' deltas,
+        the occupancy, and the one shard's occupancy and bytes."""
+        m = self._metrics
+        if m is None:
+            return
+        if hits:
+            m.feature_cache_hits_total.inc(hits)
+        if misses:
+            m.feature_cache_misses_total.inc(misses)
+        if evicts:
+            m.feature_cache_evictions_total.inc(evicts)
+        if deltas:
+            m.feature_cache_deltas_total.inc(deltas)
+        occupancy = self.capacity - self._free
+        m.feature_cache_occupancy.set(occupancy)
+        m.cache_shard_occupancy.set(occupancy, shard="0")
+        m.hbm_bytes.set(self.hbm_bytes(), shard="0", table="feature_cache")
 
     def stats(self) -> dict[str, int]:
         with self._lock:
@@ -232,6 +257,7 @@ class DeviceFeatureCache:
         idxs = np.empty((n,), dtype=np.int32)
         with self._lock:
             hits = misses = 0
+            evicts_before = self.evictions
             refresh: dict[str, int] = {}
             admitted: dict[str, int] = {}
             pinned: set[int] = set()
@@ -278,6 +304,7 @@ class DeviceFeatureCache:
                 self.session_hook(list(admitted), list(admitted.values()))
             self.hits += hits
             self.misses += misses
+            self._export_metrics(hits, misses, self.evictions - evicts_before, deltas)
         return idxs
 
     def contains(self, account_id: str) -> bool:

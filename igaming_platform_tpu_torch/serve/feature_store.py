@@ -32,6 +32,7 @@ from typing import Callable
 import numpy as np
 
 from igaming_platform_tpu_torch.core.features import F, NUM_FEATURES
+from igaming_platform_tpu_torch.serve import chaos
 from igaming_platform_tpu_torch.serve.hll import HyperLogLog
 
 SECONDS_1M = 60
@@ -305,6 +306,7 @@ class InMemoryFeatureStore:
         ``requests`` yields objects with account_id, amount, tx_type,
         device_id, fingerprint, ip attributes.
         """
+        chaos.fire("feature_store.gather")
         now = now or self._clock()
         reqs = list(requests)
         x = np.zeros((len(reqs), NUM_FEATURES), dtype=np.float32)

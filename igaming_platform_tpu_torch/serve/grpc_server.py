@@ -12,17 +12,35 @@ decoded and responses encoded by the port's own codec
 store and encoder, or, for an index-mode frame (``IDX1``), through the
 engine's device feature cache (``score_batch_wire_index``);
 ScoreTransaction's answer goes through the same native encoder. So the
-service needs no transport: ``call(method, payload)`` drives it directly, as
-``chip_smoke.py`` does on a machine without grpcio, and
-``call_with_trailing`` also returns the trailing metadata a handler set: a
-ScoreTransaction whose decision a ledger noted carries
-``("risk-decision-id", id)``, the key a label backfill joins on.
+service needs no transport: ``call(method, payload, metadata=())`` drives it
+directly, as ``chip_smoke.py`` does on a machine without grpcio, with the
+invocation metadata a client would send (``risk-deadline-ms``,
+``traceparent``), and ``call_with_trailing`` also returns the trailing
+metadata a handler set: a ScoreTransaction whose decision a ledger noted
+carries ``("risk-decision-id", id)``, the key a label backfill joins on, and
+a shed carries ``("grpc-retry-pushback-ms", ...)``.
+
+Every RPC runs inside the JAX service's wrapper: a root span ``rpc.<Method>``
+parented by the caller's ``traceparent`` (stage spans nest under it and the
+flight recorder, ``obs/flight.py``, keeps the completed root), the
+supervisor's ``serving_state`` on it, ``observe_rpc`` with the status code,
+and sheds (deadline, queue, burn, bulk) marked so the SLO engine
+(``obs/slo.py``, installed unless ``SLO=0``) keeps them out of the error
+budget. ScoreTransaction is admitted with its deadline (``risk-deadline-ms``,
+else ``DEADLINE_DEFAULT_MS``, else ``SLO_OBJECTIVE_MS``; a spent one sheds
+as DEADLINE_EXCEEDED) and scored through the engine's deadline scheduler;
+ScoreBatch also sheds while the SLO's fast window burns
+(``serve/deadline.BurnShedGate``). The supervisor's ``DeviceWedgedError``
+and ``ServingUnavailable`` answer UNAVAILABLE with the pushback trailer. The
+service's ``ServiceMetrics`` (``metrics=``, else its own) is bound to the
+engine's score histogram, cache, session, pipeline and supervisor, to the
+batcher's queue and deadline hooks and to the span sink.
 
 PredictLTV and GetPlayerSegment score one account's 25 LTV features, from
 the ``ltv_source`` callable (zeros when it has none), through
-``models/ltv.py`` on the engine's device, as the JAX handlers do; the JAX
-service's background lane turn and its ``ltv_segment_total`` counter wait
-for the port's lane gate and metrics (``ROADMAP.md``).
+``models/ltv.py`` on the engine's device, as the JAX handlers do, each after
+a background turn of the engine's dispatch lane gate; PredictLTV counts
+``ltv_segment_total``.
 
 ``serve_risk`` binds it to grpcio with identity (de)serializers, and
 ``make_risk_stub`` gives a bytes-in, bytes-out client; ``serve_risk`` is the
@@ -31,9 +49,9 @@ one place the port imports ``grpc``, inside its body.
 As in the JAX package, the service installs the process's drift engine
 (``obs/drift.py``) and binds it to the engine unless ``DRIFT=0``: every
 batch the engine scores is then sketched. ``close()`` unbinds, closes and
-uninstalls it. Not ported yet: deadline admission, the burn-shed gate, the
-supervisor, the flight recorder, metrics and tracing, reflection and the
-wallet service (``ROADMAP.md``).
+uninstalls it, and uninstalls the SLO engine it installed. Not ported yet:
+reflection, the runtime telemetry and host profiler, and the wallet service
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -46,16 +64,37 @@ import time
 
 import numpy as np
 
-from igaming_platform_tpu_torch.core.enums import REASON_BIT_ORDER
+from igaming_platform_tpu_torch.core.enums import REASON_BIT_ORDER, ReasonCode
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES, F, FeatureVector
 from igaming_platform_tpu_torch.models import ltv as ltv_mod
 from igaming_platform_tpu_torch.obs import drift as drift_mod
+from igaming_platform_tpu_torch.obs import flight as flight_mod
+from igaming_platform_tpu_torch.obs import slo as slo_mod
+from igaming_platform_tpu_torch.obs import tracing
+from igaming_platform_tpu_torch.obs.metrics import ServiceMetrics
+from igaming_platform_tpu_torch.obs.tracing import span
+from igaming_platform_tpu_torch.serve import deadline as deadline_mod
 from igaming_platform_tpu_torch.serve import risk_codec as codec
 from igaming_platform_tpu_torch.serve.abuse import AbuseShed
+from igaming_platform_tpu_torch.serve.deadline import (
+    LANE_BACKGROUND,
+    BurnShedGate,
+    DeadlineExpired,
+    QueueFullError,
+)
 from igaming_platform_tpu_torch.serve.scorer import ScoreRequest
+from igaming_platform_tpu_torch.serve.supervisor import (
+    RETRY_PUSHBACK_MS,
+    DeviceWedgedError,
+    ServingUnavailable,
+)
 from igaming_platform_tpu_torch.serve.wire import INDEX_WIRE_MAGIC, RawProtoMessage
 
 logger = logging.getLogger(__name__)
+
+# The flight recorder is always on: every completed rpc.* root lands in its
+# bounded ring (/debug/flightz).
+flight_mod.install()
 
 # The risk.v1 methods the binding registers: all ten.
 RISK_SERVICE = "risk.v1.RiskService"
@@ -87,24 +126,56 @@ class StatusCode(enum.Enum):
     UNAUTHENTICATED = 16
 
 
-class _TrailingCollector:
-    """The part of a grpcio servicer context a handler uses here: it
-    collects the trailing metadata for ``call_with_trailing``."""
+class CallContext:
+    """The part of a grpcio servicer context a handler uses, for calls
+    without a transport: the invocation metadata in, the trailing metadata
+    out, no transport deadline (``time_remaining`` is None)."""
 
-    def __init__(self):
+    def __init__(self, metadata=()):
+        self._metadata = tuple(metadata)
         self.trailing: tuple[tuple[str, str], ...] = ()
+
+    def invocation_metadata(self):
+        return self._metadata
+
+    def time_remaining(self):
+        return None
 
     def set_trailing_metadata(self, pairs) -> None:
         self.trailing = tuple(pairs)
 
 
 class RpcAbort(Exception):
-    """Typed abort raised inside handlers; the binding maps it to a status."""
+    """Typed abort raised inside handlers; the binding maps it to a status.
+    ``trailing`` metadata (the ``grpc-retry-pushback-ms`` hint of a shed)
+    goes out with it; ``shed`` marks deliberate backpressure, which the SLO
+    engine keeps out of the error budget."""
 
-    def __init__(self, code: StatusCode, details: str):
+    def __init__(self, code: StatusCode, details: str, trailing: tuple = (),
+                 shed: bool = False):
         super().__init__(details)
         self.code = code
         self.details = details
+        self.trailing = tuple(trailing)
+        self.shed = shed
+
+
+def _pushback_trailing() -> tuple:
+    return (("grpc-retry-pushback-ms", str(RETRY_PUSHBACK_MS)),)
+
+
+def _traceparent_from_metadata(context) -> str | None:
+    """The W3C ``traceparent`` of the call's metadata, or None (a missing or
+    malformed header starts a new trace)."""
+    if context is None:
+        return None
+    try:
+        for key, value in context.invocation_metadata() or ():
+            if key == "traceparent":
+                return value
+    except Exception:  # noqa: BLE001 — tracing must not fail the RPC
+        pass
+    return None
 
 
 SERVING, NOT_SERVING = 1, 2  # grpc.health.v1 HealthCheckResponse.ServingStatus
@@ -116,6 +187,14 @@ class HealthServicer:
     def __init__(self):
         self._status: dict[str, int] = {"": SERVING}
         self._lock = threading.Lock()
+
+    def set(self, service: str, status: int) -> None:
+        with self._lock:
+            self._status[service] = status
+
+    def status(self, service: str = "") -> int | None:
+        with self._lock:
+            return self._status.get(service)
 
     def set_all_not_serving(self) -> None:
         with self._lock:
@@ -152,6 +231,7 @@ class _AdaptiveBulkGate:
         self._lat: list[float] = []
         self._held = 0
         self._cv = threading.Condition()
+        self.on_limit_change = None  # callable(limit): the bulk_gate_limit gauge
 
     def acquire(self, timeout: float) -> bool:
         deadline = time.monotonic() + timeout
@@ -169,6 +249,11 @@ class _AdaptiveBulkGate:
             self._held -= 1
             self._cv.notify()
 
+    def _set_limit(self, limit: int) -> None:
+        self.limit = limit
+        if self.on_limit_change is not None:
+            self.on_limit_change(limit)
+
     def observe_single_ms(self, ms: float) -> None:
         """Feed one single-transaction latency; adjusts the limit at window
         boundaries. Off when p99_slo_ms <= 0."""
@@ -184,11 +269,11 @@ class _AdaptiveBulkGate:
             if p99 > self.p99_slo_ms:
                 self._good_windows = 0
                 if self.limit > self._min:
-                    self.limit -= 1
+                    self._set_limit(self.limit - 1)
             elif p99 <= 0.5 * self.p99_slo_ms:
                 self._good_windows += 1
                 if self._good_windows >= self._relax_after and self.limit < self.max_limit:
-                    self.limit += 1
+                    self._set_limit(self.limit + 1)
                     self._good_windows = 0
                     self._cv.notify_all()
             else:
@@ -238,20 +323,34 @@ def _feature_fields(f: FeatureVector) -> dict:
     }
 
 
+def _score_feature_fields(f: FeatureVector) -> dict:
+    """Every FeatureVector field a ScoreTransactionResponse carries."""
+    fields = _feature_fields(f)
+    fields.update({
+        "ip_country_changes_7d": int(f.ip_country_changes), "device_age_days": int(f.device_age_days),
+        "avg_bet_size": f.avg_bet_size, "win_rate": f.win_rate, "is_vpn": f.is_vpn > 0,
+        "is_proxy": f.is_proxy > 0, "is_tor": f.is_tor > 0,
+        "disposable_email": f.disposable_email > 0,
+    })
+    return fields
+
+
 class RiskGrpcService:
     """risk.v1.RiskService over the port's scoring engine and abuse detector."""
 
     def __init__(self, engine, abuse_detector=None, rate_limit_per_minute: int = 0,
-                 ltv_source=None):
+                 ltv_source=None, metrics: ServiceMetrics | None = None):
         """
-        engine: serve.scorer.TorchScoringEngine
+        engine: serve.scorer.TorchScoringEngine (or a SupervisedScoringEngine)
         abuse_detector: callable(account_id, bonus_id) -> (score, signals, linked)
         rate_limit_per_minute: per-account ScoreTransaction cap (0 disables)
         ltv_source: callable(account_id) -> 25 LTV features or None
+        metrics: the ServiceMetrics registry to feed (a new "risk" one if None)
         """
         self.engine = engine
         self.abuse_detector = abuse_detector
         self.ltv_source = ltv_source
+        self.metrics = metrics or ServiceMetrics("risk")
         self._rate_limiter = _FixedWindowRateLimiter(rate_limit_per_minute)
         # Bulk ScoreBatch work is admitted through a bounded gate: past
         # BULK_MAX_INFLIGHT concurrent RPCs (after a short wait) it sheds
@@ -260,20 +359,65 @@ class RiskGrpcService:
             max(1, int(os.environ.get("BULK_MAX_INFLIGHT", "2"))),
             p99_slo_ms=float(os.environ.get("BULK_P99_SLO_MS", "50")),
         )
+        self.metrics.bulk_gate_limit.set(self._bulk_gate.limit)
+        self._bulk_gate.on_limit_change = self.metrics.bulk_gate_limit.set
         self._bulk_admit_wait_s = float(os.environ.get("BULK_ADMIT_WAIT_S", "0.02"))
+        # The engine's observability seams, in this service's registry: the
+        # score histogram of wire batches (host numpy, vectorized), the
+        # cache, session, pipeline and supervisor families.
+        if hasattr(engine, "score_observer"):
+            engine.score_observer = self.metrics.score_distribution.observe_many
+        for bind in ("bind_cache_metrics", "bind_pipeline_metrics", "bind_session_metrics",
+                     "bind_supervisor_metrics"):
+            if hasattr(engine, bind):
+                getattr(engine, bind)(self.metrics)
+        # Every completed stage span feeds risk_stage_latency_ms; span-ring
+        # evictions count. The sinks are the process's: the most recently
+        # built service owns them.
+        tracing.set_span_sink(self.metrics.observe_stage_span)
+        tracing.DEFAULT_COLLECTOR.on_drop = self.metrics.spans_dropped_total.inc
+        # The SLO engine (SLO=0 opts out) rides the root-span sink.
+        self.slo = None
+        if os.environ.get("SLO", "1") != "0":
+            self.slo = slo_mod.install(slo_mod.SLOEngine(metrics=self.metrics))
+        else:
+            slo_mod.uninstall()
         # The drift observatory (DRIFT=0 opts out): the process's default
         # engine, bound to the scoring engine, as the JAX service does.
         self.drift = None
         if os.environ.get("DRIFT", "1") != "0" and hasattr(engine, "bind_drift"):
-            self.drift = drift_mod.install(drift_mod.DriftEngine())
+            self.drift = drift_mod.install(drift_mod.DriftEngine(metrics=self.metrics))
             engine.bind_drift(self.drift)
         else:
             drift_mod.uninstall()
+        # While the SLO's fast window burns, bulk ScoreBatch admissions shed
+        # so the interactive lane's p99 recovers.
+        self.burn_gate = BurnShedGate()
+        batcher = getattr(engine, "_batcher", None)
+        if batcher is not None:
+            batcher.on_batch = self._observe_batcher_batch
+            batcher.on_plan = self.metrics.batch_size_chosen.observe
+            batcher.on_dispatch_deadlines = self.metrics.deadline_remaining_ms.observe_many
+            sched = batcher.scheduler
+            sched.on_expired = (
+                lambda n, stage, lane: self.metrics.deadline_expired_total.inc(n, stage=stage))
+            sched.on_depth = lambda lane, depth: self.metrics.lane_depth.set(depth, lane=lane)
+
+    def _observe_batcher_batch(self, waits_ms: list, depth: int) -> None:
+        """Batcher hook: the time-in-queue histogram, the queue-depth gauge,
+        and the queue wait as a ``score.queue`` stage."""
+        self.metrics.batcher_queue_depth.set(depth)
+        self.metrics.batcher_time_in_queue_ms.observe_many(waits_ms)
+        self.metrics.stage_latency_ms.observe_many(waits_ms, stage="score.queue")
 
     def close(self) -> None:
         """Unbind the drift engine from the scoring engine, close it (its
         queued sketches are folded first) and uninstall it if it is still
-        the process default. Idempotent."""
+        the process default; uninstall the SLO engine this service
+        installed. Idempotent."""
+        slo, self.slo = self.slo, None
+        if slo is not None and slo_mod.get_default() is slo:
+            slo_mod.uninstall()
         drift, self.drift = self.drift, None
         if drift is None:
             return
@@ -284,30 +428,64 @@ class RiskGrpcService:
         else:
             drift.close()
 
-    def call(self, method: str, payload: bytes) -> bytes:
+    def call(self, method: str, payload: bytes, metadata=()) -> bytes:
         """Answer one RPC on bytes, with no transport: the response bytes,
-        or RpcAbort. A handler that fails otherwise is INTERNAL, as the
-        recovery interceptor of the reference maps it."""
-        return self._invoke(method, payload, None)
+        or RpcAbort. ``metadata`` is the invocation metadata, (key, value)
+        pairs as a gRPC client sends them."""
+        return self._invoke(method, payload, CallContext(metadata))
 
-    def call_with_trailing(self, method: str,
-                           payload: bytes) -> tuple[bytes, tuple[tuple[str, str], ...]]:
-        """``call``, and the trailing metadata pairs the handler set."""
-        context = _TrailingCollector()
+    def call_with_trailing(self, method: str, payload: bytes,
+                           metadata=()) -> tuple[bytes, tuple[tuple[str, str], ...]]:
+        """``call``, and the trailing metadata pairs the handler set. An
+        RpcAbort carries its own in ``.trailing``."""
+        context = CallContext(metadata)
         return self._invoke(method, payload, context), context.trailing
 
     def _invoke(self, method: str, payload: bytes, context) -> bytes:
-        """One RPC on bytes; ``context`` (a grpcio servicer context, a
-        ``_TrailingCollector`` or None) receives the trailing metadata."""
+        """One RPC on bytes inside the root span ``rpc.<method>``: metrics
+        by status code, the supervisor's serving state, sheds marked;
+        ``context`` (a grpcio servicer context or a ``CallContext``) gives
+        the invocation metadata and receives the trailing metadata. A
+        handler that fails otherwise is INTERNAL, as the reference's
+        recovery interceptor maps it."""
         if method not in RISK_METHOD_NAMES:
             raise RpcAbort(StatusCode.UNIMPLEMENTED, f"unknown method {method}")
-        try:
-            return getattr(self, method)(payload, context).SerializeToString()
-        except RpcAbort:
-            raise
-        except Exception as exc:  # noqa: BLE001 — recovery interceptor
-            logger.exception("handler panic in %s", method)
-            raise RpcAbort(StatusCode.INTERNAL, f"internal error: {exc}") from exc
+        start = time.monotonic()
+        with span(f"rpc.{method}", traceparent=_traceparent_from_metadata(context)) as root:
+            state = slo_mod.current_state()
+            if state is not None:
+                root.attributes["serving_state"] = state
+            try:
+                resp = getattr(self, method)(payload, context).SerializeToString()
+            except RpcAbort as abort:
+                exc = abort
+            except DeadlineExpired as err:
+                # The budget ran out while queued: the caller's own status,
+                # a shed (the scheduler already counted it).
+                exc = RpcAbort(StatusCode.DEADLINE_EXCEEDED, str(err),
+                               trailing=_pushback_trailing(), shed=True)
+            except QueueFullError as err:
+                exc = RpcAbort(StatusCode.RESOURCE_EXHAUSTED, str(err),
+                               trailing=_pushback_trailing(), shed=True)
+            except (DeviceWedgedError, ServingUnavailable) as err:
+                # Supervisor sheds: UNAVAILABLE with the pushback hint, so
+                # clients back off one breaker window.
+                exc = RpcAbort(StatusCode.UNAVAILABLE, str(err), trailing=_pushback_trailing())
+            except Exception as err:  # noqa: BLE001 — recovery interceptor
+                logger.exception("handler panic in %s", method)
+                exc = RpcAbort(StatusCode.INTERNAL, f"internal error: {err}")
+                exc.__cause__ = err
+            else:
+                self.metrics.observe_rpc(method, start)
+                root.attributes["code"] = "OK"
+                return resp
+            self.metrics.observe_rpc(method, start, code=exc.code.name)
+            root.attributes["code"] = exc.code.name
+            if exc.shed:
+                root.attributes["shed"] = 1
+            if exc.trailing and context is not None:
+                context.set_trailing_metadata(exc.trailing)
+            raise exc
 
     # -- scoring --
 
@@ -329,10 +507,33 @@ class RiskGrpcService:
 
     @staticmethod
     def _score_to_bytes(resp) -> bytes:
+        if ReasonCode.DEGRADED_CPU_HEURISTIC in resp.reason_codes:
+            # The degraded tier's flag is no bit of the step's reason mask:
+            # the whole answer goes through the field-by-field encoder.
+            return codec.encode(codec.SCORE_TRANSACTION_RESPONSE, {
+                "score": resp.score, "action": _ACTION_CODES[resp.action],
+                "reason_codes": [r.value for r in resp.reason_codes],
+                "rule_score": resp.rule_score, "ml_score": resp.ml_score,
+                "response_time_ms": int(resp.response_time_ms),
+                "features": _score_feature_fields(resp.features)})
         mask = sum(1 << REASON_BIT_ORDER.index(code) for code in resp.reason_codes)
         return codec.encode_score_response(
             resp.score, _ACTION_CODES[resp.action], mask, resp.rule_score, resp.ml_score,
             int(resp.response_time_ms), resp.features.to_array())
+
+    def _admit_deadline(self, context, stage: str = "admission"):
+        """The request's deadline (``risk-deadline-ms`` metadata, else the
+        transport's, else ``DEADLINE_DEFAULT_MS``); an already spent one is
+        shed here: scoring a row its caller will never receive only steals
+        capacity."""
+        ddl = deadline_mod.from_grpc(context)
+        if ddl.expired():
+            self.metrics.deadline_expired_total.inc(stage=stage)
+            raise RpcAbort(
+                StatusCode.DEADLINE_EXCEEDED,
+                f"DEADLINE_SHED: request budget ({ddl.budget_ms:.0f} ms, source={ddl.source}) "
+                "already spent at admission", trailing=_pushback_trailing(), shed=True)
+        return ddl
 
     def ScoreTransaction(self, request: bytes, context=None):  # noqa: N802
         req = codec.decode(codec.SCORE_TRANSACTION_REQUEST, request)
@@ -340,60 +541,119 @@ class RiskGrpcService:
         if not self._rate_limiter.allow(req["account_id"]):
             raise RpcAbort(StatusCode.RESOURCE_EXHAUSTED,
                            "RATE_LIMITED: per-account scoring rate limit exceeded")
-        resp = self.engine.score(self._request_from_proto(req))
+        ddl = self._admit_deadline(context)
+        # Arms the burn-shed loop: bulk sheds only while interactive traffic
+        # exists to protect.
+        self.burn_gate.note_interactive()
+        resp = self.engine.score(self._request_from_proto(req), deadline=ddl)
+        if ddl.source != "default" and ddl.expired():
+            # An explicit deadline passed while this scored: the caller has
+            # given up, so the answer is a shed, not a stale OK.
+            self.metrics.deadline_expired_total.inc(stage="response")
+            raise RpcAbort(
+                StatusCode.DEADLINE_EXCEEDED,
+                "DEADLINE_SHED: scored result ready after the request's budget "
+                f"({ddl.budget_ms:.0f} ms) expired", trailing=_pushback_trailing(), shed=True)
+        self.metrics.score_distribution.observe(resp.score)
+        self.metrics.txns_scored_total.inc()
+        trailing: list[tuple[str, str]] = []
+        if resp.decision_id:
+            # The ledger's join key, shared by the flight entry, the trace
+            # root and the record, for callers that later post the
+            # decision's outcome (POST /debug/outcomes).
+            tracing.set_root_attribute("decision_id", resp.decision_id)
+            trailing.append(("risk-decision-id", resp.decision_id))
         # The single-transaction latency is the SLO the bulk gate protects.
         self._bulk_gate.observe_single_ms(resp.response_time_ms)
-        if resp.decision_id and context is not None:
-            # The ledger's join key, for callers that later post the
-            # decision's outcome (POST /debug/outcomes), without a change to
-            # the response message.
-            context.set_trailing_metadata((("risk-decision-id", resp.decision_id),))
+        if ReasonCode.DEGRADED_CPU_HEURISTIC in resp.reason_codes:
+            # A degraded answer is wire-compatible, and visible: the model
+            # version's suffix goes out in the trailing metadata.
+            trailing.append(("risk-model-version",
+                             getattr(self.engine, "model_version", "degraded-heuristic")))
+        if trailing and context is not None:
+            context.set_trailing_metadata(tuple(trailing))
         return RawProtoMessage(self._score_to_bytes(resp))
 
     def ScoreBatch(self, request: bytes, context=None):  # noqa: N802
-        if not self._bulk_gate.acquire(timeout=self._bulk_admit_wait_s):
+        ddl = self._admit_deadline(context)
+        if ddl.source != "default" and ddl.remaining_ms() < 50.0:
+            # Under 50 ms left cannot cover decode, score and encode.
+            self.metrics.bulk_shed_total.inc()
+            raise RpcAbort(StatusCode.RESOURCE_EXHAUSTED,
+                           "BULK_SHED: deadline nearly exhausted before start",
+                           trailing=_pushback_trailing(), shed=True)
+        if self.burn_gate.shedding():
+            self.burn_gate.note_shed()
+            self.metrics.bulk_shed_total.inc()
+            raise RpcAbort(
+                StatusCode.RESOURCE_EXHAUSTED,
+                "BULK_SHED: error budget burning (fast-window SLO alert active); bulk lane "
+                "shedding until it clears", trailing=_pushback_trailing(), shed=True)
+        with span("score.admission"):
+            admitted = self._bulk_gate.acquire(timeout=self._bulk_admit_wait_s)
+        if not admitted:
+            self.metrics.bulk_shed_total.inc()
             raise RpcAbort(StatusCode.RESOURCE_EXHAUSTED,
                            "BULK_SHED: bulk admission limit reached; retry with backoff")
         try:
-            return RawProtoMessage(self._score_batch_admitted(bytes(request)))
+            payload, n = self._score_batch_admitted(bytes(request))
         finally:
             self._bulk_gate.release()
+        self.metrics.txns_scored_total.inc(n)
+        return RawProtoMessage(payload)
 
-    def _score_batch_admitted(self, buf: bytes) -> bytes:
+    def _score_batch_admitted(self, buf: bytes) -> tuple[bytes, int]:
         if buf[:4] == INDEX_WIRE_MAGIC:
             # An index-mode frame: slots and per-transaction context go to the
             # device feature table, never an [N, 30] matrix. The answer is
             # still a risk.v1 ScoreBatchResponse.
             try:
-                return self.engine.score_batch_wire_index(buf)[0]
+                payload, n = self.engine.score_batch_wire_index(buf)
             except ValueError as exc:
                 raise RpcAbort(StatusCode.INVALID_ARGUMENT,
                                f"bad index-mode ScoreBatch frame: {exc}") from exc
             except RuntimeError as exc:
                 raise RpcAbort(StatusCode.UNIMPLEMENTED,
                                f"index-mode ScoreBatch unavailable: {exc}") from exc
+            tracing.set_root_attribute("rows", n)
+            return payload, n
         if hasattr(self.engine.features, "decode_gather"):
             # One native call decodes and gathers, one encodes.
             try:
-                return self.engine.score_batch_wire_bytes(buf)[0]
+                payload, n = self.engine.score_batch_wire_bytes(buf)
             except ValueError as exc:
                 raise RpcAbort(StatusCode.INVALID_ARGUMENT,
                                f"bad ScoreBatchRequest: {exc}") from exc
+            tracing.set_root_attribute("rows", n)
+            return payload, n
         try:
-            txs = codec.decode(codec.SCORE_BATCH_REQUEST, buf)["transactions"]
+            with span("score.decode"):
+                txs = codec.decode(codec.SCORE_BATCH_REQUEST, buf)["transactions"]
         except ValueError as exc:
             raise RpcAbort(StatusCode.INVALID_ARGUMENT, f"bad ScoreBatchRequest: {exc}") from exc
-        return self.engine.score_batch_wire(
+        tracing.set_root_attribute("rows", len(txs))
+        payload = self.engine.score_batch_wire(
             [t["account_id"] for t in txs], [t["amount"] for t in txs],
             [t["transaction_type"] or "deposit" for t in txs],
             ips=[t["ip_address"] for t in txs], devices=[t["device_id"] for t in txs],
             fingerprints=[t["fingerprint"] for t in txs])
+        return payload, len(txs)
 
     # -- LTV --
 
+    def _background_dispatch_turn(self) -> None:
+        """LTV device work rides the background lane of the dispatch gate:
+        it yields to a launching interactive batch, bounded by the lane's
+        aging budget."""
+        gate = getattr(self.engine, "lane_gate", None)
+        if gate is not None:
+            gate.acquire(LANE_BACKGROUND)
+
     def _ltv(self, account_id: str) -> dict:
         """One account's LTV outputs (host numpy scalars): its features from
-        ``ltv_source``, zeros when there is none, on the engine's device."""
+        ``ltv_source``, zeros when there is none, on the engine's device,
+        after a background turn of the dispatch lane gate."""
+        self._background_dispatch_turn()
         row = self.ltv_source(account_id) if self.ltv_source is not None else None
         x = (np.zeros((1, ltv_mod.NUM_LTV_FEATURES), np.float32) if row is None
              else np.asarray(row, np.float32).reshape(1, ltv_mod.NUM_LTV_FEATURES))
@@ -404,6 +664,7 @@ class RiskGrpcService:
         req = codec.decode(codec.PREDICT_LTV_REQUEST, request)
         out = self._ltv(req["account_id"])
         now_ns = time.time_ns()
+        self.metrics.ltv_segment_total.inc(segment=str(int(out["segment"])))
         return RawProtoMessage(codec.encode(codec.PREDICT_LTV_RESPONSE, {
             "account_id": req["account_id"],
             "predicted_ltv": float(out["ltv"]),
@@ -434,6 +695,9 @@ class RiskGrpcService:
             try:
                 score, signals, linked = self.abuse_detector(req["account_id"], req["bonus_id"])
             except AbuseShed as exc:
+                # A loud shed with its own counter (errors_total is the
+                # RPC wrapper's).
+                self.metrics.abuse_shed_total.inc()
                 raise RpcAbort(StatusCode.UNAVAILABLE, str(exc)) from exc
         else:
             # Scalar fallback: the bonus-only-player heuristic.
@@ -504,6 +768,8 @@ def _rpc(grpc, fn):
         try:
             return fn(request, context)
         except RpcAbort as abort:
+            if abort.trailing:
+                context.set_trailing_metadata(abort.trailing)
             context.abort(getattr(grpc.StatusCode, abort.code.name), abort.details)
 
     return handler

@@ -31,13 +31,13 @@ and ``_jitter`` are the only sources of nondeterminism in a record, so tests
 pin them. The port's engine hands ``note_decisions`` host numpy only, after
 each step's readback: nothing on the writer thread reads a device tensor.
 
-Not ported yet (``ROADMAP.md``): ``PgDecisionSink`` (``LEDGER_SINK=pg``
-raises ``NotImplementedError``: it needs ``platform/pgwire.py``), metrics
-(``bind_metrics`` and ``metrics=`` raise), trace ids (``trace_id`` is
-``""`` and no root span attribute is set until ``obs/tracing`` is ported)
-and the supervisor's serving state (``serving_state()`` answers
-``"unknown"`` unless a caller sets a provider). The params fingerprint is
-the engine's own (``serve/scorer.py::params_fingerprint``).
+A ``metrics=`` registry (``obs/metrics.ServiceMetrics``) gets the
+``ledger_*`` families; each record carries the active span's trace id and
+the serving state of the supervisor the server binds as the state provider
+(``serving_state()`` answers ``"unknown"`` without one). Not ported yet
+(``ROADMAP.md``): ``PgDecisionSink`` (``LEDGER_SINK=pg`` raises
+``NotImplementedError``: it needs ``platform/pgwire.py``). The params
+fingerprint is the engine's own (``serve/scorer.py::params_fingerprint``).
 """
 
 from __future__ import annotations
@@ -779,8 +779,6 @@ class DecisionLedger:
                  sink=None, sink_batch: int = 256,
                  sink_queue_max: int = 4096,
                  breaker=None, metrics=None):
-        if metrics is not None:
-            raise NotImplementedError("ledger metrics need obs/, not ported yet (ROADMAP.md)")
         self.directory = directory
         os.makedirs(directory, exist_ok=True)
         self.segment_bytes = segment_bytes or int(
@@ -793,6 +791,7 @@ class DecisionLedger:
         self.sink = sink
         self.sink_batch = max(1, sink_batch)
         self._breaker = breaker
+        self._metrics = metrics
 
         # One Condition guards ALL queue/segment/stat state; the open
         # file handle itself is owned by the writer thread exclusively
@@ -926,6 +925,8 @@ class DecisionLedger:
                     self._note_prefix(prefix, batch.n)
                 dropped = False
             self._cv.notify()
+        if dropped and self._metrics is not None:
+            self._metrics.ledger_dropped_total.inc(batch.n, reason="queue_full")
         return not dropped
 
     def _note_prefix(self, prefix: str, n: int) -> None:
@@ -1072,12 +1073,16 @@ class DecisionLedger:
                 wrote_any = True
                 if self._breaker is not None:
                     self._breaker.record_success()
+                if self._metrics is not None:
+                    self._metrics.ledger_records_total.inc(len(records))
             except Exception as exc:  # noqa: BLE001 — counted and fed to the breaker below
                 with self._cv:
                     self.records_dropped += batch.n
                     self.append_errors += 1
                 if self._breaker is not None:
                     self._breaker.record_failure(exc)
+                if self._metrics is not None:
+                    self._metrics.ledger_dropped_total.inc(batch.n, reason="write_error")
                 logger.warning("ledger append failed (%d records dropped)",
                                batch.n, exc_info=True)
                 # Brief jittered pause so an fs outage doesn't spin the
@@ -1138,6 +1143,8 @@ class DecisionLedger:
                 lag = self._durable_count - self._cursor["count"]
                 self.sink_queue_high_water = max(self.sink_queue_high_water, lag)
                 self._sink_cv.notify()
+            if self._metrics is not None:
+                self._metrics.ledger_sink_queue_depth.set(lag)
 
     def _do_fsync(self) -> None:
         f = self._file
@@ -1155,6 +1162,8 @@ class DecisionLedger:
         with self._cv:
             self.fsync_count += 1
             self._fsync_ms.append(ms)
+        if self._metrics is not None:
+            self._metrics.ledger_fsync_ms.observe(ms)
 
     # -- sink drainer -------------------------------------------------------
 
@@ -1261,6 +1270,11 @@ class DecisionLedger:
             self.sink_sent += len(batch)
             if spilled:
                 self.spill_events += 1
+        if self._metrics is not None:
+            self._metrics.ledger_sink_sent_total.inc(len(batch))
+            with self._cv:
+                durable = self._durable_count
+            self._metrics.ledger_sink_queue_depth.set(durable - self._cursor["count"])
         self._persist_cursor()
         return True
 
@@ -1293,7 +1307,7 @@ class DecisionLedger:
     # -- stats / lifecycle ---------------------------------------------------
 
     def bind_metrics(self, metrics) -> None:
-        raise NotImplementedError("ledger metrics need obs/, not ported yet (ROADMAP.md)")
+        self._metrics = metrics
 
     def _fsync_p99_ms(self) -> float | None:
         with self._cv:
@@ -1461,9 +1475,10 @@ def note_decisions(
     ``engine.thresholds_snapshot``): a hot swap or an ``UpdateThresholds``
     can land between the step and this seam, and the values after it would
     be ones replay catches as unreplayable. Without ``thresholds`` the
-    engine's current pair is noted, as the JAX package does. ``trace_id``
-    is ``""`` and ``mark_root`` sets nothing until ``obs/tracing`` is
-    ported.
+    engine's current pair is noted, as the JAX package does. A record
+    carries the active span's trace id, and with ``mark_root`` the batch's
+    decision-id prefix lands on the trace's root span (the flight entry's
+    join key).
 
     A bound shadow scorer (``engine.shadow``) is handed compiled-tier rows
     at the launch seam; this seam only counts a heuristic tier's rows as
@@ -1476,7 +1491,10 @@ def note_decisions(
     if ledger is None or n <= 0:
         return None
     try:
+        from igaming_platform_tpu_torch.obs import tracing
+
         prefix = next_batch_prefix()
+        span = tracing.current_span()
         block_thr, review_thr = (thresholds if thresholds is not None
                                  else engine.get_thresholds())
         # The port has no host-CPU tier: a compiled batch ran on the device.
@@ -1502,11 +1520,15 @@ def note_decisions(
             model_version=model_version or getattr(engine, "ml_backend", "unknown"),
             params_fp=params_fp or getattr(engine, "params_fingerprint", "0" * 16),
             block_threshold=block_thr, review_threshold=review_thr,
-            trace_id="",
+            trace_id=span.trace_id if span is not None else "",
             session_lens=session_lens, session_seqs=session_seqs,
             session_hashes=session_hashes,
         )
         ledger.append_columns(batch)
+        if mark_root and span is not None:
+            # The flight recorder's join key: a trace, a flight entry and a
+            # ledger record share one id.
+            tracing.set_root_attribute("decision_id", prefix)
         return prefix
     except Exception:  # noqa: BLE001 — the ledger must never fail scoring; drops are counted by the ledger itself
         logger.warning("ledger note_decisions failed", exc_info=True)

@@ -14,8 +14,9 @@ Usage::
 It runs on the card unless ``--device cpu``. The store is a SQLite file
 (a path or ``sqlite://`` URL), opened read-only (``mode=ro``), as the
 JAX job's reader opens it; ``postgres://`` waits for the port's wire
-client (``ROADMAP.md`` Queue 1 item 5). The JAX job's segment counter
-(``ltv_segment_total``) waits for the port's metrics.
+client (``ROADMAP.md`` Queue 1 item 5). With ``metrics=`` (an
+``obs/metrics.py`` ``ServiceMetrics``) the segment counts feed
+``ltv_segment_total``, as the JAX job's do.
 """
 
 from __future__ import annotations
@@ -113,7 +114,7 @@ def ltv_features_from_wallet(db_path: str,
 
 
 def run_batch_job(db_path: str, now: float | None = None, device: str = "cuda",
-                  timings: dict | None = None) -> dict:
+                  timings: dict | None = None, metrics=None) -> dict:
     """Scan, one device pass, then the segment groupings and per-account
     records. ``timings``, when given, receives the seconds of the scan, the
     device pass (the outputs back on the host) and the records."""
@@ -121,11 +122,11 @@ def run_batch_job(db_path: str, now: float | None = None, device: str = "cuda",
     ids, x = ltv_features_from_wallet(db_path, now=now)
     if timings is not None:
         timings["scan_s"] = time.perf_counter() - t0
-    return batch_result(ids, x, device, timings)
+    return batch_result(ids, x, device, timings, metrics)
 
 
 def batch_result(ids: list[str], x: np.ndarray, device: str = "cuda",
-                 timings: dict | None = None) -> dict:
+                 timings: dict | None = None, metrics=None) -> dict:
     """The job's answer for a scanned feature matrix: one device pass, then
     the records and the segment groupings. ``timings``, when given, receives
     the seconds of the device pass and of the records."""
@@ -151,6 +152,9 @@ def batch_result(ids: list[str], x: np.ndarray, device: str = "cuda",
         grouped.setdefault(str(rec["segment"]), []).append(rec["account_id"])
     if timings is not None:
         timings.update(device_s=t2 - t1, records_s=time.perf_counter() - t2)
+    if metrics is not None:
+        for seg, members in grouped.items():
+            metrics.ltv_segment_total.inc(len(members), segment=seg)
     return {"players": records, "segments": grouped, "count": len(records)}
 
 

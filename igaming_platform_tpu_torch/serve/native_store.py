@@ -28,7 +28,7 @@ from typing import Callable
 import numpy as np
 
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES, F
-from igaming_platform_tpu_torch.serve import _native_build
+from igaming_platform_tpu_torch.serve import _native_build, chaos
 from igaming_platform_tpu_torch.serve.wire import TX_TYPE_CODES
 
 _hash_cache: dict[str, int] = {}
@@ -259,6 +259,7 @@ class NativeFeatureStore:
 
     def gather_batch(self, requests, now: float | None = None):
         """Requests -> ([N, 30] float32, [N] bool blacklisted)."""
+        chaos.fire("feature_store.gather")
         reqs = list(requests)
         x = np.zeros((len(reqs), NUM_FEATURES), dtype=np.float32)
         self._fill(x, [r.account_id for r in reqs], [r.amount for r in reqs],
@@ -282,6 +283,7 @@ class NativeFeatureStore:
                        now: float | None = None):
         """[B, 30] gather straight from parallel columns; the blacklist
         check covers the same three keys as check_blacklist."""
+        chaos.fire("feature_store.gather")
         n = len(account_ids)
         x = np.zeros((n, NUM_FEATURES), dtype=np.float32)
         self._fill(x, account_ids, amounts, tx_types, now)
@@ -325,6 +327,7 @@ class NativeFeatureStore:
         """risk.v1 ScoreBatchRequest wire bytes -> ([N, 30] float32, [N]
         bool blacklisted) in one native call: no Python protobuf parse, no
         per-row host object. Raises ValueError on a malformed request."""
+        chaos.fire("feature_store.gather")
         n = self._lib.fs_wire_count(payload, len(payload))
         if n < 0:
             raise ValueError("malformed ScoreBatchRequest")

@@ -27,8 +27,13 @@ k-1:
 
 Results are bit-exact with the lockstep path (``TorchScoringEngine.
 _score_rows_encode``): the same chunk boundaries, the same padded shapes,
-the same step. ``stats()`` keeps each stage's busy time. The host profiler
-hooks and the in-flight gauges of the JAX module are not ported.
+the same step. Stage spans (``score.dispatch``, ``score.readback``,
+``score.encode``) attach to the submitting RPC's root across threads
+(``span(parent=...)``), closing a span never waits on the card, and the
+readback feeds the engine's step-time model. ``stats()`` keeps each stage's
+busy time, the in-flight high water and the overlap ratio; ``bind_metrics``
+feeds the ``pipeline_*`` gauges. The host profiler hooks of the JAX module
+are not ported.
 """
 
 from __future__ import annotations
@@ -42,9 +47,12 @@ from typing import Any
 
 import numpy as np
 
+from igaming_platform_tpu_torch.obs import tracing
+from igaming_platform_tpu_torch.obs.tracing import annotate, span
 from igaming_platform_tpu_torch.serve import ledger as ledger_mod
 from igaming_platform_tpu_torch.serve.arena import ArenaPool, StagingHold
 from igaming_platform_tpu_torch.serve.batcher import pad_batch
+from igaming_platform_tpu_torch.serve.deadline import LANE_BULK
 from igaming_platform_tpu_torch.serve.scorer import RESULT_KEYS, _device_readback
 
 _SENTINEL = object()
@@ -53,14 +61,15 @@ _SENTINEL = object()
 class _Job:
     """One wire batch moving through the pipeline (one RPC's rows)."""
 
-    __slots__ = ("x", "bl", "include_features", "start", "total", "n_chunks", "parts",
-                 "rtms", "future", "done_chunks", "params", "params_fp", "thr", "thr_host",
-                 "account_ids")
+    __slots__ = ("x", "bl", "include_features", "start", "parent", "total", "n_chunks",
+                 "parts", "rtms", "future", "done_chunks", "params", "params_fp", "thr",
+                 "thr_host", "account_ids")
 
     def __init__(self, x: np.ndarray, bl: np.ndarray, include_features: bool, start: float,
                  n_chunks: int, snapshot: tuple[Any, str], thresholds: tuple[Any, tuple],
-                 account_ids=None):
+                 account_ids=None, parent=None):
         self.x = x
+        self.parent = parent  # the submitting RPC's span (the cross-thread anchor)
         self.bl = bl
         # Captured together at submit: every chunk of the job scores with one
         # tree and one pair of thresholds, and the ledger notes that tree's
@@ -115,6 +124,15 @@ class HostPipeline:
         self._close_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self._busy_s = {"dispatch": 0.0, "readback": 0.0, "encode": 0.0}
+        self._inflight = 0
+        self.max_inflight = 0
+        self.batches = 0
+        self.jobs = 0
+        self._active_jobs = 0
+        self._active_since = 0.0
+        self._active_wall_s = 0.0
+        self.on_inflight = None  # callable(depth): the in-flight gauge
+        self._metrics = None
         self._stage_threads = [
             threading.Thread(target=self._stage_loop, name=f"{name}-stage-{i}", daemon=True)
             for i in range(self.stage_workers)
@@ -125,18 +143,73 @@ class HostPipeline:
             t.start()
         self._readback_worker.start()
 
-    # -- stats ---------------------------------------------------------------
+    # -- metrics and stats ---------------------------------------------------
+
+    def bind_metrics(self, metrics) -> None:
+        """Feed the ``pipeline_*`` gauges of a ServiceMetrics registry."""
+        self._metrics = metrics
+        self.on_inflight = metrics.pipeline_inflight.set
+
+    def _note_inflight(self, delta: int) -> None:
+        with self._stats_lock:
+            self._inflight += delta
+            self.max_inflight = max(self.max_inflight, self._inflight)
+            inflight = self._inflight
+        if self.on_inflight is not None:
+            try:
+                self.on_inflight(inflight)
+            except Exception:  # noqa: BLE001 — metrics must not fail scoring
+                pass
 
     def _note_busy(self, stage: str, seconds: float) -> None:
         with self._stats_lock:
             self._busy_s[stage] += seconds
 
+    def _job_enter(self) -> None:
+        with self._stats_lock:
+            if self._active_jobs == 0:
+                self._active_since = time.monotonic()
+            self._active_jobs += 1
+            self.jobs += 1
+
+    def _job_exit(self) -> None:
+        overlap = None
+        with self._stats_lock:
+            self._active_jobs -= 1
+            if self._active_jobs == 0:
+                self._active_wall_s += time.monotonic() - self._active_since
+                busy = sum(self._busy_s.values())
+                if busy > 0:
+                    overlap = max(0.0, 1.0 - self._active_wall_s / busy)
+        if overlap is not None and self._metrics is not None:
+            try:
+                self._metrics.pipeline_overlap_ratio.set(round(overlap, 4))
+            except Exception:  # noqa: BLE001 — metrics must not fail scoring
+                pass
+
     def stats(self) -> dict:
         """Busy milliseconds per stage (the stages overlap, so they may sum
-        past the wall time) and the arena's reuse."""
+        past the wall time), the wall time with a job in flight, the
+        overlap ratio (1 - wall / busy), the in-flight high water and the
+        arena's reuse."""
         with self._stats_lock:
             busy = {k: v * 1000.0 for k, v in self._busy_s.items()}
-        return {"stage_busy_ms": busy, "arena": self._arena.stats()}
+            total_busy = sum(self._busy_s.values())
+            wall = self._active_wall_s
+            if self._active_jobs > 0:
+                wall += time.monotonic() - self._active_since
+            return {
+                "depth": self.depth,
+                "stage_workers": self.stage_workers,
+                "max_inflight": self.max_inflight,
+                "batches": self.batches,
+                "jobs": self.jobs,
+                "stage_busy_ms": busy,
+                "active_wall_ms": wall * 1000.0,
+                "overlap_ratio": (max(0.0, 1.0 - wall / total_busy) if total_busy > 0
+                                  else 0.0),
+                "arena": self._arena.stats(),
+            }
 
     # -- submission ----------------------------------------------------------
 
@@ -153,25 +226,33 @@ class HostPipeline:
         batch = self._engine.batch_size
         n_chunks = (total + batch - 1) // batch
         job = _Job(x, bl, include_features, start, n_chunks, self._engine.params_snapshot(),
-                   self._engine.thresholds_snapshot(), account_ids)
-        for idx, lo in enumerate(range(0, total, batch)):
-            # Blocks when the stage queue is full: backpressure on the caller.
-            self._stage_q.put((job, idx, lo, min(lo + batch, total)))
-        job.future.result()  # every chunk read back, or the job failed
-        return self._encode_job(job)
+                   self._engine.thresholds_snapshot(), account_ids, tracing.current_span())
+        self._job_enter()
+        try:
+            for idx, lo in enumerate(range(0, total, batch)):
+                # Blocks when the stage queue is full: backpressure on the caller.
+                self._stage_q.put((job, idx, lo, min(lo + batch, total)))
+            job.future.result()  # every chunk read back, or the job failed
+            return self._encode_job(job)
+        finally:
+            self._job_exit()
 
     def _encode_job(self, job: _Job) -> bytes:
         from igaming_platform_tpu_torch.serve.wire import encode_score_batch
 
         t0 = time.monotonic()
         try:
-            cat = {k: np.concatenate([p[k] for p in job.parts]) for k in RESULT_KEYS}
-            ledger_mod.note_decisions(self._engine, cat, n=job.total, wire_mode="wire_row",
-                                      x=job.x, bl=job.bl, account_ids=job.account_ids,
-                                      params_fp=job.params_fp, thresholds=job.thr_host)
-            return encode_score_batch(
-                cat["score"], cat["action"], cat["reason_mask"], cat["rule_score"],
-                cat["ml_score"], job.rtms, job.x if job.include_features else None)
+            with span("score.encode", parent=job.parent, batch=job.total):
+                cat = {k: np.concatenate([p[k] for p in job.parts]) for k in RESULT_KEYS}
+                self._engine._observe_scores(cat["score"])
+                # On the submitting thread: the note lands under the RPC's
+                # span and stamps its decision-id prefix on the flight entry.
+                ledger_mod.note_decisions(self._engine, cat, n=job.total, wire_mode="wire_row",
+                                          x=job.x, bl=job.bl, account_ids=job.account_ids,
+                                          params_fp=job.params_fp, thresholds=job.thr_host)
+                return encode_score_batch(
+                    cat["score"], cat["action"], cat["reason_mask"], cat["rule_score"],
+                    cat["ml_score"], job.rtms, job.x if job.include_features else None)
         finally:
             self._note_busy("encode", time.monotonic() - t0)
 
@@ -184,6 +265,9 @@ class HostPipeline:
         buffer copies asynchronously."""
         n = hi - lo
         chunk, blc = job.x[lo:hi], job.bl[lo:hi]
+        # A bulk chunk yields briefly to a launching interactive batch
+        # (bounded by the bulk lane's aging budget).
+        self._engine.lane_gate.acquire(LANE_BULK)
         if self._engine._wire_encode is not None:
             # The row wire's encode (WIRE_DTYPE), before padding: the staging
             # buffers take the wire's dtype.
@@ -220,15 +304,20 @@ class HostPipeline:
                 continue
             t0 = time.monotonic()
             try:
-                handle, hold = self._dispatch_chunk(job, lo, hi)
+                with span("score.dispatch", parent=job.parent, batch=hi - lo), \
+                        annotate("score_step"):
+                    handle, hold = self._dispatch_chunk(job, lo, hi)
             except BaseException as exc:  # noqa: BLE001 — belongs to the job
                 job.fail(exc)
                 continue
             finally:
                 self._note_busy("dispatch", time.monotonic() - t0)
+            self._note_inflight(+1)
+            with self._stats_lock:
+                self.batches += 1
             # Blocks at `depth` batches in flight: the device stays at most
             # depth steps ahead of readback.
-            self._inflight_q.put((job, idx, lo, handle, hold))
+            self._inflight_q.put((job, idx, lo, handle, hold, t0))
 
     # -- readback worker -----------------------------------------------------
 
@@ -237,14 +326,16 @@ class HostPipeline:
             item = self._inflight_q.get()
             if item is _SENTINEL:
                 return
-            job, idx, lo, handle, hold = item
+            job, idx, lo, handle, hold, t_dispatch = item
             t0 = time.monotonic()
             try:
-                host = _device_readback(handle)
+                with span("score.readback", parent=job.parent, batch=handle[2]):
+                    host = _device_readback(handle)
             except BaseException as exc:  # noqa: BLE001 — belongs to the job
                 job.fail(exc)
                 host = None
             finally:
+                self._note_inflight(-1)
                 self._note_busy("readback", time.monotonic() - t0)
                 # The step has consumed its inputs: only now may the staging
                 # buffers be rewritten.
@@ -253,6 +344,10 @@ class HostPipeline:
             if host is None or job.failed:
                 continue
             n = handle[2]
+            # Bulk chunks feed the step-time model the deadline scheduler
+            # plans with: the throughput shape gets evidence too.
+            self._engine.step_model.observe(self._engine._pick_shape(n),
+                                            (time.monotonic() - t_dispatch) * 1000.0)
             job.parts[idx] = host
             job.rtms[lo:lo + n] = int((time.monotonic() - job.start) * 1000.0)
             job.done_chunks += 1

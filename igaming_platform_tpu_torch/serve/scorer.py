@@ -66,6 +66,24 @@ path (risk.v1 ScoreTransaction / ScoreBatch):
   quarter of the rows/s, its writer thread sharing the interpreter with
   them (``PERF.md`` §5, ``ROADMAP.md`` Queue 1, the benchmark's first target).
 
+The operations plane's seams, as in the JAX engine: each path opens stage
+spans with the JAX names (``score.pad``, ``score.session``,
+``score.gather``, ``score.cache_lookup``, ``score.dispatch`` the enqueue,
+``score.readback`` the wait on the step's CUDA event and the copy,
+``score.ledger_note``, ``score.decode``, ``score.blacklist``,
+``score.encode``; ``obs/tracing.py``), and the step's enqueue sits in
+``annotate("score_step")``; closing a span never synchronizes the card.
+``score_observer`` gets each wire batch's host scores; ``bind_cache_metrics``,
+``bind_session_metrics`` and ``bind_pipeline_metrics`` route those planes'
+families into a ``ServiceMetrics``. ``device.dispatch`` and
+``device.readback`` (``serve/chaos.py``) fire at ``_enqueue`` and
+``_device_readback``. ``score(req, timeout, deadline=, lane=)`` rides the
+deadline scheduler (``serve/deadline.py``, ``serve/batcher.py``), which plans
+against ``step_model`` (seeded by the warm-up's timed steps, then fed by every
+collect and pipeline readback); bulk chunk dispatches yield to a launching
+interactive batch through ``lane_gate``; ``deadline_snapshot()`` is
+``/debug/deadlinez``'s payload.
+
 Every batch runs on the engine's device. On a card, every copy and step
 goes on one CUDA stream the engine owns, whichever thread launches it, and
 launches are enqueued one at a time (``_on_stream``); the cache's delta
@@ -97,9 +115,18 @@ from igaming_platform_tpu_torch.core.enums import ReasonCode, action_from_code, 
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES, FeatureVector
 from igaming_platform_tpu_torch.models.ensemble import make_score_fn
 from igaming_platform_tpu_torch.obs.drift import cached_sketch_kernel, sketch_kernel
+from igaming_platform_tpu_torch.obs.perfmodel import OnlineStepModel
+from igaming_platform_tpu_torch.obs.tracing import annotate, span
 from igaming_platform_tpu_torch.ops.quantize import wire_dequantize_int8, wire_quantize_int8
 from igaming_platform_tpu_torch.serve.batcher import ContinuousBatcher, pad_batch
+from igaming_platform_tpu_torch.serve import chaos
 from igaming_platform_tpu_torch.serve import ledger as ledger_mod
+from igaming_platform_tpu_torch.serve.deadline import (
+    LANE_BULK,
+    LANE_INTERACTIVE,
+    Deadline,
+    LaneGate,
+)
 from igaming_platform_tpu_torch.serve.feature_store import InMemoryFeatureStore, TransactionEvent
 
 
@@ -167,7 +194,10 @@ RESULT_KEYS = ("score", "action", "reason_mask", "rule_score", "ml_score")
 
 def _device_readback(handle) -> dict:
     """The device-to-host drain of one launch (``_launch_padded``'s handle):
-    wait for the packed [5, B] copy, then view its first n columns."""
+    wait for the packed [5, B] copy, then view its first n columns. The
+    ``device.readback`` chaos seam fires here, where a stalled or failing
+    readback would show."""
+    chaos.fire("device.readback")
     host, done, n = handle
     if done is not None:
         done.synchronize()
@@ -279,6 +309,14 @@ class TorchScoringEngine:
         # The decision ledger (serve/ledger.py), bound by the serving layer;
         # None keeps every note one attribute check.
         self.ledger = None
+        # The serving layer's hooks: the score histogram's feed (host numpy
+        # scores of each wire batch) and the ServiceMetrics registries the
+        # cache, session plane and host pipeline export to, applied when
+        # each is built.
+        self.score_observer: Callable[[np.ndarray], None] | None = None
+        self._cache_metrics_sink = None
+        self._session_metrics_sink = None
+        self._pipeline_metrics_sink = None
         self._fused_enabled = os.environ.get("FUSED", "1") not in ("0", "false")
         self._shadow_fused_enabled = os.environ.get("SHADOW_FUSED", "1") not in ("0", "false")
         self._shadow_fused_ready = False
@@ -333,8 +371,15 @@ class TorchScoringEngine:
         self._session_fns: dict[tuple[bool, bool], Callable] = {}
         self._session_enabled = (session_mod.session_enabled_env() if session_state is None
                                  else bool(session_state))
+        # The deadline plane (serve/deadline.py): the online step-time model
+        # the scheduler plans batch shapes against (seeded by the warm-up's
+        # timed steps) and the gate that lets an interactive batch launch
+        # before a bulk chunk waiting on the same stream.
+        self.step_model = OnlineStepModel()
+        self.lane_gate = LaneGate()
         self._batcher = ContinuousBatcher(
-            bcfg, dispatch=self._dispatch_requests, collect=self._collect_requests)
+            bcfg, dispatch=self._dispatch_requests, collect=self._collect_requests,
+            shapes=self._shapes, step_model=self.step_model, lane_gate=self.lane_gate)
         if warmup:
             self.warmup()
         self._batcher.start()
@@ -342,16 +387,38 @@ class TorchScoringEngine:
     # -- lifecycle -----------------------------------------------------------
 
     def warmup(self) -> None:
-        """Run every shape of the ladder once before taking traffic, so the
-        first request pays neither the kernel build nor a first launch; then
+        """Run every shape of the ladder twice before taking traffic, so the
+        first request pays neither the kernel build nor a first launch, and
+        seed the step-time model with each shape's second step (its device
+        time between CUDA events on a card, its wall time on the CPU); then
         build the feature cache when it is asked for eagerly or the wire
         mode is index."""
         for shape in self._shapes:
             x = np.zeros((shape, NUM_FEATURES), dtype=np.float32)
             bl = np.zeros((shape,), dtype=bool)
             self._readback(self._launch(x, bl, self.get_params()))
+            self.step_model.observe(shape, self._timed_step(x, bl))
         if self._cache_eager or self.wire_mode == "index":
             self.ensure_cache()
+
+    def _timed_step(self, x: np.ndarray, bl: np.ndarray) -> float:
+        """Milliseconds of one step of the padded batch ``x``: the device
+        time between two CUDA events on the engine's stream on a card, the
+        wall time of launch and readback on the CPU."""
+        if self.stream is None:
+            t0 = time.monotonic()
+            self._readback(self._launch(x, bl, self.get_params()))
+            return (time.monotonic() - t0) * 1000.0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with self._on_stream():
+            start.record(self.stream)
+        handle = self._launch(x, bl, self.get_params())
+        with self._on_stream():
+            end.record(self.stream)
+        self._readback(handle)
+        end.synchronize()
+        return start.elapsed_time(end)
 
     def close(self) -> None:
         self._batcher.stop()
@@ -367,8 +434,61 @@ class TorchScoringEngine:
                 if self._host_pipeline is None:
                     from igaming_platform_tpu_torch.serve.pipeline_engine import HostPipeline
 
-                    self._host_pipeline = HostPipeline(self, depth=self._pipeline_depth)
+                    pipe = HostPipeline(self, depth=self._pipeline_depth)
+                    if self._pipeline_metrics_sink is not None:
+                        pipe.bind_metrics(self._pipeline_metrics_sink)
+                    self._host_pipeline = pipe
         return self._host_pipeline
+
+    # -- the serving layer's metrics sinks ------------------------------------
+
+    def bind_pipeline_metrics(self, metrics) -> None:
+        """Route the host pipeline's gauges (in-flight depth, overlap ratio)
+        into a ServiceMetrics registry, now or when it is built."""
+        self._pipeline_metrics_sink = metrics
+        if self._host_pipeline is not None:
+            self._host_pipeline.bind_metrics(metrics)
+
+    def bind_cache_metrics(self, metrics) -> None:
+        """Route the feature cache's counters into a ServiceMetrics
+        registry, now or when ``ensure_cache`` builds it."""
+        self._cache_metrics_sink = metrics
+        if self.cache is not None:
+            self.cache.bind_metrics(metrics)
+
+    def bind_session_metrics(self, metrics) -> None:
+        """Route the session plane's counters into a ServiceMetrics
+        registry, now or when ``ensure_cache`` builds it."""
+        self._session_metrics_sink = metrics
+        if self.session is not None:
+            self.session.bind_metrics(metrics)
+
+    def _observe_scores(self, scores: np.ndarray) -> None:
+        """Feed one wire batch's host scores to ``score_observer``; a
+        failing observer never fails scoring."""
+        if self.score_observer is not None:
+            try:
+                self.score_observer(scores)
+            except Exception:  # noqa: BLE001 — metrics must not fail scoring
+                pass
+
+    def deadline_snapshot(self) -> dict:
+        """The deadline plane's debug surface (``/debug/deadlinez``): lane
+        depths, the expiry-shed, hedge and replay counters, the per-shape
+        step-time model and the lane gate's yields."""
+        b = self._batcher
+        return {
+            "lanes": b.scheduler.depths(),
+            "queued": b.scheduler.qsize(),
+            "batches_run": b.batches_run,
+            "rows_scored": b.rows_scored,
+            "batches_replayed": b.batches_replayed,
+            "batches_hedged": b.batches_hedged,
+            "expired_shed": b.expired_shed,
+            "dead_dispatched": b.dead_dispatched,
+            "lane_gate_yields": self.lane_gate.yields,
+            "step_model": self.step_model.snapshot(),
+        }
 
     # -- the drift and shadow seams -------------------------------------------
 
@@ -533,10 +653,15 @@ class TorchScoringEngine:
 
     # -- scoring -------------------------------------------------------------
 
-    def score(self, req: ScoreRequest, timeout: float = 30.0) -> ScoreResponse:
-        """Single-transaction scoring through the continuous batcher."""
+    def score(self, req: ScoreRequest, timeout: float = 30.0, deadline: Deadline | None = None,
+              lane: str = LANE_INTERACTIVE) -> ScoreResponse:
+        """Single-transaction scoring through the continuous batcher.
+        ``deadline`` rides into the scheduler: EDF order within ``lane``,
+        shed (``DeadlineExpired``) instead of scored if it runs out while
+        queued."""
         start = time.monotonic()
-        resp: ScoreResponse = self._batcher.score_sync(req, timeout=timeout)
+        resp: ScoreResponse = self._batcher.score_sync(req, timeout=timeout, deadline=deadline,
+                                                       lane=lane)
         resp.response_time_ms = (time.monotonic() - start) * 1000.0
         return resp
 
@@ -547,10 +672,12 @@ class TorchScoringEngine:
         responses: list[ScoreResponse] = []
         for i in range(0, len(reqs), self.batch_size):
             chunk = reqs[i : i + self.batch_size]
-            x, bl = self.features.gather_batch(chunk)
+            with span("score.gather", batch=len(chunk)):
+                x, bl = self.features.gather_batch(chunk)
             params, fp = self.params_snapshot()
             thr, thr_host = self.thresholds_snapshot()
-            host = self._readback(self._launch(x, bl, params, thr))
+            with span("score.device", batch=len(chunk)), annotate("score_step"):
+                host = self._readback(self._launch(x, bl, params, thr))
             rows = [self._row_response(host, x, j) for j in range(len(chunk))]
             self._note_decisions_requests(host, x, bl, chunk, rows, "batch", fp, thr_host)
             responses.extend(rows)
@@ -585,18 +712,21 @@ class TorchScoringEngine:
             types = [TX_TYPE_CODES.get(t, 4) for t in tx_types]
             bl = self._blacklist_flags(total, ips, devices, fingerprints)
             cat, rtms = self._indexed_outputs(list(account_ids), amounts, types, bl, start)
-            return encode_score_batch(cat["score"], cat["action"], cat["reason_mask"],
-                                      cat["rule_score"], cat["ml_score"], rtms, None)
-        if hasattr(self.features, "gather_columns"):
-            x, bl = self.features.gather_columns(
-                account_ids, amounts, tx_types, ips=ips, devices=devices,
-                fingerprints=fingerprints)
-        else:
-            x, bl = self.features.gather_batch([
-                ScoreRequest(account_id=account_ids[i], amount=amounts[i], tx_type=tx_types[i],
-                             ip=ips[i] if ips else "", device_id=devices[i] if devices else "",
-                             fingerprint=fingerprints[i] if fingerprints else "")
-                for i in range(len(account_ids))])
+            with span("score.encode", batch=total):
+                return encode_score_batch(cat["score"], cat["action"], cat["reason_mask"],
+                                          cat["rule_score"], cat["ml_score"], rtms, None)
+        with span("score.gather", batch=len(account_ids)):
+            if hasattr(self.features, "gather_columns"):
+                x, bl = self.features.gather_columns(
+                    account_ids, amounts, tx_types, ips=ips, devices=devices,
+                    fingerprints=fingerprints)
+            else:
+                x, bl = self.features.gather_batch([
+                    ScoreRequest(account_id=account_ids[i], amount=amounts[i],
+                                 tx_type=tx_types[i], ip=ips[i] if ips else "",
+                                 device_id=devices[i] if devices else "",
+                                 fingerprint=fingerprints[i] if fingerprints else "")
+                    for i in range(len(account_ids))])
         return self._score_rows_to_wire(x, bl, include_features, start, account_ids)
 
     def score_batch_wire_bytes(
@@ -609,7 +739,9 @@ class TorchScoringEngine:
         start = time.monotonic()
         if not hasattr(self.features, "decode_gather"):
             raise RuntimeError("feature store has no native wire decoder")
-        x, bl = self.features.decode_gather(payload)
+        with span("score.decode") as dsp:
+            x, bl = self.features.decode_gather(payload)
+            dsp.attributes["batch"] = int(x.shape[0])
         return self._score_rows_to_wire(x, bl, include_features, start), x.shape[0]
 
     def _score_rows_to_wire(self, x: np.ndarray, bl: np.ndarray, include_features: bool,
@@ -640,7 +772,8 @@ class TorchScoringEngine:
 
         def read_one() -> None:
             handle, lo = inflight.popleft()
-            host = _device_readback(handle)
+            with span("score.readback", batch=handle[2]):
+                host = _device_readback(handle)
             for k in RESULT_KEYS:
                 parts[k].append(host[k])
             rtms[lo:lo + handle[2]] = int((time.monotonic() - start) * 1000.0)
@@ -649,17 +782,23 @@ class TorchScoringEngine:
         thr, thr_host = self.thresholds_snapshot()
         for lo in range(0, total, self.batch_size):
             hi = min(lo + self.batch_size, total)
-            inflight.append((self._launch(x[lo:hi], bl[lo:hi], params, thr), lo))
+            self.lane_gate.acquire(LANE_BULK)
+            with span("score.dispatch", batch=hi - lo), annotate("score_step"):
+                inflight.append((self._launch(x[lo:hi], bl[lo:hi], params, thr), lo))
             if len(inflight) > self._pipeline_depth:
                 read_one()
         while inflight:
             read_one()
         cat = {k: np.concatenate(v) for k, v in parts.items()}
-        ledger_mod.note_decisions(self, cat, n=total, wire_mode="wire_row", x=x, bl=bl,
-                                  account_ids=account_ids, params_fp=fp, thresholds=thr_host)
-        return encode_score_batch(cat["score"], cat["action"], cat["reason_mask"],
-                                  cat["rule_score"], cat["ml_score"], rtms,
-                                  x if include_features else None)
+        self._observe_scores(cat["score"])
+        with span("score.ledger_note", batch=total):
+            ledger_mod.note_decisions(self, cat, n=total, wire_mode="wire_row", x=x, bl=bl,
+                                      account_ids=account_ids, params_fp=fp,
+                                      thresholds=thr_host)
+        with span("score.encode", batch=total):
+            return encode_score_batch(cat["score"], cat["action"], cat["reason_mask"],
+                                      cat["rule_score"], cat["ml_score"], rtms,
+                                      x if include_features else None)
 
     def score_arrays(self, x: np.ndarray, blacklisted: np.ndarray | None = None) -> dict:
         """Score a pre-gathered [N, 30] float32 batch as it is (no padding),
@@ -708,7 +847,8 @@ class TorchScoringEngine:
             max_age = os.environ.get("FEATURE_CACHE_MAX_AGE_S")
             cache = DeviceFeatureCache(self.features, capacity=self._cache_capacity,
                                        device=self.device, on_stream=self._on_stream,
-                                       max_age_s=float(max_age) if max_age else None)
+                                       max_age_s=float(max_age) if max_age else None,
+                                       metrics=self._cache_metrics_sink)
             # The store's write-back hook: every update marks the account's
             # row for the next lookup's delta copy.
             if hasattr(self.features, "delta_listener"):
@@ -784,7 +924,8 @@ class TorchScoringEngine:
         from igaming_platform_tpu_torch.serve import session_state as session_mod
 
         mgr = session_mod.SessionStateManager(cache.capacity, device=self.device,
-                                              on_stream=self._on_stream)
+                                              on_stream=self._on_stream,
+                                              metrics=self._session_metrics_sink)
         step = self._session_step_for(mgr, False, False)
         params = self.get_params()
         with mgr.lock:
@@ -832,20 +973,23 @@ class TorchScoringEngine:
         n = idxs.shape[0]
         shape = self._pick_shape(n)
         thr = self._thresholds if thr is None else thr
-        idxsp, _ = pad_batch(idxs.astype(np.int64), shape)
-        amtp, _ = pad_batch(amounts, shape)
-        typp, _ = pad_batch(types, shape)
-        blp, _ = pad_batch(bl, shape)
+        with span("score.pad", batch=n):
+            idxsp, _ = pad_batch(idxs.astype(np.int64), shape)
+            amtp, _ = pad_batch(amounts, shape)
+            typp, _ = pad_batch(types, shape)
+            blp, _ = pad_batch(bl, shape)
         cache, mgr = self.cache, self.session
         if mgr is not None and account_ids is not None:
             from igaming_platform_tpu_torch.serve.session_state import surviving_appends
 
             with mgr.lock:
                 ts = now if now is not None else cache.clock()
-                events, occ, post_len, seqs, audit = mgr.prepare_chunk(
-                    account_ids, amounts, types, ts)
-                evp, _ = pad_batch(events, shape)
-                occp, _ = pad_batch(occ, shape)
+                with span("score.session", batch=n):
+                    events, occ, post_len, seqs, audit = mgr.prepare_chunk(
+                        account_ids, amounts, types, ts)
+                with span("score.pad", batch=n):
+                    evp, _ = pad_batch(events, shape)
+                    occp, _ = pad_batch(occ, shape)
                 # Pad rows all target the scratch slot, at distinct ranks.
                 sidxp = np.full((shape,), mgr.capacity, dtype=np.int64)
                 sidxp[:n] = idxs
@@ -919,7 +1063,8 @@ class TorchScoringEngine:
 
         def read_one() -> None:
             handle, lo, n, smeta = inflight.popleft()
-            host = _device_readback(handle)
+            with span("score.readback", batch=n):
+                host = _device_readback(handle)
             for k in RESULT_KEYS:
                 parts[k].append(host[k])
             rtms[lo:lo + n] = int((time.monotonic() - start) * 1000.0)
@@ -928,33 +1073,41 @@ class TorchScoringEngine:
                 # step, one batch-start snapshot of the windows, so replay
                 # rebuilds every row's window (duplicate accounts included)
                 # from the ledger's order and the recorded session fields.
-                ledger_mod.note_decisions(
-                    self, host, n=n, wire_mode="index", tier="device", bl=bl[lo:lo + n],
-                    account_ids=account_ids[lo:lo + n], amounts=amounts32[lo:lo + n],
-                    tx_codes=types32[lo:lo + n], params_fp=fp, thresholds=thr_host,
-                    ts=smeta["ts"], session_lens=smeta["lens"], session_seqs=smeta["seqs"],
-                    session_hashes=smeta["hashes"])
+                with span("score.ledger_note", batch=n):
+                    ledger_mod.note_decisions(
+                        self, host, n=n, wire_mode="index", tier="device", bl=bl[lo:lo + n],
+                        account_ids=account_ids[lo:lo + n], amounts=amounts32[lo:lo + n],
+                        tx_codes=types32[lo:lo + n], params_fp=fp, thresholds=thr_host,
+                        ts=smeta["ts"], session_lens=smeta["lens"],
+                        session_seqs=smeta["seqs"], session_hashes=smeta["hashes"],
+                        mark_root=(lo == 0))
 
         for lo in range(0, total, self.batch_size):
             hi = min(lo + self.batch_size, total)
             with self.cache.step_lock:
-                idxs = self.cache.lookup(account_ids[lo:hi], now=now)
-                handle, n, smeta = self._launch_cached(
-                    idxs, amounts32[lo:hi], types32[lo:hi], bl[lo:hi], params,
-                    account_ids=account_ids[lo:hi] if session_on else None, now=now, thr=thr)
+                with span("score.cache_lookup", batch=hi - lo):
+                    idxs = self.cache.lookup(account_ids[lo:hi], now=now)
+                self.lane_gate.acquire(LANE_BULK)
+                with span("score.dispatch", batch=hi - lo), annotate("score_step"):
+                    handle, n, smeta = self._launch_cached(
+                        idxs, amounts32[lo:hi], types32[lo:hi], bl[lo:hi], params,
+                        account_ids=account_ids[lo:hi] if session_on else None, now=now,
+                        thr=thr)
             inflight.append((handle, lo, n, smeta))
             if len(inflight) > self._pipeline_depth:
                 read_one()
         while inflight:
             read_one()
         cat = {k: np.concatenate(v) if len(v) > 1 else v[0] for k, v in parts.items()}
+        self._observe_scores(cat["score"])
         if not session_on:
             # The rows live in the device table and never reach the host, so
             # the records carry the per-transaction context and the outputs
             # without a feature snapshot (replay counts them as skipped).
-            ledger_mod.note_decisions(self, cat, n=total, wire_mode="index", tier="device", bl=bl,
-                                      account_ids=account_ids, amounts=amounts32,
-                                      tx_codes=types32, params_fp=fp, thresholds=thr_host)
+            with span("score.ledger_note", batch=total):
+                ledger_mod.note_decisions(self, cat, n=total, wire_mode="index", tier="device",
+                                          bl=bl, account_ids=account_ids, amounts=amounts32,
+                                          tx_codes=types32, params_fp=fp, thresholds=thr_host)
         return cat, rtms
 
     def score_columns_cached(self, account_ids, amounts, tx_types, ips=None, devices=None,
@@ -979,14 +1132,19 @@ class TorchScoringEngine:
         from igaming_platform_tpu_torch.serve.wire import decode_index_batch, encode_score_batch
 
         start = time.monotonic()
-        ids, amounts, codes, ips, devices, fingerprints = decode_index_batch(payload)
+        with span("score.decode") as dsp:
+            ids, amounts, codes, ips, devices, fingerprints = decode_index_batch(payload)
+            dsp.attributes["batch"] = len(ids)
         if len(ids) == 0:
             return b"", 0
         self.ensure_cache()
-        bl = self._blacklist_flags(len(ids), ips, devices, fingerprints)
+        with span("score.blacklist", batch=len(ids)):
+            bl = self._blacklist_flags(len(ids), ips, devices, fingerprints)
         cat, rtms = self._indexed_outputs(ids, amounts, codes, bl, start)
-        return encode_score_batch(cat["score"], cat["action"], cat["reason_mask"],
-                                  cat["rule_score"], cat["ml_score"], rtms, None), len(ids)
+        with span("score.encode", batch=len(ids)):
+            return encode_score_batch(cat["score"], cat["action"], cat["reason_mask"],
+                                      cat["rule_score"], cat["ml_score"], rtms,
+                                      None), len(ids)
 
     # -- internals -----------------------------------------------------------
 
@@ -1008,8 +1166,9 @@ class TorchScoringEngine:
         if self._wire_encode is not None:
             # Encode before padding: zero pads stay zero in either wire.
             x = self._wire_encode(x)
-        xp, _ = pad_batch(x, shape)
-        blp, _ = pad_batch(bl, shape)
+        with span("score.pad", batch=n):
+            xp, _ = pad_batch(x, shape)
+            blp, _ = pad_batch(bl, shape)
         return self._launch_padded(xp, blp, n, params, thr=thr)
 
     @contextlib.contextmanager
@@ -1026,7 +1185,9 @@ class TorchScoringEngine:
         engine's stream, then start the copy of the result back to pinned
         host memory, without waiting, and hand the variants to the drift and
         shadow seams with the event recorded after the copy. Returns a
-        handle for ``_readback``."""
+        handle for ``_readback``. The ``device.dispatch`` chaos seam fires
+        first, outside the dispatch lock."""
+        chaos.fire("device.dispatch")
         with self._on_stream(), torch.inference_mode():
             res = step()
             packed, variants = res if isinstance(res, tuple) else (res, None)
@@ -1074,14 +1235,20 @@ class TorchScoringEngine:
     # are still on their way back.
 
     def _dispatch_requests(self, reqs: list[ScoreRequest]):
-        x, bl = self.features.gather_batch(reqs)
+        # Spans per batch, not per request: the batcher's thread serves the
+        # requests of many RPCs at once, so these are batch-level roots.
+        with span("score.gather", batch=len(reqs)):
+            x, bl = self.features.gather_batch(reqs)
         params, fp = self.params_snapshot()
         thr, thr_host = self.thresholds_snapshot()
-        return self._launch(x, bl, params, thr), x, bl, reqs, fp, thr_host
+        with span("score.dispatch", batch=len(reqs)), annotate("score_step"):
+            launched = self._launch(x, bl, params, thr)
+        return launched, x, bl, reqs, fp, thr_host
 
     def _collect_requests(self, handle) -> list[ScoreResponse]:
         launched, x, bl, reqs, fp, thr_host = handle
-        host = self._readback(launched)
+        with span("score.readback", batch=launched[2]):
+            host = self._readback(launched)
         rows = [self._row_response(host, x, i) for i in range(x.shape[0])]
         self._note_decisions_requests(host, x, bl, reqs, rows, "single", fp, thr_host)
         return rows
@@ -1095,11 +1262,12 @@ class TorchScoringEngine:
         the responses."""
         if self.ledger is None and self.shadow is None:
             return
-        prefix = ledger_mod.note_decisions(
-            self, out, n=len(responses), wire_mode=wire_mode, x=x, bl=bl, params_fp=params_fp,
-            thresholds=thresholds,
-            account_ids=[r.account_id for r in reqs], amounts=[r.amount for r in reqs],
-            tx_codes=[r.tx_type for r in reqs])
+        with span("score.ledger_note", batch=len(responses)):
+            prefix = ledger_mod.note_decisions(
+                self, out, n=len(responses), wire_mode=wire_mode, x=x, bl=bl,
+                params_fp=params_fp, thresholds=thresholds,
+                account_ids=[r.account_id for r in reqs], amounts=[r.amount for r in reqs],
+                tx_codes=[r.tx_type for r in reqs])
         if prefix is not None:
             for i, resp in enumerate(responses):
                 resp.decision_id = f"{prefix}.{i}"

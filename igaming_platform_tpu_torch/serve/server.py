@@ -42,14 +42,37 @@ returns the loop's report; ``POST /debug/promotion`` takes ``{"action":
 "pause"|"resume"|"rollback"|"inject_regression"|"tick"}``. On shutdown the
 loop stops before the drain.
 
+The operations plane is on by default, as in the JAX server:
+
+- ``SUPERVISOR`` (on unless ``0``) wraps the engine in a
+  ``SupervisedScoringEngine`` (``serve/supervisor.py``): breakers, the
+  ``DEVICE_STEP_DEADLINE_S`` watchdog, a rebuild through the engine's
+  factory (its warm-up launches every kernel of the path again) and the CPU
+  heuristic tier while the device circuit is open; BROWNOUT turns health
+  NOT_SERVING. ``GET /debug/supervisorz`` shows the breakers and ``POST
+  /debug/breakers`` takes ``{"dep", "action": "open"|"clear"|"probe"}`` or
+  ``{"brownout": "force"|"clear"}``;
+- ``GET /metrics`` is the Prometheus text of the service's
+  ``ServiceMetrics`` (``obs/metrics.py``, the JAX server's families);
+- ``GET /debug/sloz`` (the SLO engine, ``SLO=0`` off), ``/debug/deadlinez``
+  (lane depths, sheds, hedges and the step-time model), ``/debug/spans``
+  (the span ring) and ``/debug/flightz`` (the last requests with their
+  stage breakdown);
+- ``GET /debug/profilez?seconds=S`` records a ``torch.profiler`` trace of
+  host and CUDA activity for S seconds (clamped to 0.1-30; 409 while one
+  runs) into a directory keyed by ``trace_id=`` when given, and answers how
+  many kernel events it caught;
+- ``OTEL_EXPORTER_OTLP_ENDPOINT`` exports the span ring over OTLP/HTTP;
+- ``CHAOS_PLAN`` installs a fault plan before the engine is built (logged).
+
 Run it as ``python -m igaming_platform_tpu_torch.serve.server``. It serves
 on the card; with no card it refuses to boot unless
 ``SERVE_DEVICE_FALLBACK=cpu``, which serves on the host CPU with the abuse
 path under ``ABUSE_CPU_POLICY`` (default ``heuristic``), as the reference
 does. ``FRAUD_MODEL_PATH`` boots a trained multitask checkpoint from its
-``.npz`` (``resolve_model_boot``). The other /debug pages, /metrics, the
-supervisor and the batch-feature refresh are not ported yet
-(``ROADMAP.md``).
+``.npz`` (``resolve_model_boot``). Not ported yet (``ROADMAP.md``): the host
+profiler's, runtime telemetry's and reflection's pages, and the
+batch-feature refresh.
 """
 
 from __future__ import annotations
@@ -57,11 +80,15 @@ from __future__ import annotations
 import json
 import logging
 import os
+import re
 import signal
+import tempfile
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
 
 import torch
 
@@ -69,10 +96,16 @@ from igaming_platform_tpu_torch.convert import from_jax_params, load_params_tree
 from igaming_platform_tpu_torch.core.config import RiskServiceConfig
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES
 from igaming_platform_tpu_torch.obs import drift as drift_mod
+from igaming_platform_tpu_torch.obs import flight as flight_mod
+from igaming_platform_tpu_torch.obs import slo as slo_mod
+from igaming_platform_tpu_torch.obs import tracing
+from igaming_platform_tpu_torch.obs.metrics import ServiceMetrics
+from igaming_platform_tpu_torch.obs.otlp import exporter_from_env
 from igaming_platform_tpu_torch.serve.abuse import SequenceAbuseDetector
 from igaming_platform_tpu_torch.serve.bridge import ScoringBridge
 from igaming_platform_tpu_torch.serve.events import InMemoryBroker, resolve_transport
 from igaming_platform_tpu_torch.serve.feature_store import InMemoryFeatureStore
+from igaming_platform_tpu_torch.serve import chaos
 from igaming_platform_tpu_torch.serve import ledger as ledger_mod
 from igaming_platform_tpu_torch.serve.grpc_server import (
     HealthServicer,
@@ -82,6 +115,7 @@ from igaming_platform_tpu_torch.serve.grpc_server import (
 )
 from igaming_platform_tpu_torch.serve.native_store import NativeFeatureStore
 from igaming_platform_tpu_torch.serve.scorer import ScoreRequest, TorchScoringEngine
+from igaming_platform_tpu_torch.serve.supervisor import ServingSupervisor, SupervisedScoringEngine
 
 logger = logging.getLogger(__name__)
 
@@ -145,12 +179,19 @@ class AssembledService:
     """An assembled risk service, before any transport is bound."""
 
     config: RiskServiceConfig
-    engine: TorchScoringEngine
+    engine: TorchScoringEngine | SupervisedScoringEngine
     abuse: SequenceAbuseDetector
     bridge: ScoringBridge
     service: RiskGrpcService
     ledger: ledger_mod.DecisionLedger | None = None
     online: object | None = None  # train.online.OnlineLoop, not started
+    supervisor: ServingSupervisor | None = None
+    metrics: ServiceMetrics | None = None
+
+    @property
+    def inner(self) -> TorchScoringEngine:
+        """The scoring engine itself (inside the supervisor, when on)."""
+        return getattr(self.engine, "inner", self.engine)
 
 
 def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend: str = "mock",
@@ -162,35 +203,59 @@ def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend
     """Build the store (``config.feature_store``, unless one is given), the
     engine, the abuse detector (``abuse_policy``), the bridge and the
     RiskGrpcService, on ``device``. ``feature_cache`` and ``session_state``
-    go to the engine (None: its environment knobs). With ``LEDGER_DIR`` set,
+    go to the engine (None: its environment knobs). ``CHAOS_PLAN`` is
+    installed first, so the warm-up runs under it too; unless
+    ``SUPERVISOR=0`` the engine is wrapped in a ``SupervisedScoringEngine``
+    whose factory builds it again on a rebuild. With ``LEDGER_DIR`` set,
     opens the decision ledger there and binds it to the engine; whoever
     does not hand the assembly to a ``RiskServer`` closes it. With
     ``ONLINE_LOOP=1`` also builds the online loop, which the ``RiskServer``
     starts. Binds no transport."""
     config = config or RiskServiceConfig.from_env()
+    plan = chaos.install_from_env()
+    if plan is not None:
+        logger.warning("CHAOS PLAN ACTIVE (seed=%d): %s", plan.seed, sorted(plan.specs))
     ml_backend, params = resolve_model_boot(config, ml_backend, params)
     ledger_dir = os.environ.get("LEDGER_DIR", "")
     online = os.environ.get("ONLINE_LOOP", "") == "1"
     if online:
         check_online_boot(ml_backend, ledger_dir)
     store = feature_store if feature_store is not None else make_feature_store(config.feature_store)
-    engine = TorchScoringEngine(config.scoring, ml_backend=ml_backend, params=params,
-                                batcher_config=config.batcher, feature_store=store,
-                                device=device, warmup=warmup, feature_cache=feature_cache,
-                                session_state=session_state)
+
+    def build_engine() -> TorchScoringEngine:
+        return TorchScoringEngine(config.scoring, ml_backend=ml_backend, params=params,
+                                  batcher_config=config.batcher, feature_store=store,
+                                  device=device, warmup=warmup, feature_cache=feature_cache,
+                                  session_state=session_state)
+
+    supervisor = None
+    if os.environ.get("SUPERVISOR", "1") != "0":
+        supervisor = ServingSupervisor()
+        engine = SupervisedScoringEngine(build_engine, supervisor=supervisor)
+    else:
+        engine = build_engine()
+    inner = getattr(engine, "inner", engine)
+    metrics = ServiceMetrics("risk")
     abuse = SequenceAbuseDetector(params=abuse_params, policy=abuse_policy, device=device)
     bridge = ScoringBridge(engine, resolve_transport(broker, config.rabbitmq_url),
                            abuse_detector=abuse)
     service = RiskGrpcService(engine, abuse_detector=abuse.check,
-                              rate_limit_per_minute=config.rate_limit_per_minute)
+                              rate_limit_per_minute=config.rate_limit_per_minute,
+                              metrics=metrics)
     ledger = None
     if ledger_dir:
-        ledger = ledger_mod.DecisionLedger(ledger_dir, sink=ledger_mod.sink_from_env())
-        engine.ledger = ledger
+        ledger = ledger_mod.DecisionLedger(
+            ledger_dir, sink=ledger_mod.sink_from_env(),
+            breaker=supervisor.breaker("ledger") if supervisor is not None else None,
+            metrics=metrics)
+        inner.ledger = ledger
+        if supervisor is not None:
+            ledger_mod.set_state_provider(lambda: supervisor.state)
         logger.info("decision ledger at %s (sink=%s)", ledger_dir,
                     os.environ.get("LEDGER_SINK", "") or "none")
     loop = make_online_loop(engine, ledger, ledger_dir, service) if online else None
-    return AssembledService(config, engine, abuse, bridge, service, ledger, loop)
+    return AssembledService(config, engine, abuse, bridge, service, ledger, loop, supervisor,
+                            metrics)
 
 
 def check_online_boot(ml_backend: str, ledger_dir: str) -> None:
@@ -211,15 +276,18 @@ def make_online_loop(engine: TorchScoringEngine, ledger, ledger_dir: str, servic
     from igaming_platform_tpu_torch.train.online import LedgerMiner, OnlineLearner, OnlineLoop
     from igaming_platform_tpu_torch.train.promote import PromotionController
 
-    shadow = ShadowScorer(engine)
-    engine.shadow = shadow
+    metrics = service.metrics
+    shadow = ShadowScorer(engine, metrics=metrics)
+    getattr(engine, "inner", engine).shadow = shadow
     # Candidate-against-production divergence trends in the drift engine's
     # windows, so a drifting candidate shows before any gate judges it.
     if service.drift is not None:
         shadow.on_result = service.drift.note_shadow_result
     controller = PromotionController(engine, shadow, ledger=ledger,
-                                     vault_dir=os.path.join(ledger_dir, "params-vault"))
-    return OnlineLoop(miner=LedgerMiner(ledger_dir), learner=OnlineLearner(device=engine.device),
+                                     vault_dir=os.path.join(ledger_dir, "params-vault"),
+                                     metrics=metrics)
+    return OnlineLoop(miner=LedgerMiner(ledger_dir, metrics=metrics),
+                      learner=OnlineLearner(device=engine.device, metrics=metrics),
                       shadow=shadow, controller=controller)
 
 
@@ -236,12 +304,24 @@ class RiskServer:
         self.bridge = assembled.bridge
         self.ledger = assembled.ledger
         self.online = assembled.online
+        self.supervisor = assembled.supervisor
+        self.metrics = self.service.metrics
         config = assembled.config
         grpc_port = config.grpc_port if grpc_port is None else grpc_port
         self.grpc_server, self.grpc_port = None, None
         self.health = HealthServicer()
         if grpc_port >= 0:
             self.grpc_server, self.health, self.grpc_port = serve_risk(self.service, grpc_port)
+        if self.supervisor is not None:
+            # BROWNOUT flips health NOT_SERVING; DEGRADED keeps answering.
+            self.supervisor.bind(health=self.health, metrics=self.metrics)
+        self.otlp = exporter_from_env("risk")
+        if self.otlp is not None:
+            self.otlp.on_failure = self.metrics.otlp_export_failures_total.inc
+        # One /debug/profilez capture at a time, on a profiler readied here.
+        self._profile_lock = threading.Lock()
+        if self.inner.device.type == "cuda":
+            tracing.prepare_device_trace()
         self._stopped = threading.Event()
         self._probe_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="device-probe")
         self.http_server, self.http_port = self._start_http(
@@ -264,6 +344,38 @@ class RiskServer:
         except Exception:  # noqa: BLE001 — timeout or device error
             return False
 
+    @property
+    def inner(self) -> TorchScoringEngine:
+        return getattr(self.engine, "inner", self.engine)
+
+    def capture_profile(self, seconds: float, trace_id: str = "") -> dict:
+        """A ``torch.profiler`` capture of host and CUDA activity for
+        ``seconds`` (clamped to 0.1-30) while traffic keeps flowing, written
+        as a Chrome trace into a new directory whose name carries
+        ``trace_id``. One at a time: ``{"error"}`` while another runs. The
+        answer counts the kernel events caught, by name, since the profiler
+        can lose events in a long-lived process."""
+        seconds = max(0.1, min(float(seconds), 30.0))
+        if not self._profile_lock.acquire(blocking=False):
+            return {"error": "profile capture already in progress"}
+        try:
+            suffix = re.sub(r"[^0-9a-zA-Z_-]", "", trace_id)[:32]
+            log_dir = tempfile.mkdtemp(prefix=f"profilez-{suffix}-" if suffix else "profilez-",
+                                       dir=os.environ.get("ANOMALY_PROFILE_DIR") or None)
+            with tracing.device_trace(log_dir) as prof:
+                time.sleep(seconds)
+            kernels: dict[str, int] = {}
+            for ev in prof.events():
+                if ev.device_type == torch.autograd.DeviceType.CUDA:
+                    kernels[ev.name] = kernels.get(ev.name, 0) + 1
+            return {"ok": True, "seconds": seconds, "log_dir": log_dir,
+                    "trace": os.path.join(log_dir, "trace.json"),
+                    "kernel_events": sum(kernels.values()), "kernels": kernels}
+        except Exception as exc:  # noqa: BLE001 — a capture must not kill serving
+            return {"error": f"profile capture failed: {exc}"}
+        finally:
+            self._profile_lock.release()
+
     # -- HTTP sidecar (main.go:160-202 equivalent) ---------------------------
 
     def _start_http(self, port: int):
@@ -273,16 +385,49 @@ class RiskServer:
             def log_message(self, *args):  # quiet
                 pass
 
-            def _send(self, code: int, body: str):
+            def _send(self, code: int, body: str, content_type: str = "application/json"):
                 data = body.encode()
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", content_type)
                 self.send_header("Content-Length", str(len(data)))
                 self.end_headers()
                 self.wfile.write(data)
 
             def do_GET(self):  # noqa: N802
-                if self.path == "/health":
+                if self.path == "/metrics":
+                    self._send(200, server_ref.metrics.registry.render_text(), "text/plain")
+                elif self.path == "/debug/supervisorz":
+                    sup = server_ref.supervisor
+                    if sup is None:
+                        self._send(404, '{"error":"supervisor disabled"}')
+                        return
+                    snap = sup.snapshot()
+                    snap["rebuilds"] = getattr(server_ref.engine, "rebuilds", 0)
+                    self._send(200, json.dumps(snap))
+                elif self.path == "/debug/sloz":
+                    slo_engine = slo_mod.get_default()
+                    if slo_engine is None:
+                        self._send(404, '{"error":"slo engine disabled"}')
+                        return
+                    self._send(200, json.dumps(slo_engine.snapshot()))
+                elif self.path == "/debug/deadlinez":
+                    snap = server_ref.inner.deadline_snapshot()
+                    snap["burn_gate"] = server_ref.service.burn_gate.stats()
+                    self._send(200, json.dumps(snap))
+                elif self.path == "/debug/spans":
+                    self._send(200, tracing.DEFAULT_COLLECTOR.to_json())
+                elif self.path == "/debug/flightz":
+                    self._send(200, flight_mod.DEFAULT_RECORDER.to_json())
+                elif self.path.startswith("/debug/profilez"):
+                    q = parse_qs(urlparse(self.path).query)
+                    try:
+                        seconds = float(q.get("seconds", ["2"])[0])
+                    except ValueError:
+                        self._send(400, '{"error":"bad seconds"}')
+                        return
+                    result = server_ref.capture_profile(seconds, q.get("trace_id", [""])[0])
+                    self._send(409 if "error" in result else 200, json.dumps(result))
+                elif self.path == "/health":
                     self._send(200, '{"status":"healthy"}')
                 elif self.path == "/ready":
                     ready = not server_ref._stopped.is_set()
@@ -293,17 +438,17 @@ class RiskServer:
                     block, review = server_ref.engine.get_thresholds()
                     self._send(200, json.dumps({"block": block, "review": review}))
                 elif self.path == "/debug/cachez":
-                    cache = server_ref.engine.cache
+                    cache = server_ref.inner.cache
                     if cache is None:
                         self._send(404, '{"error":"feature cache disabled"}')
                         return
                     snap = cache.stats()
                     snap["shards"] = cache.shard_stats()
-                    if server_ref.engine.session is not None:
-                        snap["session_shards"] = server_ref.engine.session.shard_stats()
+                    if server_ref.inner.session is not None:
+                        snap["session_shards"] = server_ref.inner.session.shard_stats()
                     self._send(200, json.dumps(snap))
                 elif self.path == "/debug/sessionz":
-                    session = server_ref.engine.session
+                    session = server_ref.inner.session
                     if session is None:
                         self._send(404, '{"error":"session state disabled"}')
                         return
@@ -324,7 +469,7 @@ class RiskServer:
                     if server_ref.online is not None:
                         self._send(200, json.dumps(server_ref.online.report()))
                         return
-                    shadow = server_ref.engine.shadow
+                    shadow = server_ref.inner.shadow
                     if shadow is None:
                         self._send(404, '{"error":"no shadow scorer attached"}')
                         return
@@ -340,7 +485,9 @@ class RiskServer:
                 except json.JSONDecodeError:
                     self._send(400, '{"error":"bad json"}')
                     return
-                if self.path == "/debug/thresholds":
+                if self.path == "/debug/breakers":
+                    self._breakers(payload)
+                elif self.path == "/debug/thresholds":
                     server_ref.engine.set_thresholds(
                         int(payload.get("block", 80)), int(payload.get("review", 50)))
                     self._send(200, '{"ok":true}')
@@ -368,6 +515,30 @@ class RiskServer:
                     self._promotion(payload)
                 else:
                     self._send(404, '{"error":"not found"}')
+
+            def _breakers(self, payload) -> None:
+                """Operator force and clear: ``{"dep": ..., "action": "open" |
+                "clear" | "probe"}`` or ``{"brownout": "force" | "clear"}``;
+                answers the supervisor's snapshot."""
+                sup = server_ref.supervisor
+                if sup is None:
+                    self._send(404, '{"error":"supervisor disabled"}')
+                    return
+                try:
+                    if not isinstance(payload, dict):
+                        raise ValueError("body must be a JSON object")
+                    if "brownout" in payload:
+                        if payload["brownout"] == "force":
+                            sup.force_brownout("operator /debug/breakers")
+                        else:
+                            sup.clear_brownout()
+                    else:
+                        sup.force_breaker(str(payload.get("dep", "")),
+                                          str(payload.get("action", "")))
+                except (KeyError, ValueError) as exc:
+                    self._send(400, json.dumps({"error": str(exc)}))
+                    return
+                self._send(200, json.dumps(sup.snapshot()))
 
             def _outcomes(self, payload) -> None:
                 """Label backfill: ``{"decision_id", "label", "source"}`` or
@@ -490,11 +661,13 @@ class RiskServer:
         graceful_stop(self.grpc_server, self.health, grace, engine=self.engine)
         if self.ledger is not None:
             self.ledger.close()
-        if self.engine.shadow is not None:
-            self.engine.shadow.drain()
+        if self.inner.shadow is not None:
+            self.inner.shadow.drain()
         if self.service.drift is not None:
             self.service.drift.drain()
         self.service.close()
+        if self.otlp is not None:
+            self.otlp.stop()
         self.http_server.shutdown()
         self.http_server.server_close()
         self._probe_pool.shutdown(wait=False)

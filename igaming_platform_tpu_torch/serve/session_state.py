@@ -34,9 +34,10 @@ engine's stream, under the manager's lock:
 The host index (``_twin``) is authoritative: every decision's window can
 be rebuilt from it (``SessionChunkAudit`` hashes it lazily). The step's
 drift sketch and shadow variants (``make_session_step(sketch=, shadow=)``)
-reduce and re-score the same composed rows in the same step. The
-slot-sharded layout (``plan``) and the metrics sink are not ported yet: they
-raise, and ``shard_stats`` gives the unsharded answer.
+reduce and re-score the same composed rows in the same step. A
+``metrics=`` registry (``bind_metrics``) gets the ``session_*`` families. The
+slot-sharded layout (``plan``) is not ported yet: it raises, and
+``shard_stats`` gives the unsharded answer.
 """
 
 from __future__ import annotations
@@ -415,8 +416,6 @@ class SessionStateManager:
                  metrics: Any = None):
         if mesh is not None:
             raise NotImplementedError("a slot-sharded session ring is not ported yet (ROADMAP.md)")
-        if metrics is not None:
-            raise NotImplementedError("session metrics need obs/, not ported yet (ROADMAP.md)")
         self.device = resolve_device(device)
         self.capacity = int(capacity)
         self.n_events = int(n_events if n_events is not None else default_events())
@@ -446,6 +445,7 @@ class SessionStateManager:
         self.warm_rows = 0
         self.cold_rows = 0
         self.bypass_rows = 0
+        self._metrics = metrics
 
         self._ring_rows = self.capacity + 1  # + the scratch slot
         with self._on_stream():
@@ -459,7 +459,31 @@ class SessionStateManager:
     # -- surfaces -------------------------------------------------------------
 
     def bind_metrics(self, metrics: Any) -> None:
-        raise NotImplementedError("session metrics need obs/, not ported yet (ROADMAP.md)")
+        """Attach a ServiceMetrics (``obs/metrics.py``); the counts so far
+        are flushed into it at once."""
+        if metrics is self._metrics:
+            return
+        self._metrics = metrics
+        with self.lock:
+            self._export(self.warm_rows, self.cold_rows, self.bypass_rows, self.appends,
+                         self.rehydrations)
+
+    def _export(self, warm: int, cold: int, bypass: int, appends: int,
+                rehydrations: int) -> None:
+        """The ``session_*`` counters' deltas and the ring's device bytes."""
+        m = self._metrics
+        if m is None:
+            return
+        for outcome, n in (("warm", warm), ("cold", cold), ("bypass", bypass)):
+            if n:
+                m.session_rows_total.inc(n, outcome=outcome)
+        if appends:
+            m.session_appends_total.inc(appends)
+        if rehydrations:
+            m.session_rehydrations_total.inc(rehydrations)
+        m.session_hbm_bytes.set(self.hbm_bytes())
+        for shard, b in enumerate(self.hbm_bytes_per_shard()):
+            m.hbm_bytes.set(b, shard=str(shard), table="session_ring")
 
     def hbm_bytes(self) -> int:
         return self._ring_rows * self.n_events * EVENT_WIDTH * 4 + 2 * self._ring_rows * 4
@@ -497,6 +521,7 @@ class SessionStateManager:
         session state is on: counted, never silently unsessioned."""
         with self.lock:
             self.bypass_rows += n
+            self._export(0, 0, n, 0, 0)
 
     # -- admission sync (the cache's CLOCK decides) ---------------------------
 
@@ -530,6 +555,7 @@ class SessionStateManager:
                 self.session_length.index_copy_(0, s, host_to_device(lens, dev))
             self.admissions += k
             self.rehydrations += rehydrated
+            self._export(0, 0, 0, 0, rehydrated)
 
     # -- the append path ------------------------------------------------------
 
@@ -592,6 +618,7 @@ class SessionStateManager:
         self.appends += b
         self.warm_rows += warm
         self.cold_rows += b - warm
+        self._export(warm, b - warm, 0, b, 0)
         return events, occ, post_len, seqs, audit
 
     def adopt(self, ring, cursor, length) -> None:

@@ -25,9 +25,10 @@ differ. The shadow can never change, delay or fail a production answer:
 
 The candidate's outputs for a batch equal offline scoring of the rows
 production scored with the candidate params (same function, same rows,
-int8 wire included). ``report()`` is the ``/debug/shadowz`` payload. Not
-ported yet: the ``shadow_*`` metrics (``metrics=`` raises) and the host
-profiler's thread registration.
+int8 wire included). ``report()`` is the ``/debug/shadowz`` payload; a
+``metrics=`` registry gets the ``shadow_*`` families. The supervisor points
+the scorer at a rebuilt engine with ``rebind_engine``. Not ported yet: the
+host profiler's thread registration.
 """
 
 from __future__ import annotations
@@ -82,10 +83,8 @@ class ShadowScorer:
     def __init__(self, engine, candidate_params: Any = None, *, backend: str | None = None,
                  queue_max_rows: int | None = None, metrics=None,
                  on_result: Callable[[dict, dict, int], None] | None = None):
-        if metrics is not None:
-            raise NotImplementedError("shadow metrics need obs/metrics.py, not ported yet "
-                                      "(ROADMAP.md)")
         self._engine = engine
+        self._metrics = metrics
         self.backend = backend or getattr(engine, "ml_backend", "mock")
         # The split layout's step: the serving function of the backend, on
         # the engine's device.
@@ -135,13 +134,17 @@ class ShadowScorer:
             if (self._stopping or self._candidate is None
                     or self._pending_rows + n > self.queue_max_rows):
                 self.rows_dropped += n
-                return False
-            if item[1] is None:
-                item = (item[0], self._generation) + item[2:]
-            self._pending.append(item)
-            self._pending_rows += n
-            self._cv.notify()
-        return True
+                dropped = True
+            else:
+                if item[1] is None:
+                    item = (item[0], self._generation) + item[2:]
+                self._pending.append(item)
+                self._pending_rows += n
+                dropped = False
+                self._cv.notify()
+        if dropped and self._metrics is not None:
+            self._metrics.shadow_rows_total.inc(n, outcome="dropped")
+        return not dropped
 
     def submit(self, out: dict, *, x: np.ndarray | None, bl: np.ndarray | None, n: int) -> bool:
         """Host-rows entry (for harnesses): one production-scored batch
@@ -349,6 +352,11 @@ class ShadowScorer:
                     by_dir = stats["flips_by_direction"]
                     by_dir[key] = by_dir.get(key, 0) + c
             self._last_scored_at = time.monotonic()
+        if self._metrics is not None:
+            self._metrics.shadow_rows_total.inc(n, outcome="scored")
+            if flip_count:
+                self._metrics.shadow_action_flips_total.inc(flip_count)
+            self._metrics.shadow_score_divergence.observe_many(d_score)
 
     # -- reporting / lifecycle -----------------------------------------------
 

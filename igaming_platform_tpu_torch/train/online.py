@@ -25,8 +25,8 @@ export and redeploy cycle:
 Environment knobs: ``MINER_PENDING_MAX``; ``ONLINE_TRUNK``,
 ``ONLINE_BATCH``, ``ONLINE_MINED_FRAC`` and ``ONLINE_RESERVOIR_MAX`` (the
 learner); ``ONLINE_TICK_S``, ``ONLINE_STEPS_PER_TICK`` and
-``ONLINE_MIN_EXAMPLES`` (the loop). ``metrics=`` (``obs/metrics.py``'s
-``online_*`` counters) raises until that module is ported.
+``ONLINE_MIN_EXAMPLES`` (the loop). ``metrics=`` (an ``obs/metrics.py``
+``ServiceMetrics``) feeds the ``online_*`` counters.
 """
 
 from __future__ import annotations
@@ -49,12 +49,6 @@ from igaming_platform_tpu_torch.train.fraudgen import generate_labeled
 from igaming_platform_tpu_torch.train.trainer import TrainConfig, Trainer
 
 logger = logging.getLogger(__name__)
-
-
-def _no_metrics(metrics) -> None:
-    if metrics is not None:
-        raise NotImplementedError("online metrics need obs/metrics.py, not ported yet "
-                                  "(ROADMAP.md)")
 
 
 @dataclass
@@ -84,8 +78,8 @@ class LedgerMiner:
     """
 
     def __init__(self, directory: str, *, pending_max: int | None = None, metrics=None):
-        _no_metrics(metrics)
         self.directory = directory
+        self._metrics = metrics
         self.pending_max = pending_max or int(os.environ.get("MINER_PENDING_MAX", "65536"))
         self._cursor = {"seq": -1, "offset": 0}
         # decision_id -> (features, score, review_threshold), oldest first.
@@ -161,10 +155,15 @@ class LedgerMiner:
                 if is_hard_pos:
                     s["hard_positives"] += 1
         x = np.stack(xs) if xs else np.empty((0, NUM_FEATURES), np.float32)
-        return MinedExamples(
+        mined = MinedExamples(
             x=x, y=np.asarray(ys, np.float32), hard=np.asarray(hard, bool), decision_ids=ids,
             counts={"hard_negatives": s["hard_negatives"], "hard_positives": s["hard_positives"]},
             scores=np.asarray(scs, np.float32))
+        if self._metrics is not None and mined.n:
+            n_hard = int(mined.hard.sum())
+            self._metrics.online_mined_total.inc(mined.n - n_hard, kind="labeled")
+            self._metrics.online_mined_total.inc(n_hard, kind="hard")
+        return mined
 
 
 class OnlineLearner:
@@ -180,7 +179,7 @@ class OnlineLearner:
                  seed: int = 0, mined_frac: float | None = None, hard_weight: float = 4.0,
                  reservoir_max: int | None = None, metrics=None,
                  device: str | torch.device = "cuda"):
-        _no_metrics(metrics)
+        self._metrics = metrics
         if trunk is None:
             trunk = tuple(int(t) for t in os.environ.get("ONLINE_TRUNK", "64,64").split(",") if t)
         if batch_size is None:
@@ -244,6 +243,8 @@ class OnlineLearner:
                 pending = self.trainer.put_batch(self._batch(), side=True)
             metrics_dev = self.trainer.train_step_device(current)
         self.steps_total += steps
+        if self._metrics is not None:
+            self._metrics.online_train_steps_total.inc(steps)
         self.last_metrics = self.trainer.materialize_metrics(metrics_dev)
         return self.last_metrics
 

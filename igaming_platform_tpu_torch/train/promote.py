@@ -22,11 +22,11 @@ Operator knobs: ``force_promote``, ``force_rollback``, ``pause``/``resume``
 and the drill-only ``inject_regression`` (the served fraud head negated,
 through the same seam, to rehearse the auto-rollback).
 
-The SLO plane (``obs/slo.py``) waits for ``ROADMAP.md`` Queue 1 item 4:
-``slo_engine=`` takes any object with ``alerts_active() -> {"fast", "slow"}``,
-and with none given the SLO gates read quiet. ``metrics=`` (the
-``promotion_*`` counters of ``obs/metrics.py``) raises, as in the other
-ported modules.
+The SLO gates read ``slo_engine=``, any object with ``alerts_active() ->
+{"fast", "slow"}`` (``obs/slo.SLOEngine`` is one); with none given they read
+quiet, and the server does not bind the process's SLO engine yet
+(``ROADMAP.md``). ``metrics=`` (an ``obs/metrics.py`` ``ServiceMetrics``)
+feeds the ``promotion_*`` counters.
 
 The vault: the JAX vault keeps an Orbax checkpoint per fingerprint; Orbax
 is on neither machine the port runs on, so ``<vault>/<fp>.npz`` holds the
@@ -187,9 +187,6 @@ class PromotionController:
                  gates: gates_mod.PromotionGates | None = None,
                  probe: QualityProbe | None = None, slo_engine=None,
                  vault_dir: str | None = None, metrics=None, history_max: int = 64):
-        if metrics is not None:
-            raise NotImplementedError("promotion metrics need obs/metrics.py, not ported yet "
-                                      "(ROADMAP.md)")
         backend = getattr(engine, "ml_backend", None)
         if backend != "multitask":
             raise ValueError(
@@ -198,6 +195,7 @@ class PromotionController:
                 "config error")
         self.engine = engine
         self.shadow = shadow
+        self._metrics = metrics
         self.ledger = ledger
         self.gates = gates or gates_mod.PromotionGates.from_env()
         self.probe = probe or QualityProbe()
@@ -256,8 +254,13 @@ class PromotionController:
             gates=self.gates,
             drift_alerting=self._drift_alerting(),
         )
+        ok = gates_mod.gates_pass(table)
+        if not ok and self._metrics is not None:
+            for name, row in table.items():
+                if not row["ok"]:
+                    self._metrics.promotion_gate_failures_total.inc(gate=name)
         self.last_gate_table = table
-        return gates_mod.gates_pass(table), table
+        return ok, table
 
     # -- transitions ---------------------------------------------------------
 
@@ -275,6 +278,8 @@ class PromotionController:
                 gates_json=json.dumps(table, separators=(",", ":"))[:4000] if table else "{}",
                 ts_unix=ledger_mod.wall_clock(),
             ))
+        if self._metrics is not None:
+            self._metrics.promotions_total.inc(event=event)
         logger.warning("promotion controller: %s %s -> %s (%s)", event, old_fp, new_fp, reason)
 
     def _swap(self, params: Any) -> tuple[str, str]:

@@ -30,8 +30,8 @@ learner's, beside the serving engine's); every step, read-back and export
 is enqueued there.
 
 Waiting for later items of ``ROADMAP.md`` Queue 1: ``mesh=`` (data and
-tensor parallel training, item 6) and ``step_cost`` (``obs/perfmodel.py``,
-item 4) raise NotImplementedError.
+tensor parallel training, item 6) and ``step_cost`` (a cost of the hand
+kernels for ``obs/perfmodel.py``, item 4) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -284,7 +284,8 @@ class Trainer:
 
     def step_cost(self, batch: Batch) -> dict[str, float]:
         raise NotImplementedError(
-            "step_cost needs obs/perfmodel.py, which waits for ROADMAP.md Queue 1 item 4")
+            "step_cost needs a cost model of the hand kernels (obs/perfmodel.py has no "
+            "cost_of), which waits for ROADMAP.md Queue 1 item 4")
 
     def export_params(self) -> MultiTask:
         """The serving module of the current master weights, on the

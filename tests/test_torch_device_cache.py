@@ -24,12 +24,14 @@ import pytest
 from test_torch_ensemble import assert_outputs_match, jax_tree
 
 from igaming_platform_tpu.core.config import BatcherConfig as JBatcherConfig
+from igaming_platform_tpu.obs.metrics import ServiceMetrics as JServiceMetrics
 from igaming_platform_tpu.serve import device_cache as jdc
 from igaming_platform_tpu.serve.feature_store import InMemoryFeatureStore as JStore
 from igaming_platform_tpu.serve.feature_store import TransactionEvent as JEvent
 from igaming_platform_tpu.serve.scorer import TPUScoringEngine
 from igaming_platform_tpu_torch.convert import from_jax_params
 from igaming_platform_tpu_torch.core.config import BatcherConfig
+from igaming_platform_tpu_torch.obs.metrics import ServiceMetrics
 from igaming_platform_tpu_torch.serve.device_cache import DeviceFeatureCache
 from igaming_platform_tpu_torch.serve.feature_store import InMemoryFeatureStore, TransactionEvent
 from igaming_platform_tpu_torch.serve.scorer import RESULT_KEYS, ScoreRequest, TorchScoringEngine
@@ -77,8 +79,11 @@ def test_cache_matches_jax(scenario, monkeypatch):
     jstore, tstore = _stores(clock)
     capacity = 4 if scenario == "clock" else 8
     max_age = 100.0 if scenario == "max_age" else None
-    jcache = jdc.DeviceFeatureCache(jstore, capacity=capacity, max_age_s=max_age)
-    tcache = DeviceFeatureCache(tstore, capacity=capacity, device="cpu", max_age_s=max_age)
+    jmetrics, tmetrics = JServiceMetrics("risk"), ServiceMetrics("risk")
+    jcache = jdc.DeviceFeatureCache(jstore, capacity=capacity, max_age_s=max_age,
+                                    metrics=jmetrics)
+    tcache = DeviceFeatureCache(tstore, capacity=capacity, device="cpu", max_age_s=max_age,
+                                metrics=tmetrics)
     jstore.delta_listener, tstore.delta_listener = jcache.note_update, tcache.note_update
     for step, (op, *args) in enumerate(_ops(scenario)):
         if op == "tick":
@@ -111,8 +116,9 @@ def test_cache_matches_jax(scenario, monkeypatch):
     assert tcache.shard_stats() == {"sharded": False, "shards": 1, "rows_per_shard": capacity,
                                     "occupancy": [stats["occupancy"]],
                                     "hbm_bytes": [capacity * 121]}
-    with pytest.raises(NotImplementedError):
-        tcache.bind_metrics(object())
+    # The feature_cache_* families and the cache's shard gauges, as the JAX
+    # cache exports them.
+    assert tmetrics.registry.render_text() == jmetrics.registry.render_text()
 
 
 def test_clock_never_reclaims_a_slot_its_own_lookup_reads():

@@ -22,6 +22,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "igaming_platform_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "msgpack", "grpc",
@@ -95,6 +97,26 @@ def test_no_forbidden_import_statement():
     assert ("grpc", "serve_risk") in set(_imports(binding))  # the exception is still needed
 
 
+PLANE = ("obs/metrics.py", "obs/tracing.py", "obs/flight.py", "obs/otlp.py", "obs/slo.py",
+         "obs/perfmodel.py", "obs/drift.py", "serve/deadline.py", "serve/supervisor.py",
+         "utils/logging.py")
+
+
+@pytest.mark.parametrize("rel", PLANE)
+def test_operations_plane_stands_alone(rel):
+    """The operations plane's modules, held one by one: each is the port's
+    own copy, imports nothing forbidden at any level, and imports no module
+    of the package that does (its imports of the port resolve to files)."""
+    path = PORT / rel
+    assert path.exists(), rel
+    imported = [m for m, _ in _imports(path)]
+    assert not [m for m in imported if _forbidden(m)], rel
+    for m in imported:
+        if m.startswith("igaming_platform_tpu_torch."):
+            target = REPO.joinpath(*m.split("."))
+            assert target.with_suffix(".py").exists() or target.is_dir(), (rel, m)
+
+
 def test_importing_every_module_loads_none_of_them():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
@@ -110,6 +132,8 @@ def test_importing_every_module_loads_none_of_them():
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     for m in ("serve.scorer", "serve.device_cache", "serve.session_state", "serve.wire",
               "serve.grpc_server", "serve.server", "serve.ltv_job", "models.ltv", "ops.dense",
-              "train.trainer", "train.checkpoint", "train.online", "train.eval"):
+              "train.trainer", "train.checkpoint", "train.online", "train.eval",
+              "obs.metrics", "obs.tracing", "obs.flight", "obs.otlp", "obs.slo",
+              "obs.perfmodel", "serve.deadline", "serve.supervisor", "utils.logging"):
         assert f"igaming_platform_tpu_torch.{m}" in loaded, m
     assert not [m for m in loaded if _forbidden(m)]

@@ -17,8 +17,8 @@ and identity seams pinned alike in both (tests/torch_ledger_common.py):
   snapshot where JAX records one, records equal to the JAX engine's in
   every integer and string field (score and action excused on rows within
   1e-4 of a floor boundary whose ml_score differs; ml_score atol 1e-6;
-  params_fp equal where both packages hash the same tree, the mock's; the
-  port's trace_id "" until obs/tracing is ported);
+  params_fp equal where both packages hash the same tree, the mock's; a
+  trace_id wherever the JAX record has one);
   the fingerprint captured at dispatch across a ``swap_params``, and the
   thresholds across a ``set_thresholds``; decision ids on responses and in
   ScoreTransaction's trailing metadata; the writer's own time counted;
@@ -59,6 +59,7 @@ from igaming_platform_tpu.serve import chaos as jchaos
 from igaming_platform_tpu.serve import ledger as jl
 from igaming_platform_tpu.serve.supervisor import OPEN, CircuitBreaker
 from igaming_platform_tpu_torch.convert import from_jax_params
+from igaming_platform_tpu_torch.obs.metrics import ServiceMetrics
 from igaming_platform_tpu_torch.serve import chaos as pchaos
 from igaming_platform_tpu_torch.serve import ledger as pl
 
@@ -324,7 +325,7 @@ def test_clickhouse_insert_equal_jax():
     assert isinstance(pl.ClickHouseDecisionSink("http://127.0.0.1:1").client, pl.ClickHouseClient)
 
 
-def test_sink_from_env(monkeypatch):
+def test_sink_from_env(monkeypatch, tmp_path):
     monkeypatch.delenv("LEDGER_SINK", raising=False)
     assert pl.sink_from_env() is None
     monkeypatch.setenv("LEDGER_SINK", "clickhouse")
@@ -335,8 +336,12 @@ def test_sink_from_env(monkeypatch):
     monkeypatch.setenv("LEDGER_SINK", "kafka")
     with pytest.raises(ValueError):
         pl.sink_from_env()
-    with pytest.raises(NotImplementedError):
-        pl.DecisionLedger("/nonexistent-never-made", metrics=object())
+    metrics = ServiceMetrics("risk")
+    ledger = pl.DecisionLedger(str(tmp_path), metrics=metrics)
+    try:
+        assert ledger._metrics is metrics
+    finally:
+        ledger.close()
 
 
 # ---------------------------------------------------------------------------
@@ -376,8 +381,8 @@ def _bound(eng, mod, d):
 
 def assert_records_match(got: list, want: list, same_fp: bool) -> None:
     """Records of the port against the JAX engine's: every field equal but
-    ``params_fp`` (unless both hash one tree), ``trace_id`` (the port's is
-    "" until ``obs/tracing`` is ported) and, on floor-boundary rows, score
+    ``params_fp`` (unless both hash one tree), ``trace_id`` (each a fresh
+    random id, set exactly where the other is) and, on floor-boundary rows, score
     and action; ml_score within 1e-6; snapshots bit-equal."""
     assert len(got) == len(want) > 0
     ml = [np.array([r.ml_score for r in recs], np.float32) for recs in (got, want)]
@@ -385,7 +390,7 @@ def assert_records_match(got: list, want: list, same_fp: bool) -> None:
     ok = checked_rows({"ml_score": ml[0]}, {"ml_score": ml[1],
                                             "rule_score": np.array([r.rule_score for r in want])})
     for g, w, checked in zip(got, want, ok):
-        assert g.trace_id == ""
+        assert bool(g.trace_id) == bool(w.trace_id)
         skip = {"trace_id"} | ({"params_fp"} if not same_fp else set())
         skip |= set() if checked else {"score", "action"}
         assert {k: v for k, v in fields(g).items() if k not in skip} == {

@@ -259,8 +259,10 @@ def test_index_mode_sidecar_pages(monkeypatch):
         except urllib.error.HTTPError as exc:
             return exc.code, None
 
+    # BURN_SHED=0: a slow host's ScoreBatch latency must not shed this
+    # test's bulk call (the SLO plane is on by default).
     for knob, value in (("WIRE_MODE", "index"), ("SESSION_STATE", "1"),
-                        ("FEATURE_CACHE_CAPACITY", "256")):
+                        ("FEATURE_CACHE_CAPACITY", "256"), ("BURN_SHED", "0")):
         monkeypatch.setenv(knob, value)
     config = RiskServiceConfig(batcher=BatcherConfig(batch_size=64, max_wait_ms=1.0))
     store = InMemoryFeatureStore(clock=lambda: T0)

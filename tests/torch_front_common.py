@@ -95,3 +95,142 @@ def checked_rows(got: dict, want: dict) -> np.ndarray:
     same_ml = (np.asarray(got["ml_score"], np.float32).view(np.int32)
                == np.asarray(want["ml_score"], np.float32).view(np.int32))
     return (np.abs(pre - np.round(pre)) > 1e-4) | same_ml
+
+
+# ---------------------------------------------------------------------------
+# The operations plane (tests/test_torch_metrics.py, test_torch_tracing.py)
+
+
+class JaxAborted(Exception):
+    """What the JAX package's RPC wrapper raises through ``JaxContext``."""
+
+
+class JaxContext:
+    """The part of a grpcio servicer context the JAX package's RPC wrapper
+    uses: invocation metadata in, trailing metadata out, abort as raise."""
+
+    def __init__(self, metadata=()):
+        self.metadata = tuple(metadata)
+        self.trailing = ()
+
+    def invocation_metadata(self):
+        return self.metadata
+
+    def time_remaining(self):
+        return None
+
+    def set_trailing_metadata(self, pairs):
+        self.trailing = tuple(pairs)
+
+    def abort(self, code, details):
+        raise JaxAborted(code.name, details)
+
+
+def ltv_rows(account_id: str):
+    """A fixed 25-feature LTV row per account (both services' source)."""
+    rng = np.random.default_rng(sum(account_id.encode()))
+    return rng.gamma(2.0, 50.0, 25).astype(np.float32)
+
+
+class PlanePair:
+    """The JAX package's RiskGrpcService and the port's, each over a
+    supervised engine (``backend``, the same params), the same native-store
+    events with pinned clocks and a decision ledger in ``tmp_path``, with
+    their SLO and drift planes on (the JAX runtime telemetry off: the port
+    has none; no latency-driven shed). ``call(side, method, request_bytes, metadata)`` runs one RPC
+    through that package's RPC wrapper and returns its status code name."""
+
+    def __init__(self, monkeypatch, tmp_path, backend: str = "mlp+gbdt", n_accounts: int = 40):
+        from test_torch_ensemble import jax_tree
+
+        from igaming_platform_tpu.core.config import BatcherConfig as JBatcherConfig
+        from igaming_platform_tpu.serve import grpc_server as jgrpc
+        from igaming_platform_tpu.serve import ledger as jl
+        from igaming_platform_tpu.serve import supervisor as jsup
+        from igaming_platform_tpu.serve.native_store import NativeFeatureStore as JaxStore
+        from igaming_platform_tpu.serve.scorer import TPUScoringEngine
+        from igaming_platform_tpu_torch.convert import from_jax_params
+        from igaming_platform_tpu_torch.core.config import BatcherConfig
+        from igaming_platform_tpu_torch.serve import grpc_server as pgrpc
+        from igaming_platform_tpu_torch.serve import ledger as pl
+        from igaming_platform_tpu_torch.serve import supervisor as psup
+        from igaming_platform_tpu_torch.serve.native_store import NativeFeatureStore
+        from igaming_platform_tpu_torch.serve.scorer import TorchScoringEngine
+
+        for knob in ("SLO", "DRIFT", "SUPERVISOR", "HOST_PIPELINE", "WIRE_MODE", "WIRE_DTYPE",
+                     "CHAOS_PLAN", "DEADLINE_DEFAULT_MS", "SLO_OBJECTIVE_MS"):
+            monkeypatch.delenv(knob, raising=False)
+        monkeypatch.setenv("RUNTIME_TELEMETRY", "0")
+        # No shed that depends on the host's latency: the burn-shed gate
+        # and the bulk gate's p99 feedback off in both.
+        monkeypatch.setenv("BURN_SHED", "0")
+        monkeypatch.setenv("BULK_P99_SLO_MS", "0")
+        pin_jax_clock(monkeypatch)
+        self.jgrpc, self.pgrpc = jgrpc, pgrpc
+        stores = (JaxStore(max_accounts=400), NativeFeatureStore(max_accounts=400,
+                                                                 clock=lambda: T0))
+        fill(stores, event_columns(5, n_accounts, 900),
+             bonus_accounts=[f"acct{a}" for a in range(0, n_accounts, 4)],
+             blacklist=[("device", "dev4")])
+        tree = jax_tree(backend)
+        cfg = dict(batch_size=64, latency_tiers=(16,), max_wait_ms=1.0)
+        jeng = jsup.SupervisedScoringEngine(
+            lambda: TPUScoringEngine(ml_backend=backend, params=tree or None,
+                                     feature_store=stores[0],
+                                     batcher_config=JBatcherConfig(**cfg)),
+            supervisor=jsup.ServingSupervisor())
+        peng = psup.SupervisedScoringEngine(
+            lambda: TorchScoringEngine(ml_backend=backend, params=from_jax_params(backend, tree),
+                                       feature_store=stores[1], device="cpu",
+                                       batcher_config=BatcherConfig(**cfg)),
+            supervisor=psup.ServingSupervisor())
+        self.engines = (jeng, peng)
+        self.services = (jgrpc.RiskGrpcService(jeng, ltv_source=ltv_rows),
+                         pgrpc.RiskGrpcService(peng, ltv_source=ltv_rows))
+        self.ledgers = []
+        for side, (mod, svc, eng) in enumerate(zip((jl, pl), self.services, self.engines)):
+            ledger = mod.DecisionLedger(str(tmp_path / f"ledger{side}"), metrics=svc.metrics)
+            eng.inner.ledger = ledger
+            self.ledgers.append(ledger)
+        self._closed = False
+
+    def call(self, side: int, method: str, payload: bytes, metadata=()) -> str:
+        if side == 0:
+            from igaming_platform_tpu.proto_gen.risk.v1 import risk_pb2
+
+            svc = self.services[0]
+            request = (bytes(payload) if method == "ScoreBatch"
+                       else getattr(risk_pb2, f"{method}Request").FromString(payload))
+            handler = self.jgrpc._rpc(svc.metrics, method, getattr(svc, method))
+            try:
+                handler(request, JaxContext(metadata))
+                return "OK"
+            except JaxAborted as exc:
+                return exc.args[0]
+        try:
+            self.services[1].call(method, payload, metadata)
+            return "OK"
+        except self.pgrpc.RpcAbort as exc:
+            return exc.code.name
+
+    def settle(self) -> None:
+        """Every ledger record written, every queued sketch folded."""
+        for ledger in self.ledgers:
+            ledger.flush(10.0)
+        for svc in self.services:
+            if svc.drift is not None:
+                svc.drift.drain(10.0)
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        for eng, ledger in zip(self.engines, self.ledgers):
+            eng.close()
+            ledger.close()
+        from igaming_platform_tpu.obs import drift as jdrift
+        from igaming_platform_tpu.obs import slo as jslo
+
+        self.services[1].close()
+        for mod in (jdrift, jslo):
+            mod.uninstall()
