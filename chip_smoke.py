@@ -245,7 +245,7 @@ GRAD_TOL = 2e-4  # rtol and atol of gradients: the JAX tests' bar, float32 sums 
 ABUSE_CFG = dict(d_model=64, n_heads=2, n_layers=2, d_ff=128)
 CONFIG3_CFG = dict(d_model=128, n_heads=2, n_layers=2, d_ff=256)
 CONFIG3_POINTS = ((64, 256), (8, 2048), (2, 8192))  # (batch, S)
-ABUSE_ACCOUNTS, ABUSE_MAX_EVENTS = 1_600, 64  # the drain sets most of the script's time
+ABUSE_ACCOUNTS, ABUSE_MAX_EVENTS = 1_200, 64  # the drain sets most of the script's time
 ABUSE_BATCH, ABUSE_CHECKS, ABUSE_LATENCY = 256, 200, 1000
 ABUSE_ATOL = 1e-4  # card against CPU detector: float32 through two layers, sums reordered
 STREAM_T0 = 1_700_000_000.0
@@ -4186,7 +4186,13 @@ def online_assembly(torch, card: str, store, ckpt: str, device: str) -> dict:
 
     root = tempfile.mkdtemp(prefix="chip-smoke-online-")
     wal = f"{root}/wal"
-    env = {"ONLINE_LOOP": "1", "LEDGER_DIR": wal, "ONLINE_TICK_S": "3600", **PROMOTE_ENV}
+    # The promotion gates read the service's SLO engine, as the JAX
+    # controller reads the process's: under its default 50 ms objective the
+    # phase's 16,384-row ScoreBatch RPCs (60 ms and more) burn the budget and
+    # hold every promotion; a bulk-sized objective lets the gates judge the
+    # candidate.
+    env = {"ONLINE_LOOP": "1", "LEDGER_DIR": wal, "ONLINE_TICK_S": "3600",
+           "SLO_OBJECTIVE_MS": "1000", **PROMOTE_ENV}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     rng = np.random.default_rng(41)
@@ -4475,16 +4481,18 @@ def bulk_traffic(svc, rpc_error, batches: list, stop) -> dict:
     return out
 
 
-def timed_calls(svc, method: str, payloads: list, codes: dict | None = None) -> list[float]:
-    """Milliseconds of each answered call; every call's status code counted
-    in ``codes`` by (method, code), sheds included."""
+def timed_calls(svc, method: str, payloads: list, codes: dict | None = None,
+                metadata=()) -> list[float]:
+    """Milliseconds of each answered call (sent with ``metadata``); every
+    call's status code counted in ``codes`` by (method, code), sheds
+    included."""
     from igaming_platform_tpu_torch.serve.grpc_server import RpcAbort
 
     ms = []
     for payload in payloads:
         t = time.perf_counter()
         try:
-            svc.call(method, payload)
+            svc.call(method, payload, metadata)
             code = "OK"
             ms.append((time.perf_counter() - t) * 1e3)
         except RpcAbort as exc:
@@ -4873,6 +4881,559 @@ def phase_plane(torch, card: str, gbdt_kernel, fa, dense_mod, store, device: str
     return result
 
 
+# Phase 14: the rest of the operations plane on phase 7's store.
+PLANE2_HZ = 97  # the boot's stack sampler (HOSTPROF_HZ)
+PLANE2_GC_S = 5.0  # the GC-pressure drill's length
+PLANE2_GC_THRESHOLD = 1  # gc.set_threshold during the drill: a collection per allocation
+PLANE2_GC_EVERY_S = 0.25  # the drill's collector: a full gc.collect() this often
+PLANE2_DEADLINE_MS = {"ScoreBatch": 10_000, "ScoreTransaction": 2_000}
+PLANE2_MIX = (40, 3, 10)  # ScoreTransaction, 16,384-row ScoreBatch, CheckBonusAbuse
+PLANE2_DELAY_MS = 250  # the injected device.dispatch delay
+PLANE2_CAPTURE_S = 1.5  # ANOMALY_PROFILE_SECONDS
+PLANE2_TURN_BATCHES, PLANE2_TURN_SINGLES = 5, 100
+# A server boot in a fresh process, as ``python -m ...serve.server`` does.
+_BOOT = ("import sys; sys.path.insert(0, '.'); "
+         "from igaming_platform_tpu_torch.serve.server import main; main()")
+
+
+def trace_kernels(path: str) -> dict[str, int]:
+    """Kernel events by name in a Chrome trace that ``capture_profile``
+    wrote."""
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f).get("traceEvents", [])
+    out: dict[str, int] = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            out[ev["name"]] = out.get(ev["name"], 0) + 1
+    return out
+
+
+def plane2_state(on: bool, svc, engine, telemetry) -> None:
+    """The plane of this process on (the default: host profiler, its
+    sampler at HOSTPROF_HZ, the runtime telemetry ``telemetry``) or off
+    (``HOSTPROF=0 RUNTIME_TELEMETRY=0``), as a boot with those knobs would
+    have it; the host profiler is rebuilt from the environment."""
+    from igaming_platform_tpu_torch.obs import hostprof, runtime_telemetry, tracing
+
+    os.environ["HOSTPROF"] = "1" if on else "0"
+    hostprof.reinstall_from_env().install(svc.metrics)
+    runtime_telemetry.uninstall()
+    if on:
+        runtime_telemetry.DEFAULT = telemetry
+        tracing.add_span_sink(telemetry.observe_span)
+
+
+def boot_subprocess(env: dict, until: str | None, timeout_s: float = 300.0) -> dict:
+    """``python -m ...serve.server`` in a fresh process under ``env``: run to
+    its exit (``until`` None), or until a log line holds ``until``, then
+    SIGTERM and wait. Returns its exit code, seconds and log."""
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", _BOOT], env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines: list[str] = []
+    seen = threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line.rstrip())
+            if until is not None and until in line:
+                seen.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if until is not None:
+            if not seen.wait(timeout_s):
+                raise AssertionError(f"boot: no {until!r} in {timeout_s} s:\n" + "\n".join(lines))
+            up_s = time.perf_counter() - t0
+            proc.send_signal(signal.SIGTERM)
+        else:
+            up_s = None
+        rc = proc.wait(timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(10)
+    return {"rc": rc, "up_s": up_s, "seconds": time.perf_counter() - t0, "log": lines}
+
+
+def phase_plane2(torch, card: str, gbdt_kernel, fa, dense_mod, store,
+                 device: str = "cuda") -> dict:
+    """Phase 14, on phase 7's store: the default risk service with the whole
+    plane on (host profiler with its sampler at ``HOSTPROF_HZ=97``, runtime
+    telemetry, deadline lanes, SLO, supervisor, drift) behind the sidecar.
+    In order: the plane's cost on ScoreBatch, off (``HOSTPROF=0
+    RUNTIME_TELEMETRY=0``) and on in turns; the GC-pressure drill
+    (``gc.set_threshold(1)`` and a thread collecting for 5 s under ScoreBatch
+    traffic: every RPC answers within its deadline, collections counted,
+    pauses attributed to RPCs in flight); the RPC mix (ScoreBatch, then
+    CheckBonusAbuse, then ScoreTransaction: bulk first, so the burn-shed gate
+    has no interactive traffic to protect), after which the dispatch counter
+    equals the steps launched and the RPC roots' ``dispatches`` add up to
+    it, the forest, dense and attention launch counters grew by the steps
+    times their launches a step, each signature counted once, the compile
+    events equal the process's builds and loads, and the µs-per-row table
+    has its stages; the plane's cost on ScoreTransaction in turns; the
+    anomaly drill (a ``device.dispatch`` delay: one anomaly, one trace-keyed
+    capture with the forest kernel's events; a second inside the cooldown
+    only counts); reflection through the byte handler; the card probe and
+    two boots with no visible card; and ``step_cost`` of a 4096-row step
+    against its device time. ``device="cpu"`` rehearses it without a card
+    (launch, profile and probe checks then skipped)."""
+    import gc
+    import threading
+
+    from igaming_platform_tpu_torch.convert import sequence_from_tree
+    from igaming_platform_tpu_torch.core import devices
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.models.sequence import SeqConfig
+    from igaming_platform_tpu_torch.obs import flight, hostprof, perfmodel, runtime_telemetry
+    from igaming_platform_tpu_torch.serve import chaos, grpc_server, reflection, scorer, server
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    rng = np.random.default_rng(140)
+    tree = server_tree(22)
+    seq_cfg = SeqConfig(**ABUSE_CFG)
+    abuse_tree = seq_tree(rng, ABUSE_CFG)
+    config = RiskServiceConfig(batcher=BatcherConfig(
+        batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0))
+    saved = {k: os.environ.get(k) for k in ("HOSTPROF", "HOSTPROF_HZ", "ANOMALY_PROFILE",
+                                            "ANOMALY_PROFILE_SECONDS")}
+    # The default plane: the anomaly profile on (``main`` turns it off for
+    # the phases that time latency).
+    os.environ.update({"HOSTPROF": "1", "HOSTPROF_HZ": str(PLANE2_HZ), "ANOMALY_PROFILE": "1",
+                       "ANOMALY_PROFILE_SECONDS": str(PLANE2_CAPTURE_S)})
+    hostprof.reinstall_from_env()  # a boot's profiler: the sampler runs from the start
+    on = plane_assembly(server, config, tree, store, sequence_from_tree(abuse_tree, seq_cfg),
+                        device, {})
+    srv = server.RiskServer(on, grpc_port=-1, http_port=0)
+    svc, engine, det, inner = on.service, on.engine, on.abuse, on.engine.inner
+    tel = svc.telemetry
+    stop = threading.Event()
+    sb_md = (("risk-deadline-ms", str(PLANE2_DEADLINE_MS["ScoreBatch"])),)
+    st_md = (("risk-deadline-ms", str(PLANE2_DEADLINE_MS["ScoreTransaction"])),)
+    try:
+        fields = server_requests(codec, rng, PLANE2_MIX[0] + PLANE2_TURN_SINGLES + 400)
+        singles = [codec.encode(codec.SCORE_TRANSACTION_REQUEST, f) for f in fields]
+        batches = [codec.encode(codec.SCORE_BATCH_REQUEST, {
+            "transactions": server_requests(codec, rng, SERVER_BATCH_ROWS)}) for _ in range(2)]
+        checked = [f"acct{a}" for a in rng.integers(0, SERVER_ACCOUNTS, PLANE2_MIX[2])]
+        for acct in checked:
+            for i in range(int(rng.integers(5, 64))):
+                det.record_event(acct, int(rng.integers(500, 200_000)), "bet",
+                                 device_id=f"dev{rng.integers(0, 300_000)}",
+                                 timestamp=SERVER_NOW - 3600.0 + 30.0 * i)
+        abuse = [codec.encode(codec.CHECK_BONUS_ABUSE_REQUEST, {"account_id": a}) for a in checked]
+        engine.score_batch_wire_bytes(batches[0])  # the pipeline's first build
+        if cuda:
+            torch.cuda.synchronize()
+
+        # The plane's cost on ScoreBatch, off, on, on, off.
+        turns = []
+        for name in ("off", "on", "on", "off"):
+            plane2_state(name == "on", svc, engine, tel)
+            codes: dict = {}
+            bs = [SERVER_BATCH_ROWS / ms * 1e3 for ms in timed_calls(
+                svc, "ScoreBatch", batches[:1] * PLANE2_TURN_BATCHES, codes, sb_md)]
+            turns.append({"plane": name, "rows_per_s": bs,
+                          "median_rows_per_s": statistics.median(bs) if bs else None,
+                          "sheds": sum(n for (_, c), n in codes.items() if c != "OK")})
+        plane2_state(True, svc, engine, tel)
+        hp = hostprof.get_default()
+
+        # The GC-pressure drill: ScoreBatch only, each with its deadline.
+        m0 = exposition(http_text(srv.http_port, "/metrics")[1])
+        gc0 = hp.gc_snapshot()
+        collector = {"collects": 0}
+
+        def collect():
+            while not stop.wait(PLANE2_GC_EVERY_S):
+                gc.collect()
+                collector["collects"] += 1
+
+        thresholds = gc.get_threshold()
+        lat, codes = [], {}
+        gc.set_threshold(PLANE2_GC_THRESHOLD)
+        thread = threading.Thread(target=collect, daemon=True)
+        thread.start()
+        try:
+            end = time.monotonic() + PLANE2_GC_S
+            while time.monotonic() < end:
+                lat += timed_calls(svc, "ScoreBatch", batches[1:], codes, sb_md)
+        finally:
+            stop.set()
+            thread.join(60)
+            stop.clear()
+            gc.set_threshold(*thresholds)
+        gc1 = hp.gc_snapshot()
+        m1 = exposition(http_text(srv.http_port, "/metrics")[1])
+
+        def family_sum(m: dict, family: str) -> float:
+            return sum(v for k, v in m.items() if k.split("{")[0] == family)
+
+        gc_drill = {"rpcs": len(lat), "codes": {f"{m} {c}": n for (m, c), n in codes.items()},
+                    "max_ms": max(lat) if lat else None,
+                    "p50_ms": float(np.percentile(lat, 50)) if lat else None,
+                    "collects": collector["collects"],
+                    "collections": family_sum(m1, "risk_gc_collections_total")
+                    - family_sum(m0, "risk_gc_collections_total"),
+                    "pauses_in_rpc": gc1["pauses_in_rpc"] - gc0["pauses_in_rpc"],
+                    "pause_in_rpc_ms": gc1["pause_in_rpc_ms"] - gc0["pause_in_rpc_ms"],
+                    "pause_ms_p99": None}
+        pauses = [p["pause_ms"] for p in gc1["recent_pauses"]]
+        gc_drill["pause_ms_p99"] = float(np.percentile(pauses, 99)) if pauses else None
+        if (not lat or codes != {("ScoreBatch", "OK"): len(lat)}
+                or gc_drill["max_ms"] >= PLANE2_DEADLINE_MS["ScoreBatch"]
+                or gc_drill["collections"] <= 0 or gc_drill["pauses_in_rpc"] <= 0):
+            raise AssertionError(f"plane2: GC drill {gc_drill}")
+        log(f"phase 14: [{card}] GC drill: {len(lat)} ScoreBatch RPCs under "
+            f"gc.set_threshold({PLANE2_GC_THRESHOLD}) "
+            f"and {collector['collects']} gc.collect() calls (one each {PLANE2_GC_EVERY_S} s) in "
+            f"{PLANE2_GC_S} s, all OK, p50 {gc_drill['p50_ms']:.1f} ms, slowest "
+            f"{gc_drill['max_ms']:.1f} ms (deadline {PLANE2_DEADLINE_MS['ScoreBatch']} ms); "
+            f"{gc_drill['collections']:.0f} collections counted on /metrics, "
+            f"{gc_drill['pauses_in_rpc']} pauses ({gc_drill['pause_in_rpc_ms']:.1f} ms) "
+            "attributed to RPCs in flight")
+
+        # The RPC mix, its counts set to 0 just before and read just after.
+        hp.reset()
+        gbdt_kernel.gbdt_forest.launches = 0
+        dense_mod.dense.launches = 0
+        fa.flash_attention_fwd.launches = 0
+        flight.DEFAULT_RECORDER.clear()
+        m_before = exposition(http_text(srv.http_port, "/metrics")[1])
+        d0, steps0, fwd0 = tel.dispatches_total, engine.device_steps, det.device_steps
+        sent: dict = {}
+        watcher = tel.compile_watcher
+        timed_calls(svc, "ScoreBatch", batches[:1], sent, sb_md)
+        sigs_once = len(watcher._signatures)  # the same batch again adds none
+        timed_calls(svc, "ScoreBatch", batches[:1] * (PLANE2_MIX[1] - 1), sent, sb_md)
+        sigs_again = len(watcher._signatures)
+        timed_calls(svc, "CheckBonusAbuse", abuse, sent)
+        st_d0, st_steps0 = tel.dispatches_total, engine.device_steps
+        timed_calls(svc, "ScoreTransaction", singles[:PLANE2_MIX[0]], sent, st_md)
+        if cuda:
+            torch.cuda.synchronize()
+        st_dispatches = tel.dispatches_total - st_d0
+        st_steps = engine.device_steps - st_steps0
+        mix = {"dispatches": tel.dispatches_total - d0,
+               "device_steps": engine.device_steps - steps0,
+               "abuse_steps": det.device_steps - fwd0,
+               "forest": gbdt_kernel.gbdt_forest.launches, "dense": dense_mod.dense.launches,
+               "attention": fa.flash_attention_fwd.launches}
+        m_after = exposition(http_text(srv.http_port, "/metrics")[1])
+        entries = flight.DEFAULT_RECORDER.snapshot()
+        roots = sum(e.get("dispatches", 0) for e in entries)
+        mix["metric_dispatches"] = (m_after.get("risk_device_dispatches_total", 0.0)
+                                    - m_before.get("risk_device_dispatches_total", 0.0))
+        mix["root_dispatches"] = roots
+        mix["st_batcher_dispatches"] = st_dispatches
+        bad = []
+        if sent != {("ScoreBatch", "OK"): PLANE2_MIX[1], ("CheckBonusAbuse", "OK"): PLANE2_MIX[2],
+                    ("ScoreTransaction", "OK"): PLANE2_MIX[0]}:
+            bad.append(f"answers {sent}")
+        if not (mix["dispatches"] == mix["metric_dispatches"]
+                == mix["device_steps"] + mix["abuse_steps"]):
+            bad.append("the dispatch counter is not the steps launched")
+        # Batcher steps serve many RPCs: their dispatches land on batch roots.
+        if st_dispatches != st_steps or roots != mix["dispatches"] - st_dispatches:
+            bad.append("the RPC roots' dispatches do not add up")
+        if cuda and (mix["forest"] != mix["device_steps"] or mix["forest"] == 0
+                     or mix["dense"] != len(tree["mlp"]["layers"]) * mix["device_steps"]
+                     or mix["attention"] != seq_cfg.n_layers * mix["abuse_steps"]
+                     or mix["attention"] == 0):
+            bad.append("launch counters")
+        signatures = sorted(watcher._signatures)
+        ladder = set(inner._shapes)
+        packed_shapes = {s.split(":")[1] for s in signatures if s.startswith("packed_step:")}
+        if (m_after.get("risk_compile_signatures_total", 0.0) != len(signatures)
+                or not all(int(sh.strip("()").split(",")[0]) in ladder for sh in packed_shapes)):
+            bad.append(f"signatures {signatures}")
+        events = runtime_telemetry.compile_log()
+        compile_metric = family_sum(m_after, "risk_compile_events_total")
+        if compile_metric != len(events) or watcher.compiles_total != len(events):
+            bad.append(f"compile events {compile_metric} against {len(events)} builds and loads")
+        if sigs_again != sigs_once:
+            bad.append("a signature seen before was counted again")
+        stages = hp.snapshot()["stages"]
+        table = {k: v["us_per_row"] for k, v in stages.items() if v["us_per_row"] is not None}
+        if not {"decode", "dispatch", "readback", "encode"} <= set(table):
+            bad.append(f"µs-per-row stages {sorted(table)}")
+        sampler = hp.sampler.snapshot()
+        if sampler["samples_total"] == 0 or not sampler["running"]:
+            bad.append(f"sampler {sampler}")
+        if bad:
+            raise AssertionError(f"plane2: mix {mix}: " + "; ".join(bad))
+        kinds: dict = {}
+        for e in events:
+            kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+        log(f"phase 14: [{card}] RPC mix {PLANE2_MIX[1]} ScoreBatch, {PLANE2_MIX[2]} "
+            f"CheckBonusAbuse, {PLANE2_MIX[0]} ScoreTransaction: risk_device_dispatches_total "
+            f"+{mix['dispatches']} = {mix['device_steps']} engine steps + {mix['abuse_steps']} "
+            f"abuse steps; RPC roots carry {roots}, the batcher's batch roots "
+            f"{st_dispatches}; forest {mix['forest']}, dense {mix['dense']}, attention "
+            f"{mix['attention']} launches; {len(signatures)} signatures "
+            f"({sorted(packed_shapes)} packed), none counted twice; "
+            f"{len(events)} compile events {json.dumps(kinds)}; sampler "
+            f"{sampler['samples_total']} samples of {sampler['roles_seen']}")
+        log(f"phase 14: [{card}] host µs/row (mean, p50, p99): " + "; ".join(
+            f"{k} {v['mean']}/{v['p50']}/{v['p99']}" for k, v in sorted(table.items())))
+
+        # The plane's cost on ScoreTransaction, off, on, on, off.
+        for turn in turns:
+            plane2_state(turn["plane"] == "on", svc, engine, tel)
+            st = timed_calls(svc, "ScoreTransaction",
+                             singles[PLANE2_MIX[0]:PLANE2_MIX[0] + PLANE2_TURN_SINGLES])
+            turn["st_p99_ms"] = float(np.percentile(st, 99))
+        plane2_state(True, svc, engine, tel)
+        off = [t for t in turns if t["plane"] == "off"]
+        ons = [t for t in turns if t["plane"] == "on"]
+        cost = {"rows_per_s_off_spread": abs(off[0]["median_rows_per_s"]
+                                             - off[1]["median_rows_per_s"]),
+                "rows_per_s_on_minus_off": statistics.mean(t["median_rows_per_s"] for t in ons)
+                - statistics.mean(t["median_rows_per_s"] for t in off),
+                "st_p99_off_spread_ms": abs(off[0]["st_p99_ms"] - off[1]["st_p99_ms"]),
+                "st_p99_on_minus_off_ms": statistics.mean(t["st_p99_ms"] for t in ons)
+                - statistics.mean(t["st_p99_ms"] for t in off)}
+        log(f"phase 14: [{card}] the plane's cost in turns: " + "; ".join(
+            f"{t['plane']} {t['median_rows_per_s']} rows/s ({t['sheds']} shed), ST p99 "
+            f"{t['st_p99_ms']:.3f} ms" for t in turns) + f"; {json.dumps(cost)}")
+
+        # The anomaly drill on ScoreTransaction traffic: the detectors and the
+        # cooldown start afresh once no capture runs (the GC drill's pauses
+        # are anomalies too), warm up on ANOMALY_WARMUP_STEPS steps, then a
+        # delayed dispatch.
+        rest = itertools.cycle(singles[PLANE2_MIX[0] + PLANE2_TURN_SINGLES:])
+        if not srv._profile_lock.acquire(timeout=60):
+            raise AssertionError("plane2: a profile capture did not end")
+        srv._profile_lock.release()
+        warmup = int(os.environ.get("ANOMALY_WARMUP_STEPS", "30"))
+        with tel._lock:
+            tel._last_profile_at = float("-inf")
+        anomalies0 = tel.anomalies_total
+        profiles0 = len(tel.profile_captures)
+
+        def one_delayed() -> int:
+            # A fresh baseline first: the capture's own stalls are anomalies
+            # too, and the damped baseline keeps their spread. The cooldown
+            # is not reset.
+            with tel._lock:
+                tel._detectors.clear()
+            for _ in range(warmup + 10):
+                svc.call("ScoreTransaction", next(rest), st_md)
+            before = tel.anomalies_total
+            chaos.install(f"seed=14;device.dispatch=delay:p=1.0:ms={PLANE2_DELAY_MS}:count=1")
+            try:
+                svc.call("ScoreTransaction", next(rest), st_md)
+            finally:
+                chaos.clear()
+            return tel.anomalies_total - before
+
+        first = one_delayed()
+        # Traffic for the capture to catch; the profiler's start and stop
+        # hold the host, so a call may outlive its deadline (counted).
+        capture_end = time.monotonic() + PLANE2_CAPTURE_S + 1.0
+        during: dict = {}
+        during_ms = []
+        while time.monotonic() < capture_end:
+            during_ms += timed_calls(svc, "ScoreTransaction", [next(rest)], during, st_md)
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and not any(
+                "trace" in c or "error" in c for c in tel.profile_captures[profiles0:]):
+            time.sleep(0.05)
+        second = one_delayed()
+        captures = tel.profile_captures[profiles0:]
+        capture = captures[0] if captures else {}
+        kernels = trace_kernels(capture["trace"]) if "trace" in capture else {}
+        forest_events = sum(n for k, n in kernels.items() if "gbdt_forest_kernel" in k)
+        anomaly = {"first": first, "second": second,
+                   "anomalies_in_drill": tel.anomalies_total - anomalies0,
+                   "profiles": len(captures), "trace_id": capture.get("trace_id"),
+                   "log_dir": capture.get("log_dir"), "kernel_events": sum(kernels.values()),
+                   "forest_events": forest_events,
+                   "metric_profiles": exposition(http_text(srv.http_port, "/metrics")[1]).get(
+                       "risk_anomaly_profiles_total"),
+                   "during_capture": {f"{m} {c}": n for (m, c), n in during.items()},
+                   "during_capture_max_ms": max(during_ms) if during_ms else None}
+        if (first != 1 or second != 1 or len(captures) != 1 or "error" in capture
+                or (capture.get("trace_id") or "x")[:8] not in (capture.get("log_dir") or "")
+                or (cuda and forest_events == 0)):
+            raise AssertionError(f"plane2: anomaly drill {anomaly} {capture}")
+        log(f"phase 14: [{card}] anomaly drill: a {PLANE2_DELAY_MS} ms device.dispatch delay "
+            f"raised {first} step anomaly and {len(captures)} capture keyed by trace "
+            f"{anomaly['trace_id']} ({anomaly['kernel_events']} kernel events, gbdt_forest_kernel "
+            f"{forest_events}); a second inside the {tel.cooldown_s:.0f} s cooldown raised "
+            f"{second} anomaly and no capture; ScoreTransaction during the capture "
+            f"{json.dumps(anomaly['during_capture'])}, slowest answered "
+            f"{anomaly['during_capture_max_ms']} ms")
+
+        # Reflection through the byte handler.
+        refl = reflection.ReflectionService(("risk.v1.RiskService", "grpc.health.v1.Health"))
+        listed = refl.respond(b"\x3a\x00")
+        symbol = b"risk.v1.RiskService"
+        found = refl.respond(b"\x22" + bytes([len(symbol)]) + symbol)
+        if not (symbol in listed and b"grpc.reflection.v1alpha.ServerReflection" in listed
+                and b"risk/v1/risk.proto" in found and b"google/protobuf/timestamp.proto" in found):
+            raise AssertionError("plane2: reflection")
+        log(f"phase 14: reflection: list_services {len(listed)} bytes, "
+            f"file_containing_symbol risk.v1.RiskService {len(found)} bytes (risk.proto and "
+            "timestamp.proto)")
+
+        # The card probe, and boots with no visible card.
+        for k in ("BENCH_DEVICE_PROBED", "BENCH_DEVICE_FALLBACK"):
+            os.environ.pop(k, None)
+        t0 = time.perf_counter()
+        label = devices.ensure_responsive_device()
+        probe = {"label": label, "seconds": time.perf_counter() - t0}
+        os.environ.pop("BENCH_DEVICE_PROBED", None)
+        if cuda and label is not None:
+            raise AssertionError(f"plane2: the card's probe failed: {label}")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("BENCH_DEVICE") and k not in ("HOSTPROF_HZ", "CHAOS_PLAN")}
+        env.update({"CUDA_VISIBLE_DEVICES": "", "GRPC_PORT": "-1", "HTTP_PORT": "0",
+                    "FEATURE_STORE": "python", "DEVICE_PROBE_BUDGET_S": "60"})
+        refused = boot_subprocess(env, None)
+        served = boot_subprocess({**env, "SERVE_DEVICE_FALLBACK": "cpu"}, "risk server up")
+        refused_line = next((ln for ln in refused["log"] if "device unavailable" in ln), "")
+        probe.update({"refused_rc": refused["rc"], "refused_s": refused["seconds"],
+                      "refused_line": refused_line[-200:], "fallback_rc": served["rc"],
+                      "fallback_up_s": served["up_s"]})
+        if (refused["rc"] != 1 or "device init failed" not in refused_line
+                or served["rc"] != 0
+                or not any("signal 15" in ln for ln in served["log"])
+                or not any("serving on the host CPU" in ln for ln in served["log"])):
+            raise AssertionError(f"plane2: boots {probe}\n" + "\n".join(
+                refused["log"][-20:] + served["log"][-20:]))
+        log(f"phase 14: [{card}] probe: healthy in {probe['seconds']:.2f} s; with no visible "
+            f"card the boot exits {refused['rc']} in {refused['seconds']:.1f} s "
+            f"({refused_line.split('ERROR')[-1].strip()[:160]}), and with "
+            f"SERVE_DEVICE_FALLBACK=cpu serves on the CPU (up in {served['up_s']:.1f} s, "
+            f"exit {served['rc']} on SIGTERM)")
+
+        # Cost counts: a 4096-row step's count against its device time.
+        step_cost = inner.step_cost(BATCH_SIZE)
+        xs, bls = store.decode_gather(batches[0])
+        params, thr = inner.get_params(), inner.thresholds_snapshot()[0]
+        xd = torch.from_numpy(np.ascontiguousarray(xs[:BATCH_SIZE])).to(device)
+        bld = torch.from_numpy(np.ascontiguousarray(bls[:BATCH_SIZE])).to(device)
+
+        def step():
+            with torch.inference_mode():
+                scorer._stack_packed(inner._score_fn(params, xd, bld, thr))
+
+        if cuda:
+            with torch.cuda.stream(inner.stream):
+                step_ms = device_ms(torch, step)
+        else:
+            t0 = time.perf_counter()
+            step()
+            step_ms = (time.perf_counter() - t0) * 1e3
+        util = perfmodel.utilization(step_cost, step_ms / 1e3, device)
+        log(f"phase 14: [{card}] step_cost of the {BATCH_SIZE}-row mlp+gbdt step: "
+            f"{step_cost['flops']:.0f} operations, {step_cost['bytes']:.0f} bytes; device "
+            f"{step_ms:.6f} ms -> {json.dumps(util)}")
+
+        # /metrics after all of it: the families the plane feeds.
+        final = exposition(http_text(srv.http_port, "/metrics")[1])
+        fed = {f: family_sum(final, f) for f in (
+            "risk_device_dispatches_total", "risk_compile_signatures_total",
+            "risk_compile_events_total", "risk_host_stage_us_per_row_count",
+            "risk_gc_collections_total", "risk_step_anomalies_total",
+            "risk_anomaly_profiles_total", "risk_arena_buffers", "risk_hbm_bytes")}
+        if not all(fed[f] > 0 for f in list(fed)[:5]):
+            raise AssertionError(f"plane2: /metrics {fed}")
+        log(f"phase 14: [{card}] /metrics: " + json.dumps(fed))
+    finally:
+        stop.set()
+        chaos.clear()
+        srv.shutdown(grace=5.0)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        hostprof.reinstall_from_env()
+    result = {"gc_drill": gc_drill, "mix": mix, "signatures": len(signatures),
+              "compile_events": len(events), "compile_kinds": kinds, "stage_us_per_row": table,
+              "sampler": {k: sampler[k] for k in ("samples_total", "roles_seen", "hz")},
+              "turns": turns, "cost": cost, "anomaly": anomaly, "probe": probe,
+              "step_cost": step_cost, "step_ms": step_ms, "utilization": util, "metrics": fed,
+              "forest_launches": mix["forest"], "dense_launches": mix["dense"],
+              "attention_launches": mix["attention"],
+              "seconds": time.perf_counter() - t_phase}
+    log(f"phase 14: {result['seconds']:.1f} s")
+    log("phase 14: " + json.dumps(result, default=str))
+    return result
+
+
+def capture_stall_probe(torch, seconds: float = 1.5) -> list[dict]:
+    """How long a ``torch.profiler`` capture holds the interpreter: a thread
+    ticking every 1 ms and a thread launching elementwise steps run while a
+    capture of ``seconds`` starts, stops, exports its Chrome trace and
+    parses its events; per part, its wall ms and the longest gap between
+    ticks (host CPU and CUDA activity, then CUDA alone, then both again).
+    Not run by ``main``: ``python3 -c "import torch, chip_smoke as c;
+    c.capture_stall_probe(torch)"``."""
+    import tempfile
+    import threading
+
+    from igaming_platform_tpu_torch.obs import tracing
+
+    tracing.prepare_device_trace()
+    stop = threading.Event()
+    gaps: list[float] = []
+
+    def ticker():
+        last = time.perf_counter()
+        while not stop.is_set():
+            time.sleep(0.001)
+            now = time.perf_counter()
+            gaps.append(now - last)
+            last = now
+
+    def work():
+        x = torch.randn(4096, 30, device="cuda")
+        while not stop.is_set():
+            for _ in range(90):
+                x = x * 1.0001 + 0.0
+            torch.cuda.synchronize()
+
+    threads = [threading.Thread(target=ticker), threading.Thread(target=work)]
+    for t in threads:
+        t.start()
+    time.sleep(1.0)
+    rows = []
+    trace = os.path.join(tempfile.mkdtemp(prefix="capture-stall-"), "trace.json")
+    try:
+        for acts in (("CPU", "CUDA"), ("CUDA",), ("CPU", "CUDA")):
+            prof = torch.profiler.profile(
+                activities=[getattr(torch.profiler.ProfilerActivity, a) for a in acts])
+            row = {"activities": list(acts)}
+            for part, fn in (("enter", prof.__enter__),
+                             ("window", lambda: time.sleep(seconds)),
+                             ("exit", lambda: prof.__exit__(None, None, None)),
+                             ("export", lambda: prof.export_chrome_trace(trace)),
+                             ("events", lambda: row.__setitem__("events", len(prof.events())))):
+                g0, t = len(gaps), time.perf_counter()
+                fn()
+                row[f"{part}_ms"] = (time.perf_counter() - t) * 1e3
+                time.sleep(0.05)
+                row[f"{part}_max_gap_ms"] = max(gaps[g0:] or [0.0]) * 1e3
+            rows.append(row)
+            log("capture stall: " + json.dumps(row))
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    return rows
+
+
 # Phase 7 alone in a fresh process of the checkout it runs in, printing one
 # "TURN " JSON line: for ``phase7_turns``.
 _PHASE7_TURN = r"""
@@ -4928,6 +5489,11 @@ def main() -> int:
     from igaming_platform_tpu_torch.ops import dense as dense_mod
     from igaming_platform_tpu_torch.ops import flash_attention as fa
 
+    # An automatic profile capture holds the interpreter while it stops and
+    # writes its trace (phase 14 measures it): off for the phases that time
+    # latency; phase 14 turns it on for its own service.
+    os.environ.setdefault("ANOMALY_PROFILE", "0")
+
     # Phase 1: environment.
     card = nvidia_smi_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4972,6 +5538,9 @@ def main() -> int:
     # Phase 13: the operations plane, on the same store while the process is
     # young (the profiler's capture is part of it).
     plane_run = phase_plane(torch, card, gbdt_kernel, fa, dense_mod, filled[0])
+    # Phase 14: the rest of the plane (host profiler, runtime telemetry, the
+    # card probe, reflection, cost counts), same store.
+    plane2_run = phase_plane2(torch, card, gbdt_kernel, fa, dense_mod, filled[0])
     index_run = phase_index(torch, card, gbdt_kernel, fa, filled[0],
                             statistics.median(server_run["score_batch_rows_per_s"]))
     # Phase 9: the score step's variants (int8, drift, shadow), same store.
@@ -5011,6 +5580,7 @@ def main() -> int:
                             + ledger_run["engine_a"]["forest_launches"]),
         "launches_distilled": online_run["forest_launches"],
         "launches_plane": plane_run["forest_launches"],
+        "launches_plane2": plane2_run["forest_launches"],
         "shapes": rows,
     }, {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -5029,6 +5599,7 @@ def main() -> int:
         "launches_variants": variants_run["session_engine"]["forward_launches"],
         "launches_ledger": ledger_run["engine_a"]["forward_launches"],
         "launches_plane": plane_run["attention_launches"],
+        "launches_plane2": plane2_run["attention_launches"],
         "shapes": flash_rows,
     }, *({
         "name": f"flash_attention_bwd_{part}", "route": "cuda",
@@ -5054,6 +5625,7 @@ def main() -> int:
         "launches_trained": trained_run["dense_launches"],
         "launches_train": online_run["dense_launches"],
         "launches_plane": plane_run["dense_launches"],
+        "launches_plane2": plane2_run["dense_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in dense_rows if "max_abs_err" in r),
         "ms": dense_main["kernel_ms"], "plain_ms": dense_main["plain_ms"],
         "bound_ms": dense_main["bound_ms"], "bound_by": dense_main["bound_by"],

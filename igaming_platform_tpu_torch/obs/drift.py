@@ -50,6 +50,7 @@ import torch
 
 from igaming_platform_tpu_torch.core.device import constant
 from igaming_platform_tpu_torch.core.features import FEATURE_NAMES, NUM_FEATURES
+from igaming_platform_tpu_torch.obs import hostprof
 
 logger = logging.getLogger(__name__)
 
@@ -604,6 +605,7 @@ class DriftEngine:
         return np.asarray(sketch, np.float64)
 
     def _worker(self) -> None:
+        hostprof.register_scoring_thread("drift")
         while True:
             with self._cv:
                 while not self._pending and not self._stopping:

@@ -15,11 +15,20 @@ part that needs no XLA:
 
 The JAX module's ``compiled_cost``/``cost_of`` read XLA's cost analysis of a
 compiled program; nothing like it sees a hand kernel launched through
-ctypes, so they have no counterpart here (``ROADMAP.md``).
+ctypes. Here each kernel's wrapper counts the work of its call from its
+shapes (``note_work``, with the formulas behind PERF.md's bounds:
+``forest_work``, ``dense_work``, ``attention_work``,
+``attention_bwd_work``), on the card and on the CPU alike, so a count
+depends on the work and not on which implementation does it. ``cost_of(fn,
+*args)`` runs ``fn`` once under ``counting()`` and returns the same
+``{"flops", "bytes"}`` keys as the JAX one; ``compiled_cost(record)`` reads
+them off a ``counting()`` record. Eager PyTorch compiles nothing, so the
+count comes from one call: on a card that call launches its kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Any
 
@@ -39,6 +48,79 @@ _PEAKS: dict[str, tuple[float, float]] = {
     "a100-sxm4-80gb": (312e12, 2.039e12),
     "a100": (312e12, 1.555e12),
 }
+
+
+# ---------------------------------------------------------------------------
+# Work counts of the hand kernels
+
+_COUNTING = threading.local()
+
+
+def forest_work(b: int, n_features: int, n_trees: int, depth: int) -> tuple[float, float]:
+    """(operations, bytes) of one forest call: B*T*D compares and B*T adds;
+    the rows, the forest (feature ids, thresholds, leaves, bias) and the
+    margins once each."""
+    forest = n_trees * depth * 8 + n_trees * (1 << depth) * 4 + 4
+    return float(b * n_trees * (depth + 1)), float(b * n_features * 4 + b * 4 + forest)
+
+
+def dense_work(b: int, k: int, n: int) -> tuple[float, float]:
+    """(operations, bytes) of one dense layer: 2*B*K*N; x, w, the bias and
+    the output once each, four bytes an element."""
+    return 2.0 * b * k * n, 4.0 * (b * k + k * n + n + b * n)
+
+
+def attention_work(bh: int, s: int, dh: int) -> tuple[float, float]:
+    """(operations, bytes) of one attention forward: 4*BH*S^2*Dh; q, k, v
+    read and O, the row LSE written once."""
+    return 4.0 * bh * s * s * dh, float(4 * bh * s * dh * 4 + bh * s * 4)
+
+
+def attention_bwd_work(bh: int, s: int, dh: int) -> tuple[float, float]:
+    """(operations, bytes) of one attention backward (dQ, dK, dV):
+    10*BH*S^2*Dh; q, k, v, O, dO and LSE read, dQ, dK, dV written once."""
+    return 10.0 * bh * s * s * dh, float(8 * bh * s * dh * 4 + bh * s * 4)
+
+
+def note_work(name: str, flops: float, nbytes: float) -> None:
+    """A kernel wrapper's call: counted when this thread is inside
+    ``counting()``; nothing otherwise."""
+    record = getattr(_COUNTING, "record", None)
+    if record is not None:
+        record["flops"] += flops
+        record["bytes"] += nbytes
+        record["calls"][name] = record["calls"].get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def counting():
+    """Count the kernel work this thread does inside the block: yields a
+    record {"flops", "bytes", "calls": {kernel: n}}."""
+    outer = getattr(_COUNTING, "record", None)
+    record = {"flops": 0.0, "bytes": 0.0, "calls": {}}
+    _COUNTING.record = record
+    try:
+        yield record
+    finally:
+        _COUNTING.record = outer
+
+
+def compiled_cost(record: dict) -> dict[str, float]:
+    """{"flops", "bytes"} of a ``counting()`` record."""
+    return {"flops": float(record.get("flops", 0.0)), "bytes": float(record.get("bytes", 0.0))}
+
+
+def cost_of(fn: Any, *args, **kwargs) -> dict[str, float]:
+    """{"flops", "bytes"} of one call ``fn(*args, **kwargs)``, counted from
+    the kernels it calls."""
+    with counting() as record:
+        fn(*args, **kwargs)
+    return compiled_cost(record)
+
+
+def add_bytes(cost: dict[str, float], nbytes: float) -> dict[str, float]:
+    """``cost`` with ``nbytes`` more moved (a step's elementwise passes)."""
+    return {"flops": cost["flops"], "bytes": cost["bytes"] + float(nbytes)}
 
 
 def _device_name(device: Any) -> str:

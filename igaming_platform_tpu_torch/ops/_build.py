@@ -2,11 +2,15 @@
 
 Each ``csrc/<name>.cu`` has a plain C entry point and compiles on its own
 into ``build/torch_kernels/lib<name>-<hash>.so`` beside the package, for
-``sm_90a``. The hash covers the source, every ``csrc/*.cuh`` header and
-the compiler flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. Nothing is compiled when a module is imported: the first
-call that needs a kernel builds it, and ``build`` compiles several sources
-at once, one ``nvcc`` each, all started together.
+``sm_90a``. The hash covers the source, every ``csrc/*.cuh`` header, the
+compiler flags, the ``nvcc`` version and the card's compute capability, so
+an edited source is rebuilt and an unchanged one is loaded as it is: this
+directory is the port's one persistent compile cache
+(``core/devices.enable_persistent_compile_cache``). Each build and each load
+is a compile event of ``obs/runtime_telemetry.py``. Nothing is compiled
+when a module is imported: the first call that needs a kernel builds it,
+and ``build`` compiles several sources at once, one ``nvcc`` each, all
+started together.
 
 No PyTorch header is compiled in, which keeps a build to seconds.
 """
@@ -14,6 +18,7 @@ No PyTorch header is compiled in, which keeps a build to seconds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -21,6 +26,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from igaming_platform_tpu_torch.obs import runtime_telemetry
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -42,8 +49,27 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the port's kernels")
 
 
+@functools.lru_cache(maxsize=1)
+def toolchain_key() -> str:
+    """The ``nvcc`` version line and the first card's compute capability, as
+    far as this machine has them: part of every library's key, so a library
+    built by another toolkit, or for another card, is never loaded."""
+    try:
+        out = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True,
+                             timeout=60).stdout
+        nvcc = [line for line in out.splitlines() if line.strip()][-1]
+    except Exception:  # noqa: BLE001 — no toolkit here: nothing can be built either
+        nvcc = "no-nvcc"
+    import torch
+
+    card = ("sm_%d%d" % torch.cuda.get_device_capability(0) if torch.cuda.is_available()
+            else "no-card")
+    return f"{nvcc}|{card}"
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by sources and flags."""
+    """Where ``csrc/<name>.cu`` builds to, keyed by sources, flags and the
+    toolchain (``toolchain_key``)."""
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(src)
@@ -52,6 +78,7 @@ def library_path(name: str) -> Path:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(toolchain_key().encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -83,6 +110,7 @@ def build(names) -> dict[str, dict]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+            runtime_telemetry.note_compile("nvcc_build", name, report[name]["seconds"] * 1000.0)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return report
@@ -96,6 +124,9 @@ def load(name: str) -> ctypes.CDLL:
             path = library_path(name)
             if not path.exists():
                 build([name])
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(path))
+            runtime_telemetry.note_compile("library_load", name,
+                                           (time.perf_counter() - t0) * 1000.0)
             _libs[name] = lib
         return lib

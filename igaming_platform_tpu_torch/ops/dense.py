@@ -44,6 +44,8 @@ import threading
 
 import torch
 
+from igaming_platform_tpu_torch.obs import perfmodel
+
 PARTIALS = 8  # csrc/dense_fixed.cu kPartials
 
 _VOIDP = ctypes.c_void_p
@@ -147,6 +149,7 @@ def _launch(entry: str, counted, x: torch.Tensor, w: torch.Tensor,
 def dense(x: torch.Tensor, w_bf16: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[B, K] float32 -> [B, N] float32: ``bf16(x) @ w_bf16 + b`` in the
     fixed order. ``w_bf16`` must hold bf16-rounded values."""
+    perfmodel.note_work("dense", *perfmodel.dense_work(x.shape[0], *w_bf16.shape))
     if x.device.type == "cpu":
         return dense_plain(x, w_bf16, b)
     if x.device.type != "cuda":
@@ -157,6 +160,7 @@ def dense(x: torch.Tensor, w_bf16: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 def dense_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[B, K] float32 -> [B, N] float32: ``x @ w + b`` in the fixed order,
     each product rounded before it is added."""
+    perfmodel.note_work("dense_f32", *perfmodel.dense_work(x.shape[0], *w.shape))
     if x.device.type == "cpu":
         return dense_f32_plain(x, w, b)
     if x.device.type != "cuda":
@@ -194,6 +198,10 @@ class DenseFn(torch.autograd.Function):
     def backward(ctx, dy: torch.Tensor):
         x_bf16, w_bf16 = ctx.saved_tensors
         dy = dy.contiguous()
+        # Each gradient product computed is one of the forward's size.
+        flops, nbytes = perfmodel.dense_work(x_bf16.shape[0], *w_bf16.shape)
+        products = int(ctx.needs_input_grad[0]) + int(ctx.needs_input_grad[1])
+        perfmodel.note_work("dense_bwd", products * flops, products * nbytes)
         dx = round_bf16(torch.matmul(dy, w_bf16.t())) if ctx.needs_input_grad[0] else None
         dw = round_bf16(torch.matmul(x_bf16.t(), dy)) if ctx.needs_input_grad[1] else None
         db = dy.sum(0) if ctx.needs_input_grad[2] else None

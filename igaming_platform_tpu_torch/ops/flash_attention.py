@@ -57,6 +57,8 @@ import threading
 import torch
 from torch.autograd.function import once_differentiable
 
+from igaming_platform_tpu_torch.obs import perfmodel
+
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernels' instantiations
 
 _VOIDP = ctypes.c_void_p
@@ -136,6 +138,7 @@ def check_args(*tensors: torch.Tensor, op: str = "flash_attention_fwd") -> None:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[BH, S, Dh] float32 q, k, v -> (O [BH, S, Dh], LSE [BH, S, 1])."""
+    perfmodel.note_work("flash_attention_fwd", *perfmodel.attention_work(*q.shape))
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     if q.device.type != "cuda":
@@ -158,6 +161,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                         lse: torch.Tensor,
                         do: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """[BH, S, Dh] float32 q, k, v, O, dO and LSE [BH, S, 1] -> (dQ, dK, dV)."""
+    perfmodel.note_work("flash_attention_bwd", *perfmodel.attention_bwd_work(*q.shape))
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do)
     if q.device.type != "cuda":

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from igaming_platform_tpu_torch.core.device import constant
+from igaming_platform_tpu_torch.obs import perfmodel
 
 # Mirrors of csrc/gbdt_forest.cu's constants.
 MAX_THREADS = 1024  # kMaxThreads
@@ -232,6 +233,8 @@ def _check(x, feat, thr, leaves, bias) -> None:
 def gbdt_forest(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
                 leaves: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """[B, F] float32 -> [B] float32 raw margins of the oblivious forest."""
+    perfmodel.note_work("gbdt_forest", *perfmodel.forest_work(x.shape[0], x.shape[1],
+                                                              *feat.shape))
     if x.device.type == "cpu":
         return gbdt_forest_plain(x, feat, thr, leaves, bias)
     if x.device.type != "cuda":

@@ -6,8 +6,9 @@ The serving front's two native libraries come from the sources in
 and ``wire_codec.cpp`` (the one-call ScoreBatchResponse encode). Each
 compiles on its own into ``build/native/lib<name>-<hash>.so``; the hash
 covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing is compiled at import. A build
-that fails raises with the compiler's output: there is no fallback.
+unchanged one is loaded as it is. Nothing is compiled at import. Each
+build and each load is a compile event of ``obs/runtime_telemetry.py``. A
+build that fails raises with the compiler's output: there is no fallback.
 """
 
 from __future__ import annotations
@@ -17,7 +18,10 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from igaming_platform_tpu_torch.obs import runtime_telemetry
 
 ROOT = Path(__file__).resolve().parents[2]
 NATIVE_SRC = ROOT / "native"
@@ -48,6 +52,7 @@ def load(name: str) -> ctypes.CDLL:
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
                 cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(NATIVE_SRC / f"{name}.cpp")]
+                t0 = time.perf_counter()
                 try:
                     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
                 except FileNotFoundError as exc:
@@ -57,6 +62,11 @@ def load(name: str) -> ctypes.CDLL:
                     raise RuntimeError(f"native build of {name} failed (g++ exited "
                                        f"{proc.returncode}):\n{proc.stderr}")
                 os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+                runtime_telemetry.note_compile("native_build", name,
+                                               (time.perf_counter() - t0) * 1000.0)
+            t1 = time.perf_counter()
             lib = ctypes.CDLL(str(path))
+            runtime_telemetry.note_compile("native_load", name,
+                                           (time.perf_counter() - t1) * 1000.0)
             _libs[name] = lib
         return lib

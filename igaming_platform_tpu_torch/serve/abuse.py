@@ -155,7 +155,11 @@ class SequenceAbuseDetector:
         if not account_ids:
             return np.zeros((0,), dtype=np.float32)
         seq_len = seq_len or min(self.max_history, 64)
-        x = torch.from_numpy(self._history_matrix(account_ids, seq_len)).to(self.device)
+        from igaming_platform_tpu_torch.serve.scorer import _device_dispatch
+
+        hist = self._history_matrix(account_ids, seq_len)
+        _device_dispatch("abuse_seq_step", hist.shape, hist.dtype)
+        x = torch.from_numpy(hist).to(self.device)
         model = self.params  # one read: a concurrent swap_params lands whole
         with torch.inference_mode():
             abuse = model(x)["abuse"]

@@ -44,6 +44,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 
 from igaming_platform_tpu_torch.core.config import BatcherConfig
+from igaming_platform_tpu_torch.obs import hostprof
 from igaming_platform_tpu_torch.serve.deadline import (
     LANE_INTERACTIVE,
     Deadline,
@@ -82,6 +83,7 @@ class CollectorPipeline:
         self._thread.start()
 
     def _loop(self) -> None:
+        hostprof.register_scoring_thread("batch_collector")
         while True:
             item = self._queue.get()
             if item is _SENTINEL:
@@ -231,6 +233,7 @@ class ContinuousBatcher:
     # -- internals -----------------------------------------------------------
 
     def _loop(self) -> None:
+        hostprof.register_scoring_thread("batcher")
         while not self._stop.is_set():
             first = self.scheduler.poll(timeout=0.05)
             if first is None:

@@ -199,6 +199,9 @@ class DeviceFeatureCache:
         the cached step. Admits the account if it is not resident."""
         with self.step_lock:
             idxs = self.lookup([account_id])
+            from igaming_platform_tpu_torch.serve.scorer import _device_dispatch
+
+            _device_dispatch("cache_flag_set", (1,), np.bool_)
             with self._lock, self._on_stream():
                 self.flags[host_to_device(idxs.astype(np.int64), self.device)] = bool(value)
 
@@ -293,6 +296,11 @@ class DeviceFeatureCache:
             if deltas:
                 slots = np.fromiter(refresh.values(), np.int64, deltas)
                 rows = self._gather_base_rows(list(refresh), now)
+                # A launch between steps, counted like one (it shows only
+                # when deltas or admissions are pending).
+                from igaming_platform_tpu_torch.serve.scorer import _device_dispatch
+
+                _device_dispatch("cache_apply_deltas", rows.shape, rows.dtype)
                 with self._on_stream():
                     self.table.index_copy_(0, host_to_device(slots, self.device),
                                            host_to_device(rows, self.device))

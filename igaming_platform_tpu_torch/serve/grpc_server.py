@@ -44,14 +44,18 @@ a background turn of the engine's dispatch lane gate; PredictLTV counts
 
 ``serve_risk`` binds it to grpcio with identity (de)serializers, and
 ``make_risk_stub`` gives a bytes-in, bytes-out client; ``serve_risk`` is the
-one place the port imports ``grpc``, inside its body.
+one place the port imports ``grpc``, inside its body. It also registers
+gRPC server reflection (``serve/reflection.py``) for ``risk.v1.RiskService``
+and ``grpc.health.v1.Health``, as the JAX server does.
 
 As in the JAX package, the service installs the process's drift engine
 (``obs/drift.py``) and binds it to the engine unless ``DRIFT=0``: every
 batch the engine scores is then sketched. ``close()`` unbinds, closes and
-uninstalls it, and uninstalls the SLO engine it installed. Not ported yet:
-reflection, the runtime telemetry and host profiler, and the wallet service
-(``ROADMAP.md``).
+uninstalls it, and uninstalls the SLO engine it installed. The host
+profiler (``obs/hostprof.py``) is installed when this module is imported and
+fed the service's metrics; the runtime telemetry (``obs/runtime_telemetry.py``)
+is installed and bound to the engine unless ``RUNTIME_TELEMETRY=0``. Not
+ported yet: the wallet service (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -69,11 +73,14 @@ from igaming_platform_tpu_torch.core.features import NUM_FEATURES, F, FeatureVec
 from igaming_platform_tpu_torch.models import ltv as ltv_mod
 from igaming_platform_tpu_torch.obs import drift as drift_mod
 from igaming_platform_tpu_torch.obs import flight as flight_mod
+from igaming_platform_tpu_torch.obs import hostprof
+from igaming_platform_tpu_torch.obs import runtime_telemetry as runtime_telemetry_mod
 from igaming_platform_tpu_torch.obs import slo as slo_mod
 from igaming_platform_tpu_torch.obs import tracing
 from igaming_platform_tpu_torch.obs.metrics import ServiceMetrics
 from igaming_platform_tpu_torch.obs.tracing import span
 from igaming_platform_tpu_torch.serve import deadline as deadline_mod
+from igaming_platform_tpu_torch.serve import reflection
 from igaming_platform_tpu_torch.serve import risk_codec as codec
 from igaming_platform_tpu_torch.serve.abuse import AbuseShed
 from igaming_platform_tpu_torch.serve.deadline import (
@@ -95,6 +102,8 @@ logger = logging.getLogger(__name__)
 # The flight recorder is always on: every completed rpc.* root lands in its
 # bounded ring (/debug/flightz).
 flight_mod.install()
+# The host profiler is always on unless HOSTPROF=0 (/debug/hostprofz).
+hostprof.install()
 
 # The risk.v1 methods the binding registers: all ten.
 RISK_SERVICE = "risk.v1.RiskService"
@@ -351,6 +360,7 @@ class RiskGrpcService:
         self.abuse_detector = abuse_detector
         self.ltv_source = ltv_source
         self.metrics = metrics or ServiceMetrics("risk")
+        hostprof.install(self.metrics)
         self._rate_limiter = _FixedWindowRateLimiter(rate_limit_per_minute)
         # Bulk ScoreBatch work is admitted through a bounded gate: past
         # BULK_MAX_INFLIGHT concurrent RPCs (after a short wait) it sheds
@@ -390,6 +400,15 @@ class RiskGrpcService:
             engine.bind_drift(self.drift)
         else:
             drift_mod.uninstall()
+        # The runtime telemetry (RUNTIME_TELEMETRY=0 opts out): dispatches,
+        # compile events and signatures, step-time anomalies. The server
+        # binds the anomaly -> profile trigger on top.
+        self.telemetry = None
+        if os.environ.get("RUNTIME_TELEMETRY", "1") != "0":
+            self.telemetry = runtime_telemetry_mod.install(self.metrics)
+            self.telemetry.bind_engine(engine)
+        else:
+            runtime_telemetry_mod.uninstall()
         # While the SLO's fast window burns, bulk ScoreBatch admissions shed
         # so the interactive lane's p99 recovers.
         self.burn_gate = BurnShedGate()
@@ -414,10 +433,13 @@ class RiskGrpcService:
         """Unbind the drift engine from the scoring engine, close it (its
         queued sketches are folded first) and uninstall it if it is still
         the process default; uninstall the SLO engine this service
-        installed. Idempotent."""
+        installed, and the runtime telemetry. Idempotent."""
         slo, self.slo = self.slo, None
         if slo is not None and slo_mod.get_default() is slo:
             slo_mod.uninstall()
+        telemetry, self.telemetry = self.telemetry, None
+        if telemetry is not None and runtime_telemetry_mod.get_default() is telemetry:
+            runtime_telemetry_mod.uninstall()
         drift, self.drift = self.drift, None
         if drift is None:
             return
@@ -627,8 +649,11 @@ class RiskGrpcService:
             tracing.set_root_attribute("rows", n)
             return payload, n
         try:
-            with span("score.decode"):
+            with span("score.decode") as dsp:
                 txs = codec.decode(codec.SCORE_BATCH_REQUEST, buf)["transactions"]
+                # The rows are known once decoded: the host profiler's
+                # decode µs/row needs them.
+                dsp.attributes["batch"] = len(txs)
         except ValueError as exc:
             raise RpcAbort(StatusCode.INVALID_ARGUMENT, f"bad ScoreBatchRequest: {exc}") from exc
         tracing.set_root_attribute("rows", len(txs))
@@ -801,6 +826,7 @@ def serve_risk(service: RiskGrpcService, port: int, max_workers: int = 32):
              for name in RISK_METHOD_NAMES})),
         grpc.method_handlers_generic_handler("grpc.health.v1.Health",
                                              handlers({"Check": health.check})),
+        reflection.grpc_handler(grpc, (RISK_SERVICE, "grpc.health.v1.Health")),
     ))
     bound = server.add_insecure_port(f"[::]:{port}")
     server.start()

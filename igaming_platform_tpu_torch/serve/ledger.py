@@ -58,6 +58,7 @@ from typing import Any, Callable
 
 import numpy as np
 
+from igaming_platform_tpu_torch.obs import hostprof
 from igaming_platform_tpu_torch.serve import chaos
 
 logger = logging.getLogger(__name__)
@@ -1017,6 +1018,7 @@ class DecisionLedger:
     # -- writer thread ------------------------------------------------------
 
     def _writer_loop(self) -> None:
+        hostprof.register_scoring_thread("ledger")
         last_fsync = time.monotonic()
         fsync_dirty = False
         while True:
@@ -1220,6 +1222,7 @@ class DecisionLedger:
         return out, cur
 
     def _drain_loop(self) -> None:
+        hostprof.register_scoring_thread("ledger_sink")
         while True:
             if not self._drain_once():
                 return

@@ -47,7 +47,7 @@ from typing import Any
 
 import numpy as np
 
-from igaming_platform_tpu_torch.obs import tracing
+from igaming_platform_tpu_torch.obs import hostprof, tracing
 from igaming_platform_tpu_torch.obs.tracing import annotate, span
 from igaming_platform_tpu_torch.serve import ledger as ledger_mod
 from igaming_platform_tpu_torch.serve.arena import ArenaPool, StagingHold
@@ -187,6 +187,11 @@ class HostPipeline:
             except Exception:  # noqa: BLE001 — metrics must not fail scoring
                 pass
 
+    def arena_stats(self) -> dict:
+        """The staging arena's buffers alone (allocated, reused, idle): the
+        runtime telemetry's gauges, read on every /metrics scrape."""
+        return self._arena.stats()
+
     def stats(self) -> dict:
         """Busy milliseconds per stage (the stages overlap, so they may sum
         past the wall time), the wall time with a job in flight, the
@@ -288,6 +293,7 @@ class HostPipeline:
             raise
 
     def _stage_loop(self) -> None:
+        hostprof.register_scoring_thread("pipeline_stage")
         while True:
             item = self._stage_q.get()
             if item is _SENTINEL:
@@ -322,6 +328,7 @@ class HostPipeline:
     # -- readback worker -----------------------------------------------------
 
     def _readback_loop(self) -> None:
+        hostprof.register_scoring_thread("readback")
         while True:
             item = self._inflight_q.get()
             if item is _SENTINEL:

@@ -76,9 +76,12 @@ spans with the JAX names (``score.pad``, ``score.session``,
 ``score_observer`` gets each wire batch's host scores; ``bind_cache_metrics``,
 ``bind_session_metrics`` and ``bind_pipeline_metrics`` route those planes'
 families into a ``ServiceMetrics``. ``device.dispatch`` and
-``device.readback`` (``serve/chaos.py``) fire at ``_enqueue`` and
-``_device_readback``. ``score(req, timeout, deadline=, lane=)`` rides the
-deadline scheduler (``serve/deadline.py``, ``serve/batcher.py``), which plans
+``device.readback`` (``serve/chaos.py``) fire at ``_device_dispatch``, the
+one launch chokepoint every step of every path goes through (it also counts
+the dispatch and notes its shape signature, ``obs/runtime_telemetry.py``),
+and at ``_device_readback``. ``step_cost(n)`` counts a step's operations
+and bytes from its shapes (``obs/perfmodel.py``). ``score(req, timeout,
+deadline=, lane=)`` rides the deadline scheduler (``serve/deadline.py``, ``serve/batcher.py``), which plans
 against ``step_model`` (seeded by the warm-up's timed steps, then fed by every
 collect and pipeline readback); bulk chunk dispatches yield to a launching
 interactive batch through ``lane_gate``; ``deadline_snapshot()`` is
@@ -114,6 +117,7 @@ from igaming_platform_tpu_torch.core.device import host_to_device, resolve_devic
 from igaming_platform_tpu_torch.core.enums import ReasonCode, action_from_code, decode_reason_mask
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES, FeatureVector
 from igaming_platform_tpu_torch.models.ensemble import make_score_fn
+from igaming_platform_tpu_torch.obs import perfmodel, runtime_telemetry
 from igaming_platform_tpu_torch.obs.drift import cached_sketch_kernel, sketch_kernel
 from igaming_platform_tpu_torch.obs.perfmodel import OnlineStepModel
 from igaming_platform_tpu_torch.obs.tracing import annotate, span
@@ -192,6 +196,21 @@ def _unpack_host(packed) -> dict:
 RESULT_KEYS = ("score", "action", "reason_mask", "rule_score", "ml_score")
 
 
+def _device_dispatch(fn_name: str, shape, dtype) -> None:
+    """The launch chokepoint, as ``serve/scorer.py::_device_dispatch`` of the
+    JAX package: the ``device.dispatch`` chaos seam fires, the padded shape
+    signature is noted with the compile watcher (``obs/runtime_telemetry``)
+    and the dispatch counter counts one (``risk_device_dispatches_total`` and
+    the RPC root's ``dispatches``). One dispatch is one launched step, not
+    each CUDA kernel inside it. Every step a scoring path launches comes
+    through here: the score steps (``_enqueue``), the split drift sketch,
+    the shadow scorer's own step, the session admission sync, the cache's
+    delta copy and flag write, the abuse model and ``score_arrays``."""
+    chaos.fire("device.dispatch")
+    runtime_telemetry.note_compile_signature(fn_name, shape, dtype)
+    runtime_telemetry.note_dispatch()
+
+
 def _device_readback(handle) -> dict:
     """The device-to-host drain of one launch (``_launch_padded``'s handle):
     wait for the packed [5, B] copy, then view its first n columns. The
@@ -254,6 +273,8 @@ class _Variants:
     sketch_failed: bool = False
     shadow_failed: bool = False
     split_sketch: Callable[[], torch.Tensor] | None = field(default=None, repr=False)
+    # The split sketch's dispatch signature: (name, shape, dtype).
+    sketch_sig: tuple = ("sketch_kernel", (), None)
     compressed: bool = False
     echo: torch.Tensor | None = None
     bl: torch.Tensor | None = None
@@ -425,6 +446,12 @@ class TorchScoringEngine:
         if self._host_pipeline is not None:
             self._host_pipeline.close()
 
+    @property
+    def pipeline(self):
+        """The host pipeline, once built (None before the first pipelined
+        wire batch, or when disabled)."""
+        return self._host_pipeline
+
     def _ensure_pipeline(self):
         """Build (once) the staged host pipeline; None when disabled."""
         if not self._pipeline_enabled:
@@ -525,15 +552,15 @@ class TorchScoringEngine:
 
     def _step_variants(self, packed: torch.Tensor, x: torch.Tensor, bl: torch.Tensor,
                        thr: torch.Tensor, n: int, *, split_sketch: Callable[[], torch.Tensor],
-                       echo: torch.Tensor | None = None,
+                       sketch_sig: tuple, echo: torch.Tensor | None = None,
                        compressed: bool = False) -> _Variants | None:
         """Inside a step's enqueue, after its score: the fused sketch of the
         scored rows ``x`` and the candidate's score of them, or what the
         split layout needs; None when neither drift nor a shadow is bound."""
         if self.drift is None and self.shadow is None:
             return None
-        v = _Variants(split_sketch=split_sketch, compressed=compressed, echo=echo, bl=bl,
-                      thresholds=thr)
+        v = _Variants(split_sketch=split_sketch, sketch_sig=sketch_sig, compressed=compressed,
+                      echo=echo, bl=bl, thresholds=thr)
         if self._fused_enabled and self.drift is not None:
             try:
                 v.sketch = sketch_kernel(x, packed, n)
@@ -572,6 +599,7 @@ class TorchScoringEngine:
             elif v.compressed:
                 drift.note_skipped(n, "compressed")
             else:
+                _device_dispatch(*v.sketch_sig)
                 with self._on_stream(), torch.inference_mode():
                     sketch = v.split_sketch()
                     ready = self._record_event()
@@ -800,6 +828,23 @@ class TorchScoringEngine:
                                       cat["rule_score"], cat["ml_score"], rtms,
                                       x if include_features else None)
 
+    def step_cost(self, n_rows: int | None = None) -> dict[str, float]:
+        """{"flops", "bytes"} of one packed score step at the ladder shape
+        that holds ``n_rows`` (the batch size by default), counted from its
+        kernels (``obs/perfmodel.py``) on zero rows, plus the step's
+        elementwise passes as bytes: the batch read in the wire's dtype with
+        its blacklist, the packed [5, B] int32 result written. The numerator
+        of ``perfmodel.utilization``; the count launches one step."""
+        shape = self._pick_shape(n_rows or self.batch_size)
+        x = torch.zeros((shape, NUM_FEATURES), dtype=torch.float32, device=self.device)
+        bl = torch.zeros((shape,), dtype=torch.bool, device=self.device)
+        with self._on_stream(), torch.inference_mode():
+            cost = perfmodel.cost_of(self._score_fn, self.get_params(), x, bl, self._thresholds)
+        if self.stream is not None:
+            self.stream.synchronize()
+        passes = shape * (NUM_FEATURES * self._wire_dtype.itemsize + 1) + 5 * shape * 4
+        return perfmodel.add_bytes(cost, passes)
+
     def score_arrays(self, x: np.ndarray, blacklisted: np.ndarray | None = None) -> dict:
         """Score a pre-gathered [N, 30] float32 batch as it is (no padding),
         through the row wire (``WIRE_DTYPE``) as a launched batch would go;
@@ -809,6 +854,7 @@ class TorchScoringEngine:
             blacklisted = np.zeros((x.shape[0],), dtype=bool)
         if self._wire_encode is not None and x.dtype != self._wire_dtype:
             x = self._wire_encode(np.asarray(x, np.float32))
+        _device_dispatch("score_arrays", x.shape, x.dtype)
         with torch.inference_mode():
             xd = decode_wire(torch.from_numpy(np.ascontiguousarray(x)).to(self.device))
             out = self._score_fn(self.get_params(), xd, blacklisted, self._thresholds)
@@ -859,7 +905,8 @@ class TorchScoringEngine:
                                          np.zeros((shape,), np.float32),
                                          np.full((shape,), 4, np.int32), np.zeros((shape,), bool))
                 self._readback(self._enqueue(
-                    lambda: self._cached_step(params, cache, *args())[0], shape))
+                    lambda: self._cached_step(params, cache, *args())[0], shape,
+                    ("cached_step", (shape,), np.dtype(np.int64))))
             self._ensure_session(cache)
             self.cache = cache
         return cache
@@ -946,7 +993,8 @@ class TorchScoringEngine:
                     mgr.adopt(ring, cur, ln)
                     return packed
 
-                self._readback(self._enqueue(warm, shape))
+                self._readback(self._enqueue(warm, shape,
+                                             ("session_step", (shape,), np.dtype(np.int64))))
         cache.session_hook = mgr.on_admit
         self.session = mgr
 
@@ -1012,9 +1060,10 @@ class TorchScoringEngine:
                     idx_d, amt_d, typ_d = inputs[0], inputs[3], inputs[4]
                     v.split_sketch = lambda: cached_sketch_kernel(
                         cache.table, idx_d, amt_d, typ_d, packed, n)
+                    v.sketch_sig = ("cached_sketch_kernel", idxsp.shape, idxsp.dtype)
                     return packed, v
 
-                handle = self._enqueue(step, n)
+                handle = self._enqueue(step, n, ("session_step", idxsp.shape, idxsp.dtype))
             return handle, n, {"ts": ts, "lens": post_len, "seqs": seqs, "hashes": audit}
         args = self._device_args(idxsp, amtp, typp, blp)
 
@@ -1023,9 +1072,10 @@ class TorchScoringEngine:
             packed, x, blv, _ = self._cached_step(params, cache, idx_d, amt_d, typ_d, bl_d, thr)
             return packed, self._step_variants(
                 packed, x, blv, thr, n, split_sketch=lambda: cached_sketch_kernel(
-                    cache.table, idx_d, amt_d, typ_d, packed, n))
+                    cache.table, idx_d, amt_d, typ_d, packed, n),
+                sketch_sig=("cached_sketch_kernel", idxsp.shape, idxsp.dtype))
 
-        return self._enqueue(cached, n), n, None
+        return self._enqueue(cached, n, ("cached_step", idxsp.shape, idxsp.dtype)), n, None
 
     def _blacklist_flags(self, n: int, ips, devices, fingerprints) -> np.ndarray:
         """The per-request blacklist vector from the store's host sets: the
@@ -1179,15 +1229,16 @@ class TorchScoringEngine:
                                    else contextlib.nullcontext()):
             yield
 
-    def _enqueue(self, step, n: int):
+    def _enqueue(self, step, n: int, sig: tuple):
         """Run ``step`` (its input copies and its launches; it returns the
         packed [5, B] result, or that and the step's ``_Variants``) on the
         engine's stream, then start the copy of the result back to pinned
         host memory, without waiting, and hand the variants to the drift and
         shadow seams with the event recorded after the copy. Returns a
-        handle for ``_readback``. The ``device.dispatch`` chaos seam fires
-        first, outside the dispatch lock."""
-        chaos.fire("device.dispatch")
+        handle for ``_readback``. The step is one dispatch, signature
+        ``sig`` = (name, padded shape, dtype), noted first, outside the
+        dispatch lock (``_device_dispatch``)."""
+        _device_dispatch(*sig)
         with self._on_stream(), torch.inference_mode():
             res = step()
             packed, variants = res if isinstance(res, tuple) else (res, None)
@@ -1224,9 +1275,10 @@ class TorchScoringEngine:
             packed = _stack_packed(self._score_fn(params, x, bld, thr))
             return packed, self._step_variants(
                 packed, x, bld, thr, n, split_sketch=lambda: sketch_kernel(x, packed, n),
-                echo=xd, compressed=xd.dtype == torch.int8)
+                sketch_sig=("sketch_kernel", xp.shape, xp.dtype), echo=xd,
+                compressed=xd.dtype == torch.int8)
 
-        return self._enqueue(step, n)
+        return self._enqueue(step, n, ("packed_step", xp.shape, xp.dtype))
 
     _readback = staticmethod(_device_readback)
 

@@ -62,16 +62,32 @@ The operations plane is on by default, as in the JAX server:
   host and CUDA activity for S seconds (clamped to 0.1-30; 409 while one
   runs) into a directory keyed by ``trace_id=`` when given, and answers how
   many kernel events it caught;
+- ``GET /debug/hostprofz`` is the host profiler (``obs/hostprof.py``,
+  ``HOSTPROF=0`` off): the µs-per-row stage table, the GC pauses and the
+  heap, ``?format=folded`` or ``?format=speedscope`` for the sampler's
+  stacks; ``POST /debug/hostprofz`` takes ``{"action": "start", "hz"} |
+  {"action": "stop"} | {"action": "reset"}`` (``HOSTPROF_HZ`` starts the
+  sampler at boot);
+- ``GET /debug/telemetryz`` is the runtime telemetry
+  (``obs/runtime_telemetry.py``, ``RUNTIME_TELEMETRY=0`` off): dispatches,
+  compile events and signatures, the step-time detectors and the anomaly
+  profiles. A step-time anomaly (``ANOMALY_K_SIGMA``, ``ANOMALY_MIN_STEP_MS``,
+  ``ANOMALY_WARMUP_STEPS``) records a ``capture_profile`` of
+  ``ANOMALY_PROFILE_SECONDS`` keyed by its trace id, one per
+  ``ANOMALY_PROFILE_COOLDOWN_S`` (``ANOMALY_PROFILE=0`` counts only);
+- gRPC server reflection (``serve/reflection.py``) is registered with the
+  gRPC binding;
 - ``OTEL_EXPORTER_OTLP_ENDPOINT`` exports the span ring over OTLP/HTTP;
 - ``CHAOS_PLAN`` installs a fault plan before the engine is built (logged).
 
 Run it as ``python -m igaming_platform_tpu_torch.serve.server``. It serves
-on the card; with no card it refuses to boot unless
+on the card. ``device_gate`` probes the card first from a killable
+subprocess (``core/devices.py``, ``DEVICE_PROBE_BUDGET_S``); when it does
+not answer the boot fails with the probe's label unless
 ``SERVE_DEVICE_FALLBACK=cpu``, which serves on the host CPU with the abuse
 path under ``ABUSE_CPU_POLICY`` (default ``heuristic``), as the reference
 does. ``FRAUD_MODEL_PATH`` boots a trained multitask checkpoint from its
-``.npz`` (``resolve_model_boot``). Not ported yet (``ROADMAP.md``): the host
-profiler's, runtime telemetry's and reflection's pages, and the
+``.npz`` (``resolve_model_boot``). Not ported yet (``ROADMAP.md``): the
 batch-feature refresh.
 """
 
@@ -97,6 +113,7 @@ from igaming_platform_tpu_torch.core.config import RiskServiceConfig
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES
 from igaming_platform_tpu_torch.obs import drift as drift_mod
 from igaming_platform_tpu_torch.obs import flight as flight_mod
+from igaming_platform_tpu_torch.obs import hostprof
 from igaming_platform_tpu_torch.obs import slo as slo_mod
 from igaming_platform_tpu_torch.obs import tracing
 from igaming_platform_tpu_torch.obs.metrics import ServiceMetrics
@@ -285,7 +302,7 @@ def make_online_loop(engine: TorchScoringEngine, ledger, ledger_dir: str, servic
         shadow.on_result = service.drift.note_shadow_result
     controller = PromotionController(engine, shadow, ledger=ledger,
                                      vault_dir=os.path.join(ledger_dir, "params-vault"),
-                                     metrics=metrics)
+                                     metrics=metrics, slo_engine=service.slo)
     return OnlineLoop(miner=LedgerMiner(ledger_dir, metrics=metrics),
                       learner=OnlineLearner(device=engine.device, metrics=metrics),
                       shadow=shadow, controller=controller)
@@ -320,6 +337,10 @@ class RiskServer:
             self.otlp.on_failure = self.metrics.otlp_export_failures_total.inc
         # One /debug/profilez capture at a time, on a profiler readied here.
         self._profile_lock = threading.Lock()
+        # A step-time anomaly records a profile keyed by its trace id.
+        self.telemetry = self.service.telemetry
+        if self.telemetry is not None:
+            self.telemetry.bind_profile_trigger(self._anomaly_profile_trigger)
         if self.inner.device.type == "cuda":
             tracing.prepare_device_trace()
         self._stopped = threading.Event()
@@ -348,13 +369,16 @@ class RiskServer:
     def inner(self) -> TorchScoringEngine:
         return getattr(self.engine, "inner", self.engine)
 
-    def capture_profile(self, seconds: float, trace_id: str = "") -> dict:
+    def capture_profile(self, seconds: float, trace_id: str = "",
+                        count_kernels: bool = True) -> dict:
         """A ``torch.profiler`` capture of host and CUDA activity for
         ``seconds`` (clamped to 0.1-30) while traffic keeps flowing, written
         as a Chrome trace into a new directory whose name carries
-        ``trace_id``. One at a time: ``{"error"}`` while another runs. The
-        answer counts the kernel events caught, by name, since the profiler
-        can lose events in a long-lived process."""
+        ``trace_id``. One at a time: ``{"error"}`` while another runs. With
+        ``count_kernels`` the answer counts the kernel events caught, by
+        name, since the profiler can lose events in a long-lived process;
+        that count parses every event in Python and holds the interpreter
+        for about a second per 15,000 events."""
         seconds = max(0.1, min(float(seconds), 30.0))
         if not self._profile_lock.acquire(blocking=False):
             return {"error": "profile capture already in progress"}
@@ -364,17 +388,41 @@ class RiskServer:
                                        dir=os.environ.get("ANOMALY_PROFILE_DIR") or None)
             with tracing.device_trace(log_dir) as prof:
                 time.sleep(seconds)
-            kernels: dict[str, int] = {}
-            for ev in prof.events():
-                if ev.device_type == torch.autograd.DeviceType.CUDA:
-                    kernels[ev.name] = kernels.get(ev.name, 0) + 1
-            return {"ok": True, "seconds": seconds, "log_dir": log_dir,
-                    "trace": os.path.join(log_dir, "trace.json"),
-                    "kernel_events": sum(kernels.values()), "kernels": kernels}
+            out = {"ok": True, "seconds": seconds, "log_dir": log_dir,
+                   "trace": os.path.join(log_dir, "trace.json")}
+            if count_kernels:
+                kernels: dict[str, int] = {}
+                for ev in prof.events():
+                    if ev.device_type == torch.autograd.DeviceType.CUDA:
+                        kernels[ev.name] = kernels.get(ev.name, 0) + 1
+                out.update(kernel_events=sum(kernels.values()), kernels=kernels)
+            return out
         except Exception as exc:  # noqa: BLE001 — a capture must not kill serving
             return {"error": f"profile capture failed: {exc}"}
         finally:
             self._profile_lock.release()
+
+    def _anomaly_profile_trigger(self, trace_id: str, stage: str, duration_ms: float) -> dict:
+        """The runtime telemetry's anomaly hook: a ``capture_profile`` of
+        ``ANOMALY_PROFILE_SECONDS`` (default 1.5) keyed by the anomalous
+        trace id, on a thread of its own, since the hook fires on a serving
+        thread; its result (the trace's path, as the JAX server's: no kernel
+        count, which would hold the interpreter) is folded into the
+        telemetry's capture record. The cooldown is the telemetry's."""
+        seconds = float(os.environ.get("ANOMALY_PROFILE_SECONDS", "1.5"))
+
+        def run() -> None:
+            result = self.capture_profile(seconds, trace_id=trace_id, count_kernels=False)
+            self.telemetry.note_capture_result(trace_id, result)
+            if "error" in result:
+                logger.warning("anomaly profile capture (%s, %s): %s", trace_id, stage,
+                               result["error"])
+            else:
+                logger.warning("anomaly profile captured: stage=%s trace=%s duration_ms=%.1f "
+                               "-> %s", stage, trace_id, duration_ms, result["log_dir"])
+
+        threading.Thread(target=run, name="anomaly-profile", daemon=True).start()
+        return {"seconds": seconds, "async": True}
 
     # -- HTTP sidecar (main.go:160-202 equivalent) ---------------------------
 
@@ -395,7 +443,27 @@ class RiskServer:
 
             def do_GET(self):  # noqa: N802
                 if self.path == "/metrics":
+                    # Scrape-fresh: the arena and card memory gauges, and the
+                    # GC pauses not yet folded.
+                    if server_ref.telemetry is not None:
+                        server_ref.telemetry.refresh_gauges()
+                    hostprof.get_default().fold_gc()
                     self._send(200, server_ref.metrics.registry.render_text(), "text/plain")
+                elif self.path == "/debug/telemetryz":
+                    tel = server_ref.telemetry
+                    if tel is None:
+                        self._send(404, '{"error":"telemetry disabled"}')
+                        return
+                    self._send(200, json.dumps(tel.snapshot()))
+                elif self.path.startswith("/debug/hostprofz"):
+                    hp = hostprof.get_default()
+                    fmt = parse_qs(urlparse(self.path).query).get("format", ["json"])[0]
+                    if fmt == "folded":
+                        self._send(200, hp.sampler.to_folded_text(), "text/plain")
+                    elif fmt == "speedscope":
+                        self._send(200, json.dumps(hp.sampler.to_speedscope()))
+                    else:
+                        self._send(200, hp.to_json())
                 elif self.path == "/debug/supervisorz":
                     sup = server_ref.supervisor
                     if sup is None:
@@ -487,6 +555,8 @@ class RiskServer:
                     return
                 if self.path == "/debug/breakers":
                     self._breakers(payload)
+                elif self.path == "/debug/hostprofz":
+                    self._hostprof(payload)
                 elif self.path == "/debug/thresholds":
                     server_ref.engine.set_thresholds(
                         int(payload.get("block", 80)), int(payload.get("review", 50)))
@@ -539,6 +609,32 @@ class RiskServer:
                     self._send(400, json.dumps({"error": str(exc)}))
                     return
                 self._send(200, json.dumps(sup.snapshot()))
+
+            def _hostprof(self, payload) -> None:
+                """Sampler control: ``{"action": "start", "hz": 97}`` (409
+                while one runs or for a bad hz), ``{"action": "stop"}`` (the
+                summary) and ``{"action": "reset"}`` (zeros the accounting)."""
+                hp = hostprof.get_default()
+                action = str(payload.get("action", "")) if isinstance(payload, dict) else ""
+                if action == "start":
+                    try:
+                        hz = float(payload.get("hz", 97.0))
+                    except (TypeError, ValueError):
+                        self._send(400, '{"error":"bad hz"}')
+                        return
+                    if not hp.sampler.start(hz):
+                        self._send(409, json.dumps({"error": "sampler already running or bad hz",
+                                                    "sampler": hp.sampler.snapshot()}))
+                        return
+                    self._send(200, json.dumps({"ok": True, "sampler": hp.sampler.snapshot()}))
+                elif action == "stop":
+                    self._send(200, json.dumps({"ok": True, "sampler": hp.sampler.stop()}))
+                elif action == "reset":
+                    hp.reset()
+                    self._send(200, '{"ok":true}')
+                else:
+                    self._send(400, json.dumps({"error": f"unknown hostprofz action {action!r} "
+                                                         "(use start|stop|reset)"}))
 
             def _outcomes(self, payload) -> None:
                 """Label backfill: ``{"decision_id", "label", "source"}`` or
@@ -685,18 +781,35 @@ class RiskServer:
         self.shutdown()
 
 
+def device_gate() -> str:
+    """The device to serve on, after ``core/devices.ensure_responsive_device``
+    probed the card from a killable subprocess (CUDA init, one launch, a
+    synchronize; retried while it hangs, inside ``DEVICE_PROBE_BUDGET_S``):
+    ``"cuda"`` when it answered; ``"cpu"`` when it did not and
+    ``SERVE_DEVICE_FALLBACK=cpu`` asks to serve on the host anyway; else the
+    boot fails (SystemExit 1) with the probe's label. Nothing falls back
+    quietly."""
+    from igaming_platform_tpu_torch.core.devices import ensure_responsive_device
+
+    label = ensure_responsive_device()
+    if not label:
+        return "cuda"
+    if os.environ.get("SERVE_DEVICE_FALLBACK", "").lower() == "cpu":
+        logger.warning("device unavailable (%s): SERVE_DEVICE_FALLBACK=cpu set, serving on the "
+                       "host CPU", label)
+        return "cpu"
+    logger.error("device unavailable (%s): refusing to boot a degraded server. Set "
+                 "SERVE_DEVICE_FALLBACK=cpu to serve on the host CPU anyway.", label)
+    raise SystemExit(1)
+
+
 def main() -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    device, abuse_policy = "cuda", "model"
-    if not torch.cuda.is_available():
-        if os.environ.get("SERVE_DEVICE_FALLBACK", "").lower() != "cpu":
-            logger.error("no CUDA device: refusing to boot a degraded server. "
-                         "Set SERVE_DEVICE_FALLBACK=cpu to serve on the host CPU anyway.")
-            raise SystemExit(1)
-        device, abuse_policy = "cpu", os.environ.get("ABUSE_CPU_POLICY", "heuristic")
-        logger.warning("no CUDA device: SERVE_DEVICE_FALLBACK=cpu set, serving on the host "
-                       "CPU (abuse policy %s)", abuse_policy)
+    device, abuse_policy = device_gate(), "model"
+    if device == "cpu":
+        abuse_policy = os.environ.get("ABUSE_CPU_POLICY", "heuristic")
+        logger.warning("serving on the host CPU (abuse policy %s)", abuse_policy)
     server = RiskServer(assemble_risk_service(device=device, abuse_policy=abuse_policy))
     server.wait_for_signal()
 

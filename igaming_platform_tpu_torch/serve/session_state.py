@@ -547,6 +547,11 @@ class SessionStateManager:
                     rehydrated += 1
             cursors = np.mod(lens, self.n_events).astype(np.int32)
             dev = self.device
+            # A launch between steps, counted like one (it shows only when
+            # accounts are admitted).
+            from igaming_platform_tpu_torch.serve.scorer import _device_dispatch
+
+            _device_dispatch("session_sync", (k, self.n_events), np.float32)
             with self._on_stream():
                 # One lookup admits a slot once: the copies have no duplicates.
                 s = host_to_device(np.asarray(slots, dtype=np.int64), dev)

@@ -45,8 +45,10 @@ import torch
 
 from igaming_platform_tpu_torch.convert import params_to
 from igaming_platform_tpu_torch.models.ensemble import make_score_fn
+from igaming_platform_tpu_torch.obs import hostprof
 from igaming_platform_tpu_torch.serve.batcher import pad_batch
 from igaming_platform_tpu_torch.serve.scorer import (
+    _device_dispatch,
     _stack_packed,
     _unpack_host,
     decode_wire,
@@ -247,6 +249,7 @@ class ShadowScorer:
     # -- worker --------------------------------------------------------------
 
     def _worker(self) -> None:
+        hostprof.register_scoring_thread("shadow")
         while True:
             with self._cv:
                 while not self._pending and not self._stopping:
@@ -303,6 +306,7 @@ class ShadowScorer:
         """One candidate step over a device batch in the wire's dtype, on the
         engine's stream (after the production step that copied it there)."""
         engine = self._engine
+        _device_dispatch("shadow_step", tuple(x.shape), x.dtype)
         with engine._on_stream(), torch.inference_mode():
             packed = _stack_packed(self._fn(params, decode_wire(x), blp, thresholds))
             done = engine._record_event()

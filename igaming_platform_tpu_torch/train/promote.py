@@ -24,8 +24,9 @@ through the same seam, to rehearse the auto-rollback).
 
 The SLO gates read ``slo_engine=``, any object with ``alerts_active() ->
 {"fast", "slow"}`` (``obs/slo.SLOEngine`` is one); with none given they read
-quiet, and the server does not bind the process's SLO engine yet
-(``ROADMAP.md``). ``metrics=`` (an ``obs/metrics.py`` ``ServiceMetrics``)
+the process's SLO engine (``obs/slo.get_default()``), as the JAX controller
+does, and quiet when there is none. The server passes its service's engine.
+``metrics=`` (an ``obs/metrics.py`` ``ServiceMetrics``)
 feeds the ``promotion_*`` counters.
 
 The vault: the JAX vault keeps an Orbax checkpoint per fingerprint; Orbax
@@ -220,12 +221,18 @@ class PromotionController:
     # -- gate inputs ---------------------------------------------------------
 
     def _slo_alerting(self) -> bool:
-        """The SLO engine's fast or slow burn alert; none given reads quiet
-        until obs/slo.py is ported."""
-        if self._slo is None:
+        """The SLO engine's fast or slow burn alert: ``slo_engine=``, else
+        the process's (``obs/slo.get_default()``), as the JAX controller
+        reads; quiet with neither."""
+        slo = self._slo
+        if slo is None:
+            from igaming_platform_tpu_torch.obs import slo as slo_mod
+
+            slo = slo_mod.get_default()
+        if slo is None:
             return False
         try:
-            alerts = self._slo.alerts_active()
+            alerts = slo.alerts_active()
             return bool(alerts.get("fast") or alerts.get("slow"))
         except Exception:  # noqa: BLE001 — a broken SLO read must not wedge promotion
             logger.warning("promotion SLO read failed", exc_info=True)

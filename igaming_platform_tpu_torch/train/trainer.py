@@ -37,6 +37,7 @@ kernels for ``obs/perfmodel.py``, item 4) raise NotImplementedError.
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 from dataclasses import dataclass
 from typing import Any, Iterator
@@ -48,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from igaming_platform_tpu_torch.core.device import resolve_device
 from igaming_platform_tpu_torch.core.features import normalize, standardize_for_model
+from igaming_platform_tpu_torch.obs import perfmodel
 from igaming_platform_tpu_torch.models.multitask import (
     MultiTask,
     TrainMultiTask,
@@ -283,9 +285,20 @@ class Trainer:
         return self.materialize_metrics(metrics)
 
     def step_cost(self, batch: Batch) -> dict[str, float]:
-        raise NotImplementedError(
-            "step_cost needs a cost model of the hand kernels (obs/perfmodel.py has no "
-            "cost_of), which waits for ROADMAP.md Queue 1 item 4")
+        """{"flops", "bytes"} of one training step on ``batch``, counted from
+        its kernels (``obs/perfmodel.py``): the forward and backward of a
+        copy of the model (the trainer's state is untouched), plus the
+        adamw pass's bytes (each parameter, its gradient and both moments
+        read, the parameter and the moments written: 7 float32s a weight)."""
+        model = copy.deepcopy(self.state.params)
+        with self._on_stream():
+            x, fraud_t, ltv_t, churn_t = self.put_batch(batch).tensors
+            with perfmodel.counting() as record:
+                loss, _ = loss_and_metrics(self.cfg, model, x.to(torch.float32), fraud_t,
+                                           ltv_t, churn_t)
+                loss.backward()
+        n_weights = sum(p.numel() for p in model.parameters())
+        return perfmodel.add_bytes(perfmodel.compiled_cost(record), 7 * 4 * n_weights)
 
     def export_params(self) -> MultiTask:
         """The serving module of the current master weights, on the

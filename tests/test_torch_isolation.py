@@ -79,11 +79,16 @@ def test_matcher():
     assert not _forbidden("igaming_platform_tpu_torch.tools.replay")
 
 
-def test_checkpoint_converter_stays_outside_the_port():
-    converter = REPO / "tools" / "export_params_npz.py"
+@pytest.mark.parametrize("tool,reads", [
+    ("export_params_npz.py", "igaming_platform_tpu.train.checkpoint"),
+    ("export_reflection_descriptors.py", "igaming_platform_tpu.proto_gen.risk.v1")])
+def test_checkpoint_converter_stays_outside_the_port(tool, reads):
+    """The JAX-side exporters (a checkpoint's params, reflection's
+    descriptors) live outside the port and import nothing of it."""
+    converter = REPO / "tools" / tool
     assert converter.exists() and PORT not in converter.parents
     imported = {m for m, _ in _imports(converter)}
-    assert "igaming_platform_tpu.train.checkpoint" in imported
+    assert reads in imported
     assert not [m for m in imported if m.startswith("igaming_platform_tpu_torch")]
 
 
@@ -99,7 +104,8 @@ def test_no_forbidden_import_statement():
 
 PLANE = ("obs/metrics.py", "obs/tracing.py", "obs/flight.py", "obs/otlp.py", "obs/slo.py",
          "obs/perfmodel.py", "obs/drift.py", "serve/deadline.py", "serve/supervisor.py",
-         "utils/logging.py")
+         "utils/logging.py", "obs/hostprof.py", "obs/runtime_telemetry.py", "core/devices.py",
+         "serve/reflection.py")
 
 
 @pytest.mark.parametrize("rel", PLANE)
@@ -134,6 +140,7 @@ def test_importing_every_module_loads_none_of_them():
               "serve.grpc_server", "serve.server", "serve.ltv_job", "models.ltv", "ops.dense",
               "train.trainer", "train.checkpoint", "train.online", "train.eval",
               "obs.metrics", "obs.tracing", "obs.flight", "obs.otlp", "obs.slo",
-              "obs.perfmodel", "serve.deadline", "serve.supervisor", "utils.logging"):
+              "obs.perfmodel", "serve.deadline", "serve.supervisor", "utils.logging",
+              "obs.hostprof", "obs.runtime_telemetry", "core.devices", "serve.reflection"):
         assert f"igaming_platform_tpu_torch.{m}" in loaded, m
     assert not [m for m in loaded if _forbidden(m)]

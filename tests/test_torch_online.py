@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 from igaming_platform_tpu.core.config import BatcherConfig as JBatcherConfig
+from igaming_platform_tpu.obs import slo as jslo
 from igaming_platform_tpu.models.multitask import init_multitask as jinit_multitask
 from igaming_platform_tpu.serve import ledger as jl
 from igaming_platform_tpu.serve.scorer import ScoreRequest as JRequest
@@ -38,6 +39,7 @@ from igaming_platform_tpu.train import online as jonline
 from igaming_platform_tpu.train import promote as jpromote
 from igaming_platform_tpu_torch import convert
 from igaming_platform_tpu_torch.core.config import BatcherConfig
+from igaming_platform_tpu_torch.obs import slo as pslo
 from igaming_platform_tpu_torch.serve import ledger as pl
 from igaming_platform_tpu_torch.serve.scorer import ScoreRequest, TorchScoringEngine
 from igaming_platform_tpu_torch.serve.shadow import ShadowScorer
@@ -159,6 +161,16 @@ def test_quality_probe_matches_jax():
     assert abs(flipped + got - 1.0) < 1e-9
 
 
+class _BurningSLO:
+    """A process SLO engine whose fast window burns while ``burning``."""
+
+    def __init__(self):
+        self.burning = True
+
+    def alerts_active(self):
+        return {"fast": self.burning, "slow": False}
+
+
 def _script(side, engine, shadow, ledger, vault, candidate, reqs, fingerprint):
     probe = _StubProbe(fingerprint)
     probe.mark_good(engine.get_params())
@@ -179,9 +191,32 @@ def _script(side, engine, shadow, ledger, vault, candidate, reqs, fingerprint):
     return actions, verdict["gates"], [h["event"] for h in ctl.history], ctl
 
 
-def test_controller_script_matches_jax(tmp_path, monkeypatch, no_jax_hostprof):
-    for knob in ("SLO", "DRIFT", "RUNTIME_TELEMETRY"):
-        monkeypatch.setenv(knob, "0")
+def _burn_script(side, engine, shadow, ledger, vault, candidate, reqs, fingerprint):
+    """No ``slo_engine=``: the controller reads the process's SLO engine.
+    While it burns a ready candidate is held; once quiet it is promoted;
+    a burn after the promotion rolls it back (``rollback_on_slo_page``)."""
+    probe = _StubProbe(fingerprint)
+    probe.mark_good(engine.get_params())
+    probe.mark_good(candidate)
+    mod, gmod = (jpromote, jgates) if side == "jax" else (promote, gates)
+    burning = _BurningSLO()
+    (jslo if side == "jax" else pslo).DEFAULT = burning
+    ctl = mod.PromotionController(engine, shadow, ledger=ledger,
+                                  gates=gmod.PromotionGates(**GATES), probe=probe, vault_dir=vault)
+    shadow.set_candidate(candidate)
+    engine.score_batch(reqs)
+    assert shadow.drain(20.0)
+    held = ctl.tick()
+    burning.burning = False
+    actions = [held["action"], ctl.tick()["action"]]
+    burning.burning = True
+    actions.append(ctl.tick()["action"])
+    return actions, held["gates"], [h["event"] for h in ctl.history], ctl
+
+
+def _run_sides(tmp_path, script):
+    """``script`` run by the JAX controller and the port's, each over its
+    own multitask engine, shadow and ledger on the same trees."""
     p0, p1 = _tree(0), _tree(2)
     runs = {}
     for side in ("jax", "port"):
@@ -206,14 +241,20 @@ def test_controller_script_matches_jax(tmp_path, monkeypatch, no_jax_hostprof):
         engine.ledger = ledger
         engine.shadow = shadow
         try:
-            runs[side] = _script(side, engine, shadow, ledger, str(tmp_path / f"{side}-vault"),
-                                 cand, reqs, fingerprint)
+            runs[side] = script(side, engine, shadow, ledger, str(tmp_path / f"{side}-vault"),
+                                cand, reqs, fingerprint)
             assert ledger.flush(10.0)
         finally:
             ledger.close()
             shadow.close()
             engine.close()
-    (ja, jg, jh, _), (pa, pg, ph, pctl) = runs["jax"], runs["port"]
+    return runs["jax"], runs["port"]
+
+
+def test_controller_script_matches_jax(tmp_path, monkeypatch, no_jax_hostprof):
+    for knob in ("SLO", "DRIFT", "RUNTIME_TELEMETRY"):
+        monkeypatch.setenv(knob, "0")
+    (ja, jg, jh, _), (pa, pg, ph, pctl) = _run_sides(tmp_path, _script)
     assert pa == ja == ["idle", "promote", "idle", "rollback"]
     assert pg == jg and ph == jh
     assert pctl.promotions == 2 and pctl.rollbacks == 1
@@ -225,6 +266,20 @@ def test_controller_script_matches_jax(tmp_path, monkeypatch, no_jax_hostprof):
         assert got == want and [e for e, *_ in got] == ["promote", "promote", "rollback"]
     # The vault holds the boot tree, the candidate and the regression.
     assert len(list((tmp_path / "port-vault").iterdir())) == 3
+
+
+def test_burning_process_slo_holds_and_rolls_back(tmp_path, monkeypatch, no_jax_hostprof):
+    """With no ``slo_engine=`` both controllers read the process's SLO
+    engine: a burn holds a ready candidate (``slo_quiet`` fails), a quiet
+    window promotes it, and a burn after the promotion rolls it back."""
+    for knob in ("SLO", "DRIFT", "RUNTIME_TELEMETRY"):
+        monkeypatch.setenv(knob, "0")
+    monkeypatch.setattr(jslo, "DEFAULT", None)
+    monkeypatch.setattr(pslo, "DEFAULT", None)
+    (ja, jg, jh, _), (pa, pg, ph, pctl) = _run_sides(tmp_path, _burn_script)
+    assert pa == ja and pa[1:] == ["promote", "rollback"] and pa[0] != "promote"
+    assert pg == jg and pg["slo_quiet"]["ok"] is False and ph == jh
+    assert pctl.promotions == 1 and pctl.rollbacks == 1
 
 
 def test_loop_tick_promotes_and_replays(tmp_path, monkeypatch):

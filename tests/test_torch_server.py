@@ -35,7 +35,16 @@ from test_torch_abuse import _feed
 from test_torch_ensemble import assert_outputs_match, jax_tree
 from test_torch_rules_mock import _raw_batch
 from test_torch_sequence import SERVE_CFG, seq_tree
-from torch_front_common import T0, checked_rows, event_columns, fill, pin_jax_clock, requests
+from torch_front_common import (
+    T0,
+    checked_rows,
+    event_columns,
+    fill,
+    jax_hostprof_off,
+    jax_native_libs,
+    pin_jax_clock,
+    requests,
+)
 
 from igaming_platform_tpu.core.config import BatcherConfig as JBatcherConfig
 from igaming_platform_tpu.models.sequence import SeqConfig as JSeqConfig
@@ -89,9 +98,17 @@ def _boot(backend, mp):
 
 @pytest.fixture(scope="module")
 def services(request):
-    with pytest.MonkeyPatch.context() as mp:
+    """Both services booted under settings that no host load can change:
+    the JAX native libraries loaded (a concurrent first build can leave
+    them unloaded in a worker), the JAX host profiler off, a default
+    deadline no slow host reaches, and no shed driven by latency."""
+    jax_native_libs()
+    with pytest.MonkeyPatch.context() as mp, jax_hostprof_off():
         for knob in ("SLO", "DRIFT", "RUNTIME_TELEMETRY"):  # JAX planes, off for its service
             mp.setenv(knob, "0")
+        mp.setenv("DEADLINE_DEFAULT_MS", "600000")
+        mp.setenv("BURN_SHED", "0")
+        mp.setenv("BULK_P99_SLO_MS", "0")
         mp.setenv("WIRE_MODE", "index")
         backend, _, wire = request.param.partition("/")
         mp.setenv("WIRE_DTYPE", wire or "float32")

@@ -213,11 +213,17 @@ def test_bf16_wire(monkeypatch):
 
 
 def test_waiting_items_raise():
+    """Mesh training still waits for item 6; ``step_cost`` (item 4) counts a
+    step and leaves the trainer as it was (tests/test_torch_perfmodel.py
+    holds the count to its formulas)."""
     with pytest.raises(NotImplementedError, match="item 6"):
         trainer.Trainer(mesh=object(), device="cpu")
     pt = trainer.Trainer(trainer.TrainConfig(batch_size=BATCH, trunk=TRUNK), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        pt.step_cost(_batches(1)[0])
+    before = [p.detach().clone() for p in pt.state.params.parameters()]
+    cost = pt.step_cost(_batches(1)[0])
+    assert set(cost) == {"flops", "bytes"} and cost["flops"] > 0 and cost["bytes"] > 0
+    assert pt.state.step == 0
+    assert all(torch.equal(a, b) for a, b in zip(before, pt.state.params.parameters()))
 
 
 def test_checkpoint_roundtrip_boot_and_loop(tmp_path, monkeypatch):

@@ -4,6 +4,8 @@ seeded event columns with fixed timestamps, one clock pinned for the JAX
 package's native store and the port's, and the masks under which two
 risk.v1 responses are compared."""
 
+import contextlib
+import time
 import types
 
 import numpy as np
@@ -44,19 +46,10 @@ def pin_jax_clock(monkeypatch, now: float = T0) -> None:
     monkeypatch.setattr(jax_native_store, "time", types.SimpleNamespace(time=lambda: now))
 
 
-@pytest.fixture
-def no_jax_hostprof():
-    """The JAX package's host profiler off for one test, then the very
-    profiler the process had put back. Its GC callback takes the profiler's
-    lock, which the same thread may already hold while it allocates a new
-    stage's accumulator (``igaming_platform_tpu/obs/hostprof.py``,
-    ``_on_span``): the JAX engine's batcher thread then waits on itself for
-    good. A fresh profiler allocates every stage anew, so the process's own
-    one comes back, its stages kept, and later tests meet no more of those
-    allocations than they would without this fixture. The profiler computes
-    nothing a port test compares."""
-    from igaming_platform_tpu.obs import hostprof
-
+@contextlib.contextmanager
+def _hostprof_off(hostprof):
+    """``hostprof`` (either package's module) with its default profiler off
+    inside the block, then the very profiler the process had put back."""
     with hostprof._DEFAULT_LOCK:
         saved = hostprof._DEFAULT
         was_installed = saved is not None and saved._installed
@@ -71,6 +64,80 @@ def no_jax_hostprof():
             hostprof._DEFAULT = saved
             if was_installed:
                 saved.install()
+
+
+@contextlib.contextmanager
+def jax_hostprof_off():
+    """The JAX package's host profiler off inside the block, then the very
+    profiler the process had put back. Its GC callback takes the profiler's
+    lock, which the same thread may already hold while it allocates a new
+    stage's accumulator (``igaming_platform_tpu/obs/hostprof.py``,
+    ``_on_span``): the JAX engine's batcher thread then waits on itself for
+    good. A fresh profiler allocates every stage anew, so the process's own
+    one comes back, its stages kept, and later tests meet no more of those
+    allocations than they would without this block."""
+    from igaming_platform_tpu.obs import hostprof
+
+    with _hostprof_off(hostprof):
+        yield
+
+
+@pytest.fixture
+def no_jax_hostprof():
+    """``jax_hostprof_off`` for one test, with the port's host profiler off
+    too, so that what the two packages expose stays comparable
+    (tests/test_torch_hostprof.py holds the profilers to each other)."""
+    from igaming_platform_tpu_torch.obs import hostprof
+
+    with jax_hostprof_off(), _hostprof_off(hostprof):
+        yield
+
+
+def jax_native_libs(timeout_s: float = 120.0) -> None:
+    """The JAX package's native feature store and wire codec, loaded. A
+    fresh checkout has no ``native/lib/``: each test process that needs a
+    library runs ``native/build.sh``, and under xdist several do at once,
+    so one can dlopen a library another is still writing ("file too
+    short"). The JAX loaders then mark the library unavailable for the
+    whole process, and the JAX service answers ScoreBatch with INTERNAL
+    ("native wire codec unavailable"). Retry the load until the concurrent
+    build has finished."""
+    from igaming_platform_tpu.serve import native_store as jstore
+    from igaming_platform_tpu.serve import wire as jwire
+
+    deadline = time.monotonic() + timeout_s
+    while not (jstore.native_available() and jwire.native_wire_available()):
+        assert time.monotonic() < deadline, "the JAX package's native libraries do not load"
+        time.sleep(0.5)
+        jstore._lib_attempted = False
+        jwire._load_failed = False
+
+
+@contextlib.contextmanager
+def port_sidecar(monkeypatch):
+    """A port ``RiskServer`` on the CPU (mock backend, the Python store, no
+    gRPC, the sidecar on a free port), under settings no host load can
+    change: a default deadline no slow host reaches, no latency-driven
+    shed. Yields (server, the sidecar's base URL); shut down after."""
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.serve import server as pserver
+    from igaming_platform_tpu_torch.serve.feature_store import InMemoryFeatureStore
+
+    for knob in ("SUPERVISOR", "LEDGER_DIR", "ONLINE_LOOP", "CHAOS_PLAN", "WIRE_MODE",
+                 "HOSTPROF_HZ"):
+        monkeypatch.delenv(knob, raising=False)
+    monkeypatch.setenv("DEADLINE_DEFAULT_MS", "600000")
+    monkeypatch.setenv("BURN_SHED", "0")
+    monkeypatch.setenv("BULK_P99_SLO_MS", "0")
+    config = RiskServiceConfig(batcher=BatcherConfig(batch_size=64, latency_tiers=(16,),
+                                                     max_wait_ms=1.0))
+    assembled = pserver.assemble_risk_service(config, feature_store=InMemoryFeatureStore(),
+                                              device="cpu")
+    server = pserver.RiskServer(assembled, grpc_port=-1, http_port=0)
+    try:
+        yield server, f"http://127.0.0.1:{server.http_port}"
+    finally:
+        server.shutdown(grace=1.0)
 
 
 def requests(seed: int, n: int, n_accounts: int) -> list[dict]:
@@ -166,6 +233,7 @@ class PlanePair:
         monkeypatch.setenv("BURN_SHED", "0")
         monkeypatch.setenv("BULK_P99_SLO_MS", "0")
         pin_jax_clock(monkeypatch)
+        jax_native_libs()
         self.jgrpc, self.pgrpc = jgrpc, pgrpc
         stores = (JaxStore(max_accounts=400), NativeFeatureStore(max_accounts=400,
                                                                  clock=lambda: T0))
