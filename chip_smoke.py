@@ -108,7 +108,19 @@ sequences of 64 events). Phases:
     ``ONLINE_LOOP=1`` (answers bit-equal to a CPU twin), outcomes posted, ticks
     until a promotion that is ledgered, vaulted and replayed with 0
     mismatches, a rollback replayed again, and ScoreBatch rows/s with the
-    loop idle and ticking.
+    loop idle and ticking;
+13. and 14. the operations plane, on phase 7's store (``phase_plane``,
+    ``phase_plane2``);
+15. the wallet side (``phase_platform``): the single-binary ``PlatformApp``
+    (``mlp+gbdt`` at phase 4's widths, the detector at serving width) against
+    its CPU twin on 1,000 operations (outcomes, gate scores, abuse scores);
+    a SQLite store of 100,000 accounts and 3,000 operations over 600 of
+    them (operations/s, latency by kind, a deposit's split, reconcile with 0
+    mismatches, every outbox row relayed); and 2,500 operations whose events
+    reach the risk service's bridge over AMQP through a broker outage (every
+    event consumed once, the ``amqp`` breaker sees it, feature rows equal to
+    an in-process twin); every gate swallowed nothing and every launch is
+    counted against the steps and checks.
 
 Any failure exits non-zero. The second-to-last lines are the ``kernels``
 JSON object and the card's name and power limit; the last line is the
@@ -5479,6 +5491,561 @@ def phase7_turns(parent: str, turns: str = "pccppc") -> list[dict]:
     return runs
 
 
+# Phase 15: the platform on the card. The single binary (platform/app.py)
+# with the mlp+gbdt engine at phase 4's widths and the detector at serving
+# width: (a) PLATFORM_PARITY_OPS operations over PLATFORM_PARITY_ACCOUNTS
+# accounts, PLATFORM_PARITY_CLAIMS of them bonus claims, through the card app
+# and its CPU twin; (b) a SQLite store of PLATFORM_ACCOUNTS accounts and
+# PLATFORM_OPS operations over PLATFORM_ACTIVE of them, PLATFORM_CLAIMS bonus
+# claims among them; (c) PLATFORM_AMQP_OPS operations whose events then reach
+# the risk service's bridge over AMQP, through one broker outage of
+# PLATFORM_OUTAGE_S. Thresholds low enough for random weights to review and
+# block a few percent of operations (phase 5 lowers them too). Cut for the
+# phase's 120 s: PLATFORM_OPS from 10,000 and PLATFORM_ACTIVE from 2,000
+# (the same operations an account), PLATFORM_AMQP_OPS from 5,000; at those
+# counts the phase took 220.3 s on an H100 (PERF.md §6).
+PLATFORM_PARITY_OPS, PLATFORM_PARITY_ACCOUNTS, PLATFORM_PARITY_CLAIMS = 1_000, 200, 50
+PLATFORM_ACCOUNTS, PLATFORM_OPS, PLATFORM_ACTIVE, PLATFORM_CLAIMS = 100_000, 3_000, 600, 200
+PLATFORM_AMQP_OPS, PLATFORM_OUTAGE_S = 2_500, 1.0
+PLATFORM_THRESHOLDS = (45, 30)  # (block, review)
+# The detector's head bias, shifted so that its random weights score the
+# stream's claims on both sides of the 0.5 threshold (unshifted, every
+# claim of a CPU rehearsal scored 0.63-0.79 and was refused as abuse).
+PLATFORM_ABUSE_BIAS_SHIFT = -0.9
+PLATFORM_T0 = 1_772_668_800.0  # 2026-03-05 00:00 UTC: inside the rules' date windows
+PLATFORM_CREATE_BATCH = 10_000  # accounts a unit of work while the store is filled
+PLATFORM_RULES = ("welcome_bonus_100", "second_deposit_boost", "verified_account_credit",
+                  "boost_code_reload", "friday_reload")
+PLATFORM_BLACKLISTED = "bad-dev"
+
+
+def platform_ops(seed: int, n_ops: int, n_accounts: int, n_claims: int) -> list[tuple]:
+    """A seeded wallet stream: (kind, account index, amount, key, device,
+    game category, rule, seconds to the next operation). Deposits, bets,
+    wins and withdrawals at a human pace, ``n_claims`` bonus claims, velocity
+    bursts (eight deposits half a second apart) and a blacklisted device on
+    one operation in 25."""
+    rng = np.random.default_rng(seed)
+    ops, i = [], 0
+    while len(ops) < n_ops - n_claims:
+        acct = int(rng.integers(n_accounts))
+        amount = int(rng.integers(500, 150_000))
+        device = PLATFORM_BLACKLISTED if rng.random() < 0.04 else f"dev{acct % 997}"
+        if rng.random() < 0.02:
+            for j in range(min(8, n_ops - n_claims - len(ops))):
+                ops.append(("deposit", acct, amount, f"v{i}-{j}", device, "", "", 0.5))
+        else:
+            kind = str(rng.choice(["deposit", "bet", "win", "withdraw"], p=[0.3, 0.4, 0.15, 0.15]))
+            cat = str(rng.choice(["slots", "video_poker", "table_games", ""]))
+            ops.append((kind, acct, amount // (10 if kind == "bet" else 1), f"k{i}", device,
+                        cat, "", float(rng.choice([1.0, 30.0, 600.0]))))
+        i += 1
+    for k, at in enumerate(sorted(rng.choice(n_ops, n_claims, replace=False).tolist())):
+        ops.insert(at, ("claim", int(rng.integers(n_accounts)), int(rng.integers(500, 150_000)),
+                        f"c{k}", "", "", PLATFORM_RULES[rng.integers(len(PLATFORM_RULES))], 5.0))
+    return ops
+
+
+def apply_platform_op(app, account_id: str, op: tuple):
+    """One operation through the app's public flows; the outcome as plain
+    data (an exception by its class name)."""
+    kind, _, amount, key, device, cat, rule, _ = op
+    try:
+        if kind == "claim":
+            b = app.claim_bonus(account_id, rule, deposit_amount=amount)
+            return ("bonus", b.rule_id, b.bonus_amount, b.wagering_required)
+        if kind == "bet":
+            res = app.bet(account_id, amount, key, game_category=cat, device_id=device)
+        elif kind == "win":
+            res = app.win(account_id, amount, key)
+        else:
+            res = getattr(app, kind)(account_id, amount, key, device_id=device)
+    except Exception as exc:  # noqa: BLE001 - the exception is the outcome
+        return type(exc).__name__
+    tx = res.transaction
+    return ("ok", res.new_balance, res.risk_score, res.real_deducted, res.bonus_deducted,
+            tx.type.value, tx.amount, tx.status.value)
+
+
+class GateRecorder:
+    """In front of an app's engine (its risk gate's) and its abuse gate: the
+    response columns of every gate score, every abuse check's score, and the
+    time each took."""
+
+    def __init__(self, app):
+        self.engine = app.engine
+        self.abuse = app.abuse
+        self.rows: list[tuple] = []
+        self.features: list[np.ndarray] = []
+        self.abuse_scores: list[float] = []
+        self.gate_s = 0.0
+        app.risk_gate.engine = self
+        app.bonus.risk_checker = self.is_abuser
+
+    def score(self, req, *args, **kwargs):
+        from igaming_platform_tpu_torch.core.enums import REASON_BIT_ORDER
+
+        t = time.perf_counter()
+        resp = self.engine.score(req, *args, **kwargs)
+        self.gate_s += time.perf_counter() - t
+        self.rows.append((resp.score, {"approve": 1, "review": 2, "block": 3}[resp.action],
+                          resp.rule_score, resp.ml_score,
+                          sum(1 << REASON_BIT_ORDER.index(c) for c in resp.reason_codes)))
+        self.features.append(resp.features.to_array())
+        return resp
+
+    def is_abuser(self, account_id: str) -> bool:
+        score, _, _ = self.abuse.check(account_id)
+        self.abuse_scores.append(score)
+        return score >= self.abuse.threshold
+
+    def columns(self) -> dict:
+        cols = np.array([r[:3] + (r[4],) for r in self.rows], dtype=np.int64).reshape(-1, 4)
+        return {"score": cols[:, 0], "action": cols[:, 1], "rule_score": cols[:, 2],
+                "reason_mask": cols[:, 3],
+                "ml_score": np.array([r[3] for r in self.rows], dtype=np.float32)}
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+
+def platform_app(tree, model, device: str, clock, sqlite_path: str = ""):
+    from igaming_platform_tpu_torch.core.config import ScoringConfig
+    from igaming_platform_tpu_torch.platform.app import AppConfig, PlatformApp
+
+    block, review = PLATFORM_THRESHOLDS
+    app = PlatformApp(AppConfig(sqlite_path=sqlite_path, scoring=ScoringConfig(
+        block_threshold=block, review_threshold=review)), ml_backend="mlp+gbdt", params=tree,
+        abuse_params=model, device=device, clock=clock)
+    app.engine.features.add_to_blacklist("device", PLATFORM_BLACKLISTED)
+    return app
+
+
+class PlatformCounts:
+    """The kernel launch counters and the engine's and detector's step
+    counts, zeroed together and read together."""
+
+    def __init__(self, gbdt_kernel, fa, dense_mod, apps):
+        self.mods, self.apps = (gbdt_kernel, fa, dense_mod), apps
+
+    def zero(self) -> None:
+        gbdt_kernel, fa, dense_mod = self.mods
+        gbdt_kernel.gbdt_forest.launches = 0
+        fa.flash_attention_fwd.launches = 0
+        dense_mod.dense.launches = dense_mod.dense_f32.launches = 0
+        self.steps0 = [(a.engine.device_steps, a.abuse.device_steps) for a in self.apps]
+
+    def read(self, layers: int, cfg, checks: int, device: str, what: str) -> dict:
+        """The launches since ``zero``, held to the steps and checks counted:
+        forest one a step, dense ``layers`` a step, the forward n_layers a
+        detector step and dense_f32 ``affine_layers`` a detector step, and one
+        detector step a check."""
+        gbdt_kernel, fa, dense_mod = self.mods
+        steps = sum(a.engine.device_steps - s for a, (s, _) in zip(self.apps, self.steps0))
+        abuse_steps = sum(a.abuse.device_steps - s for a, (_, s) in zip(self.apps, self.steps0))
+        out = {"device_steps": steps, "abuse_steps": abuse_steps, "checks": checks,
+               "forest": gbdt_kernel.gbdt_forest.launches, "dense": dense_mod.dense.launches,
+               "forward": fa.flash_attention_fwd.launches,
+               "dense_f32": dense_mod.dense_f32.launches}
+        if device == "cuda":
+            want = {"forest": steps, "dense": layers * steps, "forward": cfg.n_layers * checks,
+                    "dense_f32": affine_layers(cfg) * checks}
+            if steps == 0 or abuse_steps != checks or any(
+                    out[k] != v for k, v in want.items()):
+                raise AssertionError(f"{what}: launches {out} do not match {want}")
+        return out
+
+
+def hold_gate_errors(errors: dict, last_error, what: str) -> None:
+    """Every gate that fails open (or closed) swallowed nothing: a kernel
+    that failed would otherwise pass each operation unscored."""
+    if any(errors.values()):
+        raise AssertionError(f"{what}: the gates swallowed {errors}: {last_error!r}")
+
+
+def platform_parity(torch, tree, model, cfg, counts_cls, device: str, card: str) -> dict:
+    """(a) The card app against its CPU twin, operation by operation."""
+    clock = [PLATFORM_T0]
+    now = lambda: clock[0]  # noqa: E731
+    card_app = platform_app(tree, model, device, now)
+    cpu_app = platform_app(tree, model, "cpu", now)
+    apps = (card_app, cpu_app)
+    recs = [GateRecorder(a) for a in apps]
+    ops = platform_ops(15, PLATFORM_PARITY_OPS, PLATFORM_PARITY_ACCOUNTS, PLATFORM_PARITY_CLAIMS)
+    try:
+        ids = [[a.wallet.create_account(f"player{i}").id for i in range(PLATFORM_PARITY_ACCOUNTS)]
+               for a in apps]
+        counts = counts_cls([card_app])
+        counts.zero()
+        t0 = time.perf_counter()
+        outcomes = []
+        for op in ops:
+            outcomes.append(tuple(apply_platform_op(a, i[op[1]], op) for a, i in zip(apps, ids)))
+            clock[0] += op[-1]
+        seconds = time.perf_counter() - t0
+        launches = counts.read(len(tree["mlp"]["layers"]), cfg, len(recs[0].abuse_scores),
+                               device, "platform parity")
+        differ = [k for k, (c, p) in enumerate(outcomes) if c != p]
+        if differ:
+            raise AssertionError(f"platform parity: {len(differ)} operations differ, first "
+                                 f"{ops[differ[0]]}: {outcomes[differ[0]]}")
+        if len(recs[0].rows) != len(recs[1].rows) or not recs[0].rows:
+            raise AssertionError("platform parity: the gates scored different operations")
+        boundary = compare_columns(recs[0].columns(), recs[1].columns(), "platform gate")
+        if not np.array_equal(np.stack(recs[0].features).view(np.int32),
+                              np.stack(recs[1].features).view(np.int32)):
+            raise AssertionError("platform parity: the gates' feature rows differ")
+        abuse_err = float(np.abs(np.subtract(recs[0].abuse_scores, recs[1].abuse_scores)).max())
+        if abuse_err > ABUSE_ATOL:
+            raise AssertionError(f"platform parity: abuse scores differ by {abuse_err}")
+        for a in apps:
+            hold_gate_errors(a.gate_errors(), a.wallet.last_gate_error, "platform parity")
+        names = [c if isinstance(c, str) else c[0] for c, _ in outcomes]
+        kinds = {n: names.count(n) for n in sorted(set(names))}
+        for i in range(0, PLATFORM_PARITY_ACCOUNTS, 10):
+            if (card_app.abuse.history_length(ids[0][i])
+                    != cpu_app.abuse.history_length(ids[1][i])):
+                raise AssertionError("platform parity: abuse histories differ")
+        return {"ops": len(ops), "outcomes": kinds, "gate_scores": len(recs[0].rows),
+                "abuse_checks": len(recs[0].abuse_scores), "floor_boundary_rows": boundary,
+                "abuse_max_abs_err": abuse_err, "seconds_both_apps": seconds,
+                "launches": launches}
+    finally:
+        for a in apps:
+            a.close()
+
+
+def percentiles_ms(samples: list[float]) -> dict:
+    return {"n": len(samples), "p50": float(np.percentile(samples, 50)) * 1e3,
+            "p99": float(np.percentile(samples, 99)) * 1e3}
+
+
+def platform_scale(torch, tree, model, cfg, counts_cls, device: str, card: str) -> dict:
+    """(b) A SQLite store of PLATFORM_ACCOUNTS accounts, then PLATFORM_OPS
+    operations over PLATFORM_ACTIVE of them, timed; reconcile over all."""
+    import shutil
+    import tempfile
+
+    from igaming_platform_tpu_torch.platform.reconcile import Reconciler
+    from igaming_platform_tpu_torch.serve.scorer import ScoreRequest
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-wallet-")
+    clock = [PLATFORM_T0]
+    app = platform_app(tree, model, device, lambda: clock[0], os.path.join(root, "wallet.db"))
+    rec = GateRecorder(app)
+    pumped = [0.0]
+    pump = app.pump
+
+    def timed_pump():
+        t = time.perf_counter()
+        pump()
+        pumped[0] += time.perf_counter() - t
+
+    try:
+        # The store, filled through create_account in units of work of
+        # PLATFORM_CREATE_BATCH accounts, their events relayed in each.
+        t0 = time.perf_counter()
+        ids = []
+        for start in range(0, PLATFORM_ACCOUNTS, PLATFORM_CREATE_BATCH):
+            with app.store.unit_of_work():
+                ids += [app.wallet.create_account(f"player{i}").id
+                        for i in range(start, min(start + PLATFORM_CREATE_BATCH,
+                                                  PLATFORM_ACCOUNTS))]
+                app.outbox_relay.flush()
+            app.pump()
+        fill_s = time.perf_counter() - t0
+        # The floors under every operation, measured here: one audit row's
+        # commit, and one score() of the engine alone.
+        t = time.perf_counter()
+        for _ in range(200):
+            app.store.audit("probe", "commit", "floor")
+        commit_floor_ms = (time.perf_counter() - t) / 200 * 1e3
+        score_ms = []
+        for i in range(200):
+            req = ScoreRequest(account_id=ids[i], amount=5_000, tx_type="deposit")
+            t = time.perf_counter()
+            app.engine.score(req)
+            score_ms.append((time.perf_counter() - t) * 1e3)
+        score_floor_ms = float(np.median(score_ms))
+
+        ops = platform_ops(16, PLATFORM_OPS, PLATFORM_ACTIVE, PLATFORM_CLAIMS)
+        app.pump = timed_pump
+        counts = counts_cls([app])
+        counts.zero()
+        by_kind: dict[str, list[float]] = {}
+        split: dict[str, list[float]] = {"gate": [], "wallet": [], "pump": []}
+        outcomes: dict[str, int] = {}
+        t0 = time.perf_counter()
+        for op in ops:
+            gate0, pump0 = rec.gate_s, pumped[0]
+            t = time.perf_counter()
+            out = apply_platform_op(app, ids[op[1]], op)
+            dt = time.perf_counter() - t
+            clock[0] += op[-1]
+            name = out if isinstance(out, str) else out[0]
+            outcomes[name] = outcomes.get(name, 0) + 1
+            by_kind.setdefault(op[0], []).append(dt)
+            if op[0] == "deposit" and name == "ok":
+                gate, pumped_s = rec.gate_s - gate0, pumped[0] - pump0
+                split["gate"].append(gate)
+                split["pump"].append(pumped_s)
+                split["wallet"].append(dt - gate - pumped_s)
+        ops_s = time.perf_counter() - t0
+        launches = counts.read(len(tree["mlp"]["layers"]), cfg, len(rec.abuse_scores), device,
+                               "platform scale")
+        app.pump = pump
+        hold_gate_errors(app.gate_errors(), app.wallet.last_gate_error, "platform scale")
+        if not rec.abuse_scores:
+            raise AssertionError("platform scale: no abuse check ran")
+        for need in ("RiskReviewError", "RiskBlockedError", "bonus", "ok"):
+            if not outcomes.get(need):
+                raise AssertionError(f"platform scale: no {need} outcome in {outcomes}")
+
+        t = time.perf_counter()
+        report = Reconciler(app.wallet.accounts, app.wallet.ledger).run_once()
+        reconcile_s = time.perf_counter() - t
+        if report.checked != PLATFORM_ACCOUNTS or report.mismatched != 0:
+            raise AssertionError(f"platform scale: reconcile checked {report.checked}, "
+                                 f"{report.mismatched} mismatched")
+        unrelayed = len(list(app.store.outbox_drain()))
+        seen = (app.bridge.events_processed + app.bridge.events_skipped)
+        if unrelayed or seen != app.outbox_relay.published_total:
+            raise AssertionError(f"platform scale: {unrelayed} outbox rows unrelayed; the bridge "
+                                 f"saw {seen} of {app.outbox_relay.published_total}")
+        return {"accounts": PLATFORM_ACCOUNTS, "fill_s": fill_s, "ops": len(ops),
+                "active_accounts": PLATFORM_ACTIVE, "ops_s": ops_s, "ops_per_s": len(ops) / ops_s,
+                "outcomes": outcomes,
+                "latency_ms": {k: percentiles_ms(v) for k, v in sorted(by_kind.items())},
+                "deposit_split_ms": {k: float(np.median(v)) * 1e3 for k, v in split.items()},
+                "commit_floor_ms": commit_floor_ms, "score_floor_ms": score_floor_ms,
+                "reconcile_s": reconcile_s,
+                "relayed": app.outbox_relay.published_total, "abuse_checks": len(rec.abuse_scores),
+                "launches": launches}
+    finally:
+        app.pump = pump
+        app.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def outage_broker_cls():
+    """The port's fake broker with an outage: every connection dropped,
+    and new ones refused for a while, its queues kept."""
+    from igaming_platform_tpu_torch.serve import amqp_testing
+
+    class OutageBroker(amqp_testing.FakeAmqpServer):
+        refuse_until = 0.0
+
+        def outage(self, seconds: float) -> None:
+            self.refuse_until = time.monotonic() + seconds
+            self.drop_connections()
+
+        def _accept_loop(self) -> None:
+            while not self._stop.is_set():
+                try:
+                    sock, _ = self._listener.accept()
+                except OSError:
+                    return
+                if self._stop.is_set() or time.monotonic() < self.refuse_until:
+                    sock.close()
+                    if self._stop.is_set():
+                        return
+                    continue
+                conn = amqp_testing._ClientConn(self, sock)
+                with self._lock:
+                    self._conns.append(conn)
+                conn.start()
+
+    return OutageBroker
+
+
+def platform_amqp(torch, tree, model, cfg, gbdt_kernel, fa, dense_mod, device: str,
+                  card: str) -> dict:
+    """(c) The risk service on the card behind the port's AMQP broker: a
+    wallet gated by its engine stages PLATFORM_AMQP_OPS operations' events
+    in its outbox; then the relay publishes them over AMQP to the service's
+    bridge, timed from the relay's start to the last event consumed, with
+    one outage once half are published; then the bridge against an
+    in-process twin fed the events it processed, in its order."""
+    import types
+
+    from igaming_platform_tpu_torch.convert import from_jax_params
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.core.enums import EXCHANGE_WALLET
+    from igaming_platform_tpu_torch.platform.outbox import (
+        InMemoryOutbox,
+        OutboxPublisher,
+        OutboxRelay,
+    )
+    from igaming_platform_tpu_torch.platform.repository import (
+        InMemoryAccountRepository,
+        InMemoryLedgerRepository,
+        InMemoryTransactionRepository,
+    )
+    from igaming_platform_tpu_torch.platform.risk_adapter import InProcessRiskGate
+    from igaming_platform_tpu_torch.platform.wallet import WalletConfig, WalletService
+    from igaming_platform_tpu_torch.serve import bridge as bridge_mod
+    from igaming_platform_tpu_torch.serve import events, feature_store, scorer
+    from igaming_platform_tpu_torch.serve import server as server_mod
+
+    clock = [PLATFORM_T0]
+    now = lambda: clock[0]  # noqa: E731
+    broker = outage_broker_cls()()
+    config = RiskServiceConfig(batcher=BatcherConfig(batch_size=256, latency_tiers=(8,),
+                                                     max_wait_ms=1.0), rabbitmq_url=broker.url)
+    assembled = server_mod.assemble_risk_service(
+        config, ml_backend="mlp+gbdt", params=from_jax_params("mlp+gbdt", tree),
+        abuse_params=model, broker=broker.url, device=device,
+        feature_store=feature_store.InMemoryFeatureStore(clock=now))
+    server = server_mod.RiskServer(assembled, grpc_port=-1, http_port=0)
+    wire = assembled.bridge
+    order: list[str] = []
+    process = wire._process_event
+
+    def recorded(event):
+        process(event)  # recorded once processed: a retried event counts once
+        order.append(event.to_json())
+
+    wire._process_event = recorded
+    outbox = InMemoryOutbox()
+    relay_target = events.make_relay_target(broker.url)
+    relay_target.max_retries, relay_target.retry_delay = 2, 0.05
+    breaker = server.supervisor.breaker("amqp")
+    relay_target.on_publish_result = server_mod.amqp_breaker_feed(breaker)
+    relay = OutboxRelay(outbox, relay_target, poll_interval_s=0.005, max_backoff_s=0.25)
+    block, review = PLATFORM_THRESHOLDS
+    wallet = WalletService(InMemoryAccountRepository(), InMemoryTransactionRepository(),
+                           InMemoryLedgerRepository(), events=OutboxPublisher(outbox),
+                           risk=InProcessRiskGate(assembled.engine), clock=now,
+                           config=WalletConfig(risk_threshold_block=block,
+                                               risk_threshold_review=review))
+    counts = PlatformCounts(gbdt_kernel, fa, dense_mod, [
+        types.SimpleNamespace(engine=assembled.inner, abuse=assembled.abuse)])
+    twin = None
+    try:
+        ids = [wallet.create_account(f"player{i}").id for i in range(PLATFORM_ACTIVE)]
+        ops = platform_ops(17, PLATFORM_AMQP_OPS, PLATFORM_ACTIVE, 0)
+        counts.zero()
+        for op in ops:
+            kind, acct, amount, key, device_id, cat, _, step = op
+            try:
+                if kind == "win":
+                    wallet.win(ids[acct], amount, key)
+                elif kind == "bet":
+                    wallet.bet(ids[acct], amount, key, game_category=cat, device_id=device_id)
+                else:
+                    getattr(wallet, kind)(ids[acct], amount, key, device_id=device_id)
+            except Exception:  # noqa: BLE001 - refusals are outcomes; the gate counts its own
+                pass
+            clock[0] += step
+        staged = len(list(outbox.outbox_drain()))
+        t0 = time.perf_counter()
+        relay.start()
+        deadline = time.monotonic() + 90.0
+        outage_at = None
+        while (wire.events_processed + wire.events_skipped < staged
+               and time.monotonic() < deadline):
+            if outage_at is None and relay_target.published >= staged // 2:
+                outage_at = time.perf_counter() - t0
+                broker.outage(PLATFORM_OUTAGE_S)
+            time.sleep(0.002)
+        seconds = time.perf_counter() - t0
+        relay.stop(drain=True)
+        if list(outbox.outbox_drain()) or relay.published_total != staged:
+            raise AssertionError(f"platform amqp: {relay.published_total} of {staged} outbox "
+                                 "rows relayed")
+        consumed = wire.events_processed + wire.events_skipped
+        if consumed != staged:
+            raise AssertionError(f"platform amqp: the bridge consumed {consumed} of {staged} "
+                                 "events once")
+        launches = counts.read(len(tree["mlp"]["layers"]), cfg, 0, device, "platform amqp")
+        if relay_target.reconnects < 1 or breaker.snapshot()["failures_total"] < 1:
+            raise AssertionError(f"platform amqp: the outage went unseen (reconnects "
+                                 f"{relay_target.reconnects}, breaker {breaker.snapshot()})")
+        hold_gate_errors(wallet.gate_errors, wallet.last_gate_error, "platform amqp")
+
+        # The twin: the same events, in the bridge's order, in process (the
+        # mock backend on the CPU: feature rows do not depend on the model).
+        twin_engine = scorer.TorchScoringEngine(
+            device="cpu", batcher_config=BatcherConfig(batch_size=256, latency_tiers=(8,),
+                                                       max_wait_ms=1.0),
+            feature_store=feature_store.InMemoryFeatureStore(clock=now), warmup=False)
+        twin = bridge_mod.ScoringBridge(twin_engine, events.default_broker())
+        for raw in order:
+            twin.broker.publish_raw(EXCHANGE_WALLET, json.loads(raw)["type"], raw)
+        twin.drain()
+        rows = np.zeros((2, len(ids), N_FEATURES), np.float32)
+        for i, a in enumerate(ids):
+            assembled.inner.features.fill_row(rows[0, i], a, 5000, "bet", now=clock[0])
+            twin_engine.features.fill_row(rows[1, i], a, 5000, "bet", now=clock[0])
+        if not np.array_equal(rows[0].view(np.int32), rows[1].view(np.int32)):
+            raise AssertionError("platform amqp: feature rows differ from the in-process twin")
+        return {"ops": len(ops), "events": staged, "events_per_s": staged / seconds,
+                "seconds": seconds, "outage_at_s": outage_at, "duplicates": wire.events_deduped,
+                "relay_reconnects": relay_target.reconnects,
+                "bridge_publisher_reconnects": wire.publisher.reconnects,
+                "relay_failed_drains": relay.failed_total, "breaker": breaker.snapshot(),
+                "processed": wire.events_processed, "skipped": wire.events_skipped,
+                "launches": launches}
+    finally:
+        relay.stop(drain=False)
+        relay_target.close()
+        server.shutdown(grace=1.0)
+        if twin is not None:
+            twin.engine.close()
+        broker.close()
+
+
+def phase_platform(torch, card: str, gbdt_kernel, fa, dense_mod, device: str = "cuda") -> dict:
+    """Phase 15: the wallet side on the card (``platform_parity``,
+    ``platform_scale``, ``platform_amqp``). ``device="cpu"`` rehearses it
+    without a card (the launch checks then skipped)."""
+    from igaming_platform_tpu_torch.convert import sequence_from_tree
+    from igaming_platform_tpu_torch.models.sequence import SeqConfig
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(150)
+    tree = {"mlp": mlp_tree(rng, SERVE_HIDDEN), "gbdt": forest_tree(rng, SERVE_TREES, SERVE_DEPTH)}
+    cfg = SeqConfig(**ABUSE_CFG)
+    seq = seq_tree(rng, ABUSE_CFG)
+    seq["head"]["b"] = seq["head"]["b"] + np.float32(PLATFORM_ABUSE_BIAS_SHIFT)
+    model = sequence_from_tree(seq, cfg)
+
+    def counts_cls(apps):
+        return PlatformCounts(gbdt_kernel, fa, dense_mod, apps)
+
+    parity = platform_parity(torch, tree, model, cfg, counts_cls, device, card)
+    log(f"phase 15: [{card}] parity: {parity['ops']} operations through the card app and its "
+        f"CPU twin, outcomes equal ({json.dumps(parity['outcomes'])}); {parity['gate_scores']} "
+        f"gate scores ({parity['floor_boundary_rows']} floor-boundary rows not compared), "
+        f"{parity['abuse_checks']} abuse checks within {parity['abuse_max_abs_err']:.3g}; "
+        f"launches {json.dumps(parity['launches'])}")
+    scale = platform_scale(torch, tree, model, cfg, counts_cls, device, card)
+    log(f"phase 15: [{card}] scale: {scale['accounts']} accounts filled in {scale['fill_s']:.1f} s; "
+        f"{scale['ops']} operations over {scale['active_accounts']} accounts at "
+        f"{scale['ops_per_s']:.1f} ops/s ({json.dumps(scale['outcomes'])}); latency ms "
+        f"{json.dumps(scale['latency_ms'])}; a deposit's split ms "
+        f"{json.dumps(scale['deposit_split_ms'])} (floors: a commit "
+        f"{scale['commit_floor_ms']:.3f} ms, a score() {scale['score_floor_ms']:.3f} ms)"
+        f"; reconcile of {scale['accounts']} accounts in {scale['reconcile_s']:.1f} s, 0 "
+        f"mismatches; {scale['relayed']} outbox rows relayed; launches "
+        f"{json.dumps(scale['launches'])}")
+    wire = platform_amqp(torch, tree, model, cfg, gbdt_kernel, fa, dense_mod, device, card)
+    log(f"phase 15: [{card}] amqp: {wire['ops']} operations, {wire['events']} events outbox -> "
+        f"bridge in {wire['seconds']:.2f} s, {wire['events_per_s']:.1f} events/s, through a "
+        f"{PLATFORM_OUTAGE_S} s outage at {wire['outage_at_s']:.2f} s "
+        f"(relay reconnects {wire['relay_reconnects']}, {wire['duplicates']} duplicates "
+        f"deduped, amqp breaker {json.dumps(wire['breaker'])}); feature rows equal to the "
+        f"in-process twin")
+    result = {"parity": parity, "scale": scale, "amqp": wire,
+              "launches": {k: parity["launches"][k] + scale["launches"][k]
+                           + wire["launches"][k] for k in ("forest", "dense", "forward",
+                                                           "dense_f32")},
+              "seconds": time.perf_counter() - t0}
+    log(f"phase 15: {result['seconds']:.1f} s")
+    log("phase 15: " + json.dumps(result, default=str))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -5553,6 +6120,9 @@ def main() -> int:
     # Phase 12: the multitask trainer, distillation, evaluation, device
     # parity, checkpoints and ONLINE_LOOP=1, same store.
     online_run = phase_online(torch, card, dense_mod, gbdt_kernel, filled[0])
+    # Phase 15: the wallet side: the single-binary platform against its CPU
+    # twin, a SQLite store of 100,000 accounts, and the AMQP transport.
+    platform_run = phase_platform(torch, card, gbdt_kernel, fa, dense_mod)
 
     main_row = next(r for r in rows if (r["T"], r["D"], r["B"]) == (64, 4, BATCH_SIZE))
     flash_main = next(r for r in flash_rows if (r["BH"], r["S"], r["Dh"]) == FLASH_MAIN_SHAPE)
@@ -5581,6 +6151,7 @@ def main() -> int:
         "launches_distilled": online_run["forest_launches"],
         "launches_plane": plane_run["forest_launches"],
         "launches_plane2": plane2_run["forest_launches"],
+        "launches_platform": platform_run["launches"]["forest"],
         "shapes": rows,
     }, {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -5600,6 +6171,7 @@ def main() -> int:
         "launches_ledger": ledger_run["engine_a"]["forward_launches"],
         "launches_plane": plane_run["attention_launches"],
         "launches_plane2": plane2_run["attention_launches"],
+        "launches_platform": platform_run["launches"]["forward"],
         "shapes": flash_rows,
     }, *({
         "name": f"flash_attention_bwd_{part}", "route": "cuda",
@@ -5626,6 +6198,7 @@ def main() -> int:
         "launches_train": online_run["dense_launches"],
         "launches_plane": plane_run["dense_launches"],
         "launches_plane2": plane2_run["dense_launches"],
+        "launches_platform": platform_run["launches"]["dense"],
         "max_abs_err": max(r["max_abs_err"] for r in dense_rows if "max_abs_err" in r),
         "ms": dense_main["kernel_ms"], "plain_ms": dense_main["plain_ms"],
         "bound_ms": dense_main["bound_ms"], "bound_by": dense_main["bound_by"],
@@ -5648,6 +6221,7 @@ def main() -> int:
         "launches_server": server_run["dense_f32_launches"],
         "launches_index": index_run["a"]["dense_f32_launches"],
         "launches_train": train_run["launches_dense_f32"],
+        "launches_platform": platform_run["launches"]["dense_f32"],
         "max_abs_err": max(r["max_abs_err"] for r in dense_f32_rows),
         "ms": f32_main["kernel_ms"], "plain_ms": f32_main["plain_ms"],
         "bound_ms": f32_main["bound_ms"], "bound_by": f32_main["bound_by"],

@@ -49,6 +49,7 @@ import os
 import sys
 import threading
 import time
+import weakref
 from collections import deque
 
 from igaming_platform_tpu_torch.obs import tracing
@@ -70,17 +71,33 @@ _GC_EXPORT_BATCH = 4096
 # Scoring-path thread registry (the sampler's contract)
 
 _REGISTRY_LOCK = threading.Lock()
-_THREAD_ROLES: dict[int, str] = {}
+# ident -> (role, the registered thread): a registration belongs to the
+# thread that held the ident when it was made. Threads that register rarely
+# unregister, and the OS hands a finished thread's ident to a new one, which
+# must not inherit its role (the sampler would profile it).
+_THREAD_ROLES: dict[int, tuple[str, weakref.ref | None]] = {}
+
+
+def _thread_of(ident: int) -> threading.Thread | None:
+    if ident == threading.get_ident():
+        return threading.current_thread()
+    return next((t for t in threading.enumerate() if t.ident == ident), None)
+
+
+def _holds(ident: int, entry: tuple[str, weakref.ref | None], live: dict) -> bool:
+    return entry[1] is not None and entry[1]() is live.get(ident)
 
 
 def register_scoring_thread(role: str, ident: int | None = None) -> int:
-    """Register the calling (or given) thread as a scoring-path thread the
-    sampler may profile; ``role`` prefixes its folded stacks. Idempotent;
-    returns the registered ident."""
+    """Register the calling (or given, live) thread as a scoring-path
+    thread the sampler may profile; ``role`` prefixes its folded stacks.
+    Idempotent; returns the registered ident. The registration ends with
+    the thread."""
     if ident is None:
         ident = threading.get_ident()
+    thread = _thread_of(ident)
     with _REGISTRY_LOCK:
-        _THREAD_ROLES[ident] = str(role)
+        _THREAD_ROLES[ident] = (str(role), None if thread is None else weakref.ref(thread))
     return ident
 
 
@@ -92,9 +109,14 @@ def unregister_scoring_thread(ident: int | None = None) -> None:
 
 
 def registered_threads() -> dict[int, str]:
-    """Snapshot of {thread ident: role}."""
+    """Snapshot of {thread ident: role} over the registered threads still
+    running; the registrations of finished threads are dropped."""
+    live = {t.ident: t for t in threading.enumerate()}
     with _REGISTRY_LOCK:
-        return dict(_THREAD_ROLES)
+        for ident, entry in list(_THREAD_ROLES.items()):
+            if not _holds(ident, entry, live):
+                del _THREAD_ROLES[ident]
+        return {ident: role for ident, (role, _) in _THREAD_ROLES.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +414,8 @@ class HostProfiler:
         if name.startswith("rpc."):
             # The span completes on the thread that served the RPC.
             ident = threading.get_ident()
-            if ident not in _THREAD_ROLES:
+            entry = _THREAD_ROLES.get(ident)
+            if entry is None or not _holds(ident, entry, {ident: threading.current_thread()}):
                 register_scoring_thread("grpc_handler", ident)
             rows = span.attributes.get("rows")
             per_row = us / rows if isinstance(rows, int) and rows > 0 else None

@@ -53,12 +53,14 @@ class ScoringBridge:
     def __init__(
         self,
         engine: TorchScoringEngine,
-        broker: InMemoryBroker,
+        broker: InMemoryBroker | str,
         *,
         abuse_detector=None,
         publish_risk_events: bool = True,
         high_score_threshold: int = 70,
     ):
+        """``broker``: an ``InMemoryBroker``, or an ``amqp://`` URL of a
+        RabbitMQ, which the bridge consumes and publishes over the wire."""
         self.engine = engine
         self.broker = broker
         self.publisher = make_publisher(broker)
@@ -81,7 +83,10 @@ class ScoringBridge:
         self._consumer.stop()
 
     def drain(self, max_events: int | None = None) -> int:
-        """Synchronously process queued events."""
+        """Synchronously process queued events. Only the in-process broker
+        can be drained; the AMQP consumer pushes (``start``/``stop``)."""
+        if not hasattr(self._consumer, "drain"):
+            raise RuntimeError("drain() requires the in-process broker transport")
         return self._consumer.drain(QUEUE_RISK_SCORING, max_events=max_events)
 
     # -- event handling ------------------------------------------------------

@@ -9,11 +9,12 @@ A copy of the in-process half of ``igaming_platform_tpu/serve/events.py``
 - AMQP topic-routing semantics (``*`` one word, ``#`` zero or more);
 - consumer behaviour: reject-no-requeue on malformed payloads, nack-requeue
   on handler error (publisher.go:342-376);
-- at-least-once dedupe on the envelope id (``DeliveryDeduper``).
+- at-least-once dedupe on the envelope id (``DeliveryDeduper``, or
+  ``StoreDeliveryDeduper`` over the transactional store).
 
-The AMQP wire client is not ported yet (``ROADMAP.md``): an ``amqp://``
-transport raises ``NotImplementedError`` and never falls back to the
-in-process broker. The store-backed deduper is not ported either.
+A transport is an ``InMemoryBroker`` or an ``amqp://`` URL, which
+``make_publisher``, ``make_consumer`` and ``make_relay_target`` serve with
+the AMQP 0-9-1 wire client of ``serve/amqp.py``.
 """
 
 from __future__ import annotations
@@ -349,47 +350,63 @@ def new_risk_event(event_type: str, risk: dict) -> Event:
     )
 
 
-# -- transport selection ------------------------------------------------------
+# -- transport selection: in-process broker or AMQP (RabbitMQ) ----------------
+
+ALL_EXCHANGES = (EXCHANGE_WALLET, EXCHANGE_BONUS, EXCHANGE_RISK)
 
 
 def is_amqp_url(transport) -> bool:
     return isinstance(transport, str) and transport.startswith("amqp://")
 
 
-def _in_process(transport) -> InMemoryBroker:
-    """The transport as an in-process broker; any URL fails loudly."""
-    if is_amqp_url(transport):
-        raise NotImplementedError(
-            "the AMQP transport is not ported yet (ROADMAP.md, Queue 1); "
-            "pass an InMemoryBroker")
-    if isinstance(transport, str):
+def _require_valid_transport(transport) -> None:
+    """A string transport must be an amqp:// URL: any other scheme would
+    become a broken broker object (the outbox relay would retry an
+    AttributeError for good). Misconfiguration fails loudly, at startup."""
+    if isinstance(transport, str) and not is_amqp_url(transport):
         raise ValueError(
             f"unsupported event transport URL {transport!r}: only amqp:// is "
             "supported (amqps:// TLS termination belongs to a sidecar/proxy)")
-    return transport
 
 
-def make_publisher(transport) -> Publisher:
-    """Publisher for a transport: an ``InMemoryBroker`` instance."""
-    return Publisher(_in_process(transport))
+def make_publisher(transport):
+    """Publisher for a transport: an ``InMemoryBroker``, or an ``amqp://``
+    URL (``serve/amqp.AmqpPublisher``). Both expose publish,
+    publish_with_routing and publish_raw."""
+    _require_valid_transport(transport)
+    if is_amqp_url(transport):
+        from igaming_platform_tpu_torch.serve.amqp import AmqpPublisher
+
+        return AmqpPublisher(transport, ALL_EXCHANGES)
+    return Publisher(transport)
 
 
-def make_consumer(transport, prefetch: int = 64, max_redelivery: int = 5) -> Consumer:
-    """Consumer for a transport: an ``InMemoryBroker`` instance."""
-    return Consumer(_in_process(transport), prefetch=prefetch, max_redelivery=max_redelivery)
+def make_consumer(transport, prefetch: int = 64, max_redelivery: int = 5):
+    """Consumer for a transport, with the same subscribe/start/stop surface
+    in process and over AMQP; only the in-process one can ``drain``."""
+    _require_valid_transport(transport)
+    if is_amqp_url(transport):
+        from igaming_platform_tpu_torch.serve.amqp import AmqpConsumer
+
+        return AmqpConsumer(transport, prefetch=prefetch, max_redelivery=max_redelivery)
+    return Consumer(transport, prefetch=prefetch, max_redelivery=max_redelivery)
+
+
+def make_relay_target(transport):
+    """The object an ``OutboxRelay`` publishes through (needs publish_raw)."""
+    _require_valid_transport(transport)
+    return make_publisher(transport) if is_amqp_url(transport) else transport
 
 
 def resolve_transport(broker, rabbitmq_url: str):
     """An explicit broker wins; otherwise EVENT_TRANSPORT=amqp selects the
-    service's RABBITMQ_URL (which make_publisher/make_consumer refuse until
-    the AMQP client is ported), and the default is a fresh in-process broker
+    service's RABBITMQ_URL, and the default is a fresh in-process broker
     with the canonical topology."""
     if broker is not None:
         return broker
     mode = os.environ.get("EVENT_TRANSPORT", "memory").strip().lower()
     if mode == "amqp":
-        if not is_amqp_url(rabbitmq_url):
-            _in_process(rabbitmq_url)
+        _require_valid_transport(rabbitmq_url)
         return rabbitmq_url
     if mode != "memory":
         # A typo ('AMQP ', 'rabbitmq') must not silently become a private
@@ -398,3 +415,45 @@ def resolve_transport(broker, rabbitmq_url: str):
             f"unknown EVENT_TRANSPORT {mode!r}: expected 'memory' or 'amqp'"
         )
     return default_broker()
+
+
+class StoreDeliveryDeduper:
+    """``DeliveryDeduper`` persisted in the transactional store.
+
+    The in-memory deduper's claims die with the process, at the very moment
+    the outbox relay redelivers everything in flight, so a crash-restart
+    could double-apply a handler that is not idempotent (wagering
+    progress). Claims kept in the store of record (its
+    ``processed_deliveries`` table: ``dedupe_claim``, ``dedupe_release``,
+    ``dedupe_purge``) hold across restarts and across replicas sharing the
+    store.
+    """
+
+    def __init__(self, store, purge_every: int = 4096,
+                 retention_s: float = 7 * 86400.0):
+        self._store = store
+        self._retention_s = retention_s
+        self._purge_every = purge_every
+        self._ops = 0
+
+    def claim(self, event_id: str) -> bool:
+        self._ops += 1
+        if self._ops % self._purge_every == 0:
+            try:
+                self._store.dedupe_purge(self._retention_s)
+            except Exception:  # noqa: BLE001 - purge is best-effort
+                pass
+        return self._store.dedupe_claim(event_id)
+
+    def release(self, event_id: str) -> None:
+        self._store.dedupe_release(event_id)
+
+    def is_duplicate(self, event_id: str) -> bool:
+        return not self.claim(event_id)
+
+
+def best_deduper(store=None) -> "StoreDeliveryDeduper | DeliveryDeduper":
+    """Store-backed dedupe when a durable store exists, in-memory else."""
+    if store is not None and hasattr(store, "dedupe_claim"):
+        return StoreDeliveryDeduper(store)
+    return DeliveryDeduper()

@@ -769,8 +769,8 @@ class DecisionLedger:
     writer and drainer threads. It never raises and never blocks: when the
     bounded queue is full or the filesystem is failing, batches are dropped
     and counted (``records_dropped``), the ``breaker`` records the failure,
-    and scoring proceeds untouched. ``metrics`` must be None: the ledger's
-    metrics need ``obs/``, not ported yet.
+    and scoring proceeds untouched. ``metrics``, a ``ServiceMetrics`` (or
+    None), receives the ledger's counters and gauges.
     """
 
     def __init__(self, directory: str, *,

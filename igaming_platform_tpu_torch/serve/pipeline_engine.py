@@ -32,8 +32,9 @@ the same step. Stage spans (``score.dispatch``, ``score.readback``,
 (``span(parent=...)``), closing a span never waits on the card, and the
 readback feeds the engine's step-time model. ``stats()`` keeps each stage's
 busy time, the in-flight high water and the overlap ratio; ``bind_metrics``
-feeds the ``pipeline_*`` gauges. The host profiler hooks of the JAX module
-are not ported.
+feeds the ``pipeline_*`` gauges. The stage and readback workers register
+with the host profiler (``obs/hostprof.py``) as ``pipeline_stage`` and
+``readback``.
 """
 
 from __future__ import annotations

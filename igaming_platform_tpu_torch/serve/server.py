@@ -308,6 +308,20 @@ def make_online_loop(engine: TorchScoringEngine, ledger, ledger_dir: str, servic
                       shadow=shadow, controller=controller)
 
 
+def amqp_breaker_feed(breaker):
+    """An ``AmqpPublisher.on_publish_result`` hook that feeds ``breaker``:
+    a publish that succeeds records a success, one that fails after its
+    retries a failure."""
+
+    def feed(ok: bool, exc) -> None:
+        if ok:
+            breaker.record_success()
+        else:
+            breaker.record_failure(exc)
+
+    return feed
+
+
 class RiskServer:
     """An assembled risk service behind gRPC (optional) and the HTTP sidecar."""
 
@@ -332,6 +346,10 @@ class RiskServer:
         if self.supervisor is not None:
             # BROWNOUT flips health NOT_SERVING; DEGRADED keeps answering.
             self.supervisor.bind(health=self.health, metrics=self.metrics)
+            # An AMQP publisher reports each publish to the `amqp` breaker.
+            if hasattr(self.bridge.publisher, "on_publish_result"):
+                self.bridge.publisher.on_publish_result = amqp_breaker_feed(
+                    self.supervisor.breaker("amqp"))
         self.otlp = exporter_from_env("risk")
         if self.otlp is not None:
             self.otlp.on_failure = self.metrics.otlp_export_failures_total.inc

@@ -54,8 +54,9 @@ Two departures from the JAX tool:
 ``--verify`` is the self-contained smoke: a seeded mock engine scores
 through ``score_batch``, the batcher and a wire RPC under ``CHAOS_PLAN``
 (ledger-append delays by default), then its WAL is replayed and must show
-no mismatch. The port has no degraded tier yet (the supervisor is Queue 1
-item 10), so the smoke has no heuristic window.
+no mismatch. Its engine runs without the supervisor
+(``serve/supervisor.py``), so the smoke has no heuristic window; records of
+the supervisor's degraded tier replay as described above.
 """
 
 from __future__ import annotations

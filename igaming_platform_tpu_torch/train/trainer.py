@@ -29,9 +29,10 @@ A ``Trainer`` may run on a stream of its own (``stream=``, the online
 learner's, beside the serving engine's); every step, read-back and export
 is enqueued there.
 
-Waiting for later items of ``ROADMAP.md`` Queue 1: ``mesh=`` (data and
-tensor parallel training, item 6) and ``step_cost`` (a cost of the hand
-kernels for ``obs/perfmodel.py``, item 4) raise NotImplementedError.
+``step_cost`` counts one step's floating-point operations and bytes for
+``obs/perfmodel.py`` and leaves the trainer as it was. ``mesh=`` (data and
+tensor parallel training) waits for ``ROADMAP.md`` Queue 1 item 6 and raises
+NotImplementedError.
 """
 
 from __future__ import annotations

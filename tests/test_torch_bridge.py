@@ -129,10 +129,11 @@ def test_bridge_matches_jax(monkeypatch, mode):
 
 def test_transports_and_envelope(monkeypatch):
     broker = events.default_broker()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ScoringBridge(None, "amqp://guest@localhost:5672/")
-    with pytest.raises(NotImplementedError):
-        events.make_consumer("amqp://guest@localhost:5672/")
+    # An amqp:// URL takes the wire client (tests/test_torch_amqp.py drives
+    # it); a consumer connects only when started.
+    from igaming_platform_tpu_torch.serve.amqp import AmqpConsumer
+
+    assert isinstance(events.make_consumer("amqp://guest@localhost:5672/"), AmqpConsumer)
     with pytest.raises(ValueError, match="unsupported event transport"):
         events.make_publisher("redis://localhost")
     assert events.resolve_transport(broker, "") is broker

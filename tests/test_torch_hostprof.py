@@ -163,6 +163,37 @@ def test_gc_accounting_matches(profilers, monkeypatch):
         assert series[1][key] == pytest.approx(want, rel=1e-12, abs=1e-9), key
 
 
+def test_registration_ends_with_its_thread():
+    """A finished thread's registration is dropped, and a new thread given
+    its ident (the OS reuses them) does not inherit its role."""
+    done = threading.Event()
+    first = threading.Thread(target=lambda: (php.register_scoring_thread("batcher"),
+                                             done.set()))
+    first.start()
+    first.join(timeout=5.0)
+    assert done.is_set()
+    old = first.ident
+    reused = None
+    for _ in range(50):  # a fresh thread usually takes the freed ident
+        hold = threading.Event()
+        t = threading.Thread(target=hold.wait, args=(5.0,))
+        t.start()
+        if t.ident == old:
+            reused = t
+            break
+        hold.set()
+        t.join(timeout=5.0)
+    try:
+        assert old not in php.registered_threads()
+    finally:
+        if reused is not None:
+            hold.set()
+            reused.join(timeout=5.0)
+    php.register_scoring_thread("pipeline_stage")
+    assert php.registered_threads()[threading.get_ident()] == "pipeline_stage"
+    php.unregister_scoring_thread()
+
+
 def test_sampler_never_touches_unregistered_threads():
     """A busy thread that was never registered is never sampled; a
     registered one is, under its role and active span."""

@@ -1,13 +1,15 @@
 """The port stands alone: no module of igaming_platform_tpu_torch, and not
 chip_smoke.py, imports jax, flax, optax, orbax, ml_dtypes, msgpack, grpc,
-protobuf, the JAX package or the repository's ``tools``
+protobuf, yaml (the card's machine has no PyYAML: the bonus rules are read by
+the port's own reader), the JAX package or the repository's ``tools``
 (``tools/export_params_npz.py`` converts JAX checkpoints on the JAX side;
 it lives outside the port and imports nothing of it).
 
-One exception: ``serve/grpc_server.py`` imports ``grpc`` inside the body of
+Exceptions: ``serve/grpc_server.py`` imports ``grpc`` inside the body of
 ``serve_risk`` and ``make_risk_stub``, the optional gRPC binding, which only
-runs when a caller asks for a gRPC port. Nothing else may import it, at any
-level.
+runs when a caller asks for a gRPC port, and ``platform/risk_adapter.py``
+inside ``GrpcRiskGate._ensure_stub``, which only runs when a wallet scores
+over gRPC. Nothing else may import it, at any level.
 
 Checked twice: an AST walk over every import statement (including imports
 inside functions), and a fresh interpreter that imports every module of the
@@ -27,7 +29,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "igaming_platform_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "msgpack", "grpc",
-             "google.protobuf", "igaming_platform_tpu", "tools")
+             "google.protobuf", "igaming_platform_tpu", "tools", "yaml")
 
 
 def _forbidden(module: str) -> bool:
@@ -38,9 +40,12 @@ def _sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
-# (file, function) whose body may import grpc: the optional gRPC binding.
+# (file, function or Class.method) whose body may import grpc: the optional
+# gRPC bindings.
 GRPC_ALLOWED = {("igaming_platform_tpu_torch/serve/grpc_server.py", "serve_risk"),
-                ("igaming_platform_tpu_torch/serve/grpc_server.py", "make_risk_stub")}
+                ("igaming_platform_tpu_torch/serve/grpc_server.py", "make_risk_stub"),
+                ("igaming_platform_tpu_torch/platform/risk_adapter.py",
+                 "GrpcRiskGate._ensure_stub")}
 
 
 def _imported(node):
@@ -55,11 +60,19 @@ def _imported(node):
 
 
 def _imports(path: Path):
-    """(module, the top-level function it is imported in, or None)."""
+    """(module, the top-level function or ``Class.method`` it is imported
+    in, or None)."""
     tree = ast.parse(path.read_text(), filename=str(path))
+    funcs = (ast.FunctionDef, ast.AsyncFunctionDef)
+    scopes = []
     for top in tree.body:
-        func = top.name if isinstance(top, (ast.FunctionDef, ast.AsyncFunctionDef)) else None
-        for node in ast.walk(top):
+        if isinstance(top, ast.ClassDef):
+            scopes += [(f"{top.name}.{node.name}" if isinstance(node, funcs) else None, node)
+                       for node in top.body]
+        else:
+            scopes.append((top.name if isinstance(top, funcs) else None, top))
+    for func, scope in scopes:
+        for node in ast.walk(scope):
             for module in _imported(node):
                 yield module, func
 
@@ -76,6 +89,7 @@ def test_matcher():
     assert _forbidden("tools.export_params_npz")
     assert _forbidden("optax") and _forbidden("orbax.checkpoint") and _forbidden("ml_dtypes")
     assert _forbidden("msgpack") and not _forbidden("optaxish")
+    assert _forbidden("yaml") and not _forbidden("yamlish")
     assert not _forbidden("igaming_platform_tpu_torch.tools.replay")
 
 
@@ -100,6 +114,8 @@ def test_no_forbidden_import_statement():
     assert not bad, bad
     binding = PORT / "serve" / "grpc_server.py"
     assert ("grpc", "serve_risk") in set(_imports(binding))  # the exception is still needed
+    gate = PORT / "platform" / "risk_adapter.py"
+    assert ("grpc", "GrpcRiskGate._ensure_stub") in set(_imports(gate))
 
 
 PLANE = ("obs/metrics.py", "obs/tracing.py", "obs/flight.py", "obs/otlp.py", "obs/slo.py",
@@ -108,15 +124,30 @@ PLANE = ("obs/metrics.py", "obs/tracing.py", "obs/flight.py", "obs/otlp.py", "ob
          "serve/reflection.py")
 
 
+WALLET_SIDE = ("serve/amqp.py", "serve/amqp_testing.py", "serve/ipintel.py", "core/money.py",
+               *(f"platform/{m}.py" for m in (
+                   "__init__", "domain", "migrations", "repository", "outbox", "wallet",
+                   "bonus", "cashback", "reconcile", "seed", "risk_adapter", "app")))
+
+
+@pytest.mark.parametrize("rel", WALLET_SIDE)
+def test_wallet_side_stands_alone(rel):
+    """The wallet side's modules, held as the operations plane's are below;
+    the port's bonus rules sit beside them."""
+    test_operations_plane_stands_alone(rel)
+    assert (PORT / "platform" / "configs" / "bonus_rules.yaml").exists()
+
+
 @pytest.mark.parametrize("rel", PLANE)
 def test_operations_plane_stands_alone(rel):
     """The operations plane's modules, held one by one: each is the port's
     own copy, imports nothing forbidden at any level, and imports no module
-    of the package that does (its imports of the port resolve to files)."""
+    of the package that does (its imports of the port resolve to files),
+    the optional gRPC bindings apart."""
     path = PORT / rel
     assert path.exists(), rel
     imported = [m for m, _ in _imports(path)]
-    assert not [m for m in imported if _forbidden(m)], rel
+    assert not [m for m, f in _imports(path) if _forbidden(m) and not _allowed(path, m, f)], rel
     for m in imported:
         if m.startswith("igaming_platform_tpu_torch."):
             target = REPO.joinpath(*m.split("."))
@@ -141,6 +172,8 @@ def test_importing_every_module_loads_none_of_them():
               "train.trainer", "train.checkpoint", "train.online", "train.eval",
               "obs.metrics", "obs.tracing", "obs.flight", "obs.otlp", "obs.slo",
               "obs.perfmodel", "serve.deadline", "serve.supervisor", "utils.logging",
-              "obs.hostprof", "obs.runtime_telemetry", "core.devices", "serve.reflection"):
+              "obs.hostprof", "obs.runtime_telemetry", "core.devices", "serve.reflection",
+              "serve.amqp", "serve.amqp_testing", "serve.ipintel", "core.money",
+              "platform.app", "platform.risk_adapter", "platform.bonus", "platform.seed"):
         assert f"igaming_platform_tpu_torch.{m}" in loaded, m
     assert not [m for m in loaded if _forbidden(m)]
