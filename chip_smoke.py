@@ -120,7 +120,20 @@ sequences of 64 events). Phases:
     reach the risk service's bridge over AMQP through a broker outage (every
     event consumed once, the ``amqp`` breaker sees it, feature rows equal to
     an in-process twin); every gate swallowed nothing and every launch is
-    counted against the steps and checks.
+    counted against the steps and checks;
+16. the stores of record and the wallet's own front (``phase_stores``): the
+    port's Postgres rig (``platform/pg_testing.py``) over a file of 100,000
+    accounts; ``WalletServer`` over it with its gate on the card, 2,000
+    wallet.v1 operations through ``WalletGrpcService.call`` against the same
+    operations over SQLite on the card and over SQLite on the CPU (answers,
+    gate scores, ops/s and latency by kind), reconciled over the wire and
+    counted on ``/metrics``; ``LEDGER_SINK=pg`` on the same rig (every noted
+    row in ``risk_decisions`` or dropped, equal to the WAL); the LTV job over
+    ``postgres://`` and ``sqlite://`` (bit-equal); the batch refresh of phase
+    7's store from the rig and from a ClickHouse stand-in behind a row-mode
+    and an IDX1 engine, held to CPU twins; ``FEATURE_STORE=redis`` refused
+    and the Redis store over a dict-backed client against a CPU twin; forest
+    and dense launches against the steps.
 
 Any failure exits non-zero. The second-to-last lines are the ``kernels``
 JSON object and the card's name and power limit; the last line is the
@@ -6046,6 +6059,826 @@ def phase_platform(torch, card: str, gbdt_kernel, fa, dense_mod, device: str = "
     return result
 
 
+# Phase 16: the stores of record and the wallet's own front. A Postgres
+# protocol-v3 rig (the port's platform/pg_testing.py over one SQLite file)
+# holding STORES_ACCOUNTS accounts (ids of phase 7's native store) and a
+# history of STORES_HISTORY completed transactions among them, written into
+# the file directly after the store's bootstrap over the wire (the SQLite
+# store on the card gets the same accounts, without the history); STORES_OPS
+# wallet.v1 operations over STORES_ACTIVE accounts through WalletGrpcService
+# (Postgres on the card, SQLite on the card, SQLite on the CPU); the LTV job
+# over postgres:// and sqlite://; the batch refresh of phase 7's store from
+# the rig and from a ClickHouse stand-in, then STORES_REFRESH_RPCS ScoreBatch
+# RPCs to a row-mode and an IDX1 engine; the Redis store over a dict-backed
+# client; last, the decision ledger's Postgres sink on the same rig under
+# STORES_LEDGER_RPCS ScoreBatch RPCs (its drain takes the interpreter's lock
+# often enough to slow whatever runs beside it, so it runs alone).
+STORES_ACCOUNTS, STORES_HISTORY = SERVER_ACCOUNTS, 50_000
+STORES_OPS, STORES_ACTIVE = 2_000, 400
+STORES_LEDGER_RPCS, STORES_REFRESH_RPCS, STORES_REDIS_ROWS = 2, 4, 4096
+# The wallet's risk thresholds (block, review): the gate's random weights
+# score an operation 9-21 alone and 29-41 from a blacklisted device, so a few
+# percent are refused for review and a few blocked.
+STORES_THRESHOLDS = (40, 25)
+STORES_DRAIN_S = 120.0  # the ledger sink's drain: a time limit, not an expectation
+STORES_INDEX_CAPACITY = 131_072
+STORES_OP_MIX = (("Deposit", 0.27), ("Bet", 0.33), ("Win", 0.12), ("Withdraw", 0.1),
+                 ("Refund", 0.03), ("GetBalance", 0.08), ("GetTransactionHistory", 0.07))
+
+
+def stores_fill(path: str, n_accounts: int, n_history: int, rng) -> dict:
+    """``n_accounts`` accounts (``acct{i}``, phase 7's ids; balance 0, created
+    up to two years before SERVER_NOW) and ``n_history`` completed
+    transactions among them, written straight into a wallet file whose
+    schema the store's bootstrap made; no ledger entries, so the books
+    reconcile. Returns the rows written and the seconds."""
+    import sqlite3
+
+    t = time.perf_counter()
+    created = SERVER_NOW - rng.random(n_accounts) * 730 * 86400.0
+    db = sqlite3.connect(path)
+    try:
+        db.executemany(
+            "INSERT INTO accounts (id, player_id, currency, balance, bonus, status, version,"
+            " created_at, updated_at) VALUES (?,?,'USD',0,0,'active',1,?,?)",
+            [(f"acct{i}", f"player{i}", float(c), float(c)) for i, c in enumerate(created)])
+        accts = rng.integers(0, n_accounts, n_history)
+        kinds = np.array(["deposit", "bet", "win", "withdraw"])[
+            rng.choice(4, n_history, p=[0.35, 0.4, 0.15, 0.1])]
+        amounts = rng.integers(100, 500_000, n_history)
+        ts = created[accts] + rng.random(n_history) * (SERVER_NOW - created[accts])
+        db.executemany(
+            "INSERT INTO transactions (id, account_id, idempotency_key, type, amount,"
+            " balance_before, balance_after, status, reference, game_id, round_id, risk_score,"
+            " created_at, completed_at) VALUES (?,?,?,?,?,0,0,'completed','history',NULL,NULL,"
+            "NULL,?,?)",
+            [(f"h{j}", f"acct{a}", f"h{j}", str(k), int(m), float(s), float(s))
+             for j, (a, k, m, s) in enumerate(zip(accts, kinds, amounts, ts))])
+        db.commit()
+    finally:
+        db.close()
+    return {"accounts": n_accounts, "history": n_history, "seconds": time.perf_counter() - t}
+
+
+class StepCounts:
+    """The forest and dense launch counters against card engines' device
+    steps: ``begin(engines)`` sets the counts to 0 just before a path's run,
+    ``end`` reads them just after and holds them to one forest and ``layers``
+    dense launches a step; the totals accumulate over the phase."""
+
+    def __init__(self, gbdt_kernel, dense_mod, layers: int, device: str):
+        self.mods, self.layers, self.device = (gbdt_kernel, dense_mod), layers, device
+        self.total = {"forest": 0, "dense": 0, "device_steps": 0}
+
+    def begin(self, engines) -> None:
+        gbdt_kernel, dense_mod = self.mods
+        self.engines = [getattr(e, "inner", e) for e in engines]
+        if self.device == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        gbdt_kernel.gbdt_forest.launches = 0
+        dense_mod.dense.launches = 0
+        self.steps0 = [e.device_steps for e in self.engines]
+
+    def end(self, what: str) -> dict:
+        gbdt_kernel, dense_mod = self.mods
+        if self.device == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        steps = sum(e.device_steps - s for e, s in zip(self.engines, self.steps0))
+        out = {"forest": gbdt_kernel.gbdt_forest.launches, "dense": dense_mod.dense.launches,
+               "device_steps": steps}
+        if self.device == "cuda" and (steps == 0 or out["forest"] != steps
+                                      or out["dense"] != self.layers * steps):
+            raise AssertionError(f"{what}: launches {out} against {steps} device steps")
+        for k in self.total:
+            self.total[k] += out[k]
+        return out
+
+
+class EngineRecorder:
+    """In front of a risk gate's engine: the result columns of every score."""
+
+    def __init__(self, engine):
+        self.engine, self.rows = engine, []
+
+    def score(self, req, *args, **kwargs):
+        resp = self.engine.score(req, *args, **kwargs)
+        self.rows.append(response_from_score(resp))
+        return resp
+
+    def columns(self) -> dict:
+        return {k: np.array([r[k] for r in self.rows]) for k in self.rows[0]}
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+
+def stores_ops(seed: int) -> list[tuple]:
+    """The logical wallet.v1 stream: a CreateAccount for each of STORES_ACTIVE
+    accounts, then (method, account index, amount, key, device) drawn from
+    STORES_OP_MIX; a blacklisted device on one operation in 25."""
+    rng = np.random.default_rng(seed)
+    ops = [("CreateAccount", i, 0, "", "") for i in range(STORES_ACTIVE)]
+    kinds, p = zip(*STORES_OP_MIX)
+    for i in range(STORES_OPS - STORES_ACTIVE):
+        kind = str(rng.choice(kinds, p=np.array(p) / sum(p)))
+        acct = int(rng.integers(STORES_ACTIVE))
+        amount = int(rng.integers(500, 150_000)) // (10 if kind == "Bet" else 1)
+        device = PLATFORM_BLACKLISTED if rng.random() < 0.04 else f"dev{acct % 97}"
+        ops.append((kind, acct, amount, f"op{i}", device))
+    return ops
+
+
+def stores_request(wc, op: tuple, ids: list, deposits: dict) -> bytes:
+    """One logical operation as wallet.v1 request bytes for one server: its
+    own account ids, and for a refund its own last deposit's id."""
+    kind, acct, amount, key, device = op
+    if kind == "CreateAccount":
+        return wc.encode(wc.CREATE_ACCOUNT_REQUEST, {"player_id": f"active{acct}"})
+    aid = ids[acct]
+    if kind in ("GetBalance", "GetTransactionHistory"):
+        return wc.encode(wc.METHODS[kind][0], {"account_id": aid, "limit": 20})
+    if kind == "Refund":
+        return wc.encode(wc.REFUND_REQUEST, {"account_id": aid, "idempotency_key": key,
+                                             "original_transaction_id": deposits.get(
+                                                 acct, "missing")})
+    return wc.encode(wc.METHODS[kind][0], {"account_id": aid, "amount": amount,
+                                           "idempotency_key": key, "device_id": device})
+
+
+def stores_outcome(wc, kind: str, out) -> tuple:
+    """An answer as comparable data: the status, or the decoded fields with
+    identifiers (also inside a refund's reference) and timestamps left out."""
+    import re
+
+    if isinstance(out, str):
+        return (out,)
+    msg = wc.decode(wc.METHODS[kind][1], out)
+    drop = ("id", "account_id", "created_at", "completed_at", "updated_at")
+    uuid = re.compile(r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}")
+
+    def strip(m):
+        if isinstance(m, dict):
+            return {k: strip(v) for k, v in m.items() if k not in drop}
+        if isinstance(m, list):
+            return [strip(v) for v in m]
+        return uuid.sub("<id>", m) if isinstance(m, str) else m
+
+    return ("OK", json.dumps(strip(msg), sort_keys=True))
+
+
+def stores_wallet_server(cfg_url: str, engine, broker):
+    from igaming_platform_tpu_torch.core.config import WalletServiceConfig
+    from igaming_platform_tpu_torch.platform.risk_adapter import InProcessRiskGate
+    from igaming_platform_tpu_torch.platform.server import WalletServer
+
+    block, review = STORES_THRESHOLDS
+    rec = EngineRecorder(engine)
+    srv = WalletServer(WalletServiceConfig(database_url=cfg_url, risk_service_addr="",
+                                           risk_threshold_block=block,
+                                           risk_threshold_review=review),
+                       risk_gate=InProcessRiskGate(rec), broker=broker, grpc_port=None,
+                       http_port=0)
+    return srv, rec
+
+
+def stores_pg(params, root: str, counts, device: str) -> dict:
+    """(1) The wallet over Postgres on the card against SQLite on the card and
+    a CPU twin over SQLite: the same logical operations, answers equal (ids
+    and timestamps left out), gate scores to the engine's tolerance; ops/s
+    and latency by kind; the books reconciled over the wire; /metrics."""
+    from igaming_platform_tpu_torch.core.config import BatcherConfig
+    from igaming_platform_tpu_torch.platform.pg_testing import PgSqliteServer
+    from igaming_platform_tpu_torch.serve import scorer
+    from igaming_platform_tpu_torch.serve import wallet_codec as wc
+    from igaming_platform_tpu_torch.serve.events import InMemoryBroker
+    from igaming_platform_tpu_torch.serve.feature_store import InMemoryFeatureStore
+    from igaming_platform_tpu_torch.serve.grpc_server import RpcAbort
+
+    rng = np.random.default_rng(160)
+
+    def gate_engine(dev, bcfg):
+        store = InMemoryFeatureStore(clock=lambda: PLATFORM_T0)
+        store.add_to_blacklist("device", PLATFORM_BLACKLISTED)
+        return scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params,
+                                         batcher_config=bcfg, feature_store=store, device=dev)
+
+    # The CPU twin pads a single score to 8 rows, not 256: a row's bits do
+    # not depend on its batch (phase 3's batch invariance), and the twin's
+    # 256-row CPU steps were a sixth of the phase's time.
+    engine = gate_engine(device, BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS,
+                                               max_wait_ms=0.0))
+    cpu_engine = gate_engine("cpu", BatcherConfig(batch_size=256, latency_tiers=(8,),
+                                                  max_wait_ms=0.0))
+    rig = PgSqliteServer(os.path.join(root, "wallet-pg.db"))
+    servers, result = [], {}
+    try:
+        t = time.perf_counter()
+        pg, pg_rec = stores_wallet_server(rig.url, engine, InMemoryBroker())
+        servers.append(pg)
+        boot_s = time.perf_counter() - t
+        sq, sq_rec = stores_wallet_server(f"sqlite://{root}/wallet-sqlite.db", engine,
+                                          InMemoryBroker())
+        servers.append(sq)
+        twin, twin_rec = stores_wallet_server(f"sqlite://{root}/wallet-twin.db",
+                                              cpu_engine, InMemoryBroker())
+        servers.append(twin)
+        # Each store's first reconcile sweep ran at boot over an empty book;
+        # the accounts and the history go in after it.
+        for srv in servers[:2]:
+            deadline = time.monotonic() + 30
+            while srv.reconciler.last_report is None and time.monotonic() < deadline:
+                time.sleep(0.01)
+        fills = [stores_fill(rig.db_path, STORES_ACCOUNTS, STORES_HISTORY,
+                             np.random.default_rng(161)),
+                 stores_fill(f"{root}/wallet-sqlite.db", STORES_ACCOUNTS, 0,
+                             np.random.default_rng(161))]
+        # The floors: one score() alone, one commit over the wire and one on
+        # SQLite (an audit row each).
+        score_ms = []
+        for i in range(200):
+            t = time.perf_counter()
+            engine.score(scorer.ScoreRequest(account_id=f"acct{i}", amount=5_000,
+                                             tx_type="deposit"))
+            score_ms.append((time.perf_counter() - t) * 1e3)
+        commit_ms = {}
+        for name, srv in (("postgres", pg), ("sqlite", sq)):
+            t = time.perf_counter()
+            for _ in range(200):
+                srv.store.audit("probe", "commit", "floor")
+            commit_ms[name] = (time.perf_counter() - t) / 200 * 1e3
+
+        ops = stores_ops(162)
+        sides = [{"srv": s, "ids": [], "deposits": {}, "out": [], "ms": {}}
+                 for s in (pg, sq, twin)]
+        counts.begin([engine])
+        for op in ops:
+            kind = op[0]
+            for side in sides:
+                payload = stores_request(wc, op, side["ids"], side["deposits"])
+                t = time.perf_counter()
+                try:
+                    out = side["srv"].grpc_service.call(kind, payload)
+                except RpcAbort as exc:
+                    out = exc.code.name
+                side["ms"].setdefault(kind, []).append(time.perf_counter() - t)
+                side["out"].append(stores_outcome(wc, kind, out))
+                if kind == "CreateAccount":
+                    side["ids"].append(wc.decode(wc.CREATE_ACCOUNT_RESPONSE,
+                                                 out)["account"]["id"])
+                elif kind == "Deposit" and not isinstance(out, str):
+                    side["deposits"][op[1]] = wc.decode(wc.DEPOSIT_RESPONSE,
+                                                        out)["transaction"]["id"]
+        launches = counts.end("stores: wallet")
+        for side, name in zip(sides[1:], ("sqlite on the card", "the CPU twin")):
+            differ = [i for i, (a, b) in enumerate(zip(sides[0]["out"], side["out"])) if a != b]
+            if differ:
+                i = differ[0]
+                raise AssertionError(f"stores: {len(differ)} answers over Postgres differ from "
+                                     f"{name}'s, first {ops[i]}: {sides[0]['out'][i]} against "
+                                     f"{side['out'][i]}")
+        if len(pg_rec.rows) != len(twin_rec.rows) or not pg_rec.rows:
+            raise AssertionError("stores: the gates scored different operations")
+        boundary = compare_columns(pg_rec.columns(), twin_rec.columns(), "stores gate")
+        statuses: dict[str, int] = {}
+        for op, o in zip(ops, sides[0]["out"]):
+            statuses[f"{op[0]} {o[0]}"] = statuses.get(f"{op[0]} {o[0]}", 0) + 1
+        for need in ("Deposit OK", "Bet OK", "Win OK", "Withdraw OK", "Refund OK",
+                     "GetTransactionHistory OK", "Deposit PERMISSION_DENIED"):
+            if not statuses.get(need):
+                raise AssertionError(f"stores: no {need} in {statuses}")
+        completed: dict[str, int] = {}
+        for op, o in zip(ops, sides[0]["out"]):
+            if o[0] == "OK" and op[0] in ("Deposit", "Bet", "Win", "Withdraw", "Refund"):
+                t_type = json.loads(o[1])["transaction"]["type"]
+                completed[t_type] = completed.get(t_type, 0) + 1
+
+        t = time.perf_counter()
+        status, report = http_call(pg.http_port, "/debug/reconciliation")
+        reconcile_s = time.perf_counter() - t
+        n_accounts = STORES_ACCOUNTS + STORES_ACTIVE
+        if status != 200 or report["checked"] != n_accounts or report["mismatched"] != 0:
+            raise AssertionError(f"stores: reconcile {status} {report['checked']} checked, "
+                                 f"{report['mismatched']} mismatched")
+        text = http_text(pg.http_port, "/metrics")[1]
+        metrics = exposition(text)
+        got = {k.split('"')[1]: int(v) for k, v in metrics.items()
+               if k.startswith("wallet_transactions_total{")}
+        if got != completed or int(metrics.get("wallet_reconciliation_checked", -1)) != n_accounts:
+            raise AssertionError(f"stores: /metrics {got} against {completed}, reconciliation "
+                                 f"{metrics.get('wallet_reconciliation_checked')}")
+        walls = {name: sum(sum(v) for v in s["ms"].values())
+                 for name, s in zip(("postgres", "sqlite", "cpu_twin"), sides)}
+        result = {
+            "boot_s": boot_s, "fill": fills[0], "fill_sqlite": fills[1], "ops": len(ops), "active_accounts": STORES_ACTIVE,
+            "statuses": statuses, "completed_by_type": completed,
+            "gate_scores": len(pg_rec.rows), "floor_boundary_rows": boundary,
+            "ops_per_s": {k: len(ops) / v for k, v in walls.items()},
+            "latency_ms": {name: {k: percentiles_ms(v) for k, v in sorted(s["ms"].items())}
+                           for name, s in zip(("postgres", "sqlite"), sides)},
+            "score_floor_ms": float(np.median(score_ms)), "commit_floor_ms": commit_ms,
+            "reconcile_s": reconcile_s, "reconciled_accounts": report["checked"],
+            "launches": launches, "rig_url": rig.url,
+        }
+    finally:
+        for srv in servers:
+            srv.shutdown(grace=1.0)
+        engine.close()
+        cpu_engine.close()
+    result["rig"] = rig
+    return result
+
+
+def stores_ledger(params, store, rig_url: str, root: str, counts, device: str) -> dict:
+    """(2) LEDGER_SINK=pg: a risk service over phase 7's store with its ledger
+    bound and its sink on the phase's rig, STORES_LEDGER_RPCS ScoreBatch RPCs;
+    returns the ledger, still draining, and what ``stores_ledger_check``
+    needs."""
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+    from igaming_platform_tpu_torch.serve import server
+
+    rng = np.random.default_rng(163)
+    directory = os.path.join(root, "ledger")
+    env = {"LEDGER_DIR": directory, "LEDGER_SINK": "pg", "LEDGER_PG_URL": rig_url,
+           "DRIFT": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        assembled = server.assemble_risk_service(
+            RiskServiceConfig(batcher=BatcherConfig(batch_size=BATCH_SIZE,
+                                                    latency_tiers=LATENCY_TIERS,
+                                                    max_wait_ms=2.0)),
+            ml_backend="mlp+gbdt", params=params, feature_store=store, device=device)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    payloads = [codec.encode(codec.SCORE_BATCH_REQUEST,
+                             {"transactions": server_requests(codec, rng, SERVER_BATCH_ROWS)})
+                for _ in range(STORES_LEDGER_RPCS)]
+    STORE_CLOCK[0] = SERVER_NOW
+    counts.begin([assembled.engine])
+    t = time.perf_counter()
+    for p in payloads:
+        assembled.service.call("ScoreBatch", p)
+    rpc_s = time.perf_counter() - t
+    launches = counts.end("stores: ledger")
+    return {"assembled": assembled, "directory": directory, "started": time.perf_counter(),
+            "noted": STORES_LEDGER_RPCS * SERVER_BATCH_ROWS, "rpc_s": rpc_s,
+            "launches": launches}
+
+
+def stores_ledger_check(ledger_mod, run: dict, rig_path: str) -> dict:
+    """Wait for the sink (at most STORES_DRAIN_S), then hold it: every noted
+    row appended or dropped, the table's rows equal to the WAL's records
+    field for field, every appended row in the table."""
+    import sqlite3
+
+    assembled = run["assembled"]
+    ledger = assembled.ledger
+    try:
+        ledger.flush(30.0)
+        drained = ledger.drain_sink(timeout=STORES_DRAIN_S)
+        drain_s = time.perf_counter() - run["started"]
+        stats = ledger.stats()
+    finally:
+        assembled.engine.close()
+        ledger.close()
+        assembled.service.close()
+    appended, dropped = stats["records_appended"], stats["records_dropped"]
+    if appended + dropped != run["noted"]:
+        raise AssertionError(f"stores ledger: {appended} appended + {dropped} dropped of "
+                             f"{run['noted']} noted")
+    cols = ledger_mod.PgDecisionSink._COLS
+    db = sqlite3.connect(rig_path)
+    try:
+        table = {r[0]: tuple(str(v) for v in r) for r in db.execute(
+            f"SELECT {', '.join(cols)} FROM risk_decisions")}
+    finally:
+        db.close()
+    wal = {}
+    for rec in ledger_mod.iter_records(run["directory"]):
+        row = rec.sink_row()
+        wal[rec.decision_id] = tuple(str(row[c]) for c in cols)
+    if not drained or len(wal) != appended or table != wal:
+        raise AssertionError(f"stores ledger: drained {drained}; {len(table)} table rows, "
+                             f"{len(wal)} WAL records, {appended} appended; equal "
+                             f"{table == wal}")
+    return {"noted": run["noted"], "appended": appended, "dropped": dropped,
+            "sunk": stats["sink"]["sent"], "sink_failures": stats["sink"]["failures"],
+            "table_rows": len(table), "drain_s": drain_s,
+            "sink_rows_per_s": len(table) / drain_s, "rpc_s": run["rpc_s"],
+            "launches": run["launches"]}
+
+
+def stores_ltv(ltv_job, rig_url: str, rig_path: str, device: str) -> dict:
+    """(3) The LTV job over postgres:// and over sqlite:// on the same file:
+    the records bit-equal."""
+    got, timings = [], []
+    for db in (rig_url, f"sqlite://{rig_path}"):
+        t = {}
+        got.append(ltv_job.run_batch_job(db, now=SERVER_NOW + 86400.0, device=device,
+                                         timings=t))
+        timings.append(t)
+    if got[0] != got[1] or got[0]["count"] != STORES_ACCOUNTS + STORES_ACTIVE:
+        raise AssertionError(f"stores ltv: postgres:// and sqlite:// differ "
+                             f"({got[0]['count']} and {got[1]['count']} records)")
+    return {"records": got[0]["count"], "postgres": timings[0], "sqlite": timings[1]}
+
+
+class ClickHouseStandIn:
+    """A ClickHouse HTTP interface that answers every query with ``rows`` as
+    JSONEachRow, as tests/test_clickhouse.py's fake does."""
+
+    def __init__(self, rows: list[dict]):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        body = "\n".join(json.dumps(r) for r in rows).encode()
+        self.queries: list[str] = []
+        stand_in = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):  # noqa: N802
+                stand_in.queries.append(self.rfile.read(
+                    int(self.headers.get("Content-Length", 0))).decode())
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def stores_refresh(torch, params, store, rig_url: str, counts, device: str) -> dict:
+    """(4) The batch refresh of phase 7's store from the rig behind a row-mode
+    and an IDX1 engine (caches warm), each held to a CPU twin after it; the
+    share of rows whose score moved; the same features from a ClickHouse
+    stand-in."""
+    from igaming_platform_tpu_torch.core.config import BatcherConfig
+    from igaming_platform_tpu_torch.serve import batch_refresh, clickhouse, grpc_server, scorer
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+    from igaming_platform_tpu_torch.serve import wire
+
+    rng = np.random.default_rng(164)
+    bcfg = BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0)
+    saved = {k: os.environ.get(k) for k in ("DRIFT", "WIRE_MODE", "SESSION_STATE")}
+    os.environ.update({"DRIFT": "0", "SESSION_STATE": "0"})
+    STORE_CLOCK[0] = SERVER_NOW
+    engines = []
+
+    def make(dev, capacity):
+        e = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params, batcher_config=bcfg,
+                                      feature_store=store, device=dev, feature_cache=capacity,
+                                      warmup=False)
+        engines.append(e)
+        return e
+
+    try:
+        row, row_cpu = make(device, None), make("cpu", None)
+        os.environ["WIRE_MODE"] = "index"
+        idx_cpu, idx = make("cpu", STORES_INDEX_CAPACITY), make(device, STORES_INDEX_CAPACITY)
+        services = [grpc_server.RiskGrpcService(e) for e in (row, idx_cpu, idx)]
+        for e in (idx_cpu, idx):
+            e.ensure_cache()
+        store.delta_listener = lambda a, caches=(idx.cache, idx_cpu.cache): [
+            c.note_update(a) for c in caches]
+        reqs = [server_requests(codec, rng, SERVER_BATCH_ROWS) for _ in range(STORES_REFRESH_RPCS)]
+        batches = [codec.encode(codec.SCORE_BATCH_REQUEST, {"transactions": r}) for r in reqs]
+        frames = [wire.encode_index_batch([r["account_id"] for r in rs],
+                                          [r["amount"] for r in rs],
+                                          [r["transaction_type"] for r in rs],
+                                          devices=[r["device_id"] for r in rs]) for rs in reqs]
+
+        def drive():
+            rows_out = [services[0].call("ScoreBatch", b) for b in batches]
+            idx_out = [services[2].call("ScoreBatch", f) for f in frames]
+            return rows_out, idx_out
+
+        counts.begin([row, idx])
+        before = drive()  # the caches warm here, before the refresh
+        for f in frames:
+            services[1].call("ScoreBatch", f)
+        resident = len(idx.cache._slots)
+        scans = []
+        source = batch_refresh.wallet_store_source(rig_url)
+        job = batch_refresh.BatchFeatureRefreshJob(store, lambda: scans.append(source()) or scans[0])
+        t = time.perf_counter()
+        refreshed = job.refresh_once()
+        refresh_s = time.perf_counter() - t
+        dirty = (len(idx.cache._dirty), len(idx_cpu.cache._dirty))
+        t = time.perf_counter()
+        after = drive()
+        after_s = time.perf_counter() - t
+        launches = counts.end("stores: refresh")
+        boundary = changed = rows = 0
+        for payload, b_out, a_out in zip(batches, before[0], after[0]):
+            x, bl = store.decode_gather(payload)
+            want = {k: v.numpy() for k, v in row_cpu.score_arrays(x, bl).items()}
+            got = response_columns(codec, a_out)[1]
+            boundary += compare_columns(got, want, "stores refresh row mode")
+            changed += int((got["score"] != response_columns(codec, b_out)[1]["score"]).sum())
+            rows += len(got["score"])
+        for frame, b_out, a_out in zip(frames, before[1], after[1]):
+            got = response_columns(codec, a_out)[1]
+            want = response_columns(codec, services[1].call("ScoreBatch", frame))[1]
+            boundary += compare_columns(got, want, "stores refresh index")
+            changed += int((got["score"] != response_columns(codec, b_out)[1]["score"]).sum())
+            rows += len(got["score"])
+        if not torch.equal(idx.cache.table.cpu(), idx_cpu.cache.table):
+            raise AssertionError("stores refresh: the card's cache table differs from the twin's")
+        if changed == 0 or dirty[0] == 0 or dirty[0] != dirty[1]:
+            raise AssertionError(f"stores refresh: {changed} rows changed score; dirty {dirty}")
+
+        # The same features from ClickHouse's interface.
+        scan = scans[0]
+        sample = sorted(scan)[:2000]
+        x0 = np.zeros((len(sample), N_FEATURES), np.float32)
+        for i, a in enumerate(sample):
+            store.fill_row(x0[i], a, 1000, "deposit")
+        stand_in = ClickHouseStandIn([
+            {"account_id": a, "total_deposits": bf.total_deposits,
+             "total_withdrawals": bf.total_withdrawals, "deposit_count": bf.deposit_count,
+             "withdraw_count": bf.withdraw_count, "total_bets": bf.total_bets,
+             "total_wins": bf.total_wins, "bet_count": bf.bet_count, "win_count": bf.win_count,
+             "account_created_at": bf.created_at} for a, bf in scan.items()])
+        try:
+            ch_job = batch_refresh.BatchFeatureRefreshJob(
+                store, clickhouse.clickhouse_source(stand_in.url))
+            t = time.perf_counter()
+            ch_count = ch_job.refresh_once()
+            ch_s = time.perf_counter() - t
+            ch_scan = clickhouse.clickhouse_source(stand_in.url)()
+        finally:
+            stand_in.close()
+        x1 = np.zeros_like(x0)
+        for i, a in enumerate(sample):
+            store.fill_row(x1[i], a, 1000, "deposit")
+        if ch_scan != scan or ch_count != refreshed or not np.array_equal(x0.view(np.int32),
+                                                                         x1.view(np.int32)):
+            raise AssertionError("stores refresh: ClickHouse's features differ from the rig's")
+    finally:
+        store.delta_listener = None
+        for e in engines:
+            e.close()
+        for s in services:
+            s.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"refreshed_accounts": refreshed, "refresh_s": refresh_s, "resident": resident,
+            "dirty_after_refresh": dirty[0], "rows": rows, "rows_changed": changed,
+            "changed_share": changed / rows, "floor_boundary_rows": boundary,
+            "after_rpcs_s": after_s, "clickhouse_refresh_s": ch_s,
+            "clickhouse_queries": len(stand_in.queries), "launches": launches}
+
+
+class DictRedis:
+    """The Redis commands ``serve/redis_store.py`` sends, over dicts: sorted
+    sets with score ranges, INCRBY, SET NX, hashes, sets; PFCOUNT exact."""
+
+    def __init__(self):
+        self.zsets, self.strings, self.sets, self.hashes = {}, {}, {}, {}
+
+    def pipeline(self):
+        redis, ops = self, []
+
+        class Pipeline:
+            def __getattr__(self, name):
+                def queue(*args, **kwargs):
+                    ops.append((name, args, kwargs))
+                    return self
+                return queue
+
+            def execute(self):
+                out = [getattr(redis, f"_{n}")(*a, **k) for n, a, k in ops]
+                ops.clear()
+                return out
+
+        return Pipeline()
+
+    @staticmethod
+    def _bound(v, inf):
+        return inf if v in ("-inf", "+inf") else float(v)
+
+    def sadd(self, key, value):
+        self.sets.setdefault(key, set()).add(value)
+
+    def hset(self, key, mapping):
+        self.hashes.setdefault(key, {}).update({k: str(v) for k, v in mapping.items()})
+
+    def _zadd(self, key, mapping):
+        self.zsets.setdefault(key, {}).update(mapping)
+
+    def _zremrangebyscore(self, key, lo, hi):
+        lo, hi, zs = self._bound(lo, -math.inf), self._bound(hi, math.inf), self.zsets.get(key, {})
+        for m in [m for m, s in zs.items() if lo <= s <= hi]:
+            del zs[m]
+
+    def _zcount(self, key, lo, hi):
+        lo, hi = self._bound(lo, -math.inf), self._bound(hi, math.inf)
+        return sum(1 for s in self.zsets.get(key, {}).values() if lo <= s <= hi)
+
+    def _incrby(self, key, amount):
+        self.strings[key] = str(int(self.strings.get(key, "0")) + amount)
+
+    def _expire(self, key, ttl):
+        return True
+
+    def _set(self, key, value, nx=False, ex=None):
+        if nx and key in self.strings:
+            return None
+        self.strings[key] = str(value)
+        return True
+
+    def _get(self, key):
+        return self.strings.get(key)
+
+    def _pfadd(self, key, value):
+        self.sets.setdefault(key, set()).add(value)
+
+    def _pfcount(self, key):
+        return len(self.sets.get(key, ()))
+
+    def _sismember(self, key, value):
+        return value in self.sets.get(key, ())
+
+    def _hgetall(self, key):
+        return dict(self.hashes.get(key, {}))
+
+
+def stores_redis(params, counts, device: str) -> dict:
+    """(5) FEATURE_STORE=redis raises without the library; the Redis store
+    over a dict-backed client fed phase 15's stream, a STORES_REDIS_ROWS-row
+    score_batch on the card against a CPU twin over the same client."""
+    from igaming_platform_tpu_torch.core.config import BatcherConfig
+    from igaming_platform_tpu_torch.core.enums import ReasonCode
+    from igaming_platform_tpu_torch.core.features import F
+    from igaming_platform_tpu_torch.serve import scorer, server
+    from igaming_platform_tpu_torch.serve.feature_store import TransactionEvent
+    from igaming_platform_tpu_torch.serve.redis_store import RedisFeatureStore
+
+    try:
+        server.make_feature_store("redis")
+    except RuntimeError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("stores redis: FEATURE_STORE=redis built without the library")
+    pinned = [PLATFORM_T0]
+
+    class PinnedRedisStore(RedisFeatureStore):
+        """The twin's clock: every gather at the stream's last event."""
+
+        def gather_batch(self, requests, now=None):
+            return super().gather_batch(requests, now or pinned[0])
+
+    client = DictRedis()
+    stores = [PinnedRedisStore(client=client), PinnedRedisStore(client=client)]
+    clock = PLATFORM_T0
+    ops = platform_ops(15, PLATFORM_PARITY_OPS * 3, PLATFORM_PARITY_ACCOUNTS,
+                       PLATFORM_PARITY_CLAIMS)
+    t = time.perf_counter()
+    for kind, acct, amount, _, device_id, _, _, step in ops:
+        if kind != "claim":
+            stores[0].update(TransactionEvent(f"player{acct}", amount, kind,
+                                              device_id=device_id, ip=f"ip{acct % 31}",
+                                              timestamp=clock))
+        pinned[0] = clock
+        clock += step
+    feed_s = time.perf_counter() - t
+    stores[0].add_to_blacklist("device", PLATFORM_BLACKLISTED)
+    rng = np.random.default_rng(165)
+    reqs = [scorer.ScoreRequest(account_id=f"player{rng.integers(PLATFORM_PARITY_ACCOUNTS)}",
+                                amount=int(rng.integers(100, 500_000)),
+                                tx_type=("deposit", "bet", "withdraw")[i % 3],
+                                device_id=(PLATFORM_BLACKLISTED if i % 50 == 0
+                                           else f"dev{rng.integers(997)}"))
+            for i in range(STORES_REDIS_ROWS)]
+    bcfg = BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=0.0)
+    engines = [scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params,
+                                         batcher_config=bcfg, feature_store=s, device=d,
+                                         warmup=False)
+               for s, d in zip(stores, (device, "cpu"))]
+    try:
+        counts.begin(engines[:1])
+        t = time.perf_counter()
+        got = engines[0].score_batch(reqs)
+        card_s = time.perf_counter() - t
+        launches = counts.end("stores: redis")
+        want = engines[1].score_batch(reqs)
+        x_got = np.stack([r.features.to_array() for r in got])
+        x_want = np.stack([r.features.to_array() for r in want])
+        if not np.array_equal(x_got.view(np.int32), x_want.view(np.int32)):
+            raise AssertionError("stores redis: the gathered rows differ from the CPU twin's")
+        boundary = compare_columns({k: np.array([response_from_score(r)[k] for r in got])
+                                    for k in ("score", "action", "rule_score", "ml_score",
+                                              "reason_mask")},
+                                   {k: np.array([response_from_score(r)[k] for r in want])
+                                    for k in ("score", "action", "rule_score", "ml_score",
+                                              "reason_mask")}, "stores redis")
+    finally:
+        for e in engines:
+            e.close()
+    if not x_got[:, F.TX_COUNT_1H].any() or not any(
+            ReasonCode.KNOWN_FRAUDSTER in r.reason_codes for r in got):
+        raise AssertionError("stores redis: the stream's windows or the blacklist never showed")
+    return {"refused": refused, "events": sum(1 for o in ops if o[0] != "claim"),
+            "feed_s": feed_s, "rows": len(reqs), "score_batch_s": card_s,
+            "keys": len(client.zsets) + len(client.strings) + len(client.sets),
+            "floor_boundary_rows": boundary, "launches": launches}
+
+
+def phase_stores(torch, card: str, gbdt_kernel, dense_mod, store, device: str = "cuda") -> dict:
+    """Phase 16: the stores of record and the wallet's own front, on phase
+    15's tree (``stores_pg``, ``stores_ledger``, ``stores_ltv``,
+    ``stores_refresh``, ``stores_redis``). ``device="cpu"`` rehearses it
+    without a card (the launch checks then skipped)."""
+    import shutil
+    import tempfile
+
+    from igaming_platform_tpu_torch.convert import from_jax_params
+    from igaming_platform_tpu_torch.serve import ledger as ledger_mod
+    from igaming_platform_tpu_torch.serve import ltv_job
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(150)
+    tree = {"mlp": mlp_tree(rng, SERVE_HIDDEN), "gbdt": forest_tree(rng, SERVE_TREES, SERVE_DEPTH)}
+    params = from_jax_params("mlp+gbdt", tree)
+    counts = StepCounts(gbdt_kernel, dense_mod, len(tree["mlp"]["layers"]), device)
+    root = tempfile.mkdtemp(prefix="chip-smoke-stores-")
+    rig = None
+    try:
+        wallet = stores_pg(params, root, counts, device)
+        rig = wallet.pop("rig")
+        log(f"phase 16: [{card}] wallet.v1: {wallet['fill']['accounts']} accounts and "
+            f"{wallet['fill']['history']} historical transactions written into the rig's SQLite "
+            f"file directly after the store's bootstrap over the wire ({wallet['fill']['seconds']:.1f}"
+            f" s; the SQLite store's {wallet['fill_sqlite']['accounts']} accounts in "
+            f"{wallet['fill_sqlite']['seconds']:.1f} s); {wallet['ops']} operations over {wallet['active_accounts']} accounts through "
+            f"WalletGrpcService.call, answers over Postgres equal to SQLite's on the card and "
+            f"the CPU twin's ({json.dumps(wallet['statuses'])}), {wallet['gate_scores']} gate "
+            f"scores ({wallet['floor_boundary_rows']} floor-boundary rows not compared); ops/s "
+            f"{json.dumps(wallet['ops_per_s'])}; latency ms {json.dumps(wallet['latency_ms'])}; "
+            f"floors: a score() {wallet['score_floor_ms']:.3f} ms, a commit "
+            f"{json.dumps(wallet['commit_floor_ms'])} ms; reconcile of "
+            f"{wallet['reconciled_accounts']} accounts over the wire in "
+            f"{wallet['reconcile_s']:.1f} s, 0 mismatches; /metrics equal to the completed "
+            f"operations {json.dumps(wallet['completed_by_type'])}; launches "
+            f"{json.dumps(wallet['launches'])}")
+        ltv = stores_ltv(ltv_job, rig.url, rig.db_path, device)
+        log(f"phase 16: [{card}] LTV job over {ltv['records']} accounts: postgres:// "
+            f"{json.dumps(ltv['postgres'])}, sqlite:// {json.dumps(ltv['sqlite'])} (s), "
+            f"records bit-equal")
+        refresh = stores_refresh(torch, params, store, rig.url, counts, device)
+        log(f"phase 16: [{card}] refresh: {refresh['refreshed_accounts']} accounts from "
+            f"postgres:// in {refresh['refresh_s']:.2f} s ({refresh['dirty_after_refresh']} "
+            f"resident cache rows dirty), {refresh['rows']} rows after it equal to the CPU "
+            f"twins ({refresh['floor_boundary_rows']} floor-boundary rows not compared), "
+            f"{refresh['rows_changed']} rows ({refresh['changed_share']:.4f}) changed score; "
+            f"ClickHouse stand-in refresh in {refresh['clickhouse_refresh_s']:.2f} s, the same "
+            f"features; launches {json.dumps(refresh['launches'])}")
+        redis = stores_redis(params, counts, device)
+        log(f"phase 16: [{card}] redis: FEATURE_STORE=redis refused ({redis['refused']}); "
+            f"{redis['events']} events into the dict-backed client in {redis['feed_s']:.2f} s; "
+            f"a {redis['rows']}-row score_batch in {redis['score_batch_s']:.3f} s equal to the "
+            f"CPU twin ({redis['floor_boundary_rows']} floor-boundary rows); launches "
+            f"{json.dumps(redis['launches'])}")
+        ledger_run = stores_ledger(params, store, rig.url, root, counts, device)
+        ledger = stores_ledger_check(ledger_mod, ledger_run, rig.db_path)
+        log(f"phase 16: [{card}] LEDGER_SINK=pg: {ledger['noted']} rows noted, "
+            f"{ledger['appended']} appended, {ledger['dropped']} dropped, {ledger['table_rows']} "
+            f"in risk_decisions equal to the WAL field for field, drained in "
+            f"{ledger['drain_s']:.1f} s ({ledger['sink_rows_per_s']:.0f} rows/s); launches "
+            f"{json.dumps(ledger['launches'])}")
+    finally:
+        if rig is not None:
+            rig.close()
+        STORE_CLOCK[0] = SERVER_NOW
+        shutil.rmtree(root, ignore_errors=True)
+    result = {"wallet": wallet, "ledger": ledger, "ltv": ltv, "refresh": refresh,
+              "redis": redis, "launches": counts.total, "seconds": time.perf_counter() - t0}
+    log(f"phase 16: launches {json.dumps(counts.total)}; {result['seconds']:.1f} s")
+    log("phase 16: " + json.dumps(result, default=str))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -6123,6 +6956,10 @@ def main() -> int:
     # Phase 15: the wallet side: the single-binary platform against its CPU
     # twin, a SQLite store of 100,000 accounts, and the AMQP transport.
     platform_run = phase_platform(torch, card, gbdt_kernel, fa, dense_mod)
+    # Phase 16: the stores of record and the wallet's own front: Postgres over
+    # the wire, wallet.v1, the ledger's Postgres sink, LTV over postgres://,
+    # the batch refresh of phase 7's store, the Redis store.
+    stores_run = phase_stores(torch, card, gbdt_kernel, dense_mod, filled[0])
 
     main_row = next(r for r in rows if (r["T"], r["D"], r["B"]) == (64, 4, BATCH_SIZE))
     flash_main = next(r for r in flash_rows if (r["BH"], r["S"], r["Dh"]) == FLASH_MAIN_SHAPE)
@@ -6152,6 +6989,7 @@ def main() -> int:
         "launches_plane": plane_run["forest_launches"],
         "launches_plane2": plane2_run["forest_launches"],
         "launches_platform": platform_run["launches"]["forest"],
+        "launches_stores": stores_run["launches"]["forest"],
         "shapes": rows,
     }, {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -6199,6 +7037,7 @@ def main() -> int:
         "launches_plane": plane_run["dense_launches"],
         "launches_plane2": plane2_run["dense_launches"],
         "launches_platform": platform_run["launches"]["dense"],
+        "launches_stores": stores_run["launches"]["dense"],
         "max_abs_err": max(r["max_abs_err"] for r in dense_rows if "max_abs_err" in r),
         "ms": dense_main["kernel_ms"], "plain_ms": dense_main["plain_ms"],
         "bound_ms": dense_main["bound_ms"], "bound_by": dense_main["bound_by"],

@@ -15,10 +15,10 @@ what is applied.
 
 The SQLite development store keeps its own dialect schema
 (repository.py); migrations target the production Postgres backend only,
-exactly as the reference's golang-migrate setup does. In the port the
-runner takes any connection with ``execute``, ``_simple``, ``begin``,
-``commit`` and ``rollback``; the command line needs the Postgres wire
-client, which the port does not have yet.
+exactly as the reference's golang-migrate setup does. The runner takes
+any connection with ``execute``, ``_simple``, ``begin``, ``commit`` and
+``rollback``; the command line connects through the port's wire client
+(``platform/pgwire.py``).
 """
 
 from __future__ import annotations
@@ -275,11 +275,10 @@ def migrate_up(conn, target: int | None = None) -> list[int]:
 
 
 def _connect(url: str):
-    """A Postgres connection for the command line; the port has no wire
-    client yet."""
-    raise NotImplementedError(
-        f"migrations over {url.split('@')[-1]!r} need the Postgres wire client, "
-        "platform/pgwire.py, not ported yet (ROADMAP.md Queue 1 item 5)")
+    """The command line's Postgres connection, not yet connected."""
+    from igaming_platform_tpu_torch.platform.pgwire import PgConnection
+
+    return PgConnection(url)
 
 
 def main(argv: list[str]) -> int:

@@ -9,6 +9,13 @@ balance/ledger divergence, and exports the result as metrics. A
 divergence can only arise from a bug or external mutation (the SQLite path
 commits money ops atomically via unit_of_work), so the sweep is the
 tripwire, not the fix.
+
+The port's copy of ``igaming_platform_tpu/platform/reconcile.py``, with one
+difference: over a ledger that reads every account's pair in one statement
+(``balance_pairs``, the SQLite and Postgres stores' ledgers), the sweep takes
+that snapshot instead of two reads an account in a unit of work of their own.
+The report is the same; over the Postgres wire the sweep costs one round
+trip, not three an account.
 """
 
 from __future__ import annotations
@@ -76,26 +83,35 @@ class Reconciler:
             self.ledger.get_account_balance(account_id),
         )
 
-    def run_once(self, keep_snapshots: bool = False) -> ReconciliationReport:
-        start = time.monotonic()
-        report = ReconciliationReport(run_at=time.time())
+    def _pairs(self):
+        """(account id, balance, bonus, ledger-derived balance) of every
+        account: one snapshot where the ledger reads them all at once, else
+        a consistent read pair an account."""
+        if hasattr(self.ledger, "balance_pairs"):
+            yield from self.ledger.balance_pairs()
+            return
         for account_id in self.accounts.list_ids():
             acct, derived = self._read_pair(account_id)
-            recorded = acct.balance + acct.bonus
-            if derived != recorded and uow_of(self.accounts) is None:
+            if derived != acct.balance + acct.bonus and uow_of(self.accounts) is None:
                 # Torn-read defense, only for stores without unit_of_work
                 # (a uow-backed read pair is already consistent): a wallet
                 # op may have committed between the two reads above. An
                 # observed mismatch must survive one re-read before it is
                 # recorded as real.
                 acct, derived = self._read_pair(account_id)
-                recorded = acct.balance + acct.bonus
+            yield account_id, acct.balance, acct.bonus, derived
+
+    def run_once(self, keep_snapshots: bool = False) -> ReconciliationReport:
+        start = time.monotonic()
+        report = ReconciliationReport(run_at=time.time())
+        for account_id, balance, bonus, derived in self._pairs():
+            recorded = balance + bonus
             report.checked += 1
             if keep_snapshots:
                 report.snapshots.append(BalanceSnapshot(
                     account_id=account_id,
-                    balance=acct.balance,
-                    bonus=acct.bonus,
+                    balance=balance,
+                    bonus=bonus,
                     snapshot_at=report.run_at,
                     tx_count=0,
                     total_debit=max(0, -derived),

@@ -12,14 +12,17 @@ schema constraints of deploy/init-db.sql:
 - ledger-derived balance + reconciliation (postgres.go:358-390);
 - daily stats aggregation (postgres.go:285-308).
 
-The SQLite backend is the durable single-file deployment. The port's copy
-of ``igaming_platform_tpu/platform/repository.py`` has no Postgres store
-yet: ``store_from_url`` refuses a ``postgres://`` URL.
+The SQLite backend is the durable single-file deployment; Postgres
+(``platform/pg_store.py`` over the wire client ``platform/pgwire.py``) slots
+in behind the same interface unchanged. This is the port's copy of
+``igaming_platform_tpu/platform/repository.py``; its ``open_wallet_reader``
+also gives a SQLite built without the math functions ``floor`` from Python.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import sqlite3
 import threading
@@ -267,17 +270,55 @@ def uow_of(repo):
     return getattr(store_of(repo), "unit_of_work", None)
 
 
+def ensure_sqlite_floor(conn: sqlite3.Connection) -> None:
+    """SQLite's ``floor`` (NULL stays NULL, an integer itself, a real rounds
+    down to a real) from Python, on a library built without its math
+    functions: the LTV job's day buckets need it."""
+    try:
+        conn.execute("SELECT floor(1.5)")
+    except sqlite3.OperationalError:
+        conn.create_function(
+            "floor", 1,
+            lambda v: v if v is None or isinstance(v, int) else float(math.floor(v)),
+            deterministic=True)
+
+
+def open_wallet_reader(db: str):
+    """(query(sql) -> rows, close) over either wallet backend for
+    READ-ONLY scan jobs (LTV batch, batch-feature refresh): a SQLite
+    path / ``sqlite://`` URL opens with mode=ro, ``postgres://`` goes
+    through the wire client with the session forced read-only — a scan
+    job must be incapable of writing to the store of record. Same
+    dispatch rule as ``store_from_url``."""
+    if db.startswith(("postgres://", "postgresql://")):
+        from igaming_platform_tpu_torch.platform.pgwire import PgConnection
+
+        conn = PgConnection(db)
+        conn.connect()
+        try:
+            conn.execute("SET default_transaction_read_only = on")
+        except BaseException:
+            # A pooler/proxy that rejects session SET must not leak the
+            # connection: the caller never gets the close handle.
+            conn.close()
+            raise
+        return (lambda sql: conn.execute(sql).fetchall()), conn.close
+    path = db.removeprefix("sqlite://")
+    ro = sqlite3.connect(f"file:{path}?mode=ro", uri=True)
+    ensure_sqlite_floor(ro)
+    return (lambda sql: ro.execute(sql).fetchall()), ro.close
+
+
 def store_from_url(url: str):
     """DATABASE_URL -> store instance, or None for the in-memory repos
     (empty/unknown scheme). The single dispatch shared by the wallet
     server and `make seed`, so the two entry points cannot drift."""
     if url.startswith(("postgres://", "postgresql://")):
-        # The production store of record needs the Postgres wire client,
-        # which the port does not have yet: refuse rather than fall back
-        # to a store that forgets every write.
-        raise NotImplementedError(
-            "DATABASE_URL=postgres://: the Postgres store waits for platform/pgwire.py and "
-            "platform/pg_store.py (ROADMAP.md Queue 1 item 5)")
+        # Production store of record (postgres.go over the pure-Python
+        # wire client; schema migrations applied at boot).
+        from igaming_platform_tpu_torch.platform.pg_store import PostgresStore
+
+        return PostgresStore(url)
     if url.startswith("sqlite://") and url != "sqlite://:memory:":
         return SQLiteStore(url.removeprefix("sqlite://"))
     if url == "sqlite://:memory:":
@@ -729,3 +770,15 @@ class _SQLiteLedger:
 
     def verify_balance(self, account_id: str, recorded_balance: int) -> bool:
         return self.get_account_balance(account_id) == recorded_balance
+
+    def balance_pairs(self) -> list[tuple[str, int, int, int]]:
+        """(account id, balance, bonus, ledger-derived balance) of every
+        account in one statement, so one snapshot: the reconcile sweep's
+        input in one round trip."""
+        with self._s._lock:
+            rows = self._s._conn.execute(
+                "SELECT a.id, a.balance, a.bonus, COALESCE(l.derived, 0) FROM accounts a"
+                " LEFT JOIN (SELECT account_id, SUM(CASE WHEN entry_type='credit' THEN amount"
+                " ELSE -amount END) AS derived FROM ledger_entries GROUP BY account_id) l"
+                " ON l.account_id = a.id").fetchall()
+        return [(r[0], int(r[1]), int(r[2]), int(r[3])) for r in rows]

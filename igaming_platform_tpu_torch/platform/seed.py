@@ -15,9 +15,7 @@ fixed idempotency keys — running `make seed` twice changes nothing.
 Usage (same DATABASE_URL contract as the wallet server):
     python -m igaming_platform_tpu_torch.platform.seed            # in-memory demo
     DATABASE_URL=sqlite://dev.db python -m igaming_platform_tpu_torch.platform.seed
-
-A ``postgres://`` URL raises NotImplementedError until the port has its
-Postgres store (``repository.store_from_url``).
+    DATABASE_URL=postgres://... python -m igaming_platform_tpu_torch.platform.seed
 """
 
 from __future__ import annotations

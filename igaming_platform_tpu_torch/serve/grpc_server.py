@@ -54,8 +54,14 @@ batch the engine scores is then sketched. ``close()`` unbinds, closes and
 uninstalls it, and uninstalls the SLO engine it installed. The host
 profiler (``obs/hostprof.py``) is installed when this module is imported and
 fed the service's metrics; the runtime telemetry (``obs/runtime_telemetry.py``)
-is installed and bound to the engine unless ``RUNTIME_TELEMETRY=0``. Not
-ported yet: the wallet service (``ROADMAP.md``).
+is installed and bound to the engine unless ``RUNTIME_TELEMETRY=0``.
+
+``WalletGrpcService`` answers the ten wallet.v1 RPCs over
+``platform/wallet.WalletService`` on bytes (``serve/wallet_codec.py``), with
+the JAX service's domain error map and flow counters, inside the same RPC
+wrapper (``_invoke_rpc``); ``serve_wallet`` binds it to grpcio and
+``make_wallet_stub`` is its bytes client. Unlike the JAX ``serve_wallet``,
+it registers no server reflection (``ROADMAP.md`` Queue 3).
 """
 
 from __future__ import annotations
@@ -82,6 +88,7 @@ from igaming_platform_tpu_torch.obs.tracing import span
 from igaming_platform_tpu_torch.serve import deadline as deadline_mod
 from igaming_platform_tpu_torch.serve import reflection
 from igaming_platform_tpu_torch.serve import risk_codec as codec
+from igaming_platform_tpu_torch.serve import wallet_codec
 from igaming_platform_tpu_torch.serve.abuse import AbuseShed
 from igaming_platform_tpu_torch.serve.deadline import (
     LANE_BACKGROUND,
@@ -185,6 +192,50 @@ def _traceparent_from_metadata(context) -> str | None:
     except Exception:  # noqa: BLE001 — tracing must not fail the RPC
         pass
     return None
+
+
+def _invoke_rpc(metrics: ServiceMetrics, method: str, handler, payload: bytes, context) -> bytes:
+    """One RPC on bytes inside the root span ``rpc.<method>``, as the JAX
+    services' ``_rpc`` wrapper runs it: metrics by status code, the
+    supervisor's serving state, sheds marked; ``handler(payload, context)``
+    returns the response bytes. A handler that fails otherwise is INTERNAL,
+    as the reference's recovery interceptor maps it."""
+    start = time.monotonic()
+    with span(f"rpc.{method}", traceparent=_traceparent_from_metadata(context)) as root:
+        state = slo_mod.current_state()
+        if state is not None:
+            root.attributes["serving_state"] = state
+        try:
+            resp = handler(payload, context)
+        except RpcAbort as abort:
+            exc = abort
+        except DeadlineExpired as err:
+            # The budget ran out while queued: the caller's own status, a
+            # shed (the scheduler already counted it).
+            exc = RpcAbort(StatusCode.DEADLINE_EXCEEDED, str(err),
+                           trailing=_pushback_trailing(), shed=True)
+        except QueueFullError as err:
+            exc = RpcAbort(StatusCode.RESOURCE_EXHAUSTED, str(err),
+                           trailing=_pushback_trailing(), shed=True)
+        except (DeviceWedgedError, ServingUnavailable) as err:
+            # Supervisor sheds: UNAVAILABLE with the pushback hint, so
+            # clients back off one breaker window.
+            exc = RpcAbort(StatusCode.UNAVAILABLE, str(err), trailing=_pushback_trailing())
+        except Exception as err:  # noqa: BLE001 — recovery interceptor
+            logger.exception("handler panic in %s", method)
+            exc = RpcAbort(StatusCode.INTERNAL, f"internal error: {err}")
+            exc.__cause__ = err
+        else:
+            metrics.observe_rpc(method, start)
+            root.attributes["code"] = "OK"
+            return resp
+        metrics.observe_rpc(method, start, code=exc.code.name)
+        root.attributes["code"] = exc.code.name
+        if exc.shed:
+            root.attributes["shed"] = 1
+        if exc.trailing and context is not None:
+            context.set_trailing_metadata(exc.trailing)
+        raise exc
 
 
 SERVING, NOT_SERVING = 1, 2  # grpc.health.v1 HealthCheckResponse.ServingStatus
@@ -464,50 +515,14 @@ class RiskGrpcService:
         return self._invoke(method, payload, context), context.trailing
 
     def _invoke(self, method: str, payload: bytes, context) -> bytes:
-        """One RPC on bytes inside the root span ``rpc.<method>``: metrics
-        by status code, the supervisor's serving state, sheds marked;
-        ``context`` (a grpcio servicer context or a ``CallContext``) gives
-        the invocation metadata and receives the trailing metadata. A
-        handler that fails otherwise is INTERNAL, as the reference's
-        recovery interceptor maps it."""
+        """One RPC on bytes through ``_invoke_rpc``; ``context`` (a grpcio
+        servicer context or a ``CallContext``) gives the invocation metadata
+        and receives the trailing metadata."""
         if method not in RISK_METHOD_NAMES:
             raise RpcAbort(StatusCode.UNIMPLEMENTED, f"unknown method {method}")
-        start = time.monotonic()
-        with span(f"rpc.{method}", traceparent=_traceparent_from_metadata(context)) as root:
-            state = slo_mod.current_state()
-            if state is not None:
-                root.attributes["serving_state"] = state
-            try:
-                resp = getattr(self, method)(payload, context).SerializeToString()
-            except RpcAbort as abort:
-                exc = abort
-            except DeadlineExpired as err:
-                # The budget ran out while queued: the caller's own status,
-                # a shed (the scheduler already counted it).
-                exc = RpcAbort(StatusCode.DEADLINE_EXCEEDED, str(err),
-                               trailing=_pushback_trailing(), shed=True)
-            except QueueFullError as err:
-                exc = RpcAbort(StatusCode.RESOURCE_EXHAUSTED, str(err),
-                               trailing=_pushback_trailing(), shed=True)
-            except (DeviceWedgedError, ServingUnavailable) as err:
-                # Supervisor sheds: UNAVAILABLE with the pushback hint, so
-                # clients back off one breaker window.
-                exc = RpcAbort(StatusCode.UNAVAILABLE, str(err), trailing=_pushback_trailing())
-            except Exception as err:  # noqa: BLE001 — recovery interceptor
-                logger.exception("handler panic in %s", method)
-                exc = RpcAbort(StatusCode.INTERNAL, f"internal error: {err}")
-                exc.__cause__ = err
-            else:
-                self.metrics.observe_rpc(method, start)
-                root.attributes["code"] = "OK"
-                return resp
-            self.metrics.observe_rpc(method, start, code=exc.code.name)
-            root.attributes["code"] = exc.code.name
-            if exc.shed:
-                root.attributes["shed"] = 1
-            if exc.trailing and context is not None:
-                context.set_trailing_metadata(exc.trailing)
-            raise exc
+        return _invoke_rpc(self.metrics, method,
+                           lambda p, c: getattr(self, method)(p, c).SerializeToString(),
+                           payload, context)
 
     # -- scoring --
 
@@ -780,6 +795,200 @@ class RiskGrpcService:
 
 
 # ---------------------------------------------------------------------------
+# The wallet service
+# ---------------------------------------------------------------------------
+
+
+class WalletGrpcService:
+    """wallet.v1.WalletService over ``platform/wallet.WalletService``, on
+    request and response bytes (``serve/wallet_codec.py``), as the JAX
+    ``WalletGrpcService`` answers it."""
+
+    def __init__(self, wallet, metrics: ServiceMetrics | None = None):
+        self.wallet = wallet
+        self.metrics = metrics or ServiceMetrics("wallet")
+
+    def call(self, method: str, payload: bytes, metadata=()) -> bytes:
+        """Answer one RPC on bytes, with no transport: the response bytes,
+        or RpcAbort."""
+        return self._invoke(method, payload, CallContext(metadata))
+
+    def _invoke(self, method: str, payload: bytes, context) -> bytes:
+        if method not in wallet_codec.METHODS:
+            raise RpcAbort(StatusCode.UNIMPLEMENTED, f"unknown method {method}")
+        return _invoke_rpc(self.metrics, method, getattr(self, method), payload, context)
+
+    @staticmethod
+    def _request(method: str, payload: bytes) -> dict:
+        try:
+            return wallet_codec.decode(wallet_codec.METHODS[method][0], payload)
+        except ValueError as exc:
+            raise RpcAbort(StatusCode.INTERNAL, f"internal error: {exc}") from exc
+
+    @staticmethod
+    def _respond(method: str, msg: dict) -> bytes:
+        return wallet_codec.encode(wallet_codec.METHODS[method][1], msg)
+
+    def _record_txn(self, res) -> None:
+        """Per-type flow counters (count and cents volume)."""
+        tx = res.transaction
+        self.metrics.transactions_total.inc(type=tx.type.value)
+        self.metrics.transaction_amount_cents.inc(tx.amount, type=tx.type.value)
+
+    @staticmethod
+    def _tx(tx) -> dict:
+        msg = {"id": tx.id, "account_id": tx.account_id, "idempotency_key": tx.idempotency_key,
+               "type": tx.type.value, "amount": tx.amount, "balance_before": tx.balance_before,
+               "balance_after": tx.balance_after, "status": tx.status.value,
+               "reference": tx.reference, "game_id": tx.game_id or "",
+               "round_id": tx.round_id or "", "risk_score": tx.risk_score or 0,
+               "created_at": wallet_codec.timestamp(tx.created_at)}
+        if tx.completed_at:
+            msg["completed_at"] = wallet_codec.timestamp(tx.completed_at)
+        return msg
+
+    @staticmethod
+    def _account(a) -> dict:
+        return {"id": a.id, "player_id": a.player_id, "currency": a.currency,
+                "balance": a.balance, "bonus": a.bonus, "status": a.status.value,
+                "created_at": wallet_codec.timestamp(a.created_at),
+                "updated_at": wallet_codec.timestamp(a.updated_at)}
+
+    @staticmethod
+    def _domain_error(exc) -> RpcAbort:
+        """The JAX service's domain error -> status map; the details are
+        ``"<code>: <message>"``."""
+        from igaming_platform_tpu_torch.platform import domain as d
+
+        code = {
+            d.AccountNotFoundError: StatusCode.NOT_FOUND,
+            d.AccountSuspendedError: StatusCode.FAILED_PRECONDITION,
+            d.InsufficientBalanceError: StatusCode.FAILED_PRECONDITION,
+            d.DuplicateTransactionError: StatusCode.ALREADY_EXISTS,
+            d.InvalidAmountError: StatusCode.INVALID_ARGUMENT,
+            d.ConcurrentUpdateError: StatusCode.ABORTED,
+            d.RiskBlockedError: StatusCode.PERMISSION_DENIED,
+            d.RiskReviewError: StatusCode.PERMISSION_DENIED,
+            d.RiskUnavailableError: StatusCode.UNAVAILABLE,
+            d.BonusRestrictionError: StatusCode.FAILED_PRECONDITION,
+        }.get(type(exc), StatusCode.INTERNAL)
+        return RpcAbort(code, f"{getattr(exc, 'code', 'WALLET_ERROR')}: {exc}")
+
+    def _money(self, method: str, run, respond) -> bytes:
+        """A money movement: ``run()`` under the domain error map, the flow
+        counters, then ``respond(result)``'s fields."""
+        from igaming_platform_tpu_torch.platform.domain import WalletError
+
+        try:
+            res = run()
+        except WalletError as exc:
+            raise self._domain_error(exc) from exc
+        self._record_txn(res)
+        return self._respond(method, {"transaction": self._tx(res.transaction),
+                                      "new_balance": res.new_balance, **respond(res)})
+
+    def CreateAccount(self, request: bytes, context=None) -> bytes:  # noqa: N802
+        req = self._request("CreateAccount", request)
+        acct = self.wallet.create_account(req["player_id"], req["currency"] or "USD")
+        return self._respond("CreateAccount", {"account": self._account(acct)})
+
+    def GetAccount(self, request: bytes, context=None) -> bytes:  # noqa: N802
+        from igaming_platform_tpu_torch.platform.domain import AccountNotFoundError
+
+        try:
+            which, value = wallet_codec.decode_get_account(request)
+        except ValueError as exc:
+            raise RpcAbort(StatusCode.INTERNAL, f"internal error: {exc}") from exc
+        try:
+            if which == "player_id":
+                acct = self.wallet.accounts.get_by_player_id(value)
+                if acct is None:
+                    raise AccountNotFoundError(value)
+            else:
+                acct = self.wallet.accounts.get_by_id(value if which else "")
+        except AccountNotFoundError as exc:
+            raise self._domain_error(exc) from exc
+        return self._respond("GetAccount", {"account": self._account(acct)})
+
+    def GetBalance(self, request: bytes, context=None) -> bytes:  # noqa: N802
+        from igaming_platform_tpu_torch.platform.domain import AccountNotFoundError
+
+        req = self._request("GetBalance", request)
+        try:
+            acct = self.wallet.get_balance(req["account_id"])
+        except AccountNotFoundError as exc:
+            raise self._domain_error(exc) from exc
+        return self._respond("GetBalance", {
+            "account_id": acct.id, "balance": acct.balance, "bonus": acct.bonus,
+            "total": acct.total_balance, "withdrawable": acct.available_for_withdraw,
+            "currency": acct.currency})
+
+    def Deposit(self, request: bytes, context=None) -> bytes:  # noqa: N802
+        r = self._request("Deposit", request)
+        return self._money("Deposit", lambda: self.wallet.deposit(
+            r["account_id"], r["amount"], r["idempotency_key"],
+            payment_method=r["payment_method"], reference=r["reference"],
+            ip=r["ip_address"], device_id=r["device_id"], fingerprint=r["fingerprint"]),
+            lambda res: {"risk_score": res.risk_score or 0})
+
+    def Withdraw(self, request: bytes, context=None) -> bytes:  # noqa: N802
+        r = self._request("Withdraw", request)
+        return self._money("Withdraw", lambda: self.wallet.withdraw(
+            r["account_id"], r["amount"], r["idempotency_key"],
+            payout_method=r["payout_method"], ip=r["ip_address"], device_id=r["device_id"]),
+            lambda res: {"risk_score": res.risk_score or 0, "payout_status": "completed"})
+
+    def Bet(self, request: bytes, context=None) -> bytes:  # noqa: N802
+        r = self._request("Bet", request)
+        return self._money("Bet", lambda: self.wallet.bet(
+            r["account_id"], r["amount"], r["idempotency_key"], game_id=r["game_id"],
+            round_id=r["round_id"], game_category=r["game_category"], ip=r["ip_address"],
+            device_id=r["device_id"]),
+            lambda res: {"risk_score": res.risk_score or 0, "real_deducted": res.real_deducted,
+                         "bonus_deducted": res.bonus_deducted})
+
+    def Win(self, request: bytes, context=None) -> bytes:  # noqa: N802
+        r = self._request("Win", request)
+        return self._money("Win", lambda: self.wallet.win(
+            r["account_id"], r["amount"], r["idempotency_key"], game_id=r["game_id"],
+            round_id=r["round_id"], bet_tx_id=r["bet_transaction_id"],
+            win_type=r["win_type"] or "normal"), lambda res: {})
+
+    def Refund(self, request: bytes, context=None) -> bytes:  # noqa: N802
+        r = self._request("Refund", request)
+        return self._money("Refund", lambda: self.wallet.refund(
+            r["account_id"], r["original_transaction_id"], r["idempotency_key"],
+            reason=r["reason"]), lambda res: {})
+
+    def GetTransaction(self, request: bytes, context=None) -> bytes:  # noqa: N802
+        req = self._request("GetTransaction", request)
+        tx = self.wallet.transactions.get_by_id(req["transaction_id"])
+        if tx is None:
+            raise RpcAbort(StatusCode.NOT_FOUND, "transaction not found")
+        return self._respond("GetTransaction", {"transaction": self._tx(tx)})
+
+    def GetTransactionHistory(self, request: bytes, context=None) -> bytes:  # noqa: N802
+        req = self._request("GetTransactionHistory", request)
+        # Clamp both ends: a negative limit would reach SQLite as LIMIT -1
+        # (unlimited). Filters apply before pagination; ``total`` is the
+        # filtered count.
+        limit = max(1, min(req["limit"] or 50, 100))
+        offset = max(0, req["offset"])
+        filters = dict(
+            types=list(req["types"]) or None,
+            from_ts=(wallet_codec.timestamp_seconds(req["from"])
+                     if req["from"] is not None else None),
+            to_ts=wallet_codec.timestamp_seconds(req["to"]) if req["to"] is not None else None,
+            game_id=req["game_id"] or None,
+        )
+        txs = self.wallet.get_transaction_history(req["account_id"], limit, offset, **filters)
+        total = self.wallet.count_transactions(req["account_id"], **filters)
+        return self._respond("GetTransactionHistory", {
+            "transactions": [self._tx(t) for t in txs], "total": total,
+            "has_more": offset + len(txs) < total})
+
+
+# ---------------------------------------------------------------------------
 # The gRPC binding (grpcio, where it is installed)
 # ---------------------------------------------------------------------------
 
@@ -844,6 +1053,50 @@ def make_risk_stub(channel):
     stub = _Stub()
     for name in RISK_METHOD_NAMES:
         setattr(stub, name, channel.unary_unary(f"/{RISK_SERVICE}/{name}"))
+    return stub
+
+
+def serve_wallet(service: WalletGrpcService, port: int, max_workers: int = 32):
+    """Build and start the wallet.v1 gRPC server (and grpc.health.v1) on
+    ``port`` (0 picks a free one); returns (server, health, bound port).
+    Raises RuntimeError when grpcio is not installed."""
+    try:
+        import grpc
+    except ImportError as exc:
+        raise RuntimeError(
+            "serve_wallet needs grpcio, which is not installed; without it, drive "
+            "WalletGrpcService.call(method, request_bytes) directly") from exc
+    from concurrent import futures
+
+    health = HealthServicer()
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=max_workers))
+
+    def handler(name):
+        return grpc.unary_unary_rpc_method_handler(_rpc(
+            grpc, lambda payload, context: service._invoke(name, payload, context)))
+
+    server.add_generic_rpc_handlers((
+        grpc.method_handlers_generic_handler(
+            wallet_codec.WALLET_SERVICE, {name: handler(name) for name in wallet_codec.METHODS}),
+        grpc.method_handlers_generic_handler("grpc.health.v1.Health", {
+            "Check": grpc.unary_unary_rpc_method_handler(_rpc(grpc, health.check))}),
+    ))
+    bound = server.add_insecure_port(f"[::]:{port}")
+    server.start()
+    return server, health, bound
+
+
+def make_wallet_stub(channel):
+    """A client of every wallet.v1 method on ``channel`` (a grpcio channel):
+    ``stub.<Method>(request_bytes, timeout=...)`` returns the response
+    bytes."""
+
+    class _Stub:
+        pass
+
+    stub = _Stub()
+    for name in wallet_codec.METHODS:
+        setattr(stub, name, channel.unary_unary(f"/{wallet_codec.WALLET_SERVICE}/{name}"))
     return stub
 
 

@@ -34,10 +34,10 @@ each step's readback: nothing on the writer thread reads a device tensor.
 A ``metrics=`` registry (``obs/metrics.ServiceMetrics``) gets the
 ``ledger_*`` families; each record carries the active span's trace id and
 the serving state of the supervisor the server binds as the state provider
-(``serving_state()`` answers ``"unknown"`` without one). Not ported yet
-(``ROADMAP.md``): ``PgDecisionSink`` (``LEDGER_SINK=pg`` raises
-``NotImplementedError``: it needs ``platform/pgwire.py``). The params
-fingerprint is the engine's own (``serve/scorer.py::params_fingerprint``).
+(``serving_state()`` answers ``"unknown"`` without one). The sinks are
+ClickHouse (``serve/clickhouse.py``'s client) and Postgres
+(``PgDecisionSink`` over ``platform/pgwire.py``). The params fingerprint
+is the engine's own (``serve/scorer.py::params_fingerprint``).
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ import numpy as np
 
 from igaming_platform_tpu_torch.obs import hostprof
 from igaming_platform_tpu_torch.serve import chaos
+from igaming_platform_tpu_torch.serve.clickhouse import ClickHouseClient, ClickHouseError  # noqa: F401
 
 logger = logging.getLogger(__name__)
 
@@ -667,46 +668,6 @@ class _PendingBatch:
 # Sinks
 
 
-class ClickHouseError(RuntimeError):
-    pass
-
-
-class ClickHouseClient:
-    """The part of ``igaming_platform_tpu/serve/clickhouse.py``'s
-    ``ClickHouseClient`` the decision sink calls: POST a query over the HTTP
-    interface (urllib), parse JSONEachRow."""
-
-    def __init__(self, url: str = "http://localhost:8123", *, database: str = "default",
-                 user: str = "default", password: str = "", timeout_s: float = 30.0):
-        self.base_url = url.rstrip("/")
-        self.database = database
-        self.user = user
-        self.password = password
-        self.timeout_s = timeout_s
-
-    def query(self, sql: str) -> list[dict]:
-        """Run a query; returns one dict per row (JSONEachRow)."""
-        import urllib.error
-        import urllib.parse
-        import urllib.request
-
-        params = urllib.parse.urlencode({"database": self.database,
-                                         "default_format": "JSONEachRow"})
-        req = urllib.request.Request(
-            f"{self.base_url}/?{params}", data=sql.encode(), method="POST",
-            headers={"X-ClickHouse-User": self.user, "X-ClickHouse-Key": self.password,
-                     "Content-Type": "text/plain; charset=utf-8"})
-        try:
-            with urllib.request.urlopen(req, timeout=self.timeout_s) as resp:
-                body = resp.read()
-        except urllib.error.HTTPError as exc:
-            detail = exc.read().decode(errors="replace")[:500]
-            raise ClickHouseError(f"HTTP {exc.code}: {detail}") from exc
-        except (urllib.error.URLError, OSError) as exc:
-            raise ClickHouseError(f"clickhouse unreachable: {exc}") from exc
-        return [json.loads(line) for line in body.splitlines() if line.strip()]
-
-
 class ClickHouseDecisionSink:
     """Decision drain into ClickHouse over the HTTP interface."""
 
@@ -738,10 +699,74 @@ class ClickHouseDecisionSink:
             f"INSERT INTO {self.table} FORMAT JSONEachRow\n{lines}")
 
 
+class PgDecisionSink:
+    """Decision drain into Postgres over the port's wire-protocol client
+    (``platform/pgwire.py``): one ``INSERT ... ON CONFLICT DO NOTHING`` a
+    record, the JAX sink's statement and table. Unlike the JAX sink, which
+    sends each INSERT in a round trip of its own, a batch's INSERTs are
+    pipelined inside one transaction and ship in one round trip: a batch
+    commits whole or not at all, and the drainer's retry of a failed batch
+    stays idempotent."""
+
+    DDL = (
+        "CREATE TABLE IF NOT EXISTS {table} ("
+        " decision_id TEXT PRIMARY KEY, account_id TEXT, trace_id TEXT,"
+        " ts DOUBLE PRECISION, model_version TEXT, params_fp TEXT,"
+        " wire_mode TEXT, serving_state TEXT, tier TEXT,"
+        " score INTEGER, action INTEGER, reason_mask BIGINT,"
+        " rule_score INTEGER, ml_score REAL, amount BIGINT, tx_type TEXT,"
+        " feature_hash TEXT, blacklisted INTEGER)"
+    )
+
+    _COLS = ("decision_id", "account_id", "trace_id", "ts", "model_version",
+             "params_fp", "wire_mode", "serving_state", "tier", "score",
+             "action", "reason_mask", "rule_score", "ml_score", "amount",
+             "tx_type", "feature_hash", "blacklisted")
+
+    def __init__(self, url: str, table: str = "risk_decisions"):
+        self.url = url
+        self.table = table
+        self._conn = None
+
+    def _connection(self):
+        if self._conn is None:
+            from igaming_platform_tpu_torch.platform.pgwire import PgConnection
+
+            conn = PgConnection(self.url)
+            conn.connect()
+            conn.execute(self.DDL.format(table=self.table))
+            self._conn = conn
+        return self._conn
+
+    def send(self, records: list[DecisionRecord]) -> None:
+        try:
+            conn = self._connection()
+            # ON CONFLICT keeps the at-least-once drain idempotent: a
+            # cursor replay after SIGKILL re-sends rows, never errors.
+            sql = (f"INSERT INTO {self.table} ({', '.join(self._COLS)}) "
+                   f"VALUES ({', '.join(f'${i + 1}' for i in range(len(self._COLS)))}) "
+                   "ON CONFLICT (decision_id) DO NOTHING")
+            conn.begin_pipelined()
+            for r in records:
+                row = r.sink_row()
+                conn.execute_pipelined(sql, tuple(str(row[c]) for c in self._COLS))
+            conn.commit()
+        except Exception:
+            # A poisoned connection must not wedge every later retry.
+            self._close_conn()
+            raise
+
+    def _close_conn(self) -> None:
+        conn, self._conn = self._conn, None
+        if conn is not None:
+            try:
+                conn.close()
+            except Exception:  # noqa: CC04 — best-effort close of a dead conn
+                pass
+
+
 def sink_from_env():
-    """LEDGER_SINK=clickhouse|none (+_URL) -> a sink instance or None.
-    ``pg`` raises NotImplementedError: the Postgres sink needs the
-    wire-protocol client of ``platform/``, not ported yet."""
+    """LEDGER_SINK=clickhouse|pg|none (+_URL) -> a sink instance or None."""
     kind = os.environ.get("LEDGER_SINK", "").lower()
     if kind in ("", "none", "0"):
         return None
@@ -750,9 +775,11 @@ def sink_from_env():
                or os.environ.get("CLICKHOUSE_URL", "http://localhost:8123"))
         return ClickHouseDecisionSink(url)
     if kind in ("pg", "postgres"):
-        raise NotImplementedError(
-            "LEDGER_SINK=pg: the Postgres decision sink needs platform/pgwire.py, "
-            "not ported yet (ROADMAP.md)")
+        url = (os.environ.get("LEDGER_PG_URL")
+               or os.environ.get("DATABASE_URL", ""))
+        if not url:
+            raise ValueError("LEDGER_SINK=pg requires LEDGER_PG_URL/DATABASE_URL")
+        return PgDecisionSink(url)
     raise ValueError(f"LEDGER_SINK={kind!r} not supported (clickhouse|pg|none)")
 
 

@@ -12,9 +12,10 @@ Usage::
     python -m igaming_platform_tpu_torch.serve.ltv_job <wallet.db> [out.json] [--device cuda|cpu]
 
 It runs on the card unless ``--device cpu``. The store is a SQLite file
-(a path or ``sqlite://`` URL), opened read-only (``mode=ro``), as the
-JAX job's reader opens it; ``postgres://`` waits for the port's wire
-client (``ROADMAP.md`` Queue 1 item 5). With ``metrics=`` (an
+(a path or ``sqlite://`` URL, opened read-only, ``mode=ro``) or a
+``postgres://`` URL (a read-only session over the port's wire client),
+through ``platform/repository.open_wallet_reader`` as the JAX job reads
+it. With ``metrics=`` (an
 ``obs/metrics.py`` ``ServiceMetrics``) the segment counts feed
 ``ltv_segment_total``, as the JAX job's do.
 """
@@ -23,8 +24,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
-import sqlite3
 import sys
 import time
 
@@ -33,26 +32,9 @@ import torch
 
 from igaming_platform_tpu_torch.models.ltv import (ACTIONS, NUM_LTV_FEATURES, L, predict_batch,
                                                    to_host)
+from igaming_platform_tpu_torch.platform.repository import open_wallet_reader
 
 _SECONDS_PER_DAY = 86_400.0
-
-
-def open_wallet_reader(db: str):
-    """(query(sql) -> rows, close) over a SQLite wallet store opened
-    read-only: a scan job must be unable to write to the store of record.
-    SQLite builds without the math functions get ``floor`` from Python."""
-    if db.startswith(("postgres://", "postgresql://")):
-        raise NotImplementedError(
-            "the LTV job reads SQLite only: postgres:// waits for the port's wire client "
-            "(ROADMAP.md Queue 1 item 5)")
-    path = db.removeprefix("sqlite://")
-    ro = sqlite3.connect(f"file:{path}?mode=ro", uri=True)
-    try:
-        ro.execute("SELECT floor(1.5)")
-    except sqlite3.OperationalError:
-        ro.create_function("floor", 1, lambda v: None if v is None else math.floor(v),
-                           deterministic=True)
-    return (lambda sql: ro.execute(sql).fetchall()), ro.close
 
 
 def ltv_features_from_wallet(db_path: str,
@@ -160,7 +142,7 @@ def batch_result(ids: list[str], x: np.ndarray, device: str = "cuda",
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="The LTV batch job over a wallet store.")
-    parser.add_argument("db", help="a SQLite wallet store (path or sqlite:// URL)")
+    parser.add_argument("db", help="a wallet store: a SQLite path, sqlite:// or postgres:// URL")
     parser.add_argument("out", nargs="?", help="write the full result here as JSON")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = parser.parse_args(argv)

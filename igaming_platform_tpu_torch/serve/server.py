@@ -87,8 +87,18 @@ not answer the boot fails with the probe's label unless
 ``SERVE_DEVICE_FALLBACK=cpu``, which serves on the host CPU with the abuse
 path under ``ABUSE_CPU_POLICY`` (default ``heuristic``), as the reference
 does. ``FRAUD_MODEL_PATH`` boots a trained multitask checkpoint from its
-``.npz`` (``resolve_model_boot``). Not ported yet (``ROADMAP.md``): the
-batch-feature refresh.
+``.npz`` (``resolve_model_boot``).
+
+The batch-feature refresh (``serve/batch_refresh.py``) runs as in the JAX
+server: with ``CLICKHOUSE_URL=http…`` it scans ClickHouse
+(``serve/clickhouse.py``), else with ``BATCH_FEATURE_DB`` (a SQLite path,
+``sqlite://`` or ``postgres://`` URL) the wallet store; the server refreshes
+once at boot, then every ``BATCH_FEATURE_INTERVAL_S`` (3600 s), retrying
+fast until a first scan succeeds. With neither set there is no job.
+``FEATURE_STORE=redis`` keeps the features at ``REDIS_URL``
+(``serve/redis_store.py``; it needs the ``redis`` library, and raises
+without it). ``LEDGER_SINK=pg`` drains the ledger into Postgres at
+``LEDGER_PG_URL`` (else ``DATABASE_URL``).
 """
 
 from __future__ import annotations
@@ -180,15 +190,22 @@ def load_multitask(path: str) -> dict:
     return from_jax_params("multitask", {"multitask": tree})
 
 
-def make_feature_store(kind: str):
+def make_feature_store(kind: str, redis_url: str = "redis://localhost:6379"):
     """The store FEATURE_STORE names: the native C++ one for "auto" and
     "native" (a library that does not build raises), the Python one for
-    "python"."""
+    "python", the Redis one at ``redis_url`` for "redis" (RuntimeError
+    without the redis library)."""
     if kind in ("auto", "native"):
         return NativeFeatureStore()
     if kind == "python":
         return InMemoryFeatureStore()
-    raise NotImplementedError(f"FEATURE_STORE={kind!r} is not ported (use auto, native or python)")
+    if kind == "redis":
+        from igaming_platform_tpu_torch.serve.redis_store import RedisFeatureStore
+
+        store = RedisFeatureStore(redis_url)
+        logger.info("using Redis feature store at %s", redis_url)
+        return store
+    raise ValueError(f"FEATURE_STORE={kind!r} is not a store (auto, native, python or redis)")
 
 
 @dataclass
@@ -237,7 +254,8 @@ def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend
     online = os.environ.get("ONLINE_LOOP", "") == "1"
     if online:
         check_online_boot(ml_backend, ledger_dir)
-    store = feature_store if feature_store is not None else make_feature_store(config.feature_store)
+    store = (feature_store if feature_store is not None
+             else make_feature_store(config.feature_store, config.redis_url))
 
     def build_engine() -> TorchScoringEngine:
         return TorchScoringEngine(config.scoring, ml_backend=ml_backend, params=params,
@@ -308,6 +326,34 @@ def make_online_loop(engine: TorchScoringEngine, ledger, ledger_dir: str, servic
                       shadow=shadow, controller=controller)
 
 
+def start_batch_refresh(config: RiskServiceConfig, feature_store):
+    """The batch-feature refresh job over ``feature_store``, refreshed once
+    now (a failure is logged: the ticker retries it) and started; None when
+    the config names no source. The source is ClickHouse when
+    ``clickhouse_url`` is http (the reference's tcp:// default selects
+    nothing), else the wallet store at ``batch_feature_db``."""
+    from igaming_platform_tpu_torch.serve import batch_refresh
+
+    if config.clickhouse_url.startswith("http"):
+        from igaming_platform_tpu_torch.serve.clickhouse import clickhouse_source
+
+        logger.info("batch features from ClickHouse at %s", config.clickhouse_url)
+        source = clickhouse_source(config.clickhouse_url)
+    elif config.batch_feature_db:
+        source = batch_refresh.wallet_store_source(config.batch_feature_db)
+    else:
+        return None
+    job = batch_refresh.BatchFeatureRefreshJob(feature_store, source,
+                                               interval_s=config.batch_feature_interval_s)
+    try:
+        n = job.refresh_once()
+        logger.info("batch features hydrated for %d accounts", n)
+    except Exception:  # noqa: BLE001 — the ticker retries a failed first scan
+        logger.warning("initial batch-feature refresh failed", exc_info=True)
+    job.start()
+    return job
+
+
 def amqp_breaker_feed(breaker):
     """An ``AmqpPublisher.on_publish_result`` hook that feeds ``breaker``:
     a publish that succeeds records a success, one that fails after its
@@ -369,6 +415,7 @@ class RiskServer:
         if self.online is not None:
             self.online.start()
             logger.info("online learning loop up (tick=%.1fs)", self.online.tick_s)
+        self.batch_refresh = start_batch_refresh(config, self.inner.features)
         logger.info("risk server up: grpc=%s http=%d", self.grpc_port, self.http_port)
 
     def device_alive(self, timeout_s: float = 2.0) -> bool:
@@ -771,6 +818,8 @@ class RiskServer:
             # Stop the learner and the promotion ticker before the drain: a
             # hot swap mid-shutdown has nothing left to serve with.
             self.online.stop()
+        if self.batch_refresh is not None:
+            self.batch_refresh.stop()
         self.bridge.stop()
         graceful_stop(self.grpc_server, self.health, grace, engine=self.engine)
         if self.ledger is not None:

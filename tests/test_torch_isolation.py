@@ -6,7 +6,8 @@ the port's own reader), the JAX package or the repository's ``tools``
 it lives outside the port and imports nothing of it).
 
 Exceptions: ``serve/grpc_server.py`` imports ``grpc`` inside the body of
-``serve_risk`` and ``make_risk_stub``, the optional gRPC binding, which only
+``serve_risk``, ``make_risk_stub`` and ``serve_wallet``, the optional gRPC
+bindings, which only
 runs when a caller asks for a gRPC port, and ``platform/risk_adapter.py``
 inside ``GrpcRiskGate._ensure_stub``, which only runs when a wallet scores
 over gRPC. Nothing else may import it, at any level.
@@ -44,6 +45,7 @@ def _sources():
 # gRPC bindings.
 GRPC_ALLOWED = {("igaming_platform_tpu_torch/serve/grpc_server.py", "serve_risk"),
                 ("igaming_platform_tpu_torch/serve/grpc_server.py", "make_risk_stub"),
+                ("igaming_platform_tpu_torch/serve/grpc_server.py", "serve_wallet"),
                 ("igaming_platform_tpu_torch/platform/risk_adapter.py",
                  "GrpcRiskGate._ensure_stub")}
 
@@ -138,6 +140,26 @@ def test_wallet_side_stands_alone(rel):
     assert (PORT / "platform" / "configs" / "bonus_rules.yaml").exists()
 
 
+STORES = ("platform/pgwire.py", "platform/pg_testing.py", "platform/pg_store.py",
+          "platform/server.py", "serve/redis_store.py", "serve/clickhouse.py",
+          "serve/batch_refresh.py", "serve/wallet_codec.py", "serve/ledger.py",
+          "serve/ltv_job.py")
+
+
+@pytest.mark.parametrize("rel", STORES)
+def test_stores_and_wallet_front_stand_alone(rel):
+    """The stores of record, the batch refresh and the wallet front, held as
+    the operations plane's modules are below; the Postgres rig the card's
+    phase 16 starts is the port's own, and that phase imports nothing
+    forbidden at any level."""
+    test_operations_plane_stands_alone(rel)
+    smoke = REPO / "chip_smoke.py"
+    phase = [m for m, f in _imports(smoke) if f in ("phase_stores", "stores_pg", "stores_ledger",
+                                                    "stores_refresh", "stores_redis")]
+    assert "igaming_platform_tpu_torch.platform.pg_testing" in phase
+    assert not [m for m in phase if _forbidden(m)]
+
+
 @pytest.mark.parametrize("rel", PLANE)
 def test_operations_plane_stands_alone(rel):
     """The operations plane's modules, held one by one: each is the port's
@@ -174,6 +196,9 @@ def test_importing_every_module_loads_none_of_them():
               "obs.perfmodel", "serve.deadline", "serve.supervisor", "utils.logging",
               "obs.hostprof", "obs.runtime_telemetry", "core.devices", "serve.reflection",
               "serve.amqp", "serve.amqp_testing", "serve.ipintel", "core.money",
-              "platform.app", "platform.risk_adapter", "platform.bonus", "platform.seed"):
+              "platform.app", "platform.risk_adapter", "platform.bonus", "platform.seed",
+              "platform.pgwire", "platform.pg_testing", "platform.pg_store", "platform.server",
+              "serve.redis_store", "serve.clickhouse", "serve.batch_refresh",
+              "serve.wallet_codec"):
         assert f"igaming_platform_tpu_torch.{m}" in loaded, m
     assert not [m for m in loaded if _forbidden(m)]

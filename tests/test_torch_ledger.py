@@ -331,8 +331,8 @@ def test_sink_from_env(monkeypatch, tmp_path):
     monkeypatch.setenv("LEDGER_SINK", "clickhouse")
     assert isinstance(pl.sink_from_env(), pl.ClickHouseDecisionSink)
     monkeypatch.setenv("LEDGER_SINK", "pg")
-    with pytest.raises(NotImplementedError):
-        pl.sink_from_env()
+    monkeypatch.setenv("LEDGER_PG_URL", "postgres://u@127.0.0.1:1/ledger")
+    assert isinstance(pl.sink_from_env(), pl.PgDecisionSink)
     monkeypatch.setenv("LEDGER_SINK", "kafka")
     with pytest.raises(ValueError):
         pl.sink_from_env()

@@ -265,8 +265,13 @@ def test_batch_job_against_jax(tmp_path):
     SQLiteStore(empty).close()
     assert tjob.run_batch_job(f"sqlite://{empty}", device="cpu") == {
         "players": [], "segments": {}, "count": 0}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tjob.run_batch_job("postgres://localhost/wallet", device="cpu")
+    from igaming_platform_tpu_torch.platform.pg_testing import PgSqliteServer
+
+    rig = PgSqliteServer(path)
+    try:
+        assert tjob.run_batch_job(rig.url, now=now, device="cpu") == want
+    finally:
+        rig.close()
     out = tmp_path / "out.json"
     assert tjob.main([path, str(out), "--device", "cpu"]) == 0
     written = json.loads(out.read_text())

@@ -43,6 +43,7 @@ from igaming_platform_tpu_torch.platform import (
     cashback,
     migrations,
     outbox,
+    pg_testing,
     reconcile,
     repository,
     seed,
@@ -156,8 +157,12 @@ def test_migrations_on_sqlite_match_jax(tmp_path):
         db.close()
     assert statuses[0] == statuses[1] and statuses[0][0] == [1, 2, 3, 4, 5]
     assert dumps[0] == dumps[1] and len(dumps[0][0]) >= 8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        migrations.main(["postgres://u@127.0.0.1:1/db", "status"])
+    server = pg_testing.PgSqliteServer(str(tmp_path / "cli.db"))
+    try:
+        assert migrations.main([server.url, "up"]) == 0
+        assert migrations.main([server.url, "status"]) == 0
+    finally:
+        server.close()
 
 
 # -- wallet, outbox, cashback, reconcile, seed ----------------------------------
@@ -334,9 +339,13 @@ def test_seed_matches_jax(tmp_path, monkeypatch, capsys):
     assert rows[0] == rows[1] and rows[0][0] == rows[0][1] and rows[0][3] == 0
     monkeypatch.setenv("DATABASE_URL", f"sqlite://{tmp_path / 'cli.db'}")
     assert seed.main() == 0 and "seeded 3 accounts" in capsys.readouterr().out
-    monkeypatch.setenv("DATABASE_URL", "postgres://u@127.0.0.1:1/db")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        seed.main()
+    server = pg_testing.PgSqliteServer(str(tmp_path / "seed-pg.db"))
+    try:
+        monkeypatch.setenv("DATABASE_URL", server.url)
+        assert seed.main() == 0 and "seeded 3 accounts into postgres://" in (
+            capsys.readouterr().out)
+    finally:
+        server.close()
     monkeypatch.setenv("DATABASE_URL", "postgress://typo")
     assert seed.main() == 2
 

@@ -302,3 +302,125 @@ class PlanePair:
         self.services[1].close()
         for mod in (jdrift, jslo):
             mod.uninstall()
+
+
+# -- the wallet side's identifiers and clocks (tests/test_torch_pg.py,
+# test_torch_stores.py, test_torch_wallet_server.py) ----------------------------
+
+WALLET_NOW = T0 + 0.123456  # a float whose text round trip is not trivial
+
+
+def _wallet_clock_modules():
+    from igaming_platform_tpu.platform import domain as jdomain
+    from igaming_platform_tpu.platform import migrations as jmig
+    from igaming_platform_tpu.platform import pg_store as jpg
+    from igaming_platform_tpu.platform import repository as jrepo
+    from igaming_platform_tpu.serve import events as jevents
+    from igaming_platform_tpu_torch.platform import domain as tdomain
+    from igaming_platform_tpu_torch.platform import migrations as tmig
+    from igaming_platform_tpu_torch.platform import pg_store as tpg
+    from igaming_platform_tpu_torch.platform import repository as trepo
+    from igaming_platform_tpu_torch.serve import events as tevents
+
+    modules = (jdomain, jmig, jpg, jrepo, jevents, tdomain, tmig, tpg, trepo, tevents)
+    classes = [c for m in (jdomain, jevents, tdomain, tevents) for c in vars(m).values()
+               if isinstance(c, type) and hasattr(c, "__dataclass_fields__")
+               and c.__module__ == m.__name__]
+    return modules, classes
+
+
+@contextlib.contextmanager
+def pinned_wallet(now: float = WALLET_NOW):
+    """Every identifier and wall-clock read of both packages' wallet paths
+    pinned: ``uuid.uuid4`` counts from 1 (``reset()``, the yielded callable,
+    restarts it between the two packages' runs), and ``time.time`` reads
+    ``now`` in the domain, repository, Postgres store, migration and event
+    modules and in their dataclasses' ``time.time`` default factories, which
+    were bound when the classes were made (patching a module's ``time`` does
+    not reach them)."""
+    import uuid
+
+    counter = [0]
+
+    def next_uuid():
+        counter[0] += 1
+        return uuid.UUID(int=counter[0])
+
+    clock = types.SimpleNamespace(**{k: getattr(time, k) for k in dir(time)
+                                     if not k.startswith("_")})
+    clock.time = lambda: now
+    modules, classes = _wallet_clock_modules()
+    cells = [cell for c in classes for cell in (c.__init__.__closure__ or ())
+             if cell.cell_contents is time.time]
+    saved = [(m, m.time) for m in modules]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(uuid, "uuid4", next_uuid)
+        for m in modules:
+            m.time = clock
+        for cell in cells:
+            cell.cell_contents = clock.time
+        try:
+            yield lambda: counter.__setitem__(0, 0)
+        finally:
+            for cell in cells:
+                cell.cell_contents = time.time
+            for m, t in saved:
+                m.time = t
+
+
+class FixedGate:
+    """A risk gate whose score is a hash of the operation: the same answers
+    in both packages' wallets, with blocks and reviews among them."""
+
+    def score_transaction(self, account_id, amount, tx_type, game_id="", ip="", device_id="",
+                          fingerprint=""):
+        score = (amount * 7 + len(account_id) + len(tx_type)) % 100
+        action = "block" if score >= 97 else "review" if score >= 94 else "approve"
+        return score, action, ["VELOCITY_1M"] if action != "approve" else []
+
+
+TEST_LIMIT_S = 120
+
+
+@pytest.fixture
+def time_limit():
+    """A time limit of the test's own: SIGALRM raises TimeoutError in the
+    test's thread (pytest's main thread) after TEST_LIMIT_S, so a socket
+    that never answers fails one test instead of holding the whole run to
+    its clock."""
+    import signal
+
+    def fire(signum, frame):
+        raise TimeoutError(f"the test ran past its {TEST_LIMIT_S} s limit")
+
+    previous = signal.signal(signal.SIGALRM, fire)
+    signal.alarm(TEST_LIMIT_S)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, previous)
+
+
+def seeded_wallet_db(path: str, n_accounts: int = 30, n_ops: int = 240, seed: int = 5) -> list:
+    """A wallet store at ``path`` (the port's SQLiteStore) with ``n_accounts``
+    accounts and ``n_ops`` seeded deposits, bets, wins and withdrawals,
+    through the port's wallet under ``FixedGate``; returns the account ids."""
+    from igaming_platform_tpu_torch.platform.repository import SQLiteStore
+    from igaming_platform_tpu_torch.platform.wallet import WalletService
+
+    rng = np.random.default_rng(seed)
+    store = SQLiteStore(path)
+    try:
+        svc = WalletService(store.accounts, store.transactions, store.ledger, risk=FixedGate())
+        ids = [svc.create_account(f"acct{i}").id for i in range(n_accounts)]
+        for i in range(n_ops):
+            acct = ids[int(rng.integers(n_accounts))]
+            kind = ("deposit", "bet", "win", "withdraw")[int(rng.choice(4, p=[.4, .35, .15, .1]))]
+            try:
+                getattr(svc, kind)(acct, int(rng.integers(100, 50_000)), f"s{i}")
+            except Exception:  # noqa: BLE001 - refusals are part of the history
+                pass
+    finally:
+        store.close()
+    return ids
