@@ -15,7 +15,10 @@ module has one counterpart with the same name:
               the risk.v1 front: its own proto3 codec, the native response
               encoder, RiskService on bytes, and the server;
 - ``obs``     the drift observatory (feature and score sketches of every
-              scored batch against a pinned reference);
+              scored batch against a pinned reference) and the fleet view;
+- ``parallel`` the device mesh (a grid of devices that may repeat one),
+              collectives over per-shard lists, model and slot sharding,
+              the routed experts and the gloo bootstrap;
 - ``train``   the bonus-abuse detector's trainer.
 
 ``convert.from_jax_params`` carries the JAX package's params across. The

@@ -12,6 +12,8 @@ for that backend, on the CPU:
 - ``mlp_int8`` and ``multitask_int8``: an int8 MLP tree (``ops/quantize.py``
   ``quantize_mlp``: ``{"layers": [{"wq", "scale", "b"}, ...],
   "input_scale"}``) -> ``ops.quantize.QuantizedMLP``, int8 codes kept int8
+- ``routed``: ``router`` [30, 4] -> a float32 tensor, with ``mlp``,
+  ``gbdt`` and ``multitask`` as above
 - ``gbdt_int8``: ``quantize_gbdt``'s tree (``{"feat", "thr_q", "thr_scale",
   "leaves_q", "leaf_scale", "bias"}``) -> a dict of tensors, the codes int8
   and the scales float32, plus the float32 thresholds and leaves the forest
@@ -72,6 +74,7 @@ BACKEND_KEYS = {
     "gbdt_int8": ("gbdt_int8",),
     "mlp+gbdt_int8": ("mlp_int8", "gbdt_int8"),
     "multitask_int8": ("multitask_int8",),
+    "routed": ("router", "mlp", "gbdt", "multitask"),
 }
 
 
@@ -227,7 +230,7 @@ def trainer_state_from_jax(params: dict, opt_state: Any, step: int,
     return TrainState(model, state, int(step))
 
 
-_CONVERTERS = {"mlp": mlp_from_tree, "gbdt": gbdt_from_tree, "multitask": multitask_from_tree,
+_CONVERTERS = {"router": _f32, "mlp": mlp_from_tree, "gbdt": gbdt_from_tree, "multitask": multitask_from_tree,
                "mlp_int8": quantized_mlp_from_tree, "gbdt_int8": quantized_gbdt_from_tree,
                "multitask_int8": quantized_mlp_from_tree}
 
@@ -247,8 +250,12 @@ def params_to(params: dict[str, Any] | None, device: torch.device | str) -> dict
         return None
     out = {}
     for key, value in params.items():
-        if isinstance(value, nn.Module):
+        if value is None:
+            out[key] = None
+        elif isinstance(value, nn.Module):
             out[key] = copy.deepcopy(value).to(device)
+        elif isinstance(value, torch.Tensor):
+            out[key] = value.to(device)
         else:
             out[key] = {k: v.to(device) for k, v in value.items()}
     device = torch.device(device)

@@ -129,7 +129,18 @@ class RiskServiceConfig:
     # "python" = the in-memory Python store; "redis" = the store at
     # REDIS_URL (needs the redis library).
     feature_store: str = "auto"
-    # Override the serving ML backend (default: mock).
+    # Serving mesh: shard the scoring batch over this many CUDA devices (DP
+    # axis). 0 = single device; -1 = all visible devices.
+    mesh_devices: int = 0
+    # Sequence-parallel axis for the abuse detector (ring attention over
+    # `seq`); must divide mesh_devices. 1 = no sequence sharding.
+    mesh_seq: int = 1
+    # Expert-parallel axis for the routed ensemble (ml_backend="routed"): 4
+    # puts the mock/MLP/GBDT/multitask experts one per shard. 1 = none.
+    mesh_expert: int = 1
+    # Override the serving ML backend (default: multitask when a checkpoint
+    # loads, else mock). "routed" needs params carrying router/mlp/gbdt/
+    # multitask.
     ml_backend: str = ""
     scoring: ScoringConfig = field(default_factory=ScoringConfig)
     batcher: BatcherConfig = field(default_factory=BatcherConfig)
@@ -149,6 +160,9 @@ class RiskServiceConfig:
             batch_feature_interval_s=getenv_float("BATCH_FEATURE_INTERVAL_S",
                                                   d.batch_feature_interval_s),
             feature_store=getenv_str("FEATURE_STORE", d.feature_store),
+            mesh_devices=getenv_int("MESH_DEVICES", d.mesh_devices),
+            mesh_seq=getenv_int("MESH_SEQ", d.mesh_seq),
+            mesh_expert=getenv_int("MESH_EXPERT", d.mesh_expert),
             ml_backend=getenv_str("ML_BACKEND", d.ml_backend),
             scoring=ScoringConfig.from_env(),
             batcher=BatcherConfig(

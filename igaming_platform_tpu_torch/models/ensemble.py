@@ -5,10 +5,11 @@ pipeline: engine.go:262-323). One function over a [B, 30] batch on one
 device; PyTorch runs it eagerly, op by op, where the JAX package compiles
 it into one XLA program.
 
-Backends: ``mock``, ``mlp``, ``gbdt``, ``mlp+gbdt``, ``multitask`` and their
+Backends: ``mock``, ``mlp``, ``gbdt``, ``mlp+gbdt``, ``multitask``, their
 int8 variants ``mlp_int8``, ``gbdt_int8``, ``mlp+gbdt_int8`` and
-``multitask_int8`` (``ops/quantize.py``). The routed mixture waits for the
-multi-device slice; its name, like any other unknown one, raises.
+``multitask_int8`` (``ops/quantize.py``), and ``routed``: all four experts
+as a routed mixture (``parallel/ep.py``), over the mesh's ``expert`` axis
+when it holds one shard per expert, else the unsharded dense reference.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from igaming_platform_tpu_torch.models.rules import apply_rules
 from igaming_platform_tpu_torch.ops.quantize import gbdt_predict_int8, mlp_predict_int8
 
 BACKENDS = ("mock", "mlp", "gbdt", "mlp+gbdt", "multitask",
-            "mlp_int8", "gbdt_int8", "mlp+gbdt_int8", "multitask_int8")
+            "mlp_int8", "gbdt_int8", "mlp+gbdt_int8", "multitask_int8", "routed")
 
 # Bit index of ML_HIGH_RISK in the reason mask (REASON_BIT_ORDER[8]).
 ML_HIGH_RISK_BIT = 8
@@ -80,10 +81,93 @@ def combine(
     return final, action, reason_mask
 
 
+def routed_experts() -> tuple[list, tuple[str, ...]]:
+    """The expert set of ``ml_backend="routed"``: each fn maps (params_i,
+    RAW [B, 30]) -> [B] probability and normalizes for itself (the mock in
+    ref-compat mode, the trained experts through the production
+    pipeline)."""
+
+    def prep(x):
+        return standardize_for_model(normalize(x))
+
+    fns = [
+        lambda p, x: mock_predict(normalize(x, ref_compat=True)),
+        lambda p, x: mlp_mod.mlp_predict(p, prep(x)),
+        lambda p, x: gbdt_mod.gbdt_predict(p, prep(x)),
+        lambda p, x: fraud_predict(p, prep(x)),
+    ]
+    return fns, ("mock", "mlp", "gbdt", "multitask")
+
+
+ROUTED_PARAM_KEYS = ("router", "mlp", "gbdt", "multitask")
+
+
+def init_routed_params(seed: int = 0, *, mlp_hidden=(128, 128), n_trees: int = 64,
+                       depth: int = 4, trunk=(256, 256)) -> dict:
+    """A fresh serving bundle for ``ml_backend="routed"`` on the CPU, drawn
+    from ``torch.Generator().manual_seed(seed)`` with the JAX
+    ``init_routed_params`` distributions (router of scale 0.01, the MLP,
+    forest and multitask inits): not the numbers of a JAX key. The mock
+    expert needs no params."""
+    from igaming_platform_tpu_torch.core.features import NUM_FEATURES
+    from igaming_platform_tpu_torch.models.multitask import init_multitask
+    from igaming_platform_tpu_torch.parallel.ep import init_router
+
+    gen = torch.Generator().manual_seed(seed)
+    return {
+        "router": init_router(gen, NUM_FEATURES, len(routed_experts()[0]), scale=0.01),
+        "mock": None,
+        "mlp": mlp_mod.init_mlp(gen, hidden=mlp_hidden).serving(),
+        "gbdt": gbdt_mod.init_gbdt(gen, n_trees=n_trees, depth=depth),
+        "multitask": init_multitask(gen, trunk=trunk).serving(),
+    }
+
+
+def routed_splits_rows(mesh) -> bool:
+    """Whether ``routed_ml`` runs expert-parallel over ``mesh`` (an expert
+    axis of one shard per expert), splitting the rows itself."""
+    from igaming_platform_tpu_torch.parallel.mesh import AXIS_EXPERT
+
+    return mesh is not None and int(mesh.shape.get(AXIS_EXPERT, 1)) == len(routed_experts()[0])
+
+
+def routed_ml(params: Any, x_raw: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The routed mixture's probability for raw rows: over ``mesh``'s expert
+    axis (rows split over every populated row axis, capacity sized to the
+    worst case so no row loses its score to a drop) when it holds one shard
+    per expert, else ``dense_reference`` (``make_score_fn`` refuses an
+    expert axis of another size)."""
+    from igaming_platform_tpu_torch.parallel.ep import dense_reference, routed_ensemble_forward
+    from igaming_platform_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_EXPERT
+
+    fns, keys = routed_experts()
+    eparams = tuple(params.get(k) for k in keys)
+    if routed_splits_rows(mesh):
+        row_axes = tuple(a for a in (AXIS_DATA, AXIS_EXPERT) if int(mesh.shape.get(a, 1)) > 1)
+        return routed_ensemble_forward(params["router"], eparams, x_raw, mesh=mesh,
+                                       expert_fns=fns, k=2, capacity_factor=float(len(fns)),
+                                       shard_rows_over=row_axes)["prob"]
+    return dense_reference(params["router"], eparams, x_raw, expert_fns=fns, k=2)
+
+
+def check_routed_mesh(mesh) -> None:
+    """A populated expert axis that cannot hold the expert set is a config
+    error: silently running dense would leave the operator believing
+    expert parallelism is on."""
+    from igaming_platform_tpu_torch.parallel.mesh import AXIS_EXPERT
+
+    n = len(routed_experts()[0])
+    expert_size = int(mesh.shape.get(AXIS_EXPERT, 1)) if mesh is not None else 1
+    if expert_size > 1 and expert_size != n:
+        raise ValueError(f"mesh expert axis is {expert_size} but the routed ensemble has "
+                         f"{n} experts (set MESH_EXPERT={n})")
+
+
 def make_score_fn(
     cfg: ScoringConfig,
     ml_backend: str = "mock",
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> Callable[..., dict[str, torch.Tensor]]:
     """Build the scoring step for an ML backend, on ``device``.
 
@@ -96,6 +180,8 @@ def make_score_fn(
       - "mlp_int8", "gbdt_int8", "mlp+gbdt_int8", "multitask_int8": the same
         with int8 params (``ops/quantize.py``; the multitask variant is its
         fraud path as an int8 MLP)
+      - "routed": the four experts as a routed mixture (``routed_ml``);
+        params carry ``ROUTED_PARAM_KEYS``; ``mesh`` gives its expert axis
 
     The returned fn has signature ``f(params, x_raw, blacklisted,
     thresholds=None)``: ``x_raw`` a [B, 30] float32 raw batch, ``blacklisted``
@@ -109,6 +195,8 @@ def make_score_fn(
     """
     if ml_backend not in BACKENDS:
         raise ValueError(f"unknown ml backend: {ml_backend}")
+    if ml_backend == "routed":
+        check_routed_mesh(mesh)
     dev = resolve_device(device)
     ref_compat = ml_backend == "mock"
 
@@ -144,6 +232,8 @@ def make_score_fn(
                         + gbdt_predict_int8(params["gbdt_int8"], xn))
         elif ml_backend == "multitask":
             ml = fraud_predict(params["multitask"], xn)
+        elif ml_backend == "routed":
+            ml = routed_ml(params, x_raw, mesh)
         else:
             ml = mlp_predict_int8(params["multitask_int8"], xn)
 

@@ -35,8 +35,12 @@ Params = dict[str, Any]
 
 
 def gbdt_raw(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """[B, F] -> [B] raw margin (sum of leaf values + bias)."""
+    """[B, F] -> [B] raw margin (sum of leaf values + bias). A forest sharded
+    over the mesh's ``expert`` axis (``parallel/sharding.ShardedForest``)
+    sums its shards' margins."""
     x = torch.as_tensor(x, dtype=torch.float32).contiguous()
+    if "shards" in params:
+        return params.raw(x)
     return gbdt_forest(x, params["feat"], params["thr"], params["leaves"], params["bias"])
 
 

@@ -6,8 +6,9 @@ value, churn logit). Every layer is the bf16-operand, float32-result
 ``Dense`` of ``models/mlp.py``. ``TrainMultiTask`` is the trainable twin
 (``TrainDense`` layers, float32 master weights); ``init_multitask`` draws
 it as the JAX ``init_multitask`` does (He-normal trunk, heads of scale
-``sqrt(1/d)``, zero biases) from an explicit ``torch.Generator``. The
-sharding rules (``param_specs``) wait for the port's multi-device slice.
+``sqrt(1/d)``, zero biases) from an explicit ``torch.Generator``.
+``param_specs`` gives its layout over a mesh (``parallel/sharding.py``):
+the trunk alternating over ``model``, the heads replicated.
 """
 
 from __future__ import annotations
@@ -57,6 +58,22 @@ def fraud_predict(model: MultiTask, x: torch.Tensor) -> torch.Tensor:
     """[B, 30] -> [B] fraud probability. Runs the trunk and the fraud head
     only: the LTV and churn heads do not feed the fraud score."""
     return numerics.sigmoid(model.fraud_head(model.trunk_features(x))[..., 0])
+
+
+def param_specs(params) -> dict:
+    """Tensor-parallel layout of a multitask net (a JAX-layout tree or a
+    ``MultiTask``): trunk layers alternating over ``model``, heads
+    replicated; specs as tuples of axis names."""
+    from igaming_platform_tpu_torch.parallel.sharding import P, hidden_specs
+
+    trunk = params["trunk"]["layers"] if isinstance(params, dict) else params.trunk
+    head_spec = {"w": P(None, None), "b": P(None)}
+    return {
+        "trunk": {"layers": hidden_specs(len(trunk), head=False)},
+        "fraud_head": head_spec,
+        "ltv_head": head_spec,
+        "churn_head": head_spec,
+    }
 
 
 DEFAULT_TRUNK = (256, 256)

@@ -20,8 +20,21 @@ on a card), not cuBLAS's, whose order follows M: so a player's score does
 not depend on the batch it rides in (one ``check()`` and the same account
 inside ``check_batch``, a session-head row in any chunk), on the card as on
 the CPU. Its gradient keeps ``torch.matmul``: training needs no fixed order.
-The ring and Ulysses attention strategies (sequence sharding over a mesh)
-are not ported yet.
+
+Over a mesh (``forward(x, mesh=, seq_mode=)``) the attention core shards
+the batch over ``data`` and the sequence over ``seq``, as the JAX
+``_attention`` does inside ``shard_map``; everything else runs whole:
+
+- ``ring``: each shard keeps its queries while the key/value blocks rotate
+  around the ``seq`` ring (``ppermute``), the softmax accumulated online
+  (running max, normaliser and output, rescaled per block); plain torch
+  ops, as it is plain XLA in JAX, so it is held to dense attention with a
+  tolerance (in float64 for large-amplitude inputs, where the float32
+  dense reference misses its own bar);
+- ``ulysses``: an all-to-all trades the sequence shard for a head shard,
+  the dense core (the forward kernel on a card) runs on the full sequence
+  for H/n heads, and the exchange reverses; heads are independent, so it
+  equals dense attention.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from igaming_platform_tpu_torch.core.device import constant
+from igaming_platform_tpu_torch.parallel import collectives as coll
 from igaming_platform_tpu_torch.ops.dense import dense_f32
 from igaming_platform_tpu_torch.ops.flash_attention import flash_attention
 
@@ -136,6 +150,84 @@ class LayerNorm(nn.Module):
         return (x - mu) * torch.rsqrt(var + self.eps) * self.scale + self.bias
 
 
+def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, Dh] full attention: the forward kernel on a card, the plain
+    version on the CPU (``ops/flash_attention.py``)."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+
+
+def _ring_attention_local(qs, ks, vs) -> list[torch.Tensor]:
+    """Ring attention over the ``seq`` shards of one data block: ``qs``,
+    ``ks``, ``vs`` are lists of [B, H, S_local, Dh]. Key/value blocks
+    rotate one step a round; each shard folds the block it holds into its
+    running max ``m``, normaliser ``l`` and output ``o``. No [S, S] matrix
+    and no full-sequence KV exist on one shard."""
+    scale = 1.0 / math.sqrt(qs[0].shape[-1])
+    state = []
+    for q in qs:
+        b, h, s_loc, dh = q.shape
+        state.append((torch.full((b, h, s_loc), -math.inf, dtype=q.dtype, device=q.device),
+                      torch.zeros((b, h, s_loc), dtype=q.dtype, device=q.device),
+                      torch.zeros((b, h, s_loc, dh), dtype=q.dtype, device=q.device)))
+    k_cur, v_cur = list(ks), list(vs)
+    for _ in range(len(qs)):
+        for i, q in enumerate(qs):
+            m, l, o = state[i]
+            sc = torch.einsum("bhqd,bhkd->bhqk", q, k_cur[i]) * scale
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, v_cur[i])
+            state[i] = (m_new, l, o)
+        k_cur = coll.ppermute_ring(k_cur)
+        v_cur = coll.ppermute_ring(v_cur)
+    return [o / l[..., None] for _, l, o in state]
+
+
+def _ulysses_attention_local(qs, ks, vs) -> list[torch.Tensor]:
+    """Ulysses over the ``seq`` shards of one data block: all-to-all from
+    sequence shards to head shards ([B, H/n, S, Dh] each), dense attention,
+    and back."""
+    def seq_to_heads(xs):
+        return coll.all_to_all(xs, split_axis=1, concat_axis=2)
+
+    outs = [_dense_attention(q, k, v)
+            for q, k, v in zip(seq_to_heads(qs), seq_to_heads(ks), seq_to_heads(vs))]
+    return coll.all_to_all(outs, split_axis=2, concat_axis=1)
+
+
+def sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
+                      seq_mode: str) -> torch.Tensor:
+    """[B, H, S, Dh] attention with the batch over ``data`` and the
+    sequence over ``seq`` (``ring`` or ``ulysses``), each data block's
+    shards on the mesh's devices; the result comes back whole on ``q``'s
+    device. B must divide by the data axis and S by the seq axis."""
+    from igaming_platform_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_SEQ
+
+    n_data, n_seq = int(mesh.shape[AXIS_DATA]), int(mesh.shape[AXIS_SEQ])
+    h, s = q.shape[1], q.shape[2]
+    if s % n_seq:
+        raise ValueError(f"sequence length {s} not divisible by seq axis {n_seq}")
+    if seq_mode == "ulysses" and h % n_seq:
+        raise ValueError(f"n_heads {h} not divisible by seq axis {n_seq}")
+    if seq_mode not in ("ring", "ulysses"):
+        raise ValueError(f"unknown seq_mode: {seq_mode}")
+    local = _ring_attention_local if seq_mode == "ring" else _ulysses_attention_local
+    home = q.device
+    rows = coll.row_bounds(q.shape[0], n_data)
+    out = []
+    for d, (lo, hi) in enumerate(rows):
+        devs = [mesh.devices[d, 0, j, 0] for j in range(n_seq)]
+
+        def split(t):
+            return [c.to(dv) for c, dv in zip(torch.chunk(t[lo:hi], n_seq, dim=2), devs)]
+
+        parts = local(split(q), split(k), split(v))
+        out.append(torch.cat([p.to(home) for p in parts], dim=2))
+    return torch.cat(out, dim=0)
+
+
 class Block(nn.Module):
     """Pre-norm transformer layer: attention, then a GELU feed-forward."""
 
@@ -146,16 +238,19 @@ class Block(nn.Module):
         self.ln1, self.wqkv, self.wo = ln1, wqkv, wo
         self.ln2, self.w1, self.w2 = ln2, w1, w2
 
-    def attention(self, x: torch.Tensor) -> torch.Tensor:
+    def attention(self, x: torch.Tensor, mesh=None, seq_mode: str = "dense") -> torch.Tensor:
         b, s, d = x.shape
         h = self.n_heads
         # [B, S, 3d] -> q, k, v as [B, H, S, Dh], each contiguous.
         qkv = self.wqkv(x).view(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4).contiguous()
-        out = flash_attention(qkv[0], qkv[1], qkv[2])
+        if mesh is None or seq_mode == "dense":
+            out = flash_attention(qkv[0], qkv[1], qkv[2])
+        else:
+            out = sharded_attention(qkv[0], qkv[1], qkv[2], mesh, seq_mode)
         return self.wo(out.transpose(1, 2).reshape(b, s, d))
 
-    def forward(self, hid: torch.Tensor) -> torch.Tensor:
-        hid = hid + self.attention(self.ln1(hid))
+    def forward(self, hid: torch.Tensor, mesh=None, seq_mode: str = "dense") -> torch.Tensor:
+        hid = hid + self.attention(self.ln1(hid), mesh, seq_mode)
         return hid + self.w2(gelu(self.w1(self.ln2(hid))))
 
 
@@ -187,15 +282,16 @@ class SequenceModel(nn.Module):
             h = torch.cat([folded, h[:, 2 * half:]], dim=1) if h.shape[1] % 2 else folded
         return h[:, 0] * (1.0 / s)
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Returns {"abuse": [B] in [0, 1], "abuse_logit": [B], "hidden": [B, d]}."""
+    def forward(self, x: torch.Tensor, mesh=None, seq_mode: str = "dense") -> dict[str, torch.Tensor]:
+        """Returns {"abuse": [B] in [0, 1], "abuse_logit": [B], "hidden": [B, d]};
+        ``mesh``/``seq_mode`` shard the attention (``sharded_attention``)."""
         dev = self.head.w.device
         x = torch.as_tensor(x, dtype=torch.float32, device=dev)
         s, d = x.shape[1], self.cfg.d_model
         hpos = constant(f"seq_positions_{s}_{d}", _positions_table(s, d), dev)
         hid = self.embed(x) + hpos[None]
         for layer in self.layers:
-            hid = layer(hid)
+            hid = layer(hid, mesh, seq_mode)
         pooled = self.pool(self.ln_f(hid))
         logit = self.head(pooled)[..., 0]
         # The sigmoid in float64, rounded once: torch's float32 one takes

@@ -29,8 +29,9 @@ Histogram edges are fixed and scale-free: features bin by
 ``sign(v) * log1p(|v|)`` over [-2, 18] in 16 bins, scores in 20 bins of
 five points. The layout and ``EDGES_SPEC`` are the JAX package's, so
 ``edges_fingerprint()`` is equal in both. A ``metrics=`` registry gets the
-``risk_drift_*`` families. Not ported yet: the host profiler's thread
-registration, ``fleet_drift_block`` and ``summary_block``.
+``risk_drift_*`` families. :func:`fleet_drift_block` merges the replicas'
+windows for the fleet view (``obs/fleetview.py``). Not ported: the host
+profiler's thread registration and ``summary_block``.
 """
 
 from __future__ import annotations
@@ -409,6 +410,76 @@ def psi_table(vec: np.ndarray, ref: DriftReference, top: int = 8) -> dict:
 
 # ---------------------------------------------------------------------------
 # Engine config
+
+
+def fleet_drift_block(replica_payloads: list[tuple[str, dict | None]]) -> dict:
+    """The ``fleet_drift`` block of ``/debug/fleetz``: merge every
+    replica's window sketch (loud per-replica merge errors, never a
+    silent sum), and — when all replicas pin the SAME reference — the
+    fleet-wide PSI table over the merged state."""
+    rows = []
+    merge_errors: list[str] = []
+    windows: list[dict] = []
+    ref_fps: set[str] = set()
+    ref_payload: dict | None = None
+    for rid, driftz in replica_payloads:
+        if not driftz:
+            rows.append({"replica": rid, "window_rows": None, "alerts": None})
+            continue
+        window = driftz.get("window") or {}
+        rows.append({
+            "replica": rid,
+            "window_rows": window.get("rows"),
+            "alerts": driftz.get("alerts"),
+            "max_feature_psi": (driftz.get("input") or {}).get(
+                "max_feature_psi"),
+        })
+        ref = driftz.get("reference")
+        if ref:
+            ref_fps.add(str(ref.get("fingerprint")))
+            ref_payload = driftz.get("reference_state") or ref_payload
+        replica_fp = str((driftz.get("edges") or {}).get("fingerprint"))
+        if replica_fp != edges_fingerprint():
+            # Half-upgraded fleet: this replica bins differently —
+            # excluded LOUDLY, never summed into garbage PSI.
+            merge_errors.append(
+                f"{rid}: drift edge fingerprint mismatch ({replica_fp} vs "
+                f"{edges_fingerprint()}) — refusing a bucket-wise merge "
+                "across incompatible histogram edges")
+            continue
+        try:
+            merged_one = merge_drift_windows([{
+                "edges_fp": replica_fp,
+                "vec": window.get("vec", ()),
+            }])
+            windows.append({"edges_fp": merged_one["edges_fp"],
+                            "vec": merged_one["vec"]})
+        except ValueError as exc:
+            merge_errors.append(f"{rid}: {exc}")
+    block: dict = {"replicas": rows, "merge_errors": merge_errors}
+    try:
+        merged = merge_drift_windows(windows) if windows else None
+    except ValueError as exc:
+        merge_errors.append(f"fleet: {exc}")
+        merged = None
+    if merged is not None:
+        block["rows"] = merged["rows"]
+        block["edges_fp"] = merged["edges_fp"]
+        if len(ref_fps) == 1 and ref_payload is not None:
+            try:
+                ref = DriftReference.from_json(ref_payload)
+                table = psi_table(merged["vec"], ref)
+                block["fleet_psi"] = {
+                    "top_features": table["top_features"],
+                    "max_feature_psi": table["max_feature_psi"],
+                    "score_psi": table["score_psi"],
+                    "reference_fingerprint": next(iter(ref_fps)),
+                }
+            except ValueError as exc:
+                merge_errors.append(f"fleet-reference: {exc}")
+        elif len(ref_fps) > 1:
+            block["reference_mismatch"] = sorted(ref_fps)
+    return block
 
 
 @dataclass(frozen=True)

@@ -7,7 +7,7 @@ The north star is p99 < 50 ms; every request decomposes into stages
 (obs/tracing.py), but that alone tracks no SLO *attainment*: are we burning error
 budget, how fast, and which stage is eating it. This module is the
 per-replica half of the SLO control plane (obs/fleetview.py aggregates
-it fleet-wide; not ported yet):
+it fleet-wide):
 
 - **Objective**: a latency bound (``SLO_OBJECTIVE_MS``, default 50) with
   an attainment target (``SLO_TARGET``, default 0.99 — i.e. "p99 under

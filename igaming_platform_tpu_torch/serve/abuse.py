@@ -9,7 +9,11 @@ for the MULTI_ACCOUNT signal (risk.proto reason codes). Every ``check`` and
 the flash-attention kernel once per layer on a CUDA device
 (``device_steps`` counts the passes).
 
-Not ported yet: the mesh-sharded sequence modes (ring / Ulysses).
+With ``mesh=`` and ``seq_mode="ring"`` or ``"ulysses"`` the attention
+shards the batch over ``data`` and each history over ``seq``
+(``models/sequence.sharded_attention``); the batch pads to a multiple of
+the ``data`` axis and the padding is cut off the scores. Without a mesh
+the mode is ``dense``.
 """
 
 from __future__ import annotations
@@ -65,10 +69,18 @@ class SequenceAbuseDetector:
         threshold: float = 0.5,
         policy: str = "model",
         device: str | torch.device = "cuda",
+        mesh=None,
+        seq_mode: str = "dense",
     ):
         if policy not in ("model", "heuristic", "shed"):
             raise ValueError(f"unknown abuse policy: {policy!r}")
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.device if mesh is not None else device)
+        self.mesh = mesh
+        self.seq_mode = seq_mode if mesh is not None else "dense"
+        if self.seq_mode not in ("dense", "ring", "ulysses"):
+            raise ValueError(f"unknown seq_mode: {seq_mode}")
+        self._batch_multiple = (int(mesh.shape["data"])
+                                if mesh is not None and self.seq_mode != "dense" else 1)
         # 2 heads of 32, as the JAX detector serves.
         self.cfg = cfg or SeqConfig(d_model=64, n_heads=2, n_layers=2, d_ff=128)
         self.params = self._install(
@@ -158,14 +170,19 @@ class SequenceAbuseDetector:
         from igaming_platform_tpu_torch.serve.scorer import _device_dispatch
 
         hist = self._history_matrix(account_ids, seq_len)
+        n = hist.shape[0]
+        if n % self._batch_multiple:
+            # On a mesh the batch shards over ``data``: pad, score, cut.
+            padded = -(-n // self._batch_multiple) * self._batch_multiple
+            hist = np.concatenate([hist, np.zeros((padded - n, *hist.shape[1:]), hist.dtype)])
         _device_dispatch("abuse_seq_step", hist.shape, hist.dtype)
         x = torch.from_numpy(hist).to(self.device)
         model = self.params  # one read: a concurrent swap_params lands whole
         with torch.inference_mode():
-            abuse = model(x)["abuse"]
+            abuse = model(x, self.mesh, self.seq_mode)["abuse"]
         with self._lock:
             self.device_steps += 1
-        return abuse.cpu().numpy()
+        return abuse[:n].cpu().numpy()
 
     def _heuristic_one(self, account_id: str) -> tuple[float, list[str]]:
         """Scalar pattern-matching over the encoded ring buffer, the

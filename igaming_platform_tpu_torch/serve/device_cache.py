@@ -35,9 +35,15 @@ The port writes the table in place where the JAX package rebinds a new
 array. Every device write goes on the engine's one CUDA stream, under its
 dispatch lock (``on_stream``), so a delta copy enqueued after a step runs
 after that step has read the old rows. A ``metrics=`` registry
-(``bind_metrics``) gets the ``feature_cache_*`` families. The slot-sharded
-layout over a mesh (``parallel/state_sharding.py``) is not ported yet:
-``mesh`` raises, ``shard_stats`` gives the unsharded answer.
+(``bind_metrics``) gets the ``feature_cache_*`` families.
+
+On a mesh with a ``data`` axis > 1 (and ``STATE_SHARDING`` not ``0``) the
+table and flags split by slot over ``data`` (``parallel/state_sharding.py``):
+capacity rounds up to a multiple of the shards, each shard holds its
+block of slots, the step's gather is the exact owner-select collective and
+the delta copy and flag write land each row on its owner only.
+``shard_stats`` (``/debug/cachez``) gives each shard's occupancy, from the
+host index, and its device bytes.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ import torch
 
 from igaming_platform_tpu_torch.core.device import host_to_device, resolve_device
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES, F
+from igaming_platform_tpu_torch.parallel.state_sharding import per_shard_nbytes, plan_for
 
 _TXA, _TD, _TW, _TB = (int(F.TX_AMOUNT), int(F.TX_TYPE_DEPOSIT), int(F.TX_TYPE_WITHDRAW),
                        int(F.TX_TYPE_BET))
@@ -62,7 +69,7 @@ def compose_features(table: torch.Tensor, idxs: torch.Tensor, amounts: torch.Ten
     """The table's rows at ``idxs`` with the four context columns
     overwritten (amount and the deposit/withdraw/bet one-hots of the wire
     code): [B, 30] float32."""
-    x = table.index_select(0, idxs)
+    x = table.index_select(0, idxs)  # a slot-sharded table gathers from its owners
     x[:, _TXA] = amounts
     x[:, _TD] = (types == 0).to(x.dtype)
     x[:, _TW] = (types == 1).to(x.dtype)
@@ -89,15 +96,19 @@ class DeviceFeatureCache:
                  max_age_s: float | None = None, metrics: Any = None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a slot-sharded feature cache over a mesh is not ported yet (ROADMAP.md)")
         self.device = resolve_device(device)
+        # Slot sharding: capacity rounds up so every shard holds an equal block.
+        self.plan = plan_for(mesh)
+        if self.plan is not None:
+            capacity = self.plan.round_capacity(int(capacity))
         self.capacity = int(capacity)
         self.features = feature_store
         self.clock: Callable[[], float] = getattr(feature_store, "clock", time.time)
         self.max_age_s = max_age_s
-        self.plan = None  # the unsharded layout
+        # Per-shard occupancy, from the host index (slot // rows_per_shard).
+        self._n_shards = 1 if self.plan is None else self.plan.n_shards
+        self._shard_rows = self.capacity // self._n_shards
+        self._shard_occ = np.zeros(self._n_shards, dtype=np.int64)
         self._lock = threading.Lock()
         # Held from a lookup to the launch of the step that reads its slots,
         # so no other lookup reclaims them in between.
@@ -124,9 +135,14 @@ class DeviceFeatureCache:
         self._metrics = metrics
 
         with self._on_stream():
-            self.table = torch.zeros((self.capacity, NUM_FEATURES), dtype=torch.float32,
-                                     device=self.device)
-            self.flags = torch.zeros((self.capacity,), dtype=torch.bool, device=self.device)
+            if self.plan is not None:
+                self.table = self.plan.zeros(self.capacity, (NUM_FEATURES,))
+                self.flags = self.plan.zeros(self.capacity, (), torch.bool)
+            else:
+                self.table = torch.zeros((self.capacity, NUM_FEATURES), dtype=torch.float32,
+                                         device=self.device)
+                self.flags = torch.zeros((self.capacity,), dtype=torch.bool,
+                                         device=self.device)
 
     # -- metrics and surfaces -------------------------------------------------
 
@@ -153,10 +169,10 @@ class DeviceFeatureCache:
             m.feature_cache_evictions_total.inc(evicts)
         if deltas:
             m.feature_cache_deltas_total.inc(deltas)
-        occupancy = self.capacity - self._free
-        m.feature_cache_occupancy.set(occupancy)
-        m.cache_shard_occupancy.set(occupancy, shard="0")
-        m.hbm_bytes.set(self.hbm_bytes(), shard="0", table="feature_cache")
+        m.feature_cache_occupancy.set(self.capacity - self._free)
+        for shard, (occ, nbytes) in enumerate(zip(self._shard_occ, self.hbm_bytes_per_shard())):
+            m.cache_shard_occupancy.set(int(occ), shard=str(shard))
+            m.hbm_bytes.set(nbytes, shard=str(shard), table="feature_cache")
 
     def stats(self) -> dict[str, int]:
         with self._lock:
@@ -167,22 +183,28 @@ class DeviceFeatureCache:
                 "deltas_applied": self.deltas_applied,
                 "occupancy": self.capacity - self._free,
                 "capacity": self.capacity,
-                "shards": 1,
+                "shards": self._n_shards,
             }
 
     def hbm_bytes(self) -> int:
-        """Device bytes of the table and the flags column."""
-        return self.capacity * (NUM_FEATURES * 4 + 1)
+        """Device bytes of the table and the flags column (every shard's)."""
+        return sum(self.hbm_bytes_per_shard())
+
+    def hbm_bytes_per_shard(self) -> list[int]:
+        """Each shard's device bytes of table and flags (a sharded layout's
+        shards each hold one scratch row past their slots)."""
+        return [t + f for t, f in zip(per_shard_nbytes(self.table), per_shard_nbytes(self.flags))]
 
     def shard_stats(self) -> dict:
-        """The unsharded layout's answer: one shard holds every slot."""
+        """Per-shard breakdown for ``/debug/cachez``: each shard's occupancy
+        (from the host index) and device bytes."""
         with self._lock:
             return {
-                "sharded": False,
-                "shards": 1,
-                "rows_per_shard": self.capacity,
-                "occupancy": [self.capacity - self._free],
-                "hbm_bytes": [self.hbm_bytes()],
+                "sharded": self.plan is not None,
+                "shards": self._n_shards,
+                "rows_per_shard": self._shard_rows,
+                "occupancy": [int(v) for v in self._shard_occ],
+                "hbm_bytes": self.hbm_bytes_per_shard(),
             }
 
     # -- write-back hook ------------------------------------------------------
@@ -203,7 +225,9 @@ class DeviceFeatureCache:
 
             _device_dispatch("cache_flag_set", (1,), np.bool_)
             with self._lock, self._on_stream():
-                self.flags[host_to_device(idxs.astype(np.int64), self.device)] = bool(value)
+                self.flags.index_copy_(0, host_to_device(idxs.astype(np.int64), self.device),
+                                       torch.full((1,), bool(value), dtype=torch.bool,
+                                                  device=self.device))
 
     # -- slot management ------------------------------------------------------
 
@@ -218,6 +242,7 @@ class DeviceFeatureCache:
                 self._hand = (self._hand + 1) % self.capacity
                 if self._slot_keys[slot] is None:
                     self._free -= 1
+                    self._shard_occ[slot // self._shard_rows] += 1
                     return slot
         if len(pinned) >= self.capacity:
             raise ValueError(f"a lookup of more distinct accounts than the cache's "

@@ -1080,6 +1080,8 @@ def serve_wallet(service: WalletGrpcService, port: int, max_workers: int = 32):
             wallet_codec.WALLET_SERVICE, {name: handler(name) for name in wallet_codec.METHODS}),
         grpc.method_handlers_generic_handler("grpc.health.v1.Health", {
             "Check": grpc.unary_unary_rpc_method_handler(_rpc(grpc, health.check))}),
+        # grpcurl without protos, as the JAX wallet server registers it.
+        reflection.grpc_handler(grpc, (wallet_codec.WALLET_SERVICE, "grpc.health.v1.Health")),
     ))
     bound = server.add_insecure_port(f"[::]:{port}")
     server.start()

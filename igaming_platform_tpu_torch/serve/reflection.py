@@ -5,8 +5,9 @@ risk server registers reflection so grpcurl can drive it without local
 proto files. The card's machine has neither protobuf nor grpcio, so this
 module answers from data: ``reflection_descriptors.bin`` holds the
 serialized FileDescriptorProtos of ``risk/v1/risk.proto``, its dependency
-``google/protobuf/timestamp.proto``, ``grpc/health/v1/health.proto`` and
-``grpc/reflection/v1alpha/reflection.proto`` (written by the repository's
+``google/protobuf/timestamp.proto``, ``grpc/health/v1/health.proto``,
+``grpc/reflection/v1alpha/reflection.proto`` and ``wallet/v1/wallet.proto``
+(written by the repository's
 ``tools/export_reflection_descriptors.py`` from the generated modules).
 
 ``ReflectionService.respond(request_bytes)`` answers one

@@ -94,7 +94,22 @@ copies and the ring's admission copies go on that stream too, so a write
 never overtakes a step enqueued before it. There is no host-CPU tier: on a
 CUDA engine a small batch goes to the card like a large one, and the CPU
 runs a batch only when the caller built the engine with ``device="cpu"``.
-Not ported yet: the host tier and the slot-sharded cache and ring.
+Not ported: the host tier.
+
+Over a mesh (``mesh=``, ``parallel/mesh.py``) the engine serves as the JAX
+engine does over its serving mesh: every launched batch splits its rows
+over ``data`` (the ``routed`` backend over a full expert axis over ``data x
+expert``, inside ``parallel/ep.py``), shard by shard, and the packed [5, B] result is the
+unsharded engine's, bit for bit, since a row's bits do not depend on its
+batch; ``batch_size`` must divide by that split (``_row_divisor``) and
+ladder shapes that do not are dropped. With ``MODEL_SHARDING`` (on unless
+``0``) and a ``model`` or ``expert`` axis > 1 the params shard too
+(``parallel/sharding.py``: the tree bank over ``expert``, the MLP and
+multitask trunks over ``model``; never ``routed``), which changes the order
+of their sums, not their values or fingerprint. The feature cache and the
+session ring split by slot over ``data`` (``parallel/state_sharding.py``,
+``STATE_SHARDING``). The mesh's first device is the engine's device: the
+batch arrives there and the packed result leaves from there.
 """
 
 from __future__ import annotations
@@ -116,7 +131,7 @@ from igaming_platform_tpu_torch.core.config import BatcherConfig, ScoringConfig
 from igaming_platform_tpu_torch.core.device import host_to_device, resolve_device
 from igaming_platform_tpu_torch.core.enums import ReasonCode, action_from_code, decode_reason_mask
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES, FeatureVector
-from igaming_platform_tpu_torch.models.ensemble import make_score_fn
+from igaming_platform_tpu_torch.models.ensemble import make_score_fn, routed_splits_rows
 from igaming_platform_tpu_torch.obs import perfmodel, runtime_telemetry
 from igaming_platform_tpu_torch.obs.drift import cached_sketch_kernel, sketch_kernel
 from igaming_platform_tpu_torch.obs.perfmodel import OnlineStepModel
@@ -166,6 +181,40 @@ class ScoreResponse:
     # The ledger's join key (serve/ledger.py): set when a decision ledger is
     # bound, "" otherwise.
     decision_id: str = ""
+
+
+def _row_divisor(mesh, ml_backend: str) -> int:
+    """How many ways the mesh splits a batch's rows: the data axis, times
+    the expert axis for the routed backend (GShard row layout)."""
+    from igaming_platform_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_EXPERT, mesh_axis_size
+
+    d = mesh_axis_size(mesh, AXIS_DATA)
+    if ml_backend == "routed":
+        d *= mesh_axis_size(mesh, AXIS_EXPERT)
+    return max(1, d)
+
+
+def data_sharded(score_fn: Callable, mesh) -> Callable:
+    """``score_fn`` run shard by shard over the mesh's ``data`` axis: each
+    shard's contiguous block of rows is scored in turn and the outputs
+    concatenate. Row-wise, so the outputs equal the unsharded ones bit for
+    bit. The params live on the mesh's first device, and every block is
+    scored there: the row layout of a data-parallel step, not its compute
+    spread over several cards."""
+    from igaming_platform_tpu_torch.parallel import collectives as coll
+
+    n = len(coll.axis_devices(mesh))
+    home = mesh.device
+
+    def sharded(params, x_raw, blacklisted, thresholds=None):
+        x_raw = torch.as_tensor(x_raw, dtype=torch.float32, device=home)
+        blacklisted = torch.as_tensor(blacklisted, dtype=torch.bool, device=home)
+        outs = [score_fn(params, xs, bs, thresholds)
+                for xs, bs in zip(torch.tensor_split(x_raw, n),
+                                  torch.tensor_split(blacklisted, n))]
+        return {k: coll.unshard_rows([o[k] for o in outs]) for k in outs[0]}
+
+    return sharded
 
 
 def _stack_packed(out: dict) -> torch.Tensor:
@@ -291,6 +340,10 @@ def params_fingerprint(params: Any) -> str:
         return h.hexdigest()
     for key in sorted(params):
         value = params[key]
+        if value is None:
+            continue
+        if isinstance(value, torch.Tensor):
+            value = {"": value}
         tensors = value.state_dict() if hasattr(value, "state_dict") else value
         for name, t in tensors.items():
             arr = t.detach().cpu().numpy()
@@ -312,14 +365,31 @@ class TorchScoringEngine:
         warmup: bool = True,
         feature_cache: bool | int | None = None,
         session_state: bool | None = None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self.config = config or ScoringConfig()
         self.ml_backend = ml_backend
-        self._score_fn = make_score_fn(self.config, ml_backend, device=self.device)
-        self._params = self._install(params)
-        self.params_fingerprint = params_fingerprint(self._params)
+        score_fn = make_score_fn(self.config, ml_backend, device=self.device, mesh=mesh)
+        # The routed mixture over a full expert axis splits its own rows
+        # (over data x expert, parallel/ep.py); every other step splits here.
+        if (mesh is not None and mesh.shape["data"] > 1
+                and not (ml_backend == "routed" and routed_splits_rows(mesh))):
+            score_fn = data_sharded(score_fn, mesh)
+        self._score_fn = score_fn
+        # Model parallelism over the same mesh (MODEL_SHARDING, on unless 0):
+        # the forest's trees over ``expert``, the MLP and multitask trunks
+        # over ``model``; routed params keep parallel/ep.py's layout.
+        self._model_sharded = bool(
+            mesh is not None and ml_backend != "routed"
+            and os.environ.get("MODEL_SHARDING", "1") not in ("0", "false")
+            and (mesh.shape["model"] > 1 or mesh.shape["expert"] > 1))
+        self._params, self.params_fingerprint = self._install_fingerprinted(params)
         self._params_lock = threading.Lock()
+        # The multihost front refuses the index path (its table cannot ride
+        # the work channel).
+        self._cache_supported = True
         self.features = feature_store or InMemoryFeatureStore()
         self._wire_dtype, self._wire_encode = wire_codec(os.environ.get("WIRE_DTYPE", ""))
         # The drift engine (bind_drift) and the shadow scorer (set by its
@@ -364,6 +434,19 @@ class TorchScoringEngine:
         self._shapes = sorted(
             {t for t in bcfg.latency_tiers if 0 < t < self.batch_size} | {self.batch_size}
         )
+        if mesh is not None:
+            from igaming_platform_tpu_torch.parallel.mesh import validate_batch_for_mesh
+
+            validate_batch_for_mesh(self.batch_size, mesh)
+            # The routed backend splits rows over data x expert: the
+            # throughput shape must divide (a boot error, not a failed step);
+            # latency tiers that do not are dropped, as in the JAX engine.
+            divisor = _row_divisor(mesh, ml_backend)
+            if self.batch_size % divisor != 0:
+                raise ValueError(
+                    f"batch {self.batch_size} not divisible by the mesh row split ({divisor}: "
+                    f"data x expert for ml_backend={ml_backend})")
+            self._shapes = [s for s in self._shapes if s == self.batch_size or s % divisor == 0]
         # (device tensor, host pair), replaced as one: a dispatch reads both
         # at once (``thresholds_snapshot``).
         host_thr = (self.config.block_threshold, self.config.review_threshold)
@@ -633,16 +716,29 @@ class TorchScoringEngine:
     # -- params / thresholds -------------------------------------------------
 
     def _install(self, params: Any) -> Any:
-        missing = [k for k in BACKEND_KEYS[self.ml_backend] if not params or k not in params]
+        missing = [k for k in BACKEND_KEYS[self.ml_backend]
+                   if not params or k not in params or params[k] is None]
         if missing:
             raise ValueError(f"ml_backend={self.ml_backend!r} needs params {missing}")
         return params_to(params, self.device)
 
-    def swap_params(self, params: Any) -> None:
-        """Atomically install new model parameters (copied to the device
-        before the swap, so scoring never waits on the copy)."""
+    def _install_fingerprinted(self, params: Any) -> tuple[Any, str]:
+        """(installed params, their fingerprint): the fingerprint of the
+        values, taken before a model-sharded engine lays them over its mesh
+        (layout only, so sharding never changes it)."""
         installed = self._install(params)
         fingerprint = params_fingerprint(installed)
+        if self._model_sharded:
+            from igaming_platform_tpu_torch.parallel.sharding import shard_model_params
+
+            installed = shard_model_params(self.mesh, self.ml_backend, installed)
+        return installed, fingerprint
+
+    def swap_params(self, params: Any) -> None:
+        """Atomically install new model parameters (copied to the device
+        before the swap, so scoring never waits on the copy; laid over the
+        mesh as the boot params were)."""
+        installed, fingerprint = self._install_fingerprinted(params)
         with self._params_lock:
             self._params = installed
             self.params_fingerprint = fingerprint
@@ -879,6 +975,9 @@ class TorchScoringEngine:
         on. Called at warmup or by the first index-mode request."""
         if self.cache is not None:
             return self.cache
+        if not self._cache_supported:
+            raise RuntimeError("device feature cache unsupported on this engine "
+                               "(multihost front: the table cannot ride the work channel)")
         with self._cache_lock:
             if self.cache is not None:
                 return self.cache
@@ -893,6 +992,7 @@ class TorchScoringEngine:
             max_age = os.environ.get("FEATURE_CACHE_MAX_AGE_S")
             cache = DeviceFeatureCache(self.features, capacity=self._cache_capacity,
                                        device=self.device, on_stream=self._on_stream,
+                                       mesh=self.mesh,
                                        max_age_s=float(max_age) if max_age else None,
                                        metrics=self._cache_metrics_sink)
             # The store's write-back hook: every update marks the account's
@@ -930,7 +1030,8 @@ class TorchScoringEngine:
             step = session_mod.make_session_step(
                 self._score_fn, self.config, mgr.head_fn, capacity=mgr.capacity,
                 n_events=mgr.n_events, min_events=mgr.min_events,
-                flag_threshold=mgr.flag_threshold, sketch=sketch, shadow=shadow)
+                flag_threshold=mgr.flag_threshold, sketch=sketch, shadow=shadow,
+                plan=mgr.plan)
             self._session_fns[(sketch, shadow)] = step
         return step
 
@@ -971,7 +1072,7 @@ class TorchScoringEngine:
         from igaming_platform_tpu_torch.serve import session_state as session_mod
 
         mgr = session_mod.SessionStateManager(cache.capacity, device=self.device,
-                                              on_stream=self._on_stream,
+                                              on_stream=self._on_stream, mesh=self.mesh,
                                               metrics=self._session_metrics_sink)
         step = self._session_step_for(mgr, False, False)
         params = self.get_params()

@@ -87,7 +87,21 @@ not answer the boot fails with the probe's label unless
 ``SERVE_DEVICE_FALLBACK=cpu``, which serves on the host CPU with the abuse
 path under ``ABUSE_CPU_POLICY`` (default ``heuristic``), as the reference
 does. ``FRAUD_MODEL_PATH`` boots a trained multitask checkpoint from its
-``.npz`` (``resolve_model_boot``).
+``.npz`` (``resolve_model_boot``); ``ML_BACKEND=routed`` needs a bundle with
+the router and every expert (``models/ensemble.init_routed_params`` makes
+one for a dev boot).
+
+The serving mesh: ``MESH_DEVICES=N`` shards the scoring batch over the
+first N visible CUDA devices (-1: all; more than are visible fails the
+boot), ``MESH_SEQ`` and ``MESH_EXPERT`` carve the ``seq`` and ``expert``
+axes out of them; ``STATE_SHARDING`` and ``MODEL_SHARDING`` apply on it
+(``serve/scorer.py``). A ``seq`` axis turns on ring attention for the abuse
+detector. ``MULTIHOST_ROLE=front|follower`` runs one process of a
+multi-host engine (``serve/multihost.py``): the front serves the full risk
+server, its steps scored by every process over a gloo rendezvous
+(``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``, ``PROCESS_ID``;
+``MULTIHOST_FOLLOWER_PORTS`` on the front, ``MULTIHOST_WORK_PORT`` on a
+follower); a role refuses ``SERVE_DEVICE_FALLBACK=cpu``.
 
 The batch-feature refresh (``serve/batch_refresh.py``) runs as in the JAX
 server: with ``CLICKHOUSE_URL=http…`` it scans ClickHouse
@@ -112,7 +126,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
@@ -176,7 +190,40 @@ def resolve_model_boot(config, ml_backend: str = "mock", params=None):
                                exc_info=True)
     if config.ml_backend:
         ml_backend = config.ml_backend
+    if ml_backend == "routed":
+        from igaming_platform_tpu_torch.models.ensemble import ROUTED_PARAM_KEYS
+
+        missing = [k for k in ROUTED_PARAM_KEYS
+                   if not isinstance(params, dict) or params.get(k) is None]
+        if missing:
+            raise RuntimeError(
+                "ML_BACKEND=routed requires a checkpoint bundle with params for "
+                f"{ROUTED_PARAM_KEYS}; missing {missing}. Build one from trained checkpoints "
+                "(or models.ensemble.init_routed_params for dev boots).")
     return ml_backend, params
+
+
+def serving_mesh(config: RiskServiceConfig):
+    """The serving mesh ``MESH_DEVICES``/``MESH_SEQ``/``MESH_EXPERT`` ask for
+    over the visible CUDA devices, or None (unset, or one device). Asking
+    for more devices than are visible, or axes that do not divide them,
+    fails the boot."""
+    if not config.mesh_devices:
+        return None
+    from igaming_platform_tpu_torch.parallel.mesh import MeshSpec, create_mesh, devices_from_env
+
+    devs = devices_from_env(config.mesh_devices)
+    n = len(devs)
+    seq, expert = max(1, config.mesh_seq), max(1, config.mesh_expert)
+    if n % (seq * expert) != 0:
+        raise RuntimeError(f"MESH_SEQ({seq}) * MESH_EXPERT({expert}) must divide "
+                           f"MESH_DEVICES={n}")
+    if n <= 1:
+        return None
+    mesh = create_mesh(MeshSpec(data=n // (seq * expert), seq=seq, expert=expert), devices=devs)
+    logger.info("serving mesh: data=%d seq=%d expert=%d over %d devices",
+                n // (seq * expert), seq, expert, n)
+    return mesh
 
 
 def load_multitask(path: str) -> dict:
@@ -233,7 +280,8 @@ def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend
                           broker: InMemoryBroker | None = None, device: str = "cuda",
                           abuse_policy: str = "model", warmup: bool = True,
                           feature_cache: bool | int | None = None,
-                          session_state: bool | None = None) -> AssembledService:
+                          session_state: bool | None = None, mesh=None,
+                          engine_factory=None) -> AssembledService:
     """Build the store (``config.feature_store``, unless one is given), the
     engine, the abuse detector (``abuse_policy``), the bridge and the
     RiskGrpcService, on ``device``. ``feature_cache`` and ``session_state``
@@ -244,8 +292,17 @@ def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend
     opens the decision ledger there and binds it to the engine; whoever
     does not hand the assembly to a ``RiskServer`` closes it. With
     ``ONLINE_LOOP=1`` also builds the online loop, which the ``RiskServer``
-    starts. Binds no transport."""
+    starts. Binds no transport.
+
+    ``mesh`` (else ``serving_mesh(config)``) serves the engine over a mesh,
+    and the abuse detector in ring mode when it has a ``seq`` axis.
+    ``engine_factory(scoring_cfg, ml_backend=, params=, batcher_config=,
+    feature_store=)`` builds the engine instead (the multi-host front's);
+    under the supervisor it is the rebuild factory, and a multihost
+    engine's follower-state callbacks drive the ``multihost`` breaker."""
     config = config or RiskServiceConfig.from_env()
+    if mesh is None and engine_factory is None:
+        mesh = serving_mesh(config)
     plan = chaos.install_from_env()
     if plan is not None:
         logger.warning("CHAOS PLAN ACTIVE (seed=%d): %s", plan.seed, sorted(plan.specs))
@@ -258,10 +315,13 @@ def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend
              else make_feature_store(config.feature_store, config.redis_url))
 
     def build_engine() -> TorchScoringEngine:
+        if engine_factory is not None:
+            return engine_factory(config.scoring, ml_backend=ml_backend, params=params,
+                                  batcher_config=config.batcher, feature_store=store)
         return TorchScoringEngine(config.scoring, ml_backend=ml_backend, params=params,
                                   batcher_config=config.batcher, feature_store=store,
                                   device=device, warmup=warmup, feature_cache=feature_cache,
-                                  session_state=session_state)
+                                  session_state=session_state, mesh=mesh)
 
     supervisor = None
     if os.environ.get("SUPERVISOR", "1") != "0":
@@ -270,8 +330,16 @@ def assemble_risk_service(config: RiskServiceConfig | None = None, *, ml_backend
     else:
         engine = build_engine()
     inner = getattr(engine, "inner", engine)
+    if supervisor is not None and hasattr(inner, "supervisor") and inner.supervisor is None:
+        # A multihost front built by engine_factory: its follower-state
+        # callbacks open and close the multihost breaker.
+        inner.supervisor = supervisor
     metrics = ServiceMetrics("risk")
-    abuse = SequenceAbuseDetector(params=abuse_params, policy=abuse_policy, device=device)
+    # Sequence-parallel abuse scoring when the mesh has a ``seq`` axis.
+    seq_sharded = mesh is not None and int(mesh.shape.get("seq", 1)) > 1
+    abuse = SequenceAbuseDetector(params=abuse_params, policy=abuse_policy, device=device,
+                                  mesh=mesh if seq_sharded else None,
+                                  seq_mode="ring" if seq_sharded else "dense")
     bridge = ScoringBridge(engine, resolve_transport(broker, config.rabbitmq_url),
                            abuse_detector=abuse)
     service = RiskGrpcService(engine, abuse_detector=abuse.check,
@@ -870,9 +938,81 @@ def device_gate() -> str:
     raise SystemExit(1)
 
 
+def _multihost_mesh():
+    """The global mesh of a multihost role: every process's devices on
+    ``data``, joined by the gloo rendezvous of the environment."""
+    from igaming_platform_tpu_torch.parallel.distributed import global_mesh, initialize_from_env
+    from igaming_platform_tpu_torch.parallel.mesh import MeshSpec
+
+    if not initialize_from_env():
+        raise RuntimeError("MULTIHOST_ROLE requires the distributed env contract "
+                           "(COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID)")
+    return global_mesh(MeshSpec(data=-1), local_devices=[torch.device("cuda", 0)])
+
+
+def multihost_main(role: str) -> None:
+    """``MULTIHOST_ROLE=front|follower``: one process of a multi-host engine
+    (``serve/multihost.py``). A role never falls back to the CPU: one
+    process pinned to its host while its peers use the card would score a
+    different program."""
+    if os.environ.get("SERVE_DEVICE_FALLBACK", "").lower() == "cpu":
+        raise RuntimeError(
+            "SERVE_DEVICE_FALLBACK=cpu is not valid with MULTIHOST_ROLE: a per-process CPU "
+            "fallback would diverge the global mesh; fix the device or remove the fallback")
+    if role not in ("front", "follower"):
+        raise RuntimeError(f"MULTIHOST_ROLE={role!r} not recognized (front|follower)")
+    config = RiskServiceConfig.from_env()
+    if role == "follower":
+        port_env = os.environ.get("MULTIHOST_WORK_PORT", "")
+        if not port_env:
+            raise RuntimeError("MULTIHOST_ROLE=follower requires MULTIHOST_WORK_PORT")
+        device_gate()
+        mesh = _multihost_mesh()
+        ml_backend, params = resolve_model_boot(config)
+        from igaming_platform_tpu_torch.serve.multihost import follower_serve
+
+        logger.info("multihost follower: process %d/%d, work port %s", mesh.process_index,
+                    mesh.process_count, port_env)
+        otlp = exporter_from_env("risk-follower")
+        try:
+            follower_serve(int(port_env), config.scoring, ml_backend, params, mesh,
+                           batcher_config=config.batcher)
+        finally:
+            if otlp is not None:
+                otlp.stop()
+        return
+    ports = [int(p) for p in os.environ.get("MULTIHOST_FOLLOWER_PORTS", "").split(",") if p]
+    if not ports:
+        # An empty channel would make the first step wait for followers
+        # that do not exist: a config error fails the boot.
+        raise RuntimeError("MULTIHOST_ROLE=front requires MULTIHOST_FOLLOWER_PORTS "
+                           "(comma-separated follower work ports)")
+    device_gate()
+    mesh = _multihost_mesh()
+    from igaming_platform_tpu_torch.serve.multihost import multihost_engine
+
+    def factory(scoring_cfg, *, ml_backend, params, batcher_config, feature_store):
+        return multihost_engine(mesh, ports, config=scoring_cfg, ml_backend=ml_backend,
+                                params=params, batcher_config=batcher_config,
+                                feature_store=feature_store)
+
+    if config.mesh_devices:
+        # The multihost engine owns the devices: a second mesh from
+        # MESH_DEVICES would run steps the followers never mirror.
+        logger.warning("MULTIHOST_ROLE=front ignores MESH_DEVICES/MESH_SEQ/MESH_EXPERT: the "
+                       "multihost mesh owns the devices")
+        config = replace(config, mesh_devices=0)
+    server = RiskServer(assemble_risk_service(config, engine_factory=factory))
+    server.wait_for_signal()
+
+
 def main() -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    role = os.environ.get("MULTIHOST_ROLE", "").lower()
+    if role:
+        multihost_main(role)
+        return
     device, abuse_policy = device_gate(), "model"
     if device == "cpu":
         abuse_policy = os.environ.get("ABUSE_CPU_POLICY", "heuristic")

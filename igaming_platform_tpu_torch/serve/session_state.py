@@ -35,9 +35,15 @@ The host index (``_twin``) is authoritative: every decision's window can
 be rebuilt from it (``SessionChunkAudit`` hashes it lazily). The step's
 drift sketch and shadow variants (``make_session_step(sketch=, shadow=)``)
 reduce and re-score the same composed rows in the same step. A
-``metrics=`` registry (``bind_metrics``) gets the ``session_*`` families. The
-slot-sharded layout (``plan``) is not ported yet: it raises, and
-``shard_stats`` gives the unsharded answer.
+``metrics=`` registry (``bind_metrics``) gets the ``session_*`` families.
+
+On a mesh with a ``data`` axis > 1 (``STATE_SHARDING`` not ``0``) the ring,
+cursor and length split by slot over ``data`` with the feature cache's
+plan, so one slot id lives on the same shard in both tables
+(``parallel/state_sharding.py``). The sharded layout has no scratch slot:
+pad rows target ``sidx == capacity``, which no shard owns, so they read an
+empty window and their appends and counts vanish. Gathered, the sharded
+ring, cursor and length equal the unsharded ones bit for bit.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ import torch
 from igaming_platform_tpu_torch.core.device import host_to_device, resolve_device
 from igaming_platform_tpu_torch.core.enums import SESSION_COLD_BIT, SESSION_PATTERN_BIT
 from igaming_platform_tpu_torch.models.sequence import EVENT_DIM, SeqConfig, SequenceModel
+from igaming_platform_tpu_torch.parallel.state_sharding import per_shard_nbytes, plan_for
 
 # Per-event layout: models/sequence.encode_event - [log-amount, log-dt,
 # 8-way tx-type one-hot, game-weight, balance-ratio].
@@ -313,9 +320,9 @@ def make_session_step(score_fn, cfg, head_fn, *, capacity: int, n_events: int,
     candidate params ``cand`` scored on the same rows and folded with the
     same head probability, warm and cold rows as production, computed
     before the append; the head runs once and the ring is appended once.
-    The slot-sharded ``plan`` is not ported yet."""
-    if plan is not None:
-        raise NotImplementedError("the slot-sharded session step is not ported yet (ROADMAP.md)")
+    With a slot-sharding ``plan`` the ring, cursor and length are
+    ``SlotShardedArray``s: the reads gather from the owners and the append
+    and counts land on the owning shard only (a pad row's nowhere)."""
     from igaming_platform_tpu_torch.models.ensemble import ML_HIGH_RISK_BIT, combine
     from igaming_platform_tpu_torch.obs.drift import sketch_kernel
     from igaming_platform_tpu_torch.serve.device_cache import compose_rows
@@ -355,8 +362,14 @@ def make_session_step(score_fn, cfg, head_fn, *, capacity: int, n_events: int,
 
         # The append, after every read of the batch-start state above.
         wpos = torch.remainder(cursor.index_select(0, sidx) + occ, n_events)
-        ring[sidx.index_select(0, app), wpos.index_select(0, app)] = events.index_select(0, app)
         ones = torch.ones_like(sidx, dtype=cursor.dtype)
+        if plan is not None:
+            ring.put_rows_at(sidx.index_select(0, app), wpos.index_select(0, app),
+                             events.index_select(0, app))
+            cursor.index_add_(0, sidx, ones).apply_(lambda t: t.remainder_(n_events))
+            length.index_add_(0, sidx, ones).apply_(lambda t: t.clamp_(max=n_events))
+            return (packed, ring, cursor, length, *extra)
+        ring[sidx.index_select(0, app), wpos.index_select(0, app)] = events.index_select(0, app)
         cursor.index_add_(0, sidx, ones).remainder_(n_events)
         length.index_add_(0, sidx, ones).clamp_(max=n_events)
         # The scratch slot stays empty, so a pad row never looks warm. Fill
@@ -414,8 +427,6 @@ class SessionStateManager:
                  n_events: int | None = None, min_events: int | None = None,
                  flag_threshold: float | None = None, head: str | None = None,
                  metrics: Any = None):
-        if mesh is not None:
-            raise NotImplementedError("a slot-sharded session ring is not ported yet (ROADMAP.md)")
         self.device = resolve_device(device)
         self.capacity = int(capacity)
         self.n_events = int(n_events if n_events is not None else default_events())
@@ -432,8 +443,9 @@ class SessionStateManager:
                             else None)
         self.head_fn = (transformer_scores if self.head == "transformer"
                         else (lambda sparams, win, lp: pattern_scores(win, lp)))
-        self.plan = None  # the unsharded layout
-        self.n_shards = 1
+        # The feature cache's plan (its capacity arrives rounded already).
+        self.plan = plan_for(mesh)
+        self.n_shards = 1 if self.plan is None else self.plan.n_shards
         self._on_stream = on_stream or contextlib.nullcontext
 
         self.lock = threading.RLock()
@@ -447,14 +459,20 @@ class SessionStateManager:
         self.bypass_rows = 0
         self._metrics = metrics
 
-        self._ring_rows = self.capacity + 1  # + the scratch slot
         with self._on_stream():
-            self.session_ring = torch.zeros((self._ring_rows, self.n_events, EVENT_WIDTH),
-                                            dtype=torch.float32, device=self.device)
-            self.session_cursor = torch.zeros((self._ring_rows,), dtype=torch.int32,
-                                              device=self.device)
-            self.session_length = torch.zeros((self._ring_rows,), dtype=torch.int32,
-                                              device=self.device)
+            if self.plan is not None:
+                self._ring_rows = self.capacity  # no scratch slot: pad rows vanish
+                self.session_ring = self.plan.zeros(self.capacity, (self.n_events, EVENT_WIDTH))
+                self.session_cursor = self.plan.zeros(self.capacity, (), torch.int32)
+                self.session_length = self.plan.zeros(self.capacity, (), torch.int32)
+            else:
+                self._ring_rows = self.capacity + 1  # + the scratch slot
+                self.session_ring = torch.zeros((self._ring_rows, self.n_events, EVENT_WIDTH),
+                                                dtype=torch.float32, device=self.device)
+                self.session_cursor = torch.zeros((self._ring_rows,), dtype=torch.int32,
+                                                  device=self.device)
+                self.session_length = torch.zeros((self._ring_rows,), dtype=torch.int32,
+                                                  device=self.device)
 
     # -- surfaces -------------------------------------------------------------
 
@@ -486,15 +504,29 @@ class SessionStateManager:
             m.hbm_bytes.set(b, shard=str(shard), table="session_ring")
 
     def hbm_bytes(self) -> int:
-        return self._ring_rows * self.n_events * EVENT_WIDTH * 4 + 2 * self._ring_rows * 4
+        return sum(self.hbm_bytes_per_shard())
 
     def hbm_bytes_per_shard(self) -> list[int]:
-        return [self.hbm_bytes()]
+        """Each shard's device bytes of ring, cursor and length (a sharded
+        layout's shards each hold one scratch row past their slots)."""
+        return [r + c + n for r, c, n in zip(per_shard_nbytes(self.session_ring),
+                                             per_shard_nbytes(self.session_cursor),
+                                             per_shard_nbytes(self.session_length))]
 
     def shard_stats(self) -> dict:
-        """The unsharded layout's answer: one shard holds every slot."""
-        return {"sharded": False, "shards": 1, "rows_per_shard": self._ring_rows,
-                "hbm_bytes": self.hbm_bytes_per_shard()}
+        rows = self._ring_rows // self.n_shards if self.plan is not None else self._ring_rows
+        return {"sharded": self.plan is not None, "shards": self.n_shards,
+                "rows_per_shard": rows, "hbm_bytes": self.hbm_bytes_per_shard()}
+
+    def ring_state(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(ring, cursor, length) of every slot, gathered in slot order (the
+        unsharded layout's scratch slot left out)."""
+        with self.lock, self._on_stream():
+            if self.plan is not None:
+                return (self.session_ring.full(), self.session_cursor.full(),
+                        self.session_length.full())
+            c = self.capacity
+            return self.session_ring[:c], self.session_cursor[:c], self.session_length[:c]
 
     def snapshot(self) -> dict:
         """The /debug/sessionz payload."""
@@ -654,8 +686,14 @@ class SessionStateManager:
     def device_window(self, slot: int) -> np.ndarray:
         """The ring's window of one slot ([length, D], in order), read back."""
         with self.lock, self._on_stream():
-            ring = self.session_ring[slot].cpu().numpy()
-            cur = int(self.session_cursor[slot])
-            ln = int(self.session_length[slot])
+            if self.plan is not None:
+                at = torch.tensor([slot], dtype=torch.int64, device=self.device)
+                ring = self.session_ring.gather(at)[0].cpu().numpy()
+                cur = int(self.session_cursor.gather(at)[0])
+                ln = int(self.session_length.gather(at)[0])
+            else:
+                ring = self.session_ring[slot].cpu().numpy()
+                cur = int(self.session_cursor[slot])
+                ln = int(self.session_length[slot])
         pos = [(cur - ln + k) % self.n_events for k in range(ln)]
         return ring[pos]

@@ -18,8 +18,10 @@ layer, the flash-attention forward kernel and the two backward kernels (dQ,
 dK/dV) through ``ops/flash_attention.FlashAttention``. The loss stays on the
 device and is read once, at the end, as the JAX jit loop reads it.
 
-Not ported yet: the mesh (data-parallel batch) and the sequence-sharded
-``seq_mode``s, ring and Ulysses.
+Training over a mesh (a data-parallel batch, the sequence-sharded
+``seq_mode``s ring and Ulysses) waits for the multi-device training slice,
+``ROADMAP.md`` Queue 1 item 7; serving runs both modes already
+(``models/sequence.sharded_attention``).
 """
 
 from __future__ import annotations
@@ -140,7 +142,8 @@ def train_abuse_detector(cfg: AbuseTrainConfig = AbuseTrainConfig(), mesh=None,
     step's loss. Runs on the card unless ``device="cpu"``."""
     if mesh is not None or seq_mode in ("ring", "ulysses"):
         raise NotImplementedError(
-            "training over a mesh (data or sequence sharding) is not ported yet")
+            "training over a mesh (data or sequence sharding) waits for the multi-device "
+            "training slice, ROADMAP.md Queue 1 item 7")
     if seq_mode != "dense":
         raise ValueError(f"unknown seq_mode: {seq_mode}")
     if cfg.steps < 1:

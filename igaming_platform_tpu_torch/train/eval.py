@@ -17,8 +17,9 @@ calibration error:
 
 The trained models are the port's serving modules (the fixed-order dense
 kernel and the forest kernel on a card). ``routed_trained`` (the JAX
-package's mixture-of-experts bundle, ``train/routed.py``) waits for
-``ROADMAP.md`` Queue 1 item 6; the result says so under ``not_ported``.
+package's mixture-of-experts bundle, ``train/routed.py``) waits for the
+multi-device training slice, ``ROADMAP.md`` Queue 1 item 7; the result says
+so under ``not_ported``.
 
     python -m igaming_platform_tpu_torch.train.eval --out eval.json [--device cpu]
 
@@ -41,7 +42,8 @@ from igaming_platform_tpu_torch.core.features import normalize
 from igaming_platform_tpu_torch.train import gates as gates_mod
 from igaming_platform_tpu_torch.train.fraudgen import KIND_NAMES, generate_labeled
 
-NOT_PORTED = {"routed_trained": "train/routed.py waits for ROADMAP.md Queue 1 item 6"}
+NOT_PORTED = {"routed_trained": "train/routed.py waits for the multi-device training slice, "
+                                 "ROADMAP.md Queue 1 item 7"}
 
 # ---------------------------------------------------------------------------
 # Metrics (pure numpy)

@@ -31,8 +31,8 @@ is enqueued there.
 
 ``step_cost`` counts one step's floating-point operations and bytes for
 ``obs/perfmodel.py`` and leaves the trainer as it was. ``mesh=`` (data and
-tensor parallel training) waits for ``ROADMAP.md`` Queue 1 item 6 and raises
-NotImplementedError.
+tensor parallel training) waits for the multi-device training slice,
+``ROADMAP.md`` Queue 1 item 7, and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -202,7 +202,8 @@ class Trainer:
                  device: str | torch.device = "cuda", stream=None):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh training (data and tensor parallel) waits for ROADMAP.md Queue 1 item 6")
+                "mesh training (data and tensor parallel) waits for the multi-device training "
+                "slice, ROADMAP.md Queue 1 item 7")
         self.cfg = cfg or TrainConfig()
         self.device = resolve_device(device)
         self.stream = stream

@@ -78,9 +78,12 @@ def test_make_score_fn_matches_jax(backend):
 
 
 def test_unknown_backend_raises():
-    for name in ("routed", "mlp_int4", "gbdt_fp8", "nope"):
+    """Names neither package serves raise; ``routed`` builds since the
+    multi-device slice (tests/test_torch_parallel.py holds it to JAX)."""
+    for name in ("routed_int8", "mlp_int4", "gbdt_fp8", "nope"):
         with pytest.raises(ValueError, match="unknown ml backend"):
             make_score_fn(ScoringConfig(), name, device="cpu")
+    assert callable(make_score_fn(ScoringConfig(), "routed", device="cpu"))
 
 
 def test_combine_float32_association():

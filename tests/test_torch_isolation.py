@@ -8,9 +8,11 @@ it lives outside the port and imports nothing of it).
 Exceptions: ``serve/grpc_server.py`` imports ``grpc`` inside the body of
 ``serve_risk``, ``make_risk_stub`` and ``serve_wallet``, the optional gRPC
 bindings, which only
-runs when a caller asks for a gRPC port, and ``platform/risk_adapter.py``
+runs when a caller asks for a gRPC port, ``platform/risk_adapter.py``
 inside ``GrpcRiskGate._ensure_stub``, which only runs when a wallet scores
-over gRPC. Nothing else may import it, at any level.
+over gRPC, and ``serve/router.py`` inside ``_grpc``, which only runs when the
+router dials a replica or is served. Nothing else may import it, at any
+level.
 
 Checked twice: an AST walk over every import statement (including imports
 inside functions), and a fresh interpreter that imports every module of the
@@ -47,7 +49,8 @@ GRPC_ALLOWED = {("igaming_platform_tpu_torch/serve/grpc_server.py", "serve_risk"
                 ("igaming_platform_tpu_torch/serve/grpc_server.py", "make_risk_stub"),
                 ("igaming_platform_tpu_torch/serve/grpc_server.py", "serve_wallet"),
                 ("igaming_platform_tpu_torch/platform/risk_adapter.py",
-                 "GrpcRiskGate._ensure_stub")}
+                 "GrpcRiskGate._ensure_stub"),
+                ("igaming_platform_tpu_torch/serve/router.py", "_grpc")}
 
 
 def _imported(node):
@@ -118,6 +121,7 @@ def test_no_forbidden_import_statement():
     assert ("grpc", "serve_risk") in set(_imports(binding))  # the exception is still needed
     gate = PORT / "platform" / "risk_adapter.py"
     assert ("grpc", "GrpcRiskGate._ensure_stub") in set(_imports(gate))
+    assert ("grpc", "_grpc") in set(_imports(PORT / "serve" / "router.py"))
 
 
 PLANE = ("obs/metrics.py", "obs/tracing.py", "obs/flight.py", "obs/otlp.py", "obs/slo.py",
@@ -160,6 +164,24 @@ def test_stores_and_wallet_front_stand_alone(rel):
     assert not [m for m in phase if _forbidden(m)]
 
 
+MULTI_DEVICE = (*(f"parallel/{m}.py" for m in (
+    "__init__", "mesh", "collectives", "sharding", "ep", "state_sharding", "distributed")),
+    "serve/multihost.py", "serve/router.py", "obs/fleetview.py")
+
+
+@pytest.mark.parametrize("rel", MULTI_DEVICE)
+def test_multi_device_side_stands_alone(rel):
+    """The mesh, collectives, sharding, routed experts, slot-sharded state,
+    the gloo bootstrap, the multi-host front, the router and the fleet
+    view, held as the operations plane's modules are below; phase 17 of
+    the card's script imports nothing forbidden at any level."""
+    test_operations_plane_stands_alone(rel)
+    smoke = REPO / "chip_smoke.py"
+    phase = [m for m, f in _imports(smoke) if f is not None and f.startswith("fleet_")
+             or f == "phase_multi_device"]
+    assert not [m for m in phase if _forbidden(m)]
+
+
 @pytest.mark.parametrize("rel", PLANE)
 def test_operations_plane_stands_alone(rel):
     """The operations plane's modules, held one by one: each is the port's
@@ -199,6 +221,8 @@ def test_importing_every_module_loads_none_of_them():
               "platform.app", "platform.risk_adapter", "platform.bonus", "platform.seed",
               "platform.pgwire", "platform.pg_testing", "platform.pg_store", "platform.server",
               "serve.redis_store", "serve.clickhouse", "serve.batch_refresh",
-              "serve.wallet_codec"):
+              "serve.wallet_codec", "parallel.mesh", "parallel.collectives",
+              "parallel.sharding", "parallel.ep", "parallel.state_sharding",
+              "parallel.distributed", "serve.multihost", "serve.router", "obs.fleetview"):
         assert f"igaming_platform_tpu_torch.{m}" in loaded, m
     assert not [m for m in loaded if _forbidden(m)]

@@ -213,10 +213,10 @@ def test_bf16_wire(monkeypatch):
 
 
 def test_mesh_raises_and_step_cost_counts():
-    """Mesh training still waits for item 6; ``step_cost`` counts a step and
+    """Mesh training still waits for item 7; ``step_cost`` counts a step and
     leaves the trainer as it was (tests/test_torch_perfmodel.py holds the
     count to its formulas)."""
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         trainer.Trainer(mesh=object(), device="cpu")
     pt = trainer.Trainer(trainer.TrainConfig(batch_size=BATCH, trunk=TRUNK), device="cpu")
     before = [p.detach().clone() for p in pt.state.params.parameters()]

@@ -3,8 +3,9 @@
 The port (``igaming_platform_tpu_torch/serve/reflection.py``) answers server
 reflection without protobuf, which the card's machine does not have: it
 reads the descriptors of ``risk/v1/risk.proto``, its dependency
-``google/protobuf/timestamp.proto``, ``grpc/health/v1/health.proto`` and
-``grpc/reflection/v1alpha/reflection.proto`` as data, from
+``google/protobuf/timestamp.proto``, ``grpc/health/v1/health.proto``,
+``grpc/reflection/v1alpha/reflection.proto`` and ``wallet/v1/wallet.proto``
+as data, from
 ``serve/reflection_descriptors.bin``. This tool writes that file from the
 generated modules, where protobuf is installed:
 
@@ -24,7 +25,8 @@ from pathlib import Path
 OUT = (Path(__file__).resolve().parents[1] / "igaming_platform_tpu_torch" / "serve"
        / "reflection_descriptors.bin")
 FILES = ("risk/v1/risk.proto", "google/protobuf/timestamp.proto",
-         "grpc/health/v1/health.proto", "grpc/reflection/v1alpha/reflection.proto")
+         "grpc/health/v1/health.proto", "grpc/reflection/v1alpha/reflection.proto",
+         "wallet/v1/wallet.proto")
 
 
 def descriptor_blobs() -> list[bytes]:
@@ -33,6 +35,7 @@ def descriptor_blobs() -> list[bytes]:
 
     from igaming_platform_tpu.proto_gen.grpc.reflection.v1alpha import reflection_pb2  # noqa: F401
     from igaming_platform_tpu.proto_gen.risk.v1 import risk_pb2  # noqa: F401
+    from igaming_platform_tpu.proto_gen.wallet.v1 import wallet_pb2  # noqa: F401
     from igaming_platform_tpu.serve import grpc_server  # noqa: F401 — registers health.proto
 
     pool = descriptor_pool.Default()
