@@ -144,11 +144,23 @@ sequences of 64 events). Phases:
     engine, every shard live and CLOCK evicting, state gathered bit-equal; ring and Ulysses abuse scoring over
     seq=4 against the dense detector; the multi-host front over gloo with a
     follower process (killed, degraded, resurrected); three replicas behind
-    the affinity picker with the fleet view.
+    the affinity picker with the fleet view;
+18. multi-device training (``phase_train_mesh``) over logical meshes of the
+    one card: ``train_abuse_detector`` over data=2 x seq=2 in Ulysses mode at
+    its defaults (the attention kernels, forward and backward, on every head
+    shard; losses against phase 6's dense run, launches counted) and in ring
+    mode for 20 steps (no attention kernel); the multitask ``Trainer`` at its
+    defaults over data=2 and data=2 x model=2 against an unsharded card
+    trainer (tests/test_train.py's bounds, replicas equal, dense launches
+    counted); ``PPTrainer`` over model=4 against its sequential path; the
+    routed ensemble trained at its defaults (a CPU twin, held-out AUC above
+    the untrained bundle's), served by a card routed engine bit-equal to
+    ``routed_prob``, and ``gbdt_raw_matmul`` bit-equal to the forest kernel.
 
-Any failure exits non-zero. The second-to-last lines are the ``kernels``
-JSON object and the card's name and power limit; the last line is the
-result object. With no card, or outside the repository, it exits non-zero
+Any failure exits non-zero. Before the ``kernels`` JSON object a
+``phase_times`` line gives every phase's wall seconds. The second-to-last
+lines are the ``kernels`` JSON object and the card's name and power limit;
+the last line is the result object. With no card, or outside the repository, it exits non-zero
 and prints no result.
 """
 
@@ -164,6 +176,8 @@ import sys
 import time
 
 import numpy as np
+
+T_START = time.perf_counter()  # the script's start, for the phase_times line's total
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and float32
 # rate outside the tensor cores. Used for the bound of each kernel.
@@ -1892,26 +1906,30 @@ def abuse_cpu_twin(path: str) -> None:
         pickle.dump(out, f)
 
 
-class AbuseTwin:
-    """``abuse_cpu_twin`` in a child process: ``start`` hands it the stream,
-    ``result`` waits for it (killing it on a timeout) and reads its
-    answers."""
+class ChildTwin:
+    """A CPU twin in a child process, beside the card's work: ``fn`` (a
+    function of this script taking a path) reads its input, pickled at
+    ``path + ".in"``, and writes its answers to ``path + ".out"``. ``start``
+    starts it, ``result`` waits for it (killing it on a timeout) and reads
+    its answers, ``close`` kills it if it still runs."""
 
-    def __init__(self, stream, accounts, sample):
+    def __init__(self, fn: str, payload, what: str, threads: int | None = None):
         import pickle
         import tempfile
 
-        self.dir = tempfile.mkdtemp(prefix="chip-smoke-abuse-")
+        self.fn, self.what, self.threads = fn, what, threads
+        self.dir = tempfile.mkdtemp(prefix=f"chip-smoke-{what}-")
         self.path = os.path.join(self.dir, "twin")
         with open(self.path + ".in", "wb") as f:
-            pickle.dump((stream, accounts, sample), f)
+            pickle.dump(payload, f)
         self.proc = None
 
     def start(self) -> None:
         self.log = open(self.path + ".log", "wb")
         self.proc = subprocess.Popen(
             [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); import chip_smoke as c; "
-             "c.abuse_cpu_twin(sys.argv[1])", self.path],
+             + (f"import torch; torch.set_num_threads({self.threads}); " if self.threads else "")
+             + f"c.{self.fn}(sys.argv[1])", self.path],
             cwd=os.path.dirname(os.path.abspath(__file__)), stdout=self.log,
             stderr=subprocess.STDOUT)
 
@@ -1922,7 +1940,12 @@ class AbuseTwin:
         if rc != 0:
             with open(self.path + ".log", "rb") as f:
                 tail = f.read()[-3000:].decode(errors="replace")
-            raise AssertionError(f"abuse: the CPU twin exited {rc}: {tail}")
+            raise AssertionError(f"{self.what}: the CPU twin exited {rc}: {tail}")
+        return self.result_file()
+
+    def result_file(self) -> dict:
+        import pickle
+
         with open(self.path + ".out", "rb") as f:
             return pickle.load(f)
 
@@ -1965,7 +1988,7 @@ def phase_abuse(torch, card: str, fa) -> dict:
     gpu = abuse_bridge("cuda", model, stream)
     # The same stream through the CPU bridge and detector, in a process of
     # its own that drains beside the card's bridge.
-    twin = AbuseTwin(stream, accounts, sample)
+    twin = ChildTwin("abuse_cpu_twin", (stream, accounts, sample), "abuse")
     det = gpu.abuse_detector
     try:
         det.check_batch(accounts[:ABUSE_BATCH])  # first forward off the count
@@ -2282,6 +2305,7 @@ def phase_train(torch, card: str, fa) -> dict:
         f"itself, {step_ms:.6f} ms device step (events); "
         f"config-3 step at B={b3} S={s3}: {step3_ms:.6f} ms, split {result['config3_step']['split']}")
     log("phase 6: " + json.dumps(result))
+    result["losses"] = metrics["losses"]  # phase 18 holds its sharded runs to them
     return result
 
 
@@ -3514,17 +3538,34 @@ def ledger_engine_l(torch, gbdt_kernel, store, directory: str, device: str) -> d
             and verdict["replayed"] == sum(by_path.values()) == rows
             and set(verdict["replayed_by_params_fp"]) == set(fps)):
         raise AssertionError(f"ledger L: replay {json.dumps(verdict)[:2000]}")
-    cpu = None
+    # The same WAL replayed on the CPU (not asserted: a card's WAL differs
+    # there in ml_score bits) runs in a child process beside engine A and the
+    # ledger turns; phase_ledger collects it.
+    cpu_twin = None
     if device == "cuda":
-        cpu, _ = timed_replay(replay, directory, "cpu")
+        cpu_twin = ChildTwin("ledger_cpu_replay", directory, "ledger", threads=2)
+        cpu_twin.start()
     return {"rows": rows, "snapshot_rows_by_path": by_path, "run_s": run_s,
             "device_steps": steps, "forest_launches": launches, "ledger": stats,
             "fingerprints": fps, "replay": {k: verdict[k] for k in (
                 "ok", "records_total", "replayed", "replayed_by_params_fp", "mismatches",
                 "params_fingerprint_mismatch", "device")},
             "replay_s": replay_s, "replay_records_per_s": verdict["records_total"] / replay_s,
-            "cpu_replay_mismatches": None if cpu is None else cpu["mismatches"],
-            "cpu_replay_ok": None if cpu is None else cpu["ok"]}
+            "cpu_replay_twin": cpu_twin}
+
+
+def ledger_cpu_replay(path: str) -> None:
+    """Phase 10's WAL (the directory pickled at ``path + ".in"``) replayed on
+    the CPU, in a child process (``ChildTwin``): its mismatches and seconds."""
+    import pickle
+
+    from igaming_platform_tpu_torch.tools import replay
+
+    with open(path + ".in", "rb") as f:
+        directory = pickle.load(f)
+    verdict, secs = timed_replay(replay, directory, "cpu")
+    with open(path + ".out", "wb") as f:
+        pickle.dump({"mismatches": verdict["mismatches"], "ok": verdict["ok"], "seconds": secs}, f)
 
 
 def ledger_engine_a(torch, gbdt_kernel, fa, store, directory: str, device: str) -> dict:
@@ -3681,11 +3722,18 @@ def phase_ledger(torch, card: str, gbdt_kernel, fa, store, device: str = "cuda")
 
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip-smoke-ledger-")
+    twin = None
     try:
         lrun = ledger_engine_l(torch, gbdt_kernel, store, f"{root}/l", device)
+        twin = lrun.pop("cpu_replay_twin")
         arun = ledger_engine_a(torch, gbdt_kernel, fa, store, f"{root}/a", device)
         turns = ledger_turns(torch, store, f"{root}/turns", device)
+        cpu = twin.result() if twin is not None else {}
+        lrun.update({"cpu_replay_mismatches": cpu.get("mismatches"),
+                     "cpu_replay_ok": cpu.get("ok"), "cpu_replay_s": cpu.get("seconds")})
     finally:
+        if twin is not None:
+            twin.close()
         shutil.rmtree(root, ignore_errors=True)
     result = {"engine_l": lrun, "engine_a": arun, "turns": turns,
               "seconds": time.perf_counter() - t0}
@@ -3699,7 +3747,7 @@ def phase_ledger(torch, card: str, gbdt_kernel, fa, store, device: str = "cuda")
         f"{rp['params_fingerprint_mismatch']} fingerprint mismatches, by fingerprint "
         f"{json.dumps(rp['replayed_by_params_fp'])}; {lrun['replay_records_per_s']:.0f} "
         f"records/s; the same WAL replayed on the CPU: {lrun['cpu_replay_mismatches']} "
-        "mismatches (not asserted)")
+        f"mismatches (not asserted), {lrun['cpu_replay_s']} s in a child process")
     ra = arun["replay"]
     log(f"phase 10: [{card}] engine A ({arun['frames']} IDX1 frames): {arun['rows']} rows noted, "
         f"none dropped; {arun['device_steps']} device steps, {arun['forest_launches']} forest and "
@@ -4199,22 +4247,46 @@ def train_eval(torch, device: str) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def train_distill(torch, gbdt_kernel, store, device: str) -> dict:
+def distill_cpu_twin(path: str) -> None:
+    """Phase 12's distillation on the CPU (``DistillConfig(**cfg)``, the
+    pickled input), for its MAEs: in a child process beside the card's
+    phase 12 (``ChildTwin``)."""
+    import pickle
+
+    from igaming_platform_tpu_torch.train import distill
+
+    with open(path + ".in", "rb") as f:
+        cfg = pickle.load(f)
+    t0 = time.perf_counter()
+    _, maes = distill.distill_serving_params(distill.DistillConfig(**cfg), device="cpu")
+    with open(path + ".out", "wb") as f:
+        pickle.dump({"maes": maes, "seconds": time.perf_counter() - t0}, f)
+
+
+def train_distill(torch, gbdt_kernel, store, device: str, twin=None) -> dict:
     """(d) distill_serving_params at its defaults on the card and on the
-    CPU (both MAEs); its students serve in a card mlp+gbdt engine held to a
-    CPU twin as phase 4 holds its engine; then device_parity.run."""
+    CPU (both MAEs; the CPU's in ``twin``, a ``ChildTwin`` of
+    ``distill_cpu_twin`` started at the head of phase 12, or here after the
+    card's when none is given); its students serve in a card mlp+gbdt engine
+    held to a CPU twin as phase 4 holds its engine; then device_parity.run."""
     from igaming_platform_tpu_torch.convert import params_to
     from igaming_platform_tpu_torch.core.config import BatcherConfig
     from igaming_platform_tpu_torch.serve import scorer
     from igaming_platform_tpu_torch.train import device_parity, distill
 
     cfg = distill.DistillConfig(**DISTILL_CFG)
+    if twin is None:  # no child: the twin runs here, after the card
+        twin = ChildTwin("distill_cpu_twin", DISTILL_CFG, "distill")
     t0 = time.perf_counter()
     params, maes = distill.distill_serving_params(cfg, device=device)
     card_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    _, twin_maes = distill.distill_serving_params(cfg, device="cpu")
-    twin_s = time.perf_counter() - t0
+    if twin.proc is None:
+        distill_cpu_twin(twin.path)
+        twin_out = twin.result_file()
+    else:
+        twin_out = twin.result()
+    twin.close()
+    twin_maes, twin_s = twin_out["maes"], twin_out["seconds"]
     bcfg = BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0)
     engine = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params, batcher_config=bcfg,
                                        feature_store=store, device=device)
@@ -4477,12 +4549,28 @@ def phase_online(torch, card: str, dense_mod, gbdt_kernel, store, device: str = 
     (``train_parity``, ``train_fit``, ``train_eval``, ``train_distill``,
     ``online_assembly``). ``device="cpu"`` rehearses it without a card (the
     launch checks then skipped)."""
+    t0 = time.perf_counter()
+    # The distillation's CPU twin drains beside this phase's card work.
+    # Half the host's cores: the card's phase 12 runs beside it.
+    twin = ChildTwin("distill_cpu_twin", DISTILL_CFG, "distill",
+                     threads=max(1, (os.cpu_count() or 2) // 2))
+    twin.start()
+    try:
+        result = online_parts(torch, card, dense_mod, gbdt_kernel, store, device, twin)
+    finally:
+        twin.close()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 12: {result['seconds']:.1f} s")
+    log("phase 12: " + json.dumps(result, default=str))
+    return result
+
+
+def online_parts(torch, card, dense_mod, gbdt_kernel, store, device, twin) -> dict:
     import shutil
     import tempfile
 
     from igaming_platform_tpu_torch.train import checkpoint, loop, trainer
 
-    t0 = time.perf_counter()
     tree = multitask_tree(np.random.default_rng(121), MULTITASK_TRUNK)
     parity = train_parity(torch, dense_mod, tree, device)
     log(f"phase 12: [{card}] {TRAIN_PARITY_STEPS} steps of {TRAIN_BATCH} x {MULTITASK_TRUNK} on "
@@ -4502,7 +4590,7 @@ def phase_online(torch, card: str, dense_mod, gbdt_kernel, store, device: str = 
         f"AUC multitask {ev['models']['multitask_trained']['auc']}, gbdt "
         f"{ev['models']['gbdt_trained']['auc']}, mock {ev['models']['mock']['auc']}, rules "
         f"{ev['models']['rules_only']['auc']}; training s {json.dumps(ev['train'])}")
-    dist = train_distill(torch, gbdt_kernel, store, device)
+    dist = train_distill(torch, gbdt_kernel, store, device, twin)
     log(f"phase 12: [{card}] distill_serving_params: MAEs {json.dumps(dist['maes'])} (CPU twin "
         f"{json.dumps(dist['twin_maes'])}), {dist['card_s']:.1f} s (CPU {dist['twin_s']:.1f}); "
         f"served {dist['engine_rows']} rows, {dist['engine_bit_equal_rows']} ml_score bit-equal "
@@ -4536,12 +4624,9 @@ def phase_online(torch, card: str, dense_mod, gbdt_kernel, store, device: str = 
         f"0 mismatches ({online_run['replay']['replayed']} records), rolled back and replayed; "
         f"ScoreBatch rows/s " + ", ".join(f"{t['loop']} {t['median']:.0f} ({t['ticks']} ticks)"
                                          for t in turns))
-    result = {"parity": parity, "fit": fit, "eval": ev, "distill": dist, "online": online_run,
-              "dense_launches": parity["dense_launches"] + fit["dense_launches"],
-              "forest_launches": dist["forest_launches"], "seconds": time.perf_counter() - t0}
-    log(f"phase 12: {result['seconds']:.1f} s")
-    log("phase 12: " + json.dumps(result, default=str))
-    return result
+    return {"parity": parity, "fit": fit, "eval": ev, "distill": dist, "online": online_run,
+            "dense_launches": parity["dense_launches"] + fit["dense_launches"],
+            "forest_launches": dist["forest_launches"]}
 
 
 # Phase 13: the operations plane on phase 7's store.
@@ -5429,8 +5514,14 @@ def phase_plane2(torch, card: str, gbdt_kernel, fa, dense_mod, store,
                if not k.startswith("BENCH_DEVICE") and k not in ("HOSTPROF_HZ", "CHAOS_PLAN")}
         env.update({"CUDA_VISIBLE_DEVICES": "", "GRPC_PORT": "-1", "HTTP_PORT": "0",
                     "FEATURE_STORE": "python", "DEVICE_PROBE_BUDGET_S": "60"})
-        refused = boot_subprocess(env, None)
-        served = boot_subprocess({**env, "SERVE_DEVICE_FALLBACK": "cpu"}, "risk server up")
+        # The two boots run at once (each beside the other's load).
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(2) as pool:
+            refused_f = pool.submit(boot_subprocess, env, None)
+            served_f = pool.submit(boot_subprocess, {**env, "SERVE_DEVICE_FALLBACK": "cpu"},
+                                   "risk server up")
+            refused, served = refused_f.result(), served_f.result()
         refused_line = next((ln for ln in refused["log"] if "device unavailable" in ln), "")
         probe.update({"refused_rc": refused["rc"], "refused_s": refused["seconds"],
                       "refused_line": refused_line[-200:], "fallback_rc": served["rc"],
@@ -5782,56 +5873,101 @@ def hold_gate_errors(errors: dict, last_error, what: str) -> None:
         raise AssertionError(f"{what}: the gates swallowed {errors}: {last_error!r}")
 
 
-def platform_parity(torch, tree, model, cfg, counts_cls, device: str, card: str) -> dict:
-    """(a) The card app against its CPU twin, operation by operation."""
+def platform_run(app, ops, clock, accounts: int) -> dict:
+    """``ops`` over ``accounts`` new accounts through ``app`` under the
+    pinned ``clock``: the outcome of each, and what its gates recorded."""
+    rec = GateRecorder(app)
+    ids = [app.wallet.create_account(f"player{i}").id for i in range(accounts)]
+    t0 = time.perf_counter()
+    outcomes = []
+    for op in ops:
+        outcomes.append(apply_platform_op(app, ids[op[1]], op))
+        clock[0] += op[-1]
+    return {"outcomes": outcomes, "rec": rec, "ids": ids, "seconds": time.perf_counter() - t0}
+
+
+def platform_cpu_twin(path: str) -> None:
+    """Phase 15's CPU twin app (its tree, the detector's tree and config
+    pickled at ``path + ".in"``) through the parity operations, in a child
+    process beside the card's app (``ChildTwin``): what ``platform_parity``
+    holds the card app to."""
+    import pickle
+
+    from igaming_platform_tpu_torch.convert import sequence_from_tree
+    from igaming_platform_tpu_torch.models.sequence import SeqConfig
+
+    with open(path + ".in", "rb") as f:
+        tree, seq, cfg, counts = pickle.load(f)
     clock = [PLATFORM_T0]
-    now = lambda: clock[0]  # noqa: E731
-    card_app = platform_app(tree, model, device, now)
-    cpu_app = platform_app(tree, model, "cpu", now)
-    apps = (card_app, cpu_app)
-    recs = [GateRecorder(a) for a in apps]
-    ops = platform_ops(15, PLATFORM_PARITY_OPS, PLATFORM_PARITY_ACCOUNTS, PLATFORM_PARITY_CLAIMS)
+    app = platform_app(tree, sequence_from_tree(seq, SeqConfig(**cfg)), "cpu", lambda: clock[0])
     try:
-        ids = [[a.wallet.create_account(f"player{i}").id for i in range(PLATFORM_PARITY_ACCOUNTS)]
-               for a in apps]
+        run = platform_run(app, platform_ops(15, *counts), clock, counts[1])
+        hold_gate_errors(app.gate_errors(), app.wallet.last_gate_error, "platform parity twin")
+        rec = run["rec"]
+        out = {"outcomes": run["outcomes"], "columns": rec.columns(), "rows": len(rec.rows),
+               "features": np.stack(rec.features) if rec.features else None,
+               "abuse_scores": rec.abuse_scores, "seconds": run["seconds"],
+               "history": [app.abuse.history_length(run["ids"][i])
+                           for i in range(0, counts[1], 10)]}
+    finally:
+        app.close()
+    with open(path + ".out", "wb") as f:
+        pickle.dump(out, f)
+
+
+def platform_parity(torch, tree, model, cfg, counts_cls, device: str, card: str) -> dict:
+    """(a) The card app against its CPU twin, operation by operation; the
+    twin runs the same operations under its own pinned clock in a child
+    process (``platform_cpu_twin``) beside the card's app."""
+    from dataclasses import asdict
+
+    from igaming_platform_tpu_torch.convert import sequence_to_tree
+
+    sizes = (PLATFORM_PARITY_OPS, PLATFORM_PARITY_ACCOUNTS, PLATFORM_PARITY_CLAIMS)
+    twin = ChildTwin("platform_cpu_twin", (tree, sequence_to_tree(model), asdict(cfg), sizes),
+                     "platform", threads=2)
+    twin.start()
+    clock = [PLATFORM_T0]
+    card_app = platform_app(tree, model, device, lambda: clock[0])
+    ops = platform_ops(15, *sizes)
+    try:
         counts = counts_cls([card_app])
         counts.zero()
-        t0 = time.perf_counter()
-        outcomes = []
-        for op in ops:
-            outcomes.append(tuple(apply_platform_op(a, i[op[1]], op) for a, i in zip(apps, ids)))
-            clock[0] += op[-1]
-        seconds = time.perf_counter() - t0
-        launches = counts.read(len(tree["mlp"]["layers"]), cfg, len(recs[0].abuse_scores),
+        run = platform_run(card_app, ops, clock, PLATFORM_PARITY_ACCOUNTS)
+        rec = run["rec"]
+        launches = counts.read(len(tree["mlp"]["layers"]), cfg, len(rec.abuse_scores),
                                device, "platform parity")
-        differ = [k for k, (c, p) in enumerate(outcomes) if c != p]
-        if differ:
+        hold_gate_errors(card_app.gate_errors(), card_app.wallet.last_gate_error,
+                         "platform parity")
+        cpu = twin.result()
+        differ = [k for k, (c, p) in enumerate(zip(run["outcomes"], cpu["outcomes"])) if c != p]
+        if differ or len(run["outcomes"]) != len(cpu["outcomes"]):
+            k = differ[0] if differ else len(cpu["outcomes"])
             raise AssertionError(f"platform parity: {len(differ)} operations differ, first "
-                                 f"{ops[differ[0]]}: {outcomes[differ[0]]}")
-        if len(recs[0].rows) != len(recs[1].rows) or not recs[0].rows:
+                                 f"{ops[k]}: {run['outcomes'][k:k + 1]} against "
+                                 f"{cpu['outcomes'][k:k + 1]}")
+        if len(rec.rows) != cpu["rows"] or not rec.rows:
             raise AssertionError("platform parity: the gates scored different operations")
-        boundary = compare_columns(recs[0].columns(), recs[1].columns(), "platform gate")
-        if not np.array_equal(np.stack(recs[0].features).view(np.int32),
-                              np.stack(recs[1].features).view(np.int32)):
+        boundary = compare_columns(rec.columns(), cpu["columns"], "platform gate")
+        if not np.array_equal(np.stack(rec.features).view(np.int32),
+                              cpu["features"].view(np.int32)):
             raise AssertionError("platform parity: the gates' feature rows differ")
-        abuse_err = float(np.abs(np.subtract(recs[0].abuse_scores, recs[1].abuse_scores)).max())
+        abuse_err = float(np.abs(np.subtract(rec.abuse_scores, cpu["abuse_scores"])).max())
         if abuse_err > ABUSE_ATOL:
             raise AssertionError(f"platform parity: abuse scores differ by {abuse_err}")
-        for a in apps:
-            hold_gate_errors(a.gate_errors(), a.wallet.last_gate_error, "platform parity")
-        names = [c if isinstance(c, str) else c[0] for c, _ in outcomes]
+        names = [c if isinstance(c, str) else c[0] for c in run["outcomes"]]
         kinds = {n: names.count(n) for n in sorted(set(names))}
-        for i in range(0, PLATFORM_PARITY_ACCOUNTS, 10):
-            if (card_app.abuse.history_length(ids[0][i])
-                    != cpu_app.abuse.history_length(ids[1][i])):
-                raise AssertionError("platform parity: abuse histories differ")
-        return {"ops": len(ops), "outcomes": kinds, "gate_scores": len(recs[0].rows),
-                "abuse_checks": len(recs[0].abuse_scores), "floor_boundary_rows": boundary,
-                "abuse_max_abs_err": abuse_err, "seconds_both_apps": seconds,
-                "launches": launches}
+        history = [card_app.abuse.history_length(run["ids"][i])
+                   for i in range(0, PLATFORM_PARITY_ACCOUNTS, 10)]
+        if history != cpu["history"]:
+            raise AssertionError("platform parity: abuse histories differ")
+        return {"ops": len(ops), "outcomes": kinds, "gate_scores": len(rec.rows),
+                "abuse_checks": len(rec.abuse_scores), "floor_boundary_rows": boundary,
+                "abuse_max_abs_err": abuse_err, "seconds_card_app": run["seconds"],
+                "seconds_cpu_twin": cpu["seconds"], "launches": launches}
     finally:
-        for a in apps:
-            a.close()
+        twin.close()
+        card_app.close()
 
 
 def percentiles_ms(samples: list[float]) -> dict:
@@ -6997,7 +7133,8 @@ def phase_stores(torch, card: str, gbdt_kernel, dense_mod, store, device: str = 
 # owns live slots and CLOCK evicts); the detectors MD_ABUSE_ACCOUNTS accounts of
 # MD_ABUSE_HISTORY events; the multi-host front MD_RPCS RPCs and MD_SINGLES
 # singles; the fleet MD_FLEET_RPCS RPCs over three replicas.
-MD_RPCS, MD_SINGLES, MD_CPU_ROWS, MD_SHARD_RPCS = 5, 200, 2048, 2
+# MD_SINGLES is 100, not 200: the script's time budget (PERF.md section 7).
+MD_RPCS, MD_SINGLES, MD_CPU_ROWS, MD_SHARD_RPCS = 5, 100, 2048, 2
 MD_STATE_FRAMES, MD_STATE_CAPACITY = 2, 16_384
 MD_ABUSE_ACCOUNTS, MD_ABUSE_HISTORY = 256, 256
 MD_FLEET_RPCS, MD_FLEET_STALE_S = 4, 2.0
@@ -7014,11 +7151,23 @@ MD_MODEL_ATOL = 1e-3
 
 
 def md_mesh(device: str, **axes):
+    """A mesh of ``axes`` whose shards repeat the one card (``cuda:0``) or
+    the CPU; with SMOKE_DISTINCT_CARDS=1 the shards spread over the visible
+    cards in contiguous blocks, so that data coordinates hold distinct cards
+    when there are enough of them."""
     from igaming_platform_tpu_torch.parallel.mesh import MeshSpec, create_mesh
 
     n = int(np.prod(list(axes.values())))
-    dev = "cuda:0" if device == "cuda" else "cpu"
-    return create_mesh(MeshSpec(**axes), devices=[dev] * n)
+    spread = os.environ.get("SMOKE_DISTINCT_CARDS") == "1"
+    if device != "cuda":
+        # A rehearsal: torch tells "cpu:0" to "cpu:3" apart, so the spread
+        # mesh's paths run on the CPU too.
+        return create_mesh(MeshSpec(**axes), devices=[f"cpu:{i * 4 // n}" if spread else "cpu"
+                                                      for i in range(n)])
+    import torch
+
+    cards = torch.cuda.device_count() if spread else 1
+    return create_mesh(MeshSpec(**axes), devices=[f"cuda:{i * cards // n}" for i in range(n)])
 
 
 class Launches:
@@ -7744,9 +7893,12 @@ def phase_multi_device(torch, card: str, gbdt_kernel, fa, dense_mod, store,
         parts[name] = round(now - mark[0], 2)
         mark[0] = now
 
-    shard_dev = "cuda:0" if device == "cuda" else "cpu"
-    log(f"phase 17: [{card}] logical meshes: every shard on {shard_dev}; no number here is a "
-        "multi-GPU speed")
+    if os.environ.get("SMOKE_DISTINCT_CARDS") == "1":
+        log(f"phase 17: [{card}] meshes over the visible cards")
+    else:
+        shard_dev = "cuda:0" if device == "cuda" else "cpu"
+        log(f"phase 17: [{card}] logical meshes: every shard on {shard_dev}; no number here is "
+            "a multi-GPU speed")
     try:
         routed = fleet_routed(torch, codec, store, counts, rng, batches, device)
         part("routed")
@@ -7836,6 +7988,365 @@ def phase_multi_device(torch, card: str, gbdt_kernel, fa, dense_mod, store,
     return result
 
 
+# Phase 18: multi-device training over LOGICAL meshes of the one card (every
+# shard on cuda:0; with SMOKE_DISTINCT_CARDS=1, md_mesh spreads a mesh's
+# shards over the visible cards): Ulysses and ring abuse training over data x
+# seq, the multitask Trainer over data and data x model, the pipeline trainer
+# over model, and the routed ensemble trained and served. A logical mesh
+# measures layouts, arithmetic and launches, never an interconnect. TM_*
+# sizes: the ring run's steps (the dense run's first TM_RING_STEPS batches);
+# the Trainer's steps at TrainConfig's defaults, the first TM_TRAIN_HELD held
+# to the unsharded trainer at tests/test_train.py's bounds; the pipeline's
+# stages, steps and rows (tests/test_pp_training.py's data); the routed
+# trainer's fraudgen rows (train, held out) and its CPU twin's steps.
+TM_SEQ_MESH = dict(data=2, seq=2)
+TM_RING_STEPS, TM_TRAIN_STEPS, TM_TRAIN_HELD = 20, 20, 6
+TM_TRAIN_MESHES = (dict(data=2), dict(data=2, model=2))
+TM_LOSS_RTOL, TM_MAE_RTOL = 2e-4, 2e-3  # tests/test_train.py:144-145
+TM_SEQ_RTOL = 2e-4  # the ring forward's bound, tests/test_sequence.py:46
+TM_PP_STAGES, TM_PP_STEPS, TM_PP_ROWS, TM_PP_IN = 4, 10, 256, 12
+TM_ROUTED_ROWS, TM_ROUTED_TWIN_STEPS, TM_ROUTED_RTOL = (20_000, 8_000), 20, 1e-4
+# The routed twin's steps held at TM_ROUTED_RTOL. The router sees raw
+# features (logits in the thousands), so its gates differ between the card
+# and the CPU in the fifth digit, and Adam's early steps (about lr * sign(g))
+# turn router gradients of 1e-10, whose relative error between two devices is
+# of order 1, into steps of lr: the runs part after a few steps (both within
+# 1e-4 for 5, 1.4e-3 apart at the 8th on an H100). Every step is reported;
+# two card runs are held bit-equal to each other.
+TM_ROUTED_HELD = 5
+
+
+class _Count:
+    """An attribute counter of a kernel wrapper, seen as ``.launches``."""
+
+    def __init__(self, obj, attr: str):
+        self.obj, self.attr = obj, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.obj, self.attr)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        setattr(self.obj, self.attr, value)
+
+
+class TrainLaunches(Launches):
+    """``Launches`` with the backward kernels' two counters."""
+
+    NAMES = ("forest", "dense", "dense_f32", "forward", "dq", "dkv")
+
+    def __init__(self, gbdt_kernel, dense_mod, fa, device: str):
+        super().__init__(gbdt_kernel, dense_mod, fa, device)
+        self.counters.update(dq=_Count(fa.flash_attention_bwd, "launches_dq"),
+                             dkv=_Count(fa.flash_attention_bwd, "launches_dkv"))
+        self.total = dict.fromkeys(self.NAMES, 0)
+
+
+def _max_rel(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def mesh_train_abuse(torch, counts, dense_losses, mode: str, steps: int, device: str) -> dict:
+    """(1, 2) ``train_abuse_detector`` over data x seq in ``mode``, at
+    AbuseTrainConfig's defaults but ``steps``, against the dense run's
+    losses of the same batches (phase 6's)."""
+    from igaming_platform_tpu_torch.train import abuse_train as at
+
+    tcfg = at.AbuseTrainConfig(steps=steps)
+    cfg = tcfg.model
+    shards = int(np.prod(list(TM_SEQ_MESH.values())))
+    per = cfg.n_layers * shards if mode == "ulysses" else 0
+    counts.begin()
+    t = time.perf_counter()
+    _, metrics = at.train_abuse_detector(tcfg, mesh=md_mesh(device, **TM_SEQ_MESH),
+                                         seq_mode=mode, device=device)
+    counts.sync()
+    secs = time.perf_counter() - t
+    launches = counts.end(f"{mode} training", {
+        "forward": per * (steps + 1), "dq": per * steps, "dkv": per * steps,
+        "dense_f32": affine_layers(cfg) * (steps + 1)})
+    losses = metrics["losses"]
+    want = dense_losses[:steps]
+    rel = _max_rel(losses, want)
+    if not np.isfinite(losses).all() or rel > TM_SEQ_RTOL:
+        raise AssertionError(f"{mode} training: losses {losses[:5]}... against the dense run's "
+                             f"{want[:5]}...: {rel:.3g} relative")
+    if mode == "ulysses" and metrics["eval_accuracy"] < MIN_ACCURACY:
+        raise AssertionError(f"ulysses training: eval accuracy {metrics['eval_accuracy']}")
+    return {"steps": steps, "bit_equal_steps": int(sum(a == b for a, b in zip(losses, want))),
+            "loss_max_rel": rel, "final_loss": losses[-1],
+            "eval_accuracy": metrics["eval_accuracy"], "seconds": secs,
+            "launches": launches}
+
+
+def mesh_train_trainer(torch, counts, device: str) -> dict:
+    """(3) the multitask Trainer at TrainConfig's defaults over each of
+    TM_TRAIN_MESHES, against an unsharded card Trainer fed the same batches
+    through ``fit`` (double-buffered ``put_batch``)."""
+    from igaming_platform_tpu_torch.train import trainer as tr
+    from igaming_platform_tpu_torch.train.data import make_stream
+
+    cfg = tr.TrainConfig()
+    stream = make_stream(cfg.batch_size, seed=181)
+    batches = [next(stream) for _ in range(TM_TRAIN_STEPS)]
+    layers = len(cfg.trunk)
+
+    def run(axes):
+        mesh = None if axes is None else md_mesh(device, **axes)
+        t = tr.Trainer(cfg, mesh=mesh, device=device)
+        hist = []
+        n_data = 1 if axes is None else axes.get("data", 1)
+        n_model = 1 if axes is None else axes.get("model", 1)
+        per_shard = layers * n_model + 3  # the trunk's layers on each model shard, 3 heads
+        counts.begin()
+        t0 = time.perf_counter()
+        t.fit(TM_TRAIN_STEPS, data=iter(batches), log_every=1,
+              log_fn=lambda step, m: hist.append(m))
+        counts.sync()
+        secs = time.perf_counter() - t0
+        what = f"Trainer over {axes}"
+        launches = counts.end(what, {"dense": n_data * per_shard * TM_TRAIN_STEPS})
+        first = [list(r.parameters()) for r in t.replicas]
+        if not all(torch.equal(a, b.to(a.device)) for r in first[1:] for a, b in zip(first[0], r)):
+            raise AssertionError(f"{what}: the replicas differ")
+        return t, hist, {"replicas": len(t.replicas), "seconds": secs,
+                         "ms_per_step": secs * 1e3 / TM_TRAIN_STEPS, "launches": launches,
+                         "dense_per_step": launches["dense"] / TM_TRAIN_STEPS}
+
+    plain, want, out = run(None)
+    served = plain.export_params()
+    runs = {"unsharded": out}
+    for axes in TM_TRAIN_MESHES:
+        t, hist, info = run(axes)
+        name = "x".join(f"{k}={v}" for k, v in axes.items())
+        loss_rel = [abs(g["loss"] - w["loss"]) / abs(w["loss"]) for g, w in zip(hist, want)]
+        mae_rel = [abs(g["fraud_mae"] - w["fraud_mae"]) / abs(w["fraud_mae"])
+                   for g, w in zip(hist, want)]
+        if max(loss_rel[:TM_TRAIN_HELD]) > TM_LOSS_RTOL or \
+                max(mae_rel[:TM_TRAIN_HELD]) > TM_MAE_RTOL:
+            raise AssertionError(f"Trainer over {name}: first {TM_TRAIN_HELD} steps' loss "
+                                 f"{loss_rel[:TM_TRAIN_HELD]} / fraud_mae "
+                                 f"{mae_rel[:TM_TRAIN_HELD]} relative to the unsharded run")
+        mine = t.export_params()
+        w_err = max(float((a.w_bf16 - b.w_bf16).abs().max())
+                    for a, b in zip(mine.trunk, served.trunk))
+        runs[name] = {**info, "loss_max_rel_held": max(loss_rel[:TM_TRAIN_HELD]),
+                      "fraud_mae_max_rel_held": max(mae_rel[:TM_TRAIN_HELD]),
+                      "loss_rel_last": loss_rel[-1], "fraud_mae_rel_last": mae_rel[-1],
+                      "bit_equal_steps": int(sum(g["loss"] == w["loss"]
+                                                 for g, w in zip(hist, want))),
+                      "export_trunk_w_bf16_max_abs_diff": w_err}
+    return {"steps": TM_TRAIN_STEPS, "batch": cfg.batch_size, "trunk": list(cfg.trunk),
+            "last_loss": want[-1]["loss"], "runs": runs}
+
+
+def mesh_train_pp(torch, counts, device: str) -> dict:
+    """(4) PPTrainer over model=TM_PP_STAGES against its sequential path, at
+    PPTrainConfig's defaults, from one seed."""
+    from igaming_platform_tpu_torch.train import pp
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(TM_PP_ROWS, TM_PP_IN)).astype(np.float32)
+    w = rng.normal(size=(TM_PP_IN,)).astype(np.float32)
+    y = (x @ w + 0.1 * rng.normal(size=TM_PP_ROWS)).astype(np.float32)
+    cfg = pp.PPTrainConfig()
+    mesh = md_mesh(device, data=1, model=TM_PP_STAGES)
+    piped = pp.PPTrainer(cfg, TM_PP_IN, TM_PP_STAGES, mesh, device=device)
+    seq = pp.PPTrainer(cfg, TM_PP_IN, TM_PP_STAGES, None, device=device)
+    first = (piped.loss_fn(piped.params, x, y), seq.loss_fn(seq.params, x, y))
+    if first[0] != first[1]:
+        raise AssertionError(f"pipeline trainer: first loss {first[0]} against {first[1]}")
+    out = {}
+    for name, t, per in (("pipelined", piped, 2 + TM_PP_STAGES * cfg.num_microbatches),
+                         ("sequential", seq, 2 + TM_PP_STAGES)):
+        counts.begin()
+        t0 = time.perf_counter()
+        losses = [t.train_step(x, y) for _ in range(TM_PP_STEPS)]
+        secs = time.perf_counter() - t0
+        out[name] = {"losses": losses, "seconds": secs,
+                     "launches": counts.end(f"{name} trainer",
+                                            {"dense_f32": per * TM_PP_STEPS})}
+    lp, ls = out["pipelined"]["losses"], out["sequential"]["losses"]
+    if not np.allclose(lp, ls, rtol=2e-4, atol=1e-6):
+        raise AssertionError(f"pipeline trainer: losses {lp} against {ls}")
+    err = 0.0
+    for a, b in zip(pp.leaves(piped.params), pp.leaves(seq.params)):
+        a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+        if not np.allclose(a, b, rtol=2e-3, atol=2e-5):
+            raise AssertionError("pipeline trainer: params part from the sequential path's")
+        err = max(err, float(np.abs(a - b).max()))
+    return {"stages": TM_PP_STAGES, "microbatches": cfg.num_microbatches,
+            "first_loss_bit_equal": True, "bit_equal_steps": int(sum(a == b for a, b in zip(lp, ls))),
+            "loss_max_rel": _max_rel(lp, ls), "param_max_abs_diff": err, **out}
+
+
+def mesh_train_routed(torch, counts, device: str) -> dict:
+    """(5) ``train_routed_on_labels`` at RoutedTrainConfig's defaults on
+    fraudgen rows: a card/CPU twin of TM_ROUTED_TWIN_STEPS steps on the same
+    batches; held-out AUC against the untrained bundle's; the bundle served
+    by a card engine (``ml_backend="routed"``), bit-equal to ``routed_prob``;
+    the matmul forest bit-equal to the forest kernel on its trees."""
+    from igaming_platform_tpu_torch.convert import params_to
+    from igaming_platform_tpu_torch.core.config import BatcherConfig
+    from igaming_platform_tpu_torch.core.features import normalize, standardize_for_model
+    from igaming_platform_tpu_torch.models.ensemble import init_routed_params
+    from igaming_platform_tpu_torch.models.gbdt import gbdt_raw
+    from igaming_platform_tpu_torch.ops import gbdt_matmul
+    from igaming_platform_tpu_torch.serve.scorer import TorchScoringEngine
+    from igaming_platform_tpu_torch.train import routed as rt
+    from igaming_platform_tpu_torch.train.eval import roc_auc
+    from igaming_platform_tpu_torch.train.fraudgen import generate_labeled
+
+    x, y, _ = generate_labeled(np.random.default_rng(183), TM_ROUTED_ROWS[0])
+    xt, yt, _ = generate_labeled(np.random.default_rng(184), TM_ROUTED_ROWS[1])
+    twin_cfg = rt.RoutedTrainConfig(steps=TM_ROUTED_TWIN_STEPS)
+    twin = {}
+    for run, dev in (("card", device), ("card again", device), ("cpu", "cpu")):
+        twin[run] = []
+        rt.train_routed_on_labels(x, y, twin_cfg, device=dev, losses=twin[run])
+        twin[run] = [float(v) for v in twin[run]]
+    if twin["card"] != twin["card again"]:
+        raise AssertionError(f"routed training: two card runs differ: {twin['card']} against "
+                             f"{twin['card again']}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(twin["card"], twin["cpu"])]
+    if max(rel[:TM_ROUTED_HELD]) > TM_ROUTED_RTOL:
+        raise AssertionError(f"routed training: card losses {twin['card']} against the CPU's "
+                             f"{twin['cpu']}")
+    twin_rel = max(rel[:TM_ROUTED_HELD])
+    cfg = rt.RoutedTrainConfig()
+    losses = []
+    counts.begin()
+    t0 = time.perf_counter()
+    bundle = rt.train_routed_on_labels(x, y, cfg, device=device, losses=losses)
+    counts.sync()
+    secs = time.perf_counter() - t0
+    # A step: the router (dense_f32), the MLP's 3 layers and the multitask
+    # trunk and fraud head (3 layers) through the dense kernel; the soft
+    # forest is torch ops.
+    launches = counts.end("routed training", {"forest": 0, "forward": 0,
+                                              "dense": 6 * cfg.steps, "dense_f32": cfg.steps})
+    fresh = params_to(init_routed_params(cfg.seed, mlp_hidden=cfg.mlp_hidden,
+                                         n_trees=cfg.n_trees, depth=cfg.depth,
+                                         trunk=cfg.trunk), device)
+    auc = {"trained": roc_auc(yt, rt.routed_prob(bundle, xt)),
+           "untrained": roc_auc(yt, rt.routed_prob(fresh, xt))}
+    if not auc["trained"] > auc["untrained"]:
+        raise AssertionError(f"routed training: held-out AUC {auc}")
+    rows = np.ascontiguousarray(xt[:BATCH_SIZE])
+    engine = TorchScoringEngine(ml_backend="routed", params=bundle, device=device,
+                                batcher_config=BatcherConfig(batch_size=BATCH_SIZE,
+                                                             latency_tiers=LATENCY_TIERS,
+                                                             max_wait_ms=2.0))
+    try:
+        counts.begin()
+        served = engine.score_arrays(rows)["ml_score"].cpu().numpy()
+        serve_launches = counts.end("routed serving", {"forest": 1, "dense": 6,
+                                                       "dense_f32": 1})
+    finally:
+        engine.close()
+    want = rt.routed_prob(bundle, rows).astype(np.float32)
+    differ = int((served.view(np.int32) != want.view(np.int32)).sum())
+    if differ:
+        raise AssertionError(f"routed serving: {differ} of {len(rows)} ml_scores differ from "
+                             f"routed_prob")
+    prep = standardize_for_model(normalize(torch.from_numpy(rows).to(device)))
+    sel = gbdt_matmul.precompute_selector(bundle["gbdt"]["feat"].cpu().numpy(), prep.shape[1])
+    with torch.no_grad():
+        matmul = gbdt_matmul.gbdt_raw_matmul(bundle["gbdt"], sel, prep)
+        gather = gbdt_raw(bundle["gbdt"], prep)
+    matmul_differ = int((matmul != gather).sum())
+    if matmul_differ:
+        raise AssertionError(f"gbdt_raw_matmul: {matmul_differ} rows differ from gbdt_raw")
+    return {"steps": cfg.steps, "batch": cfg.batch_size, "rows": list(TM_ROUTED_ROWS),
+            "twin_steps": TM_ROUTED_TWIN_STEPS, "twin_held_steps": TM_ROUTED_HELD,
+            "twin_loss_max_rel": twin_rel, "twin_loss_rel_by_step": rel,
+            "twin_first_step_apart": next((i for i, r in enumerate(rel) if r > 0), None),
+            "loss_first_last": [float(losses[0]), float(losses[-1])], "seconds": secs,
+            "ms_per_step": secs * 1e3 / cfg.steps, "auc": auc, "launches": launches,
+            "served_rows": len(rows), "served_bit_equal": True,
+            "serve_launches": serve_launches, "matmul_rows_bit_equal": len(rows)}
+
+
+def phase_train_mesh(torch, card: str, gbdt_kernel, fa, dense_mod, dense_losses,
+                     device: str = "cuda") -> dict:
+    """Phase 18: multi-device training over LOGICAL meshes of the one card
+    (the layouts and the arithmetic of a sharded program, no interconnect):
+    Ulysses and ring abuse training, the multitask Trainer over data and
+    data x model, the pipeline trainer and the routed ensemble.
+    ``dense_losses`` are phase 6's 200 dense losses (None: trained here).
+    ``device="cpu"`` rehearses it without a card (the launch checks then
+    skipped)."""
+    from igaming_platform_tpu_torch.train import abuse_train as at
+
+    t0 = time.perf_counter()
+    counts = TrainLaunches(gbdt_kernel, dense_mod, fa, device)
+    if dense_losses is None:
+        dense_losses = at.train_abuse_detector(at.AbuseTrainConfig(), device=device)[1]["losses"]
+    parts, mark = {}, [time.perf_counter()]
+
+    def part(name: str) -> None:
+        now = time.perf_counter()
+        parts[name] = round(now - mark[0], 2)
+        mark[0] = now
+
+    spread = os.environ.get("SMOKE_DISTINCT_CARDS") == "1"
+    log(f"phase 18: [{card}] " + ("meshes over the visible cards" if spread else
+                                  f"logical meshes: every shard on "
+                                  f"{md_mesh(device, data=1).device}; no number here is a "
+                                  f"multi-GPU speed"))
+    ulysses = mesh_train_abuse(torch, counts, dense_losses, "ulysses", at.AbuseTrainConfig().steps,
+                               device)
+    part("ulysses")
+    log(f"phase 18: [{card}] Ulysses abuse training over data=2 x seq=2, "
+        f"{ulysses['steps']} steps in {ulysses['seconds']:.2f} s: {ulysses['bit_equal_steps']} "
+        f"losses bit-equal to phase 6's dense run, the rest within "
+        f"{ulysses['loss_max_rel']:.3g} (relative); eval accuracy {ulysses['eval_accuracy']}; "
+        f"launches {json.dumps(ulysses['launches'])}")
+    ring = mesh_train_abuse(torch, counts, dense_losses, "ring", TM_RING_STEPS, device)
+    part("ring")
+    log(f"phase 18: [{card}] ring abuse training over data=2 x seq=2, {ring['steps']} steps in "
+        f"{ring['seconds']:.2f} s: losses within {ring['loss_max_rel']:.3g} of the dense run's "
+        f"({ring['bit_equal_steps']} bit-equal); launches {json.dumps(ring['launches'])}")
+    trainer_run = mesh_train_trainer(torch, counts, device)
+    part("trainer")
+    log(f"phase 18: [{card}] Trainer, {trainer_run['steps']} steps of {trainer_run['batch']} x "
+        f"{trainer_run['trunk']} through fit: " + json.dumps(trainer_run["runs"]))
+    pp_run = mesh_train_pp(torch, counts, device)
+    part("pipeline")
+    log(f"phase 18: [{card}] PPTrainer, {TM_PP_STAGES} stages on model, "
+        f"{pp_run['microbatches']} microbatches, {TM_PP_STEPS} steps: first loss bit-equal to "
+        f"the sequential path, losses within {pp_run['loss_max_rel']:.3g} "
+        f"({pp_run['bit_equal_steps']} bit-equal), params within "
+        f"{pp_run['param_max_abs_diff']:.3g}; seconds "
+        f"{pp_run['pipelined']['seconds']:.3f} / {pp_run['sequential']['seconds']:.3f}; "
+        f"launches {json.dumps(pp_run['pipelined']['launches'])} / "
+        f"{json.dumps(pp_run['sequential']['launches'])}")
+    routed_run = mesh_train_routed(torch, counts, device)
+    part("routed")
+    log(f"phase 18: [{card}] train_routed_on_labels, {routed_run['steps']} steps of "
+        f"{routed_run['batch']} in {routed_run['seconds']:.2f} s "
+        f"({routed_run['ms_per_step']:.3f} ms a step): two card runs of "
+        f"{TM_ROUTED_TWIN_STEPS} steps bit-equal; the first {TM_ROUTED_HELD} losses within "
+        f"{routed_run['twin_loss_max_rel']:.3g} of the CPU twin's (first apart at step "
+        f"{routed_run['twin_first_step_apart']}; relative by step "
+        f"{json.dumps([float(f'{r:.3g}') for r in routed_run['twin_loss_rel_by_step']])}); "
+        f"held-out AUC "
+        f"{json.dumps(routed_run['auc'])}; a card routed engine's {routed_run['served_rows']} "
+        f"ml_scores bit-equal to routed_prob (launches "
+        f"{json.dumps(routed_run['serve_launches'])}); gbdt_raw_matmul bit-equal to the forest "
+        f"kernel on {routed_run['matmul_rows_bit_equal']} rows; launches "
+        f"{json.dumps(routed_run['launches'])}")
+    result = {"ulysses": ulysses, "ring": ring, "trainer": trainer_run,
+              "pipeline": pp_run, "routed": routed_run,
+              "part_seconds": parts, "launches": counts.total,
+              "seconds": time.perf_counter() - t0}
+    log(f"phase 18: seconds by part {json.dumps(parts)}")
+    log(f"phase 18: launches {json.dumps(counts.total)}; {result['seconds']:.1f} s")
+    log("phase 18: " + json.dumps(result, default=str))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -7850,6 +8361,15 @@ def main() -> int:
     # writes its trace (phase 14 measures it): off for the phases that time
     # latency; phase 14 turns it on for its own service.
     os.environ.setdefault("ANOMALY_PROFILE", "0")
+
+    # Every phase's wall seconds, in order (the phase_times line).
+    times: dict[str, float] = {}
+    mark = [time.perf_counter()]
+
+    def done(name: str) -> None:
+        now = time.perf_counter()
+        times[name] = round(now - mark[0], 1)
+        mark[0] = now
 
     # Phase 1: environment.
     card = nvidia_smi_line()
@@ -7867,6 +8387,7 @@ def main() -> int:
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"phase 2: {name}: {line.strip()}")
+    done("1-2 environment and build")
 
     # Phase 3: each kernel against its plain version.
     floor = phase_launch_floor(torch)
@@ -7879,12 +8400,16 @@ def main() -> int:
     probe = phase_mma_probe(torch)
     flash_rows = phase_flash(torch, fa)
     bwd_rows = phase_flash_bwd(torch, fa)
+    done("3 kernels")
 
     # Phase 4: the scoring engine's path; phase 5: the bonus-abuse path.
     engine = phase_engine(torch, card, gbdt_kernel)
+    done("4 engine")
     abuse_run = phase_abuse(torch, card, fa)
+    done("5 abuse")
     # Phase 6: the abuse detector's training path.
     train_run = phase_train(torch, card, fa)
+    done("6 abuse training")
     # Phase 7: the risk.v1 serving front; phase 8: its index path and
     # session state, on the same store.
     from igaming_platform_tpu_torch.serve import native_store
@@ -7892,34 +8417,49 @@ def main() -> int:
     t0 = time.perf_counter()
     filled = (*fill_native_store(native_store, SERVER_NOW), time.perf_counter() - t0)
     server_run = phase_server(torch, card, gbdt_kernel, fa, filled)
+    done("7 server (with the store's fill)")
     # Phase 13: the operations plane, on the same store while the process is
     # young (the profiler's capture is part of it).
     plane_run = phase_plane(torch, card, gbdt_kernel, fa, dense_mod, filled[0])
+    done("13 plane")
     # Phase 14: the rest of the plane (host profiler, runtime telemetry, the
     # card probe, reflection, cost counts), same store.
     plane2_run = phase_plane2(torch, card, gbdt_kernel, fa, dense_mod, filled[0])
+    done("14 plane2")
     index_run = phase_index(torch, card, gbdt_kernel, fa, filled[0],
                             statistics.median(server_run["score_batch_rows_per_s"]))
+    done("8 index")
     # Phase 9: the score step's variants (int8, drift, shadow), same store.
     variants_run = phase_variants(torch, card, gbdt_kernel, fa, filled[0])
+    done("9 variants")
     # Phase 10: the decision ledger and replay, same store.
     ledger_run = phase_ledger(torch, card, gbdt_kernel, fa, filled[0])
+    done("10 ledger")
     # Phase 11: the trained multitask model booted from FRAUD_MODEL_PATH,
     # the LTV RPCs and the LTV batch job, same store.
     trained_run = phase_trained(torch, card, dense_mod, filled[0], server_run)
+    done("11 trained")
     # Phase 12: the multitask trainer, distillation, evaluation, device
     # parity, checkpoints and ONLINE_LOOP=1, same store.
     online_run = phase_online(torch, card, dense_mod, gbdt_kernel, filled[0])
+    done("12 online")
     # Phase 15: the wallet side: the single-binary platform against its CPU
     # twin, a SQLite store of 100,000 accounts, and the AMQP transport.
     platform_run = phase_platform(torch, card, gbdt_kernel, fa, dense_mod)
+    done("15 platform")
     # Phase 16: the stores of record and the wallet's own front: Postgres over
     # the wire, wallet.v1, the ledger's Postgres sink, LTV over postgres://,
     # the batch refresh of phase 7's store, the Redis store.
     stores_run = phase_stores(torch, card, gbdt_kernel, dense_mod, filled[0])
+    done("16 stores")
     # Phase 17: multi-device serving and the fleet over logical meshes of the
     # one card, on phase 7's store.
     md_run = phase_multi_device(torch, card, gbdt_kernel, fa, dense_mod, filled[0])
+    done("17 multi-device")
+    # Phase 18: multi-device training over logical meshes of the one card,
+    # held to phase 6's dense losses.
+    tm_run = phase_train_mesh(torch, card, gbdt_kernel, fa, dense_mod, train_run["losses"])
+    done("18 multi-device training")
 
     main_row = next(r for r in rows if (r["T"], r["D"], r["B"]) == (64, 4, BATCH_SIZE))
     flash_main = next(r for r in flash_rows if (r["BH"], r["S"], r["Dh"]) == FLASH_MAIN_SHAPE)
@@ -7951,6 +8491,7 @@ def main() -> int:
         "launches_platform": platform_run["launches"]["forest"],
         "launches_stores": stores_run["launches"]["forest"],
         "launches_multi_device": md_run["launches"]["forest"],
+        "launches_multi_device_train": tm_run["launches"]["forest"],
         "shapes": rows,
     }, {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -7972,6 +8513,7 @@ def main() -> int:
         "launches_plane2": plane2_run["attention_launches"],
         "launches_platform": platform_run["launches"]["forward"],
         "launches_multi_device": md_run["launches"]["forward"],
+        "launches_multi_device_train": tm_run["launches"]["forward"],
         "shapes": flash_rows,
     }, *({
         "name": f"flash_attention_bwd_{part}", "route": "cuda",
@@ -7983,6 +8525,7 @@ def main() -> int:
         "bound_ms": bwd_main[f"{part}_bound_ms"], "bound_by": bwd_main[f"{part}_bound_by"],
         "library_ms": bwd_main["library_ms"],
         "plain_and_library_compute": "dQ, dK and dV together",
+        "launches_multi_device_train": tm_run["launches"][part],
         "shapes": bwd_rows,
     } for part, line in (("dq", 251), ("dkv", 261))), {
         "name": "dense_bf16", "route": "cuda",
@@ -8001,6 +8544,7 @@ def main() -> int:
         "launches_platform": platform_run["launches"]["dense"],
         "launches_stores": stores_run["launches"]["dense"],
         "launches_multi_device": md_run["launches"]["dense"],
+        "launches_multi_device_train": tm_run["launches"]["dense"],
         "max_abs_err": max(r["max_abs_err"] for r in dense_rows if "max_abs_err" in r),
         "ms": dense_main["kernel_ms"], "plain_ms": dense_main["plain_ms"],
         "bound_ms": dense_main["bound_ms"], "bound_by": dense_main["bound_by"],
@@ -8025,6 +8569,7 @@ def main() -> int:
         "launches_train": train_run["launches_dense_f32"],
         "launches_platform": platform_run["launches"]["dense_f32"],
         "launches_multi_device": md_run["launches"]["dense_f32"],
+        "launches_multi_device_train": tm_run["launches"]["dense_f32"],
         "max_abs_err": max(r["max_abs_err"] for r in dense_f32_rows),
         "ms": f32_main["kernel_ms"], "plain_ms": f32_main["plain_ms"],
         "bound_ms": f32_main["bound_ms"], "bound_by": f32_main["bound_by"],
@@ -8034,6 +8579,9 @@ def main() -> int:
         "batch_invariance": invariance["stages"],
         "shapes": dense_f32_rows,
     }]}
+    done("kernels line")
+    times["total"] = round(time.perf_counter() - T_START, 1)
+    log("phase_times " + json.dumps(times))
     log(json.dumps(kernels))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -32,6 +32,12 @@ master weights as the JAX tree of numpy arrays, which the JAX engine scores.
 state (its params, ``optax.adamw``'s ``mu``/``nu`` and count, as numpy) into
 the port's ``train.trainer.TrainState``.
 
+``routed_train_from_tree(tree)`` gives the trainable routed bundle
+(``models.ensemble.TrainRouted``) of a JAX ``init_routed_params`` tree, and
+``pp_params_from_tree(tree)`` a pipeline trainer's params
+(``train.pp.PPTrainer(params=)``) of a JAX ``init_pp_params`` tree, so a test
+starts both packages' trainers from the same numbers.
+
 ``params_to(params, device)`` copies them to a device. Neither needs JAX:
 the tree is plain numpy.
 
@@ -228,6 +234,34 @@ def trainer_state_from_jax(params: dict, opt_state: Any, step: int,
     state = AdamState(count, [t.to(device) for t in tree_leaves(model, get("mu"))],
                       [t.to(device) for t in tree_leaves(model, get("nu"))])
     return TrainState(model, state, int(step))
+
+
+def routed_train_from_tree(tree: dict):
+    """The trainable routed bundle (``models.ensemble.TrainRouted``), on the
+    CPU, of the JAX ``init_routed_params`` tree ({"router", "mlp", "gbdt",
+    "multitask"}; "mock" is None)."""
+    from igaming_platform_tpu_torch.models.ensemble import SoftForest, TrainRouted
+    from igaming_platform_tpu_torch.models.mlp import TrainMLP
+
+    mlp = TrainMLP([TrainDense(_f32(p["w"]), _f32(p["b"])) for p in tree["mlp"]["layers"]])
+    return TrainRouted(_f32(tree["router"]), mlp, SoftForest(gbdt_from_tree(tree["gbdt"])),
+                       train_multitask_from_tree(tree["multitask"]))
+
+
+def pp_params_from_tree(tree: dict) -> dict:
+    """A pipeline trainer's params (``train.pp.PPTrainer(params=)``), on the
+    CPU, from the JAX ``init_pp_params`` tree: "proj" and "head" as {"w",
+    "b"}, "stages" stacked ([S, d, d], [S, d]) or per stage; the port's keeps
+    one {"w", "b"} a stage."""
+    def layer(p):
+        return {"w": _f32(p["w"]), "b": _f32(p["b"])}
+
+    stages = tree["stages"]
+    if isinstance(stages, dict):
+        stages = [{"w": stages["w"][s], "b": stages["b"][s]}
+                  for s in range(np.shape(stages["w"])[0])]
+    return {"proj": layer(tree["proj"]), "stages": [layer(p) for p in stages],
+            "head": layer(tree["head"])}
 
 
 _CONVERTERS = {"router": _f32, "mlp": mlp_from_tree, "gbdt": gbdt_from_tree, "multitask": multitask_from_tree,

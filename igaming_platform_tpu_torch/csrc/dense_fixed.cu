@@ -56,6 +56,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "device_attr.cuh"
+
 // Timing probes (chip_smoke.py's dense_variants), wrong answers: 1 reads
 // each warp's first k of a stage for all its k (the operand loads out of
 // the loop); 2 also stages nothing past the first stage.
@@ -247,9 +249,9 @@ template <bool kF32, int kLR, int kTM>
 int launch_tile(const void* x, const void* w, const void* bias, void* out, int B, int K, int N,
                 cudaStream_t stream) {
   using T = Tile<kLR, kTM>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(dense_fixed_kernel<kF32, kLR, kTM>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  static std::atomic<bool> smem_set[kMaxCards];
+  const cudaError_t attr = smem_limit_on_current_card(
+      smem_set, (const void*)dense_fixed_kernel<kF32, kLR, kTM>, T::kSmemBytes);
   if (attr != cudaSuccess) {
     return static_cast<int>(attr);
   }

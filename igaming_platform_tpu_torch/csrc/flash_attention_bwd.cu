@@ -69,6 +69,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_attr.cuh"
 #include "flash_attention_common.cuh"
 
 namespace {
@@ -534,7 +535,7 @@ flash_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restr
   }
 }
 
-// Sets the kernel's dynamic shared memory once, then launches it over
+// Launches a kernel (its dynamic shared memory limit set by the caller) over
 // (BH, row blocks).
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, int bytes, int BH, int S, int rows, cudaStream_t stream,
@@ -553,9 +554,9 @@ int launch_dq(const float* q, const float* k, const float* v, const float* dout,
               cudaStream_t stream) {
   constexpr int bytes = smem_bytes<Dh, false>();
   static_assert((kSplit - 1) * Geo<Dh>::kNd * 4 * 32 <= 2 * 2 * Geo<Dh>::kStage, "red");
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_bwd_dq_kernel<Dh, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  static std::atomic<bool> smem_set[kMaxCards];
+  const cudaError_t attr = smem_limit_on_current_card(
+      smem_set, (const void*)flash_attention_bwd_dq_kernel<Dh, kSplit>, bytes);
   if (attr != cudaSuccess) {
     return static_cast<int>(attr);
   }
@@ -569,9 +570,9 @@ int launch_dkv(const float* q, const float* k, const float* v, const float* dout
                float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<Dh, true>();
   static_assert(2 * (kSplit - 1) * Geo<Dh>::kNd * 4 * 32 <= 2 * 2 * Geo<Dh>::kStage, "red");
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_bwd_dkv_kernel<Dh, kSplit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  static std::atomic<bool> smem_set[kMaxCards];
+  const cudaError_t attr = smem_limit_on_current_card(
+      smem_set, (const void*)flash_attention_bwd_dkv_kernel<Dh, kSplit>, bytes);
   if (attr != cudaSuccess) {
     return static_cast<int>(attr);
   }

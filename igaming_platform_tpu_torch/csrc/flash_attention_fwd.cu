@@ -80,6 +80,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_attr.cuh"
 #include "flash_attention_common.cuh"
 
 namespace {
@@ -547,9 +548,9 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
                float scale, cudaStream_t stream) {
   using G = Geo<Dh, kSplit, kWarps>;
   constexpr int bytes = G::kSmem * 4;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(flash_attention_fwd_kernel<Dh, kSplit, kWarps, kQuarters>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static std::atomic<bool> smem_set[kMaxCards];
+  const cudaError_t attr = smem_limit_on_current_card(
+      smem_set, (const void*)flash_attention_fwd_kernel<Dh, kSplit, kWarps, kQuarters>, bytes);
   if (attr != cudaSuccess) {
     return static_cast<int>(attr);
   }

@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_attr.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -383,10 +385,10 @@ template <int kD, int kRows>
 int launch(const void* x, const void* feat, const void* thr, const void* leaves,
            const void* bias, void* out, int B, int F, int T, int D, int rows, int groups,
            int chunk, int cluster, int span, int tree_block, int smem, cudaStream_t stream) {
-  // Once per depth variant: allow dynamic shared memory above 48 KB.
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(gbdt_forest_kernel<kD, kRows>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
+  // Once per depth variant and card: allow dynamic shared memory above 48 KB.
+  static std::atomic<bool> smem_set[kMaxCards];
+  const cudaError_t attr = smem_limit_on_current_card(
+      smem_set, (const void*)gbdt_forest_kernel<kD, kRows>, kMaxSharedBytes);
   if (attr != cudaSuccess) {
     return static_cast<int>(attr);
   }

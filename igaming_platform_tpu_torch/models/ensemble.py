@@ -102,25 +102,65 @@ def routed_experts() -> tuple[list, tuple[str, ...]]:
 ROUTED_PARAM_KEYS = ("router", "mlp", "gbdt", "multitask")
 
 
-def init_routed_params(seed: int = 0, *, mlp_hidden=(128, 128), n_trees: int = 64,
-                       depth: int = 4, trunk=(256, 256)) -> dict:
-    """A fresh serving bundle for ``ml_backend="routed"`` on the CPU, drawn
-    from ``torch.Generator().manual_seed(seed)`` with the JAX
+class SoftForest(torch.nn.Module):
+    """A forest to train through its soft-split relaxation: ``feat`` frozen
+    (a buffer), ``thr``, ``leaves`` and ``bias`` float32 parameters."""
+
+    def __init__(self, params: dict):
+        super().__init__()
+        self.register_buffer("feat", torch.as_tensor(params["feat"], dtype=torch.int32).clone())
+        for k in ("thr", "leaves", "bias"):
+            setattr(self, k, torch.nn.Parameter(
+                torch.as_tensor(params[k], dtype=torch.float32).clone().contiguous()))
+
+    def params(self) -> dict:
+        return {"feat": self.feat, "thr": self.thr, "leaves": self.leaves, "bias": self.bias}
+
+    def serving(self) -> dict:
+        """The hard forest's params (the forest kernel's), detached."""
+        return {k: v.detach().clone().contiguous() for k, v in self.params().items()}
+
+
+class TrainRouted(torch.nn.Module):
+    """The routed bundle to train (``train/routed.py``): the router [30, E]
+    as a float32 parameter, ``TrainMLP``, a ``SoftForest`` and
+    ``TrainMultiTask``; the mock expert has no params. ``serving()`` gives
+    the bundle ``ml_backend="routed"`` serves."""
+
+    def __init__(self, router: torch.Tensor, mlp, forest: SoftForest, multitask):
+        super().__init__()
+        self.router = torch.nn.Parameter(torch.as_tensor(router, dtype=torch.float32).clone())
+        self.mlp, self.forest, self.multitask = mlp, forest, multitask
+
+    def serving(self) -> dict:
+        return {"router": self.router.detach().clone(), "mock": None,
+                "mlp": self.mlp.serving(), "gbdt": self.forest.serving(),
+                "multitask": self.multitask.serving()}
+
+
+def init_routed_train_params(seed: int = 0, *, mlp_hidden=(128, 128), n_trees: int = 64,
+                             depth: int = 4, trunk=(256, 256)) -> TrainRouted:
+    """A fresh trainable routed bundle on the CPU, drawn from
+    ``torch.Generator().manual_seed(seed)`` with the JAX
     ``init_routed_params`` distributions (router of scale 0.01, the MLP,
-    forest and multitask inits): not the numbers of a JAX key. The mock
-    expert needs no params."""
+    forest and multitask inits): not the numbers of a JAX key."""
     from igaming_platform_tpu_torch.core.features import NUM_FEATURES
     from igaming_platform_tpu_torch.models.multitask import init_multitask
     from igaming_platform_tpu_torch.parallel.ep import init_router
 
     gen = torch.Generator().manual_seed(seed)
-    return {
-        "router": init_router(gen, NUM_FEATURES, len(routed_experts()[0]), scale=0.01),
-        "mock": None,
-        "mlp": mlp_mod.init_mlp(gen, hidden=mlp_hidden).serving(),
-        "gbdt": gbdt_mod.init_gbdt(gen, n_trees=n_trees, depth=depth),
-        "multitask": init_multitask(gen, trunk=trunk).serving(),
-    }
+    router = init_router(gen, NUM_FEATURES, len(routed_experts()[0]), scale=0.01)
+    mlp = mlp_mod.init_mlp(gen, hidden=mlp_hidden)
+    forest = SoftForest(gbdt_mod.init_gbdt(gen, n_trees=n_trees, depth=depth))
+    return TrainRouted(router, mlp, forest, init_multitask(gen, trunk=trunk))
+
+
+def init_routed_params(seed: int = 0, *, mlp_hidden=(128, 128), n_trees: int = 64,
+                       depth: int = 4, trunk=(256, 256)) -> dict:
+    """A fresh serving bundle for ``ml_backend="routed"`` on the CPU: the
+    serving assembly of ``init_routed_train_params``'s draws."""
+    return init_routed_train_params(seed, mlp_hidden=mlp_hidden, n_trees=n_trees, depth=depth,
+                                    trunk=trunk).serving()
 
 
 def routed_splits_rows(mesh) -> bool:

@@ -92,10 +92,19 @@ class TrainMultiTask(nn.Module):
         self.ltv_head = ltv_head
         self.churn_head = churn_head
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def trunk_features(self, x: torch.Tensor) -> torch.Tensor:
         h = torch.as_tensor(x, dtype=torch.float32)
         for layer in self.trunk:
             h = torch.relu(layer(h))
+        return h
+
+    def fraud_logit(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, 30] -> [B]: the trunk and the fraud head only (the routed
+        ensemble's expert)."""
+        return self.fraud_head(self.trunk_features(x))[..., 0]
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        h = self.trunk_features(x)
         fraud_logit = self.fraud_head(h)[..., 0]
         churn_logit = self.churn_head(h)[..., 0]
         return {

@@ -19,7 +19,8 @@ Every ``Affine`` layer adds its float32 products in one order fixed by K
 on a card), not cuBLAS's, whose order follows M: so a player's score does
 not depend on the batch it rides in (one ``check()`` and the same account
 inside ``check_batch``, a session-head row in any chunk), on the card as on
-the CPU. Its gradient keeps ``torch.matmul``: training needs no fixed order.
+the CPU. Its gradient keeps ``torch.matmul`` (``ops/dense.py``'s
+``dense_f32_train``): training needs no fixed order.
 
 Over a mesh (``forward(x, mesh=, seq_mode=)``) the attention core shards
 the batch over ``data`` and the sequence over ``seq``, as the JAX
@@ -50,7 +51,7 @@ from torch import nn
 
 from igaming_platform_tpu_torch.core.device import constant
 from igaming_platform_tpu_torch.parallel import collectives as coll
-from igaming_platform_tpu_torch.ops.dense import dense_f32
+from igaming_platform_tpu_torch.ops.dense import dense_f32_train
 from igaming_platform_tpu_torch.ops.flash_attention import flash_attention
 
 # Per-event feature layout for wagering histories:
@@ -103,22 +104,6 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-class _FixedOrderAffine(torch.autograd.Function):
-    """``dense_f32`` forward on [rows, in]; ``torch.matmul`` backward."""
-
-    @staticmethod
-    def forward(ctx, x, w, b):
-        ctx.save_for_backward(x, w)
-        return dense_f32(x, w, b)
-
-    @staticmethod
-    def backward(ctx, grad):
-        x, w = ctx.saved_tensors
-        need_x, need_w, need_b = ctx.needs_input_grad
-        return (grad @ w.t() if need_x else None, x.t() @ grad if need_w else None,
-                grad.sum(0) if need_b else None)
-
-
 class Affine(nn.Module):
     """``x @ w + b`` in float32, its sums in ``dense_f32``'s fixed order;
     ``w`` is [in, out] as in the JAX params."""
@@ -132,7 +117,7 @@ class Affine(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rows = x.reshape(-1, x.shape[-1]).contiguous()
-        return _FixedOrderAffine.apply(rows, self.w, self.b).view(*x.shape[:-1], -1)
+        return dense_f32_train(rows, self.w, self.b).view(*x.shape[:-1], -1)
 
 
 class LayerNorm(nn.Module):

@@ -30,7 +30,11 @@ launches.
 ``dense_train(x, w, b)`` is ``dense`` for training: ``w`` is a float32
 master weight, rounded to bf16 on every call, and ``DenseFn``'s backward
 gives the JAX package's gradients of ``_dense``, each product rounded to
-bf16 as XLA's program rounds it (below).
+bf16 as XLA's program rounds it (below). ``dense_f32_train`` is
+``dense_f32`` for training (``DenseF32Fn``: float32 gradients).
+
+A launch runs under its operands' device (``torch.cuda.device(x.device)``),
+on that device's current stream, and refuses operands on another card.
 
 Not a TPU kernel: it is the repair of a fault of the port (a row's
 ``ml_score``, and the sequence model's score, depended on its batch), not a
@@ -134,15 +138,18 @@ def _launch(entry: str, counted, x: torch.Tensor, w: torch.Tensor,
     x = x.contiguous()
     _check(x, w, b)
     rows, k = x.shape
-    out = torch.empty((rows, w.shape[1]), dtype=torch.float32, device=x.device)
-    if rows:
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(_lib(), entry)(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                    rows, k, w.shape[1], stream)
-        if rc != 0:
-            raise RuntimeError(f"{entry}: kernel launch failed with CUDA error {rc}")
-        with _count_lock:
-            counted.launches += 1
+    # The launch goes to the current device: make it x's card, whichever
+    # card the caller's thread has current.
+    with torch.cuda.device(x.device):
+        out = torch.empty((rows, w.shape[1]), dtype=torch.float32, device=x.device)
+        if rows:
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = getattr(_lib(), entry)(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                        out.data_ptr(), rows, k, w.shape[1], stream)
+            if rc != 0:
+                raise RuntimeError(f"{entry}: kernel launch failed with CUDA error {rc}")
+            with _count_lock:
+                counted.launches += 1
     return out
 
 
@@ -212,3 +219,34 @@ def dense_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     """[B, K] float32 -> [B, N] float32: ``dense`` on the bf16 rounding of the
     float32 master weight ``w``, differentiable as ``DenseFn`` says."""
     return DenseFn.apply(x, w, b)
+
+
+class DenseF32Fn(torch.autograd.Function):
+    """``dense_f32(x, w, b)`` with the gradients of ``x @ w + b`` in float32:
+    ``dx = dy . w^T``, ``dw = x^T . dy``, ``db = sum_B dy``. The backward
+    products run outside the fixed-order kernel, as JAX's run outside any
+    Pallas call: ``torch.matmul`` (with TF32 off on a card)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        ctx.save_for_backward(x, w)
+        return dense_f32(x, w.contiguous(), b.contiguous())
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        flops, nbytes = perfmodel.dense_work(x.shape[0], *w.shape)
+        products = int(need_x) + int(need_w)
+        perfmodel.note_work("dense_f32_bwd", products * flops, products * nbytes)
+        return (torch.matmul(dy, w.t()) if need_x else None,
+                torch.matmul(x.t(), dy) if need_w else None,
+                dy.sum(0) if need_b else None)
+
+
+def dense_f32_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[B, K] float32 -> [B, N] float32: ``dense_f32``, differentiable as
+    ``DenseF32Fn`` says (the sequence model's layers, the routed ensemble's
+    router and the pipeline's stages)."""
+    return DenseF32Fn.apply(x, w, b)

@@ -43,7 +43,8 @@ dominates. See the sources' headers for the design.
 
 The wrappers take the plain version for CPU tensors only; for CUDA tensors
 they launch the kernels or raise, also for a head size the kernels were not
-built for. ``flash_attention_fwd.launches``,
+built for or an operand on another card. A launch runs under its inputs'
+device (``torch.cuda.device(q.device)``), on that device's current stream. ``flash_attention_fwd.launches``,
 ``flash_attention_bwd.launches_dq`` and ``flash_attention_bwd.launches_dkv``
 count kernel launches.
 """
@@ -149,10 +150,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     lse = torch.empty((bh, s, 1), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib("flash_attention_fwd").flash_attention_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        bh, s, dh, 1.0 / math.sqrt(dh), stream)
+    # The launch goes to the current device: make it q's card.
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _lib("flash_attention_fwd").flash_attention_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            bh, s, dh, 1.0 / math.sqrt(dh), stream)
     _launched(rc, flash_attention_fwd, "launches")
     return o, lse
 
@@ -176,16 +179,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if q.numel() == 0:
         return dq, dk, dv
     dmat = (do * o).sum(dim=-1)  # [BH, S]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = 1.0 / math.sqrt(dh)
     lib = _lib("flash_attention_bwd")
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
            dmat.data_ptr())
-    rc = lib.flash_attention_bwd_dq_launch(*ins, dq.data_ptr(), bh, s, dh, scale, stream)
-    _launched(rc, flash_attention_bwd, "launches_dq")
-    rc = lib.flash_attention_bwd_dkv_launch(*ins, dk.data_ptr(), dv.data_ptr(), bh, s, dh,
-                                            scale, stream)
-    _launched(rc, flash_attention_bwd, "launches_dkv")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd_dq_launch(*ins, dq.data_ptr(), bh, s, dh, scale, stream)
+        _launched(rc, flash_attention_bwd, "launches_dq")
+        rc = lib.flash_attention_bwd_dkv_launch(*ins, dk.data_ptr(), dv.data_ptr(), bh, s, dh,
+                                                scale, stream)
+        _launched(rc, flash_attention_bwd, "launches_dkv")
     return dq, dk, dv
 
 

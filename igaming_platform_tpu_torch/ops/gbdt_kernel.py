@@ -24,8 +24,10 @@ What bounds it on an H100: at the serving forest (T=64, D=4) bytes, about
 D=6) the B*T*D compares. One launch per call, no allocation, no sync.
 
 ``gbdt_forest`` takes the plain PyTorch version for CPU tensors only; for
-CUDA tensors it launches the kernel or raises. ``gbdt_forest.launches``
-counts kernel launches.
+CUDA tensors it launches the kernel or raises (also for an operand on
+another card), under ``x``'s device (``torch.cuda.device(x.device)``), on
+that device's current stream. ``gbdt_forest.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -242,15 +244,17 @@ def gbdt_forest(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
     _check(x, feat, thr, leaves, bias)
     b, n_features = x.shape
     n_trees, depth = feat.shape
-    out = torch.empty((b,), dtype=torch.float32, device=x.device)
-    if b == 0:
-        return out
-    plan = launch_plan(b, n_features, n_trees, depth, _sm_count(x.device.index))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _lib().gbdt_forest_launch(
-        x.data_ptr(), feat.data_ptr(), thr.data_ptr(), leaves.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, n_features, n_trees, depth, plan.rows, plan.groups, plan.chunk,
-        plan.cluster, plan.span, plan.tree_block, stream)
+    # The launch goes to the current device: make it x's card.
+    with torch.cuda.device(x.device):
+        out = torch.empty((b,), dtype=torch.float32, device=x.device)
+        if b == 0:
+            return out
+        plan = launch_plan(b, n_features, n_trees, depth, _sm_count(x.device.index))
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib().gbdt_forest_launch(
+            x.data_ptr(), feat.data_ptr(), thr.data_ptr(), leaves.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, n_features, n_trees, depth, plan.rows, plan.groups, plan.chunk,
+            plan.cluster, plan.span, plan.tree_block, stream)
     if rc != 0:
         raise RuntimeError(f"gbdt_forest: kernel launch failed with CUDA error {rc}")
     with _count_lock:

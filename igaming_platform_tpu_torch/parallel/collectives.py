@@ -15,7 +15,10 @@ twin with a tolerance, never bit for bit.
 
 from __future__ import annotations
 
-from typing import Sequence
+import collections
+import itertools
+import threading
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -136,3 +139,66 @@ def unshard_rows(xs: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
     """The row layout's inverse: the blocks concatenated on the first
     shard's device."""
     return all_gather(xs, gather_axis=dim)[0]
+
+
+# -- params on a shard's device ---------------------------------------------
+
+_PLACED_MAX = 16
+_placed: "collections.OrderedDict[tuple[int, torch.device], tuple[Any, Any]]" = (
+    collections.OrderedDict())
+_placed_lock = threading.Lock()
+
+
+def _first_tensor(obj) -> torch.Tensor | None:
+    if isinstance(obj, torch.Tensor):
+        return obj
+    if isinstance(obj, torch.nn.Module):
+        return next(itertools.chain(obj.parameters(), obj.buffers()), None)
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (list, tuple)):
+        for v in obj:
+            t = _first_tensor(v)
+            if t is not None:
+                return t
+    return None
+
+
+def on_device(params: Any, device: torch.device) -> Any:
+    """``params`` (a tensor, a module, or a dict or tuple of them) with its
+    tensors on ``device``: ``params`` itself when they lie there already (a
+    logical mesh), else a copy made at the first call and kept for the
+    next ones (the 16 most recent; the copy keeps ``params`` alive, so its
+    ``id`` is not reused while it is kept)."""
+    first = _first_tensor(params)
+    device = torch.device(device)
+    if first is None or first.device == device:
+        return params
+    key = (id(params), device)
+    with _placed_lock:
+        hit = _placed.get(key)
+        if hit is not None and hit[0] is params:
+            _placed.move_to_end(key)
+            return hit[1]
+    copy = _copy_to(params, device)
+    with _placed_lock:
+        _placed[key] = (params, copy)
+        while len(_placed) > _PLACED_MAX:
+            _placed.popitem(last=False)
+    return copy
+
+
+def _copy_to(obj, device):
+    import copy
+
+    if obj is None:
+        return None
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, torch.nn.Module):
+        return copy.deepcopy(obj).to(device)
+    if isinstance(obj, dict):
+        return {k: _copy_to(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_copy_to(v, device) for v in obj)
+    return obj

@@ -45,12 +45,14 @@ def gate_probs(router_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     the router, so its logits run to thousands and most gates underflow:
     XLA flushes a subnormal result to zero (on the CPU and the TPU), torch
     keeps it, so the gates are flushed here too. A gate that underflowed
-    then ties at zero, and the lower index takes the pick, as in JAX."""
-    from igaming_platform_tpu_torch.ops.dense import dense_f32
+    then ties at zero, and the lower index takes the pick, as in JAX.
+    Differentiable in ``router_w`` (``dense_f32_train``): a flushed gate
+    passes no gradient."""
+    from igaming_platform_tpu_torch.ops.dense import dense_f32_train
 
     x = torch.as_tensor(x, dtype=torch.float32).contiguous()
     zero = torch.zeros(router_w.shape[1], dtype=torch.float32, device=x.device)
-    g = torch.softmax(dense_f32(x, router_w.contiguous(), zero), dim=-1)
+    g = torch.softmax(dense_f32_train(x, router_w, zero), dim=-1)
     return torch.where(g < torch.finfo(torch.float32).tiny, torch.zeros_like(g), g)
 
 
@@ -143,7 +145,7 @@ def routed_ensemble_forward(
             blocks.append(x[blk * b_local:(blk + 1) * b_local].to(devs[e]))
         dispatched, plans = [], []
         for xl, dev in zip(blocks, devs):
-            gates = gate_probs(router_w.to(dev), xl)
+            gates = gate_probs(coll.on_device(router_w, dev), xl)
             top_idx, pos, kept, weights = _dispatch_masks(gates, k, capacity)
             # Slot ``capacity`` takes the dropped picks and is cut off: a
             # kept pick owns its (expert, slot) alone.
@@ -161,8 +163,11 @@ def routed_ensemble_forward(
                           * kept.unsqueeze(-1)).sum(dim=(0, 1)).to(torch.float32).to(home))
             dropped.append((~kept).sum().to(home))
         received = coll.all_to_all(dispatched, split_axis=0, concat_axis=0, devices=devs)
-        outs = [fn(p, r.reshape(n_experts * capacity, feat_dim)).to(torch.float32)
-                for fn, p, r in zip(expert_fns, expert_params, received)]
+        # Each expert's params on its own shard's device (a copy kept after
+        # the first call when that is another card; none on a logical mesh).
+        outs = [fn(coll.on_device(p, dev), r.reshape(n_experts * capacity, feat_dim))
+                .to(torch.float32)
+                for fn, p, r, dev in zip(expert_fns, expert_params, received, devs)]
         returned = coll.all_to_all([o.reshape(n_experts, capacity) for o in outs],
                                    split_axis=0, concat_axis=0, devices=devs)
         for e, ((top_idx, pos, kept, weights), ret) in enumerate(zip(plans, returned)):

@@ -99,11 +99,20 @@ class Mesh:
         """True when the grid repeats a device: its shards share hardware."""
         return len(self.distinct_devices()) < self.size
 
-    def axis_device(self, axis: str, i: int) -> torch.device:
-        """The device of coordinate ``i`` on ``axis`` (0 on every other)."""
+    def axis_device(self, axis: str, i: int, data: int = 0) -> torch.device:
+        """The device of coordinate ``i`` on ``axis``, at ``data`` on the data
+        axis (when ``axis`` is another) and 0 on every other."""
         idx = [0] * len(MESH_AXES)
+        idx[0] = data
         idx[MESH_AXES.index(axis)] = i
         return self.devices[tuple(idx)]
+
+    def data_replicas(self) -> list[int]:
+        """For each ``data`` coordinate, the coordinate whose params replica it
+        uses: the first one whose devices (on the other axes) are its own. A
+        logical mesh that repeats one device gives all 0: one replica."""
+        keys = [tuple(self.devices[d].flat) for d in range(self.shape[AXIS_DATA])]
+        return [keys.index(k) for k in keys]
 
     def __repr__(self) -> str:
         dims = "x".join(f"{a}={s}" for a, s in self.shape.items())

@@ -26,11 +26,14 @@ sharded program with a tolerance, never bit for bit.
 
 from __future__ import annotations
 
+import copy
 from typing import Any
 
 import torch
 from torch import nn
 
+from igaming_platform_tpu_torch.models.mlp import Dense, TrainDense
+from igaming_platform_tpu_torch.models.multitask import MultiTask, TrainMultiTask
 from igaming_platform_tpu_torch.parallel import collectives as coll
 from igaming_platform_tpu_torch.parallel.mesh import (
     AXIS_DATA,
@@ -117,18 +120,19 @@ def _blocks(n: int, k: int, what: str) -> list[tuple[int, int]]:
 
 class ShardedForest(dict):
     """A forest with its trees split over ``expert``: ``shards`` holds one
-    ``{"feat", "thr", "leaves"}`` block per shard (on that shard's device),
-    ``bias`` the replicated bias. ``models/gbdt.gbdt_raw`` sums the
-    shards' margins in shard order, then adds the bias."""
+    ``{"feat", "thr", "leaves"}`` block per shard (on that shard's device, at
+    data coordinate ``data``), ``bias`` the replicated bias.
+    ``models/gbdt.gbdt_raw`` sums the shards' margins in shard order, then
+    adds the bias."""
 
-    def __init__(self, mesh: Mesh, params: dict):
+    def __init__(self, mesh: Mesh, params: dict, data: int = 0):
         n = mesh_axis_size(mesh, AXIS_EXPERT)
         shards = []
         for i, (lo, hi) in enumerate(_blocks(int(params["feat"].shape[0]), n, "a forest")):
-            dev = mesh.axis_device(AXIS_EXPERT, i)
+            dev = mesh.axis_device(AXIS_EXPERT, i, data)
             shards.append({k: params[k][lo:hi].contiguous().to(dev)
                            for k in ("feat", "thr", "leaves")})
-        super().__init__(shards=shards, bias=params["bias"])
+        super().__init__(shards=shards, bias=params["bias"].to(mesh.axis_device(AXIS_DATA, data)))
 
     def raw(self, x: torch.Tensor) -> torch.Tensor:
         from igaming_platform_tpu_torch.ops.gbdt_kernel import gbdt_forest
@@ -143,8 +147,6 @@ class ShardedForest(dict):
 
 
 def _column_shard(layer, lo: int, hi: int, dev) -> nn.Module:
-    from igaming_platform_tpu_torch.models.mlp import Dense
-
     return Dense(layer.w_bf16[:, lo:hi], layer.b[lo:hi]).to(dev)
 
 
@@ -168,13 +170,14 @@ class ShardedHidden(nn.Module):
     ``model``: an even layer's output features split (each shard its
     columns, the activation left sharded), an odd layer's input features
     split (each shard its rows' partial product, psummed in shard order,
-    then the bias). A sharded activation left at the end is all-gathered."""
+    then the bias). A sharded activation left at the end is all-gathered.
+    The shards are the ``model`` devices at data coordinate ``data``."""
 
-    def __init__(self, mesh: Mesh, layers):
+    def __init__(self, mesh: Mesh, layers, data: int = 0):
         super().__init__()
         n = mesh_axis_size(mesh, AXIS_MODEL)
         self.n = n
-        self.devices = [mesh.axis_device(AXIS_MODEL, i) for i in range(n)]
+        self.devices = [mesh.axis_device(AXIS_MODEL, i, data) for i in range(n)]
         self.kinds: list[str] = []
         self.parts = nn.ModuleList()
         self.biases = []
@@ -190,7 +193,7 @@ class ShardedHidden(nn.Module):
                 self.kinds.append("row")
                 self.parts.append(nn.ModuleList(
                     [_RowShard(layer, lo, hi, d) for (lo, hi), d in zip(bounds, self.devices)]))
-                self.biases.append(layer.b)
+                self.biases.append(layer.b.to(self.devices[0]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         home = x.device
@@ -210,10 +213,10 @@ class ShardedMLP(nn.Module):
     """An ``MLP`` whose hidden layers run ``ShardedHidden``; the output head
     is replicated. ``models/mlp.mlp_predict`` takes it as it takes an MLP."""
 
-    def __init__(self, mesh: Mesh, mlp):
+    def __init__(self, mesh: Mesh, mlp, data: int = 0):
         super().__init__()
-        self.hidden = ShardedHidden(mesh, list(mlp.layers[:-1]))
-        self.head = mlp.layers[-1]
+        self.hidden = ShardedHidden(mesh, list(mlp.layers[:-1]), data)
+        self.head = coll.on_device(mlp.layers[-1], mesh.axis_device(AXIS_DATA, data))
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         return self.hidden(x)
@@ -227,31 +230,177 @@ class ShardedMultiTask(nn.Module):
     replicated. ``models/multitask.fraud_predict`` takes it as it takes a
     MultiTask."""
 
-    def __init__(self, mesh: Mesh, model):
+    def __init__(self, mesh: Mesh, model, data: int = 0):
         super().__init__()
-        self.trunk = ShardedHidden(mesh, list(model.trunk))
-        self.fraud_head = model.fraud_head
-        self.ltv_head = model.ltv_head
-        self.churn_head = model.churn_head
+        dev = mesh.axis_device(AXIS_DATA, data)
+        self.trunk = ShardedHidden(mesh, list(model.trunk), data)
+        self.fraud_head = coll.on_device(model.fraud_head, dev)
+        self.ltv_head = coll.on_device(model.ltv_head, dev)
+        self.churn_head = coll.on_device(model.churn_head, dev)
 
     def trunk_features(self, x: torch.Tensor) -> torch.Tensor:
         return self.trunk(x)
 
 
-def shard_model_params(mesh: Mesh, ml_backend: str, params: Any) -> Any:
+def shard_model_params(mesh: Mesh, ml_backend: str, params: Any, data: int = 0) -> Any:
     """The serving checkpoint with each piece ``model_param_specs`` names
     replaced by its sharded module: the forest's trees over ``expert`` (when
     that axis is > 1), the MLP and multitask trunks over ``model`` (when
-    that axis is > 1). Identity when nothing shards."""
+    that axis is > 1), on the devices at data coordinate ``data``. Identity
+    when nothing shards."""
     specs = model_param_specs(ml_backend, params)
     if specs is None:
         return params
     out = dict(params)
     if "gbdt" in specs and mesh_axis_size(mesh, AXIS_EXPERT) > 1:
-        out["gbdt"] = ShardedForest(mesh, params["gbdt"])
+        out["gbdt"] = ShardedForest(mesh, params["gbdt"], data)
     if mesh_axis_size(mesh, AXIS_MODEL) > 1:
         if "mlp" in specs:
-            out["mlp"] = ShardedMLP(mesh, params["mlp"])
+            out["mlp"] = ShardedMLP(mesh, params["mlp"], data)
         if "multitask" in specs:
-            out["multitask"] = ShardedMultiTask(mesh, params["multitask"])
+            out["multitask"] = ShardedMultiTask(mesh, params["multitask"], data)
     return out
+
+
+# -- training over ``model`` ---------------------------------------------------
+
+
+class _TrainRowShard(nn.Module):
+    """Rows ``lo:hi`` of a trainable layer's float32 master weight, no bias:
+    one shard's partial product of a row-split layer."""
+
+    def __init__(self, w: torch.Tensor, dev):
+        super().__init__()
+        self.w = nn.Parameter(w.detach().clone().contiguous().to(dev))
+        self.register_buffer("zero", torch.zeros(w.shape[1], device=dev))
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        from igaming_platform_tpu_torch.ops.dense import dense_train
+
+        return dense_train(h, self.w, self.zero)
+
+
+class TrainShardedHidden(nn.Module):
+    """The training twin of ``ShardedHidden``: ``TrainDense`` layers (float32
+    master weights, ``DenseFn``'s gradients) in the alternating layout over
+    ``model`` at data coordinate ``data``. An even layer keeps its columns
+    and their bias on each shard; an odd layer its rows on each shard and
+    its bias on the first. Autograd runs through the psum and the gather."""
+
+    def __init__(self, mesh: Mesh, layers, data: int = 0):
+        super().__init__()
+        n = mesh_axis_size(mesh, AXIS_MODEL)
+        self.n = n
+        self.devices = [mesh.axis_device(AXIS_MODEL, i, data) for i in range(n)]
+        self.kinds: list[str] = []
+        self.parts = nn.ModuleList()
+        self.biases = nn.ParameterList()
+        for i, layer in enumerate(layers):
+            w, b = layer.w.detach(), layer.b.detach()
+            width = int(w.shape[1] if i % 2 == 0 else w.shape[0])
+            bounds = _blocks(width, n, f"layer {i}'s hidden width")
+            if i % 2 == 0:
+                self.kinds.append("col")
+                self.parts.append(nn.ModuleList(
+                    [TrainDense(w[:, lo:hi].to(d), b[lo:hi].to(d))
+                     for (lo, hi), d in zip(bounds, self.devices)]))
+            else:
+                self.kinds.append("row")
+                self.parts.append(nn.ModuleList(
+                    [_TrainRowShard(w[lo:hi], d) for (lo, hi), d in zip(bounds, self.devices)]))
+                self.biases.append(nn.Parameter(b.clone().to(self.devices[0])))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        home = x.device
+        h: Any = torch.as_tensor(x, dtype=torch.float32)
+        row = 0
+        for kind, parts in zip(self.kinds, self.parts):
+            if kind == "col":
+                h = [torch.relu(p(h.to(d))) for p, d in zip(parts, self.devices)]
+            else:
+                partial = [p(hs) for p, hs in zip(parts, h)]
+                h = torch.relu(coll.psum(partial, devices=[home] * self.n)[0]
+                               + self.biases[row].to(home))
+                row += 1
+        if isinstance(h, list):
+            h = coll.all_gather(h, gather_axis=1, devices=[home] * self.n)[0]
+        return h
+
+    def full_layers(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """Every layer's whole (w, b), detached, on the first shard's device."""
+        home = self.devices[0]
+        out, row = [], 0
+        for kind, parts in zip(self.kinds, self.parts):
+            if kind == "col":
+                out.append((torch.cat([p.w.detach().to(home) for p in parts], dim=1),
+                            torch.cat([p.b.detach().to(home) for p in parts])))
+            else:
+                out.append((torch.cat([p.w.detach().to(home) for p in parts], dim=0),
+                            self.biases[row].detach().clone()))
+                row += 1
+        return out
+
+
+class TrainShardedMultiTask(TrainMultiTask):
+    """A ``TrainMultiTask`` whose trunk runs ``TrainShardedHidden`` over
+    ``model`` at data coordinate ``data``; the heads are replicated there.
+    ``serving()`` assembles the whole net: one unsharded ``MultiTask``."""
+
+    def __init__(self, mesh: Mesh, model, data: int = 0):
+        dev = mesh.axis_device(AXIS_DATA, data)
+        super().__init__([], *(copy.deepcopy(h).to(dev) for h in (
+            model.fraud_head, model.ltv_head, model.churn_head)))
+        self.trunk = TrainShardedHidden(mesh, list(model.trunk), data)
+
+    def trunk_features(self, x: torch.Tensor) -> torch.Tensor:
+        return self.trunk(x)
+
+    def serving(self) -> MultiTask:
+        return MultiTask([Dense(w, b) for w, b in self.trunk.full_layers()],
+                         self.fraud_head.serving(), self.ltv_head.serving(),
+                         self.churn_head.serving())
+
+
+def shard_train_model(mesh: Mesh, model, data: int = 0) -> nn.Module:
+    """A trainable multitask net laid over ``mesh`` at data coordinate
+    ``data``: its trunk over ``model`` when that axis is > 1
+    (``TrainShardedMultiTask``), else a copy on that coordinate's device."""
+    if mesh_axis_size(mesh, AXIS_MODEL) > 1:
+        return TrainShardedMultiTask(mesh, model, data)
+    return copy.deepcopy(model).to(mesh.axis_device(AXIS_DATA, data))
+
+
+# -- one serving replica per data device ---------------------------------------
+
+
+class DataReplicas(dict):
+    """Serving params laid at data coordinate 0 (the dict itself), carrying
+    the replica of every other data coordinate whose devices are its own
+    (``Mesh.data_replicas``): ``at(c)`` is the replica data coordinate ``c``
+    scores with."""
+
+    def __init__(self, params: dict, replicas: dict[int, Any], coords: list[int]):
+        super().__init__(params)
+        self.replicas = replicas
+        self.coords = coords
+
+    def at(self, c: int) -> Any:
+        r = self.coords[c]
+        return self if r == 0 else self.replicas[r]
+
+
+def replicate_over_data(mesh: Mesh, params: dict, lay=lambda p, c: p) -> dict:
+    """``params`` (on the mesh's first device) with one replica for each data
+    coordinate whose devices are distinct from every earlier one's, each
+    laid by ``lay(params_on_its_device, c)`` (``shard_model_params`` for a
+    model-sharded engine). A logical mesh gives ``lay(params, 0)`` alone:
+    one replica, never one a shard."""
+    from igaming_platform_tpu_torch.convert import params_to
+
+    coords = mesh.data_replicas()
+    home = lay(params, 0)
+    distinct = sorted(set(coords) - {0})
+    if not distinct:
+        return home
+    replicas = {c: lay(params_to(params, mesh.axis_device(AXIS_DATA, c)), c) for c in distinct}
+    return DataReplicas(home, replicas, coords)

@@ -60,8 +60,8 @@ is installed and bound to the engine unless ``RUNTIME_TELEMETRY=0``.
 ``platform/wallet.WalletService`` on bytes (``serve/wallet_codec.py``), with
 the JAX service's domain error map and flow counters, inside the same RPC
 wrapper (``_invoke_rpc``); ``serve_wallet`` binds it to grpcio and
-``make_wallet_stub`` is its bytes client. Unlike the JAX ``serve_wallet``,
-it registers no server reflection (``ROADMAP.md`` Queue 3).
+``make_wallet_stub`` is its bytes client; like the JAX ``serve_wallet``, it
+registers server reflection.
 """
 
 from __future__ import annotations

@@ -194,24 +194,39 @@ def _row_divisor(mesh, ml_backend: str) -> int:
     return max(1, d)
 
 
-def data_sharded(score_fn: Callable, mesh) -> Callable:
-    """``score_fn`` run shard by shard over the mesh's ``data`` axis: each
-    shard's contiguous block of rows is scored in turn and the outputs
-    concatenate. Row-wise, so the outputs equal the unsharded ones bit for
-    bit. The params live on the mesh's first device, and every block is
-    scored there: the row layout of a data-parallel step, not its compute
-    spread over several cards."""
+def data_sharded(make_fn: Callable, mesh) -> Callable:
+    """A score step run shard by shard over the mesh's ``data`` axis: each
+    shard's contiguous block of rows is scored on its own shard's device,
+    with that device's params replica, by ``make_fn(device)``'s step, and
+    the outputs are gathered to the mesh's first device. Row-wise, so the
+    outputs equal the unsharded ones bit for bit. Params installed by the
+    engine carry their replicas (``parallel/sharding.DataReplicas``); other
+    params (a shadow candidate's) are copied to a shard's device at first
+    use (``collectives.on_device``). On a logical mesh every shard is the
+    first device's, and so are its params: no copy."""
     from igaming_platform_tpu_torch.parallel import collectives as coll
+    from igaming_platform_tpu_torch.parallel.sharding import DataReplicas
 
-    n = len(coll.axis_devices(mesh))
+    devs = coll.axis_devices(mesh)
     home = mesh.device
+    fns = {d: make_fn(d) for d in set(devs)}
 
     def sharded(params, x_raw, blacklisted, thresholds=None):
         x_raw = torch.as_tensor(x_raw, dtype=torch.float32, device=home)
         blacklisted = torch.as_tensor(blacklisted, dtype=torch.bool, device=home)
-        outs = [score_fn(params, xs, bs, thresholds)
-                for xs, bs in zip(torch.tensor_split(x_raw, n),
-                                  torch.tensor_split(blacklisted, n))]
+        outs = []
+        for c, (dev, xs, bs) in enumerate(zip(devs, torch.tensor_split(x_raw, len(devs)),
+                                              torch.tensor_split(blacklisted, len(devs)))):
+            if dev == home:
+                p = params
+            elif isinstance(params, DataReplicas):
+                p = params.at(c)
+            else:
+                p = coll.on_device(params, dev)
+            thr = thresholds if thresholds is None else thresholds.to(dev)
+            guard = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+            with guard:
+                outs.append(fns[dev](p, xs.to(dev), bs.to(dev), thr))
         return {k: coll.unshard_rows([o[k] for o in outs]) for k in outs[0]}
 
     return sharded
@@ -376,7 +391,8 @@ class TorchScoringEngine:
         # (over data x expert, parallel/ep.py); every other step splits here.
         if (mesh is not None and mesh.shape["data"] > 1
                 and not (ml_backend == "routed" and routed_splits_rows(mesh))):
-            score_fn = data_sharded(score_fn, mesh)
+            score_fn = data_sharded(
+                lambda dev: make_score_fn(self.config, ml_backend, device=dev, mesh=mesh), mesh)
         self._score_fn = score_fn
         # Model parallelism over the same mesh (MODEL_SHARDING, on unless 0):
         # the forest's trees over ``expert``, the MLP and multitask trunks
@@ -728,10 +744,17 @@ class TorchScoringEngine:
         (layout only, so sharding never changes it)."""
         installed = self._install(params)
         fingerprint = params_fingerprint(installed)
-        if self._model_sharded:
-            from igaming_platform_tpu_torch.parallel.sharding import shard_model_params
+        if self.mesh is not None and installed is not None:
+            from igaming_platform_tpu_torch.parallel import sharding
 
-            installed = shard_model_params(self.mesh, self.ml_backend, installed)
+            def lay(p, c):
+                if not self._model_sharded:
+                    return p
+                return sharding.shard_model_params(self.mesh, self.ml_backend, p, c)
+
+            # One replica per distinct data device (each data shard scores
+            # on its own card); a logical mesh keeps one.
+            installed = sharding.replicate_over_data(self.mesh, installed, lay)
         return installed, fingerprint
 
     def swap_params(self, params: Any) -> None:

@@ -18,10 +18,15 @@ layer, the flash-attention forward kernel and the two backward kernels (dQ,
 dK/dV) through ``ops/flash_attention.FlashAttention``. The loss stays on the
 device and is read once, at the end, as the JAX jit loop reads it.
 
-Training over a mesh (a data-parallel batch, the sequence-sharded
-``seq_mode``s ring and Ulysses) waits for the multi-device training slice,
-``ROADMAP.md`` Queue 1 item 7; serving runs both modes already
-(``models/sequence.sharded_attention``).
+Over a mesh (``mesh=``, ``seq_mode="ring"`` or ``"ulysses"``) the loss is
+differentiated through ``models/sequence.sharded_attention``, as the JAX
+trainer differentiates through its ``shard_map``: the batch over ``data``,
+the sequence over ``seq``. Ulysses runs the attention kernels on each head
+shard, forward and backward (one dQ and one dK/dV launch a shard a layer);
+ring runs its online softmax in torch ops, as XLA ops run it in JAX, so it
+launches no attention kernel. ``mesh=`` with ``seq_mode="dense"`` is the
+unsharded forward, as in JAX. The held-out accuracy runs through the same
+mesh and mode.
 """
 
 from __future__ import annotations
@@ -121,15 +126,17 @@ def make_optimizer(model: SequenceModel, learning_rate: float) -> torch.optim.Ad
     return torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
 
-def train_step(model: SequenceModel, opt: torch.optim.Optimizer, x, y) -> torch.Tensor:
+def train_step(model: SequenceModel, opt: torch.optim.Optimizer, x, y, mesh=None,
+               seq_mode: str = "dense") -> torch.Tensor:
     """One optimizer step on a batch (numpy or tensors); returns the batch's
     loss before the step as a tensor on the model's device, unread. The
-    gradients stay in ``.grad`` until the next step."""
+    gradients stay in ``.grad`` until the next step. ``mesh``/``seq_mode``
+    shard the attention (``models/sequence.sharded_attention``)."""
     dev = model.head.w.device
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
     y = torch.as_tensor(y, dtype=torch.float32, device=dev)
     opt.zero_grad(set_to_none=True)
-    loss = F.binary_cross_entropy_with_logits(model(x)["abuse_logit"], y)
+    loss = F.binary_cross_entropy_with_logits(model(x, mesh, seq_mode)["abuse_logit"], y)
     loss.backward()
     opt.step()
     return loss.detach()
@@ -138,17 +145,14 @@ def train_step(model: SequenceModel, opt: torch.optim.Optimizer, x, y) -> torch.
 def train_abuse_detector(cfg: AbuseTrainConfig = AbuseTrainConfig(), mesh=None,
                          seq_mode: str = "dense", device: str | torch.device = "cuda"):
     """Returns (model, metrics): the trained ``SequenceModel`` on ``device``
-    and {"final_loss", "eval_accuracy", "losses"}, ``losses`` being every
-    step's loss. Runs on the card unless ``device="cpu"``."""
-    if mesh is not None or seq_mode in ("ring", "ulysses"):
-        raise NotImplementedError(
-            "training over a mesh (data or sequence sharding) waits for the multi-device "
-            "training slice, ROADMAP.md Queue 1 item 7")
-    if seq_mode != "dense":
+    (the mesh's first device when ``mesh`` is given) and {"final_loss",
+    "eval_accuracy", "losses"}, ``losses`` being every step's loss. Runs on
+    the card unless ``device="cpu"``."""
+    if seq_mode not in ("dense", "ring", "ulysses"):
         raise ValueError(f"unknown seq_mode: {seq_mode}")
     if cfg.steps < 1:
         raise ValueError(f"steps must be at least 1, got {cfg.steps}")
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device if mesh is not None else device)
     model = init_sequence_model(cfg.model, seed=cfg.seed).to(dev)
     opt = make_optimizer(model, cfg.learning_rate)
 
@@ -156,12 +160,12 @@ def train_abuse_detector(cfg: AbuseTrainConfig = AbuseTrainConfig(), mesh=None,
     losses = []
     for _ in range(cfg.steps):
         x, y = make_abuse_batch(rng, cfg.batch_size, cfg.seq_len)
-        losses.append(train_step(model, opt, x, y))
+        losses.append(train_step(model, opt, x, y, mesh, seq_mode))
 
     # Held-out accuracy.
     x_eval, y_eval = make_abuse_batch(np.random.default_rng(cfg.seed + 1), 256, cfg.seq_len)
     with torch.inference_mode():
-        pred = model(torch.from_numpy(x_eval).to(dev))["abuse"].cpu().numpy()
+        pred = model(torch.from_numpy(x_eval).to(dev), mesh, seq_mode)["abuse"].cpu().numpy()
     acc = float(np.mean((pred >= 0.5) == (y_eval >= 0.5)))
     losses = torch.stack(losses).cpu().tolist()
     return model, {"final_loss": losses[-1], "eval_accuracy": acc, "losses": losses}

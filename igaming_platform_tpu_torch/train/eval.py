@@ -13,13 +13,13 @@ calibration error:
 - ``ensemble_mock``: rules and mock at serving's ensemble weights;
 - ``gbdt_trained``: the forest fit on labels (soft-split annealing);
 - ``multitask_trained``: the fraud head of the multitask net;
-- ``ensemble_trained``: rules and the multitask net at serving's weights.
+- ``ensemble_trained``: rules and the multitask net at serving's weights;
+- ``routed_trained``: the routed mixture-of-experts bundle, router and
+  experts trained jointly (``train/routed.py``), scored as
+  ``ml_backend="routed"`` serves it.
 
 The trained models are the port's serving modules (the fixed-order dense
-kernel and the forest kernel on a card). ``routed_trained`` (the JAX
-package's mixture-of-experts bundle, ``train/routed.py``) waits for the
-multi-device training slice, ``ROADMAP.md`` Queue 1 item 7; the result says
-so under ``not_ported``.
+kernel and the forest kernel on a card).
 
     python -m igaming_platform_tpu_torch.train.eval --out eval.json [--device cpu]
 
@@ -41,9 +41,6 @@ from igaming_platform_tpu_torch.core.device import resolve_device
 from igaming_platform_tpu_torch.core.features import normalize
 from igaming_platform_tpu_torch.train import gates as gates_mod
 from igaming_platform_tpu_torch.train.fraudgen import KIND_NAMES, generate_labeled
-
-NOT_PORTED = {"routed_trained": "train/routed.py waits for the multi-device training slice, "
-                                 "ROADMAP.md Queue 1 item 7"}
 
 # ---------------------------------------------------------------------------
 # Metrics (pure numpy)
@@ -217,6 +214,18 @@ def run_eval(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     gbdt_s = time.time() - t0
+    from igaming_platform_tpu_torch.train.routed import (
+        RoutedTrainConfig,
+        routed_prob,
+        train_routed_on_labels,
+    )
+
+    t0 = time.time()
+    routed_params = train_routed_on_labels(x_train, y_train,
+                                           RoutedTrainConfig(steps=steps, seed=seed), device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    routed_s = time.time() - t0
 
     rules_p = _rules_prob(x_test, cfg)
     mock_p = _mock_prob(x_test)
@@ -232,6 +241,8 @@ def run_eval(
         "gbdt_trained": metrics(y_test, gb_p),
         "multitask_trained": metrics(y_test, mt_p),
         "ensemble_trained": metrics(y_test, rw * rules_p + mw * mt_p),
+        # The routed mixture-of-experts bundle (the ml_backend="routed" path).
+        "routed_trained": metrics(y_test, routed_prob(routed_params, x_test)),
     }
 
     # Per-archetype recall at the serving review threshold for the trained
@@ -253,9 +264,9 @@ def run_eval(
         "train": {
             "multitask_steps": steps, "multitask_seconds": round(mt_s, 1),
             "gbdt_steps": max(150, steps // 2), "gbdt_seconds": round(gbdt_s, 1),
+            "routed_steps": steps, "routed_seconds": round(routed_s, 1),
         },
         "models": models,
-        "not_ported": dict(NOT_PORTED),
         "trained_ensemble_recall_at_review": per_kind,
         "ordering": gates_mod.ordering_gates(models),
         "gates": gates_mod.eval_gates(models),

@@ -30,9 +30,29 @@ learner's, beside the serving engine's); every step, read-back and export
 is enqueued there.
 
 ``step_cost`` counts one step's floating-point operations and bytes for
-``obs/perfmodel.py`` and leaves the trainer as it was. ``mesh=`` (data and
-tensor parallel training) waits for the multi-device training slice,
-``ROADMAP.md`` Queue 1 item 7, and raises NotImplementedError.
+``obs/perfmodel.py`` and leaves the trainer as it was.
+
+Over a mesh (``mesh=``, ``parallel/mesh.py``) the trainer is data and tensor
+parallel, as the JAX trainer's ``jit`` over its shardings is:
+
+- the batch's rows split over ``data``; ``put_batch`` copies each shard's
+  rows to that shard's device (from pinned memory on that device's copy
+  stream when ``side=True``);
+- one params replica per distinct set of devices a ``data`` coordinate
+  holds (``Mesh.data_replicas``): a logical mesh that repeats one card keeps
+  one replica, never one a shard. With ``model`` > 1 a replica's trunk is
+  split over its ``model`` devices in the alternating column/row layout of
+  ``models/multitask.param_specs`` (``parallel/sharding.py``'s
+  ``TrainShardedMultiTask``), the heads replicated;
+- a shard's loss is its mean weighted by its rows over the global batch;
+  each replica differentiates its shards' sum, the gradients are psummed
+  over the replicas in coordinate order (``parallel/collectives.py``), and
+  every replica takes the same AdamW update, so the replicas stay equal
+  bit for bit;
+- ``export_params`` hands serving one unsharded ``MultiTask``.
+
+A split sum adds in another order than one device's, so a mesh step is held
+to the unsharded step (and to the JAX trainer's mesh step) with a tolerance.
 """
 
 from __future__ import annotations
@@ -51,6 +71,9 @@ from torch.utils.checkpoint import checkpoint
 from igaming_platform_tpu_torch.core.device import resolve_device
 from igaming_platform_tpu_torch.core.features import normalize, standardize_for_model
 from igaming_platform_tpu_torch.obs import perfmodel
+from igaming_platform_tpu_torch.parallel import collectives as coll
+from igaming_platform_tpu_torch.parallel.mesh import validate_batch_for_mesh
+from igaming_platform_tpu_torch.parallel.sharding import shard_train_model
 from igaming_platform_tpu_torch.models.multitask import (
     MultiTask,
     TrainMultiTask,
@@ -154,7 +177,15 @@ def adam_direction(grads: list[torch.Tensor], state: AdamState, b1: float, b2: f
     bc2 = one - torch.pow(torch.full_like(one, b2), count_f)
     mu = [(1.0 - b1) * g + b1 * m for g, m in zip(grads, state.mu)]
     nu = [(1.0 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)]
-    out = [(m / bc1) / (torch.sqrt(v / bc2) + eps) for m, v in zip(mu, nu)]
+    # A replica split over ``model`` holds parameters on several devices;
+    # the bias corrections live on the first one's.
+    corrections = {count.device: (bc1, bc2)}
+    out = []
+    for m, v in zip(mu, nu):
+        if m.device not in corrections:
+            corrections[m.device] = (bc1.to(m.device), bc2.to(m.device))
+        c1, c2 = corrections[m.device]
+        out.append((m / c1) / (torch.sqrt(v / c2) + eps))
     return out, AdamState(count, mu, nu)
 
 
@@ -188,10 +219,12 @@ def wire_dtype_from_env() -> torch.dtype | None:
 @dataclass
 class DeviceBatch:
     """A batch on the trainer's device: (x, fraud, ltv, churn), and the
-    event after its copy when it was made on the side stream."""
+    event after its copy when it was made on the side stream. Over a mesh,
+    ``shards`` holds one such batch per ``data`` coordinate, on its device."""
 
     tensors: tuple[torch.Tensor, ...]
     ready: Any = None
+    shards: list | None = None
 
 
 class Trainer:
@@ -200,19 +233,43 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig | None = None, mesh=None, *,
                  device: str | torch.device = "cuda", stream=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh training (data and tensor parallel) waits for the multi-device training "
-                "slice, ROADMAP.md Queue 1 item 7")
         self.cfg = cfg or TrainConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self.stream = stream
-        self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._wire = wire_dtype_from_env()
+        if mesh is not None:
+            from igaming_platform_tpu_torch.parallel.mesh import AXIS_DATA
+
+            validate_batch_for_mesh(self.cfg.batch_size, mesh)
+            n_data = int(mesh.shape[AXIS_DATA])
+            # The device of each data shard's rows, and the replica it uses.
+            self._shard_devices = [mesh.axis_device(AXIS_DATA, d) for d in range(n_data)]
+            coords = mesh.data_replicas()
+        else:
+            self._shard_devices = [self.device]
+            coords = [0]
+        # The data coordinate each replica is laid at, and each shard's replica.
+        replica_coords = sorted(set(coords))
+        self._shard_replica = [replica_coords.index(c) for c in coords]
+        self._copy_streams = {d: torch.cuda.Stream(d) for d in set(self._shard_devices)
+                              if d.type == "cuda"}
         with self._on_stream():
             params = init_multitask(torch.Generator().manual_seed(self.cfg.seed),
                                     trunk=self.cfg.trunk).to(self.device)
-            self.state = TrainState(params, AdamState.zeros(list(params.parameters())), 0)
+            # Replica 0 is the state's; the others, with their optimizer
+            # states, live beside it.
+            replicas = [params if mesh is None else shard_train_model(mesh, params, c)
+                        for c in replica_coords]
+            self._others = replicas[1:]
+            self._opt = [AdamState.zeros(list(m.parameters())) for m in self._others]
+            self.state = TrainState(replicas[0],
+                                    AdamState.zeros(list(replicas[0].parameters())), 0)
+
+    @property
+    def replicas(self) -> list:
+        """Every params replica, the state's first (one without a mesh)."""
+        return [self.state.params, *self._others]
 
     def _on_stream(self):
         return torch.cuda.stream(self.stream) if self.stream is not None \
@@ -222,42 +279,84 @@ class Trainer:
         """Start a batch's host-to-device copy. ``side=True`` copies from
         pinned memory on the trainer's copy stream and records an event the
         step waits for (``fit``'s double buffering); otherwise the copy is
-        enqueued on the trainer's stream."""
+        enqueued on the trainer's stream. Over a mesh each ``data`` shard's
+        rows go to its own device, on that device's copy stream."""
         x = torch.from_numpy(np.ascontiguousarray(batch.x, dtype=np.float32))
         if self._wire is not None:
             x = x.to(self._wire)
         host = (x, *(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
                      for a in (batch.fraud, batch.ltv, batch.churn)))
-        if self.device.type != "cuda":
+        if self.mesh is None:
+            return self._put(host, self.device, side)
+        if self.device.type == "cuda":
+            host = tuple(t.pin_memory() for t in host)
+        bounds = coll.row_bounds(host[0].shape[0], len(self._shard_devices))
+        return DeviceBatch((), None, [self._put(tuple(t[lo:hi] for t in host), dev, side)
+                                      for (lo, hi), dev in zip(bounds, self._shard_devices)])
+
+    def _put(self, host: tuple, dev: torch.device, side: bool) -> DeviceBatch:
+        if dev.type != "cuda":
             return DeviceBatch(host)
-        stream = self._copy_stream if side else self.stream
-        ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
-        with ctx:
-            tensors = tuple(t.pin_memory().to(self.device, non_blocking=True) for t in host)
-            ready = torch.cuda.current_stream(self.device).record_event() if side else None
+        stream = self._copy_streams[dev] if side else (
+            self.stream if dev == self.device else None)
+        with torch.cuda.device(dev):
+            ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+            with ctx:
+                tensors = tuple(t.pin_memory().to(dev, non_blocking=True) for t in host)
+                ready = torch.cuda.current_stream(dev).record_event() if side else None
         return DeviceBatch(tensors, ready)
+
+    @staticmethod
+    def _arrived(part: DeviceBatch) -> tuple[torch.Tensor, ...]:
+        """A batch's tensors, once the stream that reads them has waited for
+        their copy."""
+        if part.ready is not None:
+            dev = part.tensors[0].device
+            current = torch.cuda.current_stream(dev)
+            current.wait_event(part.ready)
+            for t in part.tensors:
+                t.record_stream(current)
+        x, fraud_t, ltv_t, churn_t = part.tensors
+        return x.to(torch.float32), fraud_t, ltv_t, churn_t
 
     def train_step_device(self, dev_batch: DeviceBatch) -> dict[str, torch.Tensor]:
         """One step with no host synchronisation; the metrics stay on the
         device."""
         with self._on_stream():
-            if dev_batch.ready is not None:
-                current = torch.cuda.current_stream(self.device)
-                current.wait_event(dev_batch.ready)
-                for t in dev_batch.tensors:
-                    t.record_stream(current)
-            x, fraud_t, ltv_t, churn_t = dev_batch.tensors
-            x = x.to(torch.float32)
-            model = self.state.params
-            params = list(model.parameters())
-            for p in params:
+            losses, metrics = self._losses(self.replicas, dev_batch)
+            params = [list(m.parameters()) for m in self.replicas]
+            for p in (p for ps in params for p in ps):
                 p.grad = None
-            loss, metrics = loss_and_metrics(self.cfg, model, x, fraud_t, ltv_t, churn_t)
-            loss.backward()
-            opt_state = adamw_update(params, [p.grad for p in params], self.state.opt_state,
-                                     self.cfg.learning_rate, self.cfg.weight_decay)
-        self.state = TrainState(model, opt_state, self.state.step + 1)
+            for loss in losses:
+                loss.backward()
+            grads = [[p.grad for p in ps] for ps in params]
+            if len(grads) > 1:  # the data-parallel psum, in coordinate order
+                grads = [list(g) for g in zip(*(coll.psum(list(gs)) for gs in zip(*grads)))]
+            states = [adamw_update(ps, gs, st, self.cfg.learning_rate, self.cfg.weight_decay)
+                      for ps, gs, st in zip(params, grads, [self.state.opt_state, *self._opt])]
+            self._opt = states[1:]
+        self.state = TrainState(self.state.params, states[0], self.state.step + 1)
         return metrics
+
+    def _losses(self, replicas, dev_batch: DeviceBatch) -> tuple[list, dict[str, torch.Tensor]]:
+        """Each replica's loss (its shards' means, each weighted by its rows
+        over the global batch, added in coordinate order; one shard of
+        weight 1 without a mesh) and the step's metrics, weighted alike, on
+        the trainer's device."""
+        parts = [self._arrived(part) for part in dev_batch.shards or [dev_batch]]
+        total_rows = sum(int(p[0].shape[0]) for p in parts)
+        losses: list = [None] * len(replicas)
+        metrics: dict[str, torch.Tensor] = {}
+        for r, p in zip(self._shard_replica, parts):
+            with torch.cuda.device(p[0].device) if p[0].device.type == "cuda" \
+                    else contextlib.nullcontext():
+                loss, m = loss_and_metrics(self.cfg, replicas[r], *p)
+            weight = p[0].shape[0] / total_rows
+            losses[r] = loss * weight if losses[r] is None else losses[r] + loss * weight
+            for k, v in m.items():
+                v = (v * weight).to(self.device)
+                metrics[k] = v if k not in metrics else metrics[k] + v
+        return losses, metrics
 
     def materialize_metrics(self, metrics: dict[str, torch.Tensor]) -> dict[str, float]:
         """Device metrics -> host floats in one copy."""
@@ -289,17 +388,17 @@ class Trainer:
     def step_cost(self, batch: Batch) -> dict[str, float]:
         """{"flops", "bytes"} of one training step on ``batch``, counted from
         its kernels (``obs/perfmodel.py``): the forward and backward of a
-        copy of the model (the trainer's state is untouched), plus the
-        adamw pass's bytes (each parameter, its gradient and both moments
-        read, the parameter and the moments written: 7 float32s a weight)."""
-        model = copy.deepcopy(self.state.params)
+        copy of the model (of every replica over a mesh; the trainer's state
+        is untouched), plus the adamw pass's bytes (each parameter, its
+        gradient and both moments read, the parameter and the moments
+        written: 7 float32s a weight)."""
+        replicas = [copy.deepcopy(m) for m in self.replicas]
         with self._on_stream():
-            x, fraud_t, ltv_t, churn_t = self.put_batch(batch).tensors
+            dev_batch = self.put_batch(batch)
             with perfmodel.counting() as record:
-                loss, _ = loss_and_metrics(self.cfg, model, x.to(torch.float32), fraud_t,
-                                           ltv_t, churn_t)
-                loss.backward()
-        n_weights = sum(p.numel() for p in model.parameters())
+                for loss in self._losses(replicas, dev_batch)[0]:
+                    loss.backward()
+        n_weights = sum(p.numel() for m in replicas for p in m.parameters())
         return perfmodel.add_bytes(perfmodel.compiled_cost(record), 7 * 4 * n_weights)
 
     def export_params(self) -> MultiTask:

@@ -156,11 +156,19 @@ def test_tree_round_trip_and_serving_copy():
 
 
 def test_entry_point_needs_a_card_and_dense_mode(monkeypatch):
+    """The sequence-sharded modes train over a mesh (their parity with JAX:
+    tests/test_torch_train_mesh.py); an unknown mode and a missing card
+    raise."""
+    from igaming_platform_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
     cfg = abuse_train.AbuseTrainConfig(steps=1, batch_size=2, seq_len=4,
                                        model=SeqConfig(**SMALL))
+    mesh = create_mesh(MeshSpec(data=2, seq=2), devices=["cpu"] * 4)
     for mode in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError):
-            abuse_train.train_abuse_detector(cfg, seq_mode=mode, device="cpu")
+        model, metrics = abuse_train.train_abuse_detector(cfg, mesh=mesh, seq_mode=mode,
+                                                          device="cpu")
+        assert len(metrics["losses"]) == 1 and np.isfinite(metrics["final_loss"])
+        assert all(p.grad is not None for p in model.parameters())
     with pytest.raises(ValueError, match="unknown seq_mode"):
         abuse_train.train_abuse_detector(cfg, seq_mode="sparse", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -182,6 +182,25 @@ def test_multi_device_side_stands_alone(rel):
     assert not [m for m in phase if _forbidden(m)]
 
 
+MULTI_DEVICE_TRAINING = ("parallel/pipeline.py", "train/pp.py", "train/routed.py",
+                         "ops/gbdt_matmul.py", "train/trainer.py", "train/abuse_train.py",
+                         "models/ensemble.py", "train/eval.py", "ops/dense.py")
+
+
+@pytest.mark.parametrize("rel", MULTI_DEVICE_TRAINING)
+def test_multi_device_training_stands_alone(rel):
+    """The pipeline, the pipeline trainer, the routed trainer, the matmul
+    forest and the mesh trainers, held as the operations plane's modules
+    are below; phase 18 of the card's script imports nothing forbidden at
+    any level."""
+    test_operations_plane_stands_alone(rel)
+    smoke = REPO / "chip_smoke.py"
+    phase = [m for m, f in _imports(smoke) if f is not None and f.startswith("mesh_train_")
+             or f == "phase_train_mesh"]
+    assert "igaming_platform_tpu_torch.train.fraudgen" in phase
+    assert not [m for m in phase if _forbidden(m)]
+
+
 @pytest.mark.parametrize("rel", PLANE)
 def test_operations_plane_stands_alone(rel):
     """The operations plane's modules, held one by one: each is the port's

@@ -213,17 +213,27 @@ def test_bf16_wire(monkeypatch):
 
 
 def test_mesh_raises_and_step_cost_counts():
-    """Mesh training still waits for item 7; ``step_cost`` counts a step and
-    leaves the trainer as it was (tests/test_torch_perfmodel.py holds the
-    count to its formulas)."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trainer.Trainer(mesh=object(), device="cpu")
-    pt = trainer.Trainer(trainer.TrainConfig(batch_size=BATCH, trunk=TRUNK), device="cpu")
-    before = [p.detach().clone() for p in pt.state.params.parameters()]
-    cost = pt.step_cost(_batches(1)[0])
-    assert set(cost) == {"flops", "bytes"} and cost["flops"] > 0 and cost["bytes"] > 0
-    assert pt.state.step == 0
-    assert all(torch.equal(a, b) for a, b in zip(before, pt.state.params.parameters()))
+    """A mesh trains (its parity with JAX: tests/test_torch_train_mesh.py);
+    a data axis that does not divide the batch raises. ``step_cost`` counts
+    a step, on one device and on a mesh, and leaves the trainer as it was
+    (tests/test_torch_perfmodel.py holds the count to its formulas); a
+    data x model mesh counts the unsharded step's products."""
+    from igaming_platform_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+    cfg = trainer.TrainConfig(batch_size=BATCH, trunk=TRUNK)
+    with pytest.raises(ValueError, match="not divisible"):
+        trainer.Trainer(trainer.TrainConfig(batch_size=BATCH + 1, trunk=TRUNK),
+                        mesh=create_mesh(MeshSpec(data=2), devices=["cpu"] * 2), device="cpu")
+    costs = []
+    for mesh in (None, create_mesh(MeshSpec(data=2, model=2), devices=["cpu"] * 4)):
+        pt = trainer.Trainer(cfg, mesh=mesh, device="cpu")
+        before = [p.detach().clone() for p in pt.state.params.parameters()]
+        cost = pt.step_cost(_batches(1)[0])
+        assert set(cost) == {"flops", "bytes"} and cost["flops"] > 0 and cost["bytes"] > 0
+        assert pt.state.step == 0
+        assert all(torch.equal(a, b) for a, b in zip(before, pt.state.params.parameters()))
+        costs.append(cost)
+    assert costs[1]["flops"] == costs[0]["flops"]
 
 
 def test_checkpoint_roundtrip_boot_and_loop(tmp_path, monkeypatch):
