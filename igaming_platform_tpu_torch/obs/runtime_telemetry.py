@@ -44,7 +44,7 @@ import time
 from collections import deque
 from typing import Callable
 
-from igaming_platform_tpu_torch.obs import tracing
+from igaming_platform_tpu_torch.obs import devtrace, tracing
 
 logger = logging.getLogger(__name__)
 
@@ -171,6 +171,8 @@ class RuntimeTelemetry:
         self.anomalies_total = 0
         self.anomalies: deque = deque(maxlen=64)
         self.profile_captures: list[dict] = []
+        # Results that came back before their record was made.
+        self._early_results: dict[str, dict] = {}
         self._last_profile_at = float("-inf")
         self._profile_trigger: Callable[[str, str, float], dict | None] | None = None
         self._engine = None
@@ -189,16 +191,22 @@ class RuntimeTelemetry:
 
     # -- intake --------------------------------------------------------------
 
-    def note_dispatch(self, count: int = 1) -> None:
+    def note_dispatch(self, count: int = 1, step: tuple | None = None):
         """One launched step (``serve/scorer._device_dispatch``): the
-        counter, the metric and the current RPC root's ``dispatches``."""
+        counter, the metric and the current RPC root's ``dispatches``.
+        ``step`` (name, padded shape, device) gets its mark on an armed
+        device timeline (``obs/devtrace.py``), made under the counter's
+        lock; returns it, or ``devtrace.NO_STEP``."""
         with self._dispatch_lock:
             self.dispatches_total += count
+            mark = (devtrace.step_mark(devtrace.ARMED, *step) if step is not None
+                    else devtrace.NO_STEP)
         if self.metrics is not None:
             self.metrics.device_dispatches_total.inc(count)
         span = tracing.current_span()
         if span is not None:
             tracing.bump_root_attribute_of(span, "dispatches", count)
+        return mark
 
     def observe_span(self, span) -> None:
         name = getattr(span, "name", "")
@@ -250,17 +258,20 @@ class RuntimeTelemetry:
                 "stage": stage,
                 "duration_ms": round(duration_ms, 3),
                 **(info or {}),
+                **self._early_results.pop(trace_id, {}),
             })
         if self.metrics is not None:
             self.metrics.anomaly_profiles_total.inc()
 
     def note_capture_result(self, trace_id: str, info: dict) -> None:
-        """A finished capture: its result folded into its record."""
+        """A finished capture: its result folded into its record (kept until
+        the record is made, when the capture's thread is first)."""
         with self._lock:
             for rec in reversed(self.profile_captures):
                 if rec.get("trace_id") == trace_id:
                     rec.update(info)
                     return
+            self._early_results[trace_id] = dict(info)
 
     # -- gauges and snapshot -------------------------------------------------
 
@@ -374,8 +385,14 @@ def note_compile_signature(name: str, shape=None, dtype=None) -> bool:
     return t.compile_watcher.note_signature(name, shape, dtype)
 
 
-def note_dispatch(count: int = 1) -> None:
-    """One launched step on the default telemetry; nothing without one."""
+def note_dispatch(count: int = 1, step: tuple | None = None):
+    """One launched step on the default telemetry; without one, only the
+    step's mark on an armed device timeline. Returns the step's mark (a
+    context manager around the step's enqueue), or ``devtrace.NO_STEP``."""
     t = DEFAULT
     if t is not None:
-        t.note_dispatch(count)
+        return t.note_dispatch(count, step)
+    if step is None or devtrace.ARMED is None:
+        return devtrace.NO_STEP
+    with devtrace._LOCK:
+        return devtrace.step_mark(devtrace.ARMED, *step)

@@ -28,6 +28,8 @@ import contextlib
 import contextvars
 import json
 import re
+import subprocess
+import sys
 import threading
 import time
 import uuid
@@ -253,6 +255,11 @@ class SpanCollector:
             except Exception:  # noqa: BLE001 — metrics must not fail tracing
                 pass
 
+    def snapshot(self) -> list[Span]:
+        """The spans held now, oldest first (the ring keeps them)."""
+        with self._lock:
+            return list(self._spans)
+
     def drain(self) -> list[Span]:
         with self._lock:
             out, self._spans = self._spans, []
@@ -428,11 +435,39 @@ def prepare_device_trace() -> None:
             pass
 
 
+# The kinds of device event ``torch.profiler`` writes to its Chrome trace:
+# the events its ``events()`` gives a CUDA device type.
+DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+_COUNT_CHILD = r"""
+import json, sys
+cats = set(sys.argv[2].split(","))
+with open(sys.argv[1], encoding="utf-8") as f:
+    events = json.load(f).get("traceEvents", [])
+out = {}
+for ev in events:
+    if ev.get("cat") in cats:
+        out[ev["name"]] = out.get(ev["name"], 0) + 1
+print(json.dumps(out))
+"""
+
+
+def count_trace_events(path: str) -> dict[str, int]:
+    """Device events (``DEVICE_EVENT_CATS``) by name in the Chrome trace at
+    ``path``, counted by a child Python process: parsing a trace of hundreds
+    of thousands of events takes seconds, and this interpreter only waits."""
+    out = subprocess.run([sys.executable, "-c", _COUNT_CHILD, path, ",".join(DEVICE_EVENT_CATS)],
+                         capture_output=True, text=True, timeout=600, check=False)
+    if out.returncode != 0:
+        raise RuntimeError(f"counting {path} failed: {out.stderr.strip()[-500:]}")
+    return json.loads(out.stdout)
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """Capture a ``torch.profiler`` trace of host and CUDA activity for a
     block; the Chrome trace (``trace.json``) lands in ``log_dir``. Yields
-    the profiler, whose ``events()`` the caller may count after the block."""
+    the profiler."""
     import os
 
     import torch

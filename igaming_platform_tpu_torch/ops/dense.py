@@ -44,19 +44,15 @@ port of a Pallas call.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
-from igaming_platform_tpu_torch.obs import perfmodel
+from igaming_platform_tpu_torch.obs import devtrace, perfmodel
 
 PARTIALS = 8  # csrc/dense_fixed.cu kPartials
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
-# Launches come from the batcher's thread, the pipeline's stage workers and
-# direct calls.
-_count_lock = threading.Lock()
 
 
 def _lib() -> ctypes.CDLL:
@@ -133,7 +129,7 @@ def _check(x: torch.Tensor, w_bf16: torch.Tensor, b: torch.Tensor) -> None:
                          f"b {tuple(b.shape)} disagree")
 
 
-def _launch(entry: str, counted, x: torch.Tensor, w: torch.Tensor,
+def _launch(entry: str, counted, name: str, x: torch.Tensor, w: torch.Tensor,
             b: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     _check(x, w, b)
@@ -144,12 +140,14 @@ def _launch(entry: str, counted, x: torch.Tensor, w: torch.Tensor,
         out = torch.empty((rows, w.shape[1]), dtype=torch.float32, device=x.device)
         if rows:
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = getattr(_lib(), entry)(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                        out.data_ptr(), rows, k, w.shape[1], stream)
+            # Counted (and marked on an armed device timeline) as it launches;
+            # launches come from the batcher's thread, the pipeline's stage
+            # workers and direct calls.
+            rc = devtrace.launch(counted, "launches", name, x.device, getattr(_lib(), entry),
+                                 x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                 rows, k, w.shape[1], stream)
             if rc != 0:
                 raise RuntimeError(f"{entry}: kernel launch failed with CUDA error {rc}")
-            with _count_lock:
-                counted.launches += 1
     return out
 
 
@@ -158,10 +156,10 @@ def dense(x: torch.Tensor, w_bf16: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     fixed order. ``w_bf16`` must hold bf16-rounded values."""
     perfmodel.note_work("dense", *perfmodel.dense_work(x.shape[0], *w_bf16.shape))
     if x.device.type == "cpu":
-        return dense_plain(x, w_bf16, b)
+        return devtrace.plain("dense", dense_plain, x, w_bf16, b)
     if x.device.type != "cuda":
         raise ValueError(f"dense: unsupported device {x.device}")
-    return _launch("dense_bf16_launch", dense, x, w_bf16, b)
+    return _launch("dense_bf16_launch", dense, "dense", x, w_bf16, b)
 
 
 def dense_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -169,14 +167,16 @@ def dense_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     each product rounded before it is added."""
     perfmodel.note_work("dense_f32", *perfmodel.dense_work(x.shape[0], *w.shape))
     if x.device.type == "cpu":
-        return dense_f32_plain(x, w, b)
+        return devtrace.plain("dense_f32", dense_f32_plain, x, w, b)
     if x.device.type != "cuda":
         raise ValueError(f"dense_f32: unsupported device {x.device}")
-    return _launch("dense_f32_launch", dense_f32, x, w, b)
+    return _launch("dense_f32_launch", dense_f32, "dense_f32", x, w, b)
 
 
 dense.launches = 0
 dense_f32.launches = 0
+devtrace.register_counter("dense", dense)
+devtrace.register_counter("dense_f32", dense_f32)
 
 
 class DenseFn(torch.autograd.Function):

@@ -53,17 +53,15 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from igaming_platform_tpu_torch.obs import perfmodel
+from igaming_platform_tpu_torch.obs import devtrace, perfmodel
 
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernels' instantiations
 
 _VOIDP = ctypes.c_void_p
-_count_lock = threading.Lock()
 # Per source, its entry points and how many pointers each takes before
 # (BH, S, Dh, scale, stream).
 _ENTRY_POINTS = {
@@ -86,12 +84,13 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _launched(rc: int, fn, counter: str) -> None:
-    """Raise if a launch was refused, else count it on the wrapper ``fn``."""
+def _launch(fn, counter: str, name: str, device, entry, *args) -> None:
+    """``entry(*args)``, one kernel launch, counted on the wrapper ``fn``'s
+    ``counter`` (and marked on an armed device timeline) as it launches;
+    raise if it was refused."""
+    rc = devtrace.launch(fn, counter, name, device, entry, *args)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__}: kernel launch failed with CUDA error {rc}")
-    with _count_lock:
-        setattr(fn, counter, getattr(fn, counter) + 1)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -141,7 +140,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     """[BH, S, Dh] float32 q, k, v -> (O [BH, S, Dh], LSE [BH, S, 1])."""
     perfmodel.note_work("flash_attention_fwd", *perfmodel.attention_work(*q.shape))
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
+        return devtrace.plain("flash_attention_fwd", flash_attention_plain, q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
     check_args(q, k, v)
@@ -153,10 +152,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     # The launch goes to the current device: make it q's card.
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lib("flash_attention_fwd").flash_attention_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            bh, s, dh, 1.0 / math.sqrt(dh), stream)
-    _launched(rc, flash_attention_fwd, "launches")
+        _launch(flash_attention_fwd, "launches", "flash_attention_fwd", q.device,
+                _lib("flash_attention_fwd").flash_attention_fwd_launch,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                bh, s, dh, 1.0 / math.sqrt(dh), stream)
     return o, lse
 
 
@@ -166,7 +165,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     """[BH, S, Dh] float32 q, k, v, O, dO and LSE [BH, S, 1] -> (dQ, dK, dV)."""
     perfmodel.note_work("flash_attention_bwd", *perfmodel.attention_bwd_work(*q.shape))
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do)
+        return devtrace.plain("flash_attention_bwd", flash_attention_bwd_plain,
+                              q, k, v, o, lse, do)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     check_args(q, k, v, o, do, op="flash_attention_bwd")
@@ -185,17 +185,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
            dmat.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_bwd_dq_launch(*ins, dq.data_ptr(), bh, s, dh, scale, stream)
-        _launched(rc, flash_attention_bwd, "launches_dq")
-        rc = lib.flash_attention_bwd_dkv_launch(*ins, dk.data_ptr(), dv.data_ptr(), bh, s, dh,
-                                                scale, stream)
-        _launched(rc, flash_attention_bwd, "launches_dkv")
+        _launch(flash_attention_bwd, "launches_dq", "flash_attention_bwd_dq", q.device,
+                lib.flash_attention_bwd_dq_launch, *ins, dq.data_ptr(), bh, s, dh, scale, stream)
+        _launch(flash_attention_bwd, "launches_dkv", "flash_attention_bwd_dkv", q.device,
+                lib.flash_attention_bwd_dkv_launch, *ins, dk.data_ptr(), dv.data_ptr(), bh, s,
+                dh, scale, stream)
     return dq, dk, dv
 
 
 flash_attention_fwd.launches = 0
 flash_attention_bwd.launches_dq = 0
 flash_attention_bwd.launches_dkv = 0
+devtrace.register_counter("flash_attention_fwd", flash_attention_fwd)
+devtrace.register_counter("flash_attention_bwd_dq", flash_attention_bwd, "launches_dq")
+devtrace.register_counter("flash_attention_bwd_dkv", flash_attention_bwd, "launches_dkv")
 
 
 class FlashAttention(torch.autograd.Function):

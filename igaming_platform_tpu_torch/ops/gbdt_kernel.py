@@ -34,14 +34,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from igaming_platform_tpu_torch.core.device import constant
-from igaming_platform_tpu_torch.obs import perfmodel
+from igaming_platform_tpu_torch.obs import devtrace, perfmodel
 
 # Mirrors of csrc/gbdt_forest.cu's constants.
 MAX_THREADS = 1024  # kMaxThreads
@@ -71,8 +70,6 @@ MAX_CHUNK_TREE_BLOCKS = 8
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
-# Launches come from the batcher's thread and from direct batch calls.
-_count_lock = threading.Lock()
 
 
 def _lib() -> ctypes.CDLL:
@@ -238,7 +235,7 @@ def gbdt_forest(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
     perfmodel.note_work("gbdt_forest", *perfmodel.forest_work(x.shape[0], x.shape[1],
                                                               *feat.shape))
     if x.device.type == "cpu":
-        return gbdt_forest_plain(x, feat, thr, leaves, bias)
+        return devtrace.plain("gbdt_forest", gbdt_forest_plain, x, feat, thr, leaves, bias)
     if x.device.type != "cuda":
         raise ValueError(f"gbdt_forest: unsupported device {x.device}")
     _check(x, feat, thr, leaves, bias)
@@ -251,15 +248,16 @@ def gbdt_forest(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor,
             return out
         plan = launch_plan(b, n_features, n_trees, depth, _sm_count(x.device.index))
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib().gbdt_forest_launch(
+        # Counted (and marked on an armed device timeline) as it launches.
+        rc = devtrace.launch(
+            gbdt_forest, "launches", "gbdt_forest", x.device, _lib().gbdt_forest_launch,
             x.data_ptr(), feat.data_ptr(), thr.data_ptr(), leaves.data_ptr(), bias.data_ptr(),
             out.data_ptr(), b, n_features, n_trees, depth, plan.rows, plan.groups, plan.chunk,
             plan.cluster, plan.span, plan.tree_block, stream)
     if rc != 0:
         raise RuntimeError(f"gbdt_forest: kernel launch failed with CUDA error {rc}")
-    with _count_lock:
-        gbdt_forest.launches += 1
     return out
 
 
 gbdt_forest.launches = 0
+devtrace.register_counter("gbdt_forest", gbdt_forest)

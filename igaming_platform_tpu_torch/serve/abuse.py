@@ -175,10 +175,10 @@ class SequenceAbuseDetector:
             # On a mesh the batch shards over ``data``: pad, score, cut.
             padded = -(-n // self._batch_multiple) * self._batch_multiple
             hist = np.concatenate([hist, np.zeros((padded - n, *hist.shape[1:]), hist.dtype)])
-        _device_dispatch("abuse_seq_step", hist.shape, hist.dtype)
-        x = torch.from_numpy(hist).to(self.device)
+        mark = _device_dispatch("abuse_seq_step", hist.shape, hist.dtype, self.device)
         model = self.params  # one read: a concurrent swap_params lands whole
-        with torch.inference_mode():
+        with torch.inference_mode(), mark:
+            x = torch.from_numpy(hist).to(self.device)
             abuse = model(x, self.mesh, self.seq_mode)["abuse"]
         with self._lock:
             self.device_steps += 1

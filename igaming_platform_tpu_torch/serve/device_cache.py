@@ -223,8 +223,8 @@ class DeviceFeatureCache:
             idxs = self.lookup([account_id])
             from igaming_platform_tpu_torch.serve.scorer import _device_dispatch
 
-            _device_dispatch("cache_flag_set", (1,), np.bool_)
-            with self._lock, self._on_stream():
+            mark = _device_dispatch("cache_flag_set", (1,), np.bool_, self.device)
+            with self._lock, self._on_stream(), mark:
                 self.flags.index_copy_(0, host_to_device(idxs.astype(np.int64), self.device),
                                        torch.full((1,), bool(value), dtype=torch.bool,
                                                   device=self.device))
@@ -325,8 +325,9 @@ class DeviceFeatureCache:
                 # when deltas or admissions are pending).
                 from igaming_platform_tpu_torch.serve.scorer import _device_dispatch
 
-                _device_dispatch("cache_apply_deltas", rows.shape, rows.dtype)
-                with self._on_stream():
+                mark = _device_dispatch("cache_apply_deltas", rows.shape, rows.dtype,
+                                        self.device)
+                with self._on_stream(), mark:
                     self.table.index_copy_(0, host_to_device(slots, self.device),
                                            host_to_device(rows, self.device))
                 self._row_ts[slots] = now

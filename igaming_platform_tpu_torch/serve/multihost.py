@@ -581,8 +581,8 @@ def _score_block(engine, xp: np.ndarray, blp: np.ndarray, thr: np.ndarray, param
         decode_wire,
     )
 
-    _device_dispatch("multihost_step", xp.shape, xp.dtype)
-    with engine._on_stream(), torch.inference_mode():
+    mark = _device_dispatch("multihost_step", xp.shape, xp.dtype, engine.device)
+    with engine._on_stream(), torch.inference_mode(), mark:
         xd = torch.from_numpy(np.require(xp, requirements=["C", "W"])).to(engine.device)
         bd = torch.from_numpy(np.require(blp, requirements=["C", "W"])).to(engine.device)
         td = torch.from_numpy(np.asarray(thr, np.int32)).to(engine.device)

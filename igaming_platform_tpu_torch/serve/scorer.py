@@ -260,7 +260,7 @@ def _unpack_host(packed) -> dict:
 RESULT_KEYS = ("score", "action", "reason_mask", "rule_score", "ml_score")
 
 
-def _device_dispatch(fn_name: str, shape, dtype) -> None:
+def _device_dispatch(fn_name: str, shape, dtype, device=None):
     """The launch chokepoint, as ``serve/scorer.py::_device_dispatch`` of the
     JAX package: the ``device.dispatch`` chaos seam fires, the padded shape
     signature is noted with the compile watcher (``obs/runtime_telemetry``)
@@ -269,10 +269,13 @@ def _device_dispatch(fn_name: str, shape, dtype) -> None:
     each CUDA kernel inside it. Every step a scoring path launches comes
     through here: the score steps (``_enqueue``), the split drift sketch,
     the shadow scorer's own step, the session admission sync, the cache's
-    delta copy and flag write, the abuse model and ``score_arrays``."""
+    delta copy and flag write, the abuse model and ``score_arrays``.
+    Returns the step's mark on ``device`` (``obs/devtrace.py``): the caller
+    enters it around the step's enqueue, on the step's stream; while no
+    device timeline is armed it does nothing."""
     chaos.fire("device.dispatch")
     runtime_telemetry.note_compile_signature(fn_name, shape, dtype)
-    runtime_telemetry.note_dispatch()
+    return runtime_telemetry.note_dispatch(step=(fn_name, shape, device))
 
 
 def _device_readback(handle) -> dict:
@@ -698,8 +701,8 @@ class TorchScoringEngine:
             elif v.compressed:
                 drift.note_skipped(n, "compressed")
             else:
-                _device_dispatch(*v.sketch_sig)
-                with self._on_stream(), torch.inference_mode():
+                mark = _device_dispatch(*v.sketch_sig, self.device)
+                with self._on_stream(), torch.inference_mode(), mark:
                     sketch = v.split_sketch()
                     ready = self._record_event()
                 drift.submit(sketch, n, ready)
@@ -973,8 +976,8 @@ class TorchScoringEngine:
             blacklisted = np.zeros((x.shape[0],), dtype=bool)
         if self._wire_encode is not None and x.dtype != self._wire_dtype:
             x = self._wire_encode(np.asarray(x, np.float32))
-        _device_dispatch("score_arrays", x.shape, x.dtype)
-        with torch.inference_mode():
+        mark = _device_dispatch("score_arrays", x.shape, x.dtype, self.device)
+        with torch.inference_mode(), mark:
             xd = decode_wire(torch.from_numpy(np.ascontiguousarray(x)).to(self.device))
             out = self._score_fn(self.get_params(), xd, blacklisted, self._thresholds)
         self._count_step()
@@ -1362,8 +1365,8 @@ class TorchScoringEngine:
         handle for ``_readback``. The step is one dispatch, signature
         ``sig`` = (name, padded shape, dtype), noted first, outside the
         dispatch lock (``_device_dispatch``)."""
-        _device_dispatch(*sig)
-        with self._on_stream(), torch.inference_mode():
+        mark = _device_dispatch(*sig, self.device)
+        with self._on_stream(), torch.inference_mode(), mark:
             res = step()
             packed, variants = res if isinstance(res, tuple) else (res, None)
             if self.stream is not None:

@@ -61,7 +61,10 @@ The operations plane is on by default, as in the JAX server:
 - ``GET /debug/profilez?seconds=S`` records a ``torch.profiler`` trace of
   host and CUDA activity for S seconds (clamped to 0.1-30; 409 while one
   runs) into a directory keyed by ``trace_id=`` when given, and answers how
-  many kernel events it caught;
+  many device events it caught, by name, counted from the written trace by
+  a child process. Stopping the profiler and writing its trace still hold
+  the interpreter, 3.5-3.9 s after 1.5 s on an NVIDIA H100 80GB HBM3 at
+  700 W (``chip_smoke.capture_stall_probe``);
 - ``GET /debug/hostprofz`` is the host profiler (``obs/hostprof.py``,
   ``HOSTPROF=0`` off): the µs-per-row stage table, the GC pauses and the
   heap, ``?format=folded`` or ``?format=speedscope`` for the sampler's
@@ -72,9 +75,12 @@ The operations plane is on by default, as in the JAX server:
   (``obs/runtime_telemetry.py``, ``RUNTIME_TELEMETRY=0`` off): dispatches,
   compile events and signatures, the step-time detectors and the anomaly
   profiles. A step-time anomaly (``ANOMALY_K_SIGMA``, ``ANOMALY_MIN_STEP_MS``,
-  ``ANOMALY_WARMUP_STEPS``) records a ``capture_profile`` of
-  ``ANOMALY_PROFILE_SECONDS`` keyed by its trace id, one per
-  ``ANOMALY_PROFILE_COOLDOWN_S`` (``ANOMALY_PROFILE=0`` counts only);
+  ``ANOMALY_WARMUP_STEPS``) records ``ANOMALY_PROFILE_SECONDS`` of the
+  port's own device timeline (``obs/devtrace.py``:
+  every launched step and hand-kernel launch with its device span, and the
+  host spans around them) into a directory keyed by its trace id, one per
+  ``ANOMALY_PROFILE_COOLDOWN_S`` (``ANOMALY_PROFILE=0`` counts only), without
+  holding the serving threads;
 - gRPC server reflection (``serve/reflection.py``) is registered with the
   gRPC binding;
 - ``OTEL_EXPORTER_OTLP_ENDPOINT`` exports the span ring over OTLP/HTTP;
@@ -120,6 +126,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import queue
 import re
 import signal
 import tempfile
@@ -135,6 +142,7 @@ import torch
 from igaming_platform_tpu_torch.convert import from_jax_params, load_params_tree
 from igaming_platform_tpu_torch.core.config import RiskServiceConfig
 from igaming_platform_tpu_torch.core.features import NUM_FEATURES
+from igaming_platform_tpu_torch.obs import devtrace
 from igaming_platform_tpu_torch.obs import drift as drift_mod
 from igaming_platform_tpu_torch.obs import flight as flight_mod
 from igaming_platform_tpu_torch.obs import hostprof
@@ -467,14 +475,20 @@ class RiskServer:
         self.otlp = exporter_from_env("risk")
         if self.otlp is not None:
             self.otlp.on_failure = self.metrics.otlp_export_failures_total.inc
-        # One /debug/profilez capture at a time, on a profiler readied here.
+        # One capture at a time (/debug/profilez or an anomaly's), on a
+        # profiler readied here; anomaly captures run on one worker thread,
+        # started here so that no serving thread starts it.
         self._profile_lock = threading.Lock()
+        self._capture_jobs = queue.SimpleQueue()
+        threading.Thread(target=self._capture_worker, args=(self._capture_jobs,),
+                         name="anomaly-profile", daemon=True).start()
         # A step-time anomaly records a profile keyed by its trace id.
         self.telemetry = self.service.telemetry
         if self.telemetry is not None:
             self.telemetry.bind_profile_trigger(self._anomaly_profile_trigger)
         if self.inner.device.type == "cuda":
             tracing.prepare_device_trace()
+            devtrace.prepare(self.inner.device)
         self._stopped = threading.Event()
         self._probe_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="device-probe")
         self.http_server, self.http_port = self._start_http(
@@ -502,60 +516,87 @@ class RiskServer:
     def inner(self) -> TorchScoringEngine:
         return getattr(self.engine, "inner", self.engine)
 
-    def capture_profile(self, seconds: float, trace_id: str = "",
-                        count_kernels: bool = True) -> dict:
+    def _capture_dir(self, trace_id: str) -> str:
+        """A new directory for one capture, its name carrying ``trace_id``."""
+        suffix = re.sub(r"[^0-9a-zA-Z_-]", "", trace_id)[:32]
+        return tempfile.mkdtemp(prefix=f"profilez-{suffix}-" if suffix else "profilez-",
+                                dir=os.environ.get("ANOMALY_PROFILE_DIR") or None)
+
+    def capture_profile(self, seconds: float, trace_id: str = "") -> dict:
         """A ``torch.profiler`` capture of host and CUDA activity for
         ``seconds`` (clamped to 0.1-30) while traffic keeps flowing, written
         as a Chrome trace into a new directory whose name carries
-        ``trace_id``. One at a time: ``{"error"}`` while another runs. With
-        ``count_kernels`` the answer counts the kernel events caught, by
-        name, since the profiler can lose events in a long-lived process;
-        that count parses every event in Python and holds the interpreter
-        for about a second per 15,000 events."""
+        ``trace_id``. One at a time: ``{"error"}`` while another runs. The
+        answer counts the device events caught, by name (the profiler can
+        lose events in a long-lived process): a child process parses the
+        written trace, so the count holds nothing here. Stopping the
+        profiler and writing its trace do hold the interpreter: 1.5-1.7 s
+        and 1.8-2.4 s after a 1.5 s capture of a launch-heavy thread on an
+        NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.capture_stall_probe``,
+        PERF.md §6)."""
         seconds = max(0.1, min(float(seconds), 30.0))
         if not self._profile_lock.acquire(blocking=False):
             return {"error": "profile capture already in progress"}
         try:
-            suffix = re.sub(r"[^0-9a-zA-Z_-]", "", trace_id)[:32]
-            log_dir = tempfile.mkdtemp(prefix=f"profilez-{suffix}-" if suffix else "profilez-",
-                                       dir=os.environ.get("ANOMALY_PROFILE_DIR") or None)
-            with tracing.device_trace(log_dir) as prof:
+            log_dir = self._capture_dir(trace_id)
+            with tracing.device_trace(log_dir):
                 time.sleep(seconds)
-            out = {"ok": True, "seconds": seconds, "log_dir": log_dir,
-                   "trace": os.path.join(log_dir, "trace.json")}
-            if count_kernels:
-                kernels: dict[str, int] = {}
-                for ev in prof.events():
-                    if ev.device_type == torch.autograd.DeviceType.CUDA:
-                        kernels[ev.name] = kernels.get(ev.name, 0) + 1
-                out.update(kernel_events=sum(kernels.values()), kernels=kernels)
-            return out
+            trace = os.path.join(log_dir, "trace.json")
+            kernels = tracing.count_trace_events(trace)
+            return {"ok": True, "seconds": seconds, "log_dir": log_dir, "trace": trace,
+                    "kernel_events": sum(kernels.values()), "kernels": kernels}
+        except Exception as exc:  # noqa: BLE001 — a capture must not kill serving
+            return {"error": f"profile capture failed: {exc}"}
+        finally:
+            self._profile_lock.release()
+
+    def _capture_timeline(self, seconds: float, trace_id: str) -> dict:
+        """An anomaly capture, with the capture lock held (released here):
+        the port's own device timeline (``obs/devtrace.py``) for ``seconds``
+        (clamped to 0.1-30) on the calling thread, written as a Chrome trace
+        (``trace.json``) into a new directory whose name carries
+        ``trace_id``: every step launched and every hand-kernel launch with
+        its device span, the host spans around them, and the launch and
+        dispatch counters' deltas over the window."""
+        seconds = max(0.1, min(float(seconds), 30.0))
+        try:
+            log_dir = self._capture_dir(trace_id)
+            devtrace.capture(log_dir, seconds, telemetry=self.telemetry)
+            return {"ok": True, "seconds": seconds, "log_dir": log_dir,
+                    "trace": os.path.join(log_dir, "trace.json")}
         except Exception as exc:  # noqa: BLE001 — a capture must not kill serving
             return {"error": f"profile capture failed: {exc}"}
         finally:
             self._profile_lock.release()
 
     def _anomaly_profile_trigger(self, trace_id: str, stage: str, duration_ms: float) -> dict:
-        """The runtime telemetry's anomaly hook: a ``capture_profile`` of
+        """The runtime telemetry's anomaly hook, on a serving thread: takes
+        the capture lock without waiting and hands a ``_capture_timeline`` of
         ``ANOMALY_PROFILE_SECONDS`` (default 1.5) keyed by the anomalous
-        trace id, on a thread of its own, since the hook fires on a serving
-        thread; its result (the trace's path, as the JAX server's: no kernel
-        count, which would hold the interpreter) is folded into the
+        trace id to the capture worker thread, or, when another capture
+        holds the lock, the JAX server's "already in progress" error. The
+        result (the trace's path, as the JAX server's) is folded into the
         telemetry's capture record. The cooldown is the telemetry's."""
         seconds = float(os.environ.get("ANOMALY_PROFILE_SECONDS", "1.5"))
+        held = self._profile_lock.acquire(blocking=False)
+        self._capture_jobs.put((held, seconds, trace_id, stage, duration_ms))
+        return {"seconds": seconds, "async": True}
 
-        def run() -> None:
-            result = self.capture_profile(seconds, trace_id=trace_id, count_kernels=False)
-            self.telemetry.note_capture_result(trace_id, result)
+    def _capture_worker(self, jobs: queue.SimpleQueue) -> None:
+        """Anomaly captures, one after another, until a None job."""
+        while (job := jobs.get()) is not None:
+            held, seconds, trace_id, stage, duration_ms = job
+            result = (self._capture_timeline(seconds, trace_id) if held
+                      else {"error": "profile capture already in progress"})
+            telemetry = self.telemetry
+            if telemetry is not None:
+                telemetry.note_capture_result(trace_id, result)
             if "error" in result:
                 logger.warning("anomaly profile capture (%s, %s): %s", trace_id, stage,
                                result["error"])
             else:
                 logger.warning("anomaly profile captured: stage=%s trace=%s duration_ms=%.1f "
                                "-> %s", stage, trace_id, duration_ms, result["log_dir"])
-
-        threading.Thread(target=run, name="anomaly-profile", daemon=True).start()
-        return {"seconds": seconds, "async": True}
 
     # -- HTTP sidecar (main.go:160-202 equivalent) ---------------------------
 
@@ -902,18 +943,28 @@ class RiskServer:
         self.http_server.shutdown()
         self.http_server.server_close()
         self._probe_pool.shutdown(wait=False)
+        self._capture_jobs.put(None)
 
-    def wait_for_signal(self) -> None:
-        done = threading.Event()
-
-        def handler(signum, frame):
-            logger.info("signal %d: shutting down", signum)
-            done.set()
-
-        signal.signal(signal.SIGINT, handler)
-        signal.signal(signal.SIGTERM, handler)
-        done.wait()
+    def wait_for_signal(self, done: threading.Event | None = None) -> None:
+        """Serve until SIGINT or SIGTERM, then shut down; ``done`` is
+        ``stop_on_signal``'s event when the boot installed it first."""
+        (done or stop_on_signal()).wait()
         self.shutdown()
+
+
+def stop_on_signal() -> threading.Event:
+    """An event that SIGINT and SIGTERM set from now on. A boot installs it
+    before it builds the server, so a signal sent as soon as "risk server
+    up" is logged drains the server instead of killing the process."""
+    done = threading.Event()
+
+    def handler(signum, frame):
+        logger.info("signal %d: shutting down", signum)
+        done.set()
+
+    signal.signal(signal.SIGINT, handler)
+    signal.signal(signal.SIGTERM, handler)
+    return done
 
 
 def device_gate() -> str:
@@ -1002,8 +1053,9 @@ def multihost_main(role: str) -> None:
         logger.warning("MULTIHOST_ROLE=front ignores MESH_DEVICES/MESH_SEQ/MESH_EXPERT: the "
                        "multihost mesh owns the devices")
         config = replace(config, mesh_devices=0)
-    server = RiskServer(assemble_risk_service(config, engine_factory=factory))
-    server.wait_for_signal()
+    assembled = assemble_risk_service(config, engine_factory=factory)
+    done = stop_on_signal()
+    RiskServer(assembled).wait_for_signal(done)
 
 
 def main() -> None:
@@ -1017,8 +1069,9 @@ def main() -> None:
     if device == "cpu":
         abuse_policy = os.environ.get("ABUSE_CPU_POLICY", "heuristic")
         logger.warning("serving on the host CPU (abuse policy %s)", abuse_policy)
-    server = RiskServer(assemble_risk_service(device=device, abuse_policy=abuse_policy))
-    server.wait_for_signal()
+    assembled = assemble_risk_service(device=device, abuse_policy=abuse_policy)
+    done = stop_on_signal()
+    RiskServer(assembled).wait_for_signal(done)
 
 
 if __name__ == "__main__":

@@ -583,8 +583,8 @@ class SessionStateManager:
             # accounts are admitted).
             from igaming_platform_tpu_torch.serve.scorer import _device_dispatch
 
-            _device_dispatch("session_sync", (k, self.n_events), np.float32)
-            with self._on_stream():
+            mark = _device_dispatch("session_sync", (k, self.n_events), np.float32, dev)
+            with self._on_stream(), mark:
                 # One lookup admits a slot once: the copies have no duplicates.
                 s = host_to_device(np.asarray(slots, dtype=np.int64), dev)
                 self.session_ring.index_copy_(0, s, host_to_device(w, dev))

@@ -306,8 +306,8 @@ class ShadowScorer:
         """One candidate step over a device batch in the wire's dtype, on the
         engine's stream (after the production step that copied it there)."""
         engine = self._engine
-        _device_dispatch("shadow_step", tuple(x.shape), x.dtype)
-        with engine._on_stream(), torch.inference_mode():
+        mark = _device_dispatch("shadow_step", tuple(x.shape), x.dtype, engine.device)
+        with engine._on_stream(), torch.inference_mode(), mark:
             packed = _stack_packed(self._fn(params, decode_wire(x), blp, thresholds))
             done = engine._record_event()
         with self._cv:

@@ -187,6 +187,22 @@ def test_real_probe_without_a_card_fails_fast():
     assert out.startswith("cpu (device init failed: ") and "probes over" not in out
 
 
+def test_a_signal_right_after_the_boot_drains():
+    """A boot installs its SIGINT/SIGTERM handlers (``stop_on_signal``)
+    before it builds the server, so a SIGTERM sent as soon as "risk server
+    up" is logged, before the boot waits, drains the server (exit 0)
+    instead of killing the process."""
+    code = ("import os, signal, sys, types; sys.path.insert(0, %r); "
+            "from igaming_platform_tpu_torch.serve import server; "
+            "done = server.stop_on_signal(); os.kill(os.getpid(), signal.SIGTERM); "
+            "fake = types.SimpleNamespace(shutdown=lambda: print('drained')); "
+            "server.RiskServer.wait_for_signal(fake, done)"
+            % str(pdev.__file__.rsplit("/igaming_platform_tpu_torch/", 1)[0]))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, check=False)
+    assert out.returncode == 0 and out.stdout.strip() == "drained", out.stderr[-2000:]
+
+
 def test_compile_cache_is_the_kernel_build_dir(monkeypatch):
     """One cache: the kernel build directory on a card, none without one;
     the kernel libraries' key carries the toolchain."""

@@ -127,7 +127,7 @@ def test_no_forbidden_import_statement():
 PLANE = ("obs/metrics.py", "obs/tracing.py", "obs/flight.py", "obs/otlp.py", "obs/slo.py",
          "obs/perfmodel.py", "obs/drift.py", "serve/deadline.py", "serve/supervisor.py",
          "utils/logging.py", "obs/hostprof.py", "obs/runtime_telemetry.py", "core/devices.py",
-         "serve/reflection.py")
+         "serve/reflection.py", "obs/devtrace.py")
 
 
 WALLET_SIDE = ("serve/amqp.py", "serve/amqp_testing.py", "serve/ipintel.py", "core/money.py",
@@ -242,6 +242,7 @@ def test_importing_every_module_loads_none_of_them():
               "serve.redis_store", "serve.clickhouse", "serve.batch_refresh",
               "serve.wallet_codec", "parallel.mesh", "parallel.collectives",
               "parallel.sharding", "parallel.ep", "parallel.state_sharding",
-              "parallel.distributed", "serve.multihost", "serve.router", "obs.fleetview"):
+              "parallel.distributed", "serve.multihost", "serve.router", "obs.fleetview",
+              "obs.devtrace"):
         assert f"igaming_platform_tpu_torch.{m}" in loaded, m
     assert not [m for m in loaded if _forbidden(m)]

@@ -7,11 +7,15 @@ batch, wire lockstep, wire pipelined, index with session), with drift and a
 live shadow bound, fused and split, the port's dispatch counter moves by
 what the JAX engine's moves. The step-time detectors flag the same samples
 of a duration series, signatures are new exactly once, the profile cooldown
-holds, and ``/debug/telemetryz`` answers with the JAX page's keys.
+holds, and ``/debug/telemetryz`` answers with the JAX page's keys. An
+armed device timeline (the automatic anomaly capture, obs/devtrace.py) marks
+every launched step and every kernel wrapper's call, and its trace holds them
+to the counters; the anomaly trigger returns before the writer runs.
 """
 
 import json
 import os
+import threading
 import time
 import types
 import urllib.error
@@ -28,6 +32,7 @@ from igaming_platform_tpu.serve.scorer import ScoreRequest as JRequest
 from igaming_platform_tpu.serve.shadow import ShadowScorer as JShadow
 from igaming_platform_tpu_torch.convert import from_jax_params
 from igaming_platform_tpu_torch.core.config import BatcherConfig, ScoringConfig
+from igaming_platform_tpu_torch.obs import devtrace, perfmodel
 from igaming_platform_tpu_torch.obs import drift as pdrift
 from igaming_platform_tpu_torch.obs import runtime_telemetry as prt
 from igaming_platform_tpu_torch.obs import tracing as ptracing
@@ -255,3 +260,168 @@ def test_root_span_carries_dispatches():
             tel.note_dispatch()
             tel.note_dispatch(2)
     assert root.attributes["dispatches"] == 3 and tel.dispatches_total == 3
+
+
+def _trace_counts(path) -> tuple[dict, dict, dict]:
+    """(kernel events by name, step events by name, the window object) of a
+    device timeline's Chrome trace; every mark has a duration."""
+    with open(path, encoding="utf-8") as f:
+        trace = json.load(f)
+    by = {"kernel": {}, "step": {}}
+    for ev in trace["traceEvents"]:
+        if ev.get("cat") in by:
+            assert ev["dur"] >= 0 and "incomplete" not in ev["args"], ev
+            by[ev["cat"]][ev["name"]] = by[ev["cat"]].get(ev["name"], 0) + 1
+    return by["kernel"], by["step"], trace["window"]
+
+
+@pytest.mark.parametrize("marks", ["engine_and_detector", "synthetic"])
+def test_armed_timeline_marks_every_step_and_kernel_call(marks, monkeypatch, tmp_path):
+    """While a timeline is armed, the CPU engine's ``score_batch`` and the
+    detector's ``check_batch`` (or a large synthetic window): one kernel
+    event per wrapper call, by name, on the host clock (the CPU launches no
+    kernel: every launch counter stays put), one step event per dispatch the
+    counter counts, the root's trace id on each; the trace is valid JSON,
+    written in more than one slice."""
+    from igaming_platform_tpu_torch.models.sequence import SeqConfig
+    from igaming_platform_tpu_torch.serve.abuse import SequenceAbuseDetector
+
+    calls: dict = {}
+    note_work = perfmodel.note_work
+    monkeypatch.setattr(perfmodel, "note_work", lambda name, *a: (
+        calls.__setitem__(name, calls.get(name, 0) + 1), note_work(name, *a))[1])
+    tel = prt.RuntimeTelemetry()
+    monkeypatch.setattr(prt, "DEFAULT", tel)
+    if marks == "engine_and_detector":
+        rng = np.random.default_rng(7)
+        dims = (30, 16, 16, 1)
+        tree = {"mlp": {"layers": [{"w": rng.normal(size=(a, b)).astype(np.float32) * 0.3,
+                                    "b": rng.normal(size=(b,)).astype(np.float32) * 0.05}
+                                   for a, b in zip(dims[:-1], dims[1:])]},
+                "gbdt": {"feat": rng.integers(0, 30, (8, 3)).astype(np.int32),
+                         "thr": rng.random((8, 3)).astype(np.float32),
+                         "leaves": rng.normal(size=(8, 8)).astype(np.float32) * 0.1,
+                         "bias": np.float32(0.1)}}
+        eng = TorchScoringEngine(ScoringConfig(), ml_backend="mlp+gbdt",
+                                 params=from_jax_params("mlp+gbdt", tree), device="cpu",
+                                 batcher_config=BatcherConfig(batch_size=32, latency_tiers=(8,),
+                                                              max_wait_ms=1.0))
+        det = SequenceAbuseDetector(cfg=SeqConfig(d_model=16, n_heads=2, n_layers=2, d_ff=32),
+                                    device="cpu")
+        for i in range(6):
+            det.record_event("acct1", 500 + i, "bet", timestamp=NOW0 + i)
+
+        def drive():
+            eng.score_batch([ScoreRequest(f"acct{i % 5}", amount=100 + 37 * i) for i in range(40)])
+            det.check_batch(["acct1", "acct2", "acct3"])
+    else:
+        def drive():
+            for i in range(3000):
+                devtrace.plain("gbdt_forest", perfmodel.note_work, "gbdt_forest", 0.0, 0.0)
+                with prt.note_dispatch(step=("packed_step", (8, 30), "cpu")):
+                    pass
+    launches0, dispatches0 = devtrace.counters(), tel.dispatches_total
+    monkeypatch.setattr(devtrace, "SLICE_PAUSE_S", 0.0)  # hundreds of slices here
+    tl = devtrace.DeviceTimeline(tel)
+    tl.arm()
+    calls.clear()
+    with ptracing.span("rpc.Test") as root:
+        drive()
+    tl.disarm()
+    if marks == "engine_and_detector":
+        eng.close()
+    window = tl.write(str(tmp_path / "trace.json"), slice_events=8)
+    kernels, steps, written = _trace_counts(tmp_path / "trace.json")
+    assert written == window and window["slices"] > 1 and window["unresolved"] == 0
+    assert kernels == window["kernel_events"] == calls and {"gbdt_forest"} <= set(kernels)
+    if marks == "engine_and_detector":
+        assert {"dense", "dense_f32", "flash_attention_fwd"} <= set(kernels)
+    assert sum(steps.values()) == window["dispatches"] == tel.dispatches_total - dispatches0 > 0
+    assert devtrace.counters() == launches0 and window["launches"] == {}
+    with open(tmp_path / "trace.json", encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    assert {ev["args"]["trace_id"] for ev in events if ev.get("cat") in ("kernel", "step")} \
+        == {root.trace_id}
+    assert "rpc.Test" in {ev["name"] for ev in events if ev.get("cat") == "span"}
+    assert devtrace.ARMED is None
+
+
+@pytest.mark.parametrize("fault", ["library", "entry", "refused"])
+def test_failed_launch_leaves_counter_and_window(fault, monkeypatch, tmp_path):
+    """A kernel launch whose library fails to load, whose entry point raises
+    or whose kernel refuses it raises to its caller, and leaves the launch
+    counters and an armed window as they were: the window still closes and
+    its writer waits for no mark of it. (Here the dense wrapper's launch
+    path runs on CPU tensors, with CUDA's device and stream stubbed.)"""
+    import contextlib
+    import ctypes
+
+    import torch
+
+    from igaming_platform_tpu_torch.ops import dense as dense_mod
+
+    def entry(*args):
+        if fault == "entry":
+            raise ctypes.ArgumentError("argument 1: wrong type")
+        return 2
+
+    def lib():
+        if fault == "library":
+            raise OSError("dense_fixed: build failed")
+        return types.SimpleNamespace(dense_bf16_launch=entry)
+
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(dense_mod, "_lib", lib)
+    x, w, b = torch.ones(4, 8), torch.ones(8, 3), torch.zeros(3)
+    launches0 = devtrace.counters()
+    tl = devtrace.DeviceTimeline()
+    tl.arm()
+    try:
+        with pytest.raises((OSError, ctypes.ArgumentError, RuntimeError)):
+            dense_mod._launch("dense_bf16_launch", dense_mod.dense, "dense", x, w, b)
+    finally:
+        tl.disarm()
+    assert len(tl.marks) == (0 if fault == "library" else 1)
+    window = tl.write(str(tmp_path / "trace.json"))
+    kernels, steps, written = _trace_counts(tmp_path / "trace.json")
+    assert devtrace.counters() == launches0 and devtrace.ARMED is None
+    assert window == written and window["launches"] == {} and window["unresolved"] == 0
+    assert kernels == window["kernel_events"] == {} and steps == {}
+
+
+def test_anomaly_trigger_returns_at_once_and_records_the_trace(monkeypatch, tmp_path):
+    """The server's anomaly trigger on a serving thread returns the JAX
+    hook's record at once; while the capture's writer is held, the thread
+    goes on serving; then the record gains ``ok``, ``log_dir`` and
+    ``trace`` (the JAX server adds ``ok``, ``log_dir`` and a TensorBoard
+    ``hint``), the directory carries the trace id and the trace's step
+    events equal the dispatches counted in its window."""
+    monkeypatch.setenv("ANOMALY_PROFILE_DIR", str(tmp_path))
+    monkeypatch.setenv("ANOMALY_PROFILE_SECONDS", "0.3")
+    monkeypatch.delenv("ANOMALY_PROFILE", raising=False)
+    held = threading.Event()
+    write = devtrace.DeviceTimeline.write
+    monkeypatch.setattr(devtrace.DeviceTimeline, "write",
+                        lambda self, *a, **k: (held.wait(60), write(self, *a, **k))[1])
+    trace_id = "4bf92f3577b34da6a3ce929d0e0e4736"
+    jtel = jrt.RuntimeTelemetry(profile_enabled=True)
+    jtel.bind_profile_trigger(lambda trace, stage, ms: {"seconds": 0.3, "async": True})
+    jtel._maybe_profile(trace_id, "score.dispatch", 42.0)
+    with port_sidecar(monkeypatch) as (server, url):
+        tel = server.telemetry
+        tel._maybe_profile(trace_id, "score.dispatch", 42.0)
+        record = tel.profile_captures[-1]
+        assert set(record) == set(jtel.profile_captures[-1]) and "trace" not in record
+        server.service.call("ScoreBatch", _batch_bytes(40))
+        assert "trace" not in record and server._profile_lock.locked()
+        held.set()
+        for _ in range(600):
+            if "trace" in record or "error" in record:
+                break
+            time.sleep(0.05)
+    assert set(record) == set(jtel.profile_captures[-1]) | {"ok", "log_dir", "trace"}, record
+    assert trace_id[:32] in os.path.basename(record["log_dir"])
+    _, steps, window = _trace_counts(record["trace"])
+    assert sum(steps.values()) == window["dispatches"] > 0 and steps.get("packed_step")
