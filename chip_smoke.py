@@ -2444,20 +2444,46 @@ def http_call(port: int, path: str, body: dict | None = None) -> tuple[int, dict
         return exc.code, json.loads(exc.read())
 
 
+def message_without(payload: bytes, field: int) -> bytes:
+    """A message's bytes without ``field`` (every occurrence)."""
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+
+    n, pos, out = len(payload), 0, []
+    while pos < n:
+        start = pos
+        key, pos = codec._read_varint(payload, pos, n)
+        pos = codec._skip(payload, pos, n, key & 7)
+        if key >> 3 != field:
+            out.append(payload[start:pos])
+    return b"".join(out)
+
+
+SERVER_BURST = 32  # concurrent ScoreTransaction callers on one channel (phase 7)
+SERVER_IN_PROCESS_SINGLES = 100  # phase 7's in-process floor on the same server
+
+
 def phase_server(torch, card: str, gbdt_kernel, fa, filled: tuple) -> dict:
-    """The risk.v1 serving front on the card: the native store at deployment
-    size, ``assemble_risk_service`` with the ``mlp+gbdt`` backend and the
-    abuse detector at serving width, the HTTP sidecar bound (no gRPC: the
-    card's machine has no grpcio), and the RPC mix through the service's
-    byte handlers, requests built and responses read by the port's own
-    codec. Every ScoreBatch answer is held to a CPU engine on the same
-    gathered rows; the forest's launches must equal the device steps and the
-    forward's layers x forwards."""
+    """The risk.v1 serving front on the card, over the wire: the native store
+    at deployment size, ``assemble_risk_service`` with the ``mlp+gbdt``
+    backend and the abuse detector at serving width, ``RiskServer`` with its
+    gRPC port (the port's own transport, ``serve/grpc_wire.py``) and HTTP
+    sidecar bound, and the RPC mix sent through the port's client over
+    loopback, requests built and responses read by the port's own codec.
+    Every ScoreBatch answer is held to a CPU engine on the same gathered
+    rows; the forest's launches must equal the device steps and the
+    forward's layers x forwards. Then health and reflection over gRPC, an
+    RPC whose deadline has passed (DEADLINE_EXCEEDED), SERVER_BURST
+    concurrent ScoreTransaction callers on one channel (each answer
+    byte-equal to the in-process answer, response_time_ms aside), and the
+    in-process floor on the same server: SERVER_IN_PROCESS_SINGLES singles
+    and one ScoreBatch through ``RiskGrpcService.call``."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from igaming_platform_tpu_torch.convert import from_jax_params, sequence_from_tree
     from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
     from igaming_platform_tpu_torch.models.sequence import SeqConfig
     from igaming_platform_tpu_torch.ops import dense as dense_mod
-    from igaming_platform_tpu_torch.serve import scorer, server, wire
+    from igaming_platform_tpu_torch.serve import grpc_server, grpc_wire, scorer, server, wire
     from igaming_platform_tpu_torch.serve import risk_codec as codec
 
     store, n_events, fill_s = filled
@@ -2472,8 +2498,10 @@ def phase_server(torch, card: str, gbdt_kernel, fa, filled: tuple) -> dict:
         config, ml_backend="mlp+gbdt", params=from_jax_params("mlp+gbdt", tree),
         feature_store=store, abuse_params=sequence_from_tree(seq_tree(rng, ABUSE_CFG), seq_cfg),
         device="cuda")
-    srv = server.RiskServer(assembled, grpc_port=-1, http_port=0)
+    srv = server.RiskServer(assembled, grpc_port=0, http_port=0)
     svc, engine, det = assembled.service, assembled.engine, assembled.abuse
+    channel = grpc_wire.insecure_channel(f"localhost:{srv.grpc_port}")
+    stub = grpc_server.make_risk_stub(channel)
     cpu = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=from_jax_params("mlp+gbdt", tree),
                                     batcher_config=config.batcher, feature_store=store,
                                     device="cpu", warmup=False)
@@ -2493,47 +2521,52 @@ def phase_server(torch, card: str, gbdt_kernel, fa, filled: tuple) -> dict:
                                  timestamp=SERVER_NOW - 3600.0 + 30.0 * i)
         abuse_reqs = [codec.encode(codec.CHECK_BONUS_ABUSE_REQUEST, {"account_id": a})
                       for a in checked]
-        svc.call("ScoreBatch", batches[0])  # the pipeline's first build off the count
+        # The pipeline's first build and the channel's dial, off the count.
+        stub.ScoreBatch(batches[0], timeout=120)
         torch.cuda.synchronize()
 
-        # The path's run: counts set to 0 just before, read just after.
+        # The path's run, over the wire: counts set to 0 just before, read
+        # just after.
         gbdt_kernel.gbdt_forest.launches = 0
         fa.flash_attention_fwd.launches = 0
         dense_mod.dense_f32.launches = 0
         steps0, fwd0 = engine.device_steps, det.device_steps
         single_ms, batch_s, split, abuse_ms, batch_out = [], [], None, [], []
+        single_out = []
         for payload in singles:
             t = time.perf_counter()
-            svc.call("ScoreTransaction", payload)
+            single_out.append(stub.ScoreTransaction(payload, timeout=30))
             single_ms.append((time.perf_counter() - t) * 1e3)
         pipe = engine._host_pipeline
         for payload in batches:
             busy0 = dict(pipe.stats()["stage_busy_ms"])
             t = time.perf_counter()
-            batch_out.append(svc.call("ScoreBatch", payload))
+            batch_out.append(stub.ScoreBatch(payload, timeout=120))
             batch_s.append(time.perf_counter() - t)
             if split is None:
                 busy = pipe.stats()["stage_busy_ms"]
                 split = {k: busy[k] - busy0[k] for k in busy}
         for payload in abuse_reqs:
             t = time.perf_counter()
-            svc.call("CheckBonusAbuse", payload)
+            stub.CheckBonusAbuse(payload, timeout=30)
             abuse_ms.append((time.perf_counter() - t) * 1e3)
-        bl_resp = codec.decode(codec.ADD_TO_BLACKLIST_RESPONSE, svc.call(
-            "AddToBlacklist", codec.encode(codec.ADD_TO_BLACKLIST_REQUEST,
-                                           {"type": "device", "value": "dev-smoke"})))
-        hit = codec.decode(codec.CHECK_BLACKLIST_RESPONSE, svc.call(
-            "CheckBlacklist", codec.encode(codec.CHECK_BLACKLIST_REQUEST,
-                                           {"device_id": "dev-smoke"})))
-        svc.call("UpdateThresholds", codec.encode(codec.UPDATE_THRESHOLDS_REQUEST,
-                                                  {"block_threshold": 1, "review_threshold": 0}))
-        thresholds = codec.decode(codec.GET_THRESHOLDS_RESPONSE, svc.call("GetThresholds", b""))
+        bl_resp = codec.decode(codec.ADD_TO_BLACKLIST_RESPONSE, stub.AddToBlacklist(
+            codec.encode(codec.ADD_TO_BLACKLIST_REQUEST, {"type": "device", "value": "dev-smoke"}),
+            timeout=30))
+        hit = codec.decode(codec.CHECK_BLACKLIST_RESPONSE, stub.CheckBlacklist(
+            codec.encode(codec.CHECK_BLACKLIST_REQUEST, {"device_id": "dev-smoke"}), timeout=30))
+        stub.UpdateThresholds(codec.encode(codec.UPDATE_THRESHOLDS_REQUEST,
+                                           {"block_threshold": 1, "review_threshold": 0}),
+                              timeout=30)
+        thresholds = codec.decode(codec.GET_THRESHOLDS_RESPONSE,
+                                  stub.GetThresholds(b"", timeout=30))
         blocked = codec.decode(codec.SCORE_TRANSACTION_RESPONSE,
-                               svc.call("ScoreTransaction", singles[0]))
-        svc.call("UpdateThresholds", codec.encode(codec.UPDATE_THRESHOLDS_REQUEST,
-                                                  {"block_threshold": 80, "review_threshold": 50}))
-        features = codec.decode(codec.GET_FEATURES_RESPONSE, svc.call(
-            "GetFeatures", codec.encode(codec.GET_FEATURES_REQUEST, {"account_id": "acct1"})))
+                               stub.ScoreTransaction(singles[0], timeout=30))
+        stub.UpdateThresholds(codec.encode(codec.UPDATE_THRESHOLDS_REQUEST,
+                                           {"block_threshold": 80, "review_threshold": 50}),
+                              timeout=30)
+        features = codec.decode(codec.GET_FEATURES_RESPONSE, stub.GetFeatures(
+            codec.encode(codec.GET_FEATURES_REQUEST, {"account_id": "acct1"}), timeout=30))
         health = http_call(srv.http_port, "/health")
         ready = http_call(srv.http_port, "/ready")
         debug = http_call(srv.http_port, "/debug/score",
@@ -2583,7 +2616,67 @@ def phase_server(torch, card: str, gbdt_kernel, fa, filled: tuple) -> dict:
         t = time.perf_counter()
         store.decode_gather(batches[0])
         split["decode_gather"] = (time.perf_counter() - t) * 1e3
+
+        # Health and reflection over gRPC; a deadline already spent.
+        served = codec.decode(codec.HEALTH_CHECK_RESPONSE, grpc_server.make_health_stub(
+            channel).Check(codec.encode(codec.HEALTH_CHECK_REQUEST, {"service": ""}), timeout=30))
+        listed = list(channel.stream_stream(
+            "/grpc.reflection.v1alpha.ServerReflection/ServerReflectionInfo")(
+                iter([b"\x3a\x00", b"\x3a\x00"]), timeout=30))
+        if served["status"] != grpc_server.SERVING or len(listed) != 2 or not all(
+                b"risk.v1.RiskService" in m and b"grpc.health.v1.Health" in m for m in listed):
+            raise AssertionError(f"server: health {served} or reflection {listed}")
+        try:
+            stub.ScoreTransaction(singles[1], timeout=0.0)
+            expired = "OK"
+        except grpc_wire.RpcError as exc:
+            expired = exc.code().name
+        if expired != "DEADLINE_EXCEEDED":
+            raise AssertionError(f"server: a spent grpc-timeout answered {expired}")
+        # SERVER_BURST callers at once on the one channel, each answer
+        # byte-equal to the in-process answer to the same request.
+        burst = singles[:SERVER_BURST]
+        t = time.perf_counter()
+        with ThreadPoolExecutor(SERVER_BURST) as pool:
+            burst_out = list(pool.map(lambda p: stub.ScoreTransaction(p, timeout=60), burst))
+        burst_s = time.perf_counter() - t
+        differ = sum(message_without(w, 6) != message_without(g, 6) for w, g in zip(
+            (svc.call("ScoreTransaction", p) for p in burst), burst_out))
+        if differ:
+            raise AssertionError(f"server: {differ} of {len(burst)} burst answers differ from "
+                                 "the in-process answers")
+        # The floor, in-process on the same server: singles and one batch.
+        local_ms = []
+        for payload in singles[:SERVER_IN_PROCESS_SINGLES]:
+            t = time.perf_counter()
+            svc.call("ScoreTransaction", payload)
+            local_ms.append((time.perf_counter() - t) * 1e3)
+        # The wire's batches and singles burn the SLO's fast window (it counts
+        # ScoreBatch against 50 ms): the floor's batch is a measurement, held
+        # clear of the burn gate.
+        svc.burn_gate.enabled = False
+        t = time.perf_counter()
+        local_batch = svc.call("ScoreBatch", batches[1])
+        local_batch_s = time.perf_counter() - t
+        svc.burn_gate.enabled = True
+        if ([without_time(e) for e in router_entries(local_batch)]
+                != [without_time(e) for e in router_entries(batch_out[1])]):
+            raise AssertionError("server: the in-process ScoreBatch answer differs from the wire's")
+        wire_stats = {
+            "single_request_bytes": int(np.mean([len(p) for p in singles])),
+            "single_response_bytes": int(np.mean([len(p) for p in single_out])),
+            "batch_request_bytes": len(batches[1]), "batch_response_bytes": len(batch_out[1]),
+            "wire_single_p50_ms": float(np.percentile(single_ms, 50)),
+            "wire_single_p99_ms": float(np.percentile(single_ms, 99)),
+            "wire_batch_rows_per_s": [SERVER_BATCH_ROWS / t for t in batch_s],
+            "in_process_single_p50_ms": float(np.percentile(local_ms, 50)),
+            "in_process_single_p99_ms": float(np.percentile(local_ms, 99)),
+            "in_process_batch_rows_per_s": SERVER_BATCH_ROWS / local_batch_s,
+            "burst_callers": SERVER_BURST, "burst_calls": len(burst),
+            "burst_calls_per_s": len(burst) / burst_s,
+        }
     finally:
+        channel.close()
         cpu.close()
         srv.shutdown(grace=5.0)
     result = {
@@ -2600,16 +2693,24 @@ def phase_server(torch, card: str, gbdt_kernel, fa, filled: tuple) -> dict:
         "score_transaction_p99_ms": float(np.percentile(single_ms, 99)),
         "check_bonus_abuse_p50_ms": float(np.percentile(abuse_ms, 50)),
         "check_bonus_abuse_p99_ms": float(np.percentile(abuse_ms, 99)),
-        "ready": ready[1],
+        "ready": ready[1], "wire": wire_stats,
     }
-    log(f"phase 7: [{card}] ScoreBatch of {SERVER_BATCH_ROWS} rows bytes to bytes x"
-        f"{SERVER_BATCHES}: median {statistics.median(result['score_batch_rows_per_s']):.0f} "
-        "rows/s")
+    log(f"phase 7: [{card}] over the wire (the port's gRPC transport, loopback): ScoreTransaction "
+        f"x{SERVER_SINGLES} p50 {wire_stats['wire_single_p50_ms']:.3f} ms, p99 "
+        f"{wire_stats['wire_single_p99_ms']:.3f} ms ({wire_stats['single_request_bytes']} B in, "
+        f"{wire_stats['single_response_bytes']} B out); ScoreBatch of {SERVER_BATCH_ROWS} rows "
+        f"x{SERVER_BATCHES}: median {statistics.median(wire_stats['wire_batch_rows_per_s']):.0f} "
+        f"rows/s ({wire_stats['batch_request_bytes']} B in, {wire_stats['batch_response_bytes']} "
+        f"B out); in-process on the same server: ScoreTransaction x{SERVER_IN_PROCESS_SINGLES} "
+        f"p50 {wire_stats['in_process_single_p50_ms']:.3f} ms, p99 "
+        f"{wire_stats['in_process_single_p99_ms']:.3f} ms; one ScoreBatch "
+        f"{wire_stats['in_process_batch_rows_per_s']:.0f} rows/s; {SERVER_BURST} callers on one "
+        f"channel: {wire_stats['burst_calls']} calls at {wire_stats['burst_calls_per_s']:.0f}/s, "
+        "answers byte-equal to in-process (response_time_ms aside); health SERVING, reflection "
+        "list_services x2 on one stream, a spent grpc-timeout DEADLINE_EXCEEDED")
     log(f"phase 7: [{card}] one ScoreBatch RPC's host split (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in split.items()) + f"; the RPC's wall {batch_s[0] * 1e3:.3f}")
-    log(f"phase 7: [{card}] ScoreTransaction x{SERVER_SINGLES}: p50 "
-        f"{result['score_transaction_p50_ms']:.3f} ms, p99 {result['score_transaction_p99_ms']:.3f}"
-        f" ms; CheckBonusAbuse x{SERVER_ABUSE_CHECKS}: p50 "
+    log(f"phase 7: [{card}] CheckBonusAbuse x{SERVER_ABUSE_CHECKS}: p50 "
         f"{result['check_bonus_abuse_p50_ms']:.3f} ms, p99 {result['check_bonus_abuse_p99_ms']:.3f} ms")
     log(f"phase 7: {steps} device steps, {launches} forest launches; {forwards} forwards, "
         f"{fwd_launches} attention launches; every ScoreBatch answer agrees with the CPU engine "
@@ -5950,6 +6051,67 @@ def phase7_turns(parent: str, turns: str = "pccppc") -> list[dict]:
     return runs
 
 
+# One turn of ``wire_turns``: the phases that go over the port's gRPC
+# transport (7, 15, 16, 17) in a fresh process of one checkout, after its
+# kernels are built and phase 7's store filled; a "TURN " JSON line with each
+# phase's seconds and phase 7's and 16's latencies and rates (in-process in a
+# checkout from before the transport, over the wire since).
+_WIRE_TURN = """
+import json, statistics, sys, time
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from igaming_platform_tpu_torch.ops import _build, gbdt_kernel
+from igaming_platform_tpu_torch.ops import dense as dense_mod
+from igaming_platform_tpu_torch.ops import flash_attention as fa
+from igaming_platform_tpu_torch.serve import native_store
+card = c.nvidia_smi_line()
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build(["gbdt_forest", "flash_attention_fwd", "dense_fixed"])
+t = time.perf_counter()
+filled = (*c.fill_native_store(native_store, c.SERVER_NOW), time.perf_counter() - t)
+seconds, out = {"fill": round(filled[2], 1)}, {}
+for name, run in (
+        ("7", lambda: c.phase_server(torch, card, gbdt_kernel, fa, filled)),
+        ("15", lambda: c.phase_platform(torch, card, gbdt_kernel, fa, dense_mod)),
+        ("16", lambda: c.phase_stores(torch, card, gbdt_kernel, dense_mod, filled[0])),
+        ("17", lambda: c.phase_multi_device(torch, card, gbdt_kernel, fa, dense_mod,
+                                            filled[0]))):
+    t = time.perf_counter()
+    out[name] = run()
+    seconds[name] = round(time.perf_counter() - t, 1)
+p7 = out["7"]
+print("TURN " + json.dumps({
+    "seconds": seconds, "st_p50_ms": p7["score_transaction_p50_ms"],
+    "st_p99_ms": p7["score_transaction_p99_ms"],
+    "cba_p99_ms": p7["check_bonus_abuse_p99_ms"],
+    "sb_rows_per_s": statistics.median(p7["score_batch_rows_per_s"]),
+    "wallet_ops_per_s": out["16"]["wallet"]["ops_per_s"], "card": card}))
+"""
+
+
+def wire_turns(parent: str, turns: str = "pccp") -> list[dict]:
+    """Phases 7, 15, 16 and 17 of two checkouts in turns on one card, each
+    turn in its own process (``_WIRE_TURN``): ``p`` runs the checkout at
+    ``parent`` (a ``git archive`` unpack of a commit from before the wire),
+    ``c`` this one. Returns each turn's phase seconds and phase 7's and 16's
+    numbers in turn order. Run it as ``python3 -c "import chip_smoke as c;
+    c.wire_turns('dir')"``."""
+    runs = []
+    for turn in turns:
+        where = parent if turn == "p" else "."
+        out = subprocess.run([sys.executable, "-c", _WIRE_TURN], cwd=where,
+                             capture_output=True, text=True, check=False)
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("TURN ")]
+        if out.returncode or not lines:
+            raise AssertionError(f"wire turn in {where}: exit {out.returncode}\n"
+                                 + out.stderr[-3000:])
+        runs.append({"checkout": "parent" if turn == "p" else "change",
+                     **json.loads(lines[0][5:])})
+        log(f"wire turn {len(runs)}: " + json.dumps(runs[-1]))
+    return runs
+
+
 # Phase 15: the platform on the card. The single binary (platform/app.py)
 # with the mlp+gbdt engine at phase 4's widths and the detector at serving
 # width: (a) PLATFORM_PARITY_OPS operations over PLATFORM_PARITY_ACCOUNTS
@@ -6400,7 +6562,7 @@ def platform_amqp(torch, tree, model, cfg, gbdt_kernel, fa, dense_mod, device: s
         config, ml_backend="mlp+gbdt", params=from_jax_params("mlp+gbdt", tree),
         abuse_params=model, broker=broker.url, device=device,
         feature_store=feature_store.InMemoryFeatureStore(clock=now))
-    server = server_mod.RiskServer(assembled, grpc_port=-1, http_port=0)
+    server = server_mod.RiskServer(assembled, grpc_port=0, http_port=0)
     wire = assembled.bridge
     order: list[str] = []
     process = wire._process_event
@@ -6483,7 +6645,11 @@ def platform_amqp(torch, tree, model, cfg, gbdt_kernel, fa, dense_mod, device: s
             twin_engine.features.fill_row(rows[1, i], a, 5000, "bet", now=clock[0])
         if not np.array_equal(rows[0].view(np.int32), rows[1].view(np.int32)):
             raise AssertionError("platform amqp: feature rows differ from the in-process twin")
+        gate = platform_grpc_gate(server, assembled, wallet, ids, clock, counts, tree, cfg,
+                                  device)
+        launches = {k: launches[k] + gate["launches"][k] for k in launches}
         return {"ops": len(ops), "events": staged, "events_per_s": staged / seconds,
+                "grpc_gate": gate,
                 "seconds": seconds, "outage_at_s": outage_at, "duplicates": wire.events_deduped,
                 "relay_reconnects": relay_target.reconnects,
                 "bridge_publisher_reconnects": wire.publisher.reconnects,
@@ -6497,6 +6663,71 @@ def platform_amqp(torch, tree, model, cfg, gbdt_kernel, fa, dense_mod, device: s
         if twin is not None:
             twin.engine.close()
         broker.close()
+
+
+PLATFORM_GATE_OPS = 300  # wallet operations gated over gRPC (phase 15, amqp part)
+
+
+class PairedGate:
+    """The wallet's risk gate: ``remote`` decides; ``local`` scores the same
+    call, and both decisions are kept."""
+
+    def __init__(self, remote, local):
+        self.remote, self.local = remote, local
+        self.pairs: list[tuple] = []
+
+    def score_transaction(self, *args, **kwargs):
+        got = self.remote.score_transaction(*args, **kwargs)
+        self.pairs.append((got, self.local.score_transaction(*args, **kwargs)))
+        return got
+
+
+def platform_grpc_gate(server, assembled, wallet, ids, clock, counts, tree, cfg,
+                       device: str) -> dict:
+    """The amqp part's wallet gated by a ``GrpcRiskGate`` dialing its
+    ``RiskServer`` over the port's gRPC transport, PLATFORM_GATE_OPS more
+    operations: each decision (score, action, reasons) equal to the
+    in-process gate's on the same call, the store unchanged between the two
+    (the outbox is no longer relayed)."""
+    from igaming_platform_tpu_torch.platform.risk_adapter import GrpcRiskGate, InProcessRiskGate
+
+    remote = GrpcRiskGate(f"localhost:{server.grpc_port}", timeout=30.0)
+    gate, saved = PairedGate(remote, InProcessRiskGate(assembled.engine)), wallet.risk
+    wallet.risk = gate
+    errors0 = dict(wallet.gate_errors)
+    try:
+        ops = platform_ops(18, PLATFORM_GATE_OPS, len(ids), 0)
+        counts.zero()
+        t0 = time.perf_counter()
+        for kind, acct, amount, key, device_id, cat, _, step in ops:
+            try:
+                if kind == "win":
+                    wallet.win(ids[acct], amount, f"g{key}")
+                elif kind == "bet":
+                    wallet.bet(ids[acct], amount, f"g{key}", game_category=cat,
+                               device_id=device_id)
+                else:
+                    getattr(wallet, kind)(ids[acct], amount, f"g{key}", device_id=device_id)
+            except Exception:  # noqa: BLE001 - refusals are outcomes; the gate errors are held
+                pass
+            clock[0] += step
+        seconds = time.perf_counter() - t0
+        launches = counts.read(len(tree["mlp"]["layers"]), cfg, 0, device, "platform grpc gate")
+    finally:
+        wallet.risk = saved
+        remote.close()
+    if wallet.gate_errors != errors0:
+        raise AssertionError(f"platform grpc gate: gate errors {wallet.gate_errors} "
+                             f"({wallet.last_gate_error!r})")
+    differ = [i for i, (got, want) in enumerate(gate.pairs) if got != want]
+    if len(gate.pairs) < 200 or differ:
+        i = differ[0] if differ else 0
+        raise AssertionError(f"platform grpc gate: {len(differ)} of {len(gate.pairs)} decisions "
+                             f"differ, first {gate.pairs[i:i + 1]}")
+    actions = [got[1] for got, _ in gate.pairs]
+    return {"ops": len(ops), "decisions": len(gate.pairs), "seconds": seconds,
+            "actions": {a: actions.count(a) for a in sorted(set(actions))},
+            "launches": launches}
 
 
 def phase_platform(torch, card: str, gbdt_kernel, fa, dense_mod, device: str = "cuda") -> dict:
@@ -6540,6 +6771,10 @@ def phase_platform(torch, card: str, gbdt_kernel, fa, dense_mod, device: str = "
         f"(relay reconnects {wire['relay_reconnects']}, {wire['duplicates']} duplicates "
         f"deduped, amqp breaker {json.dumps(wire['breaker'])}); feature rows equal to the "
         f"in-process twin")
+    g = wire["grpc_gate"]
+    log(f"phase 15: [{card}] grpc gate: {g['ops']} operations gated by a GrpcRiskGate over the "
+        f"port's gRPC transport, {g['decisions']} decisions ({json.dumps(g['actions'])}) equal to "
+        f"the in-process gate's, in {g['seconds']:.2f} s; launches {json.dumps(g['launches'])}")
     result = {"parity": parity, "scale": scale, "amqp": wire,
               "launches": {k: parity["launches"][k] + scale["launches"][k]
                            + wire["launches"][k] for k in ("forest", "dense", "forward",
@@ -6556,8 +6791,9 @@ def phase_platform(torch, card: str, gbdt_kernel, fa, dense_mod, device: str = "
 # history of STORES_HISTORY completed transactions among them, written into
 # the file directly after the store's bootstrap over the wire (the SQLite
 # store on the card gets the same accounts, without the history); STORES_OPS
-# wallet.v1 operations over STORES_ACTIVE accounts through WalletGrpcService
-# (Postgres on the card, SQLite on the card, SQLite on the CPU); the LTV job
+# wallet.v1 operations over STORES_ACTIVE accounts through each server's
+# serve_wallet and the port's gRPC client over loopback (Postgres on the
+# card, SQLite on the card, SQLite on the CPU); the LTV job
 # over postgres:// and sqlite://; the batch refresh of phase 7's store from
 # the rig and from a ClickHouse stand-in, then STORES_REFRESH_RPCS ScoreBatch
 # RPCs to a row-mode and an IDX1 engine; the Redis store over a dict-backed
@@ -6731,23 +6967,26 @@ def stores_wallet_server(cfg_url: str, engine, broker):
     srv = WalletServer(WalletServiceConfig(database_url=cfg_url, risk_service_addr="",
                                            risk_threshold_block=block,
                                            risk_threshold_review=review),
-                       risk_gate=InProcessRiskGate(rec), broker=broker, grpc_port=None,
+                       risk_gate=InProcessRiskGate(rec), broker=broker, grpc_port=0,
                        http_port=0)
     return srv, rec
 
 
 def stores_pg(params, root: str, counts, device: str) -> dict:
     """(1) The wallet over Postgres on the card against SQLite on the card and
-    a CPU twin over SQLite: the same logical operations, answers equal (ids
-    and timestamps left out), gate scores to the engine's tolerance; ops/s
-    and latency by kind; the books reconciled over the wire; /metrics."""
+    a CPU twin over SQLite, each behind its wallet.v1 gRPC server and called
+    through the port's client: the same logical operations, answers equal
+    (ids and timestamps left out), gate scores to the engine's tolerance;
+    ops/s and latency by kind, the wire's included; the books reconciled
+    over the wire; /metrics."""
     from igaming_platform_tpu_torch.core.config import BatcherConfig
     from igaming_platform_tpu_torch.platform.pg_testing import PgSqliteServer
     from igaming_platform_tpu_torch.serve import scorer
     from igaming_platform_tpu_torch.serve import wallet_codec as wc
     from igaming_platform_tpu_torch.serve.events import InMemoryBroker
     from igaming_platform_tpu_torch.serve.feature_store import InMemoryFeatureStore
-    from igaming_platform_tpu_torch.serve.grpc_server import RpcAbort
+    from igaming_platform_tpu_torch.serve import grpc_wire
+    from igaming_platform_tpu_torch.serve.grpc_server import make_wallet_stub
 
     rng = np.random.default_rng(160)
 
@@ -6765,7 +7004,7 @@ def stores_pg(params, root: str, counts, device: str) -> dict:
     cpu_engine = gate_engine("cpu", BatcherConfig(batch_size=256, latency_tiers=(8,),
                                                   max_wait_ms=0.0))
     rig = PgSqliteServer(os.path.join(root, "wallet-pg.db"))
-    servers, result = [], {}
+    servers, channels, result = [], [], {}
     try:
         t = time.perf_counter()
         pg, pg_rec = stores_wallet_server(rig.url, engine, InMemoryBroker())
@@ -6803,8 +7042,14 @@ def stores_pg(params, root: str, counts, device: str) -> dict:
             commit_ms[name] = (time.perf_counter() - t) / 200 * 1e3
 
         ops = stores_ops(162)
-        sides = [{"srv": s, "ids": [], "deposits": {}, "out": [], "ms": {}}
+        # Each server's wallet.v1 over the port's gRPC transport (serve_wallet),
+        # through the port's client.
+        sides = [{"srv": s, "ids": [], "deposits": {}, "out": [], "ms": {},
+                  "channel": grpc_wire.insecure_channel(f"localhost:{s.grpc_port}")}
                  for s in (pg, sq, twin)]
+        for side in sides:
+            side["stub"] = make_wallet_stub(side["channel"])
+            channels.append(side["channel"])
         counts.begin([engine])
         for op in ops:
             kind = op[0]
@@ -6812,9 +7057,9 @@ def stores_pg(params, root: str, counts, device: str) -> dict:
                 payload = stores_request(wc, op, side["ids"], side["deposits"])
                 t = time.perf_counter()
                 try:
-                    out = side["srv"].grpc_service.call(kind, payload)
-                except RpcAbort as exc:
-                    out = exc.code.name
+                    out = getattr(side["stub"], kind)(payload, timeout=60)
+                except grpc_wire.RpcError as exc:
+                    out = exc.code().name
                 side["ms"].setdefault(kind, []).append(time.perf_counter() - t)
                 side["out"].append(stores_outcome(wc, kind, out))
                 if kind == "CreateAccount":
@@ -6875,6 +7120,8 @@ def stores_pg(params, root: str, counts, device: str) -> dict:
             "launches": launches, "rig_url": rig.url,
         }
     finally:
+        for channel in channels:
+            channel.close()
         for srv in servers:
             srv.shutdown(grace=1.0)
         engine.close()
@@ -7323,7 +7570,8 @@ def phase_stores(torch, card: str, gbdt_kernel, dense_mod, store, device: str = 
             f"file directly after the store's bootstrap over the wire ({wallet['fill']['seconds']:.1f}"
             f" s; the SQLite store's {wallet['fill_sqlite']['accounts']} accounts in "
             f"{wallet['fill_sqlite']['seconds']:.1f} s); {wallet['ops']} operations over {wallet['active_accounts']} accounts through "
-            f"WalletGrpcService.call, answers over Postgres equal to SQLite's on the card and "
+            f"serve_wallet and the port's gRPC client, answers over Postgres equal to SQLite's "
+            f"on the card and "
             f"the CPU twin's ({json.dumps(wallet['statuses'])}), {wallet['gate_scores']} gate "
             f"scores ({wallet['floor_boundary_rows']} floor-boundary rows not compared); ops/s "
             f"{json.dumps(wallet['ops_per_s'])}; latency ms {json.dumps(wallet['latency_ms'])}; "
@@ -7965,19 +8213,26 @@ class Follower:
 
 
 def fleet_replicas(torch, codec, store, counts, params, rng, device: str) -> dict:
-    """Part 6: three risk servers (``assemble_risk_service`` and their HTTP
-    sidecars) on the device, an ``AccountAffinityPicker`` splitting
-    MD_FLEET_RPCS ScoreBatch RPCs by owner, each replica answering its rows
-    through ``RiskGrpcService.call``, the merged answers equal to one
-    replica's whole answer byte for byte but for ``response_time_ms``; a
-    ``FleetView`` over the sidecars (merged
-    histogram counts equal to the sum of the replicas'); one replica stopped
-    goes stale within MD_FLEET_STALE_S and the view never blocks."""
+    """Part 6: three risk servers (``assemble_risk_service``, each with its
+    gRPC port and HTTP sidecar) on the device, an ``AccountAffinityPicker``
+    splitting MD_FLEET_RPCS ScoreBatch RPCs by owner, each replica answering
+    its rows through ``RiskGrpcService.call``, the merged answers equal to
+    one replica's whole answer byte for byte but for ``response_time_ms``;
+    then ``serve_router`` in front of two of them over the port's gRPC
+    transport: the same RPCs, split and merged by the router over the wire,
+    and a ScoreTransaction through it, equal to the in-process merge and
+    answer; a ``FleetView`` over the sidecars (merged histogram counts equal
+    to the sum of the replicas'); one replica stopped goes stale within
+    MD_FLEET_STALE_S and the view never blocks."""
     from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
     from igaming_platform_tpu_torch.obs.fleetview import FleetView, parse_histograms
     from igaming_platform_tpu_torch.obs.metrics import ServiceMetrics
-    from igaming_platform_tpu_torch.serve import server
-    from igaming_platform_tpu_torch.serve.router import AccountAffinityPicker
+    from igaming_platform_tpu_torch.serve import grpc_server, grpc_wire, server
+    from igaming_platform_tpu_torch.serve.router import (
+        AccountAffinityPicker,
+        ScoringRouter,
+        serve_router,
+    )
 
     config = RiskServiceConfig(batcher=BatcherConfig(
         batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0))
@@ -7987,7 +8242,7 @@ def fleet_replicas(torch, codec, store, counts, params, rng, device: str) -> dic
         for _ in range(3):
             assembled = server.assemble_risk_service(config, ml_backend="mlp+gbdt", params=params,
                                                      feature_store=store, device=device)
-            servers.append(server.RiskServer(assembled, grpc_port=-1, http_port=0))
+            servers.append(server.RiskServer(assembled, grpc_port=0, http_port=0))
         names = [f"replica{i}" for i in range(3)]
         picker = AccountAffinityPicker(names)
         # Requests as the client holds them, and their encoded entries: a
@@ -8012,14 +8267,43 @@ def fleet_replicas(torch, codec, store, counts, params, rng, device: str) -> dic
                     merged[j] = entry
             split_s.append(time.perf_counter() - t)
             merged_all.append(merged)
-        steps = sum(getattr(s.engine, "inner", s.engine).device_steps for s in servers) - steps0
-        if steps == 0:
-            raise AssertionError("fleet: no device step")
-        launches = counts.end("fleet", {"forest": steps, "dense": 3 * steps, "forward": 0})
         for merged, payload in zip(merged_all, payloads):
             whole = router_entries(servers[0].service.call("ScoreBatch", payload))
             if [without_time(e) for e in merged] != [without_time(e) for e in whole]:
                 raise AssertionError("fleet: merged owner shares differ from one replica's answer")
+        # The router over the wire, in front of replicas 0 and 1.
+        router = ScoringRouter({f"r{i}": (f"localhost:{servers[i].grpc_port}", None)
+                                for i in range(2)}, hedge=False)
+        front, _, front_port = serve_router(router, 0)
+        channel = grpc_wire.insecure_channel(f"localhost:{front_port}")
+        try:
+            stub = grpc_server.make_risk_stub(channel)
+            forwards0 = router.stats["forwards"]
+            routed_s = []
+            for merged, payload in zip(merged_all, payloads):
+                t = time.perf_counter()
+                routed = router_entries(stub.ScoreBatch(payload, timeout=120))
+                routed_s.append(time.perf_counter() - t)
+                if [without_time(e) for e in routed] != [without_time(e) for e in merged]:
+                    raise AssertionError("fleet: the router's merge over the wire differs from "
+                                         "the in-process merge")
+            single = codec.encode(codec.SCORE_TRANSACTION_REQUEST, reqs[0][0])
+            routed_single = stub.ScoreTransaction(single, timeout=60)
+            if message_without(routed_single, 6) != message_without(
+                    servers[0].service.call("ScoreTransaction", single), 6):
+                raise AssertionError("fleet: a ScoreTransaction through the router differs")
+            router_forwards = router.stats["forwards"] - forwards0
+            if router_forwards < 2 * len(payloads):
+                raise AssertionError(f"fleet: the router split {len(payloads)} RPCs into "
+                                     f"{router_forwards} forwards")
+        finally:
+            channel.close()
+            front.stop(0).wait()
+            router.close()
+        steps = sum(getattr(s.engine, "inner", s.engine).device_steps for s in servers) - steps0
+        if steps == 0:
+            raise AssertionError("fleet: no device step")
+        launches = counts.end("fleet", {"forest": steps, "dense": 3 * steps, "forward": 0})
         t = time.perf_counter()
         http_text(servers[0].http_port, "/metrics")
         get_ms = (time.perf_counter() - t) * 1e3
@@ -8064,10 +8348,106 @@ def fleet_replicas(torch, codec, store, counts, params, rng, device: str) -> dic
         for s in servers[:2]:
             s.shutdown(grace=0.2)
     return {"owner_rows": shares, "split_rpc_ms": statistics.median(split_s) * 1e3,
+            "router_rpc_ms": statistics.median(routed_s) * 1e3,
+            "router_forwards": router_forwards,
             "launches": launches, "steps": steps, "scrape_ms": scrape_ms,
             "sidecar_get_ms": get_ms,
             "stage_counts": stages, "stale_after_s": stale_s,
             "snapshot_worst_ms": worst_ms, "fleet_drift": drift_block}
+
+
+def fleet_capture_cards(torch, store, params, batches, device: str) -> dict | None:
+    """Part 7, under SMOKE_DISTINCT_CARDS=1 with two cards or more (else
+    None): a ``RiskServer`` over a data mesh of every visible card, as
+    ``MESH_DEVICES`` lays it out, readies each card for captures at boot;
+    one capture forced under ScoreBatch RPCs. Held: every kernel and step
+    mark has its ``ts`` and ``dur``; the kernel events equal the launch
+    deltas, each card's share equal (a data shard launches every kernel
+    once a step); no mark made a CUDA event (an empty pool) on a serving
+    thread."""
+    import threading
+
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.obs import devtrace
+    from igaming_platform_tpu_torch.serve import server
+
+    n = torch.cuda.device_count() if device == "cuda" else 0
+    if os.environ.get("SMOKE_DISTINCT_CARDS") != "1" or n < 2:
+        return None
+    config = RiskServiceConfig(batcher=BatcherConfig(
+        batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0))
+    assembled = server.assemble_risk_service(config, ml_backend="mlp+gbdt", params=params,
+                                             feature_store=store, device=device,
+                                             mesh=md_mesh(device, data=n))
+    srv = server.RiskServer(assembled, grpc_port=-1, http_port=0)
+    tel, made, orig = srv.telemetry, [], devtrace._event
+
+    def counting(card):
+        if not devtrace._POOL.get(card):
+            made.append((card, threading.current_thread().name))
+        return orig(card)
+
+    saved = (tel.cooldown_s, tel.profile_enabled, os.environ.get("ANOMALY_PROFILE_SECONDS"))
+    try:
+        readied = sorted(devtrace._POOL)
+        if readied != list(range(n)):
+            raise AssertionError(f"cards: {readied} readied at boot of {n}")
+        srv.service.call("ScoreBatch", batches[0])
+        devtrace._event = counting
+        tel.cooldown_s, tel.profile_enabled = 0.0, True
+        os.environ["ANOMALY_PROFILE_SECONDS"] = "1.0"
+        rec, k = {}, 0
+        for attempt in range(3):  # a natural anomaly's capture may hold the lock
+            if not srv._profile_lock.acquire(timeout=60):
+                raise AssertionError("cards: a capture did not end")
+            srv._profile_lock.release()
+            trace_id = f"cards-{attempt}"
+            tel._maybe_profile(trace_id, "score.dispatch", 0.0)
+            rec, end = {}, time.monotonic() + 120
+            while not ("trace" in rec or "error" in rec) and time.monotonic() < end:
+                srv.service.call("ScoreBatch", batches[k % len(batches)])
+                k += 1
+                rec = next((c for c in reversed(tel.profile_captures)
+                            if c["trace_id"] == trace_id), {})
+            if "trace" in rec:
+                break
+        if "trace" not in rec:
+            raise AssertionError(f"cards: the capture wrote no trace: {rec}")
+        with open(rec["trace"], encoding="utf-8") as f:
+            trace = json.load(f)
+    finally:
+        devtrace._event = orig
+        tel.cooldown_s, tel.profile_enabled = saved[:2]
+        if saved[2] is None:
+            os.environ.pop("ANOMALY_PROFILE_SECONDS", None)
+        else:
+            os.environ["ANOMALY_PROFILE_SECONDS"] = saved[2]
+        srv.shutdown(grace=1.0)
+    marks = [ev for ev in trace["traceEvents"] if ev.get("cat") in ("kernel", "step")]
+    incomplete = [ev["name"] for ev in marks if "dur" not in ev or ev["args"].get("incomplete")]
+    per_card: dict[int, dict] = {}
+    for ev in marks:
+        if ev["cat"] == "kernel":
+            card = per_card.setdefault(ev["pid"] - 2, {})
+            card[ev["name"]] = card.get(ev["name"], 0) + 1
+    window = trace["window"]
+    shares = {name: [per_card.get(i, {}).get(name, 0) for i in range(n)]
+              for name in window["launches"]}
+    bad = []
+    if incomplete:
+        bad.append(f"{len(incomplete)} marks without ts and dur: {sorted(set(incomplete))}")
+    if window["kernel_events"] != window["launches"] or not window["launches"]:
+        bad.append(f"kernel events {window['kernel_events']} against launches "
+                   f"{window['launches']}")
+    if any(len(set(v)) != 1 or sum(v) != window["launches"][k] for k, v in shares.items()):
+        bad.append(f"per-card kernel events {shares}")
+    if made:
+        bad.append(f"{len(made)} CUDA events made on serving threads: {made[:5]}")
+    if bad:
+        raise AssertionError("cards: " + "; ".join(bad))
+    return {"cards": n, "readied": readied, "rpcs": k, "marks": len(marks),
+            "per_card_kernel_events": shares, "window_launches": window["launches"],
+            "anchor_uncertainty_us": window.get("anchor_uncertainty_us")}
 
 
 def router_entries(payload: bytes) -> list[bytes]:
@@ -8191,6 +8571,14 @@ def phase_multi_device(torch, card: str, gbdt_kernel, fa, dense_mod, store,
                 f"accounts of {MD_ABUSE_HISTORY} events: " + json.dumps(seq))
             fleet = fleet_replicas(torch, codec, store, counts, params, rng, device)
             part("fleet")
+            cards = fleet_capture_cards(torch, store, params, batches, device)
+            if cards is not None:
+                part("cards")
+                log(f"phase 17: a capture over {cards['cards']} cards (every card readied at "
+                    f"boot): {cards['marks']} marks, every one with ts and dur; kernel events "
+                    f"per card {json.dumps(cards['per_card_kernel_events'])} sum to the launch "
+                    f"deltas {json.dumps(cards['window_launches'])}; no CUDA event made on a "
+                    "serving thread")
             mh = mh_run.finish()
             part("multihost rejoin (the rest of the follower's restart)")
         finally:
@@ -8206,7 +8594,10 @@ def phase_multi_device(torch, card: str, gbdt_kernel, fa, dense_mod, store,
             f"{mh['follower_resurrections_total']:.0f}; launches {json.dumps(mh['launches'])}; "
             f"seconds {json.dumps(mh['seconds'])}")
         log(f"phase 17: fleet of 3 replicas: owner rows {fleet['owner_rows']}, merged answers "
-            f"equal to one replica's; a split RPC {fleet['split_rpc_ms']:.1f} ms; fleet view "
+            f"equal to one replica's; a split RPC {fleet['split_rpc_ms']:.1f} ms; serve_router in "
+            f"front of two over the port's gRPC transport: merges and a ScoreTransaction equal "
+            f"to in-process, a routed RPC {fleet['router_rpc_ms']:.1f} ms "
+            f"({fleet['router_forwards']} forwards); fleet view "
             f"scrape {fleet['scrape_ms']:.1f} ms, merged stage counts equal to the replicas' sum "
             f"{json.dumps(fleet['stage_counts'])}; a stopped replica stale after "
             f"{fleet['stale_after_s']:.2f} s (limit {MD_FLEET_STALE_S}), worst snapshot "
@@ -8229,7 +8620,7 @@ def phase_multi_device(torch, card: str, gbdt_kernel, fa, dense_mod, store,
                 os.environ[k] = v
         shutil.rmtree(root, ignore_errors=True)
     result = {"routed": routed, "sharded": sharded, "state": state,
-              "sequence": seq, "multihost": mh, "part_seconds": parts,
+              "sequence": seq, "multihost": mh, "part_seconds": parts, "cards": cards,
               "fleet": {k: v for k, v in fleet.items() if k != "fleet_drift"},
               "launches": counts.total, "seconds": time.perf_counter() - t0}
     log(f"phase 17: launches {json.dumps(counts.total)}; {result['seconds']:.1f} s")
@@ -8594,6 +8985,52 @@ def phase_train_mesh(torch, card: str, gbdt_kernel, fa, dense_mod, dense_losses,
     log(f"phase 18: launches {json.dumps(counts.total)}; {result['seconds']:.1f} s")
     log("phase 18: " + json.dumps(result, default=str))
     return result
+
+
+def wire_phases(capture_only: bool = False) -> dict:
+    """The phases that go over the port's gRPC transport, alone: the kernels
+    they launch built, phase 7's store filled, then phases 7, 15, 16 and 17
+    (``capture_only``: phase 17's capture over every card alone, for a call
+    with several cards and ``SMOKE_DISTINCT_CARDS=1``). Run it as
+    ``python3 -c "import chip_smoke as c; c.wire_phases()"``."""
+    import torch
+
+    from igaming_platform_tpu_torch.convert import from_jax_params
+    from igaming_platform_tpu_torch.ops import _build, gbdt_kernel
+    from igaming_platform_tpu_torch.ops import dense as dense_mod
+    from igaming_platform_tpu_torch.ops import flash_attention as fa
+    from igaming_platform_tpu_torch.serve import native_store
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+
+    card = nvidia_smi_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build(["gbdt_forest", "flash_attention_fwd", "dense_fixed"])
+    t0 = time.perf_counter()
+    filled = (*fill_native_store(native_store, SERVER_NOW), time.perf_counter() - t0)
+    times: dict[str, float] = {"fill": round(time.perf_counter() - t0, 1)}
+    out = {}
+    if capture_only:
+        rng = np.random.default_rng(22)
+        params = from_jax_params("mlp+gbdt", {"mlp": mlp_tree(rng, SERVE_HIDDEN),
+                                              "gbdt": forest_tree(rng, SERVE_TREES, SERVE_DEPTH)})
+        batches = md_batches(codec, np.random.default_rng(176), 2, SERVER_BATCH_ROWS)
+        out["cards"] = fleet_capture_cards(torch, filled[0], params, batches, "cuda")
+        if out["cards"] is None:
+            raise AssertionError("capture_only needs SMOKE_DISTINCT_CARDS=1 and two cards")
+        log("cards " + json.dumps(out["cards"]))
+    else:
+        for name, run in (
+                ("7", lambda: phase_server(torch, card, gbdt_kernel, fa, filled)),
+                ("15", lambda: phase_platform(torch, card, gbdt_kernel, fa, dense_mod)),
+                ("16", lambda: phase_stores(torch, card, gbdt_kernel, dense_mod, filled[0])),
+                ("17", lambda: phase_multi_device(torch, card, gbdt_kernel, fa, dense_mod,
+                                                  filled[0]))):
+            t = time.perf_counter()
+            out[name] = run()
+            times[name] = round(time.perf_counter() - t, 1)
+    log("wire_phases times " + json.dumps(times))
+    log(card)
+    return out
 
 
 def main() -> int:

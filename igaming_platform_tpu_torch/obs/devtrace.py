@@ -191,7 +191,8 @@ def _release(device: int, *events) -> None:
 def prepare(device) -> None:
     """Ready ``device`` for captures (a CUDA device; nothing for the CPU):
     make its event pool, so that a capture's first arming does not, and have
-    every capture anchor it. A server calls it at boot for its card; no
+    every capture anchor it. A server calls it at boot for each card it
+    launches on (its engine's, and every other card of its serving mesh); no
     other card gets a CUDA context from a capture."""
     index = _device_index(device)
     if index is not None:

@@ -11,7 +11,10 @@ deployment shapes:
 - ``GrpcRiskGate``: across processes, a risk.v1 client, wire-compatible
   with either package's server or the reference's Go service. It encodes
   and decodes with the port's hand codec (``serve/risk_codec.py``) and
-  imports ``grpc`` only when it first connects.
+  dials through the port's own gRPC transport (``serve/grpc_wire.py``),
+  the same here and on the card's machine, which has no grpcio. Its
+  channel (and the channel's thread) is made with the gate; the first
+  call dials.
 """
 
 from __future__ import annotations
@@ -49,22 +52,20 @@ _ACTIONS = {ACTION_REVIEW: "review", ACTION_BLOCK: "block"}
 
 
 class GrpcRiskGate:
-    """risk.v1 ScoreTransaction client (lazy channel)."""
+    """risk.v1 ScoreTransaction client (the channel dials at the first
+    call)."""
 
     def __init__(self, address: str, timeout: float = 5.0):
+        from igaming_platform_tpu_torch.serve import grpc_wire
+        from igaming_platform_tpu_torch.serve.grpc_server import make_risk_stub
+
         self.address = address
         self.timeout = timeout
-        self._stub = None
+        self.channel = grpc_wire.insecure_channel(address)
+        self._stub = make_risk_stub(self.channel)
 
-    def _ensure_stub(self):
-        if self._stub is None:
-            import grpc
-
-            from igaming_platform_tpu_torch.serve.grpc_server import make_risk_stub
-
-            channel = grpc.insecure_channel(self.address)
-            self._stub = make_risk_stub(channel)
-        return self._stub
+    def close(self) -> None:
+        self.channel.close()
 
     def score_transaction(
         self, account_id: str, amount: int, tx_type: str,
@@ -78,6 +79,6 @@ class GrpcRiskGate:
             "fingerprint": fingerprint,
         })
         resp = risk_codec.decode(risk_codec.SCORE_TRANSACTION_RESPONSE,
-                                 self._ensure_stub().ScoreTransaction(request,
+                                 self._stub.ScoreTransaction(request,
                                                                       timeout=self.timeout))
         return resp["score"], _ACTIONS.get(resp["action"], "approve"), list(resp["reason_codes"])

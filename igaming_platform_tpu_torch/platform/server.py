@@ -7,11 +7,13 @@ server + health -> HTTP sidecar (/metrics, /health, /ready, /debug/spans,
 /debug/reconciliation) -> graceful shutdown. The reference's commented-out
 service wiring (main.go:112-134) is implemented.
 
-The port's copy of ``igaming_platform_tpu/platform/server.py``. One
+The port's copy of ``igaming_platform_tpu/platform/server.py``. The gRPC
+server runs on the port's own transport (``serve/grpc_wire.py``), so the
+default binds ``GRPC_PORT`` on the card's machine too, which has no grpcio;
+``make_wallet_stub(grpc_wire.insecure_channel(addr))`` calls it. One
 difference: ``grpc_port=None`` binds no gRPC server (the JAX server reads
-None as "the config's port"); a caller without grpcio, as on the card's
-machine, passes it and drives ``server.grpc_service.call(method, bytes)``.
-Left out, the port's default binds ``GRPC_PORT`` and raises without grpcio.
+None as "the config's port"); its caller drives
+``server.grpc_service.call(method, bytes)`` in-process.
 ``risk_gate`` defaults as in JAX: a ``GrpcRiskGate`` when
 ``RISK_SERVICE_ADDR`` is set; ``platform/risk_adapter.InProcessRiskGate``
 over a ``TorchScoringEngine`` gates on the card in-process. Run it as

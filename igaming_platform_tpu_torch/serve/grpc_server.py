@@ -13,9 +13,8 @@ store and encoder, or, for an index-mode frame (``IDX1``), through the
 engine's device feature cache (``score_batch_wire_index``);
 ScoreTransaction's answer goes through the same native encoder. So the
 service needs no transport: ``call(method, payload, metadata=())`` drives it
-directly, as ``chip_smoke.py`` does on a machine without grpcio, with the
-invocation metadata a client would send (``risk-deadline-ms``,
-``traceparent``), and ``call_with_trailing`` also returns the trailing
+directly, with the invocation metadata a client would send
+(``risk-deadline-ms``, ``traceparent``), and ``call_with_trailing`` also returns the trailing
 metadata a handler set: a ScoreTransaction whose decision a ledger noted
 carries ``("risk-decision-id", id)``, the key a label backfill joins on, and
 a shed carries ``("grpc-retry-pushback-ms", ...)``.
@@ -42,11 +41,16 @@ the ``ltv_source`` callable (zeros when it has none), through
 a background turn of the engine's dispatch lane gate; PredictLTV counts
 ``ltv_segment_total``.
 
-``serve_risk`` binds it to grpcio with identity (de)serializers, and
-``make_risk_stub`` gives a bytes-in, bytes-out client; ``serve_risk`` is the
-one place the port imports ``grpc``, inside its body. It also registers
-gRPC server reflection (``serve/reflection.py``) for ``risk.v1.RiskService``
-and ``grpc.health.v1.Health``, as the JAX server does.
+``serve_risk`` binds it to the port's own gRPC transport
+(``serve/grpc_wire.py``: HTTP/2 and HPACK in pure Python, the same here and
+on the card's machine, which has no grpcio), and ``make_risk_stub``,
+``make_wallet_stub`` and ``make_health_stub`` give bytes-in, bytes-out
+clients over a ``grpc_wire.insecure_channel`` (or a grpcio channel, which
+the tests use as a peer). The port never imports ``grpc``. ``serve_risk``
+also registers grpc.health.v1 and gRPC server reflection
+(``serve/reflection.py``) for ``risk.v1.RiskService`` and
+``grpc.health.v1.Health``, as the JAX server does. ``StatusCode`` is the
+transport's, with grpcio's names and numbers.
 
 As in the JAX package, the service installs the process's drift engine
 (``obs/drift.py``) and binds it to the engine unless ``DRIFT=0``: every
@@ -59,14 +63,13 @@ is installed and bound to the engine unless ``RUNTIME_TELEMETRY=0``.
 ``WalletGrpcService`` answers the ten wallet.v1 RPCs over
 ``platform/wallet.WalletService`` on bytes (``serve/wallet_codec.py``), with
 the JAX service's domain error map and flow counters, inside the same RPC
-wrapper (``_invoke_rpc``); ``serve_wallet`` binds it to grpcio and
-``make_wallet_stub`` is its bytes client; like the JAX ``serve_wallet``, it
-registers server reflection.
+wrapper (``_invoke_rpc``); ``serve_wallet`` binds it to the same transport
+and ``make_wallet_stub`` is its bytes client; like the JAX ``serve_wallet``,
+it registers server reflection.
 """
 
 from __future__ import annotations
 
-import enum
 import logging
 import os
 import threading
@@ -86,6 +89,7 @@ from igaming_platform_tpu_torch.obs import tracing
 from igaming_platform_tpu_torch.obs.metrics import ServiceMetrics
 from igaming_platform_tpu_torch.obs.tracing import span
 from igaming_platform_tpu_torch.serve import deadline as deadline_mod
+from igaming_platform_tpu_torch.serve import grpc_wire
 from igaming_platform_tpu_torch.serve import reflection
 from igaming_platform_tpu_torch.serve import risk_codec as codec
 from igaming_platform_tpu_torch.serve import wallet_codec
@@ -96,6 +100,7 @@ from igaming_platform_tpu_torch.serve.deadline import (
     DeadlineExpired,
     QueueFullError,
 )
+from igaming_platform_tpu_torch.serve.grpc_wire import StatusCode  # re-exported
 from igaming_platform_tpu_torch.serve.scorer import ScoreRequest
 from igaming_platform_tpu_torch.serve.supervisor import (
     RETRY_PUSHBACK_MS,
@@ -120,30 +125,8 @@ RISK_METHOD_NAMES = ("ScoreTransaction", "ScoreBatch", "CheckBonusAbuse", "AddTo
 _ACTION_CODES = {"approve": 1, "review": 2, "block": 3}
 
 
-class StatusCode(enum.Enum):
-    """gRPC status codes: the names and numbers of ``grpc.StatusCode``."""
-
-    OK = 0
-    CANCELLED = 1
-    UNKNOWN = 2
-    INVALID_ARGUMENT = 3
-    DEADLINE_EXCEEDED = 4
-    NOT_FOUND = 5
-    ALREADY_EXISTS = 6
-    PERMISSION_DENIED = 7
-    RESOURCE_EXHAUSTED = 8
-    FAILED_PRECONDITION = 9
-    ABORTED = 10
-    OUT_OF_RANGE = 11
-    UNIMPLEMENTED = 12
-    INTERNAL = 13
-    UNAVAILABLE = 14
-    DATA_LOSS = 15
-    UNAUTHENTICATED = 16
-
-
 class CallContext:
-    """The part of a grpcio servicer context a handler uses, for calls
+    """The part of a servicer context a handler uses, for calls
     without a transport: the invocation metadata in, the trailing metadata
     out, no transport deadline (``time_remaining`` is None)."""
 
@@ -515,9 +498,9 @@ class RiskGrpcService:
         return self._invoke(method, payload, context), context.trailing
 
     def _invoke(self, method: str, payload: bytes, context) -> bytes:
-        """One RPC on bytes through ``_invoke_rpc``; ``context`` (a grpcio
-        servicer context or a ``CallContext``) gives the invocation metadata
-        and receives the trailing metadata."""
+        """One RPC on bytes through ``_invoke_rpc``; ``context`` (the
+        transport's servicer context or a ``CallContext``) gives the
+        invocation metadata and receives the trailing metadata."""
         if method not in RISK_METHOD_NAMES:
             raise RpcAbort(StatusCode.UNIMPLEMENTED, f"unknown method {method}")
         return _invoke_rpc(self.metrics, method,
@@ -989,14 +972,14 @@ class WalletGrpcService:
 
 
 # ---------------------------------------------------------------------------
-# The gRPC binding (grpcio, where it is installed)
+# The gRPC binding (the port's own transport, serve/grpc_wire.py)
 # ---------------------------------------------------------------------------
 
 
-def _rpc(grpc, fn):
-    """A grpcio handler over a bytes handler ``fn(request, context)``: the
-    handler sets trailing metadata on grpcio's context, and RpcAbort becomes
-    its status."""
+def _rpc(fn):
+    """A transport handler over a bytes handler ``fn(request, context)``: the
+    handler sets trailing metadata on the transport's context, and RpcAbort
+    becomes its status."""
 
     def handler(request, context):
         try:
@@ -1004,102 +987,84 @@ def _rpc(grpc, fn):
         except RpcAbort as abort:
             if abort.trailing:
                 context.set_trailing_metadata(abort.trailing)
-            context.abort(getattr(grpc.StatusCode, abort.code.name), abort.details)
+            context.abort(abort.code, abort.details)
 
     return handler
 
 
-def serve_risk(service: RiskGrpcService, port: int, max_workers: int = 32):
-    """Build and start the risk.v1 gRPC server (and grpc.health.v1) on
-    ``port`` (0 picks a free one); returns (server, health, bound port).
-    Raises RuntimeError when grpcio is not installed."""
-    try:
-        import grpc
-    except ImportError as exc:
-        raise RuntimeError(
-            "serve_risk needs grpcio, which is not installed; without it, drive "
-            "RiskGrpcService.call(method, request_bytes) directly") from exc
-    from concurrent import futures
+HEALTH_SERVICE = "grpc.health.v1.Health"
 
-    health = HealthServicer()
-    server = grpc.server(futures.ThreadPoolExecutor(max_workers=max_workers))
 
-    def handlers(fn_of):
-        # No (de)serializers: each handler takes and returns wire bytes.
-        return {name: grpc.unary_unary_rpc_method_handler(_rpc(grpc, fn))
-                for name, fn in fn_of.items()}
-
-    server.add_generic_rpc_handlers((
-        grpc.method_handlers_generic_handler(RISK_SERVICE, handlers(
-            {name: (lambda payload, context, name=name: service._invoke(name, payload, context))
-             for name in RISK_METHOD_NAMES})),
-        grpc.method_handlers_generic_handler("grpc.health.v1.Health",
-                                             handlers({"Check": health.check})),
-        reflection.grpc_handler(grpc, (RISK_SERVICE, "grpc.health.v1.Health")),
-    ))
+def serve_methods(service_name: str, methods: dict, health: "HealthServicer",
+                  port: int, max_workers: int = grpc_wire.DEFAULT_MAX_WORKERS):
+    """A started ``grpc_wire.Server`` answering ``methods`` (name -> bytes
+    handler ``fn(request, context)``) under ``service_name``, with
+    grpc.health.v1 and server reflection for both; returns (server, bound
+    port)."""
+    server = grpc_wire.Server(max_workers=max_workers)
+    server.add_service(service_name, {name: grpc_wire.unary(_rpc(fn))
+                                      for name, fn in methods.items()})
+    server.add_service(HEALTH_SERVICE, {"Check": grpc_wire.unary(_rpc(health.check))})
+    reflection.register(server, (service_name, HEALTH_SERVICE))
     bound = server.add_insecure_port(f"[::]:{port}")
     server.start()
+    return server, bound
+
+
+def serve_risk(service: RiskGrpcService, port: int, max_workers: int = 32):
+    """Build and start the risk.v1 gRPC server (and grpc.health.v1, and
+    reflection) on ``port`` (0 picks a free one); returns (server, health,
+    bound port)."""
+    health = HealthServicer()
+    server, bound = serve_methods(
+        RISK_SERVICE,
+        {name: (lambda payload, context, name=name: service._invoke(name, payload, context))
+         for name in RISK_METHOD_NAMES}, health, port, max_workers)
     return server, health, bound
 
 
-def make_risk_stub(channel):
-    """A client of every risk.v1 method on ``channel`` (a grpcio channel):
-    ``stub.<Method>(request_bytes, timeout=...)`` returns the response
-    bytes."""
-
+def _stub(channel, service_name: str, names):
     class _Stub:
         pass
 
     stub = _Stub()
-    for name in RISK_METHOD_NAMES:
-        setattr(stub, name, channel.unary_unary(f"/{RISK_SERVICE}/{name}"))
+    for name in names:
+        setattr(stub, name, channel.unary_unary(f"/{service_name}/{name}"))
     return stub
 
 
+def make_risk_stub(channel):
+    """A client of every risk.v1 method on ``channel`` (a
+    ``grpc_wire.insecure_channel``, or any channel with grpcio's
+    ``unary_unary``): ``stub.<Method>(request_bytes, timeout=...)`` returns
+    the response bytes."""
+    return _stub(channel, RISK_SERVICE, RISK_METHOD_NAMES)
+
+
 def serve_wallet(service: WalletGrpcService, port: int, max_workers: int = 32):
-    """Build and start the wallet.v1 gRPC server (and grpc.health.v1) on
-    ``port`` (0 picks a free one); returns (server, health, bound port).
-    Raises RuntimeError when grpcio is not installed."""
-    try:
-        import grpc
-    except ImportError as exc:
-        raise RuntimeError(
-            "serve_wallet needs grpcio, which is not installed; without it, drive "
-            "WalletGrpcService.call(method, request_bytes) directly") from exc
-    from concurrent import futures
-
+    """Build and start the wallet.v1 gRPC server (and grpc.health.v1, and
+    reflection, as the JAX wallet server registers it) on ``port`` (0 picks
+    a free one); returns (server, health, bound port)."""
     health = HealthServicer()
-    server = grpc.server(futures.ThreadPoolExecutor(max_workers=max_workers))
-
-    def handler(name):
-        return grpc.unary_unary_rpc_method_handler(_rpc(
-            grpc, lambda payload, context: service._invoke(name, payload, context)))
-
-    server.add_generic_rpc_handlers((
-        grpc.method_handlers_generic_handler(
-            wallet_codec.WALLET_SERVICE, {name: handler(name) for name in wallet_codec.METHODS}),
-        grpc.method_handlers_generic_handler("grpc.health.v1.Health", {
-            "Check": grpc.unary_unary_rpc_method_handler(_rpc(grpc, health.check))}),
-        # grpcurl without protos, as the JAX wallet server registers it.
-        reflection.grpc_handler(grpc, (wallet_codec.WALLET_SERVICE, "grpc.health.v1.Health")),
-    ))
-    bound = server.add_insecure_port(f"[::]:{port}")
-    server.start()
+    server, bound = serve_methods(
+        wallet_codec.WALLET_SERVICE,
+        {name: (lambda payload, context, name=name: service._invoke(name, payload, context))
+         for name in wallet_codec.METHODS}, health, port, max_workers)
     return server, health, bound
 
 
 def make_wallet_stub(channel):
-    """A client of every wallet.v1 method on ``channel`` (a grpcio channel):
+    """A client of every wallet.v1 method on ``channel``:
     ``stub.<Method>(request_bytes, timeout=...)`` returns the response
     bytes."""
+    return _stub(channel, wallet_codec.WALLET_SERVICE, wallet_codec.METHODS)
 
-    class _Stub:
-        pass
 
-    stub = _Stub()
-    for name in wallet_codec.METHODS:
-        setattr(stub, name, channel.unary_unary(f"/{wallet_codec.WALLET_SERVICE}/{name}"))
-    return stub
+def make_health_stub(channel):
+    """A grpc.health.v1 client on ``channel``: ``stub.Check(request_bytes,
+    timeout=...)`` returns the response bytes (``risk_codec``'s
+    ``HEALTH_CHECK_REQUEST`` and ``HEALTH_CHECK_RESPONSE``)."""
+    return _stub(channel, HEALTH_SERVICE, ("Check",))
 
 
 def graceful_stop(server, health: HealthServicer, grace: float = 30.0, engine=None) -> None:

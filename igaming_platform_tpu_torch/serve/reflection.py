@@ -19,9 +19,11 @@ file), file_containing_extension and all_extension_numbers_of_type (none of
 these files declares an extension), an empty request UNIMPLEMENTED. A file
 comes with its transitive dependencies. Messages are read and written with
 ``serve/risk_codec.py``'s proto3 varint and length-delimited primitives.
-``grpc_handler(grpc, names)`` binds it to a grpcio server where grpcio is
-installed (``serve/grpc_server.serve_risk``); ``chip_smoke.py`` drives
-``respond`` directly.
+``register(server, names)`` binds it to a ``serve/grpc_wire.Server`` as the
+bidirectional ServerReflectionInfo stream: several requests on one stream,
+one response each, answered as each arrives, as grpcurl and grpcio's
+reflection client send them (``serve/grpc_server.serve_risk``,
+``serve_wallet``, ``serve/router.serve_router``).
 """
 
 from __future__ import annotations
@@ -254,14 +256,16 @@ def _file_response(blobs: list[bytes]) -> bytes:
     return _delimited(b"\x22", b"".join(_delimited(b"\x0a", b) for b in blobs))
 
 
-def grpc_handler(grpc, service_names: tuple[str, ...]):
-    """A grpcio generic handler registering ServerReflectionInfo (bytes in,
-    bytes out) for ``service_names``."""
+def register(server, service_names: tuple[str, ...]) -> None:
+    """Register ServerReflectionInfo (bytes in, bytes out) for
+    ``service_names`` on ``server`` (a ``grpc_wire.Server``): a stream
+    handler answering each request as it arrives."""
+    from igaming_platform_tpu_torch.serve import grpc_wire
+
     service = ReflectionService(service_names)
 
     def info(request_iterator, context):
         for request in request_iterator:
             yield service.respond(request)
 
-    return grpc.method_handlers_generic_handler(
-        SERVICE_NAME, {"ServerReflectionInfo": grpc.stream_stream_rpc_method_handler(info)})
+    server.add_service(SERVICE_NAME, {"ServerReflectionInfo": grpc_wire.stream_stream(info)})

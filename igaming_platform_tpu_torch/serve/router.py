@@ -39,11 +39,11 @@ The equivalent *client-side* picker (no extra hop) lives here too
 (:class:`AccountAffinityPicker`): a client partitions its accounts by ring
 owner and sends each replica only the accounts it owns.
 
-This is the port's copy of ``igaming_platform_tpu/serve/router.py``. It
-imports grpcio only when a replica endpoint is dialled or the router is
-served (``_grpc``): the ring, the pod ring, the latency window and the
-client picker import nothing of it, and constructing a ``ReplicaEndpoint``
-without grpcio raises ``RuntimeError``. Requests are read and split with the
+This is the port's copy of ``igaming_platform_tpu/serve/router.py``. Its
+replica channels, health probes, retries, hedged futures and
+``serve_router`` run on the port's own gRPC transport
+(``serve/grpc_wire.py``), the same here and on the card's machine, which
+has no grpcio. Requests are read and split with the
 port's own codec (``serve/risk_codec.py``): a ScoreBatch splits into
 sub-requests that carry each owner's transaction entries as they arrived,
 and the responses merge entry by entry, in request order.
@@ -67,6 +67,7 @@ from igaming_platform_tpu_torch.obs import tracing
 from igaming_platform_tpu_torch.obs.metrics import ServiceMetrics
 from igaming_platform_tpu_torch.serve import chaos
 from igaming_platform_tpu_torch.serve import deadline as deadline_mod
+from igaming_platform_tpu_torch.serve import grpc_wire
 from igaming_platform_tpu_torch.serve import risk_codec as codec
 from igaming_platform_tpu_torch.serve.deadline import (
     DEADLINE_METADATA_KEY,
@@ -76,17 +77,6 @@ from igaming_platform_tpu_torch.serve.deadline import (
 from igaming_platform_tpu_torch.serve.wire import INDEX_WIRE_MAGIC
 
 logger = logging.getLogger(__name__)
-
-
-def _grpc():
-    """grpcio, imported where a replica is dialled or the router served; a
-    RuntimeError where it is not installed (the card's machine)."""
-    try:
-        import grpc
-    except ImportError as exc:
-        raise RuntimeError("the scoring router's gRPC transport needs grpcio, which is not "
-                           "installed") from exc
-    return grpc
 
 
 def _entries(buf: bytes) -> list[bytes]:
@@ -280,26 +270,17 @@ class ReplicaEndpoint:
         self._build_stubs()
 
     def _build_stubs(self) -> None:
-        grpc = _grpc()
         # Bounded reconnect backoff: a replica that was down for a while
         # must be re-dialed within ~1 s of coming back, or ring
         # readmission waits out gRPC's grown default backoff (measured:
         # ~9 s re-admission lag after a 13 s outage without this).
-        self.channel = grpc.insecure_channel(self.addr, options=(
+        self.channel = grpc_wire.insecure_channel(self.addr, options=(
             ("grpc.initial_reconnect_backoff_ms", 250),
             ("grpc.min_reconnect_backoff_ms", 250),
             ("grpc.max_reconnect_backoff_ms", 1000),
         ))
-        self.score_txn = self.channel.unary_unary(
-            "/risk.v1.RiskService/ScoreTransaction",
-            request_serializer=lambda b: b,
-            response_deserializer=lambda b: b,
-        )
-        self.score_batch = self.channel.unary_unary(
-            "/risk.v1.RiskService/ScoreBatch",
-            request_serializer=lambda b: b,
-            response_deserializer=lambda b: b,
-        )
+        self.score_txn = self.channel.unary_unary("/risk.v1.RiskService/ScoreTransaction")
+        self.score_batch = self.channel.unary_unary("/risk.v1.RiskService/ScoreBatch")
         self.health = self.channel.unary_unary("/grpc.health.v1.Health/Check")
 
     def redial(self, addr: str, http_addr: str | None = None) -> None:
@@ -404,7 +385,6 @@ class FleetHealthWatcher:
     def _probe(self, replica: ReplicaEndpoint) -> None:
         from igaming_platform_tpu_torch.serve.grpc_server import SERVING as H_SERVING
 
-        grpc = _grpc()
         try:
             if chaos.fire("router.health") == "drop":
                 # Deterministic link-fault injection: a dropped probe is
@@ -413,7 +393,7 @@ class FleetHealthWatcher:
             resp = codec.decode(codec.HEALTH_CHECK_RESPONSE, replica.health(
                 codec.encode(codec.HEALTH_CHECK_REQUEST, {"service": ""}),
                 timeout=self.probe_timeout_s))
-        except (grpc.RpcError, chaos.ChaosError) as exc:
+        except (grpc_wire.RpcError, chaos.ChaosError) as exc:
             replica.consecutive_failures += 1
             replica.last_error = repr(exc)[:200]
             if replica.consecutive_failures >= self.failure_threshold:
@@ -814,7 +794,6 @@ class ScoringRouter:
         between attempts, bounded by ``max_attempts``. ``ddl`` is the
         caller's deadline — each attempt's outbound ``risk-deadline-ms``
         carries the remaining budget at THAT send."""
-        grpc = _grpc()
         tried: set[str] = set()
         last_exc = None
         for attempt in range(self.max_attempts):
@@ -837,8 +816,8 @@ class ScoringRouter:
                     return getattr(replica, call_attr)(
                         payload, timeout=timeout_s,
                         metadata=self._outbound_metadata(metadata, ddl))
-            except grpc.RpcError as exc:
-                if exc.code() != grpc.StatusCode.UNAVAILABLE:
+            except grpc_wire.RpcError as exc:
+                if exc.code() != grpc_wire.StatusCode.UNAVAILABLE:
                     raise  # the replica answered; its status is the answer
                 tried.add(target)
                 last_exc = exc
@@ -872,7 +851,6 @@ class ScoringRouter:
 
     def _hedged_score_txn(self, payload: bytes, key: str, timeout_s: float,
                           metadata: tuple, ddl: Deadline | None = None) -> bytes:
-        grpc = _grpc()
         owners = self.ring.owners(key, n=2)
         if len(owners) < 2:
             return self._forward("score_txn", payload, key, timeout_s,
@@ -886,11 +864,11 @@ class ScoringRouter:
         hedge_s = self.latency.hedge_deadline_s()
         try:
             data = fut_primary.result(timeout=hedge_s)
-        except grpc.FutureTimeoutError:
+        except grpc_wire.FutureTimeoutError:
             pass  # straggler: hedge below
-        except grpc.RpcError as exc:
+        except grpc_wire.RpcError as exc:
             # A FAST failure is the retry path's job, not the hedge's.
-            if exc.code() != grpc.StatusCode.UNAVAILABLE:
+            if exc.code() != grpc_wire.StatusCode.UNAVAILABLE:
                 raise
             if _pushback_ms_from(exc) is None:
                 self.watcher.note_forward_failure(primary.id, exc)
@@ -915,7 +893,7 @@ class ScoringRouter:
                                         ddl.remaining_ms() / 1000.0))
             try:
                 data = fut_primary.result(timeout=remaining_s)
-            except grpc.FutureTimeoutError as exc:
+            except grpc_wire.FutureTimeoutError as exc:
                 fut_primary.cancel()
                 raise RouterForwardError(
                     f"primary {primary.id} straggled past the request "
@@ -950,10 +928,10 @@ class ScoringRouter:
                         continue
                     try:
                         data = fut.result(timeout=0)
-                    except (grpc.RpcError, grpc.FutureTimeoutError,
-                            grpc.FutureCancelledError) as exc:
+                    except (grpc_wire.RpcError, grpc_wire.FutureTimeoutError,
+                            grpc_wire.FutureCancelledError) as exc:
                         failed.add(name)
-                        if isinstance(exc, grpc.RpcError):
+                        if isinstance(exc, grpc_wire.RpcError):
                             rid = primary.id if name == "primary" else secondary.id
                             self.watcher.note_forward_failure(rid, exc)
                         continue
@@ -1230,36 +1208,20 @@ def serve_router(router: ScoringRouter, port: int, max_workers: int = 32,
     replicas: an empty fleet must fail its own health check.
     ``http_port`` (0 = ephemeral) also starts the fleet aggregation plane
     and its sidecar (``/debug/fleetz``); the bound port lands on
-    ``router.http_port``. Raises RuntimeError without grpcio."""
-    from concurrent import futures as _futures
-
-    from igaming_platform_tpu_torch.serve import reflection
+    ``router.http_port``."""
     from igaming_platform_tpu_torch.serve.grpc_server import (
-        HealthServicer,
         RISK_SERVICE,
+        HealthServicer,
         _invoke_rpc,
-        _rpc,
+        serve_methods,
     )
 
-    grpc = _grpc()
     health = HealthServicer()
-    server = grpc.server(_futures.ThreadPoolExecutor(max_workers=max_workers))
-
-    def handler(name):
-        fn = getattr(router, name)
-        return grpc.unary_unary_rpc_method_handler(_rpc(
-            grpc, lambda payload, context: _invoke_rpc(router.metrics, name, fn, payload,
-                                                       context)))
-
-    server.add_generic_rpc_handlers((
-        grpc.method_handlers_generic_handler(
-            RISK_SERVICE, {name: handler(name) for name in router.raw_request_methods}),
-        grpc.method_handlers_generic_handler("grpc.health.v1.Health", {
-            "Check": grpc.unary_unary_rpc_method_handler(_rpc(grpc, health.check))}),
-        reflection.grpc_handler(grpc, (RISK_SERVICE, "grpc.health.v1.Health")),
-    ))
-    bound = server.add_insecure_port(f"[::]:{port}")
-    server.start()
+    server, bound = serve_methods(
+        RISK_SERVICE,
+        {name: (lambda payload, context, fn=getattr(router, name), name=name: _invoke_rpc(
+            router.metrics, name, fn, payload, context))
+         for name in router.raw_request_methods}, health, port, max_workers)
     router.start()
     if http_port is not None:
         router.start_fleetview(http_port)

@@ -4,9 +4,10 @@ The port's counterpart of ``igaming_platform_tpu/serve/server.py``:
 environment config, then the feature store, the scoring engine (warmed up
 before it serves), the bonus-abuse detector, the event bridge and the
 ``RiskGrpcService`` (``assemble_risk_service``); then ``RiskServer`` binds
-gRPC, when grpcio is installed and a port is asked for, and the HTTP
-sidecar (/health, /ready, /debug/thresholds, /debug/score, /debug/cachez,
-/debug/sessionz, /debug/driftz, /debug/ledgerz, /debug/outcomes,
+gRPC on ``GRPC_PORT`` through the port's own transport
+(``serve/grpc_wire.py``, no grpcio needed), and the HTTP sidecar (/health,
+/ready, /debug/thresholds, /debug/score, /debug/cachez, /debug/sessionz,
+/debug/driftz, /debug/ledgerz, /debug/outcomes,
 /debug/shadowz and /debug/promotion), and shuts down on a signal: health
 NOT_SERVING, drain, stop. The drift observatory is on unless
 ``DRIFT=0`` (``RiskGrpcService`` installs it; ``DRIFT_REF`` names a pinned
@@ -232,6 +233,18 @@ def serving_mesh(config: RiskServiceConfig):
     logger.info("serving mesh: data=%d seq=%d expert=%d over %d devices",
                 n // (seq * expert), seq, expert, n)
     return mesh
+
+
+def capture_devices(engine) -> list:
+    """The distinct devices ``engine`` launches on: its own, then each other
+    device of its serving mesh, as ``jax.profiler`` traces every device of
+    the process."""
+    out = [torch.device(engine.device)]
+    mesh = getattr(engine, "mesh", None)
+    for device in (mesh.distinct_devices() if mesh is not None else ()):
+        if torch.device(device) not in out:
+            out.append(torch.device(device))
+    return out
 
 
 def load_multitask(path: str) -> dict:
@@ -486,9 +499,14 @@ class RiskServer:
         self.telemetry = self.service.telemetry
         if self.telemetry is not None:
             self.telemetry.bind_profile_trigger(self._anomaly_profile_trigger)
-        if self.inner.device.type == "cuda":
+        # Every card the engine launches on is readied for captures: the
+        # engine's, and each other card of its serving mesh, so that no mark
+        # makes its CUDA events on a serving thread or lacks an anchor.
+        cards = [d for d in capture_devices(self.inner) if torch.device(d).type == "cuda"]
+        if cards:
             tracing.prepare_device_trace()
-            devtrace.prepare(self.inner.device)
+        for card in cards:
+            devtrace.prepare(card)
         self._stopped = threading.Event()
         self._probe_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="device-probe")
         self.http_server, self.http_port = self._start_http(

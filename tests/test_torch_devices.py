@@ -216,3 +216,31 @@ def test_compile_cache_is_the_kernel_build_dir(monkeypatch):
     assert pdev.cache_dir_for("cuda", "/x") == jdev.cache_dir_for("cuda", "/x")
     key = _build.toolchain_key()
     assert "|" in key and _build.library_path("gbdt_forest").name.startswith("libgbdt_forest-")
+
+
+@pytest.mark.parametrize("grid", [("cuda:0", "cuda:1", "cuda:0", "cuda:1"),
+                                  ("cuda:0", "cuda:0"), None])
+def test_mesh_server_readies_every_distinct_card(grid, monkeypatch):
+    """A server whose engine serves over a mesh readies each distinct card of
+    the mesh for captures, once, and no other (``devtrace.prepare``), as
+    ``jax.profiler`` traces every device of the process; a server on the
+    CPU without a mesh readies none."""
+    from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
+    from igaming_platform_tpu_torch.obs import devtrace, tracing
+    from igaming_platform_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
+    readied, traced = [], []
+    monkeypatch.setattr(devtrace, "prepare", readied.append)
+    monkeypatch.setattr(tracing, "prepare_device_trace", lambda: traced.append(1))
+    config = RiskServiceConfig(batcher=BatcherConfig(batch_size=8, max_wait_ms=1.0))
+    assembled = pserver.assemble_risk_service(config, device="cpu", warmup=False)
+    if grid is not None:
+        assembled.inner.mesh = create_mesh(MeshSpec(data=len(grid)), devices=list(grid))
+    srv = pserver.RiskServer(assembled, grpc_port=-1, http_port=0)
+    try:
+        want = [] if grid is None else list(dict.fromkeys(torch.device(d) for d in grid))
+        assert readied == want and len(traced) == (1 if want else 0)
+        assert pserver.capture_devices(assembled.inner)[0] == torch.device("cpu")
+    finally:
+        assembled.inner.mesh = None
+        srv.shutdown(grace=1.0)

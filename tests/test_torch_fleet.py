@@ -106,9 +106,22 @@ def test_pod_ring_latency_window_and_picker_match_jax():
 
 
 def test_endpoint_without_grpcio_raises(monkeypatch):
+    """With grpcio hidden, a replica endpoint dials through the port's own
+    transport and its health probe answers (it raised before the port had
+    one)."""
+    from igaming_platform_tpu_torch.serve import risk_codec
+
     monkeypatch.setitem(sys.modules, "grpc", None)
-    with pytest.raises(RuntimeError, match="needs grpcio"):
-        prouter.ReplicaEndpoint("r0", "localhost:1")
+    health = pgrpc.HealthServicer()
+    server, port = pgrpc.serve_methods(pgrpc.RISK_SERVICE, {}, health, 0)
+    endpoint = prouter.ReplicaEndpoint("r0", f"localhost:{port}")
+    try:
+        resp = endpoint.health(risk_codec.encode(risk_codec.HEALTH_CHECK_REQUEST, {"service": ""}),
+                               timeout=10)
+        assert risk_codec.decode(risk_codec.HEALTH_CHECK_RESPONSE, resp)["status"] == pgrpc.SERVING
+    finally:
+        endpoint.close()
+        server.stop(0).wait()
     assert prouter.HashRing(["r0"]).owner("x") == "r0"
 
 

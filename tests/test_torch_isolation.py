@@ -5,14 +5,10 @@ the port's own reader), the JAX package or the repository's ``tools``
 (``tools/export_params_npz.py`` converts JAX checkpoints on the JAX side;
 it lives outside the port and imports nothing of it).
 
-Exceptions: ``serve/grpc_server.py`` imports ``grpc`` inside the body of
-``serve_risk``, ``make_risk_stub`` and ``serve_wallet``, the optional gRPC
-bindings, which only
-runs when a caller asks for a gRPC port, ``platform/risk_adapter.py``
-inside ``GrpcRiskGate._ensure_stub``, which only runs when a wallet scores
-over gRPC, and ``serve/router.py`` inside ``_grpc``, which only runs when the
-router dials a replica or is served. Nothing else may import it, at any
-level.
+No exceptions: the port speaks gRPC through its own transport
+(``serve/grpc_wire.py``), so ``GRPC_ALLOWED`` is empty and nothing in the
+package, ``chip_smoke.py`` or ``tools/export_reflection_descriptors.py``
+imports ``grpc``, at any level; grpcio is a test peer only.
 
 Checked twice: an AST walk over every import statement (including imports
 inside functions), and a fresh interpreter that imports every module of the
@@ -43,14 +39,9 @@ def _sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
-# (file, function or Class.method) whose body may import grpc: the optional
-# gRPC bindings.
-GRPC_ALLOWED = {("igaming_platform_tpu_torch/serve/grpc_server.py", "serve_risk"),
-                ("igaming_platform_tpu_torch/serve/grpc_server.py", "make_risk_stub"),
-                ("igaming_platform_tpu_torch/serve/grpc_server.py", "serve_wallet"),
-                ("igaming_platform_tpu_torch/platform/risk_adapter.py",
-                 "GrpcRiskGate._ensure_stub"),
-                ("igaming_platform_tpu_torch/serve/router.py", "_grpc")}
+# (file, function or Class.method) whose body may import grpc: none, since the
+# port has its own gRPC transport.
+GRPC_ALLOWED: set[tuple[str, str]] = set()
 
 
 def _imported(node):
@@ -117,11 +108,13 @@ def test_no_forbidden_import_statement():
     bad = [(str(p.relative_to(REPO)), m, f) for p in sources for m, f in _imports(p)
            if _forbidden(m) and not _allowed(p, m, f)]
     assert not bad, bad
-    binding = PORT / "serve" / "grpc_server.py"
-    assert ("grpc", "serve_risk") in set(_imports(binding))  # the exception is still needed
-    gate = PORT / "platform" / "risk_adapter.py"
-    assert ("grpc", "GrpcRiskGate._ensure_stub") in set(_imports(gate))
-    assert ("grpc", "_grpc") in set(_imports(PORT / "serve" / "router.py"))
+    assert not GRPC_ALLOWED
+    exporter = REPO / "tools" / "export_reflection_descriptors.py"
+    speaking = [(str(p.relative_to(REPO)), m) for p in [*sources, exporter]
+                for m, _ in _imports(p) if m == "grpc" or m.startswith("grpc.")]
+    assert not speaking, speaking
+    for rel in ("serve/grpc_wire.py", "serve/h2.py", "serve/hpack.py"):
+        assert (PORT / rel).exists(), rel
 
 
 PLANE = ("obs/metrics.py", "obs/tracing.py", "obs/flight.py", "obs/otlp.py", "obs/slo.py",
@@ -201,12 +194,28 @@ def test_multi_device_training_stands_alone(rel):
     assert not [m for m in phase if _forbidden(m)]
 
 
+WIRE = ("serve/hpack.py", "serve/h2.py", "serve/grpc_wire.py", "serve/grpc_server.py",
+        "platform/risk_adapter.py")
+
+
+@pytest.mark.parametrize("rel", WIRE)
+def test_grpc_transport_stands_alone(rel):
+    """The port's gRPC transport (HPACK, HTTP/2, gRPC) and the modules that
+    serve and dial over it, held as the operations plane's modules are
+    below: the transport imports only the standard library and itself."""
+    test_operations_plane_stands_alone(rel)
+    if rel in WIRE[:3]:
+        port = [m for m, _ in _imports(PORT / rel) if m.startswith("igaming_platform_tpu_torch")]
+        assert set(port) <= {"igaming_platform_tpu_torch.serve",
+                             "igaming_platform_tpu_torch.serve.hpack",
+                             "igaming_platform_tpu_torch.serve.h2"}, (rel, port)
+
+
 @pytest.mark.parametrize("rel", PLANE)
 def test_operations_plane_stands_alone(rel):
     """The operations plane's modules, held one by one: each is the port's
     own copy, imports nothing forbidden at any level, and imports no module
-    of the package that does (its imports of the port resolve to files),
-    the optional gRPC bindings apart."""
+    of the package that does (its imports of the port resolve to files)."""
     path = PORT / rel
     assert path.exists(), rel
     imported = [m for m, _ in _imports(path)]
@@ -243,6 +252,6 @@ def test_importing_every_module_loads_none_of_them():
               "serve.wallet_codec", "parallel.mesh", "parallel.collectives",
               "parallel.sharding", "parallel.ep", "parallel.state_sharding",
               "parallel.distributed", "serve.multihost", "serve.router", "obs.fleetview",
-              "obs.devtrace"):
+              "obs.devtrace", "serve.hpack", "serve.h2", "serve.grpc_wire"):
         assert f"igaming_platform_tpu_torch.{m}" in loaded, m
     assert not [m for m in loaded if _forbidden(m)]

@@ -4,8 +4,8 @@ Over grpcio on the CPU, the JAX package's reflection handler and the one the
 port's ``serve_risk`` registers answer tests/test_reflection.py's seven
 request kinds (risk.v1 symbols: the JAX process's descriptor pool may also
 hold wallet.v1, which the risk server does not serve) with the same bytes,
-read raw off both sockets. The port's byte handler (what chip_smoke.py
-drives on a machine without grpcio) gives those bytes too, and its
+read raw off both sockets. The port's byte handler (which the port's own
+transport serves, here and on the card) gives those bytes too, and its
 descriptor file is what tools/export_reflection_descriptors.py writes. The
 wallet server's reflection (``serve_wallet``, wallet.v1 and health) answers
 as the JAX wallet server's registration does, byte for byte.

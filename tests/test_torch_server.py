@@ -16,7 +16,7 @@ response_time_ms and computed_at are zeroed; ml_score is held with
 tests/test_torch_ensemble.py::assert_outputs_match and abuse_score to the
 detector's atol 1e-5 (tests/test_torch_abuse.py), then set equal; every
 other byte must be equal. One case drives the port's byte handlers with no
-transport, as chip_smoke.py does on a machine without grpcio.
+transport (``RiskGrpcService.call``).
 
 The sidecar's /debug/driftz and /debug/shadowz answer with the keys the JAX
 server's pages have (its ``DriftEngine.snapshot()`` and
@@ -90,7 +90,8 @@ def _boot(backend, mp):
     channels = [grpc.insecure_channel(f"localhost:{p}") for p in (jport, tport)]
     stubs = [grpc_server.make_risk_stub(c) for c in channels]
     assert assembled.service.drift is not None and assembled.engine.drift is not None
-    return {"stubs": stubs, "service": assembled.service, "abuse_accounts": abuse_accounts,
+    return {"stubs": stubs, "ports": (jport, tport), "service": assembled.service,
+            "abuse_accounts": abuse_accounts,
             "close": lambda: ([c.close() for c in channels], jserver.stop(0), tserver.stop(0),
                               jengine.close(), assembled.engine.close(),
                               assembled.service.close())}
@@ -238,8 +239,8 @@ def test_port_answers_as_the_jax_server(services, transport):
 def test_unported_methods_and_missing_grpc(monkeypatch):
     """Only a method risk.v1 does not have answers UNIMPLEMENTED: PredictLTV
     and GetPlayerSegment answer (tests/test_torch_ltv.py holds them to the
-    JAX service); without grpcio ``serve_risk`` raises a RuntimeError that
-    says what to do instead."""
+    JAX service); without grpcio ``serve_risk`` serves them over the port's
+    own transport (it raised before the port had one)."""
     service = grpc_server.RiskGrpcService(engine=types.SimpleNamespace(device="cpu"))
     with pytest.raises(grpc_server.RpcAbort) as exc:
         service.call("Nope", b"")
@@ -249,8 +250,26 @@ def test_unported_methods_and_missing_grpc(monkeypatch):
     assert {c.name: c.value for c in grpc_server.StatusCode} == {
         c.name: c.value[0] for c in grpc.StatusCode}
     monkeypatch.setitem(sys.modules, "grpc", None)
-    with pytest.raises(RuntimeError, match="needs grpcio"):
-        grpc_server.serve_risk(service, 0)
+    from igaming_platform_tpu_torch.serve import grpc_wire
+    from igaming_platform_tpu_torch.serve import risk_codec as codec
+
+    server, _, port = grpc_server.serve_risk(service, 0)
+    channel = grpc_wire.insecure_channel(f"localhost:{port}")
+    try:
+        stub = grpc_server.make_risk_stub(channel)
+        for method, message in (("PredictLTV", codec.PREDICT_LTV_RESPONSE),
+                                ("GetPlayerSegment", codec.GET_PLAYER_SEGMENT_RESPONSE)):
+            got = codec.decode(message, getattr(stub, method)(b"", timeout=30))
+            want = codec.decode(message, service.call(method, b""))
+            got.pop("predicted_at", None)  # the answer's own clock
+            want.pop("predicted_at", None)
+            assert got == want
+        with pytest.raises(grpc_wire.RpcError) as missing:
+            channel.unary_unary("/risk.v1.RiskService/Nope")(b"", timeout=30)
+        assert missing.value.code() is grpc_server.StatusCode.UNIMPLEMENTED
+    finally:
+        channel.close()
+        server.stop(0).wait()
 
 
 def test_index_mode_sidecar_pages(monkeypatch):

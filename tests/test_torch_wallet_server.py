@@ -128,17 +128,22 @@ def _make_service(side: str, store, metrics=None):
 
 
 def _caller(side: str, transport: str, svc):
-    """(method, request message) -> (status name, response bytes, details)."""
-    if transport == "grpcio":
+    """(method, request message) -> (status name, response bytes, details).
+    ``transport`` "grpcio" calls the side's server through grpcio's client,
+    "wire" through the port's own (``serve/grpc_wire.py``)."""
+    if transport in ("grpcio", "wire"):
+        from igaming_platform_tpu_torch.serve import grpc_wire
+
         serve = jgrpc.serve_wallet if side == "jax" else tgrpc.serve_wallet
         server, health, port = serve(svc, 0)
-        channel = grpc.insecure_channel(f"localhost:{port}")
+        client = grpc if transport == "grpcio" else grpc_wire
+        channel = client.insecure_channel(f"localhost:{port}")
 
         def call(method, msg):
             fn = channel.unary_unary(f"/wallet.v1.WalletService/{method}")
             try:
                 return "OK", fn(msg.SerializeToString(), timeout=30), ""
-            except grpc.RpcError as exc:
+            except client.RpcError as exc:
                 return exc.code().name, b"", exc.details()
 
         def close():
