@@ -89,8 +89,12 @@ sequences of 64 events). Phases:
    step's kernels by name without and with the sketch;
 10. the decision ledger and replay, on phase 7's store (``phase_ledger``);
 11. the trained model, on phase 7's store: the assembly booted from
-    ``FRAUD_MODEL_PATH`` with the released golden ``.npz`` (its scores
-    reproduced) and with a multitask tree of 256x256, whose ScoreBatch and
+    ``FRAUD_MODEL_PATH`` with the released golden ``.npz`` and with its
+    Orbax checkpoint as the JAX package wrote it (``tests/golden/orbax/``,
+    read by the port's own ``utils/orbax``; its scores reproduced, the two
+    boots bit-equal), the JAX package's ``mlp+gbdt`` vault entry served by
+    a card engine held to a CPU twin (forest launches counted, the reader's
+    seconds), and a multitask tree of 256x256, whose ScoreBatch and
     ScoreTransaction answers are held bit for bit to a CPU twin booted from
     the same file; PredictLTV and GetPlayerSegment for 1,000 accounts and
     the LTV batch job over a wallet of 100,000 accounts, each equal to the
@@ -104,8 +108,11 @@ sequences of 64 events). Phases:
     name), ``run_eval`` at the JAX defaults (every gate ok),
     ``distill_serving_params`` at its defaults (MAEs beside a CPU twin's; the
     students served by a card ``mlp+gbdt`` engine held to a CPU twin, forest
-    launches counted), ``device_parity.run`` (``ok``), a checkpoint resumed by
-    a ``TrainingLoop`` and booted through ``FRAUD_MODEL_PATH`` with
+    launches counted), ``device_parity.run`` (``ok``), the JAX trainer's
+    Orbax checkpoint resumed by a ``TrainingLoop`` on the card and on the
+    CPU (10 steps held together), a ``TrainConfig()`` checkpoint written and
+    read in the Orbax layout (seconds), resumed by a ``TrainingLoop`` and
+    booted through ``FRAUD_MODEL_PATH`` with
     ``ONLINE_LOOP=1`` (answers bit-equal to a CPU twin), outcomes posted, ticks
     until a promotion that is ledgered, vaulted and replayed with 0
     mismatches, a rollback replayed again, and ScoreBatch rows/s with the
@@ -361,6 +368,11 @@ LEDGER_SINGLES, LEDGER_DIRECT, LEDGER_AFTER_SWAP, LEDGER_INDEX_ROUNDS = 500, 100
 # batch job over a wallet of WALLET_ACCOUNTS accounts and WALLET_TXS
 # transactions.
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+# The checkpoints the JAX package wrote with Orbax, committed: the released
+# model's trainer checkpoint and an mlp+gbdt vault entry at phase 4's widths
+# (tests/test_torch_orbax.py::build_fixtures), read by the port's own reader.
+ORBAX_TRAINER = os.path.join(GOLDEN_DIR, "orbax", "trainer", "step_00000003")
+ORBAX_VAULT = os.path.join(GOLDEN_DIR, "orbax", "vault")
 LTV_ACCOUNTS, WALLET_ACCOUNTS, WALLET_TXS = 1_000, 100_000, 2_000_000
 # Spin cycles queued before each timed call, so the card is still busy
 # while the host enqueues the call: the events then bracket device work only.
@@ -3571,7 +3583,7 @@ def ledger_engine_l(torch, gbdt_kernel, store, directory: str, device: str) -> d
     params = [from_jax_params("mlp+gbdt", {"mlp": mlp_tree(rng, SERVE_HIDDEN),
                                            "gbdt": forest_tree(rng, *LARGE_ENGINE_FOREST)})
               for _ in range(2)]
-    fps = [vault_save(os.path.join(directory, "params-vault"), p, "mlp+gbdt") for p in params]
+    fps = [vault_save(os.path.join(directory, "params-vault"), p) for p in params]
     singles = [codec.encode(codec.SCORE_TRANSACTION_REQUEST, r)
                for r in server_requests(codec, rng, LEDGER_SINGLES)]
     batches = [codec.encode(codec.SCORE_BATCH_REQUEST,
@@ -3937,11 +3949,12 @@ def f32_bits(values) -> np.ndarray:
     return np.asarray(values, np.float32).view(np.int32)
 
 
-def trained_golden(torch, server, config, store, device: str) -> dict:
-    """The port's assembly booted from FRAUD_MODEL_PATH=the released golden
-    ``.npz``, the golden features scored through its engine: ``score`` and
+def trained_golden(torch, server, config, store, device: str, want=None):
+    """The port's assembly booted from FRAUD_MODEL_PATH=``config``'s path,
+    the released golden features scored through its engine: ``score`` and
     ``action`` equal to the committed float32 ones, ``ml_score`` within
-    1e-6."""
+    1e-6, and every output bit-equal to ``want`` (another boot's outputs)
+    when given. Returns (the result, the outputs)."""
     with open(f"{GOLDEN_DIR}/released_scores.json") as f:
         golden = json.load(f)
     x = np.load(f"{GOLDEN_DIR}/released_features.npz")["x"]
@@ -3959,7 +3972,90 @@ def trained_golden(torch, server, config, store, device: str) -> dict:
     if not (np.array_equal(out["score"], golden["f32"]["score"])
             and np.array_equal(out["action"], golden["f32"]["action"]) and err <= 1e-6):
         raise AssertionError(f"golden boot: score/action differ or ml_score off by {err}")
-    return {"rows": int(x.shape[0]), "ml_score_max_abs_err": err, "trunk": golden["trunk"]}
+    if want is not None and (set(out) != set(want) or any(
+            out[k].tobytes() != want[k].tobytes() for k in want)):
+        raise AssertionError(f"golden boot from {config.fraud_model_path}: outputs differ "
+                             "from the .npz boot's")
+    return {"rows": int(x.shape[0]), "ml_score_max_abs_err": err, "trunk": golden["trunk"]}, out
+
+
+def trained_orbax(torch, gbdt_kernel, server, bcfg, store, device: str, npz_out: dict) -> dict:
+    """(a) continued, and (e): the checkpoints the JAX package wrote with
+    Orbax, read by the port's own reader (``utils/orbax``). The released
+    golden booted from ORBAX_TRAINER: every output bit-equal to the
+    ``.npz`` boot's. The mlp+gbdt vault entry under ORBAX_VAULT: its tree's
+    JAX fingerprint equal to its directory name, ``vault_load`` rebuilding
+    it, a card engine serving it held to a CPU twin on BATCH_SIZE rows as
+    phase 4 holds its engine (``compare_columns``; the forest kernel's sum
+    is not the plain float32 sum's, so ``ml_score`` bits may differ), the
+    bit-equal rows counted, its forest launches counted. The reader's
+    seconds for each."""
+    from igaming_platform_tpu_torch.convert import jax_fingerprint, params_to
+    from igaming_platform_tpu_torch.core.config import RiskServiceConfig
+    from igaming_platform_tpu_torch.serve import scorer
+    from igaming_platform_tpu_torch.train.promote import vault_load
+    from igaming_platform_tpu_torch.utils.orbax import restore_tree
+
+    def stored(path: str) -> int:
+        return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+    def decoded(node) -> int:
+        if isinstance(node, dict):
+            return sum(decoded(v) for v in node.values())
+        if isinstance(node, list):
+            return sum(decoded(v) for v in node)
+        return int(getattr(node, "nbytes", 0))
+
+    t0 = time.perf_counter()
+    trainer_bytes = decoded(restore_tree(ORBAX_TRAINER))
+    trainer_read_s = time.perf_counter() - t0
+    golden, _ = trained_golden(torch, server, RiskServiceConfig(
+        fraud_model_path=ORBAX_TRAINER, batcher=bcfg), store, device, want=npz_out)
+    (fp,) = os.listdir(ORBAX_VAULT)
+    t0 = time.perf_counter()
+    tree = restore_tree(os.path.join(ORBAX_VAULT, fp))
+    vault_read_s = time.perf_counter() - t0
+    if jax_fingerprint(tree) != fp:
+        raise AssertionError(f"vault entry {fp}: its tree's JAX fingerprint is "
+                             f"{jax_fingerprint(tree)}")
+    t0 = time.perf_counter()
+    params = vault_load(ORBAX_VAULT, fp, "mlp+gbdt")
+    vault_load_s = time.perf_counter() - t0
+    engine = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params, batcher_config=bcfg,
+                                       feature_store=store, device=device)
+    cpu = scorer.TorchScoringEngine(ml_backend="mlp+gbdt", params=params_to(params, "cpu"),
+                                    batcher_config=bcfg, feature_store=store, device="cpu",
+                                    warmup=False)
+    try:
+        rng = np.random.default_rng(221)
+        reqs = [scorer.ScoreRequest(account_id=r["account_id"], amount=r["amount"],
+                                    tx_type=r["transaction_type"], ip=r["ip_address"],
+                                    device_id=r["device_id"])
+                for r in server_requests(None, rng, BATCH_SIZE)]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        gbdt_kernel.gbdt_forest.launches = 0
+        responses = engine.score_batch(reqs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = gbdt_kernel.gbdt_forest.launches
+        if device == "cuda" and launches == 0:
+            raise AssertionError("vault entry engine: no forest kernel launched")
+        got, want = engine_columns(responses, reqs, store, cpu)
+        unchecked = compare_columns(got, want, "vault entry engine")
+        bit_equal = int((got["ml_score"].view(np.int32) == want["ml_score"].view(np.int32)).sum())
+        ml_err = float(np.abs(got["ml_score"] - want["ml_score"]).max())
+    finally:
+        engine.close()
+        cpu.close()
+    return {"golden": golden, "trainer_read_s": trainer_read_s, "vault_fp": fp,
+            "trainer_bytes": {"stored": stored(ORBAX_TRAINER), "decoded": trainer_bytes},
+            "vault_bytes": {"stored": stored(os.path.join(ORBAX_VAULT, fp)),
+                            "decoded": decoded(tree)},
+            "vault_read_s": vault_read_s, "vault_load_s": vault_load_s,
+            "vault_rows": len(reqs), "vault_bit_equal_rows": bit_equal,
+            "vault_ml_score_max_abs_err": ml_err, "vault_unchecked_rows": unchecked,
+            "forest_launches": launches}
 
 
 def trained_ltv(server_svc, codec, ltv_mod, rng, device: str) -> dict:
@@ -4048,11 +4144,14 @@ def trained_ltv_job(ltv_job, root: str, rng, device: str) -> dict:
             "segments": {k: len(v) for k, v in sorted(got["segments"].items())}}
 
 
-def phase_trained(torch, card: str, dense_mod, store, phase7: dict, device: str = "cuda",
-                  singles: int = SERVER_SINGLES, batch_rows: int = SERVER_BATCH_ROWS) -> dict:
+def phase_trained(torch, card: str, dense_mod, gbdt_kernel, store, phase7: dict,
+                  device: str = "cuda", singles: int = SERVER_SINGLES,
+                  batch_rows: int = SERVER_BATCH_ROWS) -> dict:
     """Phase 11, on phase 7's store: the trained multitask backend booted
     from FRAUD_MODEL_PATH and the LTV model. (a) The released golden
-    (``trained_golden``). (b) A multitask tree of MULTITASK_TRUNK drawn from
+    (``trained_golden``), from its ``.npz`` and from the Orbax checkpoint the
+    JAX package wrote, and (e) the JAX package's mlp+gbdt vault entry
+    (``trained_orbax``). (b) A multitask tree of MULTITASK_TRUNK drawn from
     a seed, saved as an ``.npz`` and booted through the assembly, against a
     CPU twin booted from the same file: SERVER_BATCHES ScoreBatch RPCs of
     ``batch_rows`` rows and ``singles`` ScoreTransaction RPCs, every answer
@@ -4077,8 +4176,9 @@ def phase_trained(torch, card: str, dense_mod, store, phase7: dict, device: str 
     bcfg = BatcherConfig(batch_size=BATCH_SIZE, latency_tiers=LATENCY_TIERS, max_wait_ms=2.0)
     root = tempfile.mkdtemp(prefix="chip-smoke-trained-")
     try:
-        golden = trained_golden(torch, server, RiskServiceConfig(
+        golden, npz_out = trained_golden(torch, server, RiskServiceConfig(
             fraud_model_path=f"{GOLDEN_DIR}/released_multitask.npz", batcher=bcfg), store, device)
+        orbax = trained_orbax(torch, gbdt_kernel, server, bcfg, store, device, npz_out)
         npz = f"{root}/multitask.npz"
         save_params_tree(npz, {"multitask": multitask_tree(rng, MULTITASK_TRUNK)})
         config = RiskServiceConfig(fraud_model_path=npz, batcher=bcfg)
@@ -4151,7 +4251,8 @@ def phase_trained(torch, card: str, dense_mod, store, phase7: dict, device: str 
     finally:
         shutil.rmtree(root, ignore_errors=True)
     result = {
-        "golden": golden, "trunk": list(MULTITASK_TRUNK), "dense_launches": launches,
+        "golden": golden, "orbax": orbax, "forest_launches": orbax["forest_launches"],
+        "trunk": list(MULTITASK_TRUNK), "dense_launches": launches,
         "device_steps": steps, "score_batch_rows": batch_rows,
         "score_batch_rows_per_s": [batch_rows / t for t in batch_s],
         "score_transaction_p50_ms": float(np.percentile(single_ms, 50)),
@@ -4163,6 +4264,17 @@ def phase_trained(torch, card: str, dense_mod, store, phase7: dict, device: str 
     p7 = result["phase7_mlp_gbdt"]
     log(f"phase 11: [{card}] golden booted from released_multitask.npz: {golden['rows']} rows, "
         f"score and action exact, ml_score within {golden['ml_score_max_abs_err']:.3g}")
+    log(f"phase 11: [{card}] golden booted from the JAX-written Orbax checkpoint "
+        f"({orbax['trainer_bytes']['stored']} bytes on disk, {orbax['trainer_bytes']['decoded']} "
+        f"of arrays, read in {orbax['trainer_read_s']:.3f} s): every output bit-equal to the "
+        f".npz boot's; JAX vault entry {orbax['vault_fp']} ({orbax['vault_bytes']['stored']} "
+        f"bytes, {orbax['vault_bytes']['decoded']} of arrays, read in "
+        f"{orbax['vault_read_s']:.3f} s, "
+        f"vault_load {orbax['vault_load_s']:.3f} s): JAX fingerprint equal to its name, served "
+        f"by a card mlp+gbdt engine on {orbax['vault_rows']} rows held to the CPU twin "
+        f"({orbax['vault_bit_equal_rows']} ml_score bit-equal, the rest within "
+        f"{orbax['vault_ml_score_max_abs_err']:.3g}; {orbax['vault_unchecked_rows']} "
+        f"floor-boundary rows unchecked), {orbax['forest_launches']} forest launches")
     log(f"phase 11: [{card}] multitask {MULTITASK_TRUNK} booted from FRAUD_MODEL_PATH: "
         f"ScoreBatch of {batch_rows} rows x{SERVER_BATCHES}: median "
         f"{statistics.median(result['score_batch_rows_per_s']):.0f} rows/s (phase 7's mlp+gbdt: "
@@ -4324,6 +4436,62 @@ def train_fit(torch, dense_mod, tree, device: str):
             "kernels": [{**k, "device_ms": k["device_ms"] / n, "count": k["count"] / n}
                         for k in prof["top"]]}
     return t, result
+
+
+def train_resume_jax(torch, dense_mod, device: str) -> dict:
+    """(e) The JAX trainer's Orbax checkpoint (ORBAX_TRAINER) resumed by a
+    ``TrainingLoop`` on the card and by one on the CPU, each from its own
+    copy of the files: params and Adam moments bit-equal to the files on
+    both; then RESUME_STEPS steps each from the same stream, losses at
+    LOSS_RTOL, the params' largest difference reported, DENSE_PER_FORWARD
+    dense launches a step on the card."""
+    import shutil
+    import tempfile
+
+    from igaming_platform_tpu_torch import convert
+    from igaming_platform_tpu_torch.train import loop, trainer
+    from igaming_platform_tpu_torch.utils.orbax import restore_tree
+
+    files = restore_tree(ORBAX_TRAINER)
+    trunk = tuple(int(np.shape(layer["w"])[1]) for layer in files["params"]["trunk"]["layers"])
+    want = [files["params"], files["opt_state"][0]["mu"], files["opt_state"][0]["nu"]]
+    runs = {}
+    for side, dev in (("card", device), ("cpu", "cpu")):
+        root = tempfile.mkdtemp(prefix="chip-smoke-resume-")
+        try:
+            shutil.copytree(ORBAX_TRAINER, os.path.join(root, os.path.basename(ORBAX_TRAINER)))
+            lp = loop.TrainingLoop(config=loop.LoopConfig(
+                checkpoint_dir=root, checkpoint_every=0, swap_every=0),
+                train_config=trainer.TrainConfig(batch_size=TRAIN_BATCH, trunk=trunk), device=dev)
+            state = lp.trainer.state
+            model = state.params
+            got = [convert.multitask_to_tree(model),
+                   convert.multitask_to_tree(model, state.opt_state.mu),
+                   convert.multitask_to_tree(model, state.opt_state.nu)]
+            leaves = [(a, b) for g, w in zip(got, want)
+                      for a, b in zip(convert.tree_leaves(model, g), convert.tree_leaves(model, w))]
+            if state.step != int(files["step"]) or int(state.opt_state.count) != int(
+                    files["opt_state"][0]["count"]) or not all(torch.equal(a, b)
+                                                                 for a, b in leaves):
+                raise AssertionError(f"resume ({side}): the restored trainer is not the files'")
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            dense_mod.dense.launches = 0
+            losses = [lp.run_steps(1)["loss"] for _ in range(RESUME_STEPS)]
+            runs[side] = {"losses": losses, "launches": dense_mod.dense.launches,
+                          "params": [p.detach().cpu() for p in model.parameters()]}
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    card, cpu = runs["card"], runs["cpu"]
+    if device == "cuda" and card["launches"] != DENSE_PER_FORWARD * RESUME_STEPS:
+        raise AssertionError(f"resume: {card['launches']} dense launches in {RESUME_STEPS} steps")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    if not np.isfinite(card["losses"]).all() or rel > LOSS_RTOL:
+        raise AssertionError(f"resume: card losses {card['losses']} against {cpu['losses']}")
+    diff = max(float((a - b).abs().max()) for a, b in zip(card["params"], cpu["params"]))
+    return {"trunk": list(trunk), "step": int(files["step"]), "losses": card["losses"],
+            "cpu_losses": cpu["losses"], "loss_max_rel": rel, "param_max_abs_diff": diff,
+            "dense_launches": card["launches"]}
 
 
 def train_eval(torch, device: str) -> dict:
@@ -4582,8 +4750,8 @@ def online_assembly(torch, card: str, store, ckpt: str, device: str) -> dict:
             raise AssertionError("online: the ledger did not flush")
         records = [(r.event, r.old_fp, r.new_fp) for r in ledger_mod.iter_promotions(wal)]
         vault = sorted(os.listdir(f"{wal}/params-vault"))
-        if records != [("promote", boot_fp, new_fp)] or not {
-                f"{boot_fp}.npz", f"{new_fp}.npz"} <= set(vault):
+        entries = {fp for fp in vault if os.path.isdir(f"{wal}/params-vault/{fp}")}
+        if records != [("promote", boot_fp, new_fp)] or not {boot_fp, new_fp} <= entries:
             raise AssertionError(f"online: ledger {records}, vault {vault}")
         verdict, replay_s = timed_replay(replay, wal, device)
         if not verdict["ok"] or verdict["params_fingerprint_mismatch"] or len(
@@ -4698,9 +4866,27 @@ def online_parts(torch, card, dense_mod, gbdt_kernel, store, device, twin) -> di
         f"to the CPU twin, {dist['forest_launches']} forest launches; device_parity "
         f"{json.dumps({k: dist['device_parity'][k] for k in ('multitask', 'gbdt', 'ok')})}")
 
+    resume = train_resume_jax(torch, dense_mod, device)
+    log(f"phase 12: [{card}] the JAX trainer's Orbax checkpoint (trunk {resume['trunk']}, step "
+        f"{resume['step']}) resumed by a TrainingLoop on the card and on the CPU: params and "
+        f"moments bit-equal to the files on both; {RESUME_STEPS} steps, losses agree to "
+        f"{resume['loss_max_rel']:.3g} (relative), params to {resume['param_max_abs_diff']:.3g}; "
+        f"{resume['dense_launches']} dense launches")
+
     root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
     try:
-        checkpoint.save_checkpoint(root, fitted.state)
+        t0 = time.perf_counter()
+        path = checkpoint.save_checkpoint(root, fitted.state)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checkpoint.restore_checkpoint(path)
+        read_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, files in os.walk(path) for f in files)
+        n_params = sum(p.numel() for p in fitted.state.params.parameters())
+        log(f"phase 12: [{card}] a TrainConfig() checkpoint ({n_params} params, Adam moments, "
+            f"{ckpt_bytes} bytes in the Orbax layout): written in {write_s:.3f} s, read in "
+            f"{read_s:.3f} s by the port's own reader")
         resumed = loop.TrainingLoop(config=loop.LoopConfig(
             checkpoint_dir=root, checkpoint_every=RESUME_STEPS, swap_every=0),
             train_config=trainer.TrainConfig(batch_size=TRAIN_BATCH, trunk=MULTITASK_TRUNK),
@@ -4712,7 +4898,7 @@ def online_parts(torch, card, dense_mod, gbdt_kernel, store, device, twin) -> di
         resumed.run_steps(RESUME_STEPS)
         ckpt = checkpoint.latest_checkpoint(root)
         if resumed.checkpoints != 1 or not ckpt.endswith(
-                f"step_{fitted.state.step + RESUME_STEPS:08d}.npz"):
+                f"step_{fitted.state.step + RESUME_STEPS:08d}") or not os.path.isdir(ckpt):
             raise AssertionError(f"checkpoint: resumed loop wrote {ckpt}")
         online_run = online_assembly(torch, card, store, ckpt, device)
     finally:
@@ -4726,7 +4912,11 @@ def online_parts(torch, card, dense_mod, gbdt_kernel, store, device, twin) -> di
         f"ScoreBatch rows/s " + ", ".join(f"{t['loop']} {t['median']:.0f} ({t['ticks']} ticks)"
                                          for t in turns))
     return {"parity": parity, "fit": fit, "eval": ev, "distill": dist, "online": online_run,
-            "dense_launches": parity["dense_launches"] + fit["dense_launches"],
+            "resume_jax": resume,
+            "checkpoint": {"params": n_params, "bytes": ckpt_bytes, "write_s": write_s,
+                           "read_s": read_s},
+            "dense_launches": (parity["dense_launches"] + fit["dense_launches"]
+                               + resume["dense_launches"]),
             "forest_launches": dist["forest_launches"]}
 
 
@@ -6030,25 +6220,32 @@ print("TURN " + json.dumps({"median": statistics.median(r["score_batch_rows_per_
 """
 
 
-def phase7_turns(parent: str, turns: str = "pccppc") -> list[dict]:
-    """Phase 7 of two checkouts in turns on one card, each run in its own
-    process: ``p`` runs the checkout at ``parent`` (a ``git archive`` unpack
-    of the parent commit, whose ``phase_server`` may fill its own store),
-    ``c`` this one. Returns the runs' medians and latencies in turn order.
-    Run it as ``python3 -c "import chip_smoke as c; c.phase7_turns('dir')"``."""
+def run_turns(snippet: str, parent: str, turns: str, what: str) -> list[dict]:
+    """``snippet`` run in turns on one card, each turn in its own process:
+    ``p`` in the checkout at ``parent`` (a ``git archive`` unpack of another
+    commit), ``c`` in this one. Returns each turn's "TURN " JSON line, in
+    turn order."""
     runs = []
     for turn in turns:
         where = parent if turn == "p" else "."
-        out = subprocess.run([sys.executable, "-c", _PHASE7_TURN], cwd=where,
+        out = subprocess.run([sys.executable, "-c", snippet], cwd=where,
                              capture_output=True, text=True, check=False)
         lines = [ln for ln in out.stdout.splitlines() if ln.startswith("TURN ")]
         if out.returncode or not lines:
-            raise AssertionError(f"phase 7 in {where}: exit {out.returncode}\n"
+            raise AssertionError(f"{what} in {where}: exit {out.returncode}\n"
                                  + out.stderr[-3000:])
         runs.append({"checkout": "parent" if turn == "p" else "change",
                      **json.loads(lines[0][5:])})
-        log(f"phase 7 turn {len(runs)}: " + json.dumps(runs[-1]))
+        log(f"{what} turn {len(runs)}: " + json.dumps(runs[-1]))
     return runs
+
+
+def phase7_turns(parent: str, turns: str = "pccppc") -> list[dict]:
+    """Phase 7 of two checkouts in turns on one card (``run_turns``; the
+    parent's ``phase_server`` may fill its own store). Returns the runs'
+    medians and latencies in turn order. Run it as ``python3 -c "import
+    chip_smoke as c; c.phase7_turns('dir')"``."""
+    return run_turns(_PHASE7_TURN, parent, turns, "phase 7")
 
 
 # One turn of ``wire_turns``: the phases that go over the port's gRPC
@@ -6091,25 +6288,51 @@ print("TURN " + json.dumps({
 
 
 def wire_turns(parent: str, turns: str = "pccp") -> list[dict]:
-    """Phases 7, 15, 16 and 17 of two checkouts in turns on one card, each
-    turn in its own process (``_WIRE_TURN``): ``p`` runs the checkout at
-    ``parent`` (a ``git archive`` unpack of a commit from before the wire),
-    ``c`` this one. Returns each turn's phase seconds and phase 7's and 16's
-    numbers in turn order. Run it as ``python3 -c "import chip_smoke as c;
+    """Phases 7, 15, 16 and 17 of two checkouts in turns on one card
+    (``run_turns`` of ``_WIRE_TURN``; the parent a commit from before the
+    wire). Returns each turn's phase seconds and phase 7's and 16's numbers
+    in turn order. Run it as ``python3 -c "import chip_smoke as c;
     c.wire_turns('dir')"``."""
-    runs = []
-    for turn in turns:
-        where = parent if turn == "p" else "."
-        out = subprocess.run([sys.executable, "-c", _WIRE_TURN], cwd=where,
-                             capture_output=True, text=True, check=False)
-        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("TURN ")]
-        if out.returncode or not lines:
-            raise AssertionError(f"wire turn in {where}: exit {out.returncode}\n"
-                                 + out.stderr[-3000:])
-        runs.append({"checkout": "parent" if turn == "p" else "change",
-                     **json.loads(lines[0][5:])})
-        log(f"wire turn {len(runs)}: " + json.dumps(runs[-1]))
-    return runs
+    return run_turns(_WIRE_TURN, parent, turns, "wire")
+
+
+# One turn of ``checkpoint_turns``: phases 11 and 12, whose checkpoints and
+# vault entries the port reads and writes in the Orbax layout since its own
+# reader, in a fresh process of one checkout after its kernels are built and
+# phase 7's store filled; a "TURN " JSON line with each phase's seconds.
+_CHECKPOINT_TURN = """
+import inspect, json, sys, time
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from igaming_platform_tpu_torch.ops import _build, gbdt_kernel
+from igaming_platform_tpu_torch.ops import dense as dense_mod
+from igaming_platform_tpu_torch.serve import native_store
+card = c.nvidia_smi_line()
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build(["gbdt_forest", "flash_attention_fwd", "dense_fixed"])
+t = time.perf_counter()
+filled = (*c.fill_native_store(native_store, c.SERVER_NOW), time.perf_counter() - t)
+seconds = {"fill": round(filled[2], 1)}
+t = time.perf_counter()
+if "gbdt_kernel" in inspect.signature(c.phase_trained).parameters:
+    c.phase_trained(torch, card, dense_mod, gbdt_kernel, filled[0], {})
+else:
+    c.phase_trained(torch, card, dense_mod, filled[0], {})
+seconds["11"] = round(time.perf_counter() - t, 1)
+t = time.perf_counter()
+c.phase_online(torch, card, dense_mod, gbdt_kernel, filled[0])
+seconds["12"] = round(time.perf_counter() - t, 1)
+print("TURN " + json.dumps({"seconds": seconds, "card": card}))
+"""
+
+
+def checkpoint_turns(parent: str, turns: str = "pccp") -> list[dict]:
+    """Phases 11 and 12 of two checkouts in turns on one card (``run_turns``
+    of ``_CHECKPOINT_TURN``; the parent a commit from before the port's
+    Orbax reader). Returns each turn's phase seconds in turn order. Run it
+    as ``python3 -c "import chip_smoke as c; c.checkpoint_turns('dir')"``."""
+    return run_turns(_CHECKPOINT_TURN, parent, turns, "checkpoint")
 
 
 # Phase 15: the platform on the card. The single binary (platform/app.py)
@@ -9118,7 +9341,7 @@ def main() -> int:
     done("10 ledger")
     # Phase 11: the trained multitask model booted from FRAUD_MODEL_PATH,
     # the LTV RPCs and the LTV batch job, same store.
-    trained_run = phase_trained(torch, card, dense_mod, filled[0], server_run)
+    trained_run = phase_trained(torch, card, dense_mod, gbdt_kernel, filled[0], server_run)
     done("11 trained")
     # Phase 12: the multitask trainer, distillation, evaluation, device
     # parity, checkpoints and ONLINE_LOOP=1, same store.
@@ -9167,6 +9390,7 @@ def main() -> int:
         "launches_ledger": (ledger_run["engine_l"]["forest_launches"]
                             + ledger_run["engine_a"]["forest_launches"]),
         "launches_distilled": online_run["forest_launches"],
+        "launches_trained_vault": trained_run["forest_launches"],
         "launches_plane": plane_run["forest_launches"],
         "launches_plane2": plane2_run["forest_launches"],
         "launches_platform": platform_run["launches"]["forest"],

@@ -32,6 +32,20 @@ master weights as the JAX tree of numpy arrays, which the JAX engine scores.
 state (its params, ``optax.adamw``'s ``mu``/``nu`` and count, as numpy) into
 the port's ``train.trainer.TrainState``.
 
+``adamw_state_tree(model, opt)`` is the inverse: an ``AdamState`` as
+``optax.adamw``'s chain state is checkpointed by the JAX package,
+``[{"count", "mu", "nu"}, None, None]`` (``ScaleByAdamState``, then the
+``EmptyState`` of ``add_decayed_weights`` and of the learning-rate scale).
+
+``to_jax_params(params)`` is the inverse of ``from_jax_params``: the port's
+installed params as the JAX serving tree of numpy arrays, the form the
+params vault keeps (``train/promote.py``). A dense layer gives its weights
+as the layer keeps them, rounded to bfloat16 (which the JAX forward rounds
+to again); an int8 tree gives ``quantize_mlp``'s and ``quantize_gbdt``'s
+keys. ``jax_fingerprint(tree)`` is the JAX package's
+``serve/ledger.py::params_fingerprint`` of such a tree, the name the JAX
+service gives a vault entry.
+
 ``routed_train_from_tree(tree)`` gives the trainable routed bundle
 (``models.ensemble.TrainRouted``) of a JAX ``init_routed_params`` tree, and
 ``pp_params_from_tree(tree)`` a pipeline trainer's params
@@ -42,15 +56,17 @@ starts both packages' trainers from the same numbers.
 the tree is plain numpy.
 
 ``save_params_tree`` and ``load_params_tree`` keep such a tree in an
-``.npz``, one array per leaf, its path joined by ``/``: the form in which a
-JAX checkpoint reaches the card (``tools/export_params_npz.py`` writes it
-from an Orbax checkpoint or a flax ``.msgpack``), and the form
-``FRAUD_MODEL_PATH`` and replay's ``--params`` read.
+``.npz``, one array per leaf, its path joined by ``/``: the form
+``tools/export_params_npz.py`` writes on the JAX side, which
+``FRAUD_MODEL_PATH`` and replay's ``--params`` still read. The JAX
+service's own Orbax checkpoints need no conversion: ``utils/orbax`` reads
+and writes them.
 """
 
 from __future__ import annotations
 
 import copy
+import hashlib
 from typing import Any
 
 import numpy as np
@@ -236,6 +252,14 @@ def trainer_state_from_jax(params: dict, opt_state: Any, step: int,
     return TrainState(model, state, int(step))
 
 
+def adamw_state_tree(model: TrainMultiTask, opt) -> list:
+    """``optax.adamw``'s chain state for ``opt`` (an ``AdamState`` laid out
+    as ``model.parameters()``), as numpy in the JAX checkpoint's nesting."""
+    return [{"count": np.asarray(int(opt.count), np.int32),
+             "mu": multitask_to_tree(model, opt.mu),
+             "nu": multitask_to_tree(model, opt.nu)}, None, None]
+
+
 def routed_train_from_tree(tree: dict):
     """The trainable routed bundle (``models.ensemble.TrainRouted``), on the
     CPU, of the JAX ``init_routed_params`` tree ({"router", "mlp", "gbdt",
@@ -269,11 +293,101 @@ _CONVERTERS = {"router": _f32, "mlp": mlp_from_tree, "gbdt": gbdt_from_tree, "mu
                "multitask_int8": quantized_mlp_from_tree}
 
 
+def params_from_tree(tree: dict) -> dict[str, Any]:
+    """The port's params for every key of a JAX serving tree (a vault
+    entry's), whatever the backend; a None entry (the routed bundle's
+    ``mock``) has none, and an unknown key raises."""
+    tree = {key: value for key, value in tree.items() if value is not None}
+    unknown = sorted(set(tree) - set(_CONVERTERS))
+    if unknown:
+        raise ValueError(f"no port params for keys {unknown}")
+    return {key: _CONVERTERS[key](value) for key, value in tree.items()}
+
+
 def from_jax_params(ml_backend: str, tree: dict) -> dict[str, Any]:
     """The port's params for ``ml_backend`` from a JAX params tree of numpy arrays."""
     if ml_backend not in BACKEND_KEYS:
         raise ValueError(f"unknown ml backend: {ml_backend}")
     return {key: _CONVERTERS[key](tree[key]) for key in BACKEND_KEYS[ml_backend]}
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def _dense_tree(layer: Dense) -> dict:
+    return {"w": _np(layer.w_bf16), "b": _np(layer.b)}
+
+
+def _quantized_tree(m: QuantizedMLP) -> dict:
+    return {"layers": [{"wq": _np(q.wq), "scale": _np(q.scale), "b": _np(q.b)} for q in m.layers],
+            "input_scale": None if m.input_scale is None else _np(m.input_scale),
+            "quantized": True}
+
+
+_GBDT_INT8_KEYS = ("feat", "thr_q", "thr_scale", "leaves_q", "leaf_scale", "bias")
+_TO_TREE = {
+    "router": _np,
+    "mlp": lambda m: {"layers": [_dense_tree(layer) for layer in m.layers]},
+    "gbdt": lambda g: {k: _np(g[k]) for k in ("feat", "thr", "leaves", "bias")},
+    "multitask": lambda m: {"trunk": {"layers": [_dense_tree(layer) for layer in m.trunk]},
+                            **{h: _dense_tree(getattr(m, h)) for h in MULTITASK_LAYERS}},
+    "mlp_int8": _quantized_tree,
+    "gbdt_int8": lambda g: {**{k: _np(g[k]) for k in _GBDT_INT8_KEYS}, "quantized": True},
+    "multitask_int8": _quantized_tree,
+}
+
+
+def to_jax_params(params: dict[str, Any] | None) -> dict:
+    """The JAX serving tree, numpy on the host, of the port's params (the
+    inverse of :func:`from_jax_params`); None entries are left out."""
+    out = {}
+    for key, value in (params or {}).items():
+        if value is None:
+            continue
+        if key not in _TO_TREE:
+            raise ValueError(f"no JAX layout for params key {key!r}")
+        out[key] = _TO_TREE[key](value)
+    return out
+
+
+def _treedef(node) -> str:
+    if isinstance(node, dict):
+        return "{" + ", ".join(f"{k!r}: {_treedef(node[k])}" for k in sorted(node)) + "}"
+    if isinstance(node, list):
+        return "[" + ", ".join(_treedef(v) for v in node) + "]"
+    if isinstance(node, tuple):
+        return "(" + ", ".join(_treedef(v) for v in node) + ("," if len(node) == 1 else "") + ")"
+    return "None" if node is None else "*"
+
+
+def _tree_leaves(node, out: list) -> list:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _tree_leaves(node[k], out)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            _tree_leaves(v, out)
+    elif node is not None:
+        out.append(node)
+    return out
+
+
+def jax_fingerprint(tree: Any) -> str:
+    """The JAX package's ``params_fingerprint`` of a tree of dicts, lists,
+    tuples and numpy leaves: blake2b-64 over the treedef's repr, then each
+    leaf's dtype, shape and bytes in flattening order."""
+    h = hashlib.blake2b(digest_size=8)
+    if tree is None:
+        h.update(b"none")
+        return h.hexdigest()
+    h.update(f"PyTreeDef({_treedef(tree)})".encode())
+    for leaf in _tree_leaves(tree, []):
+        arr = np.asarray(leaf)
+        h.update(str(arr.dtype).encode())
+        h.update(str(arr.shape).encode())
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
 
 
 def params_to(params: dict[str, Any] | None, device: torch.device | str) -> dict[str, Any] | None:

@@ -138,6 +138,7 @@ from dataclasses import dataclass, replace
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+import numpy as np
 import torch
 
 from igaming_platform_tpu_torch.convert import from_jax_params, load_params_tree
@@ -166,6 +167,7 @@ from igaming_platform_tpu_torch.serve.grpc_server import (
 from igaming_platform_tpu_torch.serve.native_store import NativeFeatureStore
 from igaming_platform_tpu_torch.serve.scorer import ScoreRequest, TorchScoringEngine
 from igaming_platform_tpu_torch.serve.supervisor import ServingSupervisor, SupervisedScoringEngine
+from igaming_platform_tpu_torch.utils.orbax import restore_tree
 
 logger = logging.getLogger(__name__)
 
@@ -175,28 +177,25 @@ def resolve_model_boot(config, ml_backend: str = "mock", params=None):
     override, with the JAX server's semantics: a checkpoint that loads boots
     the ``multitask`` backend; a path that does not exist, or one that does
     not load, degrades to the mock scorer with a warning (the reference's
-    risk/cmd/main.go:62-63). The card reads a JAX checkpoint as an ``.npz``
-    of its multitask tree (``convert.load_params_tree``'s layout, which
-    ``python -m tools.export_params_npz`` writes from an Orbax checkpoint or
-    a flax ``.msgpack``): an Orbax directory, a corrupt file or a tree that
-    is not multitask does not load."""
+    risk/cmd/main.go:62-63). A checkpoint is an Orbax step directory as the
+    JAX trainer writes it (its ``params``, read by the port's own
+    ``utils/orbax``), or an ``.npz`` of a multitask tree
+    (``convert.load_params_tree``'s layout, which
+    ``python -m tools.export_params_npz`` writes); a directory that is not
+    such a checkpoint, a corrupt file or a tree that is not multitask does
+    not load, and the warning says why."""
     if params is None and config.fraud_model_path:
         path = config.fraud_model_path
         if not os.path.exists(path):
             logger.warning("model path %s not found; using mock scorer", path)
-        elif os.path.isdir(path):
-            logger.warning(
-                "model path %s is a directory, not an .npz: convert an Orbax checkpoint with "
-                "tools/export_params_npz.py (`python -m tools.export_params_npz %s OUT.npz`); "
-                "using mock scorer", path, path)
         else:
             try:
                 params = load_multitask(path)
                 ml_backend = "multitask"
                 logger.info("loaded fraud model from %s", path)
-            except Exception:  # noqa: BLE001 — any failed load degrades, as in the JAX server
-                logger.warning("failed to load model at %s; using mock scorer", path,
-                               exc_info=True)
+            except Exception as exc:  # noqa: BLE001 — any failed load degrades, as in the JAX server
+                logger.warning("failed to load model at %s (%s: %s); using mock scorer", path,
+                               type(exc).__name__, exc, exc_info=True)
     if config.ml_backend:
         ml_backend = config.ml_backend
     if ml_backend == "routed":
@@ -248,10 +247,18 @@ def capture_devices(engine) -> list:
 
 
 def load_multitask(path: str) -> dict:
-    """The port's ``multitask`` params from an ``.npz`` holding a multitask
-    tree under ``multitask``. Raises on anything else."""
-    tree = load_params_tree(path)["multitask"]
-    first = tree["trunk"]["layers"][0]["w"]
+    """The port's ``multitask`` params from an Orbax checkpoint directory
+    (its ``params``, as the JAX server's ``restore_params_for_serving``
+    reads them) or an ``.npz`` holding a multitask tree under
+    ``multitask``. Raises on anything else."""
+    if os.path.isdir(path):
+        tree = restore_tree(path)
+        if not isinstance(tree, dict) or "params" not in tree:
+            raise ValueError(f"{path}: the checkpoint holds no params")
+        tree = tree["params"]
+    else:
+        tree = load_params_tree(path)["multitask"]
+    first = np.asarray(tree["trunk"]["layers"][0]["w"])
     if first.ndim != 2 or first.shape[0] != NUM_FEATURES:
         raise ValueError(f"{path}: the trunk's first layer takes {first.shape[0]} features, "
                          f"not {NUM_FEATURES}")

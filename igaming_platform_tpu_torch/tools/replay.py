@@ -24,10 +24,15 @@ written on the card and replayed with ``--device cpu`` differs in
 ``ml_score`` bits. ``--device`` defaults to ``cuda``, and the tool refuses
 to start without a card unless it is asked for the CPU.
 
-The params: ``--params`` names a JAX-layout params tree saved with
-``convert.save_params_tree`` (numpy arrays in an ``.npz``, keys joined by
-``/``), carried over by ``convert.from_jax_params``, or ``mock`` for the
-mock backend, which has none; then the params vault
+The params: ``--params`` names a JAX-layout params tree, carried over by
+``convert.from_jax_params``: an Orbax checkpoint directory (a vault entry's
+serving tree, or a trainer's ``step_*/``, whose ``params`` pin the
+``multitask`` backend as the JAX tool's ``--checkpoint`` does; read by the
+port's ``utils/orbax``), an ``.npz`` saved with ``convert.save_params_tree``
+(numpy arrays, keys joined by ``/``), or ``mock`` for the mock backend,
+which has none (a record the JAX service wrote names the JAX fingerprint
+of its tree, ``convert.jax_fingerprint``, which the pinned tree also
+matches); then the params vault
 (``<dir>/params-vault`` unless ``--params-vault`` names another,
 ``train/promote.vault_load``) resolves any other fingerprint. A record whose
 fingerprint no source resolves is counted and fails the verdict, never
@@ -68,7 +73,7 @@ import sys
 
 import numpy as np
 
-from igaming_platform_tpu_torch.convert import load_params_tree
+from igaming_platform_tpu_torch.convert import jax_fingerprint, load_params_tree
 from igaming_platform_tpu_torch.core.config import BatcherConfig, RiskServiceConfig
 
 _COMPARE_FIELDS = ("score", "action", "reason_mask", "rule_score", "ml_score_bits")
@@ -79,6 +84,16 @@ def _backend_of(model_version: str) -> str:
     if model_version.endswith(_DEGRADED_SUFFIX):
         return model_version[:-len(_DEGRADED_SUFFIX)]
     return model_version
+
+
+def load_pinned_tree(path: str) -> dict:
+    """The JAX-layout serving tree ``--params`` names (module docstring)."""
+    if os.path.isdir(path):
+        from igaming_platform_tpu_torch.utils.orbax import restore_tree
+
+        tree = restore_tree(path)
+        return {"multitask": tree["params"]} if "params" in tree else tree
+    return load_params_tree(path)
 
 
 class _EngineCache:
@@ -92,7 +107,8 @@ class _EngineCache:
         self.batch = batch
         self.tiers = tuple(tiers)
         # The pinned tree (``--params``), read once; a bad file raises here.
-        self.tree = None if params in (None, "", "mock") else load_params_tree(params)
+        self.tree = None if params in (None, "", "mock") else load_pinned_tree(params)
+        self.tree_fp = None if self.tree is None else jax_fingerprint(self.tree)
         self.device = device
         self.vault_dir = vault_dir
         self._engines: dict[tuple[str, str], object] = {}
@@ -129,7 +145,9 @@ class _EngineCache:
         params = self._pinned(backend)
         if params is not None or backend == "mock":
             pinned = self._build(backend, params)
-            if pinned.params_fingerprint == fp:
+            # A record the JAX service wrote carries the JAX fingerprint
+            # of the tree it served.
+            if fp in (pinned.params_fingerprint, self.tree_fp):
                 self._engines[(backend, fp)] = pinned
                 return pinned
             pinned.close()
@@ -465,8 +483,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="the scoring engine's batch size (default: the server's, "
                              "BATCH_SIZE)")
     parser.add_argument("--params",
-                        help="pinned params: a JAX-layout tree .npz "
-                             "(convert.save_params_tree), or mock")
+                        help="pinned params: an Orbax checkpoint directory, a JAX-layout "
+                             "tree .npz (convert.save_params_tree), or mock")
     parser.add_argument("--params-vault",
                         help="fingerprint-keyed params vault (default: <dir>/params-vault "
                              "when present)")

@@ -1,67 +1,75 @@
 """Checkpoint and resume for the multitask trainer, and serving restore.
 
-Counterpart of ``igaming_platform_tpu/train/checkpoint.py``, in the port's
-own format (Orbax is on neither machine the port runs on): one
-``step_XXXXXXXX.npz`` per checkpoint, in ``convert.save_params_tree``'s
-layout, holding
+Counterpart of ``igaming_platform_tpu/train/checkpoint.py``, in the same
+on-disk layout: one Orbax ``StandardCheckpointer`` directory
+``step_XXXXXXXX/`` per checkpoint (``utils/orbax``, the port's own reader and
+writer of that layout), holding
 
-- ``multitask/...``: the float32 master weights as the JAX multitask tree;
-- ``opt_state/count``, ``opt_state/mu/...`` and ``opt_state/nu/...``:
-  ``optax.adamw``'s Adam state, the moments in the params' layout;
-- ``step``: the trainer's step (its data cursor).
+- ``params``: the float32 master weights as the JAX multitask tree;
+- ``opt_state``: ``optax.adamw``'s chain state, ``[{"count", "mu", "nu"},
+  None, None]``, the moments in the params' layout;
+- ``step``: the trainer's step (its data cursor), int64.
 
-A checkpoint is written to a temporary file and renamed into place, so a
-reader sees a whole file or none. Its params part is what
-``FRAUD_MODEL_PATH`` boots (``serve/server.py::resolve_model_boot`` reads
-``multitask/`` and ignores the rest).
+So the JAX ``restore_trainer`` resumes what the port writes, the port resumes
+what the JAX trainer writes, and ``FRAUD_MODEL_PATH`` boots either
+(``serve/server.py::resolve_model_boot`` reads ``params``). A checkpoint is
+written into a temporary directory and renamed into place, so a reader sees
+a whole checkpoint or none.
+
+The port's earlier format, ``step_XXXXXXXX.npz`` (``convert.save_params_tree``
+of ``{"multitask", "opt_state": {"count", "mu", "nu"}, "step"}``), is still
+found and read.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 
 import numpy as np
-import torch
 
 from igaming_platform_tpu_torch import convert
 from igaming_platform_tpu_torch.models.multitask import MultiTask
-from igaming_platform_tpu_torch.train.trainer import AdamState, Trainer, TrainState
+from igaming_platform_tpu_torch.train.trainer import Trainer, TrainState
+from igaming_platform_tpu_torch.utils.orbax import restore_tree, save_tree
 
 
 def _state_tree(state: TrainState) -> dict:
-    model, opt = state.params, state.opt_state
-    return {
-        "multitask": convert.multitask_to_tree(model),
-        "opt_state": {"count": np.asarray(int(opt.count), np.int32),
-                      "mu": convert.multitask_to_tree(model, opt.mu),
-                      "nu": convert.multitask_to_tree(model, opt.nu)},
-        "step": np.asarray(state.step, np.int64),
-    }
+    return {"params": convert.multitask_to_tree(state.params),
+            "opt_state": convert.adamw_state_tree(state.params, state.opt_state),
+            "step": np.asarray(state.step, np.int64)}
 
 
 def save_checkpoint(directory: str, state: TrainState) -> str:
-    """Write a step-versioned checkpoint; returns its path."""
+    """Write a step-versioned checkpoint; returns its path. A checkpoint of
+    the same step is replaced."""
     directory = os.path.abspath(directory)
-    os.makedirs(directory, exist_ok=True)
-    path = os.path.join(directory, f"step_{state.step:08d}.npz")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    convert.save_params_tree(tmp, _state_tree(state))
-    os.replace(tmp, path)
-    return path
+    path = os.path.join(directory, f"step_{state.step:08d}")
+    if os.path.exists(path):
+        stale = os.path.join(directory, f".step_{state.step:08d}.replaced-{os.getpid()}")
+        os.rename(path, stale)
+        shutil.rmtree(stale)
+    return save_tree(path, _state_tree(state))
 
 
 def latest_checkpoint(directory: str) -> str | None:
+    """The newest ``step_*`` checkpoint in ``directory``: an Orbax
+    directory, or the port's earlier ``.npz``."""
     directory = os.path.abspath(directory)
     if not os.path.isdir(directory):
         return None
-    steps = sorted(d for d in os.listdir(directory)
-                   if d.startswith("step_") and d.endswith(".npz"))
+    steps = sorted(d for d in os.listdir(directory) if d.startswith("step_")
+                   and (d.endswith(".npz") or os.path.isdir(os.path.join(directory, d))))
     return os.path.join(directory, steps[-1]) if steps else None
 
 
 def restore_checkpoint(path: str) -> dict:
-    """The checkpoint's tree: ``multitask``, ``opt_state`` and ``step``."""
-    return convert.load_params_tree(path)
+    """The checkpoint's tree, ``{"params", "opt_state", "step"}``, whichever
+    form it is in."""
+    if os.path.isdir(path):
+        return restore_tree(path)
+    tree = convert.load_params_tree(path)
+    return {"params": tree["multitask"], "opt_state": tree["opt_state"], "step": tree["step"]}
 
 
 def restore_trainer(trainer: Trainer, directory: str) -> bool:
@@ -71,21 +79,17 @@ def restore_trainer(trainer: Trainer, directory: str) -> bool:
     if path is None:
         return False
     tree = restore_checkpoint(path)
-    model = convert.train_multitask_from_tree(tree["multitask"])
-    if [tuple(p.shape) for p in model.parameters()] != [
+    state = convert.trainer_state_from_jax(tree["params"], tree["opt_state"],
+                                           int(np.asarray(tree["step"])), trainer.device)
+    if [tuple(p.shape) for p in state.params.parameters()] != [
             tuple(p.shape) for p in trainer.state.params.parameters()]:
         raise ValueError(f"{path}: its params do not match the trainer's trunk "
                          f"{trainer.cfg.trunk}")
-    dev = trainer.device
-    opt = tree["opt_state"]
-    state = AdamState(torch.tensor(int(opt["count"]), dtype=torch.int32, device=dev),
-                      [t.to(dev) for t in convert.tree_leaves(model, opt["mu"])],
-                      [t.to(dev) for t in convert.tree_leaves(model, opt["nu"])])
-    trainer.state = TrainState(model.to(dev), state, int(tree["step"]))
+    trainer.state = state
     return True
 
 
 def restore_params_for_serving(path: str) -> MultiTask:
     """Only the params, as the serving module on the CPU (the hot-swap
     input's ``multitask``)."""
-    return convert.multitask_from_tree(restore_checkpoint(path)["multitask"])
+    return convert.multitask_from_tree(restore_checkpoint(path)["params"])

@@ -4,7 +4,8 @@ Counterpart of ``igaming_platform_tpu/train/loop.py``: a background
 trainer checkpoints (``train/checkpoint.py``) and swaps fresh params into a
 live engine (``TorchScoringEngine.swap_params`` with ``{"multitask": ...}``),
 in place of an offline train, export and redeploy cycle. On start it
-resumes from the newest checkpoint in its directory.
+resumes from the newest checkpoint in its directory, which may be one a
+JAX ``TrainingLoop`` wrote: both write the same Orbax layout.
 """
 
 from __future__ import annotations

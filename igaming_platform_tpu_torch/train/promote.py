@@ -29,12 +29,16 @@ does, and quiet when there is none. The server passes its service's engine.
 ``metrics=`` (an ``obs/metrics.py`` ``ServiceMetrics``)
 feeds the ``promotion_*`` counters.
 
-The vault: the JAX vault keeps an Orbax checkpoint per fingerprint; Orbax
-is on neither machine the port runs on, so ``<vault>/<fp>.npz`` holds the
-engine's installed tree, one array per ``key.name`` in the order
-``serve/scorer.py::params_fingerprint`` walks it, and the backend's name
-(``__backend__``). Loading rebuilds the same modules on the CPU, and an
-entry whose rebuilt tree does not hash to its name raises.
+The vault keeps one Orbax checkpoint per fingerprint, ``<vault>/<fp>/``, as
+the JAX vault does (``utils/orbax``, the port's own reader and writer of that
+layout): the installed params as the JAX serving tree
+(``convert.to_jax_params``), with no backend tag. ``vault_load`` takes the
+backend from its caller, rebuilds the modules on the CPU and checks the
+entry's name: the port names an entry by its own fingerprint of the params,
+the JAX service by the JAX fingerprint of the tree
+(``convert.jax_fingerprint``), and an entry whose rebuilt params match
+neither raises. The port's earlier entries, ``<vault>/<fp>.npz`` with the
+backend's name under ``__backend__``, are still read.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from igaming_platform_tpu_torch import convert
 from igaming_platform_tpu_torch.models.mlp import MLP, Dense
 from igaming_platform_tpu_torch.models.multitask import MultiTask, fraud_predict
 from igaming_platform_tpu_torch.obs import drift as drift_mod
@@ -57,6 +62,7 @@ from igaming_platform_tpu_torch.ops.quantize import QuantizedDense, QuantizedMLP
 from igaming_platform_tpu_torch.serve import ledger as ledger_mod
 from igaming_platform_tpu_torch.serve.scorer import params_fingerprint
 from igaming_platform_tpu_torch.train import gates as gates_mod
+from igaming_platform_tpu_torch.utils.orbax import restore_tree, save_tree
 
 logger = logging.getLogger(__name__)
 
@@ -64,27 +70,21 @@ _BACKEND = "__backend__"
 
 
 def _entry(vault_dir: str, fp: str) -> str:
-    return os.path.join(os.path.abspath(vault_dir), f"{fp}.npz")
+    return os.path.join(os.path.abspath(vault_dir), fp)
 
 
-def vault_save(vault_dir: str, params: Any, ml_backend: str) -> str:
-    """Store a serving param tree under its fingerprint; returns the
-    fingerprint. Idempotent: an existing entry is left in place."""
+def vault_save(vault_dir: str, params: Any) -> str:
+    """Checkpoint a serving param tree under its fingerprint; returns the
+    fingerprint. Idempotent: an existing entry is left in place. The mock's
+    empty tree needs no entry (replay builds the mock engine itself)."""
     fp = params_fingerprint(params)
+    tree = convert.to_jax_params(params)
     path = _entry(vault_dir, fp)
-    if os.path.exists(path):
-        return fp
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    arrays = {_BACKEND: np.array(ml_backend)}
-    for key in sorted(params or {}):
-        value = params[key]
-        tensors = value.state_dict() if hasattr(value, "state_dict") else value
-        for name, t in tensors.items():
-            arrays[f"{key}.{name}"] = t.detach().cpu().numpy()
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
-    os.replace(tmp, path)  # a reader sees the whole entry or none
+    if tree and not os.path.isdir(path):
+        try:
+            save_tree(path, tree)
+        except FileExistsError:  # another writer stored it first
+            pass
     return fp
 
 
@@ -103,9 +103,9 @@ def _quantized(t: dict) -> QuantizedMLP:
         t["input_scale"].numpy() if "input_scale" in t else None)
 
 
-# How each params key's tree is rebuilt from its tensors (a forest stays a
-# dict of tensors). Dense keeps the bf16 rounding of its weight, and
-# rounding it again changes nothing.
+# How each params key of an earlier ``.npz`` entry is rebuilt from its
+# state dict (a forest stays a dict of tensors). Dense keeps the bf16
+# rounding of its weight, and rounding it again changes nothing.
 _REBUILD = {
     "mlp": lambda t: MLP([_dense(t, f"layers.{i}.") for i in _layers(t, "layers.")]),
     "multitask": lambda t: MultiTask([_dense(t, f"trunk.{i}.") for i in _layers(t, "trunk.")],
@@ -116,14 +116,7 @@ _REBUILD = {
 }
 
 
-def vault_load(vault_dir: str, fp: str, ml_backend: str | None = None) -> Any | None:
-    """The param tree stored under ``fp``, on the CPU, or None when the
-    vault has no such entry. Raises ValueError when the entry is another
-    backend's than ``ml_backend`` or its rebuilt tree's fingerprint is not
-    ``fp`` (a corrupt or tampered entry)."""
-    path = _entry(vault_dir, fp)
-    if not os.path.exists(path):
-        return None
+def _load_npz(path: str, fp: str, ml_backend: str | None) -> Any | None:
     with np.load(path, allow_pickle=False) as z:
         backend = str(z[_BACKEND])
         grouped: dict[str, dict[str, torch.Tensor]] = {}
@@ -138,6 +131,32 @@ def vault_load(vault_dir: str, fp: str, ml_backend: str | None = None) -> Any | 
     if got != fp:
         raise ValueError(f"params vault entry {fp} rebuilt to fingerprint {got}: vault corrupt")
     return params or None
+
+
+def vault_load(vault_dir: str, fp: str, ml_backend: str | None = None) -> Any | None:
+    """The param tree stored under ``fp``, on the CPU, or None when the
+    vault has no such entry. Raises ValueError when the entry lacks
+    ``ml_backend``'s params (or holds params for the mock), or when neither
+    the port's fingerprint of the rebuilt params nor the JAX fingerprint of
+    the tree is ``fp`` (a corrupt or tampered entry)."""
+    path = _entry(vault_dir, fp)
+    if os.path.isfile(f"{path}.npz") and not os.path.isdir(path):
+        return _load_npz(f"{path}.npz", fp, ml_backend)
+    if not os.path.isdir(path):
+        return None
+    tree = restore_tree(path)
+    if not isinstance(tree, dict):
+        raise ValueError(f"params vault entry {fp} holds no params tree: vault corrupt")
+    if ml_backend is not None:
+        needed = convert.BACKEND_KEYS.get(ml_backend, ())
+        if not set(needed) <= set(tree) or (not needed and tree):
+            raise ValueError(f"params vault entry {fp} holds {sorted(tree)} params, "
+                             f"not {ml_backend!r}'s")
+    params = convert.params_from_tree(tree)
+    if fp not in (params_fingerprint(params), convert.jax_fingerprint(tree)):
+        raise ValueError(f"params vault entry {fp} rebuilt to fingerprint "
+                         f"{params_fingerprint(params)}: vault corrupt")
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +235,7 @@ class PromotionController:
         self._last_good_fp = engine.params_fingerprint
         self._last_good_auc = self.probe.auc(self._last_good_params)
         if vault_dir:
-            vault_save(vault_dir, self._last_good_params, backend)
+            vault_save(vault_dir, self._last_good_params)
 
     # -- gate inputs ---------------------------------------------------------
 
@@ -293,7 +312,7 @@ class PromotionController:
         """The one path served params change on: the engine's swap."""
         old_fp = self.engine.params_fingerprint
         if self.vault_dir:
-            vault_save(self.vault_dir, params, self.engine.ml_backend)
+            vault_save(self.vault_dir, params)
         self.engine.swap_params(params)
         return old_fp, self.engine.params_fingerprint
 

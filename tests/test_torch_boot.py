@@ -2,27 +2,33 @@
 
 A JAX ``Trainer`` (``TrainConfig(batch_size=256, trunk=(64, 64))``, as
 tests/test_train.py) takes 3 steps and ``train/checkpoint.py`` saves it
-with Orbax into a temporary directory; ``tools/export_params_npz.py``
-converts it to the ``.npz`` the port reads. The JAX package boots the Orbax
+with Orbax into a temporary directory. The JAX package boots the Orbax
 directory with its ``resolve_model_boot`` (what its ``RiskServer`` runs),
-the port's ``assemble_risk_service`` boots the ``.npz``; each serves on an
-equal native store with its clock pinned. The same ScoreTransaction and
+and the port's ``assemble_risk_service`` boots the same directory through
+its own Orbax reader (``utils/orbax``); each serves on an equal native store
+with its clock pinned. The same ScoreTransaction and
 ScoreBatch requests go to both: integer fields exact and ``ml_score`` to
 atol 1e-6, rows within 1e-4 of a floor boundary whose ``ml_score`` differs
 excused and counted (tests/test_torch_ensemble.py::assert_outputs_match),
 every other byte equal.
 
-A missing path, an Orbax directory handed to the port, a corrupt ``.npz``
-and a tree that is not multitask each boot the mock scorer with a warning.
-The committed ``tests/golden/released_multitask.npz`` is the converter's
-output for ``released_multitask.msgpack``, leaf for leaf, and scores the
-released golden through the port; the converter's writer and the port's
-write the same file.
+The committed Orbax checkpoint of the released model
+(``tests/golden/orbax/trainer/step_00000003``, written by the JAX package)
+boots ``multitask`` with no warning, as in JAX, and scores the released
+golden exactly; so does the ``.npz`` that ``tools/export_params_npz.py``
+converts, which stays optional. A missing path, a checkpoint in zarr3 or
+without OCDBT, a corrupt ``.npz`` and a tree that is not multitask each boot
+the mock scorer with a warning that says why. The committed
+``tests/golden/released_multitask.npz`` is the converter's output for
+``released_multitask.msgpack``, leaf for leaf, and scores the released
+golden through the port; the converter's writer and the port's write the
+same file.
 """
 
 import json
 import logging
 import os
+import shutil
 
 import grpc
 import numpy as np
@@ -49,6 +55,7 @@ from igaming_platform_tpu_torch.serve.native_store import NativeFeatureStore
 from tools import export_params_npz
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+RELEASED_ORBAX = os.path.join(GOLDEN_DIR, "orbax", "trainer", "step_00000003")
 N_ACCOUNTS = 50
 
 
@@ -81,7 +88,7 @@ def test_port_boot_answers_as_the_jax_boot(checkpoint, monkeypatch):
                                batcher_config=JBatcherConfig(batch_size=64, max_wait_ms=1.0))
     jservice = jgrpc.RiskGrpcService(jengine)
     monkeypatch.delenv("DRIFT")
-    config = RiskServiceConfig(fraud_model_path=npz,
+    config = RiskServiceConfig(fraud_model_path=orbax_dir,
                                batcher=BatcherConfig(batch_size=64, max_wait_ms=1.0))
     assembled = server.assemble_risk_service(config, feature_store=tstore, device="cpu")
     jserver, _, jport = jgrpc.serve_risk(jservice, 0)
@@ -107,33 +114,59 @@ def test_port_boot_answers_as_the_jax_boot(checkpoint, monkeypatch):
         assembled.service.close()
 
 
-@pytest.mark.parametrize("case", ["missing", "orbax_dir", "corrupt", "not_multitask", "npz"])
+def _scores_released_golden(params) -> None:
+    with open(os.path.join(GOLDEN_DIR, "released_scores.json")) as f:
+        golden = json.load(f)
+    x = np.load(os.path.join(GOLDEN_DIR, "released_features.npz"))["x"]
+    out = make_score_fn(ScoringConfig(), "multitask", device="cpu")(
+        params, x, np.zeros((x.shape[0],), dtype=bool))
+    np.testing.assert_array_equal(out["score"].numpy(), golden["f32"]["score"])
+    np.testing.assert_array_equal(out["action"].numpy(), golden["f32"]["action"])
+    np.testing.assert_allclose(out["ml_score"].numpy().astype(float),
+                               np.array(golden["f32"]["ml_score"]), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["missing", "orbax_dir", "corrupt", "not_multitask", "npz",
+                                  "zarr3", "not_ocdbt"])
 def test_resolve_model_boot(case, checkpoint, tmp_path, caplog):
-    """Each path a deployment may hand FRAUD_MODEL_PATH: only an .npz of a
-    multitask tree boots multitask; everything else boots the mock scorer
-    and says why. ML_BACKEND still overrides the backend."""
+    """Each path a deployment may hand FRAUD_MODEL_PATH: an Orbax step
+    directory (the committed one of the released model) or an .npz of a
+    multitask tree boots multitask, as the JAX server boots the directory;
+    everything else boots the mock scorer and says why. ML_BACKEND still
+    overrides the backend."""
     orbax_dir, npz = checkpoint
-    path = {"missing": str(tmp_path / "nope.npz"), "orbax_dir": orbax_dir,
+    path = {"missing": str(tmp_path / "nope.npz"), "orbax_dir": RELEASED_ORBAX,
             "corrupt": str(tmp_path / "corrupt.npz"), "not_multitask": str(tmp_path / "mlp.npz"),
-            "npz": npz}[case]
+            "npz": npz, "zarr3": str(tmp_path / "zarr3"), "not_ocdbt": str(tmp_path / "plain")}[case]
     if case == "corrupt":
         with open(path, "wb") as f:
             f.write(b"PK\x03\x04 not a zip archive")
     if case == "not_multitask":
         convert.save_params_tree(path, {"mlp": {"layers": [
             {"w": np.ones((30, 4), np.float32), "b": np.zeros(4, np.float32)}]}})
+    if case in ("zarr3", "not_ocdbt"):
+        shutil.copytree(orbax_dir, path)
+        with open(os.path.join(path, "_METADATA")) as f:
+            meta = json.load(f)
+        meta["use_zarr3" if case == "zarr3" else "use_ocdbt"] = case == "zarr3"
+        with open(os.path.join(path, "_METADATA"), "w") as f:
+            json.dump(meta, f)
     with caplog.at_level(logging.WARNING, logger=server.logger.name):
         backend, params = server.resolve_model_boot(RiskServiceConfig(fraud_model_path=path))
-    if case == "npz":
+    if case in ("npz", "orbax_dir"):
         assert backend == "multitask" and set(params) == {"multitask"} and not caplog.records
         assert server.resolve_model_boot(RiskServiceConfig(
             fraud_model_path=path, ml_backend="mock"))[0] == "mock"
+        if case == "orbax_dir":
+            assert jserver_mod.resolve_model_boot(JRiskServiceConfig(
+                fraud_model_path=path))[0] == "multitask"
+            _scores_released_golden(params)
         return
     assert (backend, params) == ("mock", None)
     message = " ".join(r.getMessage() for r in caplog.records)
     assert "using mock scorer" in message, message
-    if case == "orbax_dir":
-        assert "tools/export_params_npz.py" in message
+    if case in ("zarr3", "not_ocdbt"):
+        assert ("zarr3" if case == "zarr3" else "not an OCDBT checkpoint") in message, message
 
 
 def _leaves(tree, prefix=""):
@@ -164,13 +197,5 @@ def test_released_golden_npz(tmp_path):
             assert sorted(z.files) == sorted(f"multitask/{k}" for k in ref)
         back = _leaves(convert.load_params_tree(path)["multitask"])
         assert all(np.array_equal(back[k], ref[k]) for k in ref)
-    with open(os.path.join(GOLDEN_DIR, "released_scores.json")) as f:
-        golden = json.load(f)
-    x = np.load(os.path.join(GOLDEN_DIR, "released_features.npz"))["x"]
-    params = server.load_multitask(os.path.join(GOLDEN_DIR, "released_multitask.npz"))
-    out = make_score_fn(ScoringConfig(), "multitask", device="cpu")(
-        params, x, np.zeros((x.shape[0],), dtype=bool))
-    np.testing.assert_array_equal(out["score"].numpy(), golden["f32"]["score"])
-    np.testing.assert_array_equal(out["action"].numpy(), golden["f32"]["action"])
-    np.testing.assert_allclose(out["ml_score"].numpy().astype(float),
-                               np.array(golden["f32"]["ml_score"]), rtol=0, atol=1e-6)
+    _scores_released_golden(server.load_multitask(
+        os.path.join(GOLDEN_DIR, "released_multitask.npz")))

@@ -1,7 +1,9 @@
 """The port stands alone: no module of igaming_platform_tpu_torch, and not
 chip_smoke.py, imports jax, flax, optax, orbax, ml_dtypes, msgpack, grpc,
 protobuf, yaml (the card's machine has no PyYAML: the bonus rules are read by
-the port's own reader), the JAX package or the repository's ``tools``
+the port's own reader), tensorstore, zstandard, numcodecs, zarr or
+google_crc32c (Orbax checkpoints are read and written by the port's own
+``utils/orbax``), the JAX package or the repository's ``tools``
 (``tools/export_params_npz.py`` converts JAX checkpoints on the JAX side;
 it lives outside the port and imports nothing of it).
 
@@ -28,7 +30,8 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "igaming_platform_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "msgpack", "grpc",
-             "google.protobuf", "igaming_platform_tpu", "tools", "yaml")
+             "google.protobuf", "igaming_platform_tpu", "tools", "yaml", "tensorstore",
+             "zstandard", "numcodecs", "zarr", "google_crc32c")
 
 
 def _forbidden(module: str) -> bool:

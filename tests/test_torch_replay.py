@@ -9,12 +9,17 @@ tools/driftref.py, on the CPU.
   and both wire paths, replays bit-exact through the vault (and the first
   tree through ``--params``); each note batch replays in the chunks and
   ladder shapes the engine used;
+- every backend's installed tree round-trips through the vault, from an
+  Orbax entry ``<fp>/`` and from the earlier ``<fp>.npz``;
 - ``heuristic_scores`` equals JAX's; a port-written session WAL passes the
   port's ``verify_session_chain`` and JAX's ``tools/replay.py`` one with
   equal counts, and a tampered session hash is caught;
 - a drift reference minted from a port-written WAL loads in both packages,
   from the same sketch as JAX's ``tools/driftref.py`` gives.
 """
+
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -31,6 +36,7 @@ from igaming_platform_tpu_torch.serve import ledger as pl
 from igaming_platform_tpu_torch.serve.supervisor import heuristic_scores
 from igaming_platform_tpu_torch.tools import driftref, replay
 from igaming_platform_tpu_torch.train.promote import vault_load, vault_save
+from igaming_platform_tpu_torch.utils.orbax import restore_tree, save_tree
 from tools import driftref as jdriftref
 from tools import replay as jreplay
 
@@ -103,8 +109,8 @@ def test_replay_across_swap_through_vault(tmp_path, monkeypatch):
     teng.ledger = led = pl.DecisionLedger(d)
     shapes = []
     try:
-        first = vault_save(vault, teng.get_params(), "mlp+gbdt")
-        second = vault_save(vault, from_jax_params("mlp+gbdt", OTHER), "mlp+gbdt")
+        first = vault_save(vault, teng.get_params())
+        second = vault_save(vault, from_jax_params("mlp+gbdt", OTHER))
         assert first == teng.params_fingerprint and second != first
         treqs = requests(40)[1]
         for swap in (False, True):
@@ -151,23 +157,41 @@ def test_replay_across_swap_through_vault(tmp_path, monkeypatch):
     assert verdict["replayed_by_params_fp"] == {first: 123}
     assert verdict["params_fingerprint_mismatch"] == 123 and verdict["mismatches"] == 0
 
-    entry = f"{vault}/{second}.npz"
-    with np.load(entry) as z:
-        arrays = {k: z[k] for k in z.files}
-    arrays["gbdt.bias"] = arrays["gbdt.bias"] + np.float32(1.0)
-    with open(entry, "wb") as f:
-        np.savez(f, **arrays)
+    entry = f"{vault}/{second}"
+    tree = restore_tree(entry)
+    tree["gbdt"]["bias"] = tree["gbdt"]["bias"] + np.float32(1.0)
+    shutil.rmtree(entry)
+    save_tree(entry, tree)
     with pytest.raises(ValueError, match="vault corrupt"):
         vault_load(vault, second)
     with pytest.raises(RuntimeError, match="vault corrupt"):
         replay.replay_directory(d, batch=32, tiers=(8,), device="cpu")
 
 
+def _npz_entry(vault: str, params, backend: str) -> str:
+    """An entry in the port's earlier form, ``<fp>.npz``: every params
+    key's state dict and the backend's name."""
+    from igaming_platform_tpu_torch.serve.scorer import params_fingerprint
+
+    fp = params_fingerprint(params)
+    arrays = {"__backend__": np.array(backend)}
+    for key in sorted(params):
+        value = params[key]
+        tensors = value.state_dict() if hasattr(value, "state_dict") else value
+        arrays.update({f"{key}.{name}": t.numpy() for name, t in tensors.items()})
+    os.makedirs(vault, exist_ok=True)
+    np.savez(os.path.join(vault, f"{fp}.npz"), **arrays)
+    return fp
+
+
+@pytest.mark.parametrize("form", ["orbax", "npz"])
 @pytest.mark.parametrize("backend", ["mlp", "gbdt", "multitask", "mlp+gbdt_int8",
                                      "multitask_int8"])
-def test_vault_round_trip(tmp_path, backend):
+def test_vault_round_trip(tmp_path, backend, form):
     """Every backend's installed tree comes back from the vault as the same
-    modules, under the same fingerprint; another backend's name is refused."""
+    modules, under the same fingerprint, from an Orbax entry ``<fp>/`` and
+    from the port's earlier ``<fp>.npz``; an entry without the backend's
+    params is refused."""
     from igaming_platform_tpu_torch.ops.quantize import quantize_checkpoint
     from igaming_platform_tpu_torch.serve.scorer import params_fingerprint
 
@@ -176,8 +200,12 @@ def test_vault_round_trip(tmp_path, backend):
     if backend.endswith("_int8"):
         tree, name = quantize_checkpoint(tree, backend[:-len("_int8")])
     params = from_jax_params(name, tree)
-    fp = vault_save(str(tmp_path), params, name)
-    assert vault_save(str(tmp_path), params, name) == fp == params_fingerprint(params)
+    if form == "orbax":
+        fp = vault_save(str(tmp_path), params)
+        assert vault_save(str(tmp_path), params) == fp == params_fingerprint(params)
+        assert os.listdir(tmp_path) == [fp]
+    else:
+        fp = _npz_entry(str(tmp_path), params, name)
     back = vault_load(str(tmp_path), fp, name)
     assert params_fingerprint(back) == fp
     assert {k: type(v) for k, v in back.items()} == {k: type(v) for k, v in params.items()}

@@ -15,9 +15,9 @@ batch 64). The JAX init is carried across with
 - ``remat`` bit-equal to plain, ``fit`` bit-equal to stepping one batch at a
   time, the bf16 wire's batch bit-equal to ``ml_dtypes``' cast and its loss
   in ``tests/test_pipeline.py``'s band;
-- a checkpoint round-trips bit for bit and boots through
-  ``FRAUD_MODEL_PATH``; ``TrainingLoop`` resumes from it and swaps into an
-  engine; ``multitask_to_tree`` gives a tree the JAX forward scores.
+- a checkpoint (an Orbax step directory) round-trips bit for bit and boots
+  through ``FRAUD_MODEL_PATH``; ``TrainingLoop`` resumes from it and swaps
+  into an engine; the earlier ``step_*.npz`` form still resumes; ``multitask_to_tree`` gives a tree the JAX forward scores.
 """
 
 import jax
@@ -242,8 +242,8 @@ def test_checkpoint_roundtrip_boot_and_loop(tmp_path, monkeypatch):
     for b in _batches(2):
         t.train_step(b)
     path = checkpoint.save_checkpoint(str(ckpt), t.state)
-    assert path.endswith("step_00000002.npz") and checkpoint.latest_checkpoint(str(ckpt)) == path
-    assert not [p for p in ckpt.iterdir() if p.suffix == ".tmp"]
+    assert path.endswith("step_00000002") and checkpoint.latest_checkpoint(str(ckpt)) == path
+    assert [p.name for p in ckpt.iterdir()] == ["step_00000002"]  # no temporary left
     fresh = trainer.Trainer(trainer.TrainConfig(batch_size=BATCH, trunk=TRUNK, seed=1),
                             device="cpu")
     assert checkpoint.restore_trainer(fresh, str(ckpt))
@@ -274,11 +274,35 @@ def test_checkpoint_roundtrip_boot_and_loop(tmp_path, monkeypatch):
         metrics = lp.run_steps(2)
         assert set(metrics) == set(trainer.METRIC_NAMES)
         assert lp.swaps == 2 and lp.checkpoints == 1
-        assert checkpoint.latest_checkpoint(str(ckpt)).endswith("step_00000004.npz")
+        assert checkpoint.latest_checkpoint(str(ckpt)).endswith("step_00000004")
         assert engines[0].params_fingerprint != engines[1].params_fingerprint
     finally:
         for e in engines:
             e.close()
+
+
+def test_earlier_npz_checkpoint_resumes(tmp_path):
+    """The port's earlier ``step_*.npz`` form is still found, resumed and
+    booted, beside the Orbax directories."""
+    t = trainer.Trainer(trainer.TrainConfig(batch_size=BATCH, trunk=TRUNK), device="cpu")
+    for b in _batches(2):
+        t.train_step(b)
+    model, opt = t.state.params, t.state.opt_state
+    path = str(tmp_path / "step_00000002.npz")
+    convert.save_params_tree(path, {
+        "multitask": convert.multitask_to_tree(model),
+        "opt_state": {"count": np.asarray(int(opt.count), np.int32),
+                      "mu": convert.multitask_to_tree(model, opt.mu),
+                      "nu": convert.multitask_to_tree(model, opt.nu)},
+        "step": np.asarray(2, np.int64)})
+    assert checkpoint.latest_checkpoint(str(tmp_path)) == path
+    fresh = trainer.Trainer(trainer.TrainConfig(batch_size=BATCH, trunk=TRUNK, seed=1),
+                            device="cpu")
+    assert checkpoint.restore_trainer(fresh, str(tmp_path)) and fresh.state.step == 2
+    _assert_same(_params_of(fresh), _params_of(t))
+    assert all(torch.equal(a, b) for a, b in zip(fresh.state.opt_state.nu, opt.nu))
+    backend, _ = resolve_model_boot(RiskServiceConfig(fraud_model_path=path))
+    assert backend == "multitask"
 
 
 def test_multitask_tree_scores_in_jax():

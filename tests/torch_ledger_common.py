@@ -74,9 +74,12 @@ class FakeSink:
 
 def pin_ledgers(monkeypatch) -> None:
     """The ledgers' clock and identity seams pinned alike in both packages
-    (a fixed note time, one process token, batch sequence from 0), the JAX
-    store's clock at T0, and the JAX planes the port does not have off."""
+    (a fixed note time, one process token, batch sequence from 0, no serving
+    state provider: a server built by an earlier test in the same process
+    leaves its supervisor's bound), the JAX store's clock at T0, and the JAX
+    planes the port does not have off."""
     for mod in LEDGERS.values():
+        monkeypatch.setattr(mod, "_STATE_PROVIDER", None)
         monkeypatch.setattr(mod, "wall_clock", lambda: T0 + 0.5)
         monkeypatch.setattr(mod, "_TOKEN", "tok0000000")
         monkeypatch.setattr(mod, "_BATCH_SEQ", 0)
